@@ -1,0 +1,51 @@
+"""shallowspeed_tpu_torch — the PyTorch + CUDA port of `shallowspeed_tpu`.
+
+The JAX package beside this one is the reference: every module here has
+its counterpart there (same file layout where a reader benefits), and
+the tests feed the same numpy inputs through both. This package imports
+`torch` and numpy only — never `jax`, never `shallowspeed_tpu`; where it
+needs a host-side helper of the JAX package it keeps its own copy.
+
+What is ported so far: the serving path (`serve.py` ->
+`serving.engine.ServingEngine` -> prefill chunk / decode tick ->
+`models.transformer` + `models.kv_cache` + `serving.cache`), with the
+decode tick's paged attention in a hand-written CUDA kernel
+(`csrc/paged_decode.cu`, wrapped by `ops.flash_attention`). ROADMAP.md
+lists what comes next; each feature not ported yet raises `NotPorted`.
+
+Entry points run on the GPU unless the caller passes `device="cpu"`
+(the CPU tests do). Nothing falls back to the CPU on its own.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class NotPorted(NotImplementedError):
+    """A feature of the JAX package that this port does not have yet.
+    The message names the feature and the ROADMAP queue item that
+    brings it."""
+
+    def __init__(self, feature: str, later: str):
+        super().__init__(
+            f"{feature} is not ported to shallowspeed_tpu_torch yet "
+            f"(ROADMAP.md: {later})")
+        self.feature = feature
+        self.later = later
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `cuda` unless the caller asks
+    for something else. Raises when CUDA is asked for (explicitly or by
+    default) and no card is present — the CPU is used only when the
+    caller names it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on "
+                "the CPU explicitly")
+        if dev.index is None:   # name the card, so devices compare equal
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -1,0 +1,303 @@
+"""Decoder-only transformer LM — counterpart of
+`shallowspeed_tpu/models/transformer.py`, eval path only.
+
+Functional like the reference: `init(cfg, seed)` draws the parameter
+tree with numpy (bit-identical to the JAX package's draw, so one seed
+gives both packages the same weights), and the forward pieces take the
+tree as an argument. Parameters keep the JAX layout — dense leaves
+{"W": (K, N), "b": (N,)} applied as `x @ W + b`, blocks in a list — so
+a tree crosses between the packages by copy (`weights.params_from_numpy`).
+
+Mixed precision follows the reference: master weights in `cfg.dtype`,
+`cast_params` casts every float leaf except the norm scales to
+`cfg.compute_dtype` (a torch dtype, or None for no cast); norm
+statistics, attention scores and softmax, and the soft-cap stay in
+float32.
+
+Training (dropout, remat, the losses) and MoE belong to later slices;
+a config that needs them raises `NotPorted`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from shallowspeed_tpu_torch import NotPorted, resolve_device
+from shallowspeed_tpu_torch.ops.attention import attention
+from shallowspeed_tpu_torch.weights import params_from_numpy
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    """The reference's config, field for field (see its docstrings for
+    what each one means). `compute_dtype` is a torch dtype here; `dtype`
+    stays a numpy dtype because `init` draws with numpy."""
+    vocab: int = 256
+    d_model: int = 128
+    n_heads: int = 4
+    n_layers: int = 2
+    max_seq: int = 1024
+    dtype: np.dtype = np.float32
+    compute_dtype: object = None
+    remat: bool = False
+    remat_policy: str = "full"
+    rope: bool = False
+    rope_theta: float = 10000.0
+    norm: str = "layernorm"
+    ffn: str = "gelu"
+    n_kv_heads: int = 0
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 1e-2
+    moe_routing: str = "sequence"
+    moe_z_weight: float = 0.0
+    tie_embeddings: bool = False
+    label_smoothing: float = 0.0
+    attn_window: int = 0
+    logit_softcap: float = 0.0
+    dropout: float = 0.0
+    attn_dropout: float = 0.0
+    d_ff: int = 0
+    xent_chunk: int = 0
+    fp8_dense: bool = False
+
+    def __post_init__(self):
+        assert self.norm in ("layernorm", "rmsnorm"), self.norm
+        assert self.ffn in ("gelu", "swiglu"), self.ffn
+        assert self.moe_routing in ("sequence", "priority"), \
+            self.moe_routing
+        assert self.remat_policy in ("full", "attn", "dots"), \
+            self.remat_policy
+        assert self.xent_chunk >= 0, self.xent_chunk
+        assert 0.0 <= self.dropout < 1.0, self.dropout
+        assert 0.0 <= self.attn_dropout < 1.0, self.attn_dropout
+        assert 0.0 <= self.label_smoothing < 1.0, self.label_smoothing
+        assert self.attn_window >= 0, self.attn_window
+        assert self.n_kv_heads >= 0, (
+            f"n_kv_heads must be non-negative, got {self.n_kv_heads}")
+        assert self.n_heads % self.kv_heads == 0, (
+            f"n_heads={self.n_heads} must be divisible by "
+            f"n_kv_heads={self.kv_heads}")
+        if self.n_experts > 0:
+            raise NotPorted("mixture-of-experts FFN (n_experts > 0)",
+                            "Queue 1, multi-device LM engines")
+        if self.fp8_dense:
+            raise NotPorted("fp8_dense matmuls", "Queue 1, fp8 training")
+        if (self.compute_dtype is not None
+                and not isinstance(self.compute_dtype, torch.dtype)):
+            raise TypeError(f"compute_dtype must be a torch dtype or None, "
+                            f"got {self.compute_dtype!r}")
+
+    @property
+    def head_dim(self) -> int:
+        assert self.d_model % self.n_heads == 0
+        return self.d_model // self.n_heads
+
+    @property
+    def ffn_dim(self) -> int:
+        return self.d_ff or 4 * self.d_model
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def gqa(self) -> bool:
+        return self.kv_heads != self.n_heads
+
+    @property
+    def act_dtype(self) -> torch.dtype:
+        """The dtype activations and KV pools run in."""
+        return self.compute_dtype or getattr(torch, np.dtype(self.dtype).name)
+
+
+def _dense_init(rng, in_d, out_d, dtype):
+    w = rng.normal(0.0, 1.0 / np.sqrt(in_d), (in_d, out_d)).astype(dtype)
+    return {"W": w, "b": np.zeros((out_d,), dtype)}
+
+
+def init_numpy(cfg: TransformerConfig, seed: int = 0):
+    """The parameter tree as numpy arrays, drawn exactly as the
+    reference's `init` draws it (same generator, same order)."""
+    rng = np.random.default_rng(seed)
+    dt = cfg.dtype
+    d = cfg.d_model
+    blocks = []
+    for _ in range(cfg.n_layers):
+        blk = {
+            "ln1": {"g": np.ones((d,), dt), "b": np.zeros((d,), dt)},
+            "proj": _dense_init(rng, d, d, dt),
+            "ln2": {"g": np.ones((d,), dt), "b": np.zeros((d,), dt)},
+        }
+        if cfg.gqa:
+            blk["q"] = _dense_init(rng, d, d, dt)
+            blk["kv"] = _dense_init(
+                rng, d, 2 * cfg.kv_heads * cfg.head_dim, dt)
+        else:
+            blk["qkv"] = _dense_init(rng, d, 3 * d, dt)
+        if cfg.ffn == "swiglu":
+            blk["gate"] = _dense_init(rng, d, cfg.ffn_dim, dt)
+        blk["up"] = _dense_init(rng, d, cfg.ffn_dim, dt)
+        blk["down"] = _dense_init(rng, cfg.ffn_dim, d, dt)
+        blocks.append(blk)
+    out = {
+        "tok_emb": rng.normal(0.0, 0.02, (cfg.vocab, d)).astype(dt),
+        "pos_emb": rng.normal(0.0, 0.02, (cfg.max_seq, d)).astype(dt),
+        "blocks": blocks,
+        "ln_f": {"g": np.ones((d,), dt), "b": np.zeros((d,), dt)},
+    }
+    if not cfg.tie_embeddings:
+        out["head"] = _dense_init(rng, d, cfg.vocab, dt)
+    return out
+
+
+def init(cfg: TransformerConfig, seed: int = 0, device=None):
+    """Seeded parameter tree as torch tensors on `device` (default
+    cuda; see `resolve_device`)."""
+    dev = resolve_device(device)
+    return params_from_numpy(init_numpy(cfg, seed), dev)
+
+
+_NORM_KEYS = {"ln1", "ln2", "ln_f"}
+
+
+def cast_params(params, compute_dtype):
+    """Float leaves to `compute_dtype` (None = identity). Norm leaves
+    (ln1/ln2/ln_f) stay in the master dtype: every consumer upcasts
+    them to f32 for the statistics anyway."""
+    if compute_dtype is None:
+        return params
+
+    def walk(node, norm):
+        if isinstance(node, dict):
+            return {k: walk(v, norm or k in _NORM_KEYS)
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, norm) for v in node]
+        if norm or not node.is_floating_point():
+            return node
+        return node.to(compute_dtype)
+
+    return walk(params, False)
+
+
+def _layernorm(p, x, eps=1e-5):
+    """Statistics in float32; result in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * p["g"].float() + p["b"].float()
+    return y.to(x.dtype)
+
+
+def _rmsnorm(p, x, eps=1e-5):
+    """Root-mean-square scaling only (p["b"] is kept but unused); f32
+    statistics like `_layernorm`."""
+    xf = x.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps) * p["g"].float()
+    return y.to(x.dtype)
+
+
+def _norm(p, x, cfg: TransformerConfig):
+    return (_rmsnorm if cfg.norm == "rmsnorm" else _layernorm)(p, x)
+
+
+def _dense(p, x):
+    if "Wq" in p:
+        raise NotPorted("quantized weight storage (weight_quant)",
+                        "Queue 1, serving features after slice 1")
+    return x @ p["W"] + p["b"]
+
+
+def head_logits(params, x, cfg: TransformerConfig):
+    """Vocabulary projection: the untied head, or tok_emb^T when tied;
+    optionally soft-capped in f32."""
+    logits = (x @ params["tok_emb"].T if cfg.tie_embeddings
+              else _dense(params["head"], x))
+    if cfg.logit_softcap > 0.0:
+        cap = cfg.logit_softcap
+        logits = cap * torch.tanh(logits.float() / cap)
+    return logits
+
+
+def rope_rotate(x, pos, theta: float = 10000.0):
+    """Rotary embeddings on (B, T, H, D) at positions `pos` ((T,) or a
+    scalar): half-split pairs (d, d + D/2), f32 phases, result in x's
+    dtype."""
+    d = x.shape[-1]
+    assert d % 2 == 0, f"rope needs an even head_dim, got {d}"
+    half = d // 2
+    ar = torch.arange(half, dtype=torch.float32, device=x.device)
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=x.device), -ar / half)
+    pos = torch.as_tensor(pos, device=x.device).to(torch.float32).reshape(-1)
+    ang = pos[:, None] * freqs                          # (T, half)
+    cos = torch.cos(ang)[None, :, None, :]              # (1, T, 1, half)
+    sin = torch.sin(ang)[None, :, None, :]
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _qkv(p, h, cfg: TransformerConfig):
+    """(q (B,T,H,hd), k, v (B,T,Hkv,hd)): the fused head-major qkv, or
+    split q / fused kv under GQA."""
+    b, t, _ = h.shape
+    if "kv" in p:
+        q = _dense(p["q"], h).reshape(b, t, cfg.n_heads, cfg.head_dim)
+        kv = _dense(p["kv"], h).reshape(b, t, cfg.kv_heads, 2, cfg.head_dim)
+        k, v = kv[..., 0, :], kv[..., 1, :]
+    else:
+        qkv = _dense(p["qkv"], h).reshape(b, t, cfg.n_heads, 3, cfg.head_dim)
+        q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    return q, k, v
+
+
+def _ffn(p, x, cfg: TransformerConfig, h):
+    """Post-attention half of a block: GELU (tanh form, JAX's default)
+    or SwiGLU on the norm output `h`, residual onto `x`."""
+    if "moe" in p:
+        raise NotPorted("mixture-of-experts FFN",
+                        "Queue 1, multi-device LM engines")
+    if "gate" in p:
+        u = F.silu(_dense(p["gate"], h)) * _dense(p["up"], h)
+    else:
+        u = F.gelu(_dense(p["up"], h), approximate="tanh")
+    return x + _dense(p["down"], u)
+
+
+def _block(p, x, cfg: TransformerConfig, pos):
+    h = _norm(p["ln1"], x, cfg)
+    q, k, v = _qkv(p, h, cfg)
+    if cfg.rope:
+        q = rope_rotate(q, pos, cfg.rope_theta)
+        k = rope_rotate(k, pos, cfg.rope_theta)
+    b, t, d = x.shape
+    a = attention(q, k, v, causal=True, window=cfg.attn_window)
+    x = x + _dense(p["proj"], a.reshape(b, t, d))
+    return _ffn(p, x, cfg, _norm(p["ln2"], x, cfg))
+
+
+@torch.no_grad()
+def forward(params, tokens, cfg: TransformerConfig):
+    """Eval forward: tokens (B, T) int -> logits (B, T, vocab). The
+    full-sequence reference the paged serving path is held against."""
+    params = cast_params(params, cfg.compute_dtype)
+    b, t = tokens.shape
+    if t > cfg.max_seq:
+        raise ValueError(f"sequence of {t} exceeds max_seq={cfg.max_seq}")
+    pos = torch.arange(t, device=tokens.device)
+    x = params["tok_emb"][tokens]
+    if not cfg.rope:
+        x = x + params["pos_emb"][pos]
+    for blk in params["blocks"]:
+        x = _block(blk, x, cfg, pos)
+    x = _norm(params["ln_f"], x, cfg)
+    return head_logits(params, x, cfg)

@@ -1,0 +1,575 @@
+"""Continuous-batching decode server over the paged KV cache —
+counterpart of `shallowspeed_tpu/serving/engine.py`.
+
+The scheduler is the reference's, step for step:
+
+- **Fixed-capacity decode slots.** One decode tick advances every
+  running request by one token. The tick always runs `max_slots` rows
+  (empty slots write to the scratch block and their results are
+  ignored) and its block-table width is bucketed geometrically, so the
+  tick's shapes stay few as requests join and leave.
+- **Chunked prefill.** A prompt prefills `prefill_chunk` tokens per
+  engine step, interleaved with decode ticks.
+- **Admission and preemption.** A request is admitted when a slot and
+  its prompt's blocks are free; a decode append that finds the pool
+  empty evicts the newest-admitted running request, which re-queues at
+  the front and later re-prefills prompt + generated tokens, continuing
+  its stream. Evicting the newest keeps the oldest progressing, and
+  `submit` rejects requests that could never fit alone, so the
+  allocator cannot deadlock.
+- **Per-request records.** Each completion appends a record (ttft_ms,
+  tpot_ms, e2e_ms, wait, preemptions, tokens) to `request_records` and,
+  with a `metrics` sink, a `"request"` line; every `log_every` ticks a
+  `"generate"` line carries tick throughput and the live-blocks byte
+  model.
+
+The tick is split in two: `decode_logits` (embedding, the blocks with
+their in-place pool writes and paged attention, the head) and
+`sample_rows`. With `attn_impl="flash"` (the default here) the tick's
+attention is `ops.flash_attention.paged_flash_decode`, the CUDA kernel
+on a card; `"gather"` reads through `gather_table` + `masked_attention`
+instead, the path the kernel is held against.
+
+Sampling: temperature 0 is the argmax, exactly as in the reference.
+A sampled token i of a request with seed s draws from a
+`torch.Generator` seeded from (s, i), so an evicted and re-admitted
+request continues the same stream. This is NOT the reference's
+threefry `fold_in(PRNGKey(s), i)` stream: sampled tokens differ from
+the JAX package's, greedy tokens do not.
+
+Not ported yet (each raises `NotPorted`): int8 KV pools, quantized
+weights, speculative decoding, prefix caching. Lifecycle tracing,
+chaos hooks, the profiler, the monitor and memory-owner hooks are
+absent (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from shallowspeed_tpu_torch import NotPorted, resolve_device
+from shallowspeed_tpu_torch.models import generate as G
+from shallowspeed_tpu_torch.models import transformer as T
+from shallowspeed_tpu_torch.models.kv_cache import (masked_attention,
+                                                    position_mask)
+from shallowspeed_tpu_torch.ops.flash_attention import paged_flash_decode
+from shallowspeed_tpu_torch.serving.cache import (SCRATCH_BLOCK,
+                                                  BlockAllocator,
+                                                  OutOfBlocks, blocks_for,
+                                                  gather_table,
+                                                  init_block_pool,
+                                                  paged_read_bytes_per_tick,
+                                                  param_read_bytes,
+                                                  write_rows)
+from shallowspeed_tpu_torch.weights import leaves
+
+_LATER = "Queue 1, serving features after slice 1"
+
+
+class EngineDraining(RuntimeError):
+    """`submit()` after `drain()` began: the engine finishes what it
+    accepted and admits nothing new."""
+
+    def __init__(self, pending: int):
+        super().__init__(
+            f"engine is draining ({pending} accepted request(s) still "
+            f"in flight); submit to another replica")
+        self.pending = int(pending)
+
+
+def table_width(n_blocks: int, base: int) -> int:
+    """Geometric block-table width bucket (base, 2*base, 4*base, ...)."""
+    w = max(1, int(base))
+    n = max(1, int(n_blocks))
+    while w < n:
+        w *= 2
+    return w
+
+
+def _rope_rows(x, pos, theta: float):
+    """`T.rope_rotate` with a per-row position: x (S, 1, H, D), pos (S,)."""
+    return T.rope_rotate(x.transpose(0, 1), pos, theta).transpose(0, 1)
+
+
+@torch.no_grad()
+def decode_logits(params, pools, tok, pos, bt, *, cfg: T.TransformerConfig,
+                  attn: str = "flash"):
+    """The model half of one decode tick over the whole slot batch.
+
+    tok/pos: (S,) per-slot last token and write position; bt: (S, W)
+    int32 block tables. Each slot writes its token's K/V at
+    (bt[pos // bs], pos % bs) — into the pools, in place; this stands in
+    for the reference's donated pools — and then attends over its table
+    up to `pos`. Inactive slots carry pos=0 / bt=scratch. Returns the
+    next-token logits (S, vocab) in f32."""
+    params = T.cast_params(params, cfg.compute_dtype)
+    s_rows = tok.shape[0]
+    bs = pools[0]["k"].shape[2]
+    w = bt.shape[1]
+    pos_l = pos.long()
+    x = params["tok_emb"][tok.long()][:, None, :]              # (S, 1, d)
+    if not cfg.rope:
+        x = x + params["pos_emb"][pos_l][:, None, :]
+    if cfg.compute_dtype is not None:
+        x = x.to(cfg.compute_dtype)
+    rows = torch.arange(s_rows, device=tok.device)
+    blk = bt.long()[rows, pos_l // bs]
+    off = pos_l % bs
+    if attn != "flash":
+        valid = position_mask(w * bs, pos_l[:, None], cfg.attn_window,
+                              device=tok.device)[:, None, None, None, :]
+    for p, pool in zip(params["blocks"], pools):
+        h = T._norm(p["ln1"], x, cfg)
+        q, k, v = T._qkv(p, h, cfg)
+        if cfg.rope:
+            q = _rope_rows(q, pos_l, cfg.rope_theta)
+            k = _rope_rows(k, pos_l, cfg.rope_theta)
+        write_rows(pool, k[:, 0], v[:, 0], blk, off)
+        if attn == "flash":
+            a = paged_flash_decode(q[:, 0].contiguous(), pool, bt, pos,
+                                   window=cfg.attn_window)
+        else:
+            a = masked_attention(q, gather_table(pool, bt), valid)
+        x = x + T._dense(p["proj"], a.reshape(s_rows, 1, cfg.d_model))
+        x = T._ffn(p, x, cfg, T._norm(p["ln2"], x, cfg))
+    x = T._norm(params["ln_f"], x, cfg)
+    return T.head_logits(params, x[:, 0], cfg).float()
+
+
+@torch.no_grad()
+def prefill_chunk(params, pools, tokens, pos0: int, bt, *,
+                  cfg: T.TransformerConfig):
+    """One chunk of a request's prefill: tokens (C,) at positions
+    pos0..pos0+C-1 write their K/V through the block table bt (1, W)
+    (in place) and attend causally over the table, earlier chunks
+    included. Returns the f32 logits (vocab,) at the chunk's last token.
+
+    The reference pads every chunk to a fixed length for its compiler
+    and steers the padding to scratch; eager torch runs the true tokens
+    only, which gives the true rows the same values."""
+    params = T.cast_params(params, cfg.compute_dtype)
+    c = tokens.shape[0]
+    bs = pools[0]["k"].shape[2]
+    w = bt.shape[1]
+    pos = pos0 + torch.arange(c, device=tokens.device)
+    x = G._embed(params, tokens[None].long(), pos0, cfg)        # (1, C, d)
+    blk = bt.long()[0, pos // bs]
+    off = pos % bs
+    valid = position_mask(w * bs, pos[:, None], cfg.attn_window,
+                          device=tokens.device)[None, None, None]
+    for p, pool in zip(params["blocks"], pools):
+        h = T._norm(p["ln1"], x, cfg)
+        q, k, v = T._qkv(p, h, cfg)
+        if cfg.rope:
+            q = T.rope_rotate(q, pos, cfg.rope_theta)
+            k = T.rope_rotate(k, pos, cfg.rope_theta)
+        write_rows(pool, k[0], v[0], blk, off)
+        a = masked_attention(q, gather_table(pool, bt), valid)
+        x = x + T._dense(p["proj"], a.reshape(1, c, cfg.d_model))
+        x = T._ffn(p, x, cfg, T._norm(p["ln2"], x, cfg))
+    x = T._norm(params["ln_f"], x, cfg)
+    return T.head_logits(params, x[0, -1], cfg).float()
+
+
+def _row_generator(seed: int, index: int, device) -> torch.Generator:
+    """The generator token `index` of a request with sampling seed
+    `seed` draws from: seeded from (seed, index) alone, so the draw does
+    not depend on which tick or slot the token was computed in."""
+    hi, lo = np.random.SeedSequence([int(seed), int(index)]).generate_state(
+        2, np.uint32)
+    g = torch.Generator(device=device)
+    g.manual_seed((int(hi) << 32) | int(lo))
+    return g
+
+
+@torch.no_grad()
+def sample_rows(logits, temp, seeds, idx, top_k: int = 0,
+                top_p: float = 0.0):
+    """Next token per row of logits (S, V): argmax where temp <= 0,
+    else a draw from softmax(filter_logits(logits / temp)) with the
+    row's (seed, token index) generator. temp/seeds/idx are host
+    sequences of length S. Returns an int64 numpy array."""
+    out = logits.argmax(dim=-1).cpu().numpy()
+    hot = [i for i in range(len(out)) if temp[i] > 0.0]
+    if hot:
+        scaled = logits[hot] / torch.tensor(
+            [max(float(temp[i]), 1e-6) for i in hot],
+            device=logits.device)[:, None]
+        probs = torch.softmax(G.filter_logits(scaled, top_k, top_p), dim=-1)
+        for j, i in enumerate(hot):
+            g = _row_generator(seeds[i], idx[i], logits.device)
+            out[i] = int(torch.multinomial(probs[j], 1, generator=g))
+    return out
+
+
+class _Req:
+    """Host-side request state."""
+
+    __slots__ = ("rid", "prompt", "max_new", "temp", "seed", "arrival",
+                 "generated", "n_preempt", "phase", "slot", "ctx", "table",
+                 "written", "admit_seq", "queued_at", "wait_s",
+                 "first_tok_t", "last_tok")
+
+    def __init__(self, rid, prompt, max_new, temp, seed, arrival):
+        self.rid = rid
+        self.prompt = prompt
+        self.max_new = int(max_new)
+        self.temp = float(temp)
+        self.seed = int(seed)
+        self.arrival = arrival
+        self.generated: list[int] = []
+        self.n_preempt = 0
+        self.phase = "queued"           # queued -> prefill -> decode
+        self.slot = None
+        self.ctx = prompt               # prompt (+ generated on requeue)
+        self.table: list[int] = []
+        self.written = 0                # cache positions filled
+        self.admit_seq = -1
+        self.queued_at = arrival        # start of the current queue stint
+        self.wait_s = 0.0               # queue time over every stint
+        self.first_tok_t = None
+        self.last_tok = 0
+
+
+class ServingEngine:
+    """Paged-cache continuous-batching decode server (module docstring).
+    `submit`/`poll`/`step`/`run`/`drain` are the programmatic API the
+    `serve` driver uses. Runs on `device` (default cuda; see
+    `resolve_device`); `params` must already live there."""
+
+    def __init__(self, params, cfg: T.TransformerConfig, *,
+                 n_blocks: int = 64, block_size: int = 16,
+                 max_slots: int = 4, prefill_chunk: int = 32,
+                 table_bucket: int = 4, kv_quant: str = "",
+                 weight_quant: str = "", attn_impl: str = "flash",
+                 spec_k: int = 0, top_k: int = 0, top_p: float = 0.0,
+                 metrics=None, log_every: int = 0, clock=time.time,
+                 prefix_cache: bool = False, device=None):
+        if attn_impl not in ("gather", "flash"):
+            raise ValueError(
+                f"unsupported attn_impl={attn_impl!r}; expected 'gather' "
+                f"(gather_table + masked_attention) or 'flash' (the "
+                f"paged decode kernel)")
+        if weight_quant:
+            raise NotPorted(f"weight_quant={weight_quant!r}", _LATER)
+        if spec_k:
+            raise NotPorted("speculative decoding (spec_k > 0)", _LATER)
+        if prefix_cache:
+            raise NotPorted("prefix caching", _LATER)
+        self.device = resolve_device(device)
+        stray = {str(t.device) for t in leaves(params)
+                 if t.device != self.device}
+        if stray:
+            raise ValueError(f"params live on {sorted(stray)}, the engine "
+                             f"runs on {self.device}")
+        # cast once: every tick reads the compute-dtype copy
+        self.params = T.cast_params(params, cfg.compute_dtype)
+        self.cfg = cfg
+        self.attn_impl = attn_impl
+        self.block_size = int(block_size)
+        self.max_slots = int(max_slots)
+        self.prefill_chunk = int(prefill_chunk)
+        self.table_bucket = int(table_bucket)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.metrics = metrics
+        self.log_every = int(log_every)
+        self.clock = clock
+        self.pools = init_block_pool(cfg, n_blocks, block_size, kv_quant,
+                                     device=self.device)
+        self.alloc = BlockAllocator(n_blocks)
+        self._p_bytes = param_read_bytes(self.params)
+        self.slots: list[_Req | None] = [None] * self.max_slots
+        self.queue: deque[_Req] = deque()
+        self.results: dict[str, np.ndarray] = {}
+        self.request_records: list[dict] = []
+        self.counters = {"submitted": 0, "finished": 0, "preempted": 0,
+                         "ticks": 0, "prefill_chunks": 0, "oom_events": 0}
+        self.draining = False
+        self._oom_tick = -1
+        self._admit_counter = 0
+        self._win_tokens = 0            # tokens since the last log line
+        self._win_t = clock()
+        self._last_touched = 0
+
+    # ------------------------------------------------------ public API
+
+    def submit(self, prompt, max_new: int, temperature: float = 0.0,
+               seed: int = 0, rid: str | None = None) -> str:
+        """Queue one request. Raises ValueError for requests that could
+        never run (prompt + max_new past cfg.max_seq, or more blocks
+        than the whole pool) and `EngineDraining` after `drain()`."""
+        if self.draining:
+            raise EngineDraining(self.pending())
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        tp = prompt.shape[0]
+        if tp < 1 or max_new < 1:
+            raise ValueError(f"empty request: prompt {tp} tokens, "
+                             f"max_new={max_new}")
+        if tp + max_new > self.cfg.max_seq:
+            raise ValueError(f"prompt {tp} + max_new {max_new} exceeds "
+                             f"max_seq={self.cfg.max_seq}")
+        # the last sampled token is never written, so the peak
+        # footprint is tp + max_new - 1 cache positions
+        need = blocks_for(tp + max_new - 1, self.block_size)
+        if need > self.alloc.n_usable:
+            raise ValueError(
+                f"request needs {need} blocks but the pool holds "
+                f"{self.alloc.n_usable} usable — it could never be "
+                f"scheduled (raise n_blocks or shrink the request)")
+        rid = rid if rid is not None else f"r{self.counters['submitted']}"
+        if rid in self.results or any(r.rid == rid
+                                      for r in self._all_live()):
+            raise ValueError(f"duplicate request id {rid!r}")
+        self.queue.append(_Req(rid, prompt, max_new, temperature, seed,
+                               self.clock()))
+        self.counters["submitted"] += 1
+        return rid
+
+    def poll(self, rid: str) -> dict:
+        """{"status": queued|running|done, "tokens": generated so far}."""
+        if rid in self.results:
+            return {"status": "done", "tokens": self.results[rid]}
+        for r in self._all_live():
+            if r.rid == rid:
+                status = "queued" if r.phase == "queued" else "running"
+                return {"status": status,
+                        "tokens": np.asarray(r.generated, np.int32)}
+        raise KeyError(rid)
+
+    def pending(self) -> int:
+        return len(self.queue) + sum(1 for s in self.slots if s is not None)
+
+    def step(self) -> bool:
+        """One scheduler step: admissions, one prefill chunk (FIFO
+        across prefilling requests), one decode tick over every
+        decoding slot. Returns whether any work ran."""
+        did = self._admit()
+        did = self._prefill_step() or did
+        return self._decode_step() or did
+
+    def run(self, max_steps: int | None = None) -> dict:
+        """Step until every submitted request finished (or `max_steps`).
+        Returns {rid: tokens}."""
+        steps = 0
+        while self.pending():
+            if max_steps is not None and steps >= max_steps:
+                break
+            if not self.step():
+                raise RuntimeError(
+                    "scheduler made no progress with requests pending "
+                    f"(queue={len(self.queue)}, "
+                    f"free_blocks={self.alloc.n_free})")
+            steps += 1
+        return dict(self.results)
+
+    def drain(self) -> bool:
+        """Stop admitting new submissions; returns True once everything
+        already accepted has finished."""
+        self.draining = True
+        return self.pending() == 0
+
+    # ------------------------------------------------------- scheduler
+
+    def _all_live(self):
+        yield from (s for s in self.slots if s is not None)
+        yield from self.queue
+
+    def _note_oom(self, e: OutOfBlocks) -> None:
+        """Count one recovered block exhaustion, at most once per tick."""
+        tick = self.counters["ticks"]
+        if tick == self._oom_tick:
+            return
+        self._oom_tick = tick
+        self.counters["oom_events"] += 1
+        if self.metrics is not None:
+            extra = {"id": str(e.rid)} if e.rid is not None else {}
+            self.metrics.log(event="ledger", kind="oom", tick=tick,
+                             requested=e.requested, free=e.n_free,
+                             live=e.n_live, **extra)
+
+    def _admit(self) -> bool:
+        did = False
+        while self.queue and None in self.slots:
+            req = self.queue[0]
+            try:
+                req.table = self.alloc.alloc(
+                    blocks_for(len(req.ctx), self.block_size), rid=req.rid)
+            except OutOfBlocks as e:
+                self._note_oom(e)
+                break                    # wait for blocks to free
+            self.queue.popleft()
+            slot = self.slots.index(None)
+            req.slot = slot
+            req.written = 0
+            req.phase = "prefill"
+            req.admit_seq = self._admit_counter
+            self._admit_counter += 1
+            req.wait_s += self.clock() - req.queued_at
+            self.slots[slot] = req
+            did = True
+        return did
+
+    def _tensor(self, a):
+        return torch.from_numpy(a).to(self.device)
+
+    def _prefill_step(self) -> bool:
+        pre = [r for r in self.slots
+               if r is not None and r.phase == "prefill"]
+        if not pre:
+            return False
+        req = min(pre, key=lambda r: r.admit_seq)     # FIFO
+        n_tok = min(self.prefill_chunk, len(req.ctx) - req.written)
+        tokens = np.ascontiguousarray(
+            req.ctx[req.written:req.written + n_tok], np.int32)
+        w = table_width(len(req.table), self.table_bucket)
+        bt = np.full((1, w), SCRATCH_BLOCK, np.int32)
+        bt[0, :len(req.table)] = req.table
+        logits = prefill_chunk(self.params, self.pools, self._tensor(tokens),
+                               req.written, self._tensor(bt), cfg=self.cfg)
+        req.written += n_tok
+        self.counters["prefill_chunks"] += 1
+        if req.written == len(req.ctx):
+            # prompt complete: sample token index len(generated) — 0 for
+            # a fresh request, the continuation index after an eviction
+            tok = sample_rows(logits[None], [req.temp], [req.seed],
+                              [len(req.generated)], self.top_k, self.top_p)
+            req.phase = "decode"
+            self._append_token(req, int(tok[0]))
+        return True
+
+    def _decode_step(self) -> bool:
+        for req in [r for r in self.slots
+                    if r is not None and r.phase == "decode"]:
+            if req.slot is not None:          # not evicted meanwhile
+                self._ensure_block(req)
+        actives = [r for r in self.slots
+                   if r is not None and r.phase == "decode"]
+        if not actives:
+            return False
+        s = self.max_slots
+        tok = np.zeros(s, np.int32)
+        pos = np.zeros(s, np.int32)
+        temp = [0.0] * s
+        seeds = [0] * s
+        idx = [0] * s
+        w = table_width(max(len(r.table) for r in actives),
+                        self.table_bucket)
+        bt = np.full((s, w), SCRATCH_BLOCK, np.int32)
+        for r in actives:
+            tok[r.slot] = r.last_tok
+            pos[r.slot] = r.written
+            temp[r.slot] = r.temp
+            seeds[r.slot] = r.seed
+            idx[r.slot] = len(r.generated)
+            bt[r.slot, :len(r.table)] = r.table
+        logits = decode_logits(self.params, self.pools, self._tensor(tok),
+                               self._tensor(pos), self._tensor(bt),
+                               cfg=self.cfg, attn=self.attn_impl)
+        nxt = sample_rows(logits, temp, seeds, idx, self.top_k, self.top_p)
+        self.counters["ticks"] += 1
+        self._last_touched = sum(blocks_for(r.written + 1, self.block_size)
+                                 for r in actives)
+        for r in actives:
+            r.written += 1
+            self._append_token(r, int(nxt[r.slot]))
+        self._win_tokens += len(actives)
+        self._maybe_log()
+        return True
+
+    def _ensure_block(self, req) -> bool:
+        """Grow `req`'s table to cover its next write position, evicting
+        the newest-admitted running request on OOM (possibly `req`
+        itself). Returns whether `req` is still running."""
+        while req.written // self.block_size >= len(req.table):
+            try:
+                req.table.extend(self.alloc.alloc(1, rid=req.rid))
+            except OutOfBlocks as e:
+                self._note_oom(e)
+                live = [r for r in self.slots if r is not None]
+                victim = max(live, key=lambda r: r.admit_seq)
+                if victim is req and len(live) == 1:
+                    # submit() guarantees a lone request fits
+                    raise RuntimeError(
+                        "allocator invariant violated: a lone request "
+                        "cannot grow its table") from None
+                self._evict(victim)
+                if victim is req:
+                    return False
+        return True
+
+    def _evict(self, req) -> None:
+        """Preempt: release the blocks now and re-queue at the front.
+        The request keeps its generated tokens and re-prefills prompt +
+        generated on re-admission, continuing its stream."""
+        self.alloc.release(req.table)
+        req.table = []
+        req.written = 0
+        req.ctx = (np.concatenate([req.prompt,
+                                   np.asarray(req.generated, np.int32)])
+                   if req.generated else req.prompt)
+        self.slots[req.slot] = None
+        req.slot = None
+        req.phase = "queued"
+        req.queued_at = self.clock()
+        req.n_preempt += 1
+        self.counters["preempted"] += 1
+        self.queue.appendleft(req)
+
+    def _append_token(self, req, tok: int) -> None:
+        req.generated.append(tok)
+        req.last_tok = tok
+        if req.first_tok_t is None:
+            req.first_tok_t = self.clock()
+        if len(req.generated) >= req.max_new:
+            self._finish(req)
+
+    def _finish(self, req) -> None:
+        self.alloc.release(req.table)
+        req.table = []
+        self.slots[req.slot] = None
+        self.results[req.rid] = np.asarray(req.generated, np.int32)
+        self.counters["finished"] += 1
+        now = self.clock()
+        rec = {
+            "id": req.rid,
+            "ttft_ms": round((req.first_tok_t - req.arrival) * 1e3, 3),
+            "tokens_in": int(req.prompt.shape[0]),
+            "tokens_out": len(req.generated),
+            "e2e_ms": round((now - req.arrival) * 1e3, 3),
+            "wait_ms": round(req.wait_s * 1e3, 3),
+            "queue_depth": len(self.queue),
+            "preempted": req.n_preempt,
+        }
+        if len(req.generated) > 1:
+            rec["tpot_ms"] = round(
+                (now - req.first_tok_t) * 1e3 / (len(req.generated) - 1), 3)
+        self.request_records.append(rec)
+        if self.metrics is not None:
+            self.metrics.log(event="request", **rec)
+
+    def _maybe_log(self) -> None:
+        if (self.metrics is None or self.log_every <= 0
+                or self.counters["ticks"] % self.log_every):
+            return
+        now = self.clock()
+        dt = max(now - self._win_t, 1e-9)
+        bpt = paged_read_bytes_per_tick(self.cfg, self._p_bytes,
+                                        self._last_touched, self.block_size,
+                                        self.max_slots)
+        self.metrics.log(
+            event="generate",
+            tokens_per_sec=round(self._win_tokens / dt, 2),
+            queue_depth=len(self.queue),
+            active_slots=sum(1 for r in self.slots if r is not None),
+            free_blocks=self.alloc.n_free,
+            blocks_touched=self._last_touched,
+            bytes_per_tick=int(bpt),
+            hbm_gbps=round(self.log_every / dt * bpt / 1e9, 4))
+        self._win_tokens = 0
+        self._win_t = now
+
