@@ -1,15 +1,22 @@
 """Smoke check of the PyTorch port (`shallowspeed_tpu_torch`) on one
-NVIDIA GPU: the quickest proof that the port builds, is right and
-serves on the card.
+NVIDIA GPU: the quickest proof that the port builds, is right, serves
+and trains on the card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. Build every CUDA kernel of the serving path from `csrc/` with nvcc
-   (sm_90a), one nvcc per source, all started together.
-2. Hold each kernel against its plain torch version on the card, at
-   small shapes and at the serving path's own shapes.
+1. Build every CUDA kernel of the serving and training paths from
+   `csrc/` with nvcc (sm_90a), one nvcc per source, all started
+   together; print each kernel's registers and spills.
+2. Hold each kernel against its plain torch version on the card: K4 at
+   small shapes and at the serving path's own shapes; K1, K2 and K3
+   (flash forward, dq, dk/dv) at small MHA, GQA, window, rel != 0 and
+   ragged-T shapes in f32 and bf16, and at the training shape (B 4,
+   T 2048, 16 heads x 128, causal) in bf16, on contiguous q, k, v and
+   again on strided views of one fused qkv tensor, as the model passes
+   them. Each element is held to KERNEL_TOL of |ref| + mean |ref|, plus
+   one bf16 ulp where the kernel rounds its output to bf16.
 3. Serve the repo's 1.21B LM (vocab 32768, d_model 2048, 16 heads, 16
    layers, RoPE + RMSNorm + SwiGLU, f32 master weights, bf16 compute)
    at full width and depth through `ServingEngine(attn_impl="flash")`,
@@ -22,8 +29,21 @@ Phases (any failure exits non-zero and prints no result line):
    bf16 compute path served above and again in f32 compute, and show
    that a bf16 rounding slipped into the f32 attention path fails the
    f32 bound.
-5. Time each kernel at the serving shapes beside its plain version,
-   one library call computing the same function, and its bound.
+5. Time K4 at the serving shapes beside its plain version, one library
+   call computing the same function, and its bound.
+6. Train the same 1.21B LM (same weights) at full width and depth
+   through `ContextParallelEngine(attn="flash")` with AdamW on one
+   repeated 4 x 2048 batch: one warm-up step, whose loss must match the
+   plain attention's loss on the same weights (bf16 bound), then timed
+   steps, with the K1/K2/K3 launch counts zeroed just before them and
+   required to equal n_layers x steps after, and a finite, falling loss.
+7. Training parity in f32 at full width and 2 layers: the kernels'
+   loss and every gradient leaf against the plain attention under torch
+   autograd, and a bf16 rounding of q and K slipped into the plain
+   scores must fail that bound.
+8. Time K1, K2 and K3 at the training shape beside their plain
+   versions, the library's attention forward (K1) and backward (K2 and
+   K3 together), and their bounds.
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -32,16 +52,20 @@ the kernels' numbers, and `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import re
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
 # H100 SXM data-sheet peaks, dense (see PERF.md)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 SLICE = dict(slots=8, heads=16, kv_heads=16, head_dim=128, block_size=16)
 N_REQUESTS = 12
@@ -62,12 +86,49 @@ LOGITS_TOL_BF16 = 3e-2
 # does exceed this bound.
 LOGITS_TOL_F32 = 1e-4
 
+# Training: 1 warm-up step, then TRAIN_STEPS timed steps on one repeated
+# (TRAIN_BATCH, max_seq) batch.
+TRAIN_BATCH = 4
+TRAIN_STEPS = 6
+# Kernels (flash_attention) vs plain attention under autograd, as
+# max |diff| / max |ref| of the loss and of each gradient leaf (PERF.md,
+# "chip_smoke tolerances", has the measurements behind both bounds).
+# f32 compute, full width, 2 layers: the two differ in summation order
+# only (worst leaf ~4e-6 on an H100), while a bf16 rounding of q and K
+# before the plain scores moves a gradient leaf by ~5e-3; phase 7 checks
+# that it does exceed this bound.
+GRAD_TOL_F32 = 1e-4
+# bf16 compute, full depth, the loss at the initial weights: the kernels
+# keep P in f32 through PV where the plain attention rounds it to bf16;
+# measured ~2e-5 apart. The bound catches a wrong mask or scale (order-1
+# errors), not a single rounding.
+LOSS_TOL_BF16 = 1e-3
+
 
 def _card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+def _ptxas_lines(log: str) -> list[str]:
+    """One line per compiled kernel: its template instance, registers
+    and spills, from `nvcc -Xptxas -v` output."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"((?:paged_decode|flash_fwd|flash_dq|flash_dkv)"
+                      r"_kernel)I(\w+)'", line)
+        if m:
+            inst = re.findall(r"(__nv_bfloat16|f)(?:Li(\d+)E)", m.group(2))
+            name = m.group(1) + "".join(
+                f"<{'bf16' if t == '__nv_bfloat16' else 'f32'},{d}>"
+                for t, d in inst[:1])
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return out
 
 
 def _time_ms(fn, inputs, repeats=7):
@@ -166,21 +227,17 @@ def slice_config():
         norm="rmsnorm", ffn="swiglu")
 
 
-def serve(dev, cfg) -> dict:
-    """Phase 3: the 1.21B LM served through the port's engine."""
+def serve(dev, cfg, np_params) -> dict:
+    """Phase 3: the 1.21B LM served through the port's engine, from the
+    numpy draw `np_params` of `init_numpy(cfg, seed=0)`."""
     import torch
 
-    from shallowspeed_tpu_torch.models import transformer as T
     from shallowspeed_tpu_torch.ops.flash_attention import paged_flash_decode
     from shallowspeed_tpu_torch.report import request_summary
     from shallowspeed_tpu_torch.serving.engine import ServingEngine
-    from shallowspeed_tpu_torch.weights import leaves
+    from shallowspeed_tpu_torch.weights import params_from_numpy
 
-    t0 = time.time()
-    params = T.init(cfg, seed=0, device=dev)
-    n_params = sum(t.numel() for t in leaves(params))
-    print(f"init: {n_params / 1e9:.3f}B params in "
-          f"{time.time() - t0:.1f} s", flush=True)
+    params = params_from_numpy(np_params, dev)
     eng = ServingEngine(params, cfg, n_blocks=N_BLOCKS,
                         block_size=SLICE["block_size"],
                         max_slots=SLICE["slots"],
@@ -285,7 +342,7 @@ def check_logits(dev, cfg, params, prompts, results, tol, attn="flash",
                 torch.tensor([len(prompt) + i], dtype=torch.int32,
                              device=dev), bt, cfg=cfg, attn=attn)[0])
         got = torch.stack(rows)
-        ref = T.forward(params, torch.from_numpy(seq).to(dev).long()[None],
+        ref = T.eval_forward(params, torch.from_numpy(seq).to(dev).long()[None],
                         cfg)[0, len(prompt) - 1:].float()
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
@@ -394,6 +451,391 @@ def time_kernels(dev, stats) -> dict:
     return out
 
 
+# (B, Tq, Tk, H, Hkv, D, causal, window, rel), the dtypes checked, and
+# whether q, k, v are strided slices of one fused (B, T, H, 3, D)
+# tensor, as the model's `_qkv` makes them on the training path
+TRAIN_KERNEL_CASES = [
+    ("small-mha", (2, 256, 256, 4, 4, 64, True, 0, 0), ("f32", "bf16"),
+     False),
+    ("small-gqa", (2, 256, 256, 16, 4, 128, True, 0, 0), ("f32", "bf16"),
+     False),
+    ("small-window", (2, 256, 256, 4, 4, 64, True, 96, 0), ("f32", "bf16"),
+     False),
+    ("rel-causal", (1, 128, 320, 8, 4, 128, True, 0, 192), ("f32", "bf16"),
+     False),
+    ("ragged-T", (2, 200, 200, 4, 4, 128, True, 0, 0), ("f32", "bf16"),
+     False),
+    ("slice", (TRAIN_BATCH, 2048, 2048, 16, 16, 128, True, 0, 0), ("bf16",),
+     False),
+    ("slice-fused", (TRAIN_BATCH, 2048, 2048, 16, 16, 128, True, 0, 0),
+     ("bf16",), True),
+]
+# Kernel vs plain, per element: |diff| <= KERNEL_TOL * (|ref| + mean
+# |ref|), plus one bf16 ulp of |ref| (<= 2^-7 |ref|) for the one output
+# the kernels round to bf16 (o in bf16). Every other output (lse, dq, dk,
+# dv in both dtypes, o in f32) is an f32 result of the same inputs in
+# both versions and differs by summation order only, which scales with
+# the element (|ref|) or, where terms cancel, with the tensor's typical
+# size (mean |ref|). PERF.md, "chip_smoke tolerances", has the
+# measurements.
+KERNEL_TOL = 1e-4
+BF16_ULP = 2.0 ** -7
+
+
+def _train_kernel_inputs(dev, dtype, shape, seed, fused=False):
+    """Random q, k, v, dO on the card for a (B, Tq, Tk, H, Hkv, D) case;
+    with `fused`, q, k, v are the strided views [..., i, :] of one
+    (B, T, H, 3, D) tensor (needs Tq == Tk and H == Hkv)."""
+    import torch
+
+    b, tq, tk, h, hkv, d = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*sz):
+        return torch.randn(*sz, device=dev, generator=g).to(dtype)
+
+    if fused:
+        qkv = rnd(b, tq, h, 3, d)
+        q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+        if q.is_contiguous() or k.is_contiguous() or v.is_contiguous():
+            raise AssertionError("fused q, k, v are not strided views")
+        return q, k, v, rnd(b, tq, h, d)
+    return rnd(b, tq, h, d), rnd(b, tk, hkv, d), rnd(b, tk, hkv, d), \
+        rnd(b, tq, h, d)
+
+
+def _kernel_err(got, ref, rounded) -> tuple[float, float]:
+    """(max |diff|, worst |diff| / allowance over the elements), in f32;
+    the allowance is KERNEL_TOL * (|ref| + mean |ref|), plus
+    BF16_ULP * |ref| when `rounded`. The check passes at a ratio <= 1."""
+    got, ref = got.float(), ref.float()
+    mag = ref.abs()
+    scale = float(mag.mean())
+    if not scale > 0:
+        raise AssertionError("the plain version's output is all zero")
+    diff = (got - ref).abs()
+    allow = KERNEL_TOL * (mag + scale) + (BF16_ULP * mag if rounded else 0.0)
+    return float(diff.max()), float((diff / allow).max())
+
+
+def check_train_kernels(dev) -> dict:
+    """Phase 2: K1, K2, K3 against their plain versions, per element
+    (KERNEL_TOL, BF16_ULP). Returns the max |diff| of each over the
+    slice-shape cases."""
+    import torch
+
+    from shallowspeed_tpu_torch.ops import flash_attention as FA
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    worst = {}
+    for ci, (name, case, dnames, fused) in enumerate(TRAIN_KERNEL_CASES):
+        *shape, causal, window, rel = case
+        kw = dict(causal=causal, window=window, rel=rel)
+        for dn in dnames:
+            q, k, v, do = _train_kernel_inputs(dev, dtypes[dn], shape, ci,
+                                               fused)
+            o, lse = FA.flash_fwd(q, k, v, **kw)
+            delta = FA.attention_delta(do, o)
+            dq = FA.flash_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = FA.flash_dkv(q, k, v, do, lse, delta, **kw)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = FA.flash_fwd_reference(q, k, v, **kw)
+            dq_ref = FA.flash_dq_reference(q, k, v, do, lse, delta, **kw)
+            dk_ref, dv_ref = FA.flash_dkv_reference(q, k, v, do, lse, delta,
+                                                    **kw)
+            errs = {"flash_fwd": [_kernel_err(o, o_ref, dn == "bf16"),
+                                  _kernel_err(lse, lse_ref, False)],
+                    "flash_dq": [_kernel_err(dq, dq_ref, False)],
+                    "flash_dkv": [_kernel_err(dk, dk_ref, False),
+                                  _kernel_err(dv, dv_ref, False)]}
+            finite = all(bool(torch.isfinite(t).all()) for t in
+                         (o, lse, dq, dk, dv))
+            for kern, pairs in errs.items():
+                err = max(e for e, _ in pairs)
+                ratio = max(r for _, r in pairs)
+                print(f"check {kern} {name} {dn}: max_abs_err {err:.3e}, "
+                      f"worst element at {ratio:.3e} of its allowance",
+                      flush=True)
+                if not (ratio <= 1.0 and finite):
+                    raise AssertionError(f"{kern} {name} {dn}: an element "
+                                         f"off by {ratio:.3e} x its "
+                                         f"allowance (finite: {finite})")
+                if name.startswith("slice"):
+                    worst[kern] = max(worst.get(kern, 0.0), err)
+            del o_ref, lse_ref, dq_ref, dk_ref, dv_ref
+            torch.cuda.empty_cache()
+    return worst
+
+
+def _train_batch(cfg):
+    """The repeated training batch: (TRAIN_BATCH, max_seq) next-token
+    pairs of random ids, numpy seed 3."""
+    rng = np.random.default_rng(3)
+    seq = rng.integers(0, cfg.vocab, (TRAIN_BATCH, cfg.max_seq + 1))
+    return seq[:, :-1].astype(np.int32), seq[:, 1:].astype(np.int32)
+
+
+def train(dev, cfg, np_params) -> dict:
+    """Phase 6: train the 1.21B LM through the kernels. The warm-up
+    step's loss (at the initial weights) is checked against the plain
+    attention's no-grad loss on the same weights and batch."""
+    import torch
+
+    from shallowspeed_tpu_torch.flops import mfu
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.ops import flash_attention as FA
+    from shallowspeed_tpu_torch.ops.attention import attention
+    from shallowspeed_tpu_torch.optim import AdamW
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+
+    tok, tgt = _train_batch(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ContextParallelEngine(cfg, AdamW(3e-4, weight_decay=0.01,
+                                           grad_clip=1.0),
+                                attn="flash", device=dev, params=np_params)
+    with torch.no_grad():
+        plain = float(T.loss(eng.params, torch.from_numpy(tok).to(dev),
+                             torch.from_numpy(tgt).to(dev), cfg,
+                             attn_fn=partial(attention, causal=True,
+                                             window=cfg.attn_window)))
+    t0 = time.perf_counter()
+    warm = eng.train_batch(tok, tgt)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    loss_rel = abs(warm - plain) / abs(plain)
+    print(f"train loss at init, bf16: kernels {warm:.6f} plain {plain:.6f} "
+          f"rel {loss_rel:.3e} (tol {LOSS_TOL_BF16:g})", flush=True)
+    if not loss_rel <= LOSS_TOL_BF16:
+        raise AssertionError(f"kernel loss off the plain loss by "
+                             f"{loss_rel:.3e} > {LOSS_TOL_BF16:g}")
+
+    kernels = (FA.flash_fwd, FA.flash_dq, FA.flash_dkv)
+    for k in kernels:
+        k.launches = 0
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(tok, tgt))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = {k.__name__: k.launches for k in kernels}
+    for name, n in launches.items():
+        if n != cfg.n_layers * TRAIN_STEPS:
+            raise AssertionError(f"{name} launched {n} times over "
+                                 f"{TRAIN_STEPS} steps of {cfg.n_layers} "
+                                 f"layers")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"training losses {losses}")
+    p50 = float(np.median(step_s))
+    tok_s = TRAIN_BATCH * cfg.max_seq / p50
+    perf = mfu(tok_s, cfg, cfg.max_seq, "bf16", device=dev)
+    profile = profile_step(eng, tok, tgt)
+    out = {"steps": TRAIN_STEPS, "losses": [warm] + losses,
+           "warmup_step_s": warm_s, "step_ms": [1e3 * x for x in step_s],
+           "step_ms_p50": 1e3 * p50, "tok_per_s": tok_s,
+           "tflops": perf["tflops"], "mfu": perf["mfu"],
+           "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    print("train: " + json.dumps(out), flush=True)
+    print("train profile: " + json.dumps(profile), flush=True)
+    return out
+
+
+# device-kernel groups of a training step, by kernel-name fragment
+KERNEL_GROUPS = [("K1 flash_fwd", ("flash_fwd_kernel",)),
+                 ("K2 flash_dq", ("flash_dq_kernel",)),
+                 ("K3 flash_dkv", ("flash_dkv_kernel",)),
+                 ("matmul", ("gemm", "cutlass", "nvjet", "xmma"))]
+
+
+def profile_step(eng, tok, tgt) -> dict:
+    """One more training step (after the counted ones) under
+    torch.profiler: device time per kernel group, the number of device
+    kernels, and the device's idle share of the profiled step's wall
+    time (the profiler's own host overhead lengthens that step, so the
+    idle share is an upper bound). Reports None where the profiler saw
+    no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.train_batch(tok, tgt)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS + [("other", ())]}
+    by_name: dict[str, list] = {}
+    n = 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        n += 1
+        ms = ev.time_range.elapsed_us() / 1e3
+        low = ev.name.lower()
+        name = next((g for g, keys in KERNEL_GROUPS
+                     if any(k in low for k in keys)), "other")
+        groups[name] += ms
+        entry = by_name.setdefault(f"{name}: {ev.name[:70]}", [0.0, 0])
+        entry[0] += ms
+        entry[1] += 1
+    busy = sum(groups.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"wall_ms": wall_ms, "device_kernels": n,
+            "device_ms": groups if n else None,
+            "device_busy_ms": busy if n else None,
+            "idle_share": 1.0 - busy / wall_ms if n else None,
+            "top_kernels_ms_calls": {k: v for k, v in top}}
+
+
+def _grad_parity(eng_a, eng_b, tok, tgt) -> tuple[float, float, str]:
+    """(loss rel diff, worst gradient-leaf max |diff| / max |ref|, that
+    leaf's path) of engine a against engine b on one batch."""
+    from shallowspeed_tpu_torch.weights import leaves
+
+    la, ga = eng_a.loss_and_grads(tok, tgt)
+    lb, gb = eng_b.loss_and_grads(tok, tgt)
+    worst, where = 0.0, ""
+    for path, a, b in zip(leaves(_paths(gb)), leaves(ga), leaves(gb)):
+        ref = float(b.abs().max())
+        err = float((a - b).abs().max())
+        rel = err / ref if ref > 0 else (0.0 if err == 0 else float("inf"))
+        if rel > worst:
+            worst, where = rel, path
+    return abs(float(la) - float(lb)) / abs(float(lb)), worst, where
+
+
+def _paths(tree, prefix=""):
+    """The tree with each leaf replaced by its path string."""
+    if isinstance(tree, dict):
+        return {k: _paths(v, f"{prefix}/{k}") for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_paths(v, f"{prefix}/{i}") for i, v in enumerate(tree)]
+    return prefix
+
+
+def check_training_parity(dev, cfg) -> dict:
+    """Phase 7: f32 compute, full width, 2 layers: the kernels' loss and
+    gradients against the plain attention under autograd, from the same
+    weights and batch; then the same plain path with q and K rounded to
+    bf16 before the scores must land above GRAD_TOL_F32."""
+    import torch
+
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.ops.attention import attention
+    from shallowspeed_tpu_torch.optim import SGD
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype=None)
+    np2 = T.init_numpy(cfg2, seed=0)
+    tok, tgt = _train_batch(cfg2)
+    flash = ContextParallelEngine(cfg2, SGD(0.0), attn="flash", device=dev,
+                                  params=np2)
+    plain = ContextParallelEngine(cfg2, SGD(0.0), attn="ring", device=dev,
+                                  params=np2)
+    loss_rel, grad_rel, leaf = _grad_parity(flash, plain, tok, tgt)
+    print(f"train parity f32, 2 layers: loss rel {loss_rel:.3e}, worst "
+          f"grad leaf {leaf} rel {grad_rel:.3e} (tol {GRAD_TOL_F32:g})",
+          flush=True)
+    if not max(loss_rel, grad_rel) <= GRAD_TOL_F32:
+        raise AssertionError(f"kernel gradients off the plain ones: loss "
+                             f"{loss_rel:.3e}, {leaf} {grad_rel:.3e}")
+
+    def bf(t):
+        return t.to(torch.bfloat16).to(t.dtype)
+
+    def slipped(q, k, v):
+        return attention(bf(q), bf(k), v, causal=True,
+                         window=cfg2.attn_window)
+
+    plain.attn_fn = slipped
+    s_loss, s_grad, s_leaf = _grad_parity(flash, plain, tok, tgt)
+    print(f"train parity f32 with a bf16 q/K slip in the plain scores: "
+          f"loss rel {s_loss:.3e}, worst grad leaf {s_leaf} rel "
+          f"{s_grad:.3e} (must exceed {GRAD_TOL_F32:g})", flush=True)
+    if not max(s_loss, s_grad) > GRAD_TOL_F32:
+        raise AssertionError(f"a bf16 score slip moved the f32 gradients "
+                             f"by only {s_grad:.3e}: GRAD_TOL_F32 cannot "
+                             f"see it")
+    return {"loss_rel": loss_rel, "grad_rel": grad_rel, "leaf": leaf,
+            "slip_loss_rel": s_loss, "slip_grad_rel": s_grad}
+
+
+def time_train_kernels(dev) -> dict:
+    """Phase 8: K1, K2, K3 at the training shape (B 4, T 2048, 16 heads x
+    128, bf16, causal) on two input sets (each over 50 MB, so the L2
+    holds neither), beside their plain versions, the library's
+    attention (SDPA forward for K1; its autograd backward, which covers
+    K2 and K3 together) and their bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from shallowspeed_tpu_torch.ops import flash_attention as FA
+
+    b, t, h, d = TRAIN_BATCH, 2048, 16, 128
+    sets = []
+    for seed in range(2):
+        q, k, v, do = _train_kernel_inputs(dev, torch.bfloat16,
+                                           (b, t, t, h, h, d), 100 + seed)
+        o, lse = FA.flash_fwd_reference(q, k, v)
+        sets.append((q, k, v, do, lse, FA.attention_delta(do, o)))
+    before = [f.launches for f in (FA.flash_fwd, FA.flash_dq, FA.flash_dkv)]
+
+    fwd = [s[:3] for s in sets]
+    bwd = sets
+    out = {
+        "flash_fwd": {"ms": _time_ms(FA.flash_fwd, fwd),
+                      "plain_ms": _time_ms(FA.flash_fwd_reference, fwd)},
+        "flash_dq": {"ms": _time_ms(FA.flash_dq, bwd),
+                     "plain_ms": _time_ms(FA.flash_dq_reference, bwd)},
+        "flash_dkv": {"ms": _time_ms(FA.flash_dkv, bwd),
+                      "plain_ms": _time_ms(FA.flash_dkv_reference, bwd)},
+    }
+    for f, n in zip((FA.flash_fwd, FA.flash_dq, FA.flash_dkv), before):
+        f.launches = n      # timing launches do not count
+
+    # the library yardstick, never called by the port: SDPA in (B, H, T, D)
+    lib = []
+    for q, k, v, do, _, _ in sets:
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib.append((qt, kt, vt, ot, do.transpose(1, 2).contiguous()))
+
+    def sdpa(qt, kt, vt, ot, dot):
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_bwd(qt, kt, vt, ot, dot):
+        torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+    out["flash_fwd"]["library_ms"] = _time_ms(sdpa, lib)
+    bwd_ms = _time_ms(sdpa_bwd, lib)
+    out["flash_dq"]["library_ms"] = bwd_ms    # covers K2 and K3 together
+    out["flash_dkv"]["library_ms"] = bwd_ms
+
+    # least time: live causal pairs of this run's inputs, each input
+    # read once and each output written once
+    pairs = b * h * t * (t + 1) // 2
+    act = b * t * h * d                        # elements of q (= k, v, o)
+    stats = b * h * t * 4                      # one f32 (B, H, T) plane
+    work = {"flash_fwd": (4 * d * pairs, 4 * act * 2 + stats),
+            "flash_dq": (6 * d * pairs, 4 * act * 2 + 2 * stats + act * 4),
+            "flash_dkv": (8 * d * pairs,
+                          4 * act * 2 + 2 * stats + 2 * act * 4)}
+    for name, (flops, nbytes) in work.items():
+        t_ops = flops / BF16_FLOPS_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        out[name].update(bound_ms=1e3 * max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes
+                         else "bytes", gflop=flops / 1e9,
+                         mbytes=nbytes / 1e6)
+        print(f"time {name}: " + json.dumps(out[name]), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -410,32 +852,60 @@ def main() -> int:
           flush=True)
 
     t0 = time.time()
-    _build.build(["paged_decode"])
+    _build.build(["paged_decode", "flash_fwd", "flash_bwd"])
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
-        print(f"nvcc {name}:\n{log.strip()}", flush=True)
+        print(f"nvcc {name}:", flush=True)
+        for line in _ptxas_lines(log):
+            print("  " + line, flush=True)
+
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.weights import leaves
 
     errs = check_kernels(dev)
+    errs.update(check_train_kernels(dev))
     cfg = slice_config()
-    run = serve(dev, cfg)
+    t0 = time.time()
+    np_params = T.init_numpy(cfg, seed=0)
+    print(f"init: {sum(a.size for a in leaves(np_params)) / 1e9:.3f}B "
+          f"params in {time.time() - t0:.1f} s", flush=True)
+    run = serve(dev, cfg, np_params)
     check_logits(dev, cfg, run["eng"].params, run["prompts"],
                  run["eng"].results, LOGITS_TOL_BF16)
     cfg32 = dataclasses.replace(cfg, compute_dtype=None)
     check_logits(dev, cfg32, run["params"], run["prompts"],
                  run["eng"].results, LOGITS_TOL_F32)
     check_f32_bound_catches_a_slip(dev, cfg32, run)
-    timing = time_kernels(dev, run["stats"])
+    timing = {"paged_flash_decode": time_kernels(dev, run["stats"])}
+    launches = {"paged_flash_decode": run["stats"]["launches"]}
+    del run                   # free the serving engine before training
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    launches.update(train(dev, cfg, np_params)["launches"])
+    del np_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_training_parity(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timing.update(time_train_kernels(dev))
+
+    src = "shallowspeed_tpu_torch/csrc/"
+    ref = "shallowspeed_tpu/ops/flash_attention.py:"
+    where = {"paged_flash_decode": ("paged_decode.cu", "947"),
+             "flash_fwd": ("flash_fwd.cu", "487"),
+             "flash_dq": ("flash_bwd.cu", "552"),
+             "flash_dkv": ("flash_bwd.cu", "597")}
     kernels = [{
-        "name": "paged_flash_decode", "route": "cuda",
-        "source": "shallowspeed_tpu_torch/csrc/paged_decode.cu",
-        "replaces": "shallowspeed_tpu/ops/flash_attention.py:947",
-        "launches": run["stats"]["launches"],
-        "max_abs_err": errs["paged_flash_decode"],
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-    }]
+        "name": name, "route": "cuda", "source": src + cu,
+        "replaces": ref + line, "launches": launches[name],
+        "max_abs_err": errs[name], "ms": timing[name]["ms"],
+        "plain_ms": timing[name]["plain_ms"],
+        "bound_ms": timing[name]["bound_ms"],
+        "bound_by": timing[name]["bound_by"],
+        "library_ms": timing[name]["library_ms"],
+    } for name, (cu, line) in where.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

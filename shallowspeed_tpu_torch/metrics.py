@@ -1,6 +1,9 @@
-"""Structured JSONL metrics — the part of
-`shallowspeed_tpu/metrics.py::MetricsLogger` the serving driver uses.
-The live monitor feed and file-rotation handling are not ported yet."""
+"""Structured JSONL metrics — the parts of `shallowspeed_tpu/metrics.py`
+the port's drivers use: `MetricsLogger` (serving and training) and
+`StepRates` (training throughput windows), plus `step_event`, the
+training driver's `"step"` line in the reference's field names. The
+live monitor feed, telemetry/health fields and file-rotation handling
+are not ported yet."""
 
 from __future__ import annotations
 
@@ -36,3 +39,46 @@ class MetricsLogger:
     def close(self) -> None:
         if self._fh is not None and not self._fh.closed:
             self._fh.close()
+
+
+class StepRates:
+    """Per-window and cumulative training throughput between log
+    points (the reference's `StepRates` without its pause accounting
+    and telemetry attachments: the port's driver has no pauses yet)."""
+
+    def __init__(self, tokens_per_step: float, clock=time.time):
+        self.tokens_per_step = float(tokens_per_step)
+        self._clock = clock
+        self._t0 = clock()
+        self._win_t = self._t0
+        self._steps = 0
+
+    def log_point(self, steps_since_last: int) -> dict:
+        """Close the window of `steps_since_last` steps; returns
+        {"tokens_per_sec": window rate, "tokens_per_sec_cum": run rate}."""
+        now = self._clock()
+        self._steps += int(steps_since_last)
+        win_secs = max(now - self._win_t, 1e-9)
+        cum_secs = max(now - self._t0, 1e-9)
+        self._win_t = now
+        return {"tokens_per_sec":
+                self.tokens_per_step * steps_since_last / win_secs,
+                "tokens_per_sec_cum":
+                self.tokens_per_step * self._steps / cum_secs}
+
+
+def step_event(step: int, loss: float, rates: dict, perf: dict,
+               cum: dict) -> dict:
+    """The fields of a training `"step"` JSONL line, named as the
+    reference driver (`train_lm.py`) names them: `rates` from
+    `StepRates.log_point`, `perf` / `cum` from `flops.mfu` of the window
+    and cumulative rates (mfu None where no peak is known)."""
+    def r(x, n):
+        return None if x is None else round(x, n)
+
+    return {"event": "step", "step": step, "loss": round(loss, 6),
+            "tokens_per_sec": round(rates["tokens_per_sec"], 1),
+            "tflops": round(perf["tflops"], 2), "mfu": r(perf["mfu"], 4),
+            "tokens_per_sec_cum": round(rates["tokens_per_sec_cum"], 1),
+            "tflops_cum": round(cum["tflops"], 2),
+            "mfu_cum": r(cum["mfu"], 4)}

@@ -1,5 +1,5 @@
 """Decoder-only transformer LM — counterpart of
-`shallowspeed_tpu/models/transformer.py`, eval path only.
+`shallowspeed_tpu/models/transformer.py`.
 
 Functional like the reference: `init(cfg, seed)` draws the parameter
 tree with numpy (bit-identical to the JAX package's draw, so one seed
@@ -14,13 +14,18 @@ Mixed precision follows the reference: master weights in `cfg.dtype`,
 statistics, attention scores and softmax, and the soft-cap stay in
 float32.
 
-Training (dropout, remat, the losses) and MoE belong to later slices;
-a config that needs them raises `NotPorted`.
+`forward`/`forward_with_aux`/`loss` are differentiable with torch
+autograd and take the attention substrate as `attn_fn` (the plain
+`attention` by default, or `ops.flash_attention.flash_attention`);
+`eval_forward` is the no-grad entry the serving checks use. Dropout,
+attention dropout, remat, chunked cross-entropy, MoE and fp8 matmuls
+are not ported yet: a config that needs them raises `NotPorted`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -273,22 +278,52 @@ def _ffn(p, x, cfg: TransformerConfig, h):
     return x + _dense(p["down"], u)
 
 
-def _block(p, x, cfg: TransformerConfig, pos):
+def _block(p, x, cfg: TransformerConfig, pos, attn_fn):
     h = _norm(p["ln1"], x, cfg)
     q, k, v = _qkv(p, h, cfg)
     if cfg.rope:
         q = rope_rotate(q, pos, cfg.rope_theta)
         k = rope_rotate(k, pos, cfg.rope_theta)
     b, t, d = x.shape
-    a = attention(q, k, v, causal=True, window=cfg.attn_window)
+    a = attn_fn(q, k, v)
     x = x + _dense(p["proj"], a.reshape(b, t, d))
     return _ffn(p, x, cfg, _norm(p["ln2"], x, cfg))
 
 
-@torch.no_grad()
-def forward(params, tokens, cfg: TransformerConfig):
-    """Eval forward: tokens (B, T) int -> logits (B, T, vocab). The
-    full-sequence reference the paged serving path is held against."""
+def check_trainable(cfg: TransformerConfig) -> None:
+    """Raise `NotPorted` for the training features of the config that
+    the port does not have yet (eval ignores them, as the reference
+    does: dropout is train-only, remat and chunking only reshape the
+    backward)."""
+    if cfg.dropout > 0.0 or cfg.attn_dropout > 0.0:
+        raise NotPorted("dropout / attn_dropout in training",
+                        "Queue 1, training features after slice 2")
+    if cfg.remat:
+        raise NotPorted(f"remat (remat_policy={cfg.remat_policy!r})",
+                        "Queue 1, training features after slice 2")
+    if cfg.xent_chunk > 0:
+        raise NotPorted("chunked cross-entropy (xent_chunk)",
+                        "Queue 1, training features after slice 2")
+
+
+def token_loss(logits, targets, cfg: TransformerConfig, train: bool = True):
+    """Mean token cross-entropy in float32, with label smoothing in
+    training only (eval passes train=False: plain NLL)."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    ls = cfg.label_smoothing
+    if train and ls > 0.0:
+        nll = (1.0 - ls) * nll + ls * (-logp.mean(dim=-1))
+    return nll.mean()
+
+
+def forward_with_aux(params, tokens, cfg: TransformerConfig, attn_fn=None):
+    """tokens (B, T) int -> (logits (B, T, vocab), (balance aux, router
+    z-loss)); the aux terms are 0.0 (no MoE in the port yet).
+    Differentiable in `params`. `attn_fn(q, k, v)` defaults to the plain
+    causal `attention` with the config's window."""
+    if attn_fn is None:
+        attn_fn = partial(attention, causal=True, window=cfg.attn_window)
     params = cast_params(params, cfg.compute_dtype)
     b, t = tokens.shape
     if t > cfg.max_seq:
@@ -298,6 +333,32 @@ def forward(params, tokens, cfg: TransformerConfig):
     if not cfg.rope:
         x = x + params["pos_emb"][pos]
     for blk in params["blocks"]:
-        x = _block(blk, x, cfg, pos)
+        x = _block(blk, x, cfg, pos, attn_fn)
     x = _norm(params["ln_f"], x, cfg)
-    return head_logits(params, x, cfg)
+    return head_logits(params, x, cfg), (0.0, 0.0)
+
+
+def forward(params, tokens, cfg: TransformerConfig, attn_fn=None):
+    """Logits only (see `forward_with_aux`)."""
+    return forward_with_aux(params, tokens, cfg, attn_fn)[0]
+
+
+@torch.no_grad()
+def eval_forward(params, tokens, cfg: TransformerConfig):
+    """No-grad forward through the plain attention: the full-sequence
+    reference the paged serving path is held against."""
+    return forward(params, tokens, cfg)
+
+
+def loss(params, tokens, targets, cfg: TransformerConfig, attn_fn=None,
+         train: bool = True):
+    """Mean softmax cross-entropy over all (batch, seq) positions
+    (`token_loss`); with `train` the config's training features apply
+    and must be ported (`check_trainable`)."""
+    if train:
+        check_trainable(cfg)
+    elif cfg.xent_chunk > 0:
+        raise NotPorted("chunked cross-entropy (xent_chunk)",
+                        "Queue 1, training features after slice 2")
+    logits, _ = forward_with_aux(params, tokens, cfg, attn_fn)
+    return token_loss(logits, targets, cfg, train)

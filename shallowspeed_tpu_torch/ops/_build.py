@@ -3,7 +3,8 @@ with nvcc into shared libraries with a plain C interface, and load them
 with ctypes.
 
 A library is built at first use into `csrc/_build/` (listed in
-.gitignore), keyed by a hash of its source and flags, so a fresh
+.gitignore), keyed by a hash of its source, the shared `*.cuh` headers
+and the flags, so a fresh
 checkout builds what it runs and an edited source rebuilds. Nothing is
 built when this module is imported.
 """
@@ -45,7 +46,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
+    # the shared headers are part of every source's key
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}-{key}.so"
 

@@ -1,18 +1,29 @@
-"""Paged flash decode — counterpart of
-`shallowspeed_tpu/ops/flash_attention.py::paged_flash_decode`.
+"""Flash attention — counterpart of
+`shallowspeed_tpu/ops/flash_attention.py`: the training kernels (K1
+forward, K2 dq, K3 dk/dv) behind `flash_attention`, and the serving
+decode kernel (K4) behind `paged_flash_decode`.
 
-`paged_flash_decode` is the serving decode tick's attention: one query
-token per slot attends over its KV cache read in place through the
-block table, with no gathered copy. On a CUDA tensor it launches the
-hand-written kernel `csrc/paged_decode.cu` (built with nvcc for sm_90a
-at first use, bound with ctypes); on a CPU tensor it computes
-`paged_flash_decode_reference`, the plain torch version (gather the
-table, then `masked_attention`), which the tests hold against the JAX
-kernel and which `chip_smoke.py` holds the CUDA kernel against.
+Each kernel has a wrapper and a plain torch version with the same
+arguments. On a CUDA tensor the wrapper launches the hand-written
+kernel (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`, `csrc/paged_decode.cu`,
+built with nvcc for sm_90a at first use, bound with ctypes) or raises,
+and adds one to its `.launches` count; on a CPU tensor it computes the
+plain version, which the tests hold against the JAX kernels and which
+`chip_smoke.py` holds the CUDA kernels against.
 
-The kernel keeps its probabilities in f32 through the PV product,
-where the reference casts them to V's dtype first (the JAX kernel does
-the same), so in bf16 the two differ by that rounding.
+The training kernels take the JAX chunk functions' arguments
+(`_chunk_fwd`, `_chunk_dq`, `_chunk_dkv`) in the (B, T, H, D) layout
+instead of the TPU's folded one: q (B, Tq, H, D); k, v (B, Tk, Hkv, D)
+with Hkv | H (query head h reads kv head h // G); `rel` is the global
+position of query row 0 minus that of key column 0, so the same kernels
+compute any diagonal chunk of a larger attention (ring attention passes
+rel != 0; `flash_attention` passes 0). lse and delta are (B, H, Tq) f32.
+The kernels read q, k, v and dO through their strides (the model's q,
+k, v are slices of one fused projection): nothing is copied.
+
+The decode kernel keeps its probabilities in f32 through the PV
+product, where its reference casts them to V's dtype first (the JAX
+kernel does the same), so in bf16 the two differ by that rounding.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch.models.kv_cache import (masked_attention,
                                                     position_mask)
 from shallowspeed_tpu_torch.ops import _build
+from shallowspeed_tpu_torch.ops.attention import NEG
 from shallowspeed_tpu_torch.serving.cache import gather_table
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -124,17 +136,295 @@ def paged_flash_decode(q, pool_blk, bt, pos, *, window: int = 0):
     _, hkv, bs, _ = kp.shape
     lib = _kernel()
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paged_decode(
-            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), bt.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), s, h, hkv, hd, bs,
-            bt.shape[1], int(window), _DTYPES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_decode launch failed: "
-                           f"{lib.paged_decode_error_string(rc).decode()}")
-    paged_flash_decode.launches += 1
+    _launch(paged_flash_decode, lib.paged_decode,
+            lib.paged_decode_error_string, q.device,
+            *_ptrs(q, kp, vp, bt, pos, out), s, h, hkv, hd, bs, bt.shape[1],
+            int(window), _DTYPES[q.dtype])
     return out
 
 
 paged_flash_decode.launches = 0
+
+
+def _ptrs(*tensors):
+    return tuple(t.data_ptr() for t in tensors)
+
+
+def _launch(wrapper, entry, error_string, device, *args) -> None:
+    """Call the C entry `entry(*args, stream)` on `device`'s current
+    stream, raise on a non-zero return (the launch's cudaGetLastError),
+    and add one to `wrapper.launches`: the one place a wrapper counts."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = entry(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{wrapper.__name__} launch failed: "
+                           f"{error_string(rc).decode()}")
+    wrapper.launches += 1
+
+
+# ------------------------------------------------- training: K1, K2, K3
+
+def _acc_dtype(x):
+    """f32 sums, or f64 for f64 inputs (gradcheck on the CPU)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _visible(tq, tk, causal, window, rel, device):
+    """(Tq, Tk) bool: query row i (global rel + i) sees key column j."""
+    i = torch.arange(tq, device=device)[:, None] + rel
+    j = torch.arange(tk, device=device)[None, :]
+    ok = torch.ones(tq, tk, dtype=torch.bool, device=device)
+    if causal:
+        ok = ok & (i >= j)
+    if window > 0:
+        ok = ok & (j > i - window)
+    return ok
+
+
+def _grouped(x, kvh):
+    """(B, T, H, D) -> (B, T, Hkv, G, D) with head h = kv * G + g."""
+    b, t, h, d = x.shape
+    return x.reshape(b, t, kvh, h // kvh, d)
+
+
+def _scores(q, k, causal, window, rel):
+    """Masked scores (B, Hkv, G, Tq, Tk) in the accumulation dtype, and
+    the visibility mask."""
+    acc = _acc_dtype(q)
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    s = torch.einsum("bqhgd,bkhd->bhgqk", _grouped(q, k.shape[2]).to(acc),
+                     k.to(acc)) * scale
+    ok = _visible(q.shape[1], k.shape[1], causal, window, rel, q.device)
+    return torch.where(ok, s, torch.full_like(s, NEG)), ok
+
+
+def flash_fwd_reference(q, k, v, *, causal=True, window=0, rel=0):
+    """Plain torch K1: (o in q's dtype (B, Tq, H, D), lse f32 (B, H, Tq)).
+    Masked scores are -1e30 with probability exactly 0 and l is guarded
+    by max(l, 1e-30), as in the JAX kernel: a row that sees nothing
+    gives o = 0 and lse = -1e30."""
+    b, tq, h, d = q.shape
+    s, ok = _scores(q, k, causal, window, rel)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), torch.zeros_like(s))
+    lg = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.to(s.dtype)) / lg
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, tq, h, d).to(q.dtype)
+    return o, (m + torch.log(lg)).reshape(b, h, tq)
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, causal, window, rel):
+    """P = exp(s - lse) on visible pairs (0 elsewhere) and
+    dS = P (dO V^T - delta) scale, both (B, Hkv, G, Tq, Tk)."""
+    b, tq, h, d = q.shape
+    kvh = k.shape[2]
+    s, ok = _scores(q, k, causal, window, rel)
+    acc = s.dtype
+    stats = (b, kvh, h // kvh, tq, 1)
+    p = torch.where(ok, torch.exp(s - lse.to(acc).reshape(stats)),
+                    torch.zeros_like(s))
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", _grouped(do, kvh).to(acc),
+                      v.to(acc))
+    scale = 1.0 / float(d) ** 0.5
+    return p, p * (dp - delta.to(acc).reshape(stats)) * scale
+
+
+def flash_dq_reference(q, k, v, do, lse, delta, *, causal=True, window=0,
+                       rel=0):
+    """Plain torch K2: dQ = dS K, f32 (B, Tq, H, D)."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, window, rel)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.to(ds.dtype))
+    return dq.reshape(q.shape)
+
+
+def flash_dkv_reference(q, k, v, do, lse, delta, *, causal=True, window=0,
+                        rel=0):
+    """Plain torch K3: (dK = sum_g dS^T Q, dV = sum_g P^T dO), f32
+    (B, Tk, Hkv, D); the sums run over the G query heads of each kv
+    head."""
+    kvh = k.shape[2]
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, window, rel)
+    acc = p.dtype
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, _grouped(do, kvh).to(acc))
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, _grouped(q, kvh).to(acc))
+    return dk, dv
+
+
+@functools.cache
+def _train_kernels():
+    fwd = _build.library("flash_fwd")
+    fwd.flash_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 12
+                              + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    fwd.flash_fwd.restype = ctypes.c_int
+    fwd.flash_fwd_error_string.argtypes = [ctypes.c_int]
+    fwd.flash_fwd_error_string.restype = ctypes.c_char_p
+    bwd = _build.library("flash_bwd")
+    bwd.flash_dq.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 15
+                             + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    bwd.flash_dkv.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 15
+                              + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    bwd.flash_dq.restype = bwd.flash_dkv.restype = ctypes.c_int
+    bwd.flash_bwd_error_string.argtypes = [ctypes.c_int]
+    bwd.flash_bwd_error_string.restype = ctypes.c_char_p
+    return fwd, bwd
+
+
+def _strides(*tensors):
+    """The (batch, seq, head) element strides of each (B, T, H, D)
+    tensor, flattened."""
+    return tuple(s for t in tensors for s in t.stride()[:3])
+
+
+def kernel_ready(t) -> bool:
+    """Whether the training kernels can read `t` through its strides:
+    head_dim contiguous, the other strides and the address on 16-byte
+    boundaries."""
+    vec = 16 // t.element_size()
+    return (t.stride(3) == 1 and all(s % vec == 0 for s in _strides(t))
+            and t.data_ptr() % 16 == 0)
+
+
+def _dims(q, k, causal, window, rel):
+    """The training entries' trailing ints: batch, heads, kv heads, Tq,
+    Tk, head_dim, causal, window, rel, dtype."""
+    b, tq, h, d = q.shape
+    return (b, h, k.shape[2], tq, k.shape[1], d, int(bool(causal)),
+            int(window), int(rel), _DTYPES[q.dtype])
+
+
+def _check_train(name, window, q, k, v, do=None, lse=None, delta=None):
+    if window < 0:
+        raise ValueError(f"{name}: window={window}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} are not (B, T, H, D) / "
+                         f"(B, Tk, Hkv, D)")
+    b, tq, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
+        raise ValueError(f"{name}: k {tuple(k.shape)} does not fit q "
+                         f"{tuple(q.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} takes float32 or bfloat16 q, k, v of one "
+                        f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim={d} is not one the kernel takes "
+                         f"{_HEAD_DIMS}")
+    named = [("q", q), ("k", k), ("v", v)]
+    if do is not None:
+        if do.shape != q.shape or do.dtype != q.dtype:
+            raise ValueError(f"{name}: do {tuple(do.shape)} {do.dtype} does "
+                             f"not match q")
+        named.append(("do", do))
+        for sname, st in (("lse", lse), ("delta", delta)):
+            if (st.shape != (b, h, tq) or st.dtype != torch.float32
+                    or not st.is_contiguous()):
+                raise ValueError(f"{name}: {sname} must be contiguous "
+                                 f"float32 (B, H, Tq) = {(b, h, tq)}")
+            named.append((sname, st))
+    for tname, t in named:
+        if t.device != q.device:
+            raise ValueError(f"{name}: {tname} is on {t.device}, q on "
+                             f"{q.device}")
+    for tname, t in named[:4]:
+        if not kernel_ready(t):
+            raise ValueError(f"{name}: {tname} has strides {t.stride()} / "
+                             f"address {t.data_ptr():#x}; the kernel needs "
+                             f"head_dim contiguous and 16-byte aligned rows")
+
+
+def flash_fwd(q, k, v, *, causal=True, window=0, rel=0):
+    """K1: (o in q's dtype (B, Tq, H, D), lse f32 (B, H, Tq)). A CPU q
+    takes `flash_fwd_reference`; a CUDA q launches `csrc/flash_fwd.cu`
+    (float32 or bfloat16, head_dim 64 or 128) or raises."""
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, causal=causal, window=window,
+                                   rel=rel)
+    _check_train("flash_fwd", window, q, k, v)
+    b, tq, h, _ = q.shape
+    fwd, _ = _train_kernels()
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    _launch(flash_fwd, fwd.flash_fwd, fwd.flash_fwd_error_string, q.device,
+            *_ptrs(q, k, v, o, lse), *_strides(q, k, v, o),
+            *_dims(q, k, causal, window, rel))
+    return o, lse
+
+
+flash_fwd.launches = 0
+
+
+def flash_dq(q, k, v, do, lse, delta, *, causal=True, window=0, rel=0):
+    """K2: dQ, f32 (B, Tq, H, D). A CPU q takes `flash_dq_reference`; a
+    CUDA q launches `csrc/flash_bwd.cu::flash_dq` or raises."""
+    if q.device.type == "cpu":
+        return flash_dq_reference(q, k, v, do, lse, delta, causal=causal,
+                                  window=window, rel=rel)
+    _check_train("flash_dq", window, q, k, v, do, lse, delta)
+    _, bwd = _train_kernels()
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _launch(flash_dq, bwd.flash_dq, bwd.flash_bwd_error_string, q.device,
+            *_ptrs(q, k, v, do, lse, delta, dq), *_strides(q, k, v, do, dq),
+            *_dims(q, k, causal, window, rel))
+    return dq
+
+
+flash_dq.launches = 0
+
+
+def flash_dkv(q, k, v, do, lse, delta, *, causal=True, window=0, rel=0):
+    """K3: (dK, dV), f32 (B, Tk, Hkv, D), summed over each kv head's G
+    query heads. A CPU q takes `flash_dkv_reference`; a CUDA q launches
+    `csrc/flash_bwd.cu::flash_dkv` or raises."""
+    if q.device.type == "cpu":
+        return flash_dkv_reference(q, k, v, do, lse, delta, causal=causal,
+                                   window=window, rel=rel)
+    _check_train("flash_dkv", window, q, k, v, do, lse, delta)
+    _, bwd = _train_kernels()
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    _launch(flash_dkv, bwd.flash_dkv, bwd.flash_bwd_error_string, q.device,
+            *_ptrs(q, k, v, do, lse, delta, dk, dv),
+            *_strides(q, k, v, do, dk), *_dims(q, k, causal, window, rel))
+    return dk, dv
+
+
+flash_dkv.launches = 0
+
+
+def attention_delta(do, o):
+    """delta = rowsum(dO * O) as f32 (B, H, T) — from o in its own
+    dtype, as the JAX backward computes it (`_delta_of`)."""
+    acc = _acc_dtype(o)
+    return (do.to(acc) * o.to(acc)).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward; backward = delta, then K2 and K3, with dq, dk, dv
+    cast from f32 to the inputs' dtypes (`_flash_bwd_rule`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.device.type == "cuda" and not kernel_ready(do):
+            do = do.contiguous()     # e.g. an expanded (stride-0) cotangent
+        delta = attention_delta(do, o)
+        kw = dict(causal=ctx.causal, window=ctx.window)
+        dq = flash_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_dkv(q, k, v, do, lse, delta, **kw)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """Fused attention with a hand-written backward; same contract as
+    `ops.attention.attention` (q (B, T, H, D), k/v (B, T, Hkv, D), native
+    GQA, `window > 0` a sliding window). CUDA tensors run K1/K2/K3, CPU
+    tensors their plain versions."""
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window))

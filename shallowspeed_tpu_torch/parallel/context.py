@@ -1,0 +1,130 @@
+"""Single-device LM trainer — the dp = 1, sp = 1 counterpart of
+`shallowspeed_tpu/parallel/context.py::ContextParallelEngine`.
+
+It holds the f32 master parameters (`init(cfg, seed)`, the reference's
+draw) and the optimizer state; each step runs `transformer.loss` with
+torch autograd (the forward casts to `cfg.compute_dtype` as
+`cast_params` does, and the gradients come back to the f32 masters
+through that cast), then the optimizer's in-place update. `attn`
+selects the attention substrate:
+
+- "flash": `ops.flash_attention.flash_attention` — the hand-written
+  K1/K2/K3 CUDA kernels on the card, their plain versions on the CPU;
+- "ring": the plain `ops.attention.attention` under torch autograd,
+  which is what the reference's ring substrate computes at sp = 1.
+
+Gradient accumulation, ZeRO, health packs, comm overlap and every
+multi-device mesh are not ported yet and raise `NotPorted`.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+
+import numpy as np
+import torch
+
+from shallowspeed_tpu_torch import NotPorted, resolve_device
+from shallowspeed_tpu_torch.models import transformer as T
+from shallowspeed_tpu_torch.ops.attention import attention
+from shallowspeed_tpu_torch.ops.flash_attention import flash_attention
+from shallowspeed_tpu_torch.weights import (leaves, map_tree,
+                                            params_from_numpy, unflatten)
+
+_LATER = "Queue 1, multi-device LM engines"
+
+
+class ContextParallelEngine:
+    """One-device trainer for the transformer LM family. `params`, when
+    given, is a numpy tree to start from instead of drawing
+    `init(cfg, seed)` again (a caller that already holds the draw)."""
+
+    def __init__(self, cfg: T.TransformerConfig, optimizer, seed: int = 0,
+                 attn: str = "flash", device=None, *, accum: int = 1,
+                 zero1: bool = False, zero2: bool = False,
+                 health: str = "off", overlap=None, params=None):
+        if accum != 1:
+            raise NotPorted("gradient accumulation (accum > 1)", _LATER)
+        if zero1 or zero2:
+            raise NotPorted("ZeRO-1/2 optimizer sharding", _LATER)
+        if health != "off":
+            raise NotPorted(f"health={health!r} packs",
+                            "Queue 1, training features after slice 2")
+        if overlap is not None:
+            raise NotPorted("communication overlap", _LATER)
+        if attn not in ("flash", "ring"):
+            raise NotPorted(f"attn={attn!r} (sequence-parallel substrates)",
+                            _LATER)
+        T.check_trainable(cfg)
+        self.cfg = cfg
+        self.optimizer = optimizer
+        self.device = resolve_device(device)
+        fn = flash_attention if attn == "flash" else attention
+        self.attn_fn = partial(fn, causal=True, window=cfg.attn_window)
+        self.params = params_from_numpy(
+            T.init_numpy(cfg, seed) if params is None else params,
+            self.device)
+        for p in leaves(self.params):
+            p.requires_grad_(True)
+        self.opt_state = optimizer.init(self.params)
+        self._step_count = 0
+
+    def _place(self, arr) -> torch.Tensor:
+        t = torch.as_tensor(np.asarray(arr)).to(self.device, torch.long)
+        if t.dim() != 2 or t.shape[1] > self.cfg.max_seq:
+            raise ValueError(f"token batch {tuple(t.shape)} must be (B, T) "
+                             f"with T <= max_seq={self.cfg.max_seq}")
+        return t
+
+    def loss_and_grads(self, tokens, targets):
+        """(loss, gradient tree) of one (B, T) batch at the current
+        parameters, without updating them."""
+        with torch.enable_grad():
+            loss = T.loss(self.params, self._place(tokens),
+                          self._place(targets), self.cfg,
+                          attn_fn=self.attn_fn)
+            # unused leaves (pos_emb under rope, norm biases under
+            # rmsnorm) get zero gradients, as jax.grad gives them
+            grads = torch.autograd.grad(loss, list(leaves(self.params)),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        return loss.detach(), unflatten(self.params, grads)
+
+    def train_batch(self, tokens, targets) -> float:
+        """One optimizer step on a (B, T) int token batch; returns the
+        loss before the update."""
+        loss, grads = self.loss_and_grads(tokens, targets)
+        self.params, self.opt_state = self.optimizer.step(
+            self.params, grads, self.opt_state)
+        self._step_count += 1
+        return float(loss)
+
+    @torch.no_grad()
+    def eval_loss(self, tokens, targets) -> float:
+        """Plain NLL (no label smoothing) of a batch, no update."""
+        return float(T.loss(self.params, self._place(tokens),
+                            self._place(targets), self.cfg,
+                            attn_fn=self.attn_fn, train=False))
+
+    @torch.no_grad()
+    def logits(self, tokens) -> torch.Tensor:
+        return T.forward(self.params, self._place(tokens), self.cfg,
+                         attn_fn=self.attn_fn)
+
+    # -------------------------------------------- checkpoint interface
+
+    def get_canonical_params(self):
+        return self.params
+
+    def set_canonical_params(self, params):
+        """Replace the parameters by a tree of tensors or numpy arrays
+        (the JAX package's layout)."""
+        def conv(x):
+            t = (x.detach() if isinstance(x, torch.Tensor)
+                 else torch.from_numpy(np.ascontiguousarray(x)))
+            return t.to(self.device, copy=True).requires_grad_(True)
+
+        self.params = map_tree(conv, params)
+
+    def set_opt_state(self, state):
+        self.opt_state = state

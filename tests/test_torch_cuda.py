@@ -46,3 +46,117 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, tol, kvh, window):
                                           window=window).float()
     assert FA.paged_flash_decode.launches == before + 1
     assert float((got - ref).abs().max() / ref.abs().max()) <= tol
+
+
+# (B, Tq, Tk, H, Hkv, D, causal, window, rel): the chip_smoke cases at
+# test size, including a row that sees nothing (rel -70, causal)
+TRAIN_CASES = {
+    "mha": (2, 128, 128, 4, 4, 64, True, 0, 0),
+    "gqa": (2, 128, 128, 8, 2, 128, True, 0, 0),
+    "window": (1, 192, 192, 4, 4, 64, True, 40, 0),
+    "rel": (1, 128, 192, 4, 2, 64, True, 0, 64),
+    "ragged": (2, 100, 100, 4, 4, 128, True, 0, 0),
+    "full": (1, 96, 80, 2, 2, 64, False, 0, 0),
+    "empty-rows": (1, 128, 64, 2, 2, 64, True, 0, -70),
+}
+
+
+def _train_inputs(case, dtype, dev, seed=0):
+    b, tq, tk, h, hkv, d, causal, window, rel = case
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev).to(dtype)
+
+    q, do = rnd(b, tq, h, d), rnd(b, tq, h, d)
+    k, v = rnd(b, tk, hkv, d), rnd(b, tk, hkv, d)
+    return q, k, v, do, dict(causal=causal, window=window, rel=rel)
+
+
+def _rel_err(got, ref):
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-6))
+
+
+def _elementwise_ratio(got, ref, rounded):
+    """Worst |diff| / allowance over the elements; the allowance is 1e-4
+    of |ref| + mean |ref| (summation order in f32), plus one bf16 ulp of
+    |ref| (<= 2^-7 |ref|) for an output rounded to bf16."""
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    mag = ref.abs()
+    scale = float(mag.mean())
+    assert scale > 0
+    allow = 1e-4 * (mag + scale) + (2.0 ** -7 * mag if rounded else 0.0)
+    return float(((got - ref).abs() / allow).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(TRAIN_CASES))
+def test_training_kernels_match_plain_versions(cuda, dtype, case):
+    """K1, K2, K3 on the card against their plain versions on the same
+    inputs, per element (f32 results: summation order only; bf16 o: one
+    rounding, and the backward reads the rounded o through delta in
+    both)."""
+    q, k, v, do, kw = _train_inputs(TRAIN_CASES[case], dtype, cuda)
+    counts = (FA.flash_fwd.launches, FA.flash_dq.launches,
+              FA.flash_dkv.launches)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = FA.flash_fwd_reference(q, k, v, **kw)
+    assert _elementwise_ratio(o, o_ref, dtype == torch.bfloat16) <= 1.0
+    seen = lse_ref > -1e29            # rows that see at least one key
+    assert torch.equal(lse > -1e29, seen)
+    assert _rel_err(lse[seen], lse_ref[seen]) <= 1e-5
+    delta = FA.attention_delta(do, o)
+    dq = FA.flash_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = FA.flash_dkv(q, k, v, do, lse, delta, **kw)
+    dq_ref = FA.flash_dq_reference(q, k, v, do, lse, delta, **kw)
+    dk_ref, dv_ref = FA.flash_dkv_reference(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for got, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.dtype == torch.float32
+        assert _elementwise_ratio(got, ref, False) <= 1.0
+    assert (FA.flash_fwd.launches, FA.flash_dq.launches,
+            FA.flash_dkv.launches) == tuple(c + 1 for c in counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kvh,window", [(4, 0), (2, 0), (4, 24)],
+                         ids=["mha", "gqa", "window"])
+def test_flash_attention_grads_match_plain_attention(cuda, dtype, tol, kvh,
+                                                     window):
+    """`flash_attention`'s output and input gradients on the card
+    against torch autograd through the plain `attention`. The q, k, v
+    given are strided slices of one fused tensor, as the model's are.
+    bf16: both round o and the gradients once, at other points."""
+    from shallowspeed_tpu_torch.ops.attention import attention
+
+    g = torch.Generator(device="cpu").manual_seed(kvh + window)
+    b, t, h, d = 2, 160, 4, 64
+    fused = torch.randn(b, t, h + 2 * kvh, d, generator=g).to(cuda).to(dtype)
+    cot = torch.randn(b, t, h, d, generator=g).to(cuda).to(dtype)
+    outs = []
+    for fn in (FA.flash_attention, attention):
+        x = fused.clone().requires_grad_(True)
+        q, k, v = x[:, :, :h], x[:, :, h:h + kvh], x[:, :, h + kvh:]
+        o = fn(q, k, v, True, window)
+        (gx,) = torch.autograd.grad(o, (x,), cot)
+        outs.append((o, gx))
+    (o, gx), (o_ref, gx_ref) = outs
+    assert _rel_err(o, o_ref) <= tol
+    assert _rel_err(gx, gx_ref) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_never_takes_the_plain_version(cuda):
+    """A shape the kernels refuse raises on the card; it does not fall
+    back to the plain version."""
+    q = torch.randn(1, 64, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_fwd(q, q, q)
