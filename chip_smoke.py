@@ -9,28 +9,45 @@ Phases (any failure exits non-zero and prints no result line):
 1. Build every CUDA kernel of the serving and training paths from
    `csrc/` with nvcc (sm_90a), one nvcc per source, all started
    together; print each kernel's registers and spills.
-2. Hold each kernel against its plain torch version on the card: K4 at
+2. Hold each kernel against its plain torch version on the card: K4
+   (float pools, and its int8 branch with q in f32 and in bf16) at
    small shapes and at the serving path's own shapes; K1, K2 and K3
    (flash forward, dq, dk/dv) at small MHA, GQA, window, rel != 0 and
    ragged-T shapes in f32 and bf16, and at the training shape (B 4,
    T 2048, 16 heads x 128, causal) in bf16, on contiguous q, k, v and
    again on strided views of one fused qkv tensor, as the model passes
    them. Each element is held to KERNEL_TOL of |ref| + mean |ref|, plus
-   one bf16 ulp where the kernel rounds its output to bf16.
+   one bf16 ulp where the kernel rounds its output to bf16. The bf16
+   `dequant_matmul` (int8 and fp8 weights) against the exact product,
+   per element, and a bf16 rounding before its scale must fail that.
 3. Serve the repo's 1.21B LM (vocab 32768, d_model 2048, 16 heads, 16
    layers, RoPE + RMSNorm + SwiGLU, f32 master weights, bf16 compute)
    at full width and depth through `ServingEngine(attn_impl="flash")`,
    with seeded random weights: 12 greedy requests, prompts of 128-1024
    tokens, 32 new tokens each, 8 slots. The kernel launch counts are
    zeroed just before the run and must equal n_layers x ticks after it;
-   the block allocator must be balanced at drain.
+   the block allocator must be balanced at drain. The same requests are
+   served again with int8 KV pools (`kv_quant="int8"`, K4's int8
+   branch), and with int8 and fp8 weights (`weight_quant`) over bf16
+   pools, under the same checks. After each run, a decode tick of every
+   slot over one synthetic state is timed and profiled, so the four
+   modes compare tick for tick.
 4. Hold the engine's prefill-then-decode logits of two requests against
    the plain full forward over the same tokens (teacher-forced), in the
    bf16 compute path served above and again in f32 compute, and show
    that a bf16 rounding slipped into the f32 attention path fails the
-   f32 bound.
-5. Time K4 at the serving shapes beside its plain version, one library
-   call computing the same function, and its bound.
+   f32 bound. With int8 pools in f32 compute, the kernel's logits
+   against the gather path's, and a bf16 slip of q and K's scale in the
+   gather path must fail that bound. With int8 and with fp8 weights in
+   the bf16 compute served above, and with int8 weights in f32 compute,
+   the paged logits against the plain forward over the dequantized
+   weights.
+5. Time K4 (float and int8 pools) at the serving shapes beside its
+   plain version, one library call computing the same function, and
+   its bound.
+5b. The contiguous `generate()`: 8 prompts of 1024 tokens, 64 greedy new
+   tokens, prefilled through K1 (`flash_prefill_at=1024`), with a bf16
+   and with an int8 cache; K1 launches once per layer per call.
 6. Train the same 1.21B LM (same weights) at full width and depth
    through `ContextParallelEngine(attn="flash")` with AdamW on one
    repeated 4 x 2048 batch: one warm-up step, whose loss must match the
@@ -86,6 +103,12 @@ LOGITS_TOL_BF16 = 3e-2
 # does exceed this bound.
 LOGITS_TOL_F32 = 1e-4
 
+# The contiguous generate() phase: GEN_BATCH prompts of GEN_PROMPT
+# tokens, GEN_NEW greedy new tokens, prefilled through K1.
+GEN_BATCH = 8
+GEN_PROMPT = 1024
+GEN_NEW = 64
+
 # Training: 1 warm-up step, then TRAIN_STEPS timed steps on one repeated
 # (TRAIN_BATCH, max_seq) batch.
 TRAIN_BATCH = 4
@@ -117,8 +140,8 @@ def _ptxas_lines(log: str) -> list[str]:
     and spills, from `nvcc -Xptxas -v` output."""
     out, name, spill = [], "?", ""
     for line in log.splitlines():
-        m = re.search(r"((?:paged_decode|flash_fwd|flash_dq|flash_dkv)"
-                      r"_kernel)I(\w+)'", line)
+        m = re.search(r"((?:paged_decode_int8|paged_decode|flash_fwd|"
+                      r"flash_dq|flash_dkv)_kernel)I(\w+)'", line)
         if m:
             inst = re.findall(r"(__nv_bfloat16|f)(?:Li(\d+)E)", m.group(2))
             name = m.group(1) + "".join(
@@ -153,11 +176,15 @@ def _time_ms(fn, inputs, repeats=7):
 
 
 def _decode_inputs(rng, dev, dtype, slots, heads, kv_heads, head_dim,
-                   block_size, width, window=0, pos=None):
+                   block_size, width, window=0, pos=None, kv_quant=""):
     """Random q and pools, tables of distinct non-scratch blocks, and
     positions; the last row is a scratch row (pos 0, table all block 0)
-    like an empty decode slot."""
+    like an empty decode slot. With kv_quant="int8" the pools are the
+    same random values quantized by `kv_cache.quantize_kv` (int8 values
+    and f32 scale planes); q stays in `dtype`."""
     import torch
+
+    from shallowspeed_tpu_torch.models.kv_cache import quantize_kv
 
     n = slots * width + 1
     perm = rng.permutation(np.arange(1, n)).reshape(slots, width)
@@ -167,19 +194,57 @@ def _decode_inputs(rng, dev, dtype, slots, heads, kv_heads, head_dim,
     pos = np.asarray(pos, np.int32).copy()
     bt[-1], pos[-1] = 0, 0
     shape = (n, kv_heads, block_size, head_dim)
-    pool = {"k": torch.randn(shape, device=dev).to(dtype),
-            "v": torch.randn(shape, device=dev).to(dtype)}
+    if kv_quant:
+        pool = {}
+        for name in ("k", "v"):
+            pool[name], pool[name + "_s"] = quantize_kv(
+                torch.randn(shape, device=dev))
+    else:
+        pool = {"k": torch.randn(shape, device=dev).to(dtype),
+                "v": torch.randn(shape, device=dev).to(dtype)}
     q = torch.randn(slots, heads, head_dim, device=dev).to(dtype)
     return (q, pool, torch.from_numpy(bt).to(dev),
             torch.from_numpy(pos).to(dev), window)
 
 
-def check_kernels(dev) -> dict:
-    """Phase 2: the paged decode kernel against its plain version."""
+def _decode_err(got, q, pool, bt, pos, window) -> tuple[float, float]:
+    """(max |diff|, worst |diff| / allowance) of the int8 decode kernel's
+    output `got` against its plain version, per element: KERNEL_TOL of
+    |ref| + mean |ref| in f32; with bf16 q also one bf16 rounding of the
+    output (BF16_ULP |ref|) and the plain version's one rounding of
+    P * v_s to bf16 before PV, which moves an output element by at most
+    2^-8 of sum_t p_t |v_t| / l — the plain version's own attention over
+    |V|, computed in f32."""
     import torch
 
     from shallowspeed_tpu_torch.ops.flash_attention import (
-        paged_flash_decode, paged_flash_decode_reference)
+        paged_flash_decode_reference)
+
+    ref = paged_flash_decode_reference(q, pool, bt, pos, window=window)
+    got, ref = got.float(), ref.float()
+    mag = ref.abs()
+    scale = float(mag.mean())
+    if not scale > 0:
+        raise AssertionError("the plain version's output is all zero")
+    allow = KERNEL_TOL * (mag + scale)
+    if q.dtype == torch.bfloat16:
+        absv = dict(pool, v=pool["v"].abs())
+        pv = paged_flash_decode_reference(q.float(), absv, bt, pos,
+                                          window=window)
+        allow = allow + BF16_ULP * mag + 2.0 ** -8 * pv
+    diff = (got - ref).abs()
+    return float(diff.max()), float((diff / allow).max())
+
+
+def check_kernels(dev) -> dict:
+    """Phase 2: the paged decode kernel against its plain version, over
+    float pools (max |diff| / max |ref|: 1e-4 in f32, 1e-2 in bf16) and
+    over int8 pools (per element, `_decode_err`)."""
+    import torch
+
+    from shallowspeed_tpu_torch.ops.flash_attention import (
+        _paged_flash_decode_int8, paged_flash_decode,
+        paged_flash_decode_reference)
 
     rng = np.random.default_rng(0)
     small = dict(slots=4, head_dim=64, block_size=8, width=3)
@@ -195,7 +260,7 @@ def check_kernels(dev) -> dict:
     # f32: only the summation order differs. bf16: the output is rounded
     # to bf16 once, and the reference rounds P to bf16 before PV.
     tols = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-    worst = 0.0
+    worst = {"paged_flash_decode": 0.0, "paged_flash_decode_int8": 0.0}
     for name, shape, window in cases:
         for dtype, tol in tols.items():
             q, pool, bt, pos, w = _decode_inputs(rng, dev, dtype,
@@ -212,8 +277,30 @@ def check_kernels(dev) -> dict:
                   f"max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g})",
                   flush=True)
             if name == "slice-mha" and dtype == torch.bfloat16:
-                worst = err
-    return {"paged_flash_decode": worst}
+                worst["paged_flash_decode"] = err
+
+            q, pool, bt, pos, w = _decode_inputs(rng, dev, dtype,
+                                                 window=window,
+                                                 kv_quant="int8", **shape)
+            before = _paged_flash_decode_int8.launches
+            got = paged_flash_decode(q, pool, bt, pos, window=w)
+            torch.cuda.synchronize()
+            if _paged_flash_decode_int8.launches != before + 1:
+                raise AssertionError("int8 pools did not launch the int8 "
+                                     "kernel")
+            err, ratio = _decode_err(got, q, pool, bt, pos, w)
+            finite = bool(torch.isfinite(got).all())
+            print(f"check paged_flash_decode_int8 {name} {str(dtype)[6:]}: "
+                  f"max_abs_err {err:.3e}, worst element at {ratio:.3e} of "
+                  f"its allowance", flush=True)
+            if not (ratio <= 1.0 and finite):
+                raise AssertionError(f"paged_flash_decode_int8 {name} "
+                                     f"{dtype}: an element off by "
+                                     f"{ratio:.3e} x its allowance "
+                                     f"(finite: {finite})")
+            if name == "slice-mha" and dtype == torch.bfloat16:
+                worst["paged_flash_decode_int8"] = err
+    return worst
 
 
 def slice_config():
@@ -227,21 +314,25 @@ def slice_config():
         norm="rmsnorm", ffn="swiglu")
 
 
-def serve(dev, cfg, np_params) -> dict:
-    """Phase 3: the 1.21B LM served through the port's engine, from the
-    numpy draw `np_params` of `init_numpy(cfg, seed=0)`."""
+def serve(dev, cfg, params, kv_quant="", weight_quant="") -> dict:
+    """Phase 3: the 1.21B LM served through the port's engine from the
+    f32 master weights `params` (the numpy draw `init_numpy(cfg,
+    seed=0)` on the card), with `kv_quant` pools and `weight_quant`
+    weights. The decode kernel the pools call for must launch
+    n_layers x ticks times, the other none."""
     import torch
 
-    from shallowspeed_tpu_torch.ops.flash_attention import paged_flash_decode
+    from shallowspeed_tpu_torch.ops.flash_attention import (
+        _paged_flash_decode_int8, paged_flash_decode)
     from shallowspeed_tpu_torch.report import request_summary
     from shallowspeed_tpu_torch.serving.engine import ServingEngine
-    from shallowspeed_tpu_torch.weights import params_from_numpy
 
-    params = params_from_numpy(np_params, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     eng = ServingEngine(params, cfg, n_blocks=N_BLOCKS,
                         block_size=SLICE["block_size"],
                         max_slots=SLICE["slots"],
                         prefill_chunk=PREFILL_CHUNK, attn_impl="flash",
+                        kv_quant=kv_quant, weight_quant=weight_quant,
                         device=dev)
     # one warmup request first: library handles and first-call setup for
     # each prefill shape are process start-up, not serving time
@@ -256,7 +347,11 @@ def serve(dev, cfg, np_params) -> dict:
     for rid, p in prompts.items():
         eng.submit(p, MAX_NEW, rid=rid)
 
-    paged_flash_decode.launches = 0
+    kernels = {"paged_flash_decode": paged_flash_decode,
+               "paged_flash_decode_int8": _paged_flash_decode_int8}
+    used = "paged_flash_decode_int8" if kv_quant else "paged_flash_decode"
+    for k in kernels.values():
+        k.launches = 0
     tick_s = []
     t0 = time.time()
     while eng.pending():
@@ -270,13 +365,15 @@ def serve(dev, cfg, np_params) -> dict:
             tick_s.append(time.perf_counter() - s0)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = paged_flash_decode.launches
+    launches = {name: k.launches for name, k in kernels.items()}
 
     ticks = eng.counters["ticks"] - base["ticks"]
-    if launches != cfg.n_layers * ticks or ticks == 0:
-        raise AssertionError(f"paged_flash_decode launched {launches} "
-                             f"times over {ticks} ticks of "
-                             f"{cfg.n_layers} layers")
+    want = {name: cfg.n_layers * ticks if name == used else 0
+            for name in kernels}
+    if launches != want or ticks == 0:
+        raise AssertionError(f"decode kernels launched {launches} times "
+                             f"over {ticks} ticks of {cfg.n_layers} layers "
+                             f"(kv_quant={kv_quant!r}), want {want}")
     if eng.alloc.n_free != eng.alloc.n_usable or eng.alloc.n_live:
         raise AssertionError(f"allocator unbalanced at drain: "
                              f"{eng.alloc.n_free}/{eng.alloc.n_usable}")
@@ -286,7 +383,10 @@ def serve(dev, cfg, np_params) -> dict:
                 or toks.max() >= cfg.vocab:
             raise AssertionError(f"bad result for {rid}: {toks}")
     summ = request_summary(eng.request_records)
-    out = {"ticks": ticks, "launches": launches, "wall_s": wall,
+    prof = profile_tick(eng, cfg)
+    print("serve tick profile: " + json.dumps(prof), flush=True)
+    out = {"kv_quant": kv_quant, "weight_quant": weight_quant,
+           "ticks": ticks, "launches": launches[used], "wall_s": wall,
            "decode_only_ticks": len(tick_s),
            "tick_ms_p50": 1e3 * float(np.median(tick_s)) if tick_s else None,
            "tok_per_s": summ["tokens_out"] / wall,
@@ -298,89 +398,120 @@ def serve(dev, cfg, np_params) -> dict:
            "preempted": eng.counters["preempted"] - base["preempted"],
            "max_table_blocks": int(max(lens + MAX_NEW - 1)
                                    // SLICE["block_size"] + 1),
-           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "tick_ms_synthetic": prof["tick_ms"],
+           "tick_device_busy_ms": prof["device_busy_ms"],
+           "tick_idle_share": prof["idle_share"]}
     print("serve: " + json.dumps(out), flush=True)
-    return {"eng": eng, "params": params, "prompts": prompts, "stats": out}
+    return {"eng": eng, "prompts": prompts, "stats": out}
 
 
-def check_logits(dev, cfg, params, prompts, results, tol, attn="flash",
-                 n_requests=2) -> float:
-    """Phase 4: for the longest requests, the paged path's logits —
-    chunked prefill, then one decode step per generated token through
-    the engine's own functions (and the kernel, with attn="flash") —
-    against the plain full forward over the same tokens (teacher-forced),
-    in cfg's compute dtype. Returns the worst max |diff| / max |ref|;
-    raises when it exceeds `tol` (None: no bound)."""
+def _paged_logits(dev, cfg, params, prompt, gen, attn="flash",
+                  kv_quant="") -> "torch.Tensor":
+    """The paged path's f32 logits over prompt + gen[:-1]: chunked
+    prefill, then one decode step per generated token (teacher-forced)
+    through the engine's own functions, with the decode kernel when
+    attn="flash"; rows (len(gen), vocab)."""
     import torch
 
-    from shallowspeed_tpu_torch.models import transformer as T
     from shallowspeed_tpu_torch.serving.cache import (blocks_for,
                                                       init_block_pool)
     from shallowspeed_tpu_torch.serving.engine import (decode_logits,
                                                        prefill_chunk,
                                                        table_width)
 
-    params = T.cast_params(params, cfg.compute_dtype)
     bs = SLICE["block_size"]
+    nb = blocks_for(len(prompt) + len(gen) - 1, bs)
+    pools = init_block_pool(cfg, nb + 1, bs, kv_quant, device=dev)
+    bt = np.zeros((1, table_width(nb, 4)), np.int32)
+    bt[0, :nb] = np.arange(1, nb + 1)
+    bt = torch.from_numpy(bt).to(dev)
+    for s in range(0, len(prompt), PREFILL_CHUNK):
+        chunk = torch.from_numpy(prompt[s:s + PREFILL_CHUNK]).to(dev)
+        last = prefill_chunk(params, pools, chunk, s, bt, cfg=cfg)
+    rows = [last]
+    for i in range(len(gen) - 1):
+        rows.append(decode_logits(
+            params, pools,
+            torch.tensor([int(gen[i])], dtype=torch.int32, device=dev),
+            torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev),
+            bt, cfg=cfg, attn=attn)[0])
+    return torch.stack(rows)
+
+
+def _longest(prompts, n):
+    return sorted(prompts, key=lambda r: len(prompts[r]))[-n:]
+
+
+def _compare(label, got, ref, tol, above=False) -> float:
+    """max |diff| / max |ref| of two logit stacks, printed; raises when
+    it exceeds `tol` (or, with `above`, when it does not)."""
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    print(f"logits {label}: max_abs_err {err:.4e} rel {rel:.4e} "
+          f"({'must exceed' if above else 'tol'} {tol}), argmax agreement "
+          f"{agree:.3f}", flush=True)
+    if tol is not None and (rel <= tol if above else not rel <= tol):
+        raise AssertionError(f"logits {label}: rel {rel:.3e} "
+                             f"{'<=' if above else '>'} {tol:g}")
+    return rel
+
+
+def check_logits(dev, cfg, params, prompts, results, tol, attn="flash",
+                 n_requests=2, ref_params=None, tag="") -> float:
+    """Phase 4: for the longest requests, the paged path's logits
+    (`_paged_logits`) against the plain full forward over the same
+    tokens (over `ref_params`, default `params`), in cfg's compute
+    dtype. Returns the worst max |diff| / max |ref|; raises when it
+    exceeds `tol` (None: no bound). `tag` starts each printed label."""
+    from shallowspeed_tpu_torch.models import transformer as T
+
+    params = T.cast_params(params, cfg.compute_dtype)
+    ref_params = params if ref_params is None else ref_params
     worst = 0.0
-    for rid in sorted(prompts, key=lambda r: len(prompts[r]))[-n_requests:]:
+    for rid in _longest(prompts, n_requests):
         prompt, gen = prompts[rid], results[rid]
         seq = np.concatenate([prompt, gen[:-1]]).astype(np.int32)
-        nb = blocks_for(len(seq), bs)
-        pools = init_block_pool(cfg, nb + 1, bs, device=dev)
-        bt = np.zeros((1, table_width(nb, 4)), np.int32)
-        bt[0, :nb] = np.arange(1, nb + 1)
-        bt = torch.from_numpy(bt).to(dev)
-        for s in range(0, len(prompt), PREFILL_CHUNK):
-            chunk = torch.from_numpy(prompt[s:s + PREFILL_CHUNK]).to(dev)
-            last = prefill_chunk(params, pools, chunk, s, bt, cfg=cfg)
-        rows = [last]
-        for i in range(len(gen) - 1):
-            rows.append(decode_logits(
-                params, pools,
-                torch.tensor([int(gen[i])], dtype=torch.int32, device=dev),
-                torch.tensor([len(prompt) + i], dtype=torch.int32,
-                             device=dev), bt, cfg=cfg, attn=attn)[0])
-        got = torch.stack(rows)
-        ref = T.eval_forward(params, torch.from_numpy(seq).to(dev).long()[None],
-                        cfg)[0, len(prompt) - 1:].float()
-        err = float((got - ref).abs().max())
-        rel = err / float(ref.abs().max())
-        agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
-        print(f"logits {str(cfg.act_dtype)[6:]} {attn} {rid} "
-              f"({len(prompt)} prompt + {len(gen) - 1} decoded): "
-              f"max_abs_err {err:.4e} rel {rel:.4e} (tol {tol}), "
-              f"argmax agreement {agree:.3f}", flush=True)
-        if tol is not None and not rel <= tol:
-            raise AssertionError(f"{rid}: paged logits off the plain "
-                                 f"forward by {rel:.3e} > {tol:g}")
-        worst = max(worst, rel)
+        got = _paged_logits(dev, cfg, params, prompt, gen, attn)
+        ref = T.eval_forward(ref_params, _ids(seq, dev), cfg)[
+            0, len(prompt) - 1:].float()
+        label = (f"{tag}{str(cfg.act_dtype)[6:]} {attn} {rid} "
+                 f"({len(prompt)} prompt + {len(gen) - 1} decoded)")
+        worst = max(worst, _compare(label, got, ref, tol))
     return worst
 
 
-def check_f32_bound_catches_a_slip(dev, cfg32, run) -> None:
+def _ids(seq, dev):
+    import torch
+
+    return torch.from_numpy(seq).to(dev).long()[None]
+
+
+def _bf(t):
+    import torch
+
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def check_f32_bound_catches_a_slip(dev, cfg32, params, prompts,
+                                   results) -> None:
     """The f32 logits bound must catch a bf16 slip in the attention
     path: the gather path with q and the cached K rounded to bf16 before
     the scores (what a kernel that let bf16 into its f32 score path
     would compute) has to land above LOGITS_TOL_F32."""
-    import torch
-
     from shallowspeed_tpu_torch.serving import engine as E
 
     exact = E.masked_attention
 
     def slipped(q, cache_blk, valid):
-        def bf(t):
-            return t.to(torch.bfloat16).to(t.dtype)
-
-        return exact(bf(q), {"k": bf(cache_blk["k"]), "v": cache_blk["v"]},
+        return exact(_bf(q), {"k": _bf(cache_blk["k"]), "v": cache_blk["v"]},
                      valid)
 
     E.masked_attention = slipped
     try:
-        rel = check_logits(dev, cfg32, run["params"], run["prompts"],
-                           run["eng"].results, None, attn="gather",
-                           n_requests=1)
+        rel = check_logits(dev, cfg32, params, prompts, results, None,
+                           attn="gather", n_requests=1)
     finally:
         E.masked_attention = exact
     if not rel > LOGITS_TOL_F32:
@@ -388,66 +519,242 @@ def check_f32_bound_catches_a_slip(dev, cfg32, run) -> None:
                              f"only {rel:.3e}: LOGITS_TOL_F32 cannot see it")
 
 
+def check_int8_logits(dev, cfg32, params, prompts, results) -> dict:
+    """Phase 4, int8 pools in f32 compute: the paged logits of the
+    longest request with the int8 decode kernel against the gather path
+    (`masked_attention` over the gathered int8 table) within
+    LOGITS_TOL_F32; then the gather path with q and K's scale rounded to
+    bf16 before the scores (a bf16 slip in an int8 score path) must land
+    above it."""
+    from shallowspeed_tpu_torch.serving import engine as E
+
+    rid = _longest(prompts, 1)[0]
+    prompt, gen = prompts[rid], results[rid]
+    kern = _paged_logits(dev, cfg32, params, prompt, gen, "flash", "int8")
+    plain = _paged_logits(dev, cfg32, params, prompt, gen, "gather", "int8")
+    label = f"f32 int8 pools {rid}"
+    rel = _compare(f"{label}, kernel vs gather", kern, plain, LOGITS_TOL_F32)
+    exact = E.masked_attention
+
+    def slipped(q, cache_blk, valid):
+        return exact(_bf(q), dict(cache_blk, k_s=_bf(cache_blk["k_s"])),
+                     valid)
+
+    E.masked_attention = slipped
+    try:
+        slip = _paged_logits(dev, cfg32, params, prompt, gen, "gather",
+                             "int8")
+    finally:
+        E.masked_attention = exact
+    slip_rel = _compare(f"{label}, bf16 q/K-scale slip in the gather path "
+                        f"vs kernel", slip, kern, LOGITS_TOL_F32, above=True)
+    return {"rel": rel, "slip_rel": slip_rel}
+
+
+def _dequantized(tree):
+    """A `quantize_weights` tree with each dense back in f32 as
+    {"W": Wq * Ws, "b"}."""
+    if isinstance(tree, dict):
+        if "Wq" in tree:
+            rest = {k: v for k, v in tree.items() if k not in ("Wq", "Ws")}
+            return {"W": tree["Wq"].float() * tree["Ws"], **rest}
+        return {k: _dequantized(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_dequantized(v) for v in tree]
+    return tree
+
+
+def check_quant_weight_logits(dev, cfg, params, prompts, results, mode,
+                              tol) -> float:
+    """Phase 4, `mode` ("int8" or "fp8") weights in cfg's compute dtype:
+    the paged logits of the longest request against the plain forward
+    over the dequantized weights (Wq * Ws in f32, which the plain
+    forward casts to the compute dtype as it casts any weight), within
+    `tol`."""
+    from shallowspeed_tpu_torch.models import transformer as T
+
+    qparams = T.quantize_weights(params, mode)
+    return check_logits(dev, cfg, qparams, prompts, results, tol,
+                        n_requests=1, ref_params=_dequantized(qparams),
+                        tag=f"{mode} weights ")
+
+
+def _dequant_err(got, ref) -> float:
+    """Worst |diff| / allowance of a bf16 `dequant_matmul` result
+    against the exact product: one bf16 rounding of the result (2^-8
+    |ref|) plus f32 summation-order noise (1e-5 of max |ref|)."""
+    allow = 2.0 ** -8 * ref.abs() + 1e-5 * ref.abs().max()
+    return float(((got.double() - ref).abs() / allow).max())
+
+
+def check_dequant_matmul(dev) -> None:
+    """Phase 2: `dequant_matmul` in bf16 on the card (cuBLAS's bf16
+    matmul with an f32 output, then the f32 scale, then one rounding),
+    with int8 and fp8 weights at a decode tick's qkv shape (8 rows,
+    2048 -> 6144), against the exact (f64, on the CPU) product of the
+    same leaves (`_dequant_err`). A bf16 rounding of the sum before the
+    scale, the fault the f32 output exists to avoid, must exceed that
+    allowance."""
+    import torch
+
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.ops.matmul import dequant_matmul
+
+    g = torch.Generator(device="cpu").manual_seed(6)
+    x = torch.randn(1, 8, 2048, generator=g).to(dev).to(torch.bfloat16)
+    w = (torch.randn(2048, 6144, generator=g) / 2048 ** 0.5).to(dev)
+    for mode in ("int8", "fp8"):
+        q = T.quantize_weights({"W": w, "b": torch.zeros(6144, device=dev)},
+                               mode)
+        got = dequant_matmul(x, q["Wq"], q["Ws"])
+        ref = ((x.cpu().double() @ q["Wq"].cpu().float().double())
+               * q["Ws"].cpu().double())
+        slip = ((x @ q["Wq"].to(torch.bfloat16)).float()
+                * q["Ws"]).to(torch.bfloat16)
+        ratio, slip_ratio = _dequant_err(got.cpu(), ref), \
+            _dequant_err(slip.cpu(), ref)
+        print(f"check dequant_matmul {mode} bf16: worst element at "
+              f"{ratio:.3e} of its allowance; a bf16 rounding before the "
+              f"scale at {slip_ratio:.3e} (must exceed 1)", flush=True)
+        if not (got.dtype == torch.bfloat16 and ratio <= 1.0):
+            raise AssertionError(f"dequant_matmul {mode}: {got.dtype}, an "
+                                 f"element off by {ratio:.3e} x its "
+                                 f"allowance")
+        if not slip_ratio > 1.0:
+            raise AssertionError(f"dequant_matmul {mode}: a bf16 rounding "
+                                 f"before the scale stays within the "
+                                 f"allowance ({slip_ratio:.3e})")
+
+
 def time_kernels(dev, stats) -> dict:
-    """Phase 5: times at the serving shapes — S=8 slots, 16 heads,
-    hd 128, bs 16, bf16 pools, a table bucket of the longest request,
-    positions like the traffic's (a prompt plus half the new tokens) —
-    on 16 input sets, one per layer, as a tick reads them."""
+    """Phase 5: K4 over float (bf16) and int8 pools at the serving
+    shapes — S=8 slots, 16 heads, hd 128, bs 16, bf16 q, a table bucket
+    of the longest request, positions like the traffic's (a prompt plus
+    half the new tokens) — on 16 input sets, one per layer, as a tick
+    reads them, beside the plain version, one library call (SDPA over
+    the gathered table; for int8 pools over the gathered table
+    dequantized to bf16 beforehand, outside the timed call) and the
+    bound."""
     import torch
     import torch.nn.functional as F
 
     from shallowspeed_tpu_torch.ops.flash_attention import (
-        paged_flash_decode, paged_flash_decode_reference)
+        _paged_flash_decode_int8, paged_flash_decode,
+        paged_flash_decode_reference)
     from shallowspeed_tpu_torch.serving.cache import gather_table
     from shallowspeed_tpu_torch.serving.engine import table_width
 
     bs, hkv, hd = SLICE["block_size"], SLICE["kv_heads"], SLICE["head_dim"]
+    s, h = SLICE["slots"], SLICE["heads"]
     width = table_width(stats["max_table_blocks"], 4)
     rng = np.random.default_rng(2)
-    pos = rng.integers(128, 1025, SLICE["slots"]) + MAX_NEW // 2
-    sets = [_decode_inputs(rng, dev, torch.bfloat16, width=width, pos=pos,
-                           **{k: SLICE[k] for k in SLICE})
-            for _ in range(16)]
-    before = paged_flash_decode.launches
+    pos = rng.integers(128, 1025, s) + MAX_NEW // 2
+    out = {}
+    for name, kvq in (("paged_flash_decode", ""),
+                      ("paged_flash_decode_int8", "int8")):
+        sets = [_decode_inputs(rng, dev, torch.bfloat16, width=width,
+                               pos=pos, kv_quant=kvq,
+                               **{k: SLICE[k] for k in SLICE})
+                for _ in range(16)]
+        counts = (paged_flash_decode.launches,
+                  _paged_flash_decode_int8.launches)
 
-    def kern(q, pool, bt, p, w):
-        paged_flash_decode(q, pool, bt, p, window=w)
+        def kern(q, pool, bt, p, w):
+            paged_flash_decode(q, pool, bt, p, window=w)
 
-    def plain(q, pool, bt, p, w):
-        paged_flash_decode_reference(q, pool, bt, p, window=w)
+        def plain(q, pool, bt, p, w):
+            paged_flash_decode_reference(q, pool, bt, p, window=w)
 
-    lib_sets = []
-    for q, pool, bt, p, _ in sets:
-        view = gather_table(pool, bt)
-        mask = (torch.arange(width * bs, device=dev)[None, :]
-                <= p.long()[:, None])[:, None, None, :]
-        lib_sets.append((q[:, :, None], view["k"], view["v"], mask))
+        lib_sets = []
+        for q, pool, bt, p, _ in sets:
+            view = gather_table(pool, bt)
+            if kvq:
+                k = (view["k"].float() * view["k_s"]).to(torch.bfloat16)
+                v = (view["v"].float() * view["v_s"]).to(torch.bfloat16)
+            else:
+                k, v = view["k"], view["v"]
+            mask = (torch.arange(width * bs, device=dev)[None, :]
+                    <= p.long()[:, None])[:, None, None, :]
+            lib_sets.append((q[:, :, None], k, v, mask))
 
-    def library(q, k, v, mask):
-        F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        def library(q, k, v, mask):
+            F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
-    ms = _time_ms(kern, sets)
-    plain_ms = _time_ms(plain, sets)
-    library_ms = _time_ms(library, lib_sets)
-    paged_flash_decode.launches = before   # timing launches do not count
+        ms = _time_ms(kern, sets)
+        plain_ms = _time_ms(plain, sets)
+        library_ms = _time_ms(library, lib_sets)
+        # timing launches do not count
+        paged_flash_decode.launches, _paged_flash_decode_int8.launches = \
+            counts
 
-    # least time for one call: each input read once, the output written
-    # once; K/V counted over the live blocks this call's positions need
-    live = int(sum(p // bs + 1 for p in pos[:-1])) + 1   # + scratch row
-    itemsize = 2
-    s, h = SLICE["slots"], SLICE["heads"]
-    nbytes = (live * 2 * hkv * bs * hd * itemsize        # live K/V
-              + 2 * s * h * hd * itemsize                # q, out
-              + s * width * 4 + s * 4)                   # bt, pos
-    n_pos = int(sum(p + 1 for p in pos[:-1])) + 1        # + scratch row
-    flops = 4 * h * hd * n_pos                           # QK and PV
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= \
-        flops / F32_FLOPS_PER_S else "operations"
-    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "width": width,
-           "live_kv_bytes": live * 2 * hkv * bs * hd * itemsize}
-    print("time paged_flash_decode: " + json.dumps(out), flush=True)
+        # least time for one call: each input read once, the output
+        # written once; K/V (and int8 scales) over the live blocks this
+        # call's positions need
+        live = int(sum(p // bs + 1 for p in pos[:-1])) + 1   # + scratch
+        per_block = 2 * hkv * bs * (hd + 4 if kvq else 2 * hd)
+        nbytes = (live * per_block                            # live K/V
+                  + 2 * s * h * hd * 2                        # q, out
+                  + s * width * 4 + s * 4)                    # bt, pos
+        n_pos = int(sum(p + 1 for p in pos[:-1])) + 1         # + scratch
+        flops = 4 * h * hd * n_pos                            # QK and PV
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        out[name] = {"ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms,
+                     "bound_ms": 1e3 * max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "width": width,
+                     "live_kv_bytes": live * per_block}
+        print(f"time {name}: " + json.dumps(out[name]), flush=True)
+    return out
+
+
+def run_generate(dev, cfg, params) -> dict:
+    """Phase 5b: the contiguous `generate()` over GEN_BATCH prompts of
+    GEN_PROMPT tokens, GEN_NEW greedy tokens, with K1 prefill
+    (`flash_prefill_at=GEN_PROMPT`), for a bf16 and an int8 cache. K1
+    must launch once per layer (the prefill), the decode kernels never;
+    every token must lie in the vocabulary."""
+    import torch
+
+    from shallowspeed_tpu_torch.models.generate import (decode_report,
+                                                        generate,
+                                                        prompt_bucket_len)
+    from shallowspeed_tpu_torch.ops import flash_attention as FA
+
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT)).astype(
+        np.int32)
+    cache_len = prompt_bucket_len(GEN_PROMPT, GEN_NEW, cfg.max_seq) + GEN_NEW
+    out = {}
+    for kvq in ("", "int8"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels = (FA.flash_fwd, FA.paged_flash_decode,
+                   FA._paged_flash_decode_int8)
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(params, prompt, cfg, GEN_NEW, temperature=0.0,
+                        kv_quant=kvq, flash_prefill_at=GEN_PROMPT)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = [k.launches for k in kernels]
+        if launches != [cfg.n_layers, 0, 0]:
+            raise AssertionError(f"generate(kv_quant={kvq!r}) launched "
+                                 f"K1, K4, K4 int8 {launches} times, want "
+                                 f"[{cfg.n_layers}, 0, 0]")
+        if toks.shape != (GEN_BATCH, GEN_NEW) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab:
+            raise AssertionError(f"generate(kv_quant={kvq!r}) gave "
+                                 f"{toks.shape} tokens in "
+                                 f"[{toks.min()}, {toks.max()}]")
+        rep = decode_report(params, cfg, GEN_BATCH, cache_len, GEN_NEW, dt,
+                            kv_quant=kvq)
+        out[kvq or "bf16"] = dict(rep, seconds=dt, k1_launches=launches[0],
+                                  peak_mem_gb=torch.cuda.max_memory_allocated(
+                                      dev) / 1e9)
+        print(f"generate kv_quant={kvq or 'bf16'} (includes the prefill): "
+              + json.dumps(out[kvq or "bf16"]), flush=True)
     return out
 
 
@@ -641,20 +948,22 @@ def train(dev, cfg, np_params) -> dict:
     return out
 
 
-# device-kernel groups of a training step, by kernel-name fragment
+# device-kernel groups of a training step and of a decode tick, by
+# kernel-name fragment
 KERNEL_GROUPS = [("K1 flash_fwd", ("flash_fwd_kernel",)),
                  ("K2 flash_dq", ("flash_dq_kernel",)),
                  ("K3 flash_dkv", ("flash_dkv_kernel",)),
                  ("matmul", ("gemm", "cutlass", "nvjet", "xmma"))]
+TICK_GROUPS = [("K4 paged_decode", ("paged_decode",)),
+               ("matmul", ("gemm", "cutlass", "nvjet", "xmma"))]
 
 
-def profile_step(eng, tok, tgt) -> dict:
-    """One more training step (after the counted ones) under
-    torch.profiler: device time per kernel group, the number of device
-    kernels, and the device's idle share of the profiled step's wall
-    time (the profiler's own host overhead lengthens that step, so the
-    idle share is an upper bound). Reports None where the profiler saw
-    no device activity."""
+def _profiled(fn, groups) -> dict:
+    """fn() once under torch.profiler: device time per kernel group, the
+    number of device kernels, and the device's idle share of the call's
+    wall time (the profiler's own host overhead lengthens the call, so
+    the idle share is an upper bound). Reports None where the profiler
+    saw no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -663,10 +972,10 @@ def profile_step(eng, tok, tgt) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.train_batch(tok, tgt)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS + [("other", ())]}
+    totals = {name: 0.0 for name, _ in groups + [("other", ())]}
     by_name: dict[str, list] = {}
     n = 0
     for ev in prof.events():
@@ -675,19 +984,71 @@ def profile_step(eng, tok, tgt) -> dict:
         n += 1
         ms = ev.time_range.elapsed_us() / 1e3
         low = ev.name.lower()
-        name = next((g for g, keys in KERNEL_GROUPS
+        name = next((g for g, keys in groups
                      if any(k in low for k in keys)), "other")
-        groups[name] += ms
+        totals[name] += ms
         entry = by_name.setdefault(f"{name}: {ev.name[:70]}", [0.0, 0])
         entry[0] += ms
         entry[1] += 1
-    busy = sum(groups.values())
+    busy = sum(totals.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {"wall_ms": wall_ms, "device_kernels": n,
-            "device_ms": groups if n else None,
+            "device_ms": totals if n else None,
             "device_busy_ms": busy if n else None,
             "idle_share": 1.0 - busy / wall_ms if n else None,
             "top_kernels_ms_calls": {k: v for k, v in top}}
+
+
+def profile_step(eng, tok, tgt) -> dict:
+    """One more training step (after the counted ones) under
+    torch.profiler (`_profiled`)."""
+    return _profiled(lambda: eng.train_batch(tok, tgt), KERNEL_GROUPS)
+
+
+def profile_tick(eng, cfg) -> dict:
+    """A decode tick of every slot, through the engine's own
+    `decode_logits` on its params and pools, at positions like the
+    traffic's (a prompt plus half the new tokens, numpy seed 5): the
+    median wall time of 5 ticks, then one tick under torch.profiler
+    (`_profiled`). The same state for every pool and weight mode, so
+    the modes compare tick for tick; the launches here do not count."""
+    import torch
+
+    from shallowspeed_tpu_torch.ops import flash_attention as FA
+    from shallowspeed_tpu_torch.serving.cache import blocks_for
+    from shallowspeed_tpu_torch.serving.engine import (decode_logits,
+                                                       table_width)
+
+    bs, s = SLICE["block_size"], SLICE["slots"]
+    rng = np.random.default_rng(5)
+    pos = rng.integers(128, 1025, s) + MAX_NEW // 2
+    need = [blocks_for(p + 1, bs) for p in pos]
+    bt = np.zeros((s, table_width(max(need), 4)), np.int32)
+    ids = iter(range(1, N_BLOCKS))
+    for r, n in enumerate(need):
+        bt[r, :n] = [next(ids) for _ in range(n)]
+    args = [torch.from_numpy(a).to(eng.device) for a in
+            (rng.integers(0, cfg.vocab, s).astype(np.int32),
+             pos.astype(np.int32), bt)]
+    counts = (FA.paged_flash_decode.launches,
+              FA._paged_flash_decode_int8.launches)
+
+    def tick():
+        decode_logits(eng.params, eng.pools, *args, cfg=cfg, attn="flash")
+
+    tick()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tick()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    out = {"tick_ms": float(np.median(walls)),
+           **_profiled(tick, TICK_GROUPS)}
+    FA.paged_flash_decode.launches, FA._paged_flash_decode_int8.launches = \
+        counts
+    return out
 
 
 def _grad_parity(eng_a, eng_b, tok, tgt) -> tuple[float, float, str]:
@@ -860,25 +1221,52 @@ def main() -> int:
             print("  " + line, flush=True)
 
     from shallowspeed_tpu_torch.models import transformer as T
-    from shallowspeed_tpu_torch.weights import leaves
+    from shallowspeed_tpu_torch.weights import leaves, params_from_numpy
 
     errs = check_kernels(dev)
     errs.update(check_train_kernels(dev))
+    check_dequant_matmul(dev)
     cfg = slice_config()
+    cfg32 = dataclasses.replace(cfg, compute_dtype=None)
     t0 = time.time()
     np_params = T.init_numpy(cfg, seed=0)
+    params = params_from_numpy(np_params, dev)     # f32 masters, shared
     print(f"init: {sum(a.size for a in leaves(np_params)) / 1e9:.3f}B "
           f"params in {time.time() - t0:.1f} s", flush=True)
-    run = serve(dev, cfg, np_params)
-    check_logits(dev, cfg, run["eng"].params, run["prompts"],
-                 run["eng"].results, LOGITS_TOL_BF16)
-    cfg32 = dataclasses.replace(cfg, compute_dtype=None)
-    check_logits(dev, cfg32, run["params"], run["prompts"],
-                 run["eng"].results, LOGITS_TOL_F32)
-    check_f32_bound_catches_a_slip(dev, cfg32, run)
-    timing = {"paged_flash_decode": time_kernels(dev, run["stats"])}
-    launches = {"paged_flash_decode": run["stats"]["launches"]}
-    del run                   # free the serving engine before training
+
+    def served(**quant):
+        run = serve(dev, cfg, params, **quant)
+        out = (run["stats"], run["prompts"], run["eng"].results)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    stats, prompts, results = served()
+    check_logits(dev, cfg, params, prompts, results, LOGITS_TOL_BF16)
+    check_logits(dev, cfg32, params, prompts, results, LOGITS_TOL_F32)
+    check_f32_bound_catches_a_slip(dev, cfg32, params, prompts, results)
+    timing = time_kernels(dev, stats)
+    launches = {"paged_flash_decode": stats["launches"]}
+    runs = {"bf16": stats}
+
+    runs["kv-int8"], _, results = served(kv_quant="int8")
+    launches["paged_flash_decode_int8"] = runs["kv-int8"]["launches"]
+    check_int8_logits(dev, cfg32, params, prompts, results)
+    for mode in ("int8", "fp8"):
+        runs[f"weight-{mode}"], _, results = served(weight_quant=mode)
+        check_quant_weight_logits(dev, cfg, params, prompts, results, mode,
+                                  LOGITS_TOL_BF16)
+    check_quant_weight_logits(dev, cfg32, params, prompts, results, "int8",
+                              LOGITS_TOL_F32)
+    keys = ("tick_ms_p50", "tick_ms_synthetic", "tick_device_busy_ms",
+            "tick_idle_share", "tok_per_s", "ttft_ms_p50", "tpot_ms_p50",
+            "peak_mem_gb")
+    print("serve compare: " + json.dumps(
+        {name: {k: r[k] for k in keys} for name, r in runs.items()}),
+        flush=True)
+    run_generate(dev, cfg, params)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -894,6 +1282,7 @@ def main() -> int:
     src = "shallowspeed_tpu_torch/csrc/"
     ref = "shallowspeed_tpu/ops/flash_attention.py:"
     where = {"paged_flash_decode": ("paged_decode.cu", "947"),
+             "paged_flash_decode_int8": ("paged_decode.cu", "947"),
              "flash_fwd": ("flash_fwd.cu", "487"),
              "flash_dq": ("flash_bwd.cu", "552"),
              "flash_dkv": ("flash_bwd.cu", "597")}

@@ -6,12 +6,22 @@ the tests feed the same numpy inputs through both. This package imports
 `torch` and numpy only — never `jax`, never `shallowspeed_tpu`; where it
 needs a host-side helper of the JAX package it keeps its own copy.
 
-What is ported so far: the serving path (`serve.py` ->
-`serving.engine.ServingEngine` -> prefill chunk / decode tick ->
-`models.transformer` + `models.kv_cache` + `serving.cache`), with the
-decode tick's paged attention in a hand-written CUDA kernel
-(`csrc/paged_decode.cu`, wrapped by `ops.flash_attention`). ROADMAP.md
-lists what comes next; each feature not ported yet raises `NotPorted`.
+What is ported so far:
+- serving: `serve.py` -> `serving.engine.ServingEngine` -> prefill
+  chunk / decode tick -> `models.transformer` + `models.kv_cache` +
+  `serving.cache`, the tick's paged attention in a hand-written CUDA
+  kernel (K4, `csrc/paged_decode.cu`, wrapped by `ops.flash_attention`);
+- one-device LM training: `train_lm.py` ->
+  `parallel.context.ContextParallelEngine` -> `models.transformer.loss`
+  under autograd -> `ops.flash_attention.flash_attention`, whose forward
+  and backward are hand-written CUDA kernels (K1, K2, K3,
+  `csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`);
+- quantized decode: int8 KV caches (K4's int8 branch in the serving
+  tick) and int8/fp8 weight storage (`ops.matmul.dequant_matmul`), in
+  the serving engine and in the contiguous `models.generate.generate`
+  loop (`train_lm --generate`), whose long-prompt prefill runs K1.
+ROADMAP.md lists what comes next; each feature not ported yet raises
+`NotPorted`.
 
 Entry points run on the GPU unless the caller passes `device="cpu"`
 (the CPU tests do). Nothing falls back to the CPU on its own.

@@ -1,6 +1,6 @@
 """Model-FLOPs accounting and MFU — the port's own copy of
-`shallowspeed_tpu/flops.py::transformer_flops_per_token` and `mfu`,
-with a peak table for the port's cards.
+`shallowspeed_tpu/flops.py::transformer_flops_per_token`, `mfu` and
+`device_mem_bandwidth`, with peak tables for the port's cards.
 
 FLOPs are counted exactly from the config — every matmul's 2*M*N*K —
 with the model-FLOPs convention (forward + 2x backward = 3x forward;
@@ -22,20 +22,39 @@ _PEAKS = {
 }
 
 
-def device_peak_flops(device=None, dtype: str = "bf16") -> float | None:
-    """Peak FLOP/s of the card `device` (default: the current CUDA
-    device) for `dtype` ("bf16" or "f32"); None on the CPU or for a card
-    the table does not know."""
+# Device-memory bandwidth, bytes/s, from the same data sheet (H100 SXM
+# 80 GB: 3.35 TB/s of HBM3).
+_MEM_BANDWIDTH = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
+}
+
+
+def _card_entry(table: dict, device):
+    """The `table` entry of the card `device` (default: the current CUDA
+    device), or None on the CPU or for a card the table does not know."""
     dev = torch.device(device) if device is not None else None
     if (dev is not None and dev.type != "cuda") \
             or not torch.cuda.is_available():
         return None
     name = torch.cuda.get_device_name(dev)
-    for prefix, peaks in _PEAKS.items():
-        if name.startswith(prefix):
-            return peaks.get("f32" if dtype in ("f32", "float32")
-                             else "bf16")
-    return None
+    return next((v for k, v in table.items() if name.startswith(k)), None)
+
+
+def device_peak_flops(device=None, dtype: str = "bf16") -> float | None:
+    """Peak FLOP/s of the card `device` (default: the current CUDA
+    device) for `dtype` ("bf16" or "f32"); None on the CPU or for a card
+    the table does not know."""
+    peaks = _card_entry(_PEAKS, device)
+    if peaks is None:
+        return None
+    return peaks.get("f32" if dtype in ("f32", "float32") else "bf16")
+
+
+def device_mem_bandwidth(device=None) -> float | None:
+    """Device-memory bytes/s of the card `device` (default: the current
+    CUDA device) from its data sheet; None on the CPU or for a card the
+    table does not know (no invented peak, as for `device_peak_flops`)."""
+    return _card_entry(_MEM_BANDWIDTH, device)
 
 
 def _avg_causal_context(seq_len: int, window: int = 0) -> float:

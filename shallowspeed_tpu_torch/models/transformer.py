@@ -17,9 +17,17 @@ float32.
 `forward`/`forward_with_aux`/`loss` are differentiable with torch
 autograd and take the attention substrate as `attn_fn` (the plain
 `attention` by default, or `ops.flash_attention.flash_attention`);
-`eval_forward` is the no-grad entry the serving checks use. Dropout,
-attention dropout, remat, chunked cross-entropy, MoE and fp8 matmuls
-are not ported yet: a config that needs them raises `NotPorted`.
+`eval_forward` is the no-grad entry the serving checks use.
+
+Quantized weight storage for decode (`quantize_weights`, int8 or
+fp8-e4m3 with per-out-channel f32 scales) turns dense leaves into
+{"Wq", "Ws", "b"}; `_dense` dispatches on "Wq" to
+`ops.matmul.dequant_matmul`, and `cast_params` leaves both leaves in
+their storage dtypes.
+
+Dropout, attention dropout, remat, chunked cross-entropy, MoE and fp8
+training matmuls are not ported yet: a config that needs them raises
+`NotPorted`.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ import torch.nn.functional as F
 
 from shallowspeed_tpu_torch import NotPorted, resolve_device
 from shallowspeed_tpu_torch.ops.attention import attention
-from shallowspeed_tpu_torch.weights import params_from_numpy
+from shallowspeed_tpu_torch.ops.matmul import dequant_matmul
+from shallowspeed_tpu_torch.weights import leaves, params_from_numpy
 
 
 @dataclass(frozen=True)
@@ -169,22 +178,80 @@ def init(cfg: TransformerConfig, seed: int = 0, device=None):
 
 
 _NORM_KEYS = {"ln1", "ln2", "ln_f"}
+# Quantized weight-storage leaves (`quantize_weights`): "Wq" holds the
+# int8/fp8 values, "Ws" the per-out-channel f32 scales.
+_QUANT_KEYS = {"Wq", "Ws"}
+
+WEIGHT_QUANT_MODES = ("", "int8", "fp8")
+_QMAX = {"int8": 127.0, "fp8": 448.0}     # e4m3's largest normal is 448
+
+
+def quantize_weights(params, mode: str):
+    """Every dense {"W": (K, N), "b"} of the tree (block q/kv/qkv, proj,
+    up/down/gate, the untied head) as {"Wq": (K, N) int8 or
+    float8_e4m3fn, "Ws": (N,) f32, "b"}: symmetric absmax over the
+    in-channel axis, scale = max(max|W|, 1e-8) / 127 (448 for fp8),
+    int8 values clip(round(W / scale), -127, 127) with round half to
+    even, fp8 values W / scale rounded to e4m3. Embeddings, norms and
+    biases stay as they are; an already quantized dense stays as it is;
+    mode "" returns the tree unchanged."""
+    if mode not in WEIGHT_QUANT_MODES:
+        raise ValueError(
+            f"unsupported weight_quant={mode!r}; expected one of "
+            f"{WEIGHT_QUANT_MODES} ('' = weights in the master dtype)")
+    if not mode:
+        return params
+
+    def quant_dense(p):
+        w = p["W"].float()
+        ws = w.abs().amax(dim=0).clamp_min(1e-8) / _QMAX[mode]
+        if mode == "int8":
+            wq = torch.clamp(torch.round(w / ws), -127, 127).to(torch.int8)
+        else:
+            wq = (w / ws).to(torch.float8_e4m3fn)
+        rest = {k: v for k, v in p.items() if k != "W"}
+        return {"Wq": wq, "Ws": ws, **rest}
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "W" in node and node["W"].dim() == 2:
+                return quant_dense(node)
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(params)
+
+
+def weight_quant_mode(params) -> str:
+    """"int8" or "fp8" when the tree holds `quantize_weights` leaves,
+    else ""."""
+    for node in leaves(params):
+        if node.dtype == torch.int8 and node.dim() == 2:
+            return "int8"
+        if node.dtype == torch.float8_e4m3fn:
+            return "fp8"
+    return ""
 
 
 def cast_params(params, compute_dtype):
     """Float leaves to `compute_dtype` (None = identity). Norm leaves
     (ln1/ln2/ln_f) stay in the master dtype: every consumer upcasts
-    them to f32 for the statistics anyway."""
+    them to f32 for the statistics anyway. Quantized-storage leaves
+    (Wq/Ws) stay in their storage dtypes: float8_e4m3fn is a floating
+    dtype, and a cast would turn it back into a full-size copy (and
+    round the f32 scales)."""
     if compute_dtype is None:
         return params
 
-    def walk(node, norm):
+    def walk(node, keep):
         if isinstance(node, dict):
-            return {k: walk(v, norm or k in _NORM_KEYS)
+            return {k: walk(v, keep or k in _NORM_KEYS or k in _QUANT_KEYS)
                     for k, v in node.items()}
         if isinstance(node, list):
-            return [walk(v, norm) for v in node]
-        if norm or not node.is_floating_point():
+            return [walk(v, keep) for v in node]
+        if keep or not node.is_floating_point():
             return node
         return node.to(compute_dtype)
 
@@ -214,9 +281,8 @@ def _norm(p, x, cfg: TransformerConfig):
 
 
 def _dense(p, x):
-    if "Wq" in p:
-        raise NotPorted("quantized weight storage (weight_quant)",
-                        "Queue 1, serving features after slice 1")
+    if "Wq" in p:      # quantized storage: the scale meets the f32 sum
+        return dequant_matmul(x, p["Wq"], p["Ws"]) + p["b"]
     return x @ p["W"] + p["b"]
 
 
@@ -278,7 +344,11 @@ def _ffn(p, x, cfg: TransformerConfig, h):
     return x + _dense(p["down"], u)
 
 
-def _block(p, x, cfg: TransformerConfig, pos, attn_fn):
+def _block(p, x, cfg: TransformerConfig, pos, attn_fn,
+           with_kv: bool = False):
+    """One pre-norm block. With `with_kv` also returns this block's
+    (k, v) (B, T, Hkv, hd), rotated and unrepeated — what a decode
+    prefill writes into its cache."""
     h = _norm(p["ln1"], x, cfg)
     q, k, v = _qkv(p, h, cfg)
     if cfg.rope:
@@ -287,7 +357,8 @@ def _block(p, x, cfg: TransformerConfig, pos, attn_fn):
     b, t, d = x.shape
     a = attn_fn(q, k, v)
     x = x + _dense(p["proj"], a.reshape(b, t, d))
-    return _ffn(p, x, cfg, _norm(p["ln2"], x, cfg))
+    x = _ffn(p, x, cfg, _norm(p["ln2"], x, cfg))
+    return (x, (k, v)) if with_kv else x
 
 
 def check_trainable(cfg: TransformerConfig) -> None:

@@ -1,7 +1,9 @@
 """Flash attention — counterpart of
 `shallowspeed_tpu/ops/flash_attention.py`: the training kernels (K1
 forward, K2 dq, K3 dk/dv) behind `flash_attention`, and the serving
-decode kernel (K4) behind `paged_flash_decode`.
+decode kernel (K4) behind `paged_flash_decode`, whose int8 branch
+(int8 pools with f32 scale planes) launches through
+`_paged_flash_decode_int8`.
 
 Each kernel has a wrapper and a plain torch version with the same
 arguments. On a CUDA tensor the wrapper launches the hand-written
@@ -22,8 +24,9 @@ The kernels read q, k, v and dO through their strides (the model's q,
 k, v are slices of one fused projection): nothing is copied.
 
 The decode kernel keeps its probabilities in f32 through the PV
-product, where its reference casts them to V's dtype first (the JAX
-kernel does the same), so in bf16 the two differ by that rounding.
+product, where its reference casts them to V's dtype (float pools) or
+to q's dtype (int8 pools) first; the JAX kernel keeps them in f32 too.
+In bf16 the kernel and its reference differ by that one rounding.
 """
 
 from __future__ import annotations
@@ -33,7 +36,6 @@ import functools
 
 import torch
 
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch.models.kv_cache import (masked_attention,
                                                     position_mask)
 from shallowspeed_tpu_torch.ops import _build
@@ -47,8 +49,9 @@ _MAX_SMEM = 227 * 1024
 
 def paged_flash_decode_reference(q, pool_blk, bt, pos, *, window: int = 0):
     """Plain torch: `masked_attention(q, gather_table(pool, bt), valid)`
-    with each row's position (and window) mask. Same arguments and
-    result as `paged_flash_decode`."""
+    with each row's position (and window) mask; int8 pools carry their
+    scale planes through the gather. Same arguments and result as
+    `paged_flash_decode`."""
     w = bt.shape[1]
     bs = pool_blk["k"].shape[2]
     valid = position_mask(w * bs, pos.long()[:, None], window,
@@ -61,16 +64,20 @@ def paged_flash_decode_reference(q, pool_blk, bt, pos, *, window: int = 0):
 @functools.cache
 def _kernel():
     lib = _build.library("paged_decode")
-    fn = lib.paged_decode
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.paged_decode.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    lib.paged_decode_int8.argtypes = [ctypes.c_void_p] * 8 \
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.paged_decode.restype = lib.paged_decode_int8.restype = ctypes.c_int
     lib.paged_decode_error_string.argtypes = [ctypes.c_int]
     lib.paged_decode_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(q, kp, vp, bt, pos, window):
+def _check(q, kp, vp, bt, pos, window, scales=None):
+    """What the decode kernel takes, checked before any launch. Float
+    pools are in q's dtype; int8 pools come with `scales` = (k_s, v_s),
+    contiguous f32 planes (N, Hkv, bs, 1)."""
     s, h, hd = q.shape
     n, hkv, bs, hd_k = kp.shape
     if vp.shape != kp.shape or hd_k != hd:
@@ -79,10 +86,13 @@ def _check(q, kp, vp, bt, pos, window):
     if h % hkv:
         raise ValueError(f"{h} query heads are not a multiple of {hkv} "
                          f"kv heads")
-    if q.dtype not in _DTYPES or kp.dtype != q.dtype or vp.dtype != q.dtype:
+    pool_dtype = q.dtype if scales is None else torch.int8
+    if q.dtype not in _DTYPES or kp.dtype != pool_dtype \
+            or vp.dtype != pool_dtype:
         raise TypeError(f"paged_flash_decode takes float32 or bfloat16 q "
-                        f"and pools of q's dtype; got q={q.dtype}, "
-                        f"k={kp.dtype}, v={vp.dtype}")
+                        f"and pools of q's dtype, or int8 pools with scale "
+                        f"planes; got q={q.dtype}, k={kp.dtype}, "
+                        f"v={vp.dtype}")
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head_dim={hd} is not one the kernel takes "
                          f"{_HEAD_DIMS}")
@@ -95,18 +105,24 @@ def _check(q, kp, vp, bt, pos, window):
                          f"do not fit {s} slots")
     if window < 0:
         raise ValueError(f"window={window}")
-    for name, t in (("q", q), ("k", kp), ("v", vp), ("bt", bt),
-                    ("pos", pos)):
+    named = [("q", q), ("k", kp), ("v", vp), ("bt", bt), ("pos", pos)]
+    if scales is not None:
+        for name, t in zip(("k_s", "v_s"), scales):
+            if t.dtype != torch.float32 or t.shape != (n, hkv, bs, 1):
+                raise ValueError(f"{name} must be float32 {(n, hkv, bs, 1)}, "
+                                 f"got {t.dtype} {tuple(t.shape)}")
+            named.append((name, t))
+    for name, t in named:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("q", q), ("k", kp), ("v", vp)):
+    for name, t in named[:3]:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned (the kernel "
                              f"reads it in 16-byte vectors)")
     g = h // hkv
-    smem = 4 * (2 * g * hd + 2 * bs * hd + g * bs + 3 * g)
+    smem = 4 * (2 * g * hd + 2 * bs * hd + g * bs + 3 * g + 2 * bs)
     if smem > _MAX_SMEM:
         raise ValueError(f"group {g} x block {bs} x head_dim {hd} needs "
                          f"{smem} bytes of shared memory, over {_MAX_SMEM}")
@@ -116,34 +132,65 @@ def paged_flash_decode(q, pool_blk, bt, pos, *, window: int = 0):
     """Single-token attention through a paged block table.
 
     q: (S, H, hd), one query token per slot; pool_blk: one layer's
-    float pools {"k"/"v": (N, Hkv, bs, hd)}; bt: (S, W) int32 block
-    tables (padding columns point at the scratch block); pos: (S,)
-    int32, each slot's position (its valid span is [0, pos], windowed
-    when `window > 0`). Returns (S, H, hd) in q's dtype.
+    pools {"k"/"v": (N, Hkv, bs, hd)} in q's dtype, or int8 with
+    {"k_s"/"v_s": (N, Hkv, bs, 1)} f32 scale planes (the presence of
+    "k_s" selects the int8 kernel, as it selects quantization in
+    `write_rows`); bt: (S, W) int32 block tables (padding columns point
+    at the scratch block); pos: (S,) int32, each slot's position (its
+    valid span is [0, pos], windowed when `window > 0`). Returns
+    (S, H, hd) in q's dtype.
 
     A CPU q takes the plain reference. A CUDA q launches the kernel
-    (float32 or bfloat16, hd 64 or 128) or raises; each launch adds one
-    to `paged_flash_decode.launches`."""
-    if "k_s" in pool_blk:
-        raise NotPorted("int8 pools in paged_flash_decode",
-                        "Queue 2, K4's int8 branch")
+    (q float32 or bfloat16, hd 64 or 128) or raises; each launch of the
+    float kernel adds one to `paged_flash_decode.launches`, each of the
+    int8 kernel one to `_paged_flash_decode_int8.launches`."""
     if q.device.type == "cpu":
         return paged_flash_decode_reference(q, pool_blk, bt, pos,
                                             window=window)
+    if "k_s" in pool_blk:
+        return _paged_flash_decode_int8(q, pool_blk, bt, pos, window)
     kp, vp = pool_blk["k"], pool_blk["v"]
     _check(q, kp, vp, bt, pos, int(window))
-    s, h, hd = q.shape
-    _, hkv, bs, _ = kp.shape
     lib = _kernel()
     out = torch.empty_like(q)
     _launch(paged_flash_decode, lib.paged_decode,
             lib.paged_decode_error_string, q.device,
-            *_ptrs(q, kp, vp, bt, pos, out), s, h, hkv, hd, bs, bt.shape[1],
-            int(window), _DTYPES[q.dtype])
+            *_ptrs(q, kp, vp, bt, pos, out), *_decode_dims(q, kp, bt, window))
     return out
 
 
 paged_flash_decode.launches = 0
+
+
+def _paged_flash_decode_int8(q, pool_blk, bt, pos, window):
+    """K4's int8 branch on the card, `csrc/paged_decode.cu::
+    paged_decode_int8`, over int8 pools {"k"/"v": (N, Hkv, bs, hd) int8,
+    "k_s"/"v_s": (N, Hkv, bs, 1) f32} with q (and the result) in the
+    compute dtype, float32 or bfloat16. K's scale multiplies the score
+    row and V's folds into the probability row after the normaliser has
+    summed it unscaled. Reached only through `paged_flash_decode`; its
+    own function so that its launches count apart."""
+    kp, vp = pool_blk["k"], pool_blk["v"]
+    scales = (pool_blk["k_s"], pool_blk["v_s"])
+    _check(q, kp, vp, bt, pos, int(window), scales)
+    lib = _kernel()
+    out = torch.empty_like(q)
+    _launch(_paged_flash_decode_int8, lib.paged_decode_int8,
+            lib.paged_decode_error_string, q.device,
+            *_ptrs(q, kp, scales[0], vp, scales[1], bt, pos, out),
+            *_decode_dims(q, kp, bt, window))
+    return out
+
+
+_paged_flash_decode_int8.launches = 0
+
+
+def _decode_dims(q, kp, bt, window):
+    """The decode entries' trailing ints: slots, heads, kv heads,
+    head_dim, block size, table width, window, dtype."""
+    s, h, hd = q.shape
+    return (s, h, kp.shape[1], hd, kp.shape[2], bt.shape[1], int(window),
+            _DTYPES[q.dtype])
 
 
 def _ptrs(*tensors):

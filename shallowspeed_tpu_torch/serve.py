@@ -58,10 +58,13 @@ def parse_args(argv=None):
     s.add_argument("--prefill-chunk", type=int, default=64)
     s.add_argument("--table-bucket", type=int, default=4)
     s.add_argument("--kv-quant", default="", choices=["", "int8"],
-                   help="int8 KV pools (not ported yet: 'int8' raises)")
+                   help="int8 KV pools with f32 per-position scales (the "
+                        "decode tick then runs the paged decode kernel's "
+                        "int8 branch)")
     s.add_argument("--weight-quant", default="", choices=["", "int8", "fp8"],
-                   help="quantized weight storage (not ported yet: any "
-                        "mode raises)")
+                   help="quantized weight storage: dense weights as int8 or "
+                        "fp8-e4m3 values with per-out-channel f32 scales, "
+                        "quantized once at start")
     s.add_argument("--attn-impl", default="flash",
                    choices=["gather", "flash"],
                    help="decode-tick attention: 'flash' = the paged "
@@ -139,6 +142,7 @@ def main(argv=None) -> int:
         n_layers=cfg.n_layers, n_blocks=args.n_blocks,
         block_size=args.block_size, slots=args.slots,
         prefill_chunk=args.prefill_chunk, attn_impl=args.attn_impl,
+        kv_quant=args.kv_quant, weight_quant=args.weight_quant,
         device=str(device))
     try:
         eng = ServingEngine(

@@ -12,16 +12,23 @@ The pools are updated IN PLACE (`write_rows`). The reference donates
 its pools through every compiled tick to the same effect; eager torch
 simply writes into the buffers it owns.
 
-Not ported yet (ROADMAP): int8 pools and the prefix-cache index (the
-allocator here is the reference's with `index=None`).
+int8 pools (`kv_quant="int8"`) add (n_blocks, Hkv, block_size, 1) f32
+scale planes "k_s"/"v_s", one scale per (block, head, position), and
+`write_rows` quantizes per (row, head) as `kv_cache.cache_write` does.
+The presence of "k_s" in a layer's pool is the dispatch (the reference
+passes a `quant` flag beside the pools; here the pools carry it).
+
+Not ported yet (ROADMAP): the prefix-cache index (the allocator here is
+the reference's with `index=None`).
 """
 
 from __future__ import annotations
 
-import torch
-
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch.models import transformer as T
+from shallowspeed_tpu_torch.models.kv_cache import (KV_QUANT_MODES,
+                                                    kv_bytes_per_position,
+                                                    quantized_rows,
+                                                    zero_layer)
 from shallowspeed_tpu_torch.weights import leaves
 
 SCRATCH_BLOCK = 0
@@ -53,16 +60,17 @@ def blocks_for(n_tokens: int, block_size: int) -> int:
 def init_block_pool(cfg: T.TransformerConfig, n_blocks: int,
                     block_size: int, kv_quant: str = "", device=None):
     """Per-layer zero-filled K/V pools (n_blocks, Hkv, block_size, hd)
-    in the activation dtype, on `device`."""
-    if kv_quant:
-        raise NotPorted("int8 KV pools (kv_quant='int8')",
-                        "Queue 2, K4's int8 branch")
+    in the activation dtype, on `device`; int8 pools add the
+    (n_blocks, Hkv, block_size, 1) f32 scale planes."""
+    if kv_quant not in KV_QUANT_MODES:
+        raise ValueError(
+            f"unsupported kv_quant={kv_quant!r}; expected one of "
+            f"{KV_QUANT_MODES} ('' = pool in the compute dtype)")
     if n_blocks < 2:
         raise ValueError(f"n_blocks={n_blocks} leaves no usable blocks "
                          f"past the reserved scratch block")
     shape = (n_blocks, cfg.kv_heads, block_size, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.act_dtype, device=device)}
+    return [zero_layer(shape, cfg.act_dtype, kv_quant, device)
             for _ in range(cfg.n_layers)]
 
 
@@ -130,10 +138,12 @@ class BlockAllocator:
 
 def gather_table(pool_blk, bt):
     """One layer's cache read through block tables bt (rows, W): the
-    contiguous view {"k"/"v": (rows, Hkv, W*bs, hd)} that
-    `kv_cache.masked_attention` consumes. Gathered position j is
-    absolute position j because tables are ordered; padding columns
-    point at scratch and the caller's mask never admits them."""
+    contiguous view {"k"/"v": (rows, Hkv, W*bs, hd)[, "k_s"/"v_s":
+    (rows, Hkv, W*bs, 1)]} that `kv_cache.masked_attention` consumes
+    (every leaf of the pool is gathered, scale planes included).
+    Gathered position j is absolute position j because tables are
+    ordered; padding columns point at scratch and the caller's mask
+    never admits them."""
     rows, w = bt.shape
     idx = bt.long()
     out = {}
@@ -146,15 +156,18 @@ def gather_table(pool_blk, bt):
 
 def write_rows(pool_blk, k_rows, v_rows, blk_ids, offs) -> None:
     """Write per-row single-token K/V (rows, Hkv, hd) at (block id,
-    in-block offset) into one layer's pools, in place. Rows steered to
-    the scratch block may collide; nothing reads scratch, so which
-    write wins does not matter."""
+    in-block offset) into one layer's pools, in place; int8 pools take
+    the rows quantized per (row, head) with their scales, value for
+    value as `kv_cache.cache_write` quantizes. Rows steered to the
+    scratch block may collide; nothing reads scratch, so which write
+    wins does not matter."""
     if "k_s" in pool_blk:
-        raise NotPorted("int8 KV pools (kv_quant='int8')",
-                        "Queue 2, K4's int8 branch")
+        upd = quantized_rows(k_rows, v_rows)
+    else:
+        upd = {"k": k_rows, "v": v_rows}
     b, o = blk_ids.long(), offs.long()
-    pool_blk["k"][b, :, o, :] = k_rows.to(pool_blk["k"].dtype)
-    pool_blk["v"][b, :, o, :] = v_rows.to(pool_blk["v"].dtype)
+    for name, val in upd.items():
+        pool_blk[name][b, :, o, :] = val.to(pool_blk[name].dtype)
 
 
 # ------------------------------------------------ per-tick HBM model
@@ -162,7 +175,8 @@ def write_rows(pool_blk, k_rows, v_rows, blk_ids, offs) -> None:
 
 def param_read_bytes(params) -> int:
     """Bytes one decode pass reads for the parameters: every leaf of
-    the (already cast) tree at its own dtype. The reference traces its
+    the (already cast) tree at its own dtype — quantized weights as
+    their int8/fp8 values plus f32 scales. The reference traces its
     cast with `jax.eval_shape`; here the served tensors exist, so their
     sizes are read directly."""
     return sum(t.numel() * t.element_size() for t in leaves(params))
@@ -170,12 +184,11 @@ def param_read_bytes(params) -> int:
 
 def paged_read_bytes_per_tick(cfg: T.TransformerConfig, p_bytes: int,
                               blocks_touched: int, block_size: int,
-                              n_rows: int) -> int:
+                              n_rows: int, kv_quant: str = "") -> int:
     """HBM read bytes one decode tick usefully moves: the parameters
-    (`param_read_bytes`), the K/V bytes of the live blocks the active
-    rows attend over (`blocks_touched` = sum over rows of
-    blocks_for(context length)), and the token ids."""
-    itemsize = torch.empty(0, dtype=cfg.act_dtype).element_size()
-    per_block = 2 * cfg.kv_heads * block_size * cfg.head_dim * itemsize
+    (`param_read_bytes`), the K/V bytes (+ int8 scale planes) of the
+    live blocks the active rows attend over (`blocks_touched` = sum over
+    rows of blocks_for(context length)), and the token ids."""
+    per_block = block_size * kv_bytes_per_position(cfg, kv_quant)
     return (int(p_bytes) + cfg.n_layers * int(blocks_touched) * per_block
             + n_rows * 4)

@@ -30,17 +30,24 @@ attention is `ops.flash_attention.paged_flash_decode`, the CUDA kernel
 on a card; `"gather"` reads through `gather_table` + `masked_attention`
 instead, the path the kernel is held against.
 
-Sampling: temperature 0 is the argmax, exactly as in the reference.
-A sampled token i of a request with seed s draws from a
-`torch.Generator` seeded from (s, i), so an evicted and re-admitted
-request continues the same stream. This is NOT the reference's
+Quantized decode: `kv_quant="int8"` keeps the pools in int8 with f32
+scale planes (the tick's attention, `paged_flash_decode`, then launches
+K4's int8 kernel); `weight_quant="int8"|"fp8"` quantizes the
+dense weights once at construction (`T.quantize_weights`, before the
+compute-dtype cast), and every dense of the tick and the prefill runs
+`ops.matmul.dequant_matmul`.
+
+Sampling (`models.generate.sample_rows`): temperature 0 is the argmax,
+exactly as in the reference. A sampled token i of a request with seed s
+draws from a `torch.Generator` seeded from (s, i), so an evicted and
+re-admitted request continues the same stream, and a solo request draws
+what the contiguous `generate()` draws. This is NOT the reference's
 threefry `fold_in(PRNGKey(s), i)` stream: sampled tokens differ from
 the JAX package's, greedy tokens do not.
 
-Not ported yet (each raises `NotPorted`): int8 KV pools, quantized
-weights, speculative decoding, prefix caching. Lifecycle tracing,
-chaos hooks, the profiler, the monitor and memory-owner hooks are
-absent (ROADMAP.md).
+Not ported yet (each raises `NotPorted`): speculative decoding, prefix
+caching. Lifecycle tracing, chaos hooks, the profiler, the monitor and
+memory-owner hooks are absent (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -175,37 +182,6 @@ def prefill_chunk(params, pools, tokens, pos0: int, bt, *,
     return T.head_logits(params, x[0, -1], cfg).float()
 
 
-def _row_generator(seed: int, index: int, device) -> torch.Generator:
-    """The generator token `index` of a request with sampling seed
-    `seed` draws from: seeded from (seed, index) alone, so the draw does
-    not depend on which tick or slot the token was computed in."""
-    hi, lo = np.random.SeedSequence([int(seed), int(index)]).generate_state(
-        2, np.uint32)
-    g = torch.Generator(device=device)
-    g.manual_seed((int(hi) << 32) | int(lo))
-    return g
-
-
-@torch.no_grad()
-def sample_rows(logits, temp, seeds, idx, top_k: int = 0,
-                top_p: float = 0.0):
-    """Next token per row of logits (S, V): argmax where temp <= 0,
-    else a draw from softmax(filter_logits(logits / temp)) with the
-    row's (seed, token index) generator. temp/seeds/idx are host
-    sequences of length S. Returns an int64 numpy array."""
-    out = logits.argmax(dim=-1).cpu().numpy()
-    hot = [i for i in range(len(out)) if temp[i] > 0.0]
-    if hot:
-        scaled = logits[hot] / torch.tensor(
-            [max(float(temp[i]), 1e-6) for i in hot],
-            device=logits.device)[:, None]
-        probs = torch.softmax(G.filter_logits(scaled, top_k, top_p), dim=-1)
-        for j, i in enumerate(hot):
-            g = _row_generator(seeds[i], idx[i], logits.device)
-            out[i] = int(torch.multinomial(probs[j], 1, generator=g))
-    return out
-
-
 class _Req:
     """Host-side request state."""
 
@@ -254,8 +230,6 @@ class ServingEngine:
                 f"unsupported attn_impl={attn_impl!r}; expected 'gather' "
                 f"(gather_table + masked_attention) or 'flash' (the "
                 f"paged decode kernel)")
-        if weight_quant:
-            raise NotPorted(f"weight_quant={weight_quant!r}", _LATER)
         if spec_k:
             raise NotPorted("speculative decoding (spec_k > 0)", _LATER)
         if prefix_cache:
@@ -266,8 +240,12 @@ class ServingEngine:
         if stray:
             raise ValueError(f"params live on {sorted(stray)}, the engine "
                              f"runs on {self.device}")
-        # cast once: every tick reads the compute-dtype copy
-        self.params = T.cast_params(params, cfg.compute_dtype)
+        # quantize once (from the master weights), then cast once:
+        # every tick reads the stored copy
+        self.params = T.cast_params(T.quantize_weights(params, weight_quant),
+                                    cfg.compute_dtype)
+        self.weight_quant = weight_quant
+        self.kv_quant = kv_quant
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.block_size = int(block_size)
@@ -436,7 +414,7 @@ class ServingEngine:
         if req.written == len(req.ctx):
             # prompt complete: sample token index len(generated) — 0 for
             # a fresh request, the continuation index after an eviction
-            tok = sample_rows(logits[None], [req.temp], [req.seed],
+            tok = G.sample_rows(logits[None], [req.temp], [req.seed],
                               [len(req.generated)], self.top_k, self.top_p)
             req.phase = "decode"
             self._append_token(req, int(tok[0]))
@@ -470,7 +448,8 @@ class ServingEngine:
         logits = decode_logits(self.params, self.pools, self._tensor(tok),
                                self._tensor(pos), self._tensor(bt),
                                cfg=self.cfg, attn=self.attn_impl)
-        nxt = sample_rows(logits, temp, seeds, idx, self.top_k, self.top_p)
+        nxt = G.sample_rows(logits, temp, seeds, idx, self.top_k,
+                            self.top_p)
         self.counters["ticks"] += 1
         self._last_touched = sum(blocks_for(r.written + 1, self.block_size)
                                  for r in actives)
@@ -560,7 +539,7 @@ class ServingEngine:
         dt = max(now - self._win_t, 1e-9)
         bpt = paged_read_bytes_per_tick(self.cfg, self._p_bytes,
                                         self._last_touched, self.block_size,
-                                        self.max_slots)
+                                        self.max_slots, self.kv_quant)
         self.metrics.log(
             event="generate",
             tokens_per_sec=round(self._win_tokens / dt, 2),

@@ -12,9 +12,16 @@ its `"step"` JSONL events. `--attn flash` (the default) runs the
 hand-written K1/K2/K3 kernels; `--attn ring` the plain attention under
 torch autograd. Runs on the GPU unless `--device cpu` is given.
 
+`--generate N` samples N tokens after training through the contiguous
+`models.generate.generate` (int8 KV cache with `--kv-int8`; sampler
+flags `--temperature --top-k --top-p`; a byte-level `--prompt` or a
+16-token prefix of the synthetic stream) and prints the root driver's
+`decode:`, `prompt:` and `sample:` lines, plus a `"generate"` event with
+`--log-file`.
+
 The root driver's other flags (multi-device meshes, text data,
-checkpoints, sampling, remat, dropout, the telemetry and health planes)
-are recognised and refused with `NotPorted`.
+checkpoints and `--sample-only`, remat, dropout, the telemetry and
+health planes) are recognised and refused with `NotPorted`.
 """
 
 from __future__ import annotations
@@ -29,13 +36,14 @@ from shallowspeed_tpu_torch import NotPorted, resolve_device
 from shallowspeed_tpu_torch.flops import mfu
 from shallowspeed_tpu_torch.metrics import MetricsLogger, StepRates, step_event
 from shallowspeed_tpu_torch.models import transformer as T
+from shallowspeed_tpu_torch.models.generate import (decode_report, generate,
+                                                    prompt_bucket_len)
 from shallowspeed_tpu_torch.optim import OPTIMIZERS, SCHEDULES
 from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
 
 _MESH = "Queue 1, multi-device LM engines"
 _TRAIN = "Queue 1, training features after slice 2"
 _DATA = "Queue 1, data and checkpoint"
-_GEN = "Queue 1, serving features after slice 1"
 _PLANES = "Queue 1, planes"
 
 # the root driver's flags this driver does not have yet, and where each
@@ -54,10 +62,7 @@ UNPORTED = {
         ["--data-dir", "--text", "--tokenizer", "--vocab-size",
          "--save-dir", "--resume", "--auto-resume", "--save-every",
          "--keep-checkpoints", "--keep-last", "--async-save",
-         "--prefetch", "--val-every"], _DATA),
-    **dict.fromkeys(
-        ["--generate", "--temperature", "--top-k", "--top-p", "--kv-int8",
-         "--prompt", "--sample-only"], _GEN),
+         "--prefetch", "--val-every", "--sample-only"], _DATA),
     **dict.fromkeys(
         ["--heartbeat-file", "--profile-dir", "--telemetry", "--health",
          "--trace-dir", "--monitor-port", "--replica", "--slo",
@@ -116,6 +121,21 @@ def parse_args(argv=None):
     p.add_argument("--tie-embeddings", action="store_true")
     p.add_argument("--label-smoothing", type=float, default=0.0)
     p.add_argument("--logit-softcap", type=float, default=0.0)
+    p.add_argument("--generate", type=int, default=0,
+                   help="after training, sample this many tokens from the "
+                        "model (KV-cache decode) and print them")
+    p.add_argument("--temperature", type=float, default=0.8)
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--top-p", type=float, default=0.0,
+                   help="nucleus sampling: keep the smallest probability "
+                        "mass >= p (0 = off; composes with --top-k)")
+    p.add_argument("--kv-int8", action="store_true",
+                   help="decode with an int8 KV cache (f32 per-position "
+                        "scales); streams are deterministic but not "
+                        "bit-equal to the compute-dtype cache")
+    p.add_argument("--prompt", type=str, default="",
+                   help="UTF-8 prompt for --generate (byte-level; default: "
+                        "a 16-token prefix of the synthetic stream)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=20)
     p.add_argument("--log-file", type=str, default="")
@@ -125,7 +145,18 @@ def parse_args(argv=None):
     for flag in UNPORTED:
         p.add_argument(flag, nargs="?", action=_Refuse,
                        help=argparse.SUPPRESS)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.prompt and not args.generate:
+        args.generate = 128          # --prompt implies sampling
+    prompt_len = len(args.prompt.encode()) if args.prompt else 16
+    if args.prompt and args.vocab < 256:
+        raise SystemExit(f"--prompt is byte-level and needs --vocab >= 256, "
+                         f"got {args.vocab}")
+    if args.generate and args.generate + prompt_len > args.seq_len:
+        raise SystemExit(f"--generate {args.generate} + the {prompt_len}-"
+                         f"token prompt exceeds --seq-len {args.seq_len} "
+                         f"(= max_seq)")
+    return args
 
 
 def make_batch(args, vocab: int, step: int):
@@ -197,9 +228,54 @@ def train(args) -> float:
                       f"tok/s {r['tokens_per_sec']:,.0f}{mfu_txt}",
                       flush=True)
                 metrics.log(**step_event(step, loss, r, perf, cum))
+        if args.generate > 0:
+            sample_and_print(args, engine, cfg, metrics)
     finally:
         metrics.close()
     return loss
+
+
+def sample_and_print(args, engine, cfg, metrics=None):
+    """Decode `args.generate` tokens from the trained parameters through
+    the contiguous `generate`, after a byte-level `--prompt` or a
+    16-token prefix of the synthetic stream, and print the root
+    driver's decode, prompt and sample lines (the rate includes the
+    prefill and, on the card, the kernels' first-use build)."""
+    if args.prompt:
+        prompt = np.frombuffer(args.prompt.encode(), np.uint8).astype(
+            np.int32)[None, :]
+    else:
+        prompt = make_batch(args, cfg.vocab, 0)[0][:1, :16]
+    params = engine.get_canonical_params()
+    kvq = "int8" if args.kv_int8 else ""
+    t0 = time.time()
+    out = generate(params, prompt, cfg, args.generate,
+                   temperature=args.temperature, top_k=args.top_k,
+                   top_p=args.top_p, seed=args.seed, kv_quant=kvq)
+    dt = time.time() - t0
+    cache_len = prompt_bucket_len(prompt.shape[1], args.generate,
+                                  cfg.max_seq) + args.generate
+    rep = decode_report(params, cfg, prompt.shape[0], cache_len,
+                        args.generate, dt, kv_quant=kvq)
+    util = ("" if rep["hbm_util"] is None else
+            f"  ({rep['hbm_util']:.0%} of the "
+            f"{rep['hbm_peak_gbps']:,.0f} GB/s HBM roofline)")
+    print(f"decode: {rep['tokens_per_sec']:,.0f} tok/s  "
+          f"~{rep['bytes_per_token'] / 2**20:.1f} MiB/token sweep "
+          f"-> {rep['hbm_gbps']:.1f} GB/s{util} [includes prefill]",
+          flush=True)
+    if metrics is not None:
+        metrics.log(event="generate", **rep)
+    print(f"prompt: {_show(prompt[0])}")
+    print(f"sample: {_show(out[0])}", flush=True)
+    return out
+
+
+def _show(ids) -> str:
+    """Token ids as the bytes they stand for (byte-level vocab), or as
+    the id list where an id lies past 255."""
+    ids = [int(x) for x in ids]
+    return repr(bytes(ids)) if max(ids) < 256 else str(ids)
 
 
 def main(argv=None) -> int:

@@ -48,6 +48,80 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, tol, kvh, window):
     assert float((got - ref).abs().max() / ref.abs().max()) <= tol
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kvh,window", [(16, 0), (4, 0), (16, 100)],
+                         ids=["mha", "gqa", "window"])
+def test_cuda_int8_kernel_matches_plain_version(cuda, dtype, kvh, window):
+    """K4's int8 branch on the card against its plain version at the
+    serving shapes, q in f32 or bf16, per element: 1e-4 of |ref| + mean
+    |ref| (summation order); for bf16 q also one bf16 rounding of the
+    output (2^-7 |ref|) and the plain version's rounding of P * v_s to
+    bf16 before PV (2^-8 of the attention over |V|)."""
+    from shallowspeed_tpu_torch.models.kv_cache import quantize_kv
+
+    rng = np.random.default_rng(kvh + window)
+    s, h, hd, bs, w = 8, 16, 128, 16, 64
+    n = s * w + 1
+    bt = torch.from_numpy(rng.permutation(np.arange(1, n)).reshape(s, w)
+                          .astype(np.int32)).to(cuda)
+    pos = torch.from_numpy(rng.integers(0, w * bs, s).astype(np.int32)
+                           ).to(cuda)
+    pool = {}
+    for name in ("k", "v"):
+        pool[name], pool[name + "_s"] = quantize_kv(
+            torch.randn(n, kvh, bs, hd, device=cuda))
+    q = torch.randn(s, h, hd, device=cuda).to(dtype)
+    before = (FA.paged_flash_decode.launches,
+              FA._paged_flash_decode_int8.launches)
+    got = FA.paged_flash_decode(q, pool, bt, pos, window=window).float()
+    ref = FA.paged_flash_decode_reference(q, pool, bt, pos,
+                                          window=window).float()
+    assert (FA.paged_flash_decode.launches,
+            FA._paged_flash_decode_int8.launches) == (before[0],
+                                                      before[1] + 1)
+    allow = 1e-4 * (ref.abs() + ref.abs().mean())
+    if dtype == torch.bfloat16:
+        pv = FA.paged_flash_decode_reference(
+            q.float(), dict(pool, v=pool["v"].abs()), bt, pos,
+            window=window)
+        allow = allow + 2.0 ** -7 * ref.abs() + 2.0 ** -8 * pv
+    assert torch.isfinite(got).all()
+    assert float(((got - ref).abs() / allow).max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_cuda_dequant_matmul_bf16_keeps_the_sum_in_f32(cuda, mode):
+    """`dequant_matmul` in bf16 on the card (cuBLAS's bf16 matmul with an
+    f32 output) against the exact product of the same quantized leaves
+    (f64 on the CPU), per element: one bf16 rounding of the result
+    (2^-8 |ref|) plus f32 summation-order noise (1e-5 of max |ref|). A
+    bf16 rounding of the sum before the scale must exceed that bound."""
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.ops.matmul import dequant_matmul
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn(2, 8, 512, generator=g).to(cuda).to(torch.bfloat16)
+    w = (torch.randn(512, 1024, generator=g) / 512 ** 0.5).to(cuda)
+    q = T.quantize_weights({"W": w, "b": torch.zeros(1024, device=cuda)},
+                           mode)
+    ref = ((x.cpu().double() @ q["Wq"].cpu().float().double())
+           * q["Ws"].cpu().double())
+    allow = 2.0 ** -8 * ref.abs() + 1e-5 * ref.abs().max()
+
+    def ratio(t):
+        return float(((t.cpu().double() - ref).abs() / allow).max())
+
+    got = dequant_matmul(x, q["Wq"], q["Ws"])
+    slip = ((x @ q["Wq"].to(torch.bfloat16)).float()
+            * q["Ws"]).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 8, 1024)
+    assert ratio(got) <= 1.0
+    assert ratio(slip) > 1.0
+
+
 # (B, Tq, Tk, H, Hkv, D, causal, window, rel): the chip_smoke cases at
 # test size, including a row that sees nothing (rel -70, causal)
 TRAIN_CASES = {
@@ -160,3 +234,11 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda):
     q = torch.randn(1, 64, 2, 32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         FA.flash_fwd(q, q, q)
+    pool = {"k": torch.zeros(4, 2, 8, 64, dtype=torch.int8, device=cuda),
+            "k_s": torch.ones(4, 2, 8, device=cuda)}
+    pool.update(v=pool["k"].clone(), v_s=pool["k_s"].clone())
+    with pytest.raises(ValueError, match="k_s"):
+        FA.paged_flash_decode(torch.zeros(2, 2, 64, device=cuda), pool,
+                              torch.zeros(2, 1, dtype=torch.int32,
+                                          device=cuda),
+                              torch.zeros(2, dtype=torch.int32, device=cuda))

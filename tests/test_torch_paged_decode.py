@@ -19,7 +19,6 @@ from shallowspeed_tpu.models import transformer as JT
 from shallowspeed_tpu.models.kv_cache import masked_attention as j_masked
 from shallowspeed_tpu.ops.flash_attention import paged_flash_decode as j_paged
 from shallowspeed_tpu.serving.cache import gather_table as j_gather
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch.ops import flash_attention as FA
 
 TOL = 1e-5
@@ -97,13 +96,25 @@ def test_paged_decode_scratch_rows_are_finite_and_match():
     np.testing.assert_allclose(got, kern, atol=TOL)
 
 
-def test_paged_decode_rejects_int8_pools():
+def test_paged_decode_takes_int8_pools_through_the_int8_branch():
+    """Pools carrying "k_s" go to K4's int8 branch: `paged_flash_decode`
+    gives its plain version over the int8 pools, the dequantized pools'
+    float attention to 1e-5 (tests/test_torch_quant.py holds the branch
+    against the JAX kernel)."""
     q, k, v, bt, pos = _inputs(0, seed=1)
-    pool = {"k": torch.from_numpy(k), "v": torch.from_numpy(v),
-            "k_s": torch.ones(1), "v_s": torch.ones(1)}
-    with pytest.raises(NotPorted):
-        FA.paged_flash_decode(torch.from_numpy(q), pool,
-                              torch.from_numpy(bt), torch.from_numpy(pos))
+    pool = {}
+    for name, x in (("k", k), ("v", v)):
+        s = np.abs(x).max(axis=-1, keepdims=True) / 127.0
+        pool[name] = torch.from_numpy(np.round(x / s).astype(np.int8))
+        pool[name + "_s"] = torch.from_numpy(s.astype(np.float32))
+    args = (torch.from_numpy(q), pool, torch.from_numpy(bt),
+            torch.from_numpy(pos))
+    got = FA.paged_flash_decode(*args).numpy()
+    np.testing.assert_array_equal(got,
+                                  FA.paged_flash_decode_reference(*args))
+    deq = (pool["k"].numpy() * pool["k_s"].numpy(),
+           pool["v"].numpy() * pool["v_s"].numpy())
+    assert _rel(got, _port(q, *deq, bt, pos, 0)) <= TOL
 
 
 def _kernel_args(hd=64, dtype=torch.float32, bt_dtype=torch.int32):

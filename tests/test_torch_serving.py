@@ -178,13 +178,22 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kw", [{"kv_quant": "int8"},
-                                {"weight_quant": "int8"}, {"spec_k": 2},
-                                {"prefix_cache": True}],
-                         ids=["kv-int8", "weight-quant", "spec", "prefix"])
+@pytest.mark.parametrize("kw", [{"spec_k": 2}, {"prefix_cache": True}],
+                         ids=["spec", "prefix"])
 def test_unported_serving_options_raise(kw):
     cfg = T.TransformerConfig(**STREAM_CFG)
     with pytest.raises(NotPorted):
+        ServingEngine(T.init(cfg, device="cpu"), cfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [{"kv_quant": "int4"},
+                                {"weight_quant": "int4"}],
+                         ids=["kv-int4", "weight-int4"])
+def test_unknown_quant_modes_raise(kw):
+    """An unknown quantization mode is a ValueError naming the modes, as
+    in the reference (`init_block_pool`, `quantize_weights`)."""
+    cfg = T.TransformerConfig(**STREAM_CFG)
+    with pytest.raises(ValueError, match="int4"):
         ServingEngine(T.init(cfg, device="cpu"), cfg, device="cpu", **kw)
 
 
@@ -243,7 +252,7 @@ def test_driver_refuses_unported_flags(tmp_path):
 
     empty = tmp_path / "none.jsonl"
     empty.write_text("")
-    for extra in (["--prefix-cache", "on"], ["--kv-quant", "int8"],
+    for extra in (["--prefix-cache", "on"], ["--spec-k", "2"],
                   ["--ckpt", "somewhere"], ["--serve"]):
         with pytest.raises(NotPorted):
             serve.main(["--device", "cpu", "--requests", str(empty),
