@@ -1,13 +1,13 @@
 """Smoke check of the PyTorch port (`shallowspeed_tpu_torch`) on one
-NVIDIA GPU: the quickest proof that the port builds, is right, serves
-and trains on the card.
+NVIDIA GPU: the quickest proof that the port builds, is right, serves,
+trains and runs its matmul probe on the card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. Build every CUDA kernel of the serving and training paths from
-   `csrc/` with nvcc (sm_90a), one nvcc per source, all started
+1. Build every CUDA kernel of the serving, training and probe paths
+   from `csrc/` with nvcc (sm_90a), one nvcc per source, all started
    together; print each kernel's registers and spills.
 2. Hold each kernel against its plain torch version on the card: K4
    (float pools, and its int8 branch with q in f32 and in bf16) at
@@ -20,6 +20,14 @@ Phases (any failure exits non-zero and prints no result line):
    one bf16 ulp where the kernel rounds its output to bf16. The bf16
    `dequant_matmul` (int8 and fp8 weights) against the exact product,
    per element, and a bf16 rounding before its scale must fail that.
+   K5 (`blocked_matmul`) and its plain version, each element against
+   the f64 product of the same values within one rounding of the output
+   dtype plus an f32 summation bound (`_k5_ratio`), at the JAX test's
+   shapes (f32, bf16, bf16 in with f32 out) and at the probe's six
+   shapes in bf16; a bf16 rounding of the accumulator between k-slices
+   must fail that rule.
+2b. The narrow-K matmul probe (`bench_matmul.main`, --iters 5, M 16384):
+   its 12 records, and K5 launched 6 shapes x 4 chains x 5 times.
 3. Serve the repo's 1.21B LM (vocab 32768, d_model 2048, 16 heads, 16
    layers, RoPE + RMSNorm + SwiGLU, f32 master weights, bf16 compute)
    at full width and depth through `ServingEngine(attn_impl="flash")`,
@@ -32,6 +40,16 @@ Phases (any failure exits non-zero and prints no result line):
    pools, under the same checks. After each run, a decode tick of every
    slot over one synthetic state is timed and profiled, so the four
    modes compare tick for tick.
+3b. The prefix cache: 12 greedy requests that share one 768-token
+   prefix (ten with distinct tails, the last two exactly the prefix,
+   the fully aligned copy-on-write path), submitted together; hits and
+   skipped tokens must show, the allocator must balance with cold
+   blocks (n_free + n_cold == n_usable), one hit's teacher-forced
+   logits are held against the plain forward (bf16), and in f32 at 2
+   layers the streams must equal the cache-off streams.
+3c. Speculative decoding: 4 greedy requests over motif prompts on 8
+   slots with spec_k 4; drafts must show and the streams must equal the
+   spec_k 0 streams token for token (bf16, full depth).
 4. Hold the engine's prefill-then-decode logits of two requests against
    the plain full forward over the same tokens (teacher-forced), in the
    bf16 compute path served above and again in f32 compute, and show
@@ -42,9 +60,10 @@ Phases (any failure exits non-zero and prints no result line):
    the bf16 compute served above, and with int8 weights in f32 compute,
    the paged logits against the plain forward over the dequantized
    weights.
-5. Time K4 (float and int8 pools) at the serving shapes beside its
-   plain version, one library call computing the same function, and
-   its bound.
+5. Time K4 (float and int8 pools) at the serving shapes, and K5 at the
+   probe's narrow-K shape (16384, 1024) @ (1024, 4096) in bf16, beside
+   their plain versions, one library call computing the same function,
+   and their bounds.
 5b. The contiguous `generate()`: 8 prompts of 1024 tokens, 64 greedy new
    tokens, prefilled through K1 (`flash_prefill_at=1024`), with a bf16
    and with an int8 cache; K1 launches once per layer per call.
@@ -109,6 +128,21 @@ GEN_BATCH = 8
 GEN_PROMPT = 1024
 GEN_NEW = 64
 
+# The prefix-cache run: PREFIX_LEN shared tokens (3 prefill chunks, 48
+# blocks, numpy seed 5), ten tails of 64-256 tokens, two exact copies.
+PREFIX_LEN = 768
+# The speculative run: SPEC_REQUESTS prompts of 256-1024 tokens that
+# repeat one 32-token motif (numpy seed 6), SPEC_NEW new tokens each.
+SPEC_K = 4
+SPEC_REQUESTS = 4
+SPEC_NEW = 64
+
+# K5: the probe phase's chain length, and the shape K5 is timed at (the
+# narrow-K shape the probe exists for) with the probe's blocks.
+PROBE_ITERS = 5
+K5_SHAPE = (16384, 1024, 4096)
+K5_BLOCKS = dict(bm=512, bk=1024, bn=1024)
+
 # Training: 1 warm-up step, then TRAIN_STEPS timed steps on one repeated
 # (TRAIN_BATCH, max_seq) batch.
 TRAIN_BATCH = 4
@@ -141,8 +175,15 @@ def _ptxas_lines(log: str) -> list[str]:
     out, name, spill = [], "?", ""
     for line in log.splitlines():
         m = re.search(r"((?:paged_decode_int8|paged_decode|flash_fwd|"
-                      r"flash_dq|flash_dkv)_kernel)I(\w+)'", line)
-        if m:
+                      r"flash_dq|flash_dkv|blocked_matmul)_kernel)I(\w+)'",
+                      line)
+        if m and m.group(1) == "blocked_matmul_kernel":
+            # <input, output> types; S1_ repeats the first (bf16) type
+            args = re.findall(r"13__nv_bfloat16|S\d*_|f",
+                              m.group(2).split("EE")[0])
+            name = m.group(1) + "<" + ",".join(
+                "f32" if a == "f" else "bf16" for a in args) + ">"
+        elif m:
             inst = re.findall(r"(__nv_bfloat16|f)(?:Li(\d+)E)", m.group(2))
             name = m.group(1) + "".join(
                 f"<{'bf16' if t == '__nv_bfloat16' else 'f32'},{d}>"
@@ -314,12 +355,18 @@ def slice_config():
         norm="rmsnorm", ffn="swiglu")
 
 
-def serve(dev, cfg, params, kv_quant="", weight_quant="") -> dict:
+def serve(dev, cfg, params, kv_quant="", weight_quant="", prompts=None,
+          max_new=MAX_NEW, profile=True, label="", **engine_kw) -> dict:
     """Phase 3: the 1.21B LM served through the port's engine from the
     f32 master weights `params` (the numpy draw `init_numpy(cfg,
     seed=0)` on the card), with `kv_quant` pools and `weight_quant`
-    weights. The decode kernel the pools call for must launch
-    n_layers x ticks times, the other none."""
+    weights; by default the 12 random requests of phase 3, else
+    `prompts` ({rid: ids}) with `max_new` new tokens each, and
+    `engine_kw` (spec_k, prefix_cache) passed to the engine. The decode
+    kernel the pools call for must launch n_layers x ticks times, the
+    other none; at drain no block is live and every block is free or
+    cold (indexed by the prefix cache). With `profile`, a synthetic tick
+    is timed and profiled after the run."""
     import torch
 
     from shallowspeed_tpu_torch.ops.flash_attention import (
@@ -333,19 +380,20 @@ def serve(dev, cfg, params, kv_quant="", weight_quant="") -> dict:
                         max_slots=SLICE["slots"],
                         prefill_chunk=PREFILL_CHUNK, attn_impl="flash",
                         kv_quant=kv_quant, weight_quant=weight_quant,
-                        device=dev)
+                        device=dev, **engine_kw)
     # one warmup request first: library handles and first-call setup for
     # each prefill shape are process start-up, not serving time
     eng.submit(np.arange(300, dtype=np.int32) % cfg.vocab, 4, rid="warmup")
     eng.run()
     del eng.results["warmup"], eng.request_records[:]
     base = dict(eng.counters)
-    rng = np.random.default_rng(1)
-    lens = rng.integers(128, 1025, N_REQUESTS)
-    prompts = {f"r{i}": rng.integers(0, cfg.vocab, n).astype(np.int32)
-               for i, n in enumerate(lens)}
+    if prompts is None:
+        rng = np.random.default_rng(1)
+        lens = rng.integers(128, 1025, N_REQUESTS)
+        prompts = {f"r{i}": rng.integers(0, cfg.vocab, n).astype(np.int32)
+                   for i, n in enumerate(lens)}
     for rid, p in prompts.items():
-        eng.submit(p, MAX_NEW, rid=rid)
+        eng.submit(p, max_new, rid=rid)
 
     kernels = {"paged_flash_decode": paged_flash_decode,
                "paged_flash_decode_int8": _paged_flash_decode_int8}
@@ -374,18 +422,20 @@ def serve(dev, cfg, params, kv_quant="", weight_quant="") -> dict:
         raise AssertionError(f"decode kernels launched {launches} times "
                              f"over {ticks} ticks of {cfg.n_layers} layers "
                              f"(kv_quant={kv_quant!r}), want {want}")
-    if eng.alloc.n_free != eng.alloc.n_usable or eng.alloc.n_live:
+    a = eng.alloc
+    if a.n_live or a.n_free + a.n_cold != a.n_usable:
         raise AssertionError(f"allocator unbalanced at drain: "
-                             f"{eng.alloc.n_free}/{eng.alloc.n_usable}")
+                             f"{a.n_free} free + {a.n_cold} cold of "
+                             f"{a.n_usable}, {a.n_live} live")
     for rid in prompts:
         toks = eng.results[rid]
-        if toks.shape != (MAX_NEW,) or toks.min() < 0 \
+        if toks.shape != (max_new,) or toks.min() < 0 \
                 or toks.max() >= cfg.vocab:
             raise AssertionError(f"bad result for {rid}: {toks}")
     summ = request_summary(eng.request_records)
-    prof = profile_tick(eng, cfg)
-    print("serve tick profile: " + json.dumps(prof), flush=True)
-    out = {"kv_quant": kv_quant, "weight_quant": weight_quant,
+    out = {"run": label or "random", "kv_quant": kv_quant,
+           "weight_quant": weight_quant, "compute": str(cfg.act_dtype)[6:],
+           "n_layers": cfg.n_layers, **engine_kw,
            "ticks": ticks, "launches": launches[used], "wall_s": wall,
            "decode_only_ticks": len(tick_s),
            "tick_ms_p50": 1e3 * float(np.median(tick_s)) if tick_s else None,
@@ -396,12 +446,20 @@ def serve(dev, cfg, params, kv_quant="", weight_quant="") -> dict:
            "prefill_chunks": (eng.counters["prefill_chunks"]
                               - base["prefill_chunks"]),
            "preempted": eng.counters["preempted"] - base["preempted"],
-           "max_table_blocks": int(max(lens + MAX_NEW - 1)
-                                   // SLICE["block_size"] + 1),
+           "max_table_blocks": int(max(len(p) for p in prompts.values())
+                                   + max_new - 1) // SLICE["block_size"] + 1,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-           "tick_ms_synthetic": prof["tick_ms"],
-           "tick_device_busy_ms": prof["device_busy_ms"],
-           "tick_idle_share": prof["idle_share"]}
+           "blocks_free_at_drain": f"{a.n_free}/{a.n_usable}",
+           "cold_blocks": a.n_cold}
+    out.update({k: eng.counters[k] - base[k] for k in (
+        "spec_drafted", "spec_accepted", "prefix_lookups", "prefix_hits",
+        "prefix_skipped_tokens")})
+    if profile:
+        prof = profile_tick(eng, cfg)
+        print("serve tick profile: " + json.dumps(prof), flush=True)
+        out.update(tick_ms_synthetic=prof["tick_ms"],
+                   tick_device_busy_ms=prof["device_busy_ms"],
+                   tick_idle_share=prof["idle_share"])
     print("serve: " + json.dumps(out), flush=True)
     return {"eng": eng, "prompts": prompts, "stats": out}
 
@@ -459,10 +517,10 @@ def _compare(label, got, ref, tol, above=False) -> float:
 
 
 def check_logits(dev, cfg, params, prompts, results, tol, attn="flash",
-                 n_requests=2, ref_params=None, tag="") -> float:
-    """Phase 4: for the longest requests, the paged path's logits
-    (`_paged_logits`) against the plain full forward over the same
-    tokens (over `ref_params`, default `params`), in cfg's compute
+                 n_requests=2, ref_params=None, tag="", rids=None) -> float:
+    """Phase 4: for the longest requests (or `rids`), the paged path's
+    logits (`_paged_logits`) against the plain full forward over the
+    same tokens (over `ref_params`, default `params`), in cfg's compute
     dtype. Returns the worst max |diff| / max |ref|; raises when it
     exceeds `tol` (None: no bound). `tag` starts each printed label."""
     from shallowspeed_tpu_torch.models import transformer as T
@@ -470,7 +528,7 @@ def check_logits(dev, cfg, params, prompts, results, tol, attn="flash",
     params = T.cast_params(params, cfg.compute_dtype)
     ref_params = params if ref_params is None else ref_params
     worst = 0.0
-    for rid in _longest(prompts, n_requests):
+    for rid in rids or _longest(prompts, n_requests):
         prompt, gen = prompts[rid], results[rid]
         seq = np.concatenate([prompt, gen[:-1]]).astype(np.int32)
         got = _paged_logits(dev, cfg, params, prompt, gen, attn)
@@ -579,6 +637,116 @@ def check_quant_weight_logits(dev, cfg, params, prompts, results, mode,
                         tag=f"{mode} weights ")
 
 
+def _prefix_prompts(vocab) -> dict:
+    """Phase 3b's requests: one PREFIX_LEN-token prefix (numpy seed 5),
+    ten requests that continue it with distinct tails of 64-256 tokens,
+    and last in submission order two that are exactly the prefix."""
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, vocab, PREFIX_LEN).astype(np.int32)
+    tails = rng.integers(64, 257, N_REQUESTS - 2)
+    prompts = {f"p{i}": np.concatenate(
+        [prefix, rng.integers(0, vocab, t).astype(np.int32)])
+        for i, t in enumerate(tails)}
+    for i in range(N_REQUESTS - 2, N_REQUESTS):
+        prompts[f"p{i}"] = prefix.copy()
+    return prompts
+
+
+def _p50(xs):
+    return float(np.median(xs)) if xs else None
+
+
+def run_prefix(dev, cfg, cfg32, params) -> dict:
+    """Phase 3b: the prefix cache at full width and depth in bf16 (hits,
+    skipped tokens, K4 launches, the allocator with cold blocks, TTFT of
+    hits against misses, one hit's logits against the plain forward),
+    then in f32 at 2 layers with the cache on and off: the streams must
+    be equal token for token."""
+    prompts = _prefix_prompts(cfg.vocab)
+    run = serve(dev, cfg, params, prompts=prompts, prefix_cache=True,
+                profile=False, label="prefix")
+    stats, eng = run["stats"], run["eng"]
+    if not (stats["prefix_hits"] >= 1 and stats["prefix_skipped_tokens"] > 0):
+        raise AssertionError(f"no prefix hits: {stats}")
+    recs = {r["id"]: r for r in eng.request_records}
+    hits = [rid for rid in prompts if recs[rid]["prefix_hit_blocks"] > 0]
+    misses = [rid for rid in prompts if rid not in hits]
+    full = [rid for rid in hits if len(prompts[rid]) == PREFIX_LEN]
+    out = {"ticks": stats["ticks"], "launches": stats["launches"],
+           "prefix_hits": stats["prefix_hits"],
+           "prefix_skipped_tokens": stats["prefix_skipped_tokens"],
+           "hits": hits, "full_aligned_hits": full,
+           "ttft_ms_p50_hits": _p50([recs[r]["ttft_ms"] for r in hits]),
+           "ttft_ms_p50_misses": _p50([recs[r]["ttft_ms"] for r in misses]),
+           # hits queued for a slot; TTFT less the queue wait is prefill
+           "admit_to_first_ms_p50_hits": _p50(
+               [recs[r]["ttft_ms"] - recs[r]["wait_ms"] for r in hits]),
+           "admit_to_first_ms_p50_misses": _p50(
+               [recs[r]["ttft_ms"] - recs[r]["wait_ms"] for r in misses]),
+           "prefill_chunks": stats["prefill_chunks"],
+           "cold_blocks": stats["cold_blocks"],
+           "blocks_free_at_drain": stats["blocks_free_at_drain"],
+           "wall_s": stats["wall_s"], "tok_per_s": stats["tok_per_s"]}
+    rid = (full or hits)[-1]
+    out["logits_rel_bf16"] = check_logits(
+        dev, cfg, params, prompts, eng.results, LOGITS_TOL_BF16,
+        rids=[rid], tag="prefix hit ")
+    del run, eng
+
+    cfg2 = dataclasses.replace(cfg32, n_layers=2)
+    params2 = dict(params, blocks=params["blocks"][:2])
+    streams = {}
+    for on in (True, False):
+        r = serve(dev, cfg2, params2, prompts=prompts, prefix_cache=on,
+                  profile=False, label=f"prefix-f32-{'on' if on else 'off'}")
+        streams[on] = r["eng"].results
+        if on:
+            out["f32_prefix_hits"] = r["stats"]["prefix_hits"]
+        del r
+    same = [rid for rid in prompts
+            if np.array_equal(streams[True][rid], streams[False][rid])]
+    out["f32_streams_equal"] = f"{len(same)}/{len(prompts)}"
+    print("prefix: " + json.dumps(out), flush=True)
+    if len(same) != len(prompts) or not out["f32_prefix_hits"]:
+        raise AssertionError(f"f32 prefix-on streams differ from cache-off "
+                             f"({out['f32_streams_equal']} equal, "
+                             f"{out['f32_prefix_hits']} hits)")
+    return out
+
+
+def run_spec(dev, cfg, params) -> dict:
+    """Phase 3c: SPEC_REQUESTS greedy motif requests on 8 slots, with
+    spec_k 0 and SPEC_K; drafts must show and the streams must be equal
+    token for token."""
+    rng = np.random.default_rng(6)
+    motif = rng.integers(0, cfg.vocab, 32).astype(np.int32)
+    lens = rng.integers(256, 1025, SPEC_REQUESTS)
+    prompts = {f"s{i}": np.tile(motif, -(-n // 32))[:n]
+               for i, n in enumerate(lens)}
+    runs = {}
+    for k in (0, SPEC_K):
+        r = serve(dev, cfg, params, prompts=prompts, max_new=SPEC_NEW,
+                  profile=False, label=f"spec-k{k}", spec_k=k)
+        runs[k] = (r["stats"], r["eng"].results)
+        del r
+    (off, off_res), (on, on_res) = runs[0], runs[SPEC_K]
+    same = [rid for rid in prompts
+            if np.array_equal(on_res[rid], off_res[rid])]
+    out = {"spec_k": SPEC_K, "spec_drafted": on["spec_drafted"],
+           "spec_accepted": on["spec_accepted"],
+           "accept_rate": (on["spec_accepted"] / on["spec_drafted"]
+                           if on["spec_drafted"] else None),
+           "ticks_spec": on["ticks"], "ticks_off": off["ticks"],
+           "launches_spec": on["launches"], "streams_equal":
+               f"{len(same)}/{len(prompts)}",
+           "tok_per_s_spec": on["tok_per_s"], "tok_per_s_off":
+               off["tok_per_s"], "prompt_lens": [int(n) for n in lens]}
+    print("spec: " + json.dumps(out), flush=True)
+    if not on["spec_drafted"] > 0 or len(same) != len(prompts):
+        raise AssertionError(f"speculative decoding: {out}")
+    return out
+
+
 def _dequant_err(got, ref) -> float:
     """Worst |diff| / allowance of a bf16 `dequant_matmul` result
     against the exact product: one bf16 rounding of the result (2^-8
@@ -624,6 +792,142 @@ def check_dequant_matmul(dev) -> None:
             raise AssertionError(f"dequant_matmul {mode}: a bf16 rounding "
                                  f"before the scale stays within the "
                                  f"allowance ({slip_ratio:.3e})")
+
+
+def _k5_ratio(got, x, y) -> tuple[float, float]:
+    """(max |got - exact|, worst |got - exact| / allowance) per element,
+    the exact product in f64 on the card (a check only): one rounding
+    of got's dtype (2^-8 |ref| for bf16, 0 for f32) plus an f32
+    summation bound K 2^-24 (|x| @ |y|)."""
+    import torch
+
+    xd, yd = x.double(), y.double()
+    ref = xd @ yd
+    allow = x.shape[1] * 2.0 ** -24 * (xd.abs() @ yd.abs())
+    if got.dtype == torch.bfloat16:
+        allow += 2.0 ** -8 * ref.abs()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("blocked_matmul gave non-finite values")
+    diff = (got.double() - ref).abs()
+    return float(diff.max()), float((diff / allow).max())
+
+
+def check_blocked_matmul(dev) -> float:
+    """Phase 2: K5 and its plain version against the f64 product
+    (`_k5_ratio`, each at most 1): at the JAX test's shapes and blocks
+    in f32, bf16, and bf16 in with f32 out, and at the probe's six
+    shapes (M 16384, bf16, its blocks). Then the plain arithmetic with
+    the accumulator rounded to bf16 between k-slices must exceed the
+    rule. Returns max |kernel - plain| at K5_SHAPE."""
+    import torch
+
+    from shallowspeed_tpu_torch.bench_matmul import SHAPES
+    from shallowspeed_tpu_torch.ops.matmul import (blocked_matmul,
+                                                   blocked_matmul_reference)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((256, 128, 384), dict(bm=64, bk=32, bn=128), dt, od)
+             for dt, od in ((f32, None), (bf16, None), (bf16, f32))]
+    cases += [((256, 128, 384), dict(bm=128, bk=128, bn=384), dt, od)
+              for dt, od in ((f32, None), (bf16, None), (bf16, f32))]
+    cases += [((K5_SHAPE[0], k, n), dict(bm=512, bk=min(1024, k), bn=1024),
+               bf16, None) for k, n in SHAPES]
+    g = torch.Generator(device=dev).manual_seed(9)
+    worst = None
+    before = blocked_matmul.launches
+    for (m, k, n), blocks, dt, od in cases:
+        x = torch.randn(m, k, device=dev, generator=g).to(dt)
+        y = torch.randn(k, n, device=dev, generator=g).to(dt)
+        got = blocked_matmul(x, y, out_dtype=od, **blocks)
+        torch.cuda.synchronize()
+        plain = blocked_matmul_reference(x, y, out_dtype=od, **blocks)
+        err, ratio = _k5_ratio(got, x, y)
+        p_err, p_ratio = _k5_ratio(plain, x, y)
+        label = (f"({m},{k})@({k},{n}) {str(dt)[6:]}->{str(got.dtype)[6:]} "
+                 f"blocks {tuple(blocks.values())}")
+        print(f"check blocked_matmul {label}: max_abs_err {err:.3e}, worst "
+              f"element at {ratio:.3e} of its allowance (plain "
+              f"{p_ratio:.3e})", flush=True)
+        if got.dtype != (od or dt) or not (ratio <= 1.0 and p_ratio <= 1.0):
+            raise AssertionError(f"blocked_matmul {label}: kernel {ratio:.3e}"
+                                 f", plain {p_ratio:.3e} x the allowance")
+        if (m, k, n) == K5_SHAPE:
+            worst = float((got.float() - plain.float()).abs().max())
+        del x, y, got, plain
+    blocked_matmul.launches = before        # check launches do not count
+    for (m, k, n), bk in (((256, 128, 384), 32), (K5_SHAPE, 128)):
+        x = torch.randn(m, k, device=dev, generator=g).to(bf16)
+        y = torch.randn(k, n, device=dev, generator=g).to(bf16)
+        acc = torch.zeros(m, n, device=dev)
+        for k0 in range(0, k, bk):
+            acc = (acc + x[:, k0:k0 + bk].float() @ y[k0:k0 + bk].float()
+                   ).to(bf16).float()
+        _, ratio = _k5_ratio(acc.to(bf16), x, y)
+        print(f"check blocked_matmul ({m},{k})@({k},{n}): a bf16 "
+              f"accumulator between {bk}-wide k-slices at {ratio:.3e} of "
+              f"the allowance (must exceed 1)", flush=True)
+        if not ratio > 1.0:
+            raise AssertionError("a bf16 accumulator stays within the K5 "
+                                 f"rule ({ratio:.3e})")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def run_probe() -> dict:
+    """Phase 2b: the narrow-K probe through its entry point at M 16384,
+    PROBE_ITERS calls a chain. K5's count is zeroed just before and must
+    equal shapes x 4 chains (one warm-up, three timed) x PROBE_ITERS
+    after; every record must carry a positive rate and no error."""
+    from shallowspeed_tpu_torch import bench_matmul
+    from shallowspeed_tpu_torch.ops.matmul import blocked_matmul
+
+    blocked_matmul.launches = 0
+    records = bench_matmul.main(["--iters", str(PROBE_ITERS)])
+    launches = blocked_matmul.launches
+    want = len(bench_matmul.SHAPES) * 4 * PROBE_ITERS
+    if launches != want:
+        raise AssertionError(f"the probe launched K5 {launches} times, want "
+                             f"{want}")
+    variants = [r["variant"] for r in records]
+    if (len(records) != 2 * len(bench_matmul.SHAPES)
+            or set(variants) != {"torch", "blocked"}
+            or not all(r["error"] is None and r["tflops"] > 0
+                       for r in records)):
+        raise AssertionError(f"bad probe records: {records}")
+    return {"launches": launches, "records": records}
+
+
+def time_blocked_matmul(dev) -> dict:
+    """Phase 5: K5 at K5_SHAPE in bf16 with the probe's blocks, beside
+    its plain version, `torch.matmul` (the library yardstick, which the
+    port never calls in K5's place) and its bound, on two input sets
+    (each output alone is over the 50 MB L2)."""
+    import torch
+
+    from shallowspeed_tpu_torch.ops.matmul import (blocked_matmul,
+                                                   blocked_matmul_reference)
+
+    m, k, n = K5_SHAPE
+    g = torch.Generator(device=dev).manual_seed(10)
+    sets = [(torch.randn(m, k, device=dev, generator=g).bfloat16(),
+             torch.randn(k, n, device=dev, generator=g).bfloat16())
+            for _ in range(2)]
+    before = blocked_matmul.launches
+    out = {"ms": _time_ms(partial(blocked_matmul, **K5_BLOCKS), sets),
+           "plain_ms": _time_ms(partial(blocked_matmul_reference,
+                                        **K5_BLOCKS), sets),
+           "library_ms": _time_ms(torch.matmul, sets)}
+    blocked_matmul.launches = before        # timing launches do not count
+    flops = 2.0 * m * n * k
+    nbytes = 2 * (m * k + k * n + m * n)    # bf16 x, y read; out written
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    out.update(bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               tflops=flops / (out["ms"] * 1e-3) / 1e12,
+               library_tflops=flops / (out["library_ms"] * 1e-3) / 1e12,
+               shape=[m, k, n])
+    print("time blocked_matmul: " + json.dumps(out), flush=True)
+    return out
 
 
 def time_kernels(dev, stats) -> dict:
@@ -1213,7 +1517,7 @@ def main() -> int:
           flush=True)
 
     t0 = time.time()
-    _build.build(["paged_decode", "flash_fwd", "flash_bwd"])
+    _build.build(["paged_decode", "flash_fwd", "flash_bwd", "blocked_matmul"])
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         print(f"nvcc {name}:", flush=True)
@@ -1226,6 +1530,8 @@ def main() -> int:
     errs = check_kernels(dev)
     errs.update(check_train_kernels(dev))
     check_dequant_matmul(dev)
+    errs["blocked_matmul"] = check_blocked_matmul(dev)
+    probe = run_probe()
     cfg = slice_config()
     cfg32 = dataclasses.replace(cfg, compute_dtype=None)
     t0 = time.time()
@@ -1247,7 +1553,9 @@ def main() -> int:
     check_logits(dev, cfg32, params, prompts, results, LOGITS_TOL_F32)
     check_f32_bound_catches_a_slip(dev, cfg32, params, prompts, results)
     timing = time_kernels(dev, stats)
-    launches = {"paged_flash_decode": stats["launches"]}
+    timing["blocked_matmul"] = time_blocked_matmul(dev)
+    launches = {"paged_flash_decode": stats["launches"],
+                "blocked_matmul": probe["launches"]}
     runs = {"bf16": stats}
 
     runs["kv-int8"], _, results = served(kv_quant="int8")
@@ -1265,6 +1573,12 @@ def main() -> int:
     print("serve compare: " + json.dumps(
         {name: {k: r[k] for k in keys} for name, r in runs.items()}),
         flush=True)
+    run_prefix(dev, cfg, cfg32, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_spec(dev, cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
     run_generate(dev, cfg, params)
     del params
     gc.collect()
@@ -1280,21 +1594,23 @@ def main() -> int:
     timing.update(time_train_kernels(dev))
 
     src = "shallowspeed_tpu_torch/csrc/"
-    ref = "shallowspeed_tpu/ops/flash_attention.py:"
-    where = {"paged_flash_decode": ("paged_decode.cu", "947"),
-             "paged_flash_decode_int8": ("paged_decode.cu", "947"),
-             "flash_fwd": ("flash_fwd.cu", "487"),
-             "flash_dq": ("flash_bwd.cu", "552"),
-             "flash_dkv": ("flash_bwd.cu", "597")}
+    fa = "shallowspeed_tpu/ops/flash_attention.py:"
+    where = {"paged_flash_decode": ("paged_decode.cu", fa + "947"),
+             "paged_flash_decode_int8": ("paged_decode.cu", fa + "947"),
+             "flash_fwd": ("flash_fwd.cu", fa + "487"),
+             "flash_dq": ("flash_bwd.cu", fa + "552"),
+             "flash_dkv": ("flash_bwd.cu", fa + "597"),
+             "blocked_matmul": ("blocked_matmul.cu",
+                                "shallowspeed_tpu/ops/matmul.py:85")}
     kernels = [{
         "name": name, "route": "cuda", "source": src + cu,
-        "replaces": ref + line, "launches": launches[name],
+        "replaces": ref, "launches": launches[name],
         "max_abs_err": errs[name], "ms": timing[name]["ms"],
         "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
         "library_ms": timing[name]["library_ms"],
-    } for name, (cu, line) in where.items()]
+    } for name, (cu, ref) in where.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

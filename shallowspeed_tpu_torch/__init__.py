@@ -19,7 +19,12 @@ What is ported so far:
 - quantized decode: int8 KV caches (K4's int8 branch in the serving
   tick) and int8/fp8 weight storage (`ops.matmul.dequant_matmul`), in
   the serving engine and in the contiguous `models.generate.generate`
-  loop (`train_lm --generate`), whose long-prompt prefill runs K1.
+  loop (`train_lm --generate`), whose long-prompt prefill runs K1;
+- speculative decoding and the prefix cache in the serving engine;
+- the narrow-K matmul probe (`bench_matmul`) -> `ops.matmul.
+  blocked_matmul`, a hand-written CUDA kernel (K5,
+  `csrc/blocked_matmul.cu`). Every Pallas kernel of the JAX package
+  now has its Hopper counterpart.
 ROADMAP.md lists what comes next; each feature not ported yet raises
 `NotPorted`.
 

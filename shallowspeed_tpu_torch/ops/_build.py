@@ -1,6 +1,6 @@
 """Build the port's CUDA sources (`shallowspeed_tpu_torch/csrc/*.cu`)
-with nvcc into shared libraries with a plain C interface, and load them
-with ctypes.
+with nvcc into shared libraries with a plain C interface, load them
+with ctypes, and launch their C entries (`launch`).
 
 A library is built at first use into `csrc/_build/` (listed in
 .gitignore), keyed by a hash of its source, the shared `*.cuh` headers
@@ -18,6 +18,8 @@ import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
@@ -87,3 +89,16 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_compile(name)))
         _loaded[name] = lib
     return lib
+
+
+def launch(wrapper, entry, error_string, device, *args) -> None:
+    """Call the C entry `entry(*args, stream)` on `device`'s current
+    stream, raise on a non-zero return (the launch's cudaGetLastError),
+    and add one to `wrapper.launches`: the one place a wrapper counts."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = entry(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{wrapper.__name__} launch failed: "
+                           f"{error_string(rc).decode()}")
+    wrapper.launches += 1

@@ -153,9 +153,10 @@ def paged_flash_decode(q, pool_blk, bt, pos, *, window: int = 0):
     _check(q, kp, vp, bt, pos, int(window))
     lib = _kernel()
     out = torch.empty_like(q)
-    _launch(paged_flash_decode, lib.paged_decode,
-            lib.paged_decode_error_string, q.device,
-            *_ptrs(q, kp, vp, bt, pos, out), *_decode_dims(q, kp, bt, window))
+    _build.launch(paged_flash_decode, lib.paged_decode,
+                  lib.paged_decode_error_string, q.device,
+                  *_ptrs(q, kp, vp, bt, pos, out),
+                  *_decode_dims(q, kp, bt, window))
     return out
 
 
@@ -175,10 +176,10 @@ def _paged_flash_decode_int8(q, pool_blk, bt, pos, window):
     _check(q, kp, vp, bt, pos, int(window), scales)
     lib = _kernel()
     out = torch.empty_like(q)
-    _launch(_paged_flash_decode_int8, lib.paged_decode_int8,
-            lib.paged_decode_error_string, q.device,
-            *_ptrs(q, kp, scales[0], vp, scales[1], bt, pos, out),
-            *_decode_dims(q, kp, bt, window))
+    _build.launch(_paged_flash_decode_int8, lib.paged_decode_int8,
+                  lib.paged_decode_error_string, q.device,
+                  *_ptrs(q, kp, scales[0], vp, scales[1], bt, pos, out),
+                  *_decode_dims(q, kp, bt, window))
     return out
 
 
@@ -195,19 +196,6 @@ def _decode_dims(q, kp, bt, window):
 
 def _ptrs(*tensors):
     return tuple(t.data_ptr() for t in tensors)
-
-
-def _launch(wrapper, entry, error_string, device, *args) -> None:
-    """Call the C entry `entry(*args, stream)` on `device`'s current
-    stream, raise on a non-zero return (the launch's cudaGetLastError),
-    and add one to `wrapper.launches`: the one place a wrapper counts."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = entry(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{wrapper.__name__} launch failed: "
-                           f"{error_string(rc).decode()}")
-    wrapper.launches += 1
 
 
 # ------------------------------------------------- training: K1, K2, K3
@@ -392,9 +380,9 @@ def flash_fwd(q, k, v, *, causal=True, window=0, rel=0):
     fwd, _ = _train_kernels()
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    _launch(flash_fwd, fwd.flash_fwd, fwd.flash_fwd_error_string, q.device,
-            *_ptrs(q, k, v, o, lse), *_strides(q, k, v, o),
-            *_dims(q, k, causal, window, rel))
+    _build.launch(flash_fwd, fwd.flash_fwd, fwd.flash_fwd_error_string,
+                  q.device, *_ptrs(q, k, v, o, lse), *_strides(q, k, v, o),
+                  *_dims(q, k, causal, window, rel))
     return o, lse
 
 
@@ -410,9 +398,10 @@ def flash_dq(q, k, v, do, lse, delta, *, causal=True, window=0, rel=0):
     _check_train("flash_dq", window, q, k, v, do, lse, delta)
     _, bwd = _train_kernels()
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _launch(flash_dq, bwd.flash_dq, bwd.flash_bwd_error_string, q.device,
-            *_ptrs(q, k, v, do, lse, delta, dq), *_strides(q, k, v, do, dq),
-            *_dims(q, k, causal, window, rel))
+    _build.launch(flash_dq, bwd.flash_dq, bwd.flash_bwd_error_string,
+                  q.device, *_ptrs(q, k, v, do, lse, delta, dq),
+                  *_strides(q, k, v, do, dq),
+                  *_dims(q, k, causal, window, rel))
     return dq
 
 
@@ -430,9 +419,10 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal=True, window=0, rel=0):
     _, bwd = _train_kernels()
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    _launch(flash_dkv, bwd.flash_dkv, bwd.flash_bwd_error_string, q.device,
-            *_ptrs(q, k, v, do, lse, delta, dk, dv),
-            *_strides(q, k, v, do, dk), *_dims(q, k, causal, window, rel))
+    _build.launch(flash_dkv, bwd.flash_dkv, bwd.flash_bwd_error_string,
+                  q.device, *_ptrs(q, k, v, do, lse, delta, dk, dv),
+                  *_strides(q, k, v, do, dk),
+                  *_dims(q, k, causal, window, rel))
     return dk, dv
 
 

@@ -72,14 +72,19 @@ def parse_args(argv=None):
                         "--device cpu), 'gather' = gather_table + "
                         "masked_attention")
     s.add_argument("--spec-k", type=int, default=0,
-                   help="speculative decoding (not ported yet: > 0 "
-                        "raises)")
+                   help="speculative decoding: up to K self-drafted "
+                        "(n-gram prompt-lookup) tokens per decoding "
+                        "request per tick, verified in the tick's free "
+                        "rows; 0 = off. Streams equal spec-off streams")
+    s.add_argument("--spec-ngram", type=int, default=3,
+                   help="longest n-gram the draft proposer matches")
     s.add_argument("--top-k", type=int, default=0)
     s.add_argument("--top-p", type=float, default=0.0)
-    s.add_argument("--prefix-cache", default="off", choices=["off", "on"],
-                   help="prefix caching. Defaults to off here (the root "
-                        "serve.py defaults to on) because it is not "
-                        "ported yet: 'on' raises")
+    s.add_argument("--prefix-cache", default="on", choices=["off", "on"],
+                   help="prefix caching: requests sharing block-aligned "
+                        "prompt prefixes map the shared KV blocks into "
+                        "their tables (refcounted, copy-on-write at the "
+                        "tail) and skip that prefill")
     p.add_argument("--requests", default="-",
                    help="JSONL request file, or - for stdin")
     p.add_argument("--serve", action="store_true",
@@ -143,6 +148,7 @@ def main(argv=None) -> int:
         block_size=args.block_size, slots=args.slots,
         prefill_chunk=args.prefill_chunk, attn_impl=args.attn_impl,
         kv_quant=args.kv_quant, weight_quant=args.weight_quant,
+        spec_k=args.spec_k, prefix_cache=args.prefix_cache,
         device=str(device))
     try:
         eng = ServingEngine(
@@ -150,7 +156,8 @@ def main(argv=None) -> int:
             max_slots=args.slots, prefill_chunk=args.prefill_chunk,
             table_bucket=args.table_bucket, kv_quant=args.kv_quant,
             weight_quant=args.weight_quant, attn_impl=args.attn_impl,
-            spec_k=args.spec_k, top_k=args.top_k, top_p=args.top_p,
+            spec_k=args.spec_k, spec_ngram=args.spec_ngram,
+            top_k=args.top_k, top_p=args.top_p,
             metrics=metrics, log_every=args.log_every,
             prefix_cache=(args.prefix_cache == "on"), device=device)
     except BaseException:
@@ -198,6 +205,8 @@ def main(argv=None) -> int:
             "ticks": eng.counters["ticks"],
             "prefill_chunks": eng.counters["prefill_chunks"],
             "preemptions": eng.counters["preempted"],
+            "spec_drafted": eng.counters["spec_drafted"],
+            "spec_accepted": eng.counters["spec_accepted"],
             "pending_at_exit": eng.pending(),
             "blocks_free_at_drain":
                 f"{eng.alloc.n_free}/{eng.alloc.n_usable}",

@@ -18,11 +18,16 @@ scale planes "k_s"/"v_s", one scale per (block, head, position), and
 The presence of "k_s" in a layer's pool is the dispatch (the reference
 passes a `quant` flag beside the pools; here the pools carry it).
 
-Not ported yet (ROADMAP): the prefix-cache index (the allocator here is
-the reference's with `index=None`).
+Prefix caching: `chunk_hashes` (byte-identical to the reference's),
+`PrefixIndex`, and the allocator's refcounts and cold LRU list, copied
+from the reference so that the port imports nothing of it.
 """
 
 from __future__ import annotations
+
+import hashlib
+
+import numpy as np
 
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.models.kv_cache import (KV_QUANT_MODES,
@@ -35,18 +40,20 @@ SCRATCH_BLOCK = 0
 
 
 class OutOfBlocks(RuntimeError):
-    """The free list is empty. The engine's preemption policy (evict
-    the newest running request and re-queue it) catches this; it never
-    escapes a `ServingEngine.step`. The payload mirrors the
-    reference's typed fields."""
+    """The free and cold lists cannot cover a request. The engine's
+    preemption policy (evict the newest running request and re-queue
+    it) catches this; it never escapes a `ServingEngine.step`. The
+    payload mirrors the reference's typed fields."""
 
-    def __init__(self, requested: int, n_free: int = 0, n_live: int = 0,
-                 rid=None):
+    def __init__(self, requested: int, n_free: int = 0, n_cold: int = 0,
+                 n_live: int = 0, rid=None):
         self.requested = int(requested)
         self.n_free = int(n_free)
+        self.n_cold = int(n_cold)
         self.n_live = int(n_live)
         self.rid = rid
-        msg = f"need {self.requested} blocks, {self.n_free} free"
+        msg = (f"need {self.requested} blocks, {self.n_free} free + "
+               f"{self.n_cold} cold")
         if rid is not None:
             msg += f" (request {rid!r})"
         super().__init__(msg)
@@ -77,13 +84,18 @@ def init_block_pool(cfg: T.TransformerConfig, n_blocks: int,
 class BlockAllocator:
     """Host-side refcounted free list over one pool's block ids.
 
-    `alloc` mints blocks at refcount 1 (all or nothing), `release`
-    drops one reference per listed id and returns a block to the free
-    list at zero. Invariants: `n_free + n_live == n_usable`; at drain
-    `n_live == 0`; `release` rejects ids listed more times than they
-    are held; block 0 (scratch) is never handed out."""
+    `alloc` mints blocks at refcount 1 (all or nothing), `acquire` adds
+    a reference to a block that is live or cold (a prefix-cache hit),
+    `release` (or `free`) drops one reference per listed id. A block at
+    refcount zero returns to the free list, unless the `index` still
+    maps its content: then it parks on the cold list (LRU, oldest
+    first), still matchable, and `alloc` reclaims cold blocks (dropping
+    their index entries) before it raises `OutOfBlocks`. Invariants:
+    `n_free + n_live + n_cold == n_usable`; at drain `n_live == 0`;
+    `release` rejects ids listed more times than they are held; block 0
+    (scratch) is never handed out."""
 
-    def __init__(self, n_blocks: int):
+    def __init__(self, n_blocks: int, index: "PrefixIndex | None" = None):
         if n_blocks < 2:
             raise ValueError(f"n_blocks={n_blocks} leaves no usable "
                              f"blocks past the reserved scratch block")
@@ -91,6 +103,11 @@ class BlockAllocator:
         # LIFO: recently freed blocks are reused first; ids 1..n-1
         self._free = list(range(self.n_blocks - 1, 0, -1))
         self._ref: dict[int, int] = {}
+        # insertion order is the LRU order: front = oldest parked
+        self._cold: dict[int, None] = {}
+        self.index = index
+        self.cold_reclaims = 0
+        self.peak_live = 0              # high-water of n_live
 
     @property
     def n_usable(self) -> int:
@@ -104,21 +121,55 @@ class BlockAllocator:
     def n_live(self) -> int:
         return len(self._ref)
 
+    @property
+    def n_cold(self) -> int:
+        return len(self._cold)
+
+    def refcount(self, bid: int) -> int:
+        return self._ref.get(bid, 0)
+
     def alloc(self, n: int, rid=None) -> list[int]:
-        """`n` fresh blocks at refcount 1, or OutOfBlocks without any
-        partial allocation."""
+        """`n` fresh blocks at refcount 1, reclaiming cold blocks
+        LRU-first when the free list is short, or OutOfBlocks without
+        any partial allocation."""
         if n < 0:
             raise ValueError(f"alloc({n})")
-        if n > len(self._free):
+        if n > len(self._free) + len(self._cold):
             raise OutOfBlocks(n, n_free=len(self._free),
+                              n_cold=len(self._cold),
                               n_live=len(self._ref), rid=rid)
+        while len(self._free) < n:
+            self._reclaim_one()
         ids = [self._free.pop() for _ in range(n)]
         for i in ids:
             self._ref[i] = 1
+        self.peak_live = max(self.peak_live, len(self._ref))
         return ids
 
+    def _reclaim_one(self) -> None:
+        bid = next(iter(self._cold))          # the oldest parked
+        del self._cold[bid]
+        if self.index is not None:
+            self.index.drop_block(bid)
+        self._free.append(bid)
+        self.cold_reclaims += 1
+
+    def acquire(self, ids) -> None:
+        """One more reference per listed id on blocks that are live or
+        cold (cold ones leave the LRU list); validates every id before
+        changing anything."""
+        ids = list(ids)
+        bad = [i for i in ids if i not in self._ref and i not in self._cold]
+        if bad:
+            raise ValueError(f"acquire() of unknown block(s) {bad}")
+        for i in ids:
+            self._cold.pop(i, None)
+            self._ref[i] = self._ref.get(i, 0) + 1
+        self.peak_live = max(self.peak_live, len(self._ref))
+
     def release(self, ids) -> None:
-        """Drop one reference per listed id; validates every id before
+        """Drop one reference per listed id; at zero a block parks cold
+        if the index maps it, else it is free. Validates every id before
         changing anything."""
         ids = list(ids)
         counts: dict[int, int] = {}
@@ -133,7 +184,88 @@ class BlockAllocator:
             self._ref[i] -= 1
             if self._ref[i] == 0:
                 del self._ref[i]
-                self._free.append(i)
+                if self.index is not None and self.index.has_block(i):
+                    self._cold[i] = None      # most recent at the back
+                else:
+                    self._free.append(i)
+
+    free = release
+
+    def snapshot(self) -> dict:
+        """Occupancy, with `consistent` restating the invariant."""
+        return {"n_blocks": self.n_blocks, "n_usable": self.n_usable,
+                "n_free": self.n_free, "n_live": self.n_live,
+                "n_cold": self.n_cold, "peak_live": self.peak_live,
+                "cold_reclaims": self.cold_reclaims,
+                "consistent": (self.n_free + self.n_live + self.n_cold
+                               == self.n_usable)}
+
+
+def chunk_hashes(tokens, block_size: int) -> list[bytes]:
+    """Chained content hashes of the full block-aligned chunks of
+    `tokens`: hash k = blake2b-128(hash k-1 || the chunk's int64 bytes),
+    so hash k pins the whole prefix through chunk k. A partial tail is
+    never hashed. Byte-identical to the reference's."""
+    toks = np.asarray(tokens, dtype=np.int64)
+    bs = int(block_size)
+    out: list[bytes] = []
+    h = b""
+    for k in range(len(toks) // bs):
+        h = hashlib.blake2b(h + toks[k * bs:(k + 1) * bs].tobytes(),
+                            digest_size=16).digest()
+        out.append(h)
+    return out
+
+
+class PrefixIndex:
+    """Content-addressed map from chained chunk hashes to block ids.
+
+    `match(tokens)` returns the block ids of the longest indexed aligned
+    prefix (it stops at the first miss). `insert` maps a finished
+    request's sealed prefix blocks first-writer-wins: a hash already
+    mapped keeps its block, so one content never aliases two blocks.
+    `drop_block` is the allocator's reclaim hook; a dropped parent makes
+    its descendants unreachable, since `match` walks parent first."""
+
+    def __init__(self, block_size: int):
+        self.block_size = int(block_size)
+        self._blocks: dict[bytes, int] = {}    # chain hash -> block id
+        self._hash_of: dict[int, bytes] = {}   # block id -> chain hash
+
+    def __len__(self) -> int:
+        return len(self._blocks)
+
+    def has_block(self, bid: int) -> bool:
+        return bid in self._hash_of
+
+    def match(self, tokens) -> list[int]:
+        ids: list[int] = []
+        for h in chunk_hashes(tokens, self.block_size):
+            bid = self._blocks.get(h)
+            if bid is None:
+                break
+            ids.append(bid)
+        return ids
+
+    def insert(self, tokens, table) -> int:
+        """Map the leading `len(table)` full chunks of `tokens` to the
+        given block ids; returns how many new entries landed."""
+        new = 0
+        for k, h in enumerate(chunk_hashes(tokens, self.block_size)):
+            if k >= len(table):
+                break
+            bid = int(table[k])
+            if h in self._blocks or bid in self._hash_of:
+                continue
+            self._blocks[h] = bid
+            self._hash_of[bid] = h
+            new += 1
+        return new
+
+    def drop_block(self, bid: int) -> None:
+        h = self._hash_of.pop(bid, None)
+        if h is not None:
+            self._blocks.pop(h, None)
 
 
 def gather_table(pool_blk, bt):

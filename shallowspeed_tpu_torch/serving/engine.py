@@ -45,8 +45,27 @@ what the contiguous `generate()` draws. This is NOT the reference's
 threefry `fold_in(PRNGKey(s), i)` stream: sampled tokens differ from
 the JAX package's, greedy tokens do not.
 
-Not ported yet (each raises `NotPorted`): speculative decoding, prefix
-caching. Lifecycle tracing, chaos hooks, the profiler, the monitor and
+Speculative decoding (`spec_k > 0`): the reference's n-gram
+prompt-lookup proposer drafts up to `spec_k` tokens per decoding request
+into the tick's free rows, at consecutive positions of the request's own
+block table. `decode_logits` writes every row's K/V before any row
+attends, so draft row j sees rows i < j of the same tick: one tick
+verifies them all. A draft is accepted while it equals the token its
+predecessor row sampled, and row j samples at token index
+`len(generated) + j` through the (seed, index) generator, so spec-on
+streams equal spec-off streams at every temperature.
+
+Prefix caching (`prefix_cache=True`): `_admit` maps the longest indexed
+block-aligned prefix of a request (`cache.PrefixIndex`) into its table
+and starts its prefill after it; a fully aligned match re-prefills its
+last token into a fresh copy of the tail block (copy-on-write in
+`prefill_chunk`, before any write), so the shared block stays
+unchanged. A finished request indexes its sealed prompt blocks; at
+refcount zero they park on the allocator's cold list until pool
+pressure reclaims them. At drain `n_live == 0` and
+`n_free + n_cold == n_usable`.
+
+Lifecycle tracing, chaos hooks, the profiler, the monitor and
 memory-owner hooks are absent (ROADMAP.md).
 """
 
@@ -58,7 +77,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from shallowspeed_tpu_torch import NotPorted, resolve_device
+from shallowspeed_tpu_torch import resolve_device
 from shallowspeed_tpu_torch.models import generate as G
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.models.kv_cache import (masked_attention,
@@ -66,15 +85,13 @@ from shallowspeed_tpu_torch.models.kv_cache import (masked_attention,
 from shallowspeed_tpu_torch.ops.flash_attention import paged_flash_decode
 from shallowspeed_tpu_torch.serving.cache import (SCRATCH_BLOCK,
                                                   BlockAllocator,
-                                                  OutOfBlocks, blocks_for,
-                                                  gather_table,
+                                                  OutOfBlocks, PrefixIndex,
+                                                  blocks_for, gather_table,
                                                   init_block_pool,
                                                   paged_read_bytes_per_tick,
                                                   param_read_bytes,
                                                   write_rows)
 from shallowspeed_tpu_torch.weights import leaves
-
-_LATER = "Queue 1, serving features after slice 1"
 
 
 class EngineDraining(RuntimeError):
@@ -111,8 +128,10 @@ def decode_logits(params, pools, tok, pos, bt, *, cfg: T.TransformerConfig,
     int32 block tables. Each slot writes its token's K/V at
     (bt[pos // bs], pos % bs) — into the pools, in place; this stands in
     for the reference's donated pools — and then attends over its table
-    up to `pos`. Inactive slots carry pos=0 / bt=scratch. Returns the
-    next-token logits (S, vocab) in f32."""
+    up to `pos`. Inactive slots carry pos=0 / bt=scratch. Every row
+    writes before any row reads, so draft rows (consecutive positions of
+    one table) see the rows before them. Returns the next-token logits
+    (S, vocab) in f32."""
     params = T.cast_params(params, cfg.compute_dtype)
     s_rows = tok.shape[0]
     bs = pools[0]["k"].shape[2]
@@ -149,15 +168,27 @@ def decode_logits(params, pools, tok, pos, bt, *, cfg: T.TransformerConfig,
 
 @torch.no_grad()
 def prefill_chunk(params, pools, tokens, pos0: int, bt, *,
-                  cfg: T.TransformerConfig):
+                  cfg: T.TransformerConfig, cow=None):
     """One chunk of a request's prefill: tokens (C,) at positions
     pos0..pos0+C-1 write their K/V through the block table bt (1, W)
     (in place) and attend causally over the table, earlier chunks
     included. Returns the f32 logits (vocab,) at the chunk's last token.
 
+    `cow` = (src, dst) is a prefix hit's copy-on-write pair: before any
+    write, every leaf of every layer's pool (scale planes included)
+    copies block src into block dst, so the chunk writes its own copy
+    and the shared block stays bit-unchanged.
+
     The reference pads every chunk to a fixed length for its compiler
     and steers the padding to scratch; eager torch runs the true tokens
-    only, which gives the true rows the same values."""
+    only, which gives the true rows the same values. The reference also
+    copies scratch onto itself when there is no pair; here nothing is
+    copied then."""
+    if cow is not None:
+        src, dst = cow
+        for pool in pools:
+            for leaf in pool.values():
+                leaf[dst] = leaf[src]
     params = T.cast_params(params, cfg.compute_dtype)
     c = tokens.shape[0]
     bs = pools[0]["k"].shape[2]
@@ -188,7 +219,8 @@ class _Req:
     __slots__ = ("rid", "prompt", "max_new", "temp", "seed", "arrival",
                  "generated", "n_preempt", "phase", "slot", "ctx", "table",
                  "written", "admit_seq", "queued_at", "wait_s",
-                 "first_tok_t", "last_tok")
+                 "first_tok_t", "last_tok", "n_drafted", "n_accepted",
+                 "ctx_ids", "spec_idx", "hit_blocks", "skipped_tok", "cow")
 
     def __init__(self, rid, prompt, max_new, temp, seed, arrival):
         self.rid = rid
@@ -209,6 +241,18 @@ class _Req:
         self.wait_s = 0.0               # queue time over every stint
         self.first_tok_t = None
         self.last_tok = 0
+        # speculative decoding: tallies, and the n-gram index built at
+        # first use (`_spec_state`)
+        self.n_drafted = 0
+        self.n_accepted = 0
+        self.ctx_ids = None
+        self.spec_idx = None
+        # prefix caching: blocks mapped from the index and prefill tokens
+        # skipped, over every admission; the pending (src, dst) pair of
+        # a fully aligned hit until its first chunk copies it
+        self.hit_blocks = 0
+        self.skipped_tok = 0
+        self.cow = None
 
 
 class ServingEngine:
@@ -222,18 +266,14 @@ class ServingEngine:
                  max_slots: int = 4, prefill_chunk: int = 32,
                  table_bucket: int = 4, kv_quant: str = "",
                  weight_quant: str = "", attn_impl: str = "flash",
-                 spec_k: int = 0, top_k: int = 0, top_p: float = 0.0,
-                 metrics=None, log_every: int = 0, clock=time.time,
-                 prefix_cache: bool = False, device=None):
+                 spec_k: int = 0, spec_ngram: int = 3, top_k: int = 0,
+                 top_p: float = 0.0, metrics=None, log_every: int = 0,
+                 clock=time.time, prefix_cache: bool = False, device=None):
         if attn_impl not in ("gather", "flash"):
             raise ValueError(
                 f"unsupported attn_impl={attn_impl!r}; expected 'gather' "
                 f"(gather_table + masked_attention) or 'flash' (the "
                 f"paged decode kernel)")
-        if spec_k:
-            raise NotPorted("speculative decoding (spec_k > 0)", _LATER)
-        if prefix_cache:
-            raise NotPorted("prefix caching", _LATER)
         self.device = resolve_device(device)
         stray = {str(t.device) for t in leaves(params)
                  if t.device != self.device}
@@ -248,6 +288,8 @@ class ServingEngine:
         self.kv_quant = kv_quant
         self.cfg = cfg
         self.attn_impl = attn_impl
+        self.spec_k = int(spec_k)
+        self.spec_ngram = int(spec_ngram)
         self.block_size = int(block_size)
         self.max_slots = int(max_slots)
         self.prefill_chunk = int(prefill_chunk)
@@ -259,20 +301,28 @@ class ServingEngine:
         self.clock = clock
         self.pools = init_block_pool(cfg, n_blocks, block_size, kv_quant,
                                      device=self.device)
-        self.alloc = BlockAllocator(n_blocks)
+        self.prefix = PrefixIndex(block_size) if prefix_cache else None
+        self.alloc = BlockAllocator(n_blocks, index=self.prefix)
         self._p_bytes = param_read_bytes(self.params)
         self.slots: list[_Req | None] = [None] * self.max_slots
         self.queue: deque[_Req] = deque()
         self.results: dict[str, np.ndarray] = {}
         self.request_records: list[dict] = []
         self.counters = {"submitted": 0, "finished": 0, "preempted": 0,
-                         "ticks": 0, "prefill_chunks": 0, "oom_events": 0}
+                         "ticks": 0, "prefill_chunks": 0, "spec_drafted": 0,
+                         "spec_accepted": 0, "prefix_lookups": 0,
+                         "prefix_hits": 0, "prefix_skipped_tokens": 0,
+                         "oom_events": 0}
         self.draining = False
         self._oom_tick = -1
         self._admit_counter = 0
         self._win_tokens = 0            # tokens since the last log line
         self._win_t = clock()
         self._last_touched = 0
+        self._win_drafted = 0           # spec-decode window tallies
+        self._win_accepted = 0
+        self._win_prefix_lookups = 0    # prefix-cache window tallies
+        self._win_prefix_hits = 0
 
     # ------------------------------------------------------ public API
 
@@ -368,27 +418,63 @@ class ServingEngine:
             extra = {"id": str(e.rid)} if e.rid is not None else {}
             self.metrics.log(event="ledger", kind="oom", tick=tick,
                              requested=e.requested, free=e.n_free,
-                             live=e.n_live, **extra)
+                             cold=e.n_cold, live=e.n_live, **extra)
 
     def _admit(self) -> bool:
         did = False
         while self.queue and None in self.slots:
             req = self.queue[0]
+            need = blocks_for(len(req.ctx), self.block_size)
+            # prefix-cache probe: the longest indexed aligned prefix maps
+            # straight into the table and prefill starts after it. A
+            # fully aligned match still re-prefills its last token, into
+            # a fresh copy of the tail block (copy-on-write), so decode
+            # never appends to a shared block.
+            matched: list[int] = []
+            if self.prefix is not None:
+                matched = self.prefix.match(req.ctx)
+                self.counters["prefix_lookups"] += 1
+                self._win_prefix_lookups += 1
+            m = len(matched)
+            full = m > 0 and m * self.block_size == len(req.ctx)
             try:
-                req.table = self.alloc.alloc(
-                    blocks_for(len(req.ctx), self.block_size), rid=req.rid)
+                if matched:
+                    self.alloc.acquire(matched)
+                try:
+                    fresh = self.alloc.alloc(need - m + (1 if full else 0),
+                                             rid=req.rid)
+                except OutOfBlocks:
+                    if matched:          # all-or-nothing admission
+                        self.alloc.release(matched)
+                    raise
             except OutOfBlocks as e:
                 self._note_oom(e)
                 break                    # wait for blocks to free
             self.queue.popleft()
             slot = self.slots.index(None)
             req.slot = slot
-            req.written = 0
+            if full:
+                # the acquire above holds the tail block (the copy's
+                # source) until the first chunk copies it; the table
+                # takes the fresh copy
+                req.cow = (matched[-1], fresh[0])
+                req.table = matched[:-1] + fresh
+                req.written = len(req.ctx) - 1
+            else:
+                req.cow = None
+                req.table = matched + fresh
+                req.written = m * self.block_size
             req.phase = "prefill"
             req.admit_seq = self._admit_counter
             self._admit_counter += 1
             req.wait_s += self.clock() - req.queued_at
             self.slots[slot] = req
+            if m > 0:
+                req.hit_blocks += m
+                req.skipped_tok += req.written
+                self.counters["prefix_hits"] += 1
+                self.counters["prefix_skipped_tokens"] += req.written
+                self._win_prefix_hits += 1
             did = True
         return did
 
@@ -408,7 +494,12 @@ class ServingEngine:
         bt = np.full((1, w), SCRATCH_BLOCK, np.int32)
         bt[0, :len(req.table)] = req.table
         logits = prefill_chunk(self.params, self.pools, self._tensor(tokens),
-                               req.written, self._tensor(bt), cfg=self.cfg)
+                               req.written, self._tensor(bt), cfg=self.cfg,
+                               cow=req.cow)
+        if req.cow is not None:
+            # the copy landed: drop the reference that kept its source
+            self.alloc.release([req.cow[0]])
+            req.cow = None
         req.written += n_tok
         self.counters["prefill_chunks"] += 1
         if req.written == len(req.ctx):
@@ -430,6 +521,22 @@ class ServingEngine:
         if not actives:
             return False
         s = self.max_slots
+        # speculative drafts claim the tick's free rows (empty slots and
+        # prefilling requests' idle rows), oldest request first
+        drafts: dict[str, tuple] = {}
+        if self.spec_k > 0:
+            busy = {r.slot for r in actives}
+            free = [i for i in range(s) if i not in busy]
+            for r in sorted(actives, key=lambda r: r.admit_seq):
+                if not free:
+                    break
+                cap = min(self.spec_k, len(free),
+                          r.max_new - len(r.generated) - 1)
+                if cap <= 0:
+                    continue
+                d = self._grow_for_drafts(r, self._propose(r, cap))
+                if d:
+                    drafts[r.rid] = (r, [(free.pop(0), t) for t in d])
         tok = np.zeros(s, np.int32)
         pos = np.zeros(s, np.int32)
         temp = [0.0] * s
@@ -445,20 +552,116 @@ class ServingEngine:
             seeds[r.slot] = r.seed
             idx[r.slot] = len(r.generated)
             bt[r.slot, :len(r.table)] = r.table
+        for r, assigned in drafts.values():
+            # draft row j: the j-th draft at position written + j,
+            # sampling at token index len(generated) + j
+            for j, (row, dtok) in enumerate(assigned, start=1):
+                tok[row] = dtok
+                pos[row] = r.written + j
+                temp[row] = r.temp
+                seeds[row] = r.seed
+                idx[row] = len(r.generated) + j
+                bt[row, :len(r.table)] = r.table
         logits = decode_logits(self.params, self.pools, self._tensor(tok),
                                self._tensor(pos), self._tensor(bt),
                                cfg=self.cfg, attn=self.attn_impl)
         nxt = G.sample_rows(logits, temp, seeds, idx, self.top_k,
                             self.top_p)
         self.counters["ticks"] += 1
-        self._last_touched = sum(blocks_for(r.written + 1, self.block_size)
-                                 for r in actives)
+        self._last_touched = sum(
+            blocks_for(r.written + 1
+                       + len(drafts.get(r.rid, (None, ()))[1]),
+                       self.block_size)
+            for r in actives)
+        emitted = 0
         for r in actives:
+            # tallies before the appends: an accepted last draft can
+            # finish the request, and its record must carry this tick
+            assigned = drafts.get(r.rid, (None, ()))[1]
+            if assigned:
+                r.n_drafted += len(assigned)
+                self.counters["spec_drafted"] += len(assigned)
+                self._win_drafted += len(assigned)
+            tok_next = int(nxt[r.slot])
             r.written += 1
-            self._append_token(r, int(nxt[r.slot]))
-        self._win_tokens += len(actives)
+            self._append_token(r, tok_next)
+            emitted += 1
+            for row, dtok in assigned:
+                # accept while the draft is the token its predecessor
+                # sampled: this row's logits are then the true ones at
+                # the advanced context, and its sample is the stream's
+                if r.rid in self.results or dtok != tok_next:
+                    break
+                tok_next = int(nxt[row])
+                r.n_accepted += 1
+                self.counters["spec_accepted"] += 1
+                self._win_accepted += 1
+                r.written += 1
+                self._append_token(r, tok_next)
+                emitted += 1
+        self._win_tokens += emitted
         self._maybe_log()
         return True
+
+    # -------------------------------------------------- spec decoding
+
+    def _propose(self, req, k: int) -> list:
+        """The reference's n-gram prompt-lookup proposer: find the most
+        recent earlier occurrence of the context's trailing n-gram
+        (longest n first, n <= spec_ngram) and draft the k tokens that
+        followed it. Host-side dict lookups only."""
+        ctx, idx = self._spec_state(req)
+        n_ctx = len(ctx)
+        for n in range(min(self.spec_ngram, n_ctx - 1), 0, -1):
+            ent = idx.get(tuple(ctx[n_ctx - n:]))
+            if ent is None:
+                continue
+            # the latest entry is the tail itself; the source is the
+            # most recent occurrence before it
+            start = ent[0] if ent[0] != n_ctx - n else ent[1]
+            if start is not None:
+                return ctx[start + n:start + n + k]
+        return []
+
+    def _spec_state(self, req) -> tuple:
+        """(ctx_ids, spec_idx), built at first use: the prompt +
+        generated tokens as a list (appended in `_append_token`) and a
+        map from each n-gram (n <= spec_ngram) to its (latest, previous)
+        start positions. Survives eviction: the stream is the same."""
+        if req.spec_idx is None:
+            req.ctx_ids = req.prompt.tolist() + list(req.generated)
+            req.spec_idx = {}
+            for j in range(len(req.ctx_ids)):
+                self._spec_note(req, j)
+        return req.ctx_ids, req.spec_idx
+
+    def _spec_note(self, req, j: int) -> None:
+        """Index every n-gram ending at context position j."""
+        ctx = req.ctx_ids
+        for n in range(1, self.spec_ngram + 1):
+            start = j - n + 1
+            if start < 0:
+                break
+            gram = tuple(ctx[start:j + 1])
+            ent = req.spec_idx.get(gram)
+            req.spec_idx[gram] = (start, None if ent is None else ent[0])
+
+    def _grow_for_drafts(self, req, d: list) -> list:
+        """Grow `req`'s table to cover its draft positions without
+        evicting anyone: on pool pressure the drafts trim to the blocks
+        already held (contrast `_ensure_block`)."""
+        if not d:
+            return d
+        grow = blocks_for(req.written + len(d) + 1,
+                          self.block_size) - len(req.table)
+        if grow > 0:
+            try:
+                req.table.extend(self.alloc.alloc(grow, rid=req.rid))
+            except OutOfBlocks as e:
+                self._note_oom(e)
+                cap = len(req.table) * self.block_size - 1 - req.written
+                d = d[:max(0, cap)]
+        return d
 
     def _ensure_block(self, req) -> bool:
         """Grow `req`'s table to cover its next write position, evicting
@@ -482,9 +685,13 @@ class ServingEngine:
         return True
 
     def _evict(self, req) -> None:
-        """Preempt: release the blocks now and re-queue at the front.
-        The request keeps its generated tokens and re-prefills prompt +
-        generated on re-admission, continuing its stream."""
+        """Preempt: release the block references now and re-queue at the
+        front. The request keeps its generated tokens and re-prefills
+        prompt + generated on re-admission (probing the prefix index
+        again), continuing its stream."""
+        if req.cow is not None:          # pending copy-on-write source
+            self.alloc.release([req.cow[0]])
+            req.cow = None
         self.alloc.release(req.table)
         req.table = []
         req.written = 0
@@ -501,6 +708,9 @@ class ServingEngine:
 
     def _append_token(self, req, tok: int) -> None:
         req.generated.append(tok)
+        if req.spec_idx is not None:    # keep the draft index current
+            req.ctx_ids.append(tok)
+            self._spec_note(req, len(req.ctx_ids) - 1)
         req.last_tok = tok
         if req.first_tok_t is None:
             req.first_tok_t = self.clock()
@@ -508,6 +718,16 @@ class ServingEngine:
             self._finish(req)
 
     def _finish(self, req) -> None:
+        # index the sealed prefix before the release, so its blocks park
+        # cold instead of freeing: only blocks wholly written by prefill
+        # (positions below len(ctx)) are sealed
+        if self.prefix is not None and req.table:
+            sealed = min(req.written, len(req.ctx)) // self.block_size
+            if sealed > 0:
+                self.prefix.insert(req.ctx, req.table[:sealed])
+        if req.cow is not None:
+            self.alloc.release([req.cow[0]])
+            req.cow = None
         self.alloc.release(req.table)
         req.table = []
         self.slots[req.slot] = None
@@ -527,6 +747,12 @@ class ServingEngine:
         if len(req.generated) > 1:
             rec["tpot_ms"] = round(
                 (now - req.first_tok_t) * 1e3 / (len(req.generated) - 1), 3)
+        if self.spec_k > 0:
+            rec["spec_drafted"] = req.n_drafted
+            rec["spec_accepted"] = req.n_accepted
+        if self.prefix is not None:
+            rec["prefix_hit_blocks"] = req.hit_blocks
+            rec["prefill_skipped_tokens"] = req.skipped_tok
         self.request_records.append(rec)
         if self.metrics is not None:
             self.metrics.log(event="request", **rec)
@@ -540,6 +766,20 @@ class ServingEngine:
         bpt = paged_read_bytes_per_tick(self.cfg, self._p_bytes,
                                         self._last_touched, self.block_size,
                                         self.max_slots, self.kv_quant)
+        extra = {}
+        if self.spec_k > 0:
+            extra = {"spec_drafted": self._win_drafted,
+                     "spec_accepted": self._win_accepted,
+                     "spec_accept_rate": round(
+                         self._win_accepted / self._win_drafted, 4)
+                     if self._win_drafted else 0.0}
+        if self.prefix is not None:
+            extra.update(
+                prefix_hit_rate=round(
+                    self._win_prefix_hits / self._win_prefix_lookups, 4)
+                if self._win_prefix_lookups else 0.0,
+                cold_blocks=self.alloc.n_cold,
+                prefix_blocks=len(self.prefix))
         self.metrics.log(
             event="generate",
             tokens_per_sec=round(self._win_tokens / dt, 2),
@@ -548,7 +788,11 @@ class ServingEngine:
             free_blocks=self.alloc.n_free,
             blocks_touched=self._last_touched,
             bytes_per_tick=int(bpt),
-            hbm_gbps=round(self.log_every / dt * bpt / 1e9, 4))
+            hbm_gbps=round(self.log_every / dt * bpt / 1e9, 4), **extra)
         self._win_tokens = 0
+        self._win_drafted = 0
+        self._win_accepted = 0
+        self._win_prefix_lookups = 0
+        self._win_prefix_hits = 0
         self._win_t = now
 

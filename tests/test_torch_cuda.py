@@ -242,3 +242,108 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda):
                               torch.zeros(2, 1, dtype=torch.int32,
                                           device=cuda),
                               torch.zeros(2, dtype=torch.int32, device=cuda))
+
+
+def _f64_ratio(got, x, y, out_dtype):
+    """Worst |got - exact| / allowance per element, the exact product in
+    f64 on the card: one rounding of the output (2^-8 |ref| for bf16, 0
+    for f32) plus an f32 summation bound K 2^-24 (|x| @ |y|)."""
+    xd, yd = x.double(), y.double()
+    ref = xd @ yd
+    allow = x.shape[1] * 2.0 ** -24 * (xd.abs() @ yd.abs())
+    if out_dtype == torch.bfloat16:
+        allow = allow + 2.0 ** -8 * ref.abs()
+    assert torch.isfinite(got).all()
+    return float(((got.double() - ref).abs() / allow).max())
+
+
+# (M, K, N), blocks, input dtype, output dtype (None: the input's)
+K5_CASES = {
+    "f32": ((256, 128, 384), (64, 32, 128), torch.float32, None),
+    "bf16": ((256, 128, 384), (128, 128, 384), torch.bfloat16, None),
+    "bf16-f32-out": ((256, 128, 384), (64, 32, 128), torch.bfloat16,
+                     torch.float32),
+    "ragged-tile": ((200, 96, 136), (100, 32, 136), torch.bfloat16, None),
+    "unaligned": ((64, 40, 70), (64, 40, 70), torch.float32,
+                  torch.bfloat16),
+    "probe": ((16384, 1024, 4096), (512, 1024, 1024), torch.bfloat16, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_cuda_blocked_matmul_matches_plain_version(cuda, case):
+    """K5 on the card and its plain version, each element within the
+    f64 rule (`_f64_ratio`): the plain version passing shows the rule is
+    fair to an f32 sum in another order. Shapes: the JAX test's, tiles
+    with ragged edges, rows that are not 16-byte vectors, the probe's."""
+    from shallowspeed_tpu_torch.ops import matmul as M
+
+    (m, k, n), (bm, bk, bn), dtype, out_dtype = K5_CASES[case]
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x = torch.randn(m, k, generator=g).to(cuda).to(dtype)
+    y = torch.randn(k, n, generator=g).to(cuda).to(dtype)
+    before = M.blocked_matmul.launches
+    got = M.blocked_matmul(x, y, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert M.blocked_matmul.launches == before + 1
+    assert got.dtype == (out_dtype or dtype) and got.shape == (m, n)
+    plain = M.blocked_matmul_reference(x, y, bm=bm, bk=bk, bn=bn,
+                                       out_dtype=out_dtype)
+    assert _f64_ratio(got, x, y, got.dtype) <= 1.0
+    assert _f64_ratio(plain, x, y, got.dtype) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_blocked_matmul_rule_sees_a_bf16_accumulator(cuda):
+    """The rule is tight: the plain arithmetic with the accumulator
+    rounded to bf16 between k-slices fails it, and a non-dividing shape
+    is refused on the card too."""
+    from shallowspeed_tpu_torch.ops import matmul as M
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    x = torch.randn(256, 128, generator=g).to(cuda).bfloat16()
+    y = torch.randn(128, 384, generator=g).to(cuda).bfloat16()
+    acc = torch.zeros(256, 384, device=cuda)
+    for k0 in range(0, 128, 32):
+        acc = (acc + x[:, k0:k0 + 32].float() @ y[k0:k0 + 32].float()
+               ).bfloat16().float()
+    assert _f64_ratio(acc.bfloat16(), x, y, torch.bfloat16) > 1.0
+    with pytest.raises(ValueError, match="must divide"):
+        M.blocked_matmul(x, y, bm=96)
+
+
+@pytest.mark.cuda
+def test_cuda_spec_tick_streams_equal_spec_off(cuda):
+    """The serving engine on the card with speculative drafts in the
+    tick's free rows: K4 reads the rows that earlier draft rows of the
+    same tick wrote, and the streams equal the spec-off streams token
+    for token; K4 launches once per layer per tick."""
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.serving.engine import ServingEngine
+
+    cfg = T.TransformerConfig(vocab=256, d_model=256, n_heads=2,
+                              n_layers=2, max_seq=512, rope=True,
+                              compute_dtype=torch.bfloat16)
+    params = T.init(cfg, seed=1, device=cuda)
+    rng = np.random.default_rng(6)
+    prompts = [np.tile(rng.integers(0, 256, 16), n).astype(np.int32)
+               for n in (5, 9)]
+
+    def run(spec_k):
+        eng = ServingEngine(params, cfg, n_blocks=128, block_size=16,
+                            max_slots=8, prefill_chunk=64, spec_k=spec_k,
+                            device=cuda)
+        for i, p in enumerate(prompts):
+            eng.submit(p, 40, rid=f"r{i}")
+        before = FA.paged_flash_decode.launches
+        out = eng.run()
+        ticks = eng.counters["ticks"]
+        assert FA.paged_flash_decode.launches - before == cfg.n_layers * ticks
+        return out, eng
+
+    off, _ = run(0)
+    on, eng = run(4)
+    assert eng.counters["spec_drafted"] > 0
+    for rid in off:
+        np.testing.assert_array_equal(on[rid], off[rid], err_msg=rid)

@@ -446,7 +446,7 @@ def test_serve_driver_quantized_matches_reference_engine(tmp_path,
              "--n-layers", "2", "--max-seq", "128", "--rope",
              "--n-blocks", "12", "--slots", "2", "--prefill-chunk", "16",
              "--init-seed", "3", "--kv-quant", "int8", "--weight-quant",
-             "int8", "--requests", str(reqs)]
+             "int8", "--prefix-cache", "off", "--requests", str(reqs)]
     r = subprocess.run([sys.executable, "-m", "shallowspeed_tpu_torch.serve",
                         "--device", "cpu", *flags], capture_output=True,
                        text=True, cwd=ROOT, timeout=300)
@@ -456,8 +456,7 @@ def test_serve_driver_quantized_matches_reference_engine(tmp_path,
     assert out[-1]["event"] == "summary"
     assert out[-1]["blocks_free_at_drain"] == "11/11"
 
-    args = jax_serve.parse_args(flags + ["--prefix-cache", "off",
-                                         "--attn-impl", "flash"])
+    args = jax_serve.parse_args(flags + ["--attn-impl", "flash"])
     jcfg = JT.TransformerConfig(
         vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, max_seq=args.max_seq, rope=args.rope)

@@ -178,14 +178,6 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kw", [{"spec_k": 2}, {"prefix_cache": True}],
-                         ids=["spec", "prefix"])
-def test_unported_serving_options_raise(kw):
-    cfg = T.TransformerConfig(**STREAM_CFG)
-    with pytest.raises(NotPorted):
-        ServingEngine(T.init(cfg, device="cpu"), cfg, device="cpu", **kw)
-
-
 @pytest.mark.parametrize("kw", [{"kv_quant": "int4"},
                                 {"weight_quant": "int4"}],
                          ids=["kv-int4", "weight-int4"])
@@ -209,7 +201,9 @@ def test_driver_results_match_reference_engine(tmp_path, monkeypatch):
     """`python -m shallowspeed_tpu_torch.serve --device cpu` prints the
     same result token lists as the reference serving path given the
     same flags (prefix cache off, the flash decode kernel), and ends
-    with a summary line showing a balanced allocator."""
+    with a summary line showing a balanced allocator. The prefix cache
+    is on by default in both drivers; tests/test_torch_spec_prefix.py
+    holds the serve driver with it on."""
     reqs = tmp_path / "reqs.jsonl"
     lines = [{"id": "a", "prompt_len": 20, "prompt_seed": 1, "max_new": 8},
              {"id": "b", "prompt_len": 45, "prompt_seed": 2, "max_new": 12},
@@ -220,7 +214,8 @@ def test_driver_results_match_reference_engine(tmp_path, monkeypatch):
     flags = ["--vocab", "128", "--d-model", "32", "--n-heads", "4",
              "--n-layers", "2", "--max-seq", "128", "--rope",
              "--n-blocks", "12", "--slots", "3", "--prefill-chunk", "16",
-             "--init-seed", "3", "--requests", str(reqs)]
+             "--init-seed", "3", "--prefix-cache", "off",
+             "--requests", str(reqs)]
     r = subprocess.run([sys.executable, "-m", "shallowspeed_tpu_torch.serve",
                         "--device", "cpu", *flags], capture_output=True,
                        text=True, cwd=ROOT, timeout=300)
@@ -231,8 +226,7 @@ def test_driver_results_match_reference_engine(tmp_path, monkeypatch):
     assert summary["event"] == "summary"
     assert summary["blocks_free_at_drain"] == "11/11"
 
-    args = jax_serve.parse_args(flags + ["--prefix-cache", "off",
-                                         "--attn-impl", "flash"])
+    args = jax_serve.parse_args(flags + ["--attn-impl", "flash"])
     jcfg = JT.TransformerConfig(
         vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, max_seq=args.max_seq, rope=args.rope)
@@ -252,8 +246,7 @@ def test_driver_refuses_unported_flags(tmp_path):
 
     empty = tmp_path / "none.jsonl"
     empty.write_text("")
-    for extra in (["--prefix-cache", "on"], ["--spec-k", "2"],
-                  ["--ckpt", "somewhere"], ["--serve"]):
+    for extra in (["--ckpt", "somewhere"], ["--serve"]):
         with pytest.raises(NotPorted):
             serve.main(["--device", "cpu", "--requests", str(empty),
                         *extra])
