@@ -8,7 +8,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Build every CUDA kernel of the serving, training and probe paths
    from `csrc/` with nvcc (sm_90a), one nvcc per source, all started
-   together; print each kernel's registers and spills.
+   together; print each kernel's registers and spills, and the dynamic
+   shared memory of the tensor-core (bf16) builds of K1 and K3, which
+   must compile without a spill.
 2. Hold each kernel against its plain torch version on the card: K4
    (float pools, and its int8 branch with q in f32 and in bf16) at
    small shapes and at the serving path's own shapes; K1, K2 and K3
@@ -16,8 +18,12 @@ Phases (any failure exits non-zero and prints no result line):
    ragged-T shapes in f32 and bf16, and at the training shape (B 4,
    T 2048, 16 heads x 128, causal) in bf16, on contiguous q, k, v and
    again on strided views of one fused qkv tensor, as the model passes
-   them. Each element is held to KERNEL_TOL of |ref| + mean |ref|, plus
-   one bf16 ulp where the kernel rounds its output to bf16. The bf16
+   them. Each element is held to `flash_attention.kernel_ratio`'s rule:
+   KERNEL_TOL of |ref| + mean |ref|, plus one bf16 ulp where the kernel
+   rounds its output to bf16, plus for the bf16 builds of K1 and K3
+   (wgmma) the `tc_rounding_terms` of their one rounding of P or dS to
+   bf16; the plain version with P and dS rounded to float8_e4m3fn must
+   fail that rule; lse within 1e-5 on every row that sees a key. The bf16
    `dequant_matmul` (int8 and fp8 weights) against the exact product,
    per element, and a bf16 rounding before its scale must fail that.
    K5 (`blocked_matmul`) and its plain version, each element against
@@ -66,20 +72,23 @@ Phases (any failure exits non-zero and prints no result line):
    and their bounds.
 5b. The contiguous `generate()`: 8 prompts of 1024 tokens, 64 greedy new
    tokens, prefilled through K1 (`flash_prefill_at=1024`), with a bf16
-   and with an int8 cache; K1 launches once per layer per call.
+   and with an int8 cache; K1's bf16 build launches once per layer per
+   call.
 6. Train the same 1.21B LM (same weights) at full width and depth
    through `ContextParallelEngine(attn="flash")` with AdamW on one
    repeated 4 x 2048 batch: one warm-up step, whose loss must match the
    plain attention's loss on the same weights (bf16 bound), then timed
-   steps, with the K1/K2/K3 launch counts zeroed just before them and
-   required to equal n_layers x steps after, and a finite, falling loss.
+   steps, with the launch counts zeroed just before them: K1's and K3's
+   tensor-core builds and K2 must each equal n_layers x steps after, the
+   f32-FMA builds of K1 and K3 0; and a finite, falling loss.
 7. Training parity in f32 at full width and 2 layers: the kernels'
    loss and every gradient leaf against the plain attention under torch
    autograd, and a bf16 rounding of q and K slipped into the plain
    scores must fail that bound.
-8. Time K1, K2 and K3 at the training shape beside their plain
-   versions, the library's attention forward (K1) and backward (K2 and
-   K3 together), and their bounds.
+8. Time K1, K2 and K3 at the training shape (K1 and K3 on their
+   tensor-core builds) beside their plain versions, the library's
+   attention forward (K1) and backward (K2 and K3 together), and their
+   bounds.
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -174,10 +183,13 @@ def _ptxas_lines(log: str) -> list[str]:
     and spills, from `nvcc -Xptxas -v` output."""
     out, name, spill = [], "?", ""
     for line in log.splitlines():
-        m = re.search(r"((?:paged_decode_int8|paged_decode|flash_fwd|"
-                      r"flash_dq|flash_dkv|blocked_matmul)_kernel)I(\w+)'",
-                      line)
-        if m and m.group(1) == "blocked_matmul_kernel":
+        m = re.search(r"((?:paged_decode_int8|paged_decode|flash_fwd_tc|"
+                      r"flash_fwd|flash_dq|flash_dkv_tc|flash_dkv|"
+                      r"blocked_matmul)_kernel)I(\w+)'", line)
+        if m and m.group(1).endswith("_tc_kernel"):     # <int D>, bf16
+            d = re.match(r"Li(\d+)E", m.group(2)).group(1)
+            name = f"{m.group(1)}<bf16,{d}>"
+        elif m and m.group(1) == "blocked_matmul_kernel":
             # <input, output> types; S1_ repeats the first (bf16) type
             args = re.findall(r"13__nv_bfloat16|S\d*_|f",
                               m.group(2).split("EE")[0])
@@ -193,6 +205,28 @@ def _ptxas_lines(log: str) -> list[str]:
         elif "Used" in line and "registers" in line:
             out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
     return out
+
+
+def check_tc_builds(logs: dict) -> None:
+    """Phase 1: the tensor-core kernels' registers, spills and dynamic
+    shared memory; each must compile without a spill."""
+    from shallowspeed_tpu_torch.ops import flash_attention as FA
+
+    fwd, bwd = FA._train_kernels()
+    for lib, src, smem in (("flash_fwd", "flash_fwd_tc_kernel",
+                            fwd.flash_fwd_tc_smem),
+                           ("flash_dkv", "flash_dkv_tc_kernel",
+                            bwd.flash_dkv_tc_smem)):
+        lines = [ln for ln in _ptxas_lines(logs["flash_bwd" if lib ==
+                                                "flash_dkv" else lib])
+                 if ln.startswith(src)]
+        if len(lines) != 2 or not all(" 0 bytes spill stores, 0 bytes "
+                                      "spill loads" in ln for ln in lines):
+            raise AssertionError(f"{src}: want two builds without spills, "
+                                 f"ptxas says {lines}")
+        for d in (64, 128):
+            print(f"  {src}<bf16,{d}>: {smem(d)} bytes of dynamic shared "
+                  f"memory", flush=True)
 
 
 def _time_ms(fn, inputs, repeats=7):
@@ -259,7 +293,7 @@ def _decode_err(got, q, pool, bt, pos, window) -> tuple[float, float]:
     import torch
 
     from shallowspeed_tpu_torch.ops.flash_attention import (
-        paged_flash_decode_reference)
+        BF16_ULP, KERNEL_TOL, paged_flash_decode_reference)
 
     ref = paged_flash_decode_reference(q, pool, bt, pos, window=window)
     got, ref = got.float(), ref.float()
@@ -1016,7 +1050,8 @@ def run_generate(dev, cfg, params) -> dict:
     """Phase 5b: the contiguous `generate()` over GEN_BATCH prompts of
     GEN_PROMPT tokens, GEN_NEW greedy tokens, with K1 prefill
     (`flash_prefill_at=GEN_PROMPT`), for a bf16 and an int8 cache. K1
-    must launch once per layer (the prefill), the decode kernels never;
+    (its bf16 build, on tensor cores) must launch once per layer (the
+    prefill), the decode kernels never;
     every token must lie in the vocabulary."""
     import torch
 
@@ -1032,7 +1067,7 @@ def run_generate(dev, cfg, params) -> dict:
     out = {}
     for kvq in ("", "int8"):
         torch.cuda.reset_peak_memory_stats(dev)
-        kernels = (FA.flash_fwd, FA.paged_flash_decode,
+        kernels = (FA._flash_fwd_tc, FA.paged_flash_decode,
                    FA._paged_flash_decode_int8)
         for k in kernels:
             k.launches = 0
@@ -1081,16 +1116,15 @@ TRAIN_KERNEL_CASES = [
     ("slice-fused", (TRAIN_BATCH, 2048, 2048, 16, 16, 128, True, 0, 0),
      ("bf16",), True),
 ]
-# Kernel vs plain, per element: |diff| <= KERNEL_TOL * (|ref| + mean
-# |ref|), plus one bf16 ulp of |ref| (<= 2^-7 |ref|) for the one output
-# the kernels round to bf16 (o in bf16). Every other output (lse, dq, dk,
-# dv in both dtypes, o in f32) is an f32 result of the same inputs in
-# both versions and differs by summation order only, which scales with
-# the element (|ref|) or, where terms cancel, with the tensor's typical
-# size (mean |ref|). PERF.md, "chip_smoke tolerances", has the
-# measurements.
-KERNEL_TOL = 1e-4
-BF16_ULP = 2.0 ** -7
+# Kernel vs plain, per element: `flash_attention.kernel_ratio`'s rule
+# (KERNEL_TOL (|ref| + mean |ref|), + BF16_ULP |ref| for o in bf16, + for
+# the bf16 builds of K1 and K3 the `tc_rounding_terms` of their one
+# rounding of P or dS to bf16). lse: max |diff| / max |ref| over the rows
+# that see a key, within LSE_TOL. PERF.md has the measurements.
+LSE_TOL = 1e-5
+# the names of K1's and K3's bf16 (tensor-core) builds, which the main
+# path runs, in the kernels line
+TC_NAMES = {"flash_fwd": "flash_fwd_tc", "flash_dkv": "flash_dkv_tc"}
 
 
 def _train_kernel_inputs(dev, dtype, shape, seed, fused=False):
@@ -1115,24 +1149,27 @@ def _train_kernel_inputs(dev, dtype, shape, seed, fused=False):
         rnd(b, tq, h, d)
 
 
-def _kernel_err(got, ref, rounded) -> tuple[float, float]:
-    """(max |diff|, worst |diff| / allowance over the elements), in f32;
-    the allowance is KERNEL_TOL * (|ref| + mean |ref|), plus
-    BF16_ULP * |ref| when `rounded`. The check passes at a ratio <= 1."""
-    got, ref = got.float(), ref.float()
-    mag = ref.abs()
-    scale = float(mag.mean())
-    if not scale > 0:
-        raise AssertionError("the plain version's output is all zero")
-    diff = (got - ref).abs()
-    allow = KERNEL_TOL * (mag + scale) + (BF16_ULP * mag if rounded else 0.0)
-    return float(diff.max()), float((diff / allow).max())
+def _lse_err(lse, lse_ref) -> float:
+    """max |diff| / max |ref| of lse over the rows that see a key; the
+    kernel must mark the same rows as seeing nothing (lse -1e30)."""
+    import torch
+
+    seen = lse_ref > -1e29
+    if not torch.equal(lse > -1e29, seen):
+        raise AssertionError("the kernel and the plain version disagree on "
+                             "which rows see a key")
+    return float((lse[seen] - lse_ref[seen]).abs().max()
+                 / lse_ref[seen].abs().max().clamp_min(1e-6))
 
 
 def check_train_kernels(dev) -> dict:
     """Phase 2: K1, K2, K3 against their plain versions, per element
-    (KERNEL_TOL, BF16_ULP). Returns the max |diff| of each over the
-    slice-shape cases."""
+    under `FA.kernel_ratio`'s rule, the bf16 builds of K1 and K3 (tensor
+    cores) with their `FA.tc_rounding_terms`; lse within LSE_TOL. Each
+    call must count on the launcher its dtype selects (bf16: the
+    tensor-core kernels). On the bf16 cases the plain version with P and
+    dS rounded to float8_e4m3fn must fail the rule (o and dK). Returns
+    the max |diff| of each kernel over the slice-shape cases."""
     import torch
 
     from shallowspeed_tpu_torch.ops import flash_attention as FA
@@ -1143,36 +1180,66 @@ def check_train_kernels(dev) -> dict:
         *shape, causal, window, rel = case
         kw = dict(causal=causal, window=window, rel=rel)
         for dn in dnames:
+            bf = dn == "bf16"
             q, k, v, do = _train_kernel_inputs(dev, dtypes[dn], shape, ci,
                                                fused)
+            counters = ((FA._flash_fwd_tc, FA.flash_dq, FA._flash_dkv_tc)
+                        if bf else (FA.flash_fwd, FA.flash_dq, FA.flash_dkv))
+            before = [c.launches for c in counters]
             o, lse = FA.flash_fwd(q, k, v, **kw)
             delta = FA.attention_delta(do, o)
             dq = FA.flash_dq(q, k, v, do, lse, delta, **kw)
             dk, dv = FA.flash_dkv(q, k, v, do, lse, delta, **kw)
             torch.cuda.synchronize()
+            if [c.launches - n for c, n in zip(counters, before)] != [1] * 3:
+                raise AssertionError(f"{name} {dn}: the calls did not launch "
+                                     f"{[c.__name__ for c in counters]}")
             o_ref, lse_ref = FA.flash_fwd_reference(q, k, v, **kw)
             dq_ref = FA.flash_dq_reference(q, k, v, do, lse, delta, **kw)
             dk_ref, dv_ref = FA.flash_dkv_reference(q, k, v, do, lse, delta,
                                                     **kw)
-            errs = {"flash_fwd": [_kernel_err(o, o_ref, dn == "bf16"),
-                                  _kernel_err(lse, lse_ref, False)],
-                    "flash_dq": [_kernel_err(dq, dq_ref, False)],
-                    "flash_dkv": [_kernel_err(dk, dk_ref, False),
-                                  _kernel_err(dv, dv_ref, False)]}
+            terms = (FA.tc_rounding_terms(q, k, v, do, lse, delta, **kw)
+                     if bf else {})
+            errs = {"flash_fwd": [FA.kernel_ratio(o, o_ref, rounded=bf,
+                                                  extra=terms.get("o"))],
+                    "flash_dq": [FA.kernel_ratio(dq, dq_ref)],
+                    "flash_dkv": [FA.kernel_ratio(dk, dk_ref,
+                                                  extra=terms.get("dk")),
+                                  FA.kernel_ratio(dv, dv_ref,
+                                                  extra=terms.get("dv"))]}
             finite = all(bool(torch.isfinite(t).all()) for t in
                          (o, lse, dq, dk, dv))
+            lse_rel = _lse_err(lse, lse_ref)
+            print(f"check flash_fwd lse {name} {dn}: rel {lse_rel:.3e} (tol "
+                  f"{LSE_TOL:g})", flush=True)
+            if not lse_rel <= LSE_TOL:
+                raise AssertionError(f"lse {name} {dn}: rel err {lse_rel:.3e}")
             for kern, pairs in errs.items():
                 err = max(e for e, _ in pairs)
-                ratio = max(r for _, r in pairs)
+                ratios = ", ".join(f"{r:.3e}" for _, r in pairs)
                 print(f"check {kern} {name} {dn}: max_abs_err {err:.3e}, "
-                      f"worst element at {ratio:.3e} of its allowance",
+                      f"worst element at {ratios} of its allowance",
                       flush=True)
-                if not (ratio <= 1.0 and finite):
+                if not (max(r for _, r in pairs) <= 1.0 and finite):
                     raise AssertionError(f"{kern} {name} {dn}: an element "
-                                         f"off by {ratio:.3e} x its "
-                                         f"allowance (finite: {finite})")
-                if name.startswith("slice"):
-                    worst[kern] = max(worst.get(kern, 0.0), err)
+                                         f"off by {ratios} x its allowance "
+                                         f"(finite: {finite})")
+                if name.startswith("slice"):     # bf16: K1, K3 on tensor cores
+                    key = TC_NAMES.get(kern, kern)
+                    worst[key] = max(worst.get(key, 0.0), err)
+            if bf:
+                s_o, s_dk, _ = FA.rounded_reference(
+                    q, k, v, do, lse, delta, torch.float8_e4m3fn, **kw)
+                slip = (FA.kernel_ratio(s_o, o_ref, rounded=True,
+                                        extra=terms["o"])[1],
+                        FA.kernel_ratio(s_dk, dk_ref, extra=terms["dk"])[1])
+                print(f"check e4m3 slip {name}: o at {slip[0]:.3e}, dK at "
+                      f"{slip[1]:.3e} of the allowance (must exceed 1)",
+                      flush=True)
+                if not min(slip) > 1.0:
+                    raise AssertionError(f"an e4m3 rounding of P / dS stays "
+                                         f"within the rule on {name}: {slip}")
+                del s_o, s_dk, terms
             del o_ref, lse_ref, dq_ref, dk_ref, dv_ref
             torch.cuda.empty_cache()
     return worst
@@ -1220,8 +1287,11 @@ def train(dev, cfg, np_params) -> dict:
         raise AssertionError(f"kernel loss off the plain loss by "
                              f"{loss_rel:.3e} > {LOSS_TOL_BF16:g}")
 
-    kernels = (FA.flash_fwd, FA.flash_dq, FA.flash_dkv)
-    for k in kernels:
+    # the bf16 step runs K1's and K3's tensor-core builds; their f32-FMA
+    # builds must stay idle
+    kernels = (FA._flash_fwd_tc, FA.flash_dq, FA._flash_dkv_tc)
+    idle = (FA.flash_fwd, FA.flash_dkv)
+    for k in kernels + idle:
         k.launches = 0
     losses, step_s = [], []
     for _ in range(TRAIN_STEPS):
@@ -1229,12 +1299,15 @@ def train(dev, cfg, np_params) -> dict:
         losses.append(eng.train_batch(tok, tgt))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = {k.__name__.lstrip("_"): k.launches for k in kernels}
     for name, n in launches.items():
         if n != cfg.n_layers * TRAIN_STEPS:
             raise AssertionError(f"{name} launched {n} times over "
                                  f"{TRAIN_STEPS} steps of {cfg.n_layers} "
                                  f"layers")
+    if any(k.launches for k in idle):
+        raise AssertionError(f"the f32-FMA builds ran in a bf16 step: "
+                             f"{[k.launches for k in idle]}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"training losses {losses}")
     p50 = float(np.median(step_s))
@@ -1254,9 +1327,9 @@ def train(dev, cfg, np_params) -> dict:
 
 # device-kernel groups of a training step and of a decode tick, by
 # kernel-name fragment
-KERNEL_GROUPS = [("K1 flash_fwd", ("flash_fwd_kernel",)),
+KERNEL_GROUPS = [("K1 flash_fwd", ("flash_fwd",)),
                  ("K2 flash_dq", ("flash_dq_kernel",)),
-                 ("K3 flash_dkv", ("flash_dkv_kernel",)),
+                 ("K3 flash_dkv", ("flash_dkv",)),
                  ("matmul", ("gemm", "cutlass", "nvjet", "xmma"))]
 TICK_GROUPS = [("K4 paged_decode", ("paged_decode",)),
                ("matmul", ("gemm", "cutlass", "nvjet", "xmma"))]
@@ -1430,10 +1503,11 @@ def check_training_parity(dev, cfg) -> dict:
 
 def time_train_kernels(dev) -> dict:
     """Phase 8: K1, K2, K3 at the training shape (B 4, T 2048, 16 heads x
-    128, bf16, causal) on two input sets (each over 50 MB, so the L2
-    holds neither), beside their plain versions, the library's
-    attention (SDPA forward for K1; its autograd backward, which covers
-    K2 and K3 together) and their bounds."""
+    128, bf16, causal: K1 and K3 on their tensor-core builds) on two
+    input sets (each over 50 MB, so the L2 holds neither), beside their
+    plain versions, the library's attention (SDPA forward for K1; its
+    autograd backward, which covers K2 and K3 together) and their
+    bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -1446,19 +1520,22 @@ def time_train_kernels(dev) -> dict:
                                            (b, t, t, h, h, d), 100 + seed)
         o, lse = FA.flash_fwd_reference(q, k, v)
         sets.append((q, k, v, do, lse, FA.attention_delta(do, o)))
-    before = [f.launches for f in (FA.flash_fwd, FA.flash_dq, FA.flash_dkv)]
+    counters = (FA._flash_fwd_tc, FA.flash_dq, FA._flash_dkv_tc)
+    before = [f.launches for f in counters]
 
     fwd = [s[:3] for s in sets]
     bwd = sets
     out = {
-        "flash_fwd": {"ms": _time_ms(FA.flash_fwd, fwd),
-                      "plain_ms": _time_ms(FA.flash_fwd_reference, fwd)},
+        "flash_fwd_tc": {"ms": _time_ms(FA.flash_fwd, fwd),
+                         "plain_ms": _time_ms(FA.flash_fwd_reference, fwd)},
         "flash_dq": {"ms": _time_ms(FA.flash_dq, bwd),
                      "plain_ms": _time_ms(FA.flash_dq_reference, bwd)},
-        "flash_dkv": {"ms": _time_ms(FA.flash_dkv, bwd),
-                      "plain_ms": _time_ms(FA.flash_dkv_reference, bwd)},
+        "flash_dkv_tc": {"ms": _time_ms(FA.flash_dkv, bwd),
+                         "plain_ms": _time_ms(FA.flash_dkv_reference, bwd)},
     }
-    for f, n in zip((FA.flash_fwd, FA.flash_dq, FA.flash_dkv), before):
+    if any(f.launches == n for f, n in zip(counters, before)):
+        raise AssertionError("the timed calls did not reach the bf16 builds")
+    for f, n in zip(counters, before):
         f.launches = n      # timing launches do not count
 
     # the library yardstick, never called by the port: SDPA in (B, H, T, D)
@@ -1476,20 +1553,20 @@ def time_train_kernels(dev) -> dict:
     def sdpa_bwd(qt, kt, vt, ot, dot):
         torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
 
-    out["flash_fwd"]["library_ms"] = _time_ms(sdpa, lib)
+    out["flash_fwd_tc"]["library_ms"] = _time_ms(sdpa, lib)
     bwd_ms = _time_ms(sdpa_bwd, lib)
     out["flash_dq"]["library_ms"] = bwd_ms    # covers K2 and K3 together
-    out["flash_dkv"]["library_ms"] = bwd_ms
+    out["flash_dkv_tc"]["library_ms"] = bwd_ms
 
     # least time: live causal pairs of this run's inputs, each input
     # read once and each output written once
     pairs = b * h * t * (t + 1) // 2
     act = b * t * h * d                        # elements of q (= k, v, o)
     stats = b * h * t * 4                      # one f32 (B, H, T) plane
-    work = {"flash_fwd": (4 * d * pairs, 4 * act * 2 + stats),
+    work = {"flash_fwd_tc": (4 * d * pairs, 4 * act * 2 + stats),
             "flash_dq": (6 * d * pairs, 4 * act * 2 + 2 * stats + act * 4),
-            "flash_dkv": (8 * d * pairs,
-                          4 * act * 2 + 2 * stats + 2 * act * 4)}
+            "flash_dkv_tc": (8 * d * pairs,
+                             4 * act * 2 + 2 * stats + 2 * act * 4)}
     for name, (flops, nbytes) in work.items():
         t_ops = flops / BF16_FLOPS_PER_S
         t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1523,6 +1600,7 @@ def main() -> int:
         print(f"nvcc {name}:", flush=True)
         for line in _ptxas_lines(log):
             print("  " + line, flush=True)
+    check_tc_builds(_build.build_logs)
 
     from shallowspeed_tpu_torch.models import transformer as T
     from shallowspeed_tpu_torch.weights import leaves, params_from_numpy
@@ -1597,9 +1675,9 @@ def main() -> int:
     fa = "shallowspeed_tpu/ops/flash_attention.py:"
     where = {"paged_flash_decode": ("paged_decode.cu", fa + "947"),
              "paged_flash_decode_int8": ("paged_decode.cu", fa + "947"),
-             "flash_fwd": ("flash_fwd.cu", fa + "487"),
+             "flash_fwd_tc": ("flash_fwd.cu", fa + "487"),
              "flash_dq": ("flash_bwd.cu", fa + "552"),
-             "flash_dkv": ("flash_bwd.cu", fa + "597"),
+             "flash_dkv_tc": ("flash_bwd.cu", fa + "597"),
              "blocked_matmul": ("blocked_matmul.cu",
                                 "shallowspeed_tpu/ops/matmul.py:85")}
     kernels = [{

@@ -15,13 +15,14 @@
 // Bound on the H100: operations. At the training shape (B 4, H 16,
 // T 2048, hd 128, causal) dQ does 6 * hd flops per live pair (~103
 // GFLOP) and dK/dV 8 * hd (~137 GFLOP), against well under 100 MB of
-// operands: far past the card's ridge.
+// operands: far past the card's ridge, so only the tensor cores can
+// bring them near it.
 //
-// Design (simple and right first; wgmma, TMA and warp specialisation are
-// later work):
-// - K2: one thread block per (64-row query tile, query head, batch row),
-//   looping over that tile's live K/V tiles (the forward's bounds) with
-//   dQ in registers. Query tiles are issued last-first.
+// - K2, both dtypes (`flash_dq_kernel`): f32 FMA on the CUDA cores, one
+//   thread block per (64-row query tile, query head, batch row), looping
+//   over that tile's live K/V tiles (the forward's bounds) with dQ in
+//   registers. Query tiles are issued last-first. Tiles are staged in
+//   shared memory as f32 (the f32 build is full f32, no TF32).
 // - K3: one thread block per (64-row key tile, kv head, batch row),
 //   looping over the G query heads of the kv head and, for each, over
 //   the query tiles that can see the key tile (bounds from causal,
@@ -29,14 +30,27 @@
 //   in registers for the whole loop, so the GQA sum over the group needs
 //   no atomics and no second pass, and the result is deterministic. (The
 //   TPU streaming form carries the same sum on its innermost grid axis.)
-// - K3 computes the transposed score tile (key rows x query columns)
-//   directly, so P^T and dS^T land in shared memory already in the
-//   layout the dV and dK products read.
-// - Tiles are staged in shared memory as f32 and multiplied with f32 FMA
-//   (the f32 build is full f32, no TF32); inputs are read through their
-//   strides; rows past T and columns past Tk are masked.
+//   It computes the transposed score tile (key rows x query columns)
+//   directly, so P^T and dS^T come out in the layout the dV and dK
+//   products take. Two builds, chosen by dtype in the C entry:
+//   - bf16, the main path's (training): `flash_dkv_tc_kernel`, every
+//     product on the tensor cores. One warpgroup per key tile; K and V
+//     stay in 128B-swizzled shared memory, TMA streams Q and dO (and
+//     cp.async lse and delta) through two stages, the next query tile's
+//     load in flight under this one's math; S^T = K Q^T and
+//     dP^T = V dO^T are wgmma from shared memory, P^T and dS^T are
+//     computed on the accumulator fragments in f32 registers and feed
+//     dV += P^T dO and dK += dS^T Q as bf16 register A operands with dO
+//     and Q read transposed: neither touches shared memory. dK and dV
+//     take 128 of the 224 registers a thread at hd 128, without spills;
+//     two blocks an SM (100 KB of shared memory).
+//   - f32: `flash_dkv_kernel`, full f32 FMA with P^T and dS^T staged in
+//     shared memory.
+// Inputs are read through their strides; rows past T and columns past
+// Tk are masked.
 
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
 
 #include <cmath>
 
@@ -290,6 +304,230 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------- K3's bf16 build: wgmma
+
+namespace tc = flash_tc;
+
+// One warpgroup per (64-row key tile, kv head, batch row); key tiles in
+// order, so the longest causal loops start first. Its K and V tiles stay
+// in shared memory; it loops over the G query heads and, for each, over
+// the query tiles that can see the key tile. Thread 0 streams the Q and
+// dO tiles of the next (head, query tile) by TMA into the other of two
+// stages while this one's math runs; lse and delta ride beside them by
+// cp.async. Per query tile: S^T = K Q^T and dP^T = V dO^T (wgmma, both
+// from shared memory), P^T = exp(S^T scale - lse) and
+// dS^T = P^T (dP^T - delta) scale in f32 registers (the mask tested only
+// on tiles that cross the diagonal, the window's edge, Tq or Tk), then
+// dV += P^T dO and dK += dS^T Q with P^T and dS^T rounded to bf16 as the
+// register A operands and dO, Q read transposed. dK and dV stay in
+// registers for the whole loop: the sum over the group is the block's
+// own, deterministic, with no atomics.
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads, 2)
+    flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                        const __grid_constant__ CUtensorMap mk,
+                        const __grid_constant__ CUtensorMap mv,
+                        const __grid_constant__ CUtensorMap mdo,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv,
+                        Layout ldk, int heads, int kv_heads, int tq, int tk,
+                        int causal, int window, int rel, float scale,
+                        float scale_log2) {
+  constexpr int kTile = tc::Tile<D>::kBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  // K, V, then stage s: Q, dO; then stage s: lse, delta; then barriers
+  float* stats = reinterpret_cast<float*>(base + 6 * kTile);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stats + 4 * tc::kRows);
+
+  const int k0 = blockIdx.x * tc::kRows;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int groups = heads / kv_heads;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int row0 = 16 * (tid / 32) + lane / 4;   // key rows row0, row0 + 8
+  const int col0 = 2 * (lane % 4);
+
+  // query tiles that can see a column of [k0, k_last]
+  const int nqb = (tq + tc::kRows - 1) / tc::kRows;
+  const int k_last = min(k0 + tc::kRows, tk) - 1;
+  int qt_lo = 0, qt_hi = nqb;
+  if (causal) qt_lo = min(nqb, max(0, flash::floor_div(k0 - rel, tc::kRows)));
+  if (window > 0)
+    qt_hi = min(nqb, max(0, flash::floor_div(k_last + window - 1 - rel,
+                                             tc::kRows) + 1));
+  const int nq = max(0, qt_hi - qt_lo);
+  const int n = groups * nq;
+
+  // the (query head, first row) of step i, and its loads into stage s
+  auto step = [&](int i, int& h, int& q0) {
+    h = hk * groups + i / nq;
+    q0 = (qt_lo + i % nq) * tc::kRows;
+  };
+  auto issue = [&](int i, int s) {
+    int h, q0;
+    step(i, h, q0);
+    if (tid == 0) {
+      uint8_t* st = base + (2 + 2 * s) * kTile;
+      tc::bar_expect(&bars[1 + s], 2 * kTile);
+      tc::load_tile<D>(st, &mq, &bars[1 + s], q0, h, b);
+      tc::load_tile<D>(st + kTile, &mdo, &bars[1 + s], q0, h, b);
+    }
+    const int r = tid % tc::kRows;
+    const float* src = tid < tc::kRows ? lse : delta;
+    const long long at =
+        (static_cast<long long>(b) * heads + h) * tq + q0 + r;
+    tc::cp_async4(stats + (2 * s + tid / tc::kRows) * tc::kRows + r,
+                  q0 + r < tq ? src + at : src, q0 + r < tq);
+    tc::cp_async_commit();
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) tc::bar_init(&bars[i]);
+    tc::fence_bar_init();
+  }
+  __syncthreads();
+  if (n > 0) {
+    if (tid == 0) {
+      tc::bar_expect(&bars[0], 2 * kTile);
+      tc::load_tile<D>(base, &mk, &bars[0], k0, hk, b);
+      tc::load_tile<D>(base + kTile, &mv, &bars[0], k0, hk, b);
+    }
+    issue(0, 0);
+  }
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dk_acc[i] = 0.f;
+    dv_acc[i] = 0.f;
+  }
+  const uint32_t k_addr = tc::smem_u32(base);
+  const uint32_t v_addr = k_addr + kTile;
+  if (n > 0) tc::bar_wait(&bars[0], 0);
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i & 1;
+    int h, q0;
+    step(i, h, q0);
+    tc::cp_async_wait_all();   // this thread's lse / delta of step i
+    __syncthreads();           // everyone's; and stage s ^ 1 is free
+    if (i + 1 < n) issue(i + 1, s ^ 1);
+    tc::bar_wait(&bars[1 + s], (i >> 1) & 1);
+    const uint32_t q_addr = tc::smem_u32(base + (2 + 2 * s) * kTile);
+    const uint32_t do_addr = q_addr + kTile;
+    const float* lse_s = stats + 2 * s * tc::kRows;
+    const float* dl_s = lse_s + tc::kRows;
+
+    float st[32], dpt[32];   // rows: keys; columns: queries
+    tc::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      tc::wgmma_ss_n64(st, tc::desc_k(k_addr, ks), tc::desc_k(q_addr, ks),
+                       ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      tc::wgmma_ss_n64(dpt, tc::desc_k(v_addr, ks), tc::desc_k(do_addr, ks),
+                       ks > 0);
+    tc::wgmma_commit();
+    tc::wgmma_wait();
+    tc::fence_regs(st);
+    tc::fence_regs(dpt);
+
+    const bool edge = k0 + tc::kRows > tk || q0 + tc::kRows > tq ||
+                      (causal && rel + q0 < k0 + tc::kRows - 1) ||
+                      (window > 0 && k0 <= rel + q0 + tc::kRows - 1 - window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + col0 + e;
+        const float lse2 = lse_s[c] * tc::kLog2e;
+        const float dl = dl_s[c];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int x = 4 * j + 2 * r + e;
+          float p = exp2f(fmaf(st[x], scale_log2, -lse2));
+          if (edge) {
+            const int key = k0 + row0 + 8 * r;
+            const int row = q0 + c;
+            if (!(key < tk && row < tq &&
+                  tc::visible(rel + row, key, causal, window)))
+              p = 0.f;
+          }
+          st[x] = p;
+          dpt[x] = p * (dpt[x] - dl) * scale;
+        }
+      }
+
+    uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      tc::p_frag(st, kk, pf[kk]);
+      tc::p_frag(dpt, kk, dsf[kk]);
+    }
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::wgmma_rs<D>(dv_acc, pf[kk], tc::desc_mn(do_addr, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::wgmma_rs<D>(dk_acc, dsf[kk], tc::desc_mn(q_addr, kk));
+    tc::wgmma_commit();
+    tc::wgmma_wait();
+    tc::fence_regs(dv_acc);
+    tc::fence_regs(dk_acc);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + row0 + 8 * r;
+    if (key >= tk) continue;
+    const long long at = b * ldk.b + key * ldk.t + hk * ldk.h + col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(dk + at + 8 * j) =
+          make_float2(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
+      *reinterpret_cast<float2*>(dv + at + 8 * j) =
+          make_float2(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+constexpr int dkv_tc_smem() {
+  return 6 * tc::Tile<D>::kBytes + 4 * tc::kRows * 4 + 3 * 8 + 1024;
+}
+
+template <int D>
+int launch_dkv_tc(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk, void* dv, Layout lq, Layout lk, Layout lv,
+                  Layout ldo, Layout ldk, int batch, int heads, int kv_heads,
+                  int tq, int tk, int causal, int window, int rel,
+                  cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  int e = tc::tile_map(&mq, q, lq, batch, tq, heads, D);
+  if (e == 0) e = tc::tile_map(&mk, k, lk, batch, tk, kv_heads, D);
+  if (e == 0) e = tc::tile_map(&mv, v, lv, batch, tk, kv_heads, D);
+  if (e == 0) e = tc::tile_map(&mdo, dout, ldo, batch, tq, heads, D);
+  if (e != 0) return e;
+  auto kernel = flash_dkv_tc_kernel<D>;
+  e = tc::set_smem(reinterpret_cast<const void*>(kernel), dkv_tc_smem<D>());
+  if (e != 0) return e;
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const dim3 grid((tk + tc::kRows - 1) / tc::kRows, kv_heads, batch);
+  kernel<<<grid, tc::kThreads, dkv_tc_smem<D>(), stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), ldk, heads, kv_heads, tq, tk, causal, window,
+      rel, scale, scale * tc::kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -340,10 +578,20 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                           window, rel, s)
   if (dtype == 0 && head_dim == 64) FLASH_DKV(float, 64);
   if (dtype == 0 && head_dim == 128) FLASH_DKV(float, 128);
-  if (dtype == 1 && head_dim == 64) FLASH_DKV(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) FLASH_DKV(__nv_bfloat16, 128);
 #undef FLASH_DKV
+#define FLASH_DKV_TC(D)                                                     \
+  return launch_dkv_tc<D>(q, k, v, dout, lse, delta, dk, dv, lq, lk, lv,   \
+                          ldo, ldk, batch, heads, kv_heads, tq, tk, causal, \
+                          window, rel, s)
+  if (dtype == 1 && head_dim == 64) FLASH_DKV_TC(64);
+  if (dtype == 1 && head_dim == 128) FLASH_DKV_TC(128);
+#undef FLASH_DKV_TC
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of K3's bf16 (tensor-core) kernel, in bytes.
+int flash_dkv_tc_smem(int head_dim) {
+  return head_dim == 64 ? dkv_tc_smem<64>() : dkv_tc_smem<128>();
 }
 
 const char* flash_bwd_error_string(int code) {

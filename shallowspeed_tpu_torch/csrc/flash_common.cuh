@@ -1,9 +1,12 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu: K1,
-// flash_bwd.cu: K2 and K3).
+// Pieces shared by the f32-FMA flash-attention kernels: the f32 builds
+// of K1 (flash_fwd.cu) and K3 (flash_bwd.cu::flash_dkv), and K2
+// (flash_bwd.cu::flash_dq) in both dtypes. The bf16 builds of K1 and K3
+// run on the tensor cores, from flash_tc.cuh, which takes Layout,
+// visible and floor_div from here.
 //
-// Every kernel works on 64-row tiles held in shared memory as f32, row
-// major with a padded row stride, computed on by 256 threads arranged
-// 16 x 16 (ty, tx):
+// Every kernel here works on 64-row tiles held in shared memory as f32,
+// row major with a padded row stride, computed on by 256 threads
+// arranged 16 x 16 (ty, tx):
 // - a score tile (64 x 64) gives thread (ty, tx) rows ty + 16 i and
 //   columns tx + 16 j, i, j < 4;
 // - an output tile (64 x D) gives it rows ty + 16 i and the float4

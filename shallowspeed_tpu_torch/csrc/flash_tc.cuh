@@ -1,0 +1,332 @@
+// Pieces shared by the tensor-core flash-attention kernels: the bf16
+// builds of K1 (flash_fwd.cu) and K3 (flash_bwd.cu::flash_dkv). The f32
+// builds and K2 keep the f32-FMA pieces of flash_common.cuh.
+//
+// Every tile is 64 rows of a (B, T, H, D) bf16 tensor, brought into
+// shared memory by TMA (`cp.async.bulk.tensor`) from a tensor map built
+// on the tensor's own strides, and completed on an mbarrier. A tile of D
+// columns is D / 64 boxes of 64 rows x 128 bytes, each 1024-byte
+// aligned and 128-byte swizzled: the 16-byte chunk c of row r sits at
+// chunk c ^ (r % 8), as TMA's SWIZZLE_128B writes it and as wgmma's
+// 128B-swizzle descriptors read it. Rows past the tensor's end arrive as
+// zeros. One warpgroup (128 threads) owns a 64-row tile and runs
+// `wgmma.mma_async` (bf16 in, f32 accumulate) on it:
+// - A K B^T with A and B both K-major in shared memory (`wgmma_ss_*`,
+//   `desc_k`): the score tiles S = Q K^T, S^T = K Q^T, dP^T = V dO^T;
+// - P V with P as the register A operand (`p_frag`) and V read as a
+//   transposed, MN-major B (`wgmma_rs_*`, `desc_mn`): O += P V,
+//   dV += P^T dO, dK += dS^T Q.
+// The f32 accumulator of a 64 x N product gives thread t of warp w rows
+// 16 w + t / 4 (regs 4 j, 4 j + 1) and 16 w + t / 4 + 8 (4 j + 2, 4 j + 3),
+// columns 8 j + 2 (t % 4) + {0, 1}: the four threads of a quad share a
+// row, and the column blocks j = 2 kk and 2 kk + 1 of that accumulator
+// are, register for register, the A fragment of k16 step kk (`p_frag`).
+
+#pragma once
+
+#include <cuda.h>            // CUtensorMap and its enums (no driver call)
+
+#include "flash_common.cuh"  // Layout, visible, floor_div, kNeg
+
+namespace flash_tc {
+
+using flash::kNeg;
+using flash::Layout;
+using flash::visible;
+
+constexpr int kRows = 64;                // rows of a tile; wgmma's M
+constexpr int kThreads = 128;            // one warpgroup
+constexpr int kBoxBytes = kRows * 128;   // one 64 x 64 bf16 box
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+struct Tile {
+  static constexpr int kBytes = kRows * D * 2;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------- mbarriers
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_bar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The one arrival of a phase, expecting `bytes` from TMA.
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase with parity `parity` has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// ------------------------------------------------------ TMA, cp.async
+
+// Rows [t0, t0 + 64) of head h of batch row b, all D columns, into the
+// swizzled tile at `dst`; completes Tile<D>::kBytes on `bar`.
+template <int D>
+__device__ __forceinline__ void load_tile(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int t0, int h,
+                                          int b) {
+#pragma unroll
+  for (int kb = 0; kb < D / 64; ++kb)
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+        :: "r"(smem_u32(static_cast<char*>(dst) + kb * kBoxBytes)),
+           "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+           "r"(kb * 64), "r"(t0), "r"(h), "r"(b)
+        : "memory");
+}
+
+// 4 bytes global -> shared, zero when !valid (nothing is read then).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------- wgmma
+
+// Shared-memory matrix descriptor, 128-byte swizzle (byte offsets).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+// K-major operand (rows are M or N, the 16 columns of k-step `ks` are the
+// reduction): 32 bytes along the swizzled row, 1024 bytes per 8 rows.
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int ks) {
+  return desc(tile + (ks / 4) * kBoxBytes + (ks % 4) * 32, 16, 1024);
+}
+
+// MN-major operand (the 16 rows of k-step `ks` are the reduction, the
+// D columns are N): 2048 bytes per k-step, 1024 per 8 rows, one box per
+// 64 columns of N.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int ks) {
+  return desc(tile + ks * 16 * 128, kBoxBytes, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from touching an accumulator across the
+// asynchronous wgmma that writes it (call after wgmma_wait).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragment of k-step kk (columns 16 kk ... 16 kk + 15) of a 64 x N
+// f32 accumulator `p`, rounded to bf16.
+template <int N>
+__device__ __forceinline__ void p_frag(const float (&p)[N], int kk,
+                                       uint32_t (&a)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    a[r] = pack_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
+}
+
+// d (64 x 64, f32) = A B^T (+ d when `accumulate`): A (64 x 16) and B
+// (64 x 16) bf16 in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A B: A (64 x 16 bf16) in registers (`a`, the
+// fragment of `p_frag`), B (16 x 64 bf16) in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, f32) += A B: A (64 x 16 bf16) in registers (`a`, the
+// fragment of `p_frag`), B (16 x 128 bf16) in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 64)
+    wgmma_rs_n64(d, a, b);
+  else
+    wgmma_rs_n128(d, a, b);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ----------------------------------------------------------------- host
+
+// Lets `kernel` launch with `bytes` of dynamic shared memory (over the
+// 48 KB default). Returns a cudaError_t.
+inline int set_smem(const void* kernel, int bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime (CUDA
+// 12.5 or later), so the library links no -lcuda.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A TMA map of a (batch, t, heads, d) bf16 tensor with element strides
+// `l`, in boxes of 64 columns x 64 rows of one head, swizzled 128B; rows
+// past t read as zeros. Returns a cudaError_t (0 = success).
+inline int tile_map(CUtensorMap* map, const void* base, Layout l, int batch,
+                    int t, int heads, int d) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  // bytes; the wrapper checked that each is a multiple of 16
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(2 * l.t),
+                                 static_cast<cuuint64_t>(2 * l.h),
+                                 static_cast<cuuint64_t>(2 * l.b)};
+  const cuuint32_t box[4] = {64, kRows, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace flash_tc

@@ -3,7 +3,9 @@
 forward, K2 dq, K3 dk/dv) behind `flash_attention`, and the serving
 decode kernel (K4) behind `paged_flash_decode`, whose int8 branch
 (int8 pools with f32 scale planes) launches through
-`_paged_flash_decode_int8`.
+`_paged_flash_decode_int8`. K1's and K3's bf16 builds run on the tensor
+cores and launch through `_flash_fwd_tc` and `_flash_dkv_tc`; their f32
+builds and K2 are f32 FMA.
 
 Each kernel has a wrapper and a plain torch version with the same
 arguments. On a CUDA tensor the wrapper launches the hand-written
@@ -26,7 +28,10 @@ k, v are slices of one fused projection): nothing is copied.
 The decode kernel keeps its probabilities in f32 through the PV
 product, where its reference casts them to V's dtype (float pools) or
 to q's dtype (int8 pools) first; the JAX kernel keeps them in f32 too.
-In bf16 the kernel and its reference differ by that one rounding.
+In bf16 the kernel and its reference differ by that one rounding. The
+tensor-core K1 and K3 round the other way: P (and K3's dS) to bf16
+before the second product, where the plain versions keep f32;
+`kernel_ratio` with `tc_rounding_terms` is the rule that allows for it.
 """
 
 from __future__ import annotations
@@ -239,12 +244,19 @@ def flash_fwd_reference(q, k, v, *, causal=True, window=0, rel=0):
     Masked scores are -1e30 with probability exactly 0 and l is guarded
     by max(l, 1e-30), as in the JAX kernel: a row that sees nothing
     gives o = 0 and lse = -1e30."""
+    return _fwd(q, k, v, causal, window, rel)
+
+
+def _fwd(q, k, v, causal, window, rel, p_dtype=None):
+    """K1's plain arithmetic; with `p_dtype`, P is rounded to it before
+    PV (l still sums the unrounded P)."""
     b, tq, h, d = q.shape
     s, ok = _scores(q, k, causal, window, rel)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(s - m), torch.zeros_like(s))
     lg = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.to(s.dtype)) / lg
+    pv = p if p_dtype is None else p.to(p_dtype).to(s.dtype)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", pv, v.to(s.dtype)) / lg
     o = o.permute(0, 3, 1, 2, 4).reshape(b, tq, h, d).to(q.dtype)
     return o, (m + torch.log(lg)).reshape(b, h, tq)
 
@@ -278,12 +290,88 @@ def flash_dkv_reference(q, k, v, do, lse, delta, *, causal=True, window=0,
     """Plain torch K3: (dK = sum_g dS^T Q, dV = sum_g P^T dO), f32
     (B, Tk, Hkv, D); the sums run over the G query heads of each kv
     head."""
+    return _dkv(q, k, v, do, lse, delta, causal, window, rel)
+
+
+def _dkv(q, k, v, do, lse, delta, causal, window, rel, p_dtype=None):
+    """K3's plain arithmetic; with `p_dtype`, P^T and dS^T are rounded to
+    it before the dV and dK products (dS from the unrounded P)."""
     kvh = k.shape[2]
     p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, window, rel)
     acc = p.dtype
+    if p_dtype is not None:
+        p, ds = p.to(p_dtype).to(acc), ds.to(p_dtype).to(acc)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, _grouped(do, kvh).to(acc))
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, _grouped(q, kvh).to(acc))
     return dk, dv
+
+
+# ------------------------------------- the rule the kernels are held to
+# Kernel against plain version on the same inputs, per element:
+# |diff| <= KERNEL_TOL (|ref| + mean |ref|) for an f32 result summed in
+# another order (scaling with the element, or where terms cancel with
+# the tensor's typical size), + BF16_ULP |ref| for an output the kernel
+# rounds to bf16, + for the tensor-core (bf16) builds the
+# `tc_rounding_terms` of their one rounding of P or dS to bf16 before
+# the second product. `chip_smoke.py` and the tests share this rule.
+KERNEL_TOL = 1e-4
+BF16_ULP = 2.0 ** -7
+BF16_ROUND = 2.0 ** -8     # largest relative error of one bf16 rounding
+
+
+def kernel_ratio(got, ref, *, rounded=False, extra=None):
+    """(max |diff|, worst |diff| / allowance over the elements), in f32,
+    under the rule above: `rounded` adds BF16_ULP |ref|, `extra` (a
+    tensor of ref's shape, e.g. a `tc_rounding_terms` entry) is added
+    as it is. A check passes at a ratio <= 1."""
+    got, ref = got.float(), ref.float()
+    mag = ref.abs()
+    scale = float(mag.mean())
+    if not scale > 0:
+        raise ValueError("the plain version's output is all zero")
+    allow = KERNEL_TOL * (mag + scale)
+    if rounded:
+        allow = allow + BF16_ULP * mag
+    if extra is not None:
+        allow = allow + extra.float()
+    diff = (got - ref).abs()
+    return float(diff.max()), float((diff / allow).max())
+
+
+def tc_rounding_terms(q, k, v, do=None, lse=None, delta=None, *,
+                      causal=True, window=0, rel=0):
+    """What one rounding of P or dS to bf16 before the second product
+    can move each output element by, computed in f32 by the plain
+    arithmetic on the same inputs: {"o": 2^-8 (P / l) @ |V| (the plain
+    attention over |V|), and with dO, lse, delta also "dv": 2^-8
+    P^T @ |dO| and "dk": 2^-8 |dS|^T @ |Q|}, each summed over the G
+    query heads as the outputs are."""
+    f = [x.float() for x in (q, k, v)]
+    terms = {"o": BF16_ROUND * _fwd(f[0], f[1], f[2].abs(), causal, window,
+                                    rel)[0]}
+    if do is not None:
+        kvh = k.shape[2]
+        p, ds = _probs_and_ds(f[0], f[1], f[2], do.float(), lse, delta,
+                              causal, window, rel)
+        abs_do = _grouped(do.float(), kvh).abs()
+        abs_q = _grouped(f[0], kvh).abs()
+        terms["dv"] = BF16_ROUND * torch.einsum("bhgqk,bqhgd->bkhd", p,
+                                                abs_do)
+        terms["dk"] = BF16_ROUND * torch.einsum("bhgqk,bqhgd->bkhd",
+                                                ds.abs(), abs_q)
+    return terms
+
+
+def rounded_reference(q, k, v, do, lse, delta, p_dtype, *, causal=True,
+                      window=0, rel=0):
+    """(o, dK, dV) of the plain versions with P (for o and dV) and dS
+    (for dK) rounded to `p_dtype` before the second product: with
+    bfloat16 what the tensor-core kernels compute, up to summation
+    order; with a coarser type (float8_e4m3fn) a slip the rule must
+    see."""
+    kw = dict(causal=causal, window=window, rel=rel)
+    o, _ = _fwd(q, k, v, p_dtype=p_dtype, **kw)
+    return (o, *_dkv(q, k, v, do, lse, delta, p_dtype=p_dtype, **kw))
 
 
 @functools.cache
@@ -291,7 +379,8 @@ def _train_kernels():
     fwd = _build.library("flash_fwd")
     fwd.flash_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 12
                               + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-    fwd.flash_fwd.restype = ctypes.c_int
+    fwd.flash_fwd.restype = fwd.flash_fwd_tc_smem.restype = ctypes.c_int
+    fwd.flash_fwd_tc_smem.argtypes = [ctypes.c_int]
     fwd.flash_fwd_error_string.argtypes = [ctypes.c_int]
     fwd.flash_fwd_error_string.restype = ctypes.c_char_p
     bwd = _build.library("flash_bwd")
@@ -300,6 +389,8 @@ def _train_kernels():
     bwd.flash_dkv.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 15
                               + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     bwd.flash_dq.restype = bwd.flash_dkv.restype = ctypes.c_int
+    bwd.flash_dkv_tc_smem.restype = ctypes.c_int
+    bwd.flash_dkv_tc_smem.argtypes = [ctypes.c_int]
     bwd.flash_bwd_error_string.argtypes = [ctypes.c_int]
     bwd.flash_bwd_error_string.restype = ctypes.c_char_p
     return fwd, bwd
@@ -371,22 +462,42 @@ def _check_train(name, window, q, k, v, do=None, lse=None, delta=None):
 def flash_fwd(q, k, v, *, causal=True, window=0, rel=0):
     """K1: (o in q's dtype (B, Tq, H, D), lse f32 (B, H, Tq)). A CPU q
     takes `flash_fwd_reference`; a CUDA q launches `csrc/flash_fwd.cu`
-    (float32 or bfloat16, head_dim 64 or 128) or raises."""
+    (head_dim 64 or 128) or raises: float32 its f32-FMA kernel, counted
+    on `flash_fwd.launches`; bfloat16 its tensor-core kernel, through
+    `_flash_fwd_tc`."""
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal=causal, window=window,
                                    rel=rel)
     _check_train("flash_fwd", window, q, k, v)
+    if q.dtype == torch.bfloat16:
+        return _flash_fwd_tc(q, k, v, causal, window, rel)
+    return _launch_fwd(flash_fwd, q, k, v, causal, window, rel)
+
+
+flash_fwd.launches = 0
+
+
+def _flash_fwd_tc(q, k, v, causal, window, rel):
+    """K1's bf16 build on the card, `csrc/flash_fwd.cu::
+    flash_fwd_tc_kernel`: wgmma on TMA-fed tiles, P rounded to bf16 as
+    the PV product's register operand (`tc_rounding_terms` bounds that
+    rounding). Reached only through `flash_fwd`; its own function so
+    that its launches count apart."""
+    return _launch_fwd(_flash_fwd_tc, q, k, v, causal, window, rel)
+
+
+_flash_fwd_tc.launches = 0
+
+
+def _launch_fwd(counter, q, k, v, causal, window, rel):
     b, tq, h, _ = q.shape
     fwd, _ = _train_kernels()
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    _build.launch(flash_fwd, fwd.flash_fwd, fwd.flash_fwd_error_string,
+    _build.launch(counter, fwd.flash_fwd, fwd.flash_fwd_error_string,
                   q.device, *_ptrs(q, k, v, o, lse), *_strides(q, k, v, o),
                   *_dims(q, k, causal, window, rel))
     return o, lse
-
-
-flash_fwd.launches = 0
 
 
 def flash_dq(q, k, v, do, lse, delta, *, causal=True, window=0, rel=0):
@@ -411,22 +522,44 @@ flash_dq.launches = 0
 def flash_dkv(q, k, v, do, lse, delta, *, causal=True, window=0, rel=0):
     """K3: (dK, dV), f32 (B, Tk, Hkv, D), summed over each kv head's G
     query heads. A CPU q takes `flash_dkv_reference`; a CUDA q launches
-    `csrc/flash_bwd.cu::flash_dkv` or raises."""
+    `csrc/flash_bwd.cu::flash_dkv` or raises: float32 its f32-FMA
+    kernel, counted on `flash_dkv.launches`; bfloat16 its tensor-core
+    kernel, through `_flash_dkv_tc`."""
     if q.device.type == "cpu":
         return flash_dkv_reference(q, k, v, do, lse, delta, causal=causal,
                                    window=window, rel=rel)
     _check_train("flash_dkv", window, q, k, v, do, lse, delta)
+    if q.dtype == torch.bfloat16:
+        return _flash_dkv_tc(q, k, v, do, lse, delta, causal, window, rel)
+    return _launch_dkv(flash_dkv, q, k, v, do, lse, delta, causal, window,
+                       rel)
+
+
+flash_dkv.launches = 0
+
+
+def _flash_dkv_tc(q, k, v, do, lse, delta, causal, window, rel):
+    """K3's bf16 build on the card, `csrc/flash_bwd.cu::
+    flash_dkv_tc_kernel`: wgmma on TMA-fed tiles, P^T and dS^T rounded
+    to bf16 as the dV and dK products' register operands
+    (`tc_rounding_terms` bounds that rounding). Reached only through
+    `flash_dkv`; its own function so that its launches count apart."""
+    return _launch_dkv(_flash_dkv_tc, q, k, v, do, lse, delta, causal,
+                       window, rel)
+
+
+_flash_dkv_tc.launches = 0
+
+
+def _launch_dkv(counter, q, k, v, do, lse, delta, causal, window, rel):
     _, bwd = _train_kernels()
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    _build.launch(flash_dkv, bwd.flash_dkv, bwd.flash_bwd_error_string,
+    _build.launch(counter, bwd.flash_dkv, bwd.flash_bwd_error_string,
                   q.device, *_ptrs(q, k, v, do, lse, delta, dk, dv),
                   *_strides(q, k, v, do, dk),
                   *_dims(q, k, causal, window, rel))
     return dk, dv
-
-
-flash_dkv.launches = 0
 
 
 def attention_delta(do, o):

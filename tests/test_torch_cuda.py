@@ -153,17 +153,45 @@ def _rel_err(got, ref):
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-6))
 
 
-def _elementwise_ratio(got, ref, rounded):
-    """Worst |diff| / allowance over the elements; the allowance is 1e-4
-    of |ref| + mean |ref| (summation order in f32), plus one bf16 ulp of
-    |ref| (<= 2^-7 |ref|) for an output rounded to bf16."""
-    got, ref = got.float(), ref.float()
+def _elementwise_ratio(got, ref, rounded, extra=None):
+    """Worst |diff| / allowance over the elements under the kernels'
+    rule (`FA.kernel_ratio`): 1e-4 of |ref| + mean |ref| (summation order
+    in f32), plus one bf16 ulp of |ref| (<= 2^-7 |ref|) for an output
+    rounded to bf16, plus `extra` (a `tc_rounding_terms` entry for the
+    tensor-core builds' one rounding of P or dS)."""
     assert torch.isfinite(got).all()
-    mag = ref.abs()
-    scale = float(mag.mean())
-    assert scale > 0
-    allow = 1e-4 * (mag + scale) + (2.0 ** -7 * mag if rounded else 0.0)
-    return float(((got - ref).abs() / allow).max())
+    return FA.kernel_ratio(got, ref, rounded=rounded, extra=extra)[1]
+
+
+def _check_training_kernels(q, k, v, do, kw):
+    """K1, K2, K3 on the card against their plain versions, and which
+    launcher each call counted on: bf16 K1 and K3 on the tensor-core
+    builds, f32 on the FMA ones."""
+    bf = q.dtype == torch.bfloat16
+    counters = ((FA._flash_fwd_tc, FA.flash_dq, FA._flash_dkv_tc) if bf
+                else (FA.flash_fwd, FA.flash_dq, FA.flash_dkv))
+    idle = ((FA.flash_fwd, FA.flash_dkv) if bf
+            else (FA._flash_fwd_tc, FA._flash_dkv_tc))
+    counts = [c.launches for c in counters + idle]
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = FA.flash_fwd_reference(q, k, v, **kw)
+    delta = FA.attention_delta(do, o)
+    terms = FA.tc_rounding_terms(q, k, v, do, lse, delta, **kw) if bf else {}
+    assert _elementwise_ratio(o, o_ref, bf, terms.get("o")) <= 1.0
+    seen = lse_ref > -1e29            # rows that see at least one key
+    assert torch.equal(lse > -1e29, seen)
+    assert _rel_err(lse[seen], lse_ref[seen]) <= 1e-5
+    dq = FA.flash_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = FA.flash_dkv(q, k, v, do, lse, delta, **kw)
+    dq_ref = FA.flash_dq_reference(q, k, v, do, lse, delta, **kw)
+    dk_ref, dv_ref = FA.flash_dkv_reference(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for got, ref, name in ((dq, dq_ref, "dq"), (dk, dk_ref, "dk"),
+                           (dv, dv_ref, "dv")):
+        assert got.dtype == torch.float32
+        assert _elementwise_ratio(got, ref, False, terms.get(name)) <= 1.0
+    assert [c.launches for c in counters + idle] == \
+        [n + 1 for n in counts[:3]] + counts[3:]
 
 
 @pytest.mark.cuda
@@ -174,27 +202,68 @@ def test_training_kernels_match_plain_versions(cuda, dtype, case):
     """K1, K2, K3 on the card against their plain versions on the same
     inputs, per element (f32 results: summation order only; bf16 o: one
     rounding, and the backward reads the rounded o through delta in
-    both)."""
-    q, k, v, do, kw = _train_inputs(TRAIN_CASES[case], dtype, cuda)
-    counts = (FA.flash_fwd.launches, FA.flash_dq.launches,
-              FA.flash_dkv.launches)
-    o, lse = FA.flash_fwd(q, k, v, **kw)
-    o_ref, lse_ref = FA.flash_fwd_reference(q, k, v, **kw)
-    assert _elementwise_ratio(o, o_ref, dtype == torch.bfloat16) <= 1.0
-    seen = lse_ref > -1e29            # rows that see at least one key
-    assert torch.equal(lse > -1e29, seen)
-    assert _rel_err(lse[seen], lse_ref[seen]) <= 1e-5
+    both; the bf16 K1 and K3 also round P or dS to bf16 once, on tensor
+    cores), with each launch counted on its dtype's launcher."""
+    _check_training_kernels(*_train_inputs(TRAIN_CASES[case], dtype, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvh", [4, 2], ids=["mha", "gqa"])
+def test_tensor_core_kernels_read_fused_views(cuda, kvh):
+    """The bf16 (tensor-core) K1 and K3 on q, k, v that are strided
+    slices of one fused (B, T, H + 2 Hkv, D) tensor, as the model's are,
+    under the same rule."""
+    g = torch.Generator(device="cpu").manual_seed(11 + kvh)
+    b, t, h, d = 2, 200, 4, 128
+    fused = torch.randn(b, t, h + 2 * kvh, d, generator=g).to(cuda).to(
+        torch.bfloat16)
+    q, k, v = fused[:, :, :h], fused[:, :, h:h + kvh], fused[:, :, h + kvh:]
+    assert not (q.is_contiguous() or k.is_contiguous())
+    do = torch.randn(b, t, h, d, generator=g).to(cuda).to(torch.bfloat16)
+    _check_training_kernels(q, k, v, do, dict(causal=True, window=0, rel=0))
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernels_take_a_cotangent_broadcast_over_the_batch(
+        cuda):
+    """A cotangent broadcast over the batch (stride 0 there, head_dim
+    contiguous) reaches the bf16 K2 and K3 as it is, through TMA maps
+    built on its strides, and gives the gradients of the same cotangent
+    made contiguous, bit for bit (the kernels are deterministic)."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q, k, v = (torch.randn(2, 128, 4, 64, generator=g).to(cuda)
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+    cot = torch.randn(1, 128, 4, 64, generator=g).to(cuda).to(
+        torch.bfloat16).expand(2, -1, -1, -1)
+    assert cot.stride(0) == 0 and FA.kernel_ready(cot)
+    grads = []
+    for c in (cot, cot.contiguous()):
+        o = FA.flash_attention(q, k, v, True, 0)
+        grads.append(torch.autograd.grad(o, (q, k, v), c))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mha", "gqa", "window", "ragged"])
+def test_rule_sees_an_e4m3_rounding_of_p_and_ds(cuda, case):
+    """The tensor-core rule is not loose: the plain version with P (for
+    o) and dS (for dK) rounded to float8_e4m3fn before the second product
+    fails it on the card, where the same rounding to bf16 passes."""
+    q, k, v, do, kw = _train_inputs(TRAIN_CASES[case], torch.bfloat16, cuda)
+    o, lse = FA.flash_fwd_reference(q, k, v, **kw)
     delta = FA.attention_delta(do, o)
-    dq = FA.flash_dq(q, k, v, do, lse, delta, **kw)
-    dk, dv = FA.flash_dkv(q, k, v, do, lse, delta, **kw)
-    dq_ref = FA.flash_dq_reference(q, k, v, do, lse, delta, **kw)
-    dk_ref, dv_ref = FA.flash_dkv_reference(q, k, v, do, lse, delta, **kw)
-    torch.cuda.synchronize()
-    for got, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
-        assert got.dtype == torch.float32
-        assert _elementwise_ratio(got, ref, False) <= 1.0
-    assert (FA.flash_fwd.launches, FA.flash_dq.launches,
-            FA.flash_dkv.launches) == tuple(c + 1 for c in counts)
+    dk, dv = FA.flash_dkv_reference(q, k, v, do, lse, delta, **kw)
+    terms = FA.tc_rounding_terms(q, k, v, do, lse, delta, **kw)
+    for p_dtype, fails in ((torch.bfloat16, False),
+                           (torch.float8_e4m3fn, True)):
+        s_o, s_dk, s_dv = FA.rounded_reference(q, k, v, do, lse, delta,
+                                               p_dtype, **kw)
+        ratios = (_elementwise_ratio(s_o, o, True, terms["o"]),
+                  _elementwise_ratio(s_dk, dk, False, terms["dk"]))
+        assert all((r > 1.0) == fails for r in ratios), (p_dtype, ratios)
+        assert (_elementwise_ratio(s_dv, dv, False, terms["dv"]) > 1.0) \
+            == fails
 
 
 @pytest.mark.cuda
