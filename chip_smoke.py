@@ -9,8 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
 1. Build every CUDA kernel of the serving, training and probe paths
    from `csrc/` with nvcc (sm_90a), one nvcc per source, all started
    together; print each kernel's registers and spills, and the dynamic
-   shared memory of the tensor-core (bf16) builds of K1 and K3, which
-   must compile without a spill.
+   shared memory of the tensor-core builds (K1, K2, K3 in bf16 and the
+   GEMM of K5 and `dequant_matmul`), which must compile without a spill.
 2. Hold each kernel against its plain torch version on the card: K4
    (float pools, and its int8 branch with q in f32 and in bf16) at
    small shapes and at the serving path's own shapes; K1, K2 and K3
@@ -20,20 +20,26 @@ Phases (any failure exits non-zero and prints no result line):
    again on strided views of one fused qkv tensor, as the model passes
    them. Each element is held to `flash_attention.kernel_ratio`'s rule:
    KERNEL_TOL of |ref| + mean |ref|, plus one bf16 ulp where the kernel
-   rounds its output to bf16, plus for the bf16 builds of K1 and K3
-   (wgmma) the `tc_rounding_terms` of their one rounding of P or dS to
-   bf16; the plain version with P and dS rounded to float8_e4m3fn must
-   fail that rule; lse within 1e-5 on every row that sees a key. The bf16
-   `dequant_matmul` (int8 and fp8 weights) against the exact product,
-   per element, and a bf16 rounding before its scale must fail that.
-   K5 (`blocked_matmul`) and its plain version, each element against
-   the f64 product of the same values within one rounding of the output
-   dtype plus an f32 summation bound (`_k5_ratio`), at the JAX test's
-   shapes (f32, bf16, bf16 in with f32 out) and at the probe's six
-   shapes in bf16; a bf16 rounding of the accumulator between k-slices
-   must fail that rule.
+   rounds its output to bf16, plus for the bf16 builds (wgmma) the
+   `tc_rounding_terms` of their one rounding of P or dS to bf16; the
+   plain version with P and dS rounded to float8_e4m3fn must fail that
+   rule (o, dQ, dK); lse within 1e-5 on every row that sees a key.
+   `dequant_matmul` with int8 and fp8 weights: bf16 x through the
+   tensor-core GEMM with a 1-byte B at 8, 256 and 300 rows and the qkv
+   and head shapes against the exact product, per element, where a bf16
+   rounding before the scale must fail; f32 x through the f32-FMA
+   kernel; one call at the head's shape must add under 16 MB of peak
+   memory. K5 (`blocked_matmul`) and its plain version, each element
+   against the f64 product of the same values within one rounding of
+   the output dtype plus an f32 summation bound (`_k5_ratio`), at the
+   JAX test's shapes (f32, bf16, bf16 in with f32 out), an unaligned
+   bf16 shape (the FMA build) and the probe's six shapes in bf16 (the
+   tensor-core build); a bf16 rounding of the accumulator between
+   k-slices must fail that rule. Every call counts on the launcher its
+   route picks.
 2b. The narrow-K matmul probe (`bench_matmul.main`, --iters 5, M 16384):
-   its 12 records, and K5 launched 6 shapes x 4 chains x 5 times.
+   its 12 records, and K5's tensor-core build launched 6 shapes x 4
+   chains x 5 times, its FMA build never.
 3. Serve the repo's 1.21B LM (vocab 32768, d_model 2048, 16 heads, 16
    layers, RoPE + RMSNorm + SwiGLU, f32 master weights, bf16 compute)
    at full width and depth through `ServingEngine(attn_impl="flash")`,
@@ -42,10 +48,11 @@ Phases (any failure exits non-zero and prints no result line):
    zeroed just before the run and must equal n_layers x ticks after it;
    the block allocator must be balanced at drain. The same requests are
    served again with int8 KV pools (`kv_quant="int8"`, K4's int8
-   branch), and with int8 and fp8 weights (`weight_quant`) over bf16
-   pools, under the same checks. After each run, a decode tick of every
-   slot over one synthetic state is timed and profiled, so the four
-   modes compare tick for tick.
+   branch), and with int8 and fp8 weights (`weight_quant`, every dense
+   through `dequant_matmul`'s tensor-core route) over bf16 pools, under
+   the same checks. After each run, a decode tick of every slot over
+   one synthetic state is timed and profiled, so the four modes compare
+   tick for tick.
 3b. The prefix cache: 12 greedy requests that share one 768-token
    prefix (ten with distinct tails, the last two exactly the prefix,
    the fully aligned copy-on-write path), submitted together; hits and
@@ -66,10 +73,11 @@ Phases (any failure exits non-zero and prints no result line):
    the bf16 compute served above, and with int8 weights in f32 compute,
    the paged logits against the plain forward over the dequantized
    weights.
-5. Time K4 (float and int8 pools) at the serving shapes, and K5 at the
-   probe's narrow-K shape (16384, 1024) @ (1024, 4096) in bf16, beside
-   their plain versions, one library call computing the same function,
-   and their bounds.
+5. Time K4 (float and int8 pools) at the serving shapes, K5 at the
+   probe's narrow-K shape (16384, 1024) @ (1024, 4096) in bf16, and
+   `dequant_matmul` at each dense shape of a decode tick (8 rows, int8
+   weights), beside their plain versions, one library call computing
+   the same function, and their bounds.
 5b. The contiguous `generate()`: 8 prompts of 1024 tokens, 64 greedy new
    tokens, prefilled through K1 (`flash_prefill_at=1024`), with a bf16
    and with an int8 cache; K1's bf16 build launches once per layer per
@@ -78,17 +86,16 @@ Phases (any failure exits non-zero and prints no result line):
    through `ContextParallelEngine(attn="flash")` with AdamW on one
    repeated 4 x 2048 batch: one warm-up step, whose loss must match the
    plain attention's loss on the same weights (bf16 bound), then timed
-   steps, with the launch counts zeroed just before them: K1's and K3's
-   tensor-core builds and K2 must each equal n_layers x steps after, the
-   f32-FMA builds of K1 and K3 0; and a finite, falling loss.
+   steps, with the launch counts zeroed just before them: the
+   tensor-core builds of K1, K2 and K3 must each equal n_layers x steps
+   after, their f32-FMA builds 0; and a finite, falling loss.
 7. Training parity in f32 at full width and 2 layers: the kernels'
    loss and every gradient leaf against the plain attention under torch
    autograd, and a bf16 rounding of q and K slipped into the plain
    scores must fail that bound.
-8. Time K1, K2 and K3 at the training shape (K1 and K3 on their
-   tensor-core builds) beside their plain versions, the library's
-   attention forward (K1) and backward (K2 and K3 together), and their
-   bounds.
+8. Time K1, K2 and K3 at the training shape (their tensor-core builds)
+   beside their plain versions, the library's attention forward (K1)
+   and backward (K2 and K3 together), and their bounds.
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -178,28 +185,51 @@ def _card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+# Itanium-mangled template arguments of the kernels: dtype codes, and
+# the blocked_matmul_kernel types (class types are substitution
+# candidates after the namespace and the template's own name)
+_GEMM_B = {"1": "bf16", "2": "int8", "3": "e4m3"}
+_MANGLED_TYPES = {"f": "f32", "a": "int8", "13__nv_bfloat16": "bf16",
+                  "13__nv_fp8_e4m3": "e4m3"}
+
+
+def _type_args(mangled: str) -> list[str]:
+    known, out = ["", ""], []
+    for tok in re.findall(r"13__nv_bfloat16|13__nv_fp8_e4m3|S\d*_|[fa]",
+                          mangled.split("EE")[0]):
+        if tok.startswith("S"):
+            out.append(known[int(tok[1:-1] or -1) + 1])
+        else:
+            out.append(_MANGLED_TYPES[tok])
+            if tok.startswith("13"):
+                known.append(out[-1])
+    return out
+
+
 def _ptxas_lines(log: str) -> list[str]:
     """One line per compiled kernel: its template instance, registers
     and spills, from `nvcc -Xptxas -v` output."""
     out, name, spill = [], "?", ""
     for line in log.splitlines():
         m = re.search(r"((?:paged_decode_int8|paged_decode|flash_fwd_tc|"
-                      r"flash_fwd|flash_dq|flash_dkv_tc|flash_dkv|"
-                      r"blocked_matmul)_kernel)I(\w+)'", line)
-        if m and m.group(1).endswith("_tc_kernel"):     # <int D>, bf16
+                      r"flash_fwd|flash_dq_tc|flash_dq|flash_dkv_tc|"
+                      r"flash_dkv|gemm_tc|split_sum|blocked_matmul)_kernel)"
+                      r"(?:I(\w+)|\w*)'", line)
+        if m and m.group(1) == "gemm_tc_kernel":        # <WG, B dtype>
+            wg, bt = re.findall(r"Li(\d+)E", m.group(2))[:2]
+            name = f"gemm_tc_kernel<wg{wg},{_GEMM_B[bt]}>"
+        elif m and m.group(1).endswith("_tc_kernel"):   # <int D>, bf16
             d = re.match(r"Li(\d+)E", m.group(2)).group(1)
             name = f"{m.group(1)}<bf16,{d}>"
-        elif m and m.group(1) == "blocked_matmul_kernel":
-            # <input, output> types; S1_ repeats the first (bf16) type
-            args = re.findall(r"13__nv_bfloat16|S\d*_|f",
-                              m.group(2).split("EE")[0])
-            name = m.group(1) + "<" + ",".join(
-                "f32" if a == "f" else "bf16" for a in args) + ">"
-        elif m:
+        elif m and m.group(1) == "blocked_matmul_kernel":   # <x, y, out>
+            name = m.group(1) + "<" + ",".join(_type_args(m.group(2))) + ">"
+        elif m and m.group(2):
             inst = re.findall(r"(__nv_bfloat16|f)(?:Li(\d+)E)", m.group(2))
             name = m.group(1) + "".join(
                 f"<{'bf16' if t == '__nv_bfloat16' else 'f32'},{d}>"
                 for t, d in inst[:1])
+        elif m:
+            name = m.group(1)
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
@@ -207,26 +237,42 @@ def _ptxas_lines(log: str) -> list[str]:
     return out
 
 
-def check_tc_builds(logs: dict) -> None:
-    """Phase 1: the tensor-core kernels' registers, spills and dynamic
-    shared memory; each must compile without a spill."""
+# the tensor-core kernels: (library, kernel, builds, dynamic shared
+# memory of each build in bytes, by a C entry of the library)
+def _tc_builds():
     from shallowspeed_tpu_torch.ops import flash_attention as FA
+    from shallowspeed_tpu_torch.ops import matmul as MM
 
     fwd, bwd = FA._train_kernels()
-    for lib, src, smem in (("flash_fwd", "flash_fwd_tc_kernel",
-                            fwd.flash_fwd_tc_smem),
-                           ("flash_dkv", "flash_dkv_tc_kernel",
-                            bwd.flash_dkv_tc_smem)):
-        lines = [ln for ln in _ptxas_lines(logs["flash_bwd" if lib ==
-                                                "flash_dkv" else lib])
-                 if ln.startswith(src)]
-        if len(lines) != 2 or not all(" 0 bytes spill stores, 0 bytes "
-                                      "spill loads" in ln for ln in lines):
-            raise AssertionError(f"{src}: want two builds without spills, "
-                                 f"ptxas says {lines}")
-        for d in (64, 128):
-            print(f"  {src}<bf16,{d}>: {smem(d)} bytes of dynamic shared "
-                  f"memory", flush=True)
+    mm = MM._kernel()
+    per_d = [(f"<bf16,{d}>", d) for d in (64, 128)]
+    return [
+        ("flash_fwd", "flash_fwd_tc_kernel",
+         [(t, fwd.flash_fwd_tc_smem(d)) for t, d in per_d]),
+        ("flash_bwd", "flash_dq_tc_kernel",
+         [(t, bwd.flash_dq_tc_smem(d)) for t, d in per_d]),
+        ("flash_bwd", "flash_dkv_tc_kernel",
+         [(t, bwd.flash_dkv_tc_smem(d)) for t, d in per_d]),
+        ("blocked_matmul", "gemm_tc_kernel",
+         [(f"<wg{wg},{b}>", mm.gemm_tc_smem(wg, code))
+          for wg in (1, 2) for code, b in ((1, "bf16"), (2, "int8"),
+                                           (3, "e4m3"))]),
+    ]
+
+
+def check_tc_builds(logs: dict) -> None:
+    """Phase 1: the tensor-core kernels' registers, spills and dynamic
+    shared memory; each build must compile without a spill."""
+    for lib, src, builds in _tc_builds():
+        lines = [ln for ln in _ptxas_lines(logs[lib]) if ln.startswith(src)]
+        if len(lines) != len(builds) or not all(
+                " 0 bytes spill stores, 0 bytes spill loads" in ln
+                for ln in lines):
+            raise AssertionError(f"{src}: want {len(builds)} builds without "
+                                 f"spills, ptxas says {lines}")
+        for tag, smem in builds:
+            print(f"  {src}{tag}: {smem} bytes of dynamic shared memory",
+                  flush=True)
 
 
 def _time_ms(fn, inputs, repeats=7):
@@ -403,6 +449,7 @@ def serve(dev, cfg, params, kv_quant="", weight_quant="", prompts=None,
     is timed and profiled after the run."""
     import torch
 
+    from shallowspeed_tpu_torch.ops import matmul as MM
     from shallowspeed_tpu_torch.ops.flash_attention import (
         _paged_flash_decode_int8, paged_flash_decode)
     from shallowspeed_tpu_torch.report import request_summary
@@ -432,7 +479,8 @@ def serve(dev, cfg, params, kv_quant="", weight_quant="", prompts=None,
     kernels = {"paged_flash_decode": paged_flash_decode,
                "paged_flash_decode_int8": _paged_flash_decode_int8}
     used = "paged_flash_decode_int8" if kv_quant else "paged_flash_decode"
-    for k in kernels.values():
+    dense = (MM._dequant_matmul_tc, MM._dequant_matmul_fma)
+    for k in (*kernels.values(), *dense):
         k.launches = 0
     tick_s = []
     t0 = time.time()
@@ -448,6 +496,14 @@ def serve(dev, cfg, params, kv_quant="", weight_quant="", prompts=None,
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {name: k.launches for name, k in kernels.items()}
+    dense_launches = [k.launches for k in dense]
+    # quantized weights: every dense of every prefill chunk and tick
+    # through the tensor-core route (bf16 compute), the FMA route never
+    if (dense_launches[1] or bool(dense_launches[0]) != bool(weight_quant)
+            or (weight_quant and cfg.act_dtype != torch.bfloat16)):
+        raise AssertionError(f"dequant_matmul launched tc, fma "
+                             f"{dense_launches} times with weight_quant="
+                             f"{weight_quant!r}")
 
     ticks = eng.counters["ticks"] - base["ticks"]
     want = {name: cfg.n_layers * ticks if name == used else 0
@@ -470,7 +526,8 @@ def serve(dev, cfg, params, kv_quant="", weight_quant="", prompts=None,
     out = {"run": label or "random", "kv_quant": kv_quant,
            "weight_quant": weight_quant, "compute": str(cfg.act_dtype)[6:],
            "n_layers": cfg.n_layers, **engine_kw,
-           "ticks": ticks, "launches": launches[used], "wall_s": wall,
+           "ticks": ticks, "launches": launches[used],
+           "dequant_matmul_tc_launches": dense_launches[0], "wall_s": wall,
            "decode_only_ticks": len(tick_s),
            "tick_ms_p50": 1e3 * float(np.median(tick_s)) if tick_s else None,
            "tok_per_s": summ["tokens_out"] / wall,
@@ -789,43 +846,120 @@ def _dequant_err(got, ref) -> float:
     return float(((got.double() - ref).abs() / allow).max())
 
 
-def check_dequant_matmul(dev) -> None:
-    """Phase 2: `dequant_matmul` in bf16 on the card (cuBLAS's bf16
-    matmul with an f32 output, then the f32 scale, then one rounding),
-    with int8 and fp8 weights at a decode tick's qkv shape (8 rows,
-    2048 -> 6144), against the exact (f64, on the CPU) product of the
-    same leaves (`_dequant_err`). A bf16 rounding of the sum before the
-    scale, the fault the f32 output exists to avoid, must exceed that
-    allowance."""
+# dequant_matmul's checks: rows (the tick's 8, a prefill chunk, a ragged
+# count) x (K, N) of the qkv dense and of the head
+DEQUANT_ROWS = (8, 256, 300)
+DEQUANT_SHAPES = {"qkv": (2048, 6144), "head": (2048, 32768)}
+# the most one call at (8, 2048) @ (2048, 32768) may add to the peak of
+# device memory (the old route's bf16 weight copy was 134 MB)
+DEQUANT_PEAK_MB = 16
+
+
+def _quant_weight(dev, k, n, mode, g):
+    """A random (K, N) dense quantized by `transformer.quantize_weights`:
+    (wq, ws)."""
     import torch
 
     from shallowspeed_tpu_torch.models import transformer as T
-    from shallowspeed_tpu_torch.ops.matmul import dequant_matmul
 
-    g = torch.Generator(device="cpu").manual_seed(6)
-    x = torch.randn(1, 8, 2048, generator=g).to(dev).to(torch.bfloat16)
-    w = (torch.randn(2048, 6144, generator=g) / 2048 ** 0.5).to(dev)
+    w = torch.randn(k, n, device=dev, generator=g) / k ** 0.5
+    q = T.quantize_weights({"W": w, "b": torch.zeros(n, device=dev)}, mode)
+    return q["Wq"], q["Ws"]
+
+
+def check_dequant_matmul(dev) -> float:
+    """Phase 2: `dequant_matmul` on the card with int8 and fp8 weights.
+    bf16 x takes the tensor-core GEMM with a 1-byte B
+    (`_dequant_matmul_tc`, counted) at DEQUANT_ROWS x DEQUANT_SHAPES,
+    against the exact (f64) product of the same leaves (`_dequant_err`);
+    a bf16 rounding of the sum before the scale, the fault the f32
+    accumulator exists to avoid, must exceed that allowance. f32 x takes
+    the f32-FMA kernel (`_dequant_matmul_fma`, counted), against the
+    exact product within the f32 summation bound K 2^-24 (|x| @ |wq|)
+    ws plus one f32 rounding. The peak memory one call at (8, 2048) @
+    (2048, 32768) adds stays under DEQUANT_PEAK_MB. Returns max |kernel
+    - plain| at the head shape with 8 rows and int8 weights."""
+    import torch
+
+    from shallowspeed_tpu_torch.ops import matmul as MM
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    counters = (MM._dequant_matmul_tc, MM._dequant_matmul_fma)
+    before = [c.launches for c in counters]
+    worst = None
     for mode in ("int8", "fp8"):
-        q = T.quantize_weights({"W": w, "b": torch.zeros(6144, device=dev)},
-                               mode)
-        got = dequant_matmul(x, q["Wq"], q["Ws"])
-        ref = ((x.cpu().double() @ q["Wq"].cpu().float().double())
-               * q["Ws"].cpu().double())
-        slip = ((x @ q["Wq"].to(torch.bfloat16)).float()
-                * q["Ws"]).to(torch.bfloat16)
-        ratio, slip_ratio = _dequant_err(got.cpu(), ref), \
-            _dequant_err(slip.cpu(), ref)
-        print(f"check dequant_matmul {mode} bf16: worst element at "
-              f"{ratio:.3e} of its allowance; a bf16 rounding before the "
-              f"scale at {slip_ratio:.3e} (must exceed 1)", flush=True)
-        if not (got.dtype == torch.bfloat16 and ratio <= 1.0):
-            raise AssertionError(f"dequant_matmul {mode}: {got.dtype}, an "
-                                 f"element off by {ratio:.3e} x its "
-                                 f"allowance")
-        if not slip_ratio > 1.0:
-            raise AssertionError(f"dequant_matmul {mode}: a bf16 rounding "
-                                 f"before the scale stays within the "
-                                 f"allowance ({slip_ratio:.3e})")
+        for shape, (k, n) in DEQUANT_SHAPES.items():
+            wq, ws = _quant_weight(dev, k, n, mode, g)
+            exact_w = wq.double()
+            for m in DEQUANT_ROWS:
+                x = torch.randn(1, m, k, device=dev, generator=g).bfloat16()
+                n_tc = MM._dequant_matmul_tc.launches
+                got = MM.dequant_matmul(x, wq, ws)
+                torch.cuda.synchronize()
+                if MM._dequant_matmul_tc.launches != n_tc + 1:
+                    raise AssertionError("bf16 dequant_matmul did not launch "
+                                         "the tensor-core GEMM")
+                ref = (x[0].double() @ exact_w) * ws.double()
+                slip = ((x[0].float() @ wq.float()).bfloat16().float()
+                        * ws).bfloat16()
+                ratio = _dequant_err(got[0], ref)
+                slip_ratio = _dequant_err(slip, ref)
+                print(f"check dequant_matmul {mode} bf16 {shape} "
+                      f"({m},{k})@({k},{n}): worst element at {ratio:.3e} "
+                      f"of its allowance; a bf16 rounding before the scale "
+                      f"at {slip_ratio:.3e} (must exceed 1)", flush=True)
+                if not (got.dtype == torch.bfloat16 and got.shape == (1, m, n)
+                        and ratio <= 1.0):
+                    raise AssertionError(f"dequant_matmul {mode} {shape} "
+                                         f"M={m}: {got.dtype}, an element "
+                                         f"off by {ratio:.3e} x its "
+                                         f"allowance")
+                if not slip_ratio > 1.0:
+                    raise AssertionError(f"dequant_matmul {mode}: a bf16 "
+                                         f"rounding before the scale stays "
+                                         f"within the allowance "
+                                         f"({slip_ratio:.3e})")
+                if mode == "int8" and shape == "head" and m == 8:
+                    plain = MM.dequant_matmul_reference(x, wq, ws)
+                    worst = float((got.float() - plain.float()).abs().max())
+            # the f32 route (the f32 logits checks)
+            x = torch.randn(DEQUANT_ROWS[0], k, device=dev, generator=g)
+            n_fma = MM._dequant_matmul_fma.launches
+            got = MM.dequant_matmul(x, wq, ws)
+            torch.cuda.synchronize()
+            if MM._dequant_matmul_fma.launches != n_fma + 1:
+                raise AssertionError("f32 dequant_matmul did not launch the "
+                                     "f32-FMA kernel")
+            xd = x.double()
+            ref = (xd @ exact_w) * ws.double()
+            allow = (k * 2.0 ** -24 * (xd.abs() @ exact_w.abs())
+                     * ws.double() + 2.0 ** -24 * ref.abs())
+            ratio = float(((got.double() - ref).abs() / allow).max())
+            print(f"check dequant_matmul {mode} f32 {shape}: worst element "
+                  f"at {ratio:.3e} of its allowance", flush=True)
+            if not (got.dtype == torch.float32 and ratio <= 1.0):
+                raise AssertionError(f"f32 dequant_matmul {mode} {shape}: "
+                                     f"{ratio:.3e} x the allowance")
+            del wq, ws, exact_w, x, got, ref
+    # peak memory one call adds at the head's shape, 8 rows
+    wq, ws = _quant_weight(dev, 2048, 32768, "int8", g)
+    x = torch.randn(8, 2048, device=dev, generator=g).bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = MM.dequant_matmul(x, wq, ws)
+    torch.cuda.synchronize()
+    added = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+    print(f"check dequant_matmul peak: one call at (8,2048)@(2048,32768) "
+          f"int8 adds {added:.3f} MiB to the peak (must stay under "
+          f"{DEQUANT_PEAK_MB}; output {out.numel() * 2 / 2 ** 20:.3f} MiB)",
+          flush=True)
+    if not added < DEQUANT_PEAK_MB:
+        raise AssertionError(f"dequant_matmul added {added:.1f} MiB")
+    for c, n in zip(counters, before):
+        c.launches = n                      # check launches do not count
+    torch.cuda.empty_cache()
+    return worst
 
 
 def _k5_ratio(got, x, y) -> tuple[float, float]:
@@ -849,36 +983,48 @@ def _k5_ratio(got, x, y) -> tuple[float, float]:
 def check_blocked_matmul(dev) -> float:
     """Phase 2: K5 and its plain version against the f64 product
     (`_k5_ratio`, each at most 1): at the JAX test's shapes and blocks
-    in f32, bf16, and bf16 in with f32 out, and at the probe's six
-    shapes (M 16384, bf16, its blocks). Then the plain arithmetic with
-    the accumulator rounded to bf16 between k-slices must exceed the
-    rule. Returns max |kernel - plain| at K5_SHAPE."""
+    in f32, bf16, and bf16 in with f32 out, at an unaligned bf16 shape
+    (K 100), and at the probe's six shapes (M 16384, bf16, its blocks).
+    Each call must count on the build `blocked_matmul_route` picks: bf16
+    at aligned shapes the tensor-core `_blocked_matmul_tc`, the rest the
+    f32-FMA `blocked_matmul`. Then the plain arithmetic with the
+    accumulator rounded to bf16 between k-slices must exceed the rule.
+    Returns max |kernel - plain| at K5_SHAPE."""
     import torch
 
     from shallowspeed_tpu_torch.bench_matmul import SHAPES
-    from shallowspeed_tpu_torch.ops.matmul import (blocked_matmul,
-                                                   blocked_matmul_reference)
+    from shallowspeed_tpu_torch.ops.matmul import (_blocked_matmul_tc,
+                                                   blocked_matmul,
+                                                   blocked_matmul_reference,
+                                                   blocked_matmul_route)
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [((256, 128, 384), dict(bm=64, bk=32, bn=128), dt, od)
              for dt, od in ((f32, None), (bf16, None), (bf16, f32))]
     cases += [((256, 128, 384), dict(bm=128, bk=128, bn=384), dt, od)
               for dt, od in ((f32, None), (bf16, None), (bf16, f32))]
+    cases += [((256, 100, 384), dict(bm=64, bk=100, bn=128), bf16, None)]
     cases += [((K5_SHAPE[0], k, n), dict(bm=512, bk=min(1024, k), bn=1024),
                bf16, None) for k, n in SHAPES]
     g = torch.Generator(device=dev).manual_seed(9)
     worst = None
-    before = blocked_matmul.launches
+    counters = {"tc": _blocked_matmul_tc, "fma": blocked_matmul}
+    before = {r: c.launches for r, c in counters.items()}
     for (m, k, n), blocks, dt, od in cases:
         x = torch.randn(m, k, device=dev, generator=g).to(dt)
         y = torch.randn(k, n, device=dev, generator=g).to(dt)
+        route = blocked_matmul_route(dt, dt, k, n)
+        n0 = counters[route].launches
         got = blocked_matmul(x, y, out_dtype=od, **blocks)
         torch.cuda.synchronize()
+        if counters[route].launches != n0 + 1:
+            raise AssertionError(f"blocked_matmul ({m},{k})@({k},{n}) "
+                                 f"{dt} did not launch its {route} build")
         plain = blocked_matmul_reference(x, y, out_dtype=od, **blocks)
         err, ratio = _k5_ratio(got, x, y)
         p_err, p_ratio = _k5_ratio(plain, x, y)
         label = (f"({m},{k})@({k},{n}) {str(dt)[6:]}->{str(got.dtype)[6:]} "
-                 f"blocks {tuple(blocks.values())}")
+                 f"blocks {tuple(blocks.values())} [{route}]")
         print(f"check blocked_matmul {label}: max_abs_err {err:.3e}, worst "
               f"element at {ratio:.3e} of its allowance (plain "
               f"{p_ratio:.3e})", flush=True)
@@ -888,7 +1034,8 @@ def check_blocked_matmul(dev) -> float:
         if (m, k, n) == K5_SHAPE:
             worst = float((got.float() - plain.float()).abs().max())
         del x, y, got, plain
-    blocked_matmul.launches = before        # check launches do not count
+    for r, c in counters.items():
+        c.launches = before[r]              # check launches do not count
     for (m, k, n), bk in (((256, 128, 384), 32), (K5_SHAPE, 128)):
         x = torch.randn(m, k, device=dev, generator=g).to(bf16)
         y = torch.randn(k, n, device=dev, generator=g).to(bf16)
@@ -909,19 +1056,23 @@ def check_blocked_matmul(dev) -> float:
 
 def run_probe() -> dict:
     """Phase 2b: the narrow-K probe through its entry point at M 16384,
-    PROBE_ITERS calls a chain. K5's count is zeroed just before and must
-    equal shapes x 4 chains (one warm-up, three timed) x PROBE_ITERS
-    after; every record must carry a positive rate and no error."""
+    PROBE_ITERS calls a chain. K5's counts are zeroed just before; its
+    tensor-core build must launch shapes x 4 chains (one warm-up, three
+    timed) x PROBE_ITERS times after (the probe's shapes are bf16 and
+    aligned), its f32-FMA build never; every record must carry a
+    positive rate and no error."""
     from shallowspeed_tpu_torch import bench_matmul
-    from shallowspeed_tpu_torch.ops.matmul import blocked_matmul
+    from shallowspeed_tpu_torch.ops.matmul import (_blocked_matmul_tc,
+                                                   blocked_matmul)
 
-    blocked_matmul.launches = 0
+    blocked_matmul.launches = _blocked_matmul_tc.launches = 0
     records = bench_matmul.main(["--iters", str(PROBE_ITERS)])
-    launches = blocked_matmul.launches
+    launches = _blocked_matmul_tc.launches
     want = len(bench_matmul.SHAPES) * 4 * PROBE_ITERS
-    if launches != want:
-        raise AssertionError(f"the probe launched K5 {launches} times, want "
-                             f"{want}")
+    if launches != want or blocked_matmul.launches:
+        raise AssertionError(f"the probe launched K5's tensor-core build "
+                             f"{launches} times (want {want}) and its FMA "
+                             f"build {blocked_matmul.launches} (want 0)")
     variants = [r["variant"] for r in records]
     if (len(records) != 2 * len(bench_matmul.SHAPES)
             or set(variants) != {"torch", "blocked"}
@@ -932,13 +1083,14 @@ def run_probe() -> dict:
 
 
 def time_blocked_matmul(dev) -> dict:
-    """Phase 5: K5 at K5_SHAPE in bf16 with the probe's blocks, beside
-    its plain version, `torch.matmul` (the library yardstick, which the
+    """Phase 5: K5 (its tensor-core build) at K5_SHAPE in bf16 with the
+    probe's blocks, beside its plain version, `torch.matmul` (the library yardstick, which the
     port never calls in K5's place) and its bound, on two input sets
     (each output alone is over the 50 MB L2)."""
     import torch
 
-    from shallowspeed_tpu_torch.ops.matmul import (blocked_matmul,
+    from shallowspeed_tpu_torch.ops.matmul import (_blocked_matmul_tc,
+                                                   blocked_matmul,
                                                    blocked_matmul_reference)
 
     m, k, n = K5_SHAPE
@@ -946,12 +1098,15 @@ def time_blocked_matmul(dev) -> dict:
     sets = [(torch.randn(m, k, device=dev, generator=g).bfloat16(),
              torch.randn(k, n, device=dev, generator=g).bfloat16())
             for _ in range(2)]
-    before = blocked_matmul.launches
+    before = _blocked_matmul_tc.launches
     out = {"ms": _time_ms(partial(blocked_matmul, **K5_BLOCKS), sets),
            "plain_ms": _time_ms(partial(blocked_matmul_reference,
                                         **K5_BLOCKS), sets),
            "library_ms": _time_ms(torch.matmul, sets)}
-    blocked_matmul.launches = before        # timing launches do not count
+    if _blocked_matmul_tc.launches == before:
+        raise AssertionError("the timed K5 calls did not reach the "
+                             "tensor-core build")
+    _blocked_matmul_tc.launches = before    # timing launches do not count
     flops = 2.0 * m * n * k
     nbytes = 2 * (m * k + k * n + m * n)    # bf16 x, y read; out written
     t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
@@ -1046,6 +1201,75 @@ def time_kernels(dev, stats) -> dict:
     return out
 
 
+# the dense shapes of one decode tick of the 1.21B LM, (K, N) with their
+# calls a tick (16 layers; the head once), at the tick's 8 rows
+TICK_DENSE = {"qkv": ((2048, 6144), 16), "proj": ((2048, 2048), 16),
+              "gate": ((2048, 8192), 16), "up": ((2048, 8192), 16),
+              "down": ((8192, 2048), 16), "head": ((2048, 32768), 1)}
+
+
+def time_dequant_matmul(dev) -> dict:
+    """Phase 5: `dequant_matmul` (int8 weights, bf16 x, the tensor-core
+    route) at each dense shape of a decode tick with its 8 rows, cycling
+    through enough distinct weights that the 50 MB L2 holds none of
+    them, beside its plain version, the library yardstick (`torch.mm`
+    with an f32 output on the weight dequantized to bf16 before the
+    timing starts, which the port never calls) and its bound: the
+    1-byte weight (plus x, ws and the output) once at 3.35 TB/s. Also
+    the sums over one tick's calls. Returns {shape: numbers, "tick":
+    sums}."""
+    import torch
+
+    from shallowspeed_tpu_torch.ops import matmul as MM
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    m = SLICE["slots"]
+    before = MM._dequant_matmul_tc.launches
+    out, tick = {}, {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                     "device_ms": 0.0, "library_device_ms": 0.0}
+    for name, ((k, n), calls) in TICK_DENSE.items():
+        n_sets = max(2, -(-150 * 2 ** 20 // (k * n)))
+        sets = [(torch.randn(m, k, device=dev, generator=g).bfloat16(),
+                 *_quant_weight(dev, k, n, "int8", g))
+                for _ in range(n_sets)]
+        lib = [(x, wq.to(torch.bfloat16)) for x, wq, _ in sets]
+
+        def library(x, w):
+            torch.mm(x, w, out_dtype=torch.float32)
+
+        row = {"ms": _time_ms(MM.dequant_matmul, sets),
+               "plain_ms": _time_ms(MM.dequant_matmul_reference, sets),
+               "library_ms": _time_ms(library, lib)}
+        # device time a call (the event times above include the host's
+        # launch gaps between these short calls), from the profiler
+        for key, fn, args in (("device_ms", MM.dequant_matmul, sets),
+                              ("library_device_ms", library, lib)):
+            prof = _profiled(lambda: [fn(*a) for a in args], [])
+            row[key] = (prof["device_busy_ms"] / len(args)
+                        if prof["device_busy_ms"] is not None else None)
+        nbytes = k * n + m * k * 2 + n * 4 + m * n * 2
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = 2.0 * m * k * n / BF16_FLOPS_PER_S
+        row.update(bound_ms=1e3 * max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   shape=[m, k, n], splits=MM.tc_splits(m, n, k),
+                   weight_gb_per_s=k * n / (row["ms"] * 1e-3) / 1e9)
+        out[name] = row
+        for key in tick:
+            tick[key] += calls * (row[key] or 0.0)
+        print(f"time dequant_matmul {name}: " + json.dumps(row), flush=True)
+        del sets, lib
+    if MM._dequant_matmul_tc.launches == before:
+        raise AssertionError("the timed dequant_matmul calls did not reach "
+                             "the tensor-core route")
+    MM._dequant_matmul_tc.launches = before   # timing launches do not count
+    out["tick"] = tick
+    print("time dequant_matmul, one tick's calls: " + json.dumps(tick),
+          flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_generate(dev, cfg, params) -> dict:
     """Phase 5b: the contiguous `generate()` over GEN_BATCH prompts of
     GEN_PROMPT tokens, GEN_NEW greedy tokens, with K1 prefill
@@ -1122,9 +1346,10 @@ TRAIN_KERNEL_CASES = [
 # rounding of P or dS to bf16). lse: max |diff| / max |ref| over the rows
 # that see a key, within LSE_TOL. PERF.md has the measurements.
 LSE_TOL = 1e-5
-# the names of K1's and K3's bf16 (tensor-core) builds, which the main
-# path runs, in the kernels line
-TC_NAMES = {"flash_fwd": "flash_fwd_tc", "flash_dkv": "flash_dkv_tc"}
+# the names of the bf16 (tensor-core) builds of K1, K2 and K3, which the
+# main path runs, in the kernels line
+TC_NAMES = {"flash_fwd": "flash_fwd_tc", "flash_dq": "flash_dq_tc",
+            "flash_dkv": "flash_dkv_tc"}
 
 
 def _train_kernel_inputs(dev, dtype, shape, seed, fused=False):
@@ -1164,12 +1389,12 @@ def _lse_err(lse, lse_ref) -> float:
 
 def check_train_kernels(dev) -> dict:
     """Phase 2: K1, K2, K3 against their plain versions, per element
-    under `FA.kernel_ratio`'s rule, the bf16 builds of K1 and K3 (tensor
-    cores) with their `FA.tc_rounding_terms`; lse within LSE_TOL. Each
-    call must count on the launcher its dtype selects (bf16: the
-    tensor-core kernels). On the bf16 cases the plain version with P and
-    dS rounded to float8_e4m3fn must fail the rule (o and dK). Returns
-    the max |diff| of each kernel over the slice-shape cases."""
+    under `FA.kernel_ratio`'s rule, the bf16 builds (tensor cores) with
+    their `FA.tc_rounding_terms`; lse within LSE_TOL. Each call must
+    count on the launcher its dtype selects (bf16: the tensor-core
+    kernels). On the bf16 cases the plain version with P and dS rounded
+    to float8_e4m3fn must fail the rule (o, dQ and dK). Returns the max
+    |diff| of each kernel over the slice-shape cases."""
     import torch
 
     from shallowspeed_tpu_torch.ops import flash_attention as FA
@@ -1183,7 +1408,7 @@ def check_train_kernels(dev) -> dict:
             bf = dn == "bf16"
             q, k, v, do = _train_kernel_inputs(dev, dtypes[dn], shape, ci,
                                                fused)
-            counters = ((FA._flash_fwd_tc, FA.flash_dq, FA._flash_dkv_tc)
+            counters = ((FA._flash_fwd_tc, FA._flash_dq_tc, FA._flash_dkv_tc)
                         if bf else (FA.flash_fwd, FA.flash_dq, FA.flash_dkv))
             before = [c.launches for c in counters]
             o, lse = FA.flash_fwd(q, k, v, **kw)
@@ -1202,7 +1427,8 @@ def check_train_kernels(dev) -> dict:
                      if bf else {})
             errs = {"flash_fwd": [FA.kernel_ratio(o, o_ref, rounded=bf,
                                                   extra=terms.get("o"))],
-                    "flash_dq": [FA.kernel_ratio(dq, dq_ref)],
+                    "flash_dq": [FA.kernel_ratio(dq, dq_ref,
+                                                 extra=terms.get("dq"))],
                     "flash_dkv": [FA.kernel_ratio(dk, dk_ref,
                                                   extra=terms.get("dk")),
                                   FA.kernel_ratio(dv, dv_ref,
@@ -1224,22 +1450,23 @@ def check_train_kernels(dev) -> dict:
                     raise AssertionError(f"{kern} {name} {dn}: an element "
                                          f"off by {ratios} x its allowance "
                                          f"(finite: {finite})")
-                if name.startswith("slice"):     # bf16: K1, K3 on tensor cores
+                if name.startswith("slice"):     # bf16: on tensor cores
                     key = TC_NAMES.get(kern, kern)
                     worst[key] = max(worst.get(key, 0.0), err)
             if bf:
-                s_o, s_dk, _ = FA.rounded_reference(
+                s_o, s_dq, s_dk, _ = FA.rounded_reference(
                     q, k, v, do, lse, delta, torch.float8_e4m3fn, **kw)
                 slip = (FA.kernel_ratio(s_o, o_ref, rounded=True,
                                         extra=terms["o"])[1],
+                        FA.kernel_ratio(s_dq, dq_ref, extra=terms["dq"])[1],
                         FA.kernel_ratio(s_dk, dk_ref, extra=terms["dk"])[1])
-                print(f"check e4m3 slip {name}: o at {slip[0]:.3e}, dK at "
-                      f"{slip[1]:.3e} of the allowance (must exceed 1)",
-                      flush=True)
+                print(f"check e4m3 slip {name}: o at {slip[0]:.3e}, dQ at "
+                      f"{slip[1]:.3e}, dK at {slip[2]:.3e} of the allowance "
+                      f"(must exceed 1)", flush=True)
                 if not min(slip) > 1.0:
                     raise AssertionError(f"an e4m3 rounding of P / dS stays "
                                          f"within the rule on {name}: {slip}")
-                del s_o, s_dk, terms
+                del s_o, s_dq, s_dk, terms
             del o_ref, lse_ref, dq_ref, dk_ref, dv_ref
             torch.cuda.empty_cache()
     return worst
@@ -1287,10 +1514,10 @@ def train(dev, cfg, np_params) -> dict:
         raise AssertionError(f"kernel loss off the plain loss by "
                              f"{loss_rel:.3e} > {LOSS_TOL_BF16:g}")
 
-    # the bf16 step runs K1's and K3's tensor-core builds; their f32-FMA
-    # builds must stay idle
-    kernels = (FA._flash_fwd_tc, FA.flash_dq, FA._flash_dkv_tc)
-    idle = (FA.flash_fwd, FA.flash_dkv)
+    # the bf16 step runs the tensor-core builds of K1, K2 and K3; their
+    # f32-FMA builds must stay idle
+    kernels = (FA._flash_fwd_tc, FA._flash_dq_tc, FA._flash_dkv_tc)
+    idle = (FA.flash_fwd, FA.flash_dq, FA.flash_dkv)
     for k in kernels + idle:
         k.launches = 0
     losses, step_s = [], []
@@ -1328,11 +1555,16 @@ def train(dev, cfg, np_params) -> dict:
 # device-kernel groups of a training step and of a decode tick, by
 # kernel-name fragment
 KERNEL_GROUPS = [("K1 flash_fwd", ("flash_fwd",)),
-                 ("K2 flash_dq", ("flash_dq_kernel",)),
+                 ("K2 flash_dq", ("flash_dq",)),
                  ("K3 flash_dkv", ("flash_dkv",)),
                  ("matmul", ("gemm", "cutlass", "nvjet", "xmma"))]
+# the port's dequant_matmul kernels before the library's matmuls; "cast"
+# gathers the dtype-conversion copies (the old route's bf16 weights)
 TICK_GROUPS = [("K4 paged_decode", ("paged_decode",)),
-               ("matmul", ("gemm", "cutlass", "nvjet", "xmma"))]
+               ("dequant_matmul", ("gemm_tc", "split_sum",
+                                   "blocked_matmul")),
+               ("matmul", ("gemm", "cutlass", "nvjet", "xmma")),
+               ("cast", ("copy_kernel",))]
 
 
 def _profiled(fn, groups) -> dict:
@@ -1503,7 +1735,7 @@ def check_training_parity(dev, cfg) -> dict:
 
 def time_train_kernels(dev) -> dict:
     """Phase 8: K1, K2, K3 at the training shape (B 4, T 2048, 16 heads x
-    128, bf16, causal: K1 and K3 on their tensor-core builds) on two
+    128, bf16, causal: their tensor-core builds) on two
     input sets (each over 50 MB, so the L2 holds neither), beside their
     plain versions, the library's attention (SDPA forward for K1; its
     autograd backward, which covers K2 and K3 together) and their
@@ -1520,7 +1752,7 @@ def time_train_kernels(dev) -> dict:
                                            (b, t, t, h, h, d), 100 + seed)
         o, lse = FA.flash_fwd_reference(q, k, v)
         sets.append((q, k, v, do, lse, FA.attention_delta(do, o)))
-    counters = (FA._flash_fwd_tc, FA.flash_dq, FA._flash_dkv_tc)
+    counters = (FA._flash_fwd_tc, FA._flash_dq_tc, FA._flash_dkv_tc)
     before = [f.launches for f in counters]
 
     fwd = [s[:3] for s in sets]
@@ -1528,8 +1760,8 @@ def time_train_kernels(dev) -> dict:
     out = {
         "flash_fwd_tc": {"ms": _time_ms(FA.flash_fwd, fwd),
                          "plain_ms": _time_ms(FA.flash_fwd_reference, fwd)},
-        "flash_dq": {"ms": _time_ms(FA.flash_dq, bwd),
-                     "plain_ms": _time_ms(FA.flash_dq_reference, bwd)},
+        "flash_dq_tc": {"ms": _time_ms(FA.flash_dq, bwd),
+                        "plain_ms": _time_ms(FA.flash_dq_reference, bwd)},
         "flash_dkv_tc": {"ms": _time_ms(FA.flash_dkv, bwd),
                          "plain_ms": _time_ms(FA.flash_dkv_reference, bwd)},
     }
@@ -1555,7 +1787,7 @@ def time_train_kernels(dev) -> dict:
 
     out["flash_fwd_tc"]["library_ms"] = _time_ms(sdpa, lib)
     bwd_ms = _time_ms(sdpa_bwd, lib)
-    out["flash_dq"]["library_ms"] = bwd_ms    # covers K2 and K3 together
+    out["flash_dq_tc"]["library_ms"] = bwd_ms    # covers K2 and K3 together
     out["flash_dkv_tc"]["library_ms"] = bwd_ms
 
     # least time: live causal pairs of this run's inputs, each input
@@ -1564,7 +1796,8 @@ def time_train_kernels(dev) -> dict:
     act = b * t * h * d                        # elements of q (= k, v, o)
     stats = b * h * t * 4                      # one f32 (B, H, T) plane
     work = {"flash_fwd_tc": (4 * d * pairs, 4 * act * 2 + stats),
-            "flash_dq": (6 * d * pairs, 4 * act * 2 + 2 * stats + act * 4),
+            "flash_dq_tc": (6 * d * pairs,
+                            4 * act * 2 + 2 * stats + act * 4),
             "flash_dkv_tc": (8 * d * pairs,
                              4 * act * 2 + 2 * stats + 2 * act * 4)}
     for name, (flops, nbytes) in work.items():
@@ -1607,8 +1840,8 @@ def main() -> int:
 
     errs = check_kernels(dev)
     errs.update(check_train_kernels(dev))
-    check_dequant_matmul(dev)
-    errs["blocked_matmul"] = check_blocked_matmul(dev)
+    errs["dequant_matmul_tc"] = check_dequant_matmul(dev)
+    errs["blocked_matmul_tc"] = check_blocked_matmul(dev)
     probe = run_probe()
     cfg = slice_config()
     cfg32 = dataclasses.replace(cfg, compute_dtype=None)
@@ -1631,9 +1864,10 @@ def main() -> int:
     check_logits(dev, cfg32, params, prompts, results, LOGITS_TOL_F32)
     check_f32_bound_catches_a_slip(dev, cfg32, params, prompts, results)
     timing = time_kernels(dev, stats)
-    timing["blocked_matmul"] = time_blocked_matmul(dev)
+    timing["blocked_matmul_tc"] = time_blocked_matmul(dev)
+    timing["dequant_matmul_tc"] = time_dequant_matmul(dev)["head"]
     launches = {"paged_flash_decode": stats["launches"],
-                "blocked_matmul": probe["launches"]}
+                "blocked_matmul_tc": probe["launches"]}
     runs = {"bf16": stats}
 
     runs["kv-int8"], _, results = served(kv_quant="int8")
@@ -1643,6 +1877,8 @@ def main() -> int:
         runs[f"weight-{mode}"], _, results = served(weight_quant=mode)
         check_quant_weight_logits(dev, cfg, params, prompts, results, mode,
                                   LOGITS_TOL_BF16)
+    launches["dequant_matmul_tc"] = \
+        runs["weight-int8"]["dequant_matmul_tc_launches"]
     check_quant_weight_logits(dev, cfg32, params, prompts, results, "int8",
                               LOGITS_TOL_F32)
     keys = ("tick_ms_p50", "tick_ms_synthetic", "tick_device_busy_ms",
@@ -1651,6 +1887,16 @@ def main() -> int:
     print("serve compare: " + json.dumps(
         {name: {k: r[k] for k in keys} for name, r in runs.items()}),
         flush=True)
+    # the quantized-weight ticks against the bf16-weight tick (ROADMAP's
+    # gate for dequant_matmul: at or under it), device busy ms
+    busy = {name: r["tick_device_busy_ms"] for name, r in runs.items()}
+    if all(v is not None for v in busy.values()):
+        print("serve gate: " + json.dumps({
+            f"weight-{m}": {"busy_ms": busy[f"weight-{m}"],
+                            "bf16_busy_ms": busy["bf16"],
+                            "at_or_under_bf16": busy[f"weight-{m}"]
+                            <= busy["bf16"]}
+            for m in ("int8", "fp8")}), flush=True)
     run_prefix(dev, cfg, cfg32, params)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1673,13 +1919,14 @@ def main() -> int:
 
     src = "shallowspeed_tpu_torch/csrc/"
     fa = "shallowspeed_tpu/ops/flash_attention.py:"
+    mm = "shallowspeed_tpu/ops/matmul.py:"
     where = {"paged_flash_decode": ("paged_decode.cu", fa + "947"),
              "paged_flash_decode_int8": ("paged_decode.cu", fa + "947"),
              "flash_fwd_tc": ("flash_fwd.cu", fa + "487"),
-             "flash_dq": ("flash_bwd.cu", fa + "552"),
+             "flash_dq_tc": ("flash_bwd.cu", fa + "552"),
              "flash_dkv_tc": ("flash_bwd.cu", fa + "597"),
-             "blocked_matmul": ("blocked_matmul.cu",
-                                "shallowspeed_tpu/ops/matmul.py:85")}
+             "blocked_matmul_tc": ("blocked_matmul.cu", mm + "87"),
+             "dequant_matmul_tc": ("blocked_matmul.cu", mm + "58")}
     kernels = [{
         "name": name, "route": "cuda", "source": src + cu,
         "replaces": ref, "launches": launches[name],

@@ -17,9 +17,11 @@ What is ported so far:
   and backward are hand-written CUDA kernels (K1, K2, K3,
   `csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`);
 - quantized decode: int8 KV caches (K4's int8 branch in the serving
-  tick) and int8/fp8 weight storage (`ops.matmul.dequant_matmul`), in
-  the serving engine and in the contiguous `models.generate.generate`
-  loop (`train_lm --generate`), whose long-prompt prefill runs K1;
+  tick) and int8/fp8 weight storage (`ops.matmul.dequant_matmul`, a
+  hand-written GEMM that reads the weight at 1 byte an element,
+  `csrc/blocked_matmul.cu`), in the serving engine and in the
+  contiguous `models.generate.generate` loop (`train_lm --generate`),
+  whose long-prompt prefill runs K1;
 - speculative decoding and the prefix cache in the serving engine;
 - the narrow-K matmul probe (`bench_matmul`) -> `ops.matmul.
   blocked_matmul`, a hand-written CUDA kernel (K5,

@@ -10,7 +10,8 @@ Inputs are the reference's: for each shape, x (M, K) and y (K, N) drawn
 as normals from `np.random.default_rng(0)`, in bf16. The "torch" variant
 (`torch.matmul`) stands where the reference's "xla" variant (`x @ y`)
 stands; "blocked" runs K5 with the reference's blocks (bm 512,
-bk min(1024, K), bn 1024). Each (shape, variant) prints one JSON line
+bk min(1024, K), bn 1024): its tensor-core build on the card, since
+the probe's shapes are bf16 with K and N multiples of 8. Each (shape, variant) prints one JSON line
 with the reference's keys (`metric="matmul_tflops", m, k, n, variant,
 tflops, ms, error`) and the device it ran on.
 

@@ -18,34 +18,37 @@
 // operands: far past the card's ridge, so only the tensor cores can
 // bring them near it.
 //
-// - K2, both dtypes (`flash_dq_kernel`): f32 FMA on the CUDA cores, one
-//   thread block per (64-row query tile, query head, batch row), looping
-//   over that tile's live K/V tiles (the forward's bounds) with dQ in
-//   registers. Query tiles are issued last-first. Tiles are staged in
-//   shared memory as f32 (the f32 build is full f32, no TF32).
-// - K3: one thread block per (64-row key tile, kv head, batch row),
-//   looping over the G query heads of the kv head and, for each, over
-//   the query tiles that can see the key tile (bounds from causal,
-//   window and rel, as `_dkv_kernel_resident` sets them). dK and dV stay
-//   in registers for the whole loop, so the GQA sum over the group needs
-//   no atomics and no second pass, and the result is deterministic. (The
-//   TPU streaming form carries the same sum on its innermost grid axis.)
-//   It computes the transposed score tile (key rows x query columns)
-//   directly, so P^T and dS^T come out in the layout the dV and dK
-//   products take. Two builds, chosen by dtype in the C entry:
-//   - bf16, the main path's (training): `flash_dkv_tc_kernel`, every
-//     product on the tensor cores. One warpgroup per key tile; K and V
-//     stay in 128B-swizzled shared memory, TMA streams Q and dO (and
-//     cp.async lse and delta) through two stages, the next query tile's
-//     load in flight under this one's math; S^T = K Q^T and
-//     dP^T = V dO^T are wgmma from shared memory, P^T and dS^T are
-//     computed on the accumulator fragments in f32 registers and feed
-//     dV += P^T dO and dK += dS^T Q as bf16 register A operands with dO
-//     and Q read transposed: neither touches shared memory. dK and dV
-//     take 128 of the 224 registers a thread at hd 128, without spills;
-//     two blocks an SM (100 KB of shared memory).
-//   - f32: `flash_dkv_kernel`, full f32 FMA with P^T and dS^T staged in
-//     shared memory.
+// Each kernel has two builds, chosen by dtype in the C entry:
+// - bf16, the main path's (training): every product on the tensor cores
+//   (`flash_tc.cuh`). One warpgroup per 64-row tile; the tile it owns
+//   stays in 128B-swizzled shared memory, TMA streams the other side's
+//   tiles through two stages, the next tile's load in flight under this
+//   one's math; the two score products are wgmma from shared memory,
+//   P and dS are computed on the accumulator fragments in f32 registers
+//   and feed the second products as bf16 register A operands with the
+//   streamed (or resident) tile read transposed: neither touches shared
+//   memory. Two blocks an SM.
+//   - K2, `flash_dq_tc_kernel`: one block per (64-row query tile, query
+//     head, batch row), query tiles issued last-first; Q and dO
+//     resident, K and V streamed over the tile's live key tiles (the
+//     forward's bounds); lse and delta of the thread's two rows in
+//     registers; S = Q K^T, dP = dO V^T, then dQ += dS K with K read
+//     MN-major. dQ (64 f32 a thread at hd 128) stays in registers.
+//   - K3, `flash_dkv_tc_kernel`: one block per (64-row key tile, kv
+//     head, batch row), looping over the G query heads of the kv head
+//     and, for each, over the query tiles that can see the key tile
+//     (bounds from causal, window and rel, as `_dkv_kernel_resident`
+//     sets them); K and V resident, Q and dO streamed (lse and delta
+//     ride beside them by cp.async); S^T = K Q^T, dP^T = V dO^T, then
+//     dV += P^T dO and dK += dS^T Q with dO and Q read transposed. dK
+//     and dV stay in registers for the whole loop (128 of the 224
+//     registers a thread at hd 128, no spills), so the GQA sum over the
+//     group needs no atomics and no second pass, and the result is
+//     deterministic. (The TPU streaming form carries the same sum on its
+//     innermost grid axis.)
+// - f32: full f32 FMA on the CUDA cores (no TF32, which would break the
+//   f32 parity bounds), the same blocks and loops with tiles, P and dS
+//   staged in shared memory as f32: `flash_dq_kernel`, `flash_dkv_kernel`.
 // Inputs are read through their strides; rows past T and columns past
 // Tk are masked.
 
@@ -528,6 +531,193 @@ int launch_dkv_tc(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------- K2's bf16 build: wgmma
+
+// One warpgroup per (64-row query tile, query head, batch row); query
+// tiles issued last-first, so the longest causal loops start first. Its
+// Q and dO tiles stay in shared memory; thread 0 streams the live K/V
+// tiles through two stages by TMA, the next tile's load in flight while
+// this one's math runs. Per key tile: S = Q K^T and dP = dO V^T (wgmma,
+// both from shared memory), P = exp(S scale - lse) and
+// dS = P (dP - delta) scale in f32 registers (the mask tested only on
+// tiles that cross the diagonal, the window's edge, Tq or Tk), then
+// dQ += dS K with dS rounded to bf16 as the register A operand and K
+// read transposed. Each thread keeps lse and delta of its two rows in
+// registers.
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads, 2)
+    flash_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv,
+                       const __grid_constant__ CUtensorMap mdo,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       float* __restrict__ dq, Layout ldq, int heads,
+                       int kv_heads, int tq, int tk, int causal, int window,
+                       int rel, float scale, float scale_log2) {
+  constexpr int kTile = tc::Tile<D>::kBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  // Q, dO, then stage s: K, V; then the barriers
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + 6 * kTile);
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * tc::kRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (heads / kv_heads);
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int row0 = 16 * (tid / 32) + lane / 4;   // query rows row0, row0 + 8
+  const int col0 = 2 * (lane % 4);
+
+  // live K/V tiles for rows [q0, q0 + 64) at global rel + row
+  const int nkb = (tk + tc::kRows - 1) / tc::kRows;
+  const int q_first = rel + q0;
+  const int q_last = rel + min(q0 + tc::kRows, tq) - 1;
+  int kt_lo = 0, kt_hi = nkb;
+  if (causal) kt_hi = q_last < 0 ? 0 : min(nkb, q_last / tc::kRows + 1);
+  if (window > 0) kt_lo = min(nkb, max(0, q_first - window + 1) / tc::kRows);
+  const int n = max(0, kt_hi - kt_lo);
+
+  // this thread's rows' lse (log2 units) and delta; rows past tq read 0
+  // (their tiles are edge tiles, where every pair past tq is masked)
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row0 + 8 * r;
+    const long long at = (static_cast<long long>(b) * heads + h) * tq + row;
+    lse2[r] = row < tq ? lse[at] * tc::kLog2e : 0.f;
+    dl[r] = row < tq ? delta[at] : 0.f;
+  }
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) tc::bar_init(&bars[i]);
+    tc::fence_bar_init();
+  }
+  __syncthreads();
+  if (tid == 0 && n > 0) {
+    tc::bar_expect(&bars[0], 2 * kTile);
+    tc::load_tile<D>(base, &mq, &bars[0], q0, h, b);
+    tc::load_tile<D>(base + kTile, &mdo, &bars[0], q0, h, b);
+    tc::bar_expect(&bars[1], 2 * kTile);
+    tc::load_tile<D>(base + 2 * kTile, &mk, &bars[1], kt_lo * tc::kRows, hk,
+                     b);
+    tc::load_tile<D>(base + 3 * kTile, &mv, &bars[1], kt_lo * tc::kRows, hk,
+                     b);
+  }
+
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  const uint32_t q_addr = tc::smem_u32(base);
+  const uint32_t do_addr = q_addr + kTile;
+  if (n > 0) tc::bar_wait(&bars[0], 0);
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i & 1;
+    const int k0 = (kt_lo + i) * tc::kRows;
+    if (i + 1 < n) {
+      __syncthreads();   // every warp is done with stage s ^ 1
+      if (tid == 0) {
+        uint8_t* next = base + (2 + 2 * (s ^ 1)) * kTile;
+        tc::bar_expect(&bars[1 + (s ^ 1)], 2 * kTile);
+        tc::load_tile<D>(next, &mk, &bars[1 + (s ^ 1)], k0 + tc::kRows, hk,
+                         b);
+        tc::load_tile<D>(next + kTile, &mv, &bars[1 + (s ^ 1)],
+                         k0 + tc::kRows, hk, b);
+      }
+    }
+    tc::bar_wait(&bars[1 + s], (i >> 1) & 1);
+    const uint32_t k_addr = tc::smem_u32(base + (2 + 2 * s) * kTile);
+    const uint32_t v_addr = k_addr + kTile;
+
+    float sc[32], dp[32];   // rows: queries; columns: keys
+    tc::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      tc::wgmma_ss_n64(sc, tc::desc_k(q_addr, ks), tc::desc_k(k_addr, ks),
+                       ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      tc::wgmma_ss_n64(dp, tc::desc_k(do_addr, ks), tc::desc_k(v_addr, ks),
+                       ks > 0);
+    tc::wgmma_commit();
+    tc::wgmma_wait();
+    tc::fence_regs(sc);
+    tc::fence_regs(dp);
+
+    const bool edge = k0 + tc::kRows > tk || q0 + tc::kRows > tq ||
+                      (causal && rel + q0 < k0 + tc::kRows - 1) ||
+                      (window > 0 && k0 <= rel + q0 + tc::kRows - 1 - window);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int r = (e >> 1) & 1;
+      float p = exp2f(fmaf(sc[e], scale_log2, -lse2[r]));
+      if (edge) {
+        const int row = q0 + row0 + 8 * r;
+        const int key = k0 + 8 * (e >> 2) + col0 + (e & 1);
+        if (!(key < tk && row < tq &&
+              tc::visible(rel + row, key, causal, window)))
+          p = 0.f;
+      }
+      dp[e] = p * (dp[e] - dl[r]) * scale;
+    }
+
+    uint32_t dsf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) tc::p_frag(dp, kk, dsf[kk]);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::wgmma_rs<D>(dq_acc, dsf[kk], tc::desc_mn(k_addr, kk));
+    tc::wgmma_commit();
+    tc::wgmma_wait();
+    tc::fence_regs(dq_acc);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row0 + 8 * r;
+    if (row >= tq) continue;
+    const long long at = b * ldq.b + row * ldq.t + h * ldq.h + col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dq + at + 8 * j) =
+          make_float2(dq_acc[4 * j + 2 * r], dq_acc[4 * j + 2 * r + 1]);
+  }
+}
+
+template <int D>
+constexpr int dq_tc_smem() {
+  return 6 * tc::Tile<D>::kBytes + 3 * 8 + 1024;
+}
+
+template <int D>
+int launch_dq_tc(const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dq, Layout lq, Layout lk, Layout lv, Layout ldo,
+                 Layout ldq, int batch, int heads, int kv_heads, int tq,
+                 int tk, int causal, int window, int rel,
+                 cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  int e = tc::tile_map(&mq, q, lq, batch, tq, heads, D);
+  if (e == 0) e = tc::tile_map(&mk, k, lk, batch, tk, kv_heads, D);
+  if (e == 0) e = tc::tile_map(&mv, v, lv, batch, tk, kv_heads, D);
+  if (e == 0) e = tc::tile_map(&mdo, dout, ldo, batch, tq, heads, D);
+  if (e != 0) return e;
+  auto kernel = flash_dq_tc_kernel<D>;
+  e = tc::set_smem(reinterpret_cast<const void*>(kernel), dq_tc_smem<D>());
+  if (e != 0) return e;
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const dim3 grid((tq + tc::kRows - 1) / tc::kRows, heads, batch);
+  kernel<<<grid, tc::kThreads, dq_tc_smem<D>(), stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), ldq, heads,
+      kv_heads, tq, tk, causal, window, rel, scale, scale * tc::kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -555,9 +745,14 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
                          window, rel, s)
   if (dtype == 0 && head_dim == 64) FLASH_DQ(float, 64);
   if (dtype == 0 && head_dim == 128) FLASH_DQ(float, 128);
-  if (dtype == 1 && head_dim == 64) FLASH_DQ(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) FLASH_DQ(__nv_bfloat16, 128);
 #undef FLASH_DQ
+#define FLASH_DQ_TC(D)                                                      \
+  return launch_dq_tc<D>(q, k, v, dout, lse, delta, dq, lq, lk, lv, ldo,  \
+                         ldq, batch, heads, kv_heads, tq, tk, causal,      \
+                         window, rel, s)
+  if (dtype == 1 && head_dim == 64) FLASH_DQ_TC(64);
+  if (dtype == 1 && head_dim == 128) FLASH_DQ_TC(128);
+#undef FLASH_DQ_TC
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -589,7 +784,12 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory of K3's bf16 (tensor-core) kernel, in bytes.
+// Dynamic shared memory of K2's and K3's bf16 (tensor-core) kernels, in
+// bytes.
+int flash_dq_tc_smem(int head_dim) {
+  return head_dim == 64 ? dq_tc_smem<64>() : dq_tc_smem<128>();
+}
+
 int flash_dkv_tc_smem(int head_dim) {
   return head_dim == 64 ? dkv_tc_smem<64>() : dkv_tc_smem<128>();
 }

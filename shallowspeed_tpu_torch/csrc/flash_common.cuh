@@ -1,8 +1,7 @@
 // Pieces shared by the f32-FMA flash-attention kernels: the f32 builds
-// of K1 (flash_fwd.cu) and K3 (flash_bwd.cu::flash_dkv), and K2
-// (flash_bwd.cu::flash_dq) in both dtypes. The bf16 builds of K1 and K3
-// run on the tensor cores, from flash_tc.cuh, which takes Layout,
-// visible and floor_div from here.
+// of K1 (flash_fwd.cu), K2 and K3 (flash_bwd.cu). The bf16 builds run on
+// the tensor cores, from flash_tc.cuh, which takes Layout, visible and
+// floor_div from here.
 //
 // Every kernel here works on 64-row tiles held in shared memory as f32,
 // row major with a padded row stride, computed on by 256 threads
@@ -46,40 +45,14 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
 }
 
-// 16 bytes of global memory -> 16 / sizeof(T) floats in shared memory
+// 16 bytes of global memory -> 4 floats in shared memory
 __device__ __forceinline__ void load16(const float* src, float* dst) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
 }
 
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-  float4 lo, hi;
-  float2 f = __bfloat1622float2(h[0]);
-  lo.x = f.x;
-  lo.y = f.y;
-  f = __bfloat1622float2(h[1]);
-  lo.z = f.x;
-  lo.w = f.y;
-  f = __bfloat1622float2(h[2]);
-  hi.x = f.x;
-  hi.y = f.y;
-  f = __bfloat1622float2(h[3]);
-  hi.z = f.x;
-  hi.w = f.y;
-  reinterpret_cast<float4*>(dst)[0] = lo;
-  reinterpret_cast<float4*>(dst)[1] = hi;
-}
-
-// four floats -> global memory in T (bf16 rounds to nearest even)
+// four floats -> global memory
 __device__ __forceinline__ void store4(float* dst, float4 x) {
   *reinterpret_cast<float4*>(dst) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 x) {
-  __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst);
-  d[0] = __floats2bfloat162_rn(x.x, x.y);
-  d[1] = __floats2bfloat162_rn(x.z, x.w);
 }
 
 // Rows [t0, t0 + 64) of head h of batch row b, as f32 into `dst`

@@ -1,8 +1,10 @@
-// Pieces shared by the tensor-core flash-attention kernels: the bf16
-// builds of K1 (flash_fwd.cu) and K3 (flash_bwd.cu::flash_dkv). The f32
-// builds and K2 keep the f32-FMA pieces of flash_common.cuh.
+// Pieces shared by the tensor-core kernels: the bf16 builds of K1
+// (flash_fwd.cu), K2 and K3 (flash_bwd.cu) and K5's GEMM
+// (blocked_matmul.cu, which also takes a 1-byte B for dequant_matmul).
+// The f32 builds keep the f32-FMA pieces of flash_common.cuh.
 //
-// Every tile is 64 rows of a (B, T, H, D) bf16 tensor, brought into
+// Every attention tile is 64 rows of a (B, T, H, D) bf16 tensor (the
+// GEMM's tiles are 64 x 64 boxes of a 2-D matrix, `map_2d`), brought into
 // shared memory by TMA (`cp.async.bulk.tensor`) from a tensor map built
 // on the tensor's own strides, and completed on an mbarrier. A tile of D
 // columns is D / 64 boxes of 64 rows x 128 bytes, each 1024-byte
@@ -100,6 +102,39 @@ __device__ __forceinline__ void load_tile(void* dst, const CUtensorMap* map,
            "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
            "r"(kb * 64), "r"(t0), "r"(h), "r"(b)
         : "memory");
+}
+
+// The 64 x 64 box at (column c0, row r0) of a `map_2d` matrix into the
+// swizzled box at `dst`; completes kBoxBytes on `bar`.
+__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int r0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(r0)
+      : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before
+// later async-proxy reads of it (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 16 bytes global -> shared through L2 only, zero when !valid (nothing
+// is read then).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Wait until at most `n` of this thread's cp.async groups are pending.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(n) : "memory");
 }
 
 // 4 bytes global -> shared, zero when !valid (nothing is read then).
@@ -253,6 +288,36 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 }
 
 
+// d (64 x 128, f32) += A B: A (64 x 16 bf16) in shared memory,
+// K-major; B (16 x 128 bf16) in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_ss_n128_t(float (&d)[64], uint64_t a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
@@ -321,6 +386,29 @@ inline int tile_map(CUtensorMap* map, const void* base, Layout l, int batch,
   const cuuint32_t box[4] = {64, kRows, 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A TMA map of a row-major (rows, cols) bf16 matrix whose rows lie `ld`
+// elements apart, in boxes of 64 columns x 64 rows, swizzled 128B;
+// columns past cols and rows past rows read as zeros. Returns a
+// cudaError_t (0 = success); the caller checked that the base and
+// 2 * ld are multiples of 16.
+inline int map_2d(CUtensorMap* map, const void* base, long long rows,
+                  long long cols, long long ld) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(2 * ld)};
+  const cuuint32_t box[2] = {64, kRows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                         const_cast<void*>(base), dims, strides, box, step,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

@@ -3,9 +3,9 @@
 forward, K2 dq, K3 dk/dv) behind `flash_attention`, and the serving
 decode kernel (K4) behind `paged_flash_decode`, whose int8 branch
 (int8 pools with f32 scale planes) launches through
-`_paged_flash_decode_int8`. K1's and K3's bf16 builds run on the tensor
-cores and launch through `_flash_fwd_tc` and `_flash_dkv_tc`; their f32
-builds and K2 are f32 FMA.
+`_paged_flash_decode_int8`. The bf16 builds of K1, K2 and K3 run on
+the tensor cores and launch through `_flash_fwd_tc`, `_flash_dq_tc` and
+`_flash_dkv_tc`; their f32 builds are f32 FMA.
 
 Each kernel has a wrapper and a plain torch version with the same
 arguments. On a CUDA tensor the wrapper launches the hand-written
@@ -29,8 +29,8 @@ The decode kernel keeps its probabilities in f32 through the PV
 product, where its reference casts them to V's dtype (float pools) or
 to q's dtype (int8 pools) first; the JAX kernel keeps them in f32 too.
 In bf16 the kernel and its reference differ by that one rounding. The
-tensor-core K1 and K3 round the other way: P (and K3's dS) to bf16
-before the second product, where the plain versions keep f32;
+tensor-core K1, K2 and K3 round the other way: P (and K2's and K3's dS)
+to bf16 before the second product, where the plain versions keep f32;
 `kernel_ratio` with `tc_rounding_terms` is the rule that allows for it.
 """
 
@@ -280,7 +280,15 @@ def _probs_and_ds(q, k, v, do, lse, delta, causal, window, rel):
 def flash_dq_reference(q, k, v, do, lse, delta, *, causal=True, window=0,
                        rel=0):
     """Plain torch K2: dQ = dS K, f32 (B, Tq, H, D)."""
+    return _dq(q, k, v, do, lse, delta, causal, window, rel)
+
+
+def _dq(q, k, v, do, lse, delta, causal, window, rel, p_dtype=None):
+    """K2's plain arithmetic; with `p_dtype`, dS is rounded to it before
+    the dQ product."""
     _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, window, rel)
+    if p_dtype is not None:
+        ds = ds.to(p_dtype).to(ds.dtype)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.to(ds.dtype))
     return dq.reshape(q.shape)
 
@@ -343,9 +351,10 @@ def tc_rounding_terms(q, k, v, do=None, lse=None, delta=None, *,
     """What one rounding of P or dS to bf16 before the second product
     can move each output element by, computed in f32 by the plain
     arithmetic on the same inputs: {"o": 2^-8 (P / l) @ |V| (the plain
-    attention over |V|), and with dO, lse, delta also "dv": 2^-8
-    P^T @ |dO| and "dk": 2^-8 |dS|^T @ |Q|}, each summed over the G
-    query heads as the outputs are."""
+    attention over |V|), and with dO, lse, delta also "dq": 2^-8
+    |dS| @ |K|, "dv": 2^-8 P^T @ |dO| and "dk": 2^-8 |dS|^T @ |Q|},
+    each summed as its output is (dK and dV over the G query heads of a
+    kv head)."""
     f = [x.float() for x in (q, k, v)]
     terms = {"o": BF16_ROUND * _fwd(f[0], f[1], f[2].abs(), causal, window,
                                     rel)[0]}
@@ -355,6 +364,8 @@ def tc_rounding_terms(q, k, v, do=None, lse=None, delta=None, *,
                               causal, window, rel)
         abs_do = _grouped(do.float(), kvh).abs()
         abs_q = _grouped(f[0], kvh).abs()
+        terms["dq"] = BF16_ROUND * torch.einsum(
+            "bhgqk,bkhd->bqhgd", ds.abs(), f[1].abs()).reshape(q.shape)
         terms["dv"] = BF16_ROUND * torch.einsum("bhgqk,bqhgd->bkhd", p,
                                                 abs_do)
         terms["dk"] = BF16_ROUND * torch.einsum("bhgqk,bqhgd->bkhd",
@@ -364,14 +375,15 @@ def tc_rounding_terms(q, k, v, do=None, lse=None, delta=None, *,
 
 def rounded_reference(q, k, v, do, lse, delta, p_dtype, *, causal=True,
                       window=0, rel=0):
-    """(o, dK, dV) of the plain versions with P (for o and dV) and dS
-    (for dK) rounded to `p_dtype` before the second product: with
-    bfloat16 what the tensor-core kernels compute, up to summation
+    """(o, dQ, dK, dV) of the plain versions with P (for o and dV) and
+    dS (for dQ and dK) rounded to `p_dtype` before the second product:
+    with bfloat16 what the tensor-core kernels compute, up to summation
     order; with a coarser type (float8_e4m3fn) a slip the rule must
-    see."""
+    see; with None the plain versions themselves."""
     kw = dict(causal=causal, window=window, rel=rel)
     o, _ = _fwd(q, k, v, p_dtype=p_dtype, **kw)
-    return (o, *_dkv(q, k, v, do, lse, delta, p_dtype=p_dtype, **kw))
+    return (o, _dq(q, k, v, do, lse, delta, p_dtype=p_dtype, **kw),
+            *_dkv(q, k, v, do, lse, delta, p_dtype=p_dtype, **kw))
 
 
 @functools.cache
@@ -389,8 +401,9 @@ def _train_kernels():
     bwd.flash_dkv.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 15
                               + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     bwd.flash_dq.restype = bwd.flash_dkv.restype = ctypes.c_int
-    bwd.flash_dkv_tc_smem.restype = ctypes.c_int
-    bwd.flash_dkv_tc_smem.argtypes = [ctypes.c_int]
+    for smem in (bwd.flash_dq_tc_smem, bwd.flash_dkv_tc_smem):
+        smem.restype = ctypes.c_int
+        smem.argtypes = [ctypes.c_int]
     bwd.flash_bwd_error_string.argtypes = [ctypes.c_int]
     bwd.flash_bwd_error_string.restype = ctypes.c_char_p
     return fwd, bwd
@@ -502,21 +515,42 @@ def _launch_fwd(counter, q, k, v, causal, window, rel):
 
 def flash_dq(q, k, v, do, lse, delta, *, causal=True, window=0, rel=0):
     """K2: dQ, f32 (B, Tq, H, D). A CPU q takes `flash_dq_reference`; a
-    CUDA q launches `csrc/flash_bwd.cu::flash_dq` or raises."""
+    CUDA q launches `csrc/flash_bwd.cu::flash_dq` or raises: float32 its
+    f32-FMA kernel, counted on `flash_dq.launches`; bfloat16 its
+    tensor-core kernel, through `_flash_dq_tc`."""
     if q.device.type == "cpu":
         return flash_dq_reference(q, k, v, do, lse, delta, causal=causal,
                                   window=window, rel=rel)
     _check_train("flash_dq", window, q, k, v, do, lse, delta)
+    if q.dtype == torch.bfloat16:
+        return _flash_dq_tc(q, k, v, do, lse, delta, causal, window, rel)
+    return _launch_dq(flash_dq, q, k, v, do, lse, delta, causal, window, rel)
+
+
+flash_dq.launches = 0
+
+
+def _flash_dq_tc(q, k, v, do, lse, delta, causal, window, rel):
+    """K2's bf16 build on the card, `csrc/flash_bwd.cu::
+    flash_dq_tc_kernel`: wgmma on TMA-fed tiles, dS rounded to bf16 as
+    the dQ product's register operand (`tc_rounding_terms` bounds that
+    rounding). Reached only through `flash_dq`; its own function so
+    that its launches count apart."""
+    return _launch_dq(_flash_dq_tc, q, k, v, do, lse, delta, causal, window,
+                      rel)
+
+
+_flash_dq_tc.launches = 0
+
+
+def _launch_dq(counter, q, k, v, do, lse, delta, causal, window, rel):
     _, bwd = _train_kernels()
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _build.launch(flash_dq, bwd.flash_dq, bwd.flash_bwd_error_string,
+    _build.launch(counter, bwd.flash_dq, bwd.flash_bwd_error_string,
                   q.device, *_ptrs(q, k, v, do, lse, delta, dq),
                   *_strides(q, k, v, do, dq),
                   *_dims(q, k, causal, window, rel))
     return dq
-
-
-flash_dq.launches = 0
 
 
 def flash_dkv(q, k, v, do, lse, delta, *, causal=True, window=0, rel=0):

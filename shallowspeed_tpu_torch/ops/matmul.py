@@ -1,6 +1,8 @@
 """Matmuls — counterpart of `shallowspeed_tpu/ops/matmul.py`: the
 quantized-weight `dequant_matmul`, and the blocked matmul K5
-(`blocked_matmul`), whose CUDA kernel is `csrc/blocked_matmul.cu`.
+(`blocked_matmul`), both on the kernels of `csrc/blocked_matmul.cu`: a
+tensor-core GEMM (bf16 x; y bf16, or 1-byte weight values converted in
+shared memory) and an f32-FMA kernel (f32 inputs, unaligned shapes).
 
 K5 lies on one path only, the narrow-K probe (`bench_matmul`), as its
 reference does; no model calls it. The fp8 training matmul
@@ -16,7 +18,30 @@ import torch
 
 from shallowspeed_tpu_torch.ops import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes of the C entries (csrc/blocked_matmul.cu)
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+          torch.float8_e4m3fn: 3}
+_FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+_WEIGHT_DTYPES = (torch.int8, torch.float8_e4m3fn)
+
+
+def dequant_matmul_route(x_dtype, k: int, n: int) -> str:
+    """Which kernel `dequant_matmul` launches on the card for x of
+    `x_dtype` (..., K) @ a 1-byte wq (K, N), chosen before the launch:
+    "tc" (`_dequant_matmul_tc`, the tensor-core GEMM reading wq at 1
+    byte an element) for bfloat16 x with K % 8 == 0 and N % 16 == 0
+    (TMA's 16-byte row strides for x, whole 16-byte cp.async chunks of
+    wq); else "fma" (`_dequant_matmul_fma`, the f32-FMA kernel, which
+    keeps an f32 x in full f32)."""
+    ok = x_dtype == torch.bfloat16 and k % 8 == 0 and n % 16 == 0
+    return "tc" if ok else "fma"
+
+
+def dequant_matmul_reference(x, wq, ws):
+    """Plain torch `dequant_matmul`: x and wq's values in f32 (exact for
+    bf16 x and 1-byte wq), their product summed in f32, times ws, in x's
+    dtype. Same arguments and result as `dequant_matmul`."""
+    return ((x.float() @ wq.float()) * ws.float()).to(x.dtype)
 
 
 def dequant_matmul(x, wq, ws):
@@ -28,23 +53,126 @@ def dequant_matmul(x, wq, ws):
     dtype, its default. The scale meets the f32 sum, never a bf16
     rounding of it.
 
-    int8 and e4m3 values are exact in bf16. On the card a bf16 product
-    takes cuBLAS's bf16 matmul with an f32 output (`out_dtype`); the
-    CPU has no such matmul, so there both operands are upcast to f32,
-    in which the products of bf16 values are exact: the same sum. The
-    value cast `wq.to(cdt)` is a transient full-size copy that XLA folds
-    into the operand load and eager torch does not (PERF.md times the
-    tick with it). A matmul outside Pallas in the reference, so a
-    library matmul here."""
-    wc = wq.to(x.dtype)
-    if x.dtype == torch.float32:
-        acc = x @ wc
-    elif x.is_cuda:
-        acc = torch.mm(x.reshape(-1, x.shape[-1]), wc,
-                       out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
-    else:
-        acc = x.float() @ wc.float()
-    return (acc * ws.float()).to(x.dtype)
+    A CPU x takes the plain version (`dequant_matmul_reference`): both
+    operands upcast to f32, in which the products of bf16 values (int8
+    and e4m3 values are exact in bf16) are exact, so it is the same sum.
+    A CUDA x launches a hand-written kernel of `csrc/blocked_matmul.cu`
+    that reads wq at 1 byte an element and converts its values in the
+    operand load, so no (K, N) copy of the weight is ever made (the
+    reference's contract): the tensor-core GEMM for bfloat16 x
+    (`_dequant_matmul_tc`), the f32-FMA kernel otherwise
+    (`_dequant_matmul_fma`), as `dequant_matmul_route` picks; x float32
+    or bfloat16, wq contiguous, ws float32 (N,), or it raises."""
+    if x.device.type == "cpu":
+        return dequant_matmul_reference(x, wq, ws)
+    k, n = wq.shape
+    if x.dtype not in _FLOAT_DTYPES or wq.dtype not in _WEIGHT_DTYPES \
+            or ws.dtype != torch.float32:
+        raise TypeError(f"dequant_matmul takes float32 or bfloat16 x, int8 "
+                        f"or float8_e4m3fn wq and float32 ws; got "
+                        f"x={x.dtype}, wq={wq.dtype}, ws={ws.dtype}")
+    if x.shape[-1] != k or ws.shape != (n,):
+        raise ValueError(f"dequant_matmul: x {tuple(x.shape)}, wq "
+                         f"{tuple(wq.shape)}, ws {tuple(ws.shape)} do not "
+                         f"fit")
+    for name, t in (("wq", wq), ("ws", ws)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"dequant_matmul takes a contiguous {name}")
+    x2 = x.reshape(-1, k).contiguous()
+    launcher = (_dequant_matmul_tc
+                if dequant_matmul_route(x.dtype, k, n) == "tc"
+                else _dequant_matmul_fma)
+    return launcher(x2, wq, ws).reshape(*x.shape[:-1], n)
+
+
+def _dequant_matmul_tc(x, wq, ws):
+    """`dequant_matmul` of a bfloat16 x (M, K) on the card through
+    `csrc/blocked_matmul.cu::gemm_tc_kernel` with B read as 1-byte
+    values: the weight is staged by cp.async, converted to bf16 in
+    shared memory and multiplied on the tensor cores; the epilogue
+    scales the f32 sum by ws and rounds once to bfloat16. K is split
+    over more blocks when the output tiles are too few to stream the
+    weight (`tc_splits`). Reached only through `dequant_matmul`; its
+    own function so that its launches count apart."""
+    return _launch_tc(_dequant_matmul_tc, x, wq, ws, torch.bfloat16)
+
+
+_dequant_matmul_tc.launches = 0
+
+
+def _dequant_matmul_fma(x, wq, ws):
+    """`dequant_matmul` on the card through the f32-FMA kernel
+    (`csrc/blocked_matmul.cu::blocked_matmul_kernel` with a 1-byte y and
+    a scaled epilogue), for float32 x (the f32 parity checks) and for
+    bfloat16 x whose shapes the tensor-core route does not take; the
+    result in x's dtype. Reached only through `dequant_matmul`."""
+    m, k = x.shape
+    n = wq.shape[1]
+    if -(-m // 128) > 65535:
+        raise ValueError(f"M={m} is over the kernel's 65535 x 128 rows")
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = _kernel()
+    _build.launch(_dequant_matmul_fma, lib.blocked_matmul,
+                  lib.blocked_matmul_error_string, x.device, x.data_ptr(),
+                  wq.data_ptr(), ws.data_ptr(), out.data_ptr(), m, n, k,
+                  _CODES[x.dtype], _CODES[wq.dtype], _CODES[x.dtype])
+    return out
+
+
+_dequant_matmul_fma.launches = 0
+
+
+def tc_warpgroups(m: int) -> int:
+    """Warpgroups of one tensor-core block (64 output rows each): one
+    for M <= 64 (the decode tick's 8 rows), else two."""
+    return 1 if m <= 64 else 2
+
+
+def tc_splits(m: int, n: int, k: int, sms: int = 132) -> int:
+    """How many ways the tensor-core GEMM splits K: 1 when its
+    (64 WG x 128) output tiles give every SM a block, else as many as
+    bring the blocks to two an SM, with at least 4 k tiles of 64 in each
+    split and none empty."""
+    tiles = -(-n // 128) * -(-m // (64 * tc_warpgroups(m)))
+    k_tiles = -(-k // 64)
+    want = min(-(-2 * sms // tiles), k_tiles // 4)
+    if tiles >= sms or want <= 1:
+        return 1
+    per = -(-k_tiles // want)
+    return -(-k_tiles // per)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_tc(counter, x, y, ws, out_dtype):
+    """One call of the C entry `gemm_tc`: x (M, K) bf16 @ y (K, N) (bf16,
+    int8 or e4m3), scaled by ws (or None), out (M, N) in out_dtype; the
+    split-K partial sums in a scratch tensor when `tc_splits` > 1."""
+    m, k = x.shape
+    n = y.shape[1]
+    wg = tc_warpgroups(m)
+    if -(-m // (64 * wg)) > 65535:
+        raise ValueError(f"M={m} is over the kernel's 65535 x 128 rows")
+    for name, t in (("x", x), ("y", y)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"the tensor-core matmul reads {name} by TMA "
+                             f"and cp.async, which need a 16-byte aligned "
+                             f"address; got {t.data_ptr():#x}")
+    splits = tc_splits(m, n, k, _sm_count(x.device.index))
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    part = (torch.empty((splits, m, n), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
+    lib = _kernel()
+    _build.launch(counter, lib.gemm_tc, lib.blocked_matmul_error_string,
+                  x.device, *(t.data_ptr() if t is not None else None
+                              for t in (x, y, ws, out, part)),
+                  m, n, k, wg, splits, _CODES[y.dtype], _CODES[out_dtype])
+    return out
 
 
 def _blocks(x, y, bm: int, bk: int, bn: int) -> tuple[int, int, int]:
@@ -83,12 +211,27 @@ def blocked_matmul_reference(x, y, *, bm: int = 512, bk: int = 512,
 @functools.cache
 def _kernel():
     lib = _build.library("blocked_matmul")
-    lib.blocked_matmul.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+    lib.blocked_matmul.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
-    lib.blocked_matmul.restype = ctypes.c_int
+    lib.gemm_tc.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    lib.gemm_tc_smem.argtypes = [ctypes.c_int] * 2
+    lib.blocked_matmul.restype = lib.gemm_tc.restype = ctypes.c_int
+    lib.gemm_tc_smem.restype = ctypes.c_int
     lib.blocked_matmul_error_string.argtypes = [ctypes.c_int]
     lib.blocked_matmul_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def blocked_matmul_route(x_dtype, y_dtype, k: int, n: int) -> str:
+    """Which K5 build `blocked_matmul` launches on the card, chosen
+    before the launch: "tc" (`_blocked_matmul_tc`, wgmma) for bfloat16
+    x and y with K % 8 == 0 and N % 8 == 0 (TMA's 16-byte row strides);
+    "fma" (the f32-FMA kernel, counted on `blocked_matmul.launches`) for
+    float32 inputs, which stay full f32, and unaligned bf16 shapes."""
+    ok = (x_dtype == y_dtype == torch.bfloat16 and k % 8 == 0
+          and n % 8 == 0)
+    return "tc" if ok else "fma"
 
 
 def blocked_matmul(x, y, *, bm: int = 512, bk: int = 512, bn: int = 1024,
@@ -96,21 +239,21 @@ def blocked_matmul(x, y, *, bm: int = 512, bk: int = 512, bn: int = 1024,
     """x (M, K) @ y (K, N) with an f32 accumulator, returned in
     `out_dtype` (default x's dtype): K5. The blocks are the reference's
     interface: clipped to the dimensions, and a shape they do not divide
-    is refused with a ValueError. They tile the TPU kernel, not this
-    one (`csrc/blocked_matmul.cu` owns one 128 x 128 output tile per
-    thread block and loops over all of K).
+    is refused with a ValueError. They tile the TPU kernel, not these
+    (`csrc/blocked_matmul.cu`).
 
-    A CPU x takes `blocked_matmul_reference`. A CUDA x launches the
-    kernel (x and y contiguous, of one dtype, float32 or bfloat16;
-    out_dtype float32 or bfloat16) or raises, and adds one to
-    `blocked_matmul.launches`."""
+    A CPU x takes `blocked_matmul_reference`. A CUDA x launches a kernel
+    (x and y contiguous, of one dtype, float32 or bfloat16; out_dtype
+    float32 or bfloat16) or raises, as `blocked_matmul_route` picks:
+    the tensor-core GEMM through `_blocked_matmul_tc`, or the f32-FMA
+    kernel, which adds one to `blocked_matmul.launches`."""
     if x.device.type == "cpu":
         return blocked_matmul_reference(x, y, bm=bm, bk=bk, bn=bn,
                                         out_dtype=out_dtype)
     _blocks(x, y, bm, bk, bn)
     out_dtype = out_dtype or x.dtype
-    if x.dtype not in _DTYPES or y.dtype != x.dtype \
-            or out_dtype not in _DTYPES:
+    if x.dtype not in _FLOAT_DTYPES or y.dtype != x.dtype \
+            or out_dtype not in _FLOAT_DTYPES:
         raise TypeError(f"blocked_matmul takes float32 or bfloat16 x and y "
                         f"of one dtype and a float32 or bfloat16 output; "
                         f"got x={x.dtype}, y={y.dtype}, out={out_dtype}")
@@ -120,15 +263,29 @@ def blocked_matmul(x, y, *, bm: int = 512, bk: int = 512, bn: int = 1024,
         raise ValueError("blocked_matmul takes contiguous (row-major) x "
                          "and y")
     (m, k), n = x.shape, y.shape[1]
+    if blocked_matmul_route(x.dtype, y.dtype, k, n) == "tc":
+        return _blocked_matmul_tc(x, y, out_dtype)
     if -(-m // 128) > 65535:
         raise ValueError(f"M={m} is over the kernel's 65535 x 128 rows")
     lib = _kernel()
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     _build.launch(blocked_matmul, lib.blocked_matmul,
                   lib.blocked_matmul_error_string, x.device,
-                  x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k,
-                  _DTYPES[x.dtype], _DTYPES[out_dtype])
+                  x.data_ptr(), y.data_ptr(), None, out.data_ptr(), m, n, k,
+                  _CODES[x.dtype], _CODES[y.dtype], _CODES[out_dtype])
     return out
 
 
 blocked_matmul.launches = 0
+
+
+def _blocked_matmul_tc(x, y, out_dtype):
+    """K5's bf16 build on the card, `csrc/blocked_matmul.cu::
+    gemm_tc_kernel`: x and y by TMA into 128B-swizzled boxes, wgmma with
+    the f32 sum in registers, one rounding to out_dtype. Reached only
+    through `blocked_matmul`; its own function so that its launches
+    count apart."""
+    return _launch_tc(_blocked_matmul_tc, x, y, None, out_dtype)
+
+
+_blocked_matmul_tc.launches = 0

@@ -15,6 +15,10 @@ random prompt; `at` is the submission offset in seconds from the start.
 Each completion prints one `{"event": "result", ...}` line; the run ends
 with a `{"event": "summary", ...}` line. Runs on the GPU unless
 `--device cpu` is given.
+
+The root driver's other flags (the HTTP replica's queue and heartbeat,
+chaos, the live-monitoring and profiling planes, `--platform`) are
+recognised and refused with `NotPorted`.
 """
 
 from __future__ import annotations
@@ -34,9 +38,31 @@ from shallowspeed_tpu_torch.report import request_summary
 from shallowspeed_tpu_torch.serving.engine import ServingEngine
 
 _LATER = "Queue 1, serving features after slice 1"
+_PLANES = "Queue 1, planes"
+_FLEET = "Queue 1, the serving fleet"
+
+# the root driver's flags this driver does not have yet, and where each
+# comes from
+UNPORTED = {
+    **dict.fromkeys(["--max-queue", "--heartbeat-file", "--replica",
+                     "--fleet-register"], _FLEET),
+    **dict.fromkeys(["--chaos", "--chaos-state", "--chaos-seed",
+                     "--monitor-port", "--slo", "--flight-recorder",
+                     "--shed-load", "--profile", "--profile-hz"], _PLANES),
+    # JAX's backend choice; the port takes --device, and the virtual
+    # multi-device meshes --platform cpu builds come with the engines
+    "--platform": "Queue 1, multi-device LM engines",
+}
 
 
-def parse_args(argv=None):
+class _Refuse(argparse.Action):
+    """Any use of an unported flag raises `NotPorted`."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        raise NotPorted(f"serve {option_string}", UNPORTED[option_string])
+
+
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     m = p.add_argument_group("model")
     m.add_argument("--vocab", type=int, default=256)
@@ -96,7 +122,14 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "torch versions of the kernels)")
-    return p.parse_args(argv)
+    for flag in UNPORTED:
+        p.add_argument(flag, nargs="?", action=_Refuse,
+                       help=argparse.SUPPRESS)
+    return p
+
+
+def parse_args(argv=None):
+    return parser().parse_args(argv)
 
 
 def load_requests(path: str, vocab: int) -> list[dict]:

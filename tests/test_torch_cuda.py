@@ -91,35 +91,109 @@ def test_cuda_int8_kernel_matches_plain_version(cuda, dtype, kvh, window):
     assert float(((got - ref).abs() / allow).max()) <= 1.0
 
 
+def _quantized(mode, k, n, dev, seed=0):
+    from shallowspeed_tpu_torch.models import transformer as T
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    w = (torch.randn(k, n, generator=g) / k ** 0.5).to(dev)
+    q = T.quantize_weights({"W": w, "b": torch.zeros(n, device=dev)}, mode)
+    return q["Wq"], q["Ws"], g
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
 def test_cuda_dequant_matmul_bf16_keeps_the_sum_in_f32(cuda, mode):
-    """`dequant_matmul` in bf16 on the card (cuBLAS's bf16 matmul with an
-    f32 output) against the exact product of the same quantized leaves
-    (f64 on the CPU), per element: one bf16 rounding of the result
-    (2^-8 |ref|) plus f32 summation-order noise (1e-5 of max |ref|). A
-    bf16 rounding of the sum before the scale must exceed that bound."""
-    from shallowspeed_tpu_torch.models import transformer as T
-    from shallowspeed_tpu_torch.ops.matmul import dequant_matmul
+    """`dequant_matmul` in bf16 on the card (the tensor-core GEMM reading
+    the weight at 1 byte an element) against the exact product of the
+    same quantized leaves (f64 on the CPU), per element: one bf16
+    rounding of the result (2^-8 |ref|) plus f32 summation-order noise
+    (1e-5 of max |ref|). A bf16 rounding of the sum before the scale
+    must exceed that bound."""
+    from shallowspeed_tpu_torch.ops import matmul as M
 
-    g = torch.Generator(device="cpu").manual_seed(0)
+    wq, ws, g = _quantized(mode, 512, 1024, cuda)
     x = torch.randn(2, 8, 512, generator=g).to(cuda).to(torch.bfloat16)
-    w = (torch.randn(512, 1024, generator=g) / 512 ** 0.5).to(cuda)
-    q = T.quantize_weights({"W": w, "b": torch.zeros(1024, device=cuda)},
-                           mode)
-    ref = ((x.cpu().double() @ q["Wq"].cpu().float().double())
-           * q["Ws"].cpu().double())
+    ref = (x.cpu().double() @ wq.cpu().double()) * ws.cpu().double()
     allow = 2.0 ** -8 * ref.abs() + 1e-5 * ref.abs().max()
 
     def ratio(t):
         return float(((t.cpu().double() - ref).abs() / allow).max())
 
-    got = dequant_matmul(x, q["Wq"], q["Ws"])
-    slip = ((x @ q["Wq"].to(torch.bfloat16)).float()
-            * q["Ws"]).to(torch.bfloat16)
+    before = M._dequant_matmul_tc.launches
+    got = M.dequant_matmul(x, wq, ws)
+    torch.cuda.synchronize()
+    assert M._dequant_matmul_tc.launches == before + 1
+    slip = ((x.float() @ wq.float()).bfloat16().float() * ws).bfloat16()
     assert got.dtype == torch.bfloat16 and got.shape == (2, 8, 1024)
     assert ratio(got) <= 1.0
     assert ratio(slip) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("m", [8, 256, 300])
+@pytest.mark.parametrize("k,n", [(2048, 6144), (1024, 4096), (8192, 2048)],
+                         ids=["qkv", "wide", "down"])
+def test_cuda_dequant_matmul_tc_rows_and_splits(cuda, mode, m, k, n):
+    """The tensor-core route at the tick's 8 rows (split over K), a
+    prefill chunk's 256 and a ragged 300 (two warpgroups, rows past M
+    masked), against the exact product under `_dequant_err`'s rule."""
+    from shallowspeed_tpu_torch.ops import matmul as M
+
+    wq, ws, g = _quantized(mode, k, n, cuda, seed=m)
+    x = torch.randn(m, k, generator=g).to(cuda).bfloat16()
+    assert M.dequant_matmul_route(x.dtype, k, n) == "tc"
+    before = M._dequant_matmul_tc.launches
+    got = M.dequant_matmul(x, wq, ws)
+    torch.cuda.synchronize()
+    assert M._dequant_matmul_tc.launches == before + 1
+    ref = (x.double() @ wq.double()) * ws.double()
+    allow = 2.0 ** -8 * ref.abs() + 1e-5 * ref.abs().max()
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert float(((got.double() - ref).abs() / allow).max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype,k,n", [(torch.float32, 512, 1024),
+                                       (torch.bfloat16, 520, 1000)],
+                         ids=["f32", "bf16-unaligned"])
+def test_cuda_dequant_matmul_fma_route(cuda, mode, dtype, k, n):
+    """f32 x, and bf16 x at a shape the tensor-core route does not take,
+    go through the f32-FMA kernel with a 1-byte y: each element within
+    the f32 summation bound K 2^-24 (|x| @ |wq|) ws plus one rounding of
+    the output."""
+    from shallowspeed_tpu_torch.ops import matmul as M
+
+    wq, ws, g = _quantized(mode, k, n, cuda)
+    x = torch.randn(8, k, generator=g).to(cuda).to(dtype)
+    before = M._dequant_matmul_fma.launches
+    got = M.dequant_matmul(x, wq, ws)
+    torch.cuda.synchronize()
+    assert M._dequant_matmul_fma.launches == before + 1
+    assert got.dtype == dtype
+    xd, wd, sd = x.double(), wq.double(), ws.double()
+    ref = (xd @ wd) * sd
+    rnd = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+    allow = k * 2.0 ** -24 * (xd.abs() @ wd.abs()) * sd + rnd * ref.abs()
+    assert float(((got.double() - ref).abs() / allow).max()) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_dequant_matmul_adds_no_weight_copy(cuda):
+    """One call at the head's shape, (8, 2048) @ (2048, 32768) int8, adds
+    under 16 MB to the peak of device memory: no bf16 copy of the
+    weight (134 MB) is made."""
+    from shallowspeed_tpu_torch.ops import matmul as M
+
+    wq, ws, g = _quantized("int8", 2048, 32768, cuda)
+    x = torch.randn(8, 2048, generator=g).to(cuda).bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    M.dequant_matmul(x, wq, ws)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda) - base < 16 * 2 ** 20
 
 
 # (B, Tq, Tk, H, Hkv, D, causal, window, rel): the chip_smoke cases at
@@ -165,13 +239,12 @@ def _elementwise_ratio(got, ref, rounded, extra=None):
 
 def _check_training_kernels(q, k, v, do, kw):
     """K1, K2, K3 on the card against their plain versions, and which
-    launcher each call counted on: bf16 K1 and K3 on the tensor-core
-    builds, f32 on the FMA ones."""
+    launcher each call counted on: bf16 on the tensor-core builds, f32
+    on the FMA ones."""
     bf = q.dtype == torch.bfloat16
-    counters = ((FA._flash_fwd_tc, FA.flash_dq, FA._flash_dkv_tc) if bf
-                else (FA.flash_fwd, FA.flash_dq, FA.flash_dkv))
-    idle = ((FA.flash_fwd, FA.flash_dkv) if bf
-            else (FA._flash_fwd_tc, FA._flash_dkv_tc))
+    tc = (FA._flash_fwd_tc, FA._flash_dq_tc, FA._flash_dkv_tc)
+    fma = (FA.flash_fwd, FA.flash_dq, FA.flash_dkv)
+    counters, idle = (tc, fma) if bf else (fma, tc)
     counts = [c.launches for c in counters + idle]
     o, lse = FA.flash_fwd(q, k, v, **kw)
     o_ref, lse_ref = FA.flash_fwd_reference(q, k, v, **kw)
@@ -202,7 +275,7 @@ def test_training_kernels_match_plain_versions(cuda, dtype, case):
     """K1, K2, K3 on the card against their plain versions on the same
     inputs, per element (f32 results: summation order only; bf16 o: one
     rounding, and the backward reads the rounded o through delta in
-    both; the bf16 K1 and K3 also round P or dS to bf16 once, on tensor
+    both; the bf16 builds also round P or dS to bf16 once, on tensor
     cores), with each launch counted on its dtype's launcher."""
     _check_training_kernels(*_train_inputs(TRAIN_CASES[case], dtype, cuda))
 
@@ -210,7 +283,7 @@ def test_training_kernels_match_plain_versions(cuda, dtype, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kvh", [4, 2], ids=["mha", "gqa"])
 def test_tensor_core_kernels_read_fused_views(cuda, kvh):
-    """The bf16 (tensor-core) K1 and K3 on q, k, v that are strided
+    """The bf16 (tensor-core) K1, K2 and K3 on q, k, v that are strided
     slices of one fused (B, T, H + 2 Hkv, D) tensor, as the model's are,
     under the same rule."""
     g = torch.Generator(device="cpu").manual_seed(11 + kvh)
@@ -248,18 +321,21 @@ def test_tensor_core_kernels_take_a_cotangent_broadcast_over_the_batch(
 @pytest.mark.parametrize("case", ["mha", "gqa", "window", "ragged"])
 def test_rule_sees_an_e4m3_rounding_of_p_and_ds(cuda, case):
     """The tensor-core rule is not loose: the plain version with P (for
-    o) and dS (for dK) rounded to float8_e4m3fn before the second product
-    fails it on the card, where the same rounding to bf16 passes."""
+    o) and dS (for dQ and dK) rounded to float8_e4m3fn before the second
+    product fails it on the card, where the same rounding to bf16
+    passes."""
     q, k, v, do, kw = _train_inputs(TRAIN_CASES[case], torch.bfloat16, cuda)
     o, lse = FA.flash_fwd_reference(q, k, v, **kw)
     delta = FA.attention_delta(do, o)
+    dq = FA.flash_dq_reference(q, k, v, do, lse, delta, **kw)
     dk, dv = FA.flash_dkv_reference(q, k, v, do, lse, delta, **kw)
     terms = FA.tc_rounding_terms(q, k, v, do, lse, delta, **kw)
     for p_dtype, fails in ((torch.bfloat16, False),
                            (torch.float8_e4m3fn, True)):
-        s_o, s_dk, s_dv = FA.rounded_reference(q, k, v, do, lse, delta,
-                                               p_dtype, **kw)
+        s_o, s_dq, s_dk, s_dv = FA.rounded_reference(q, k, v, do, lse, delta,
+                                                     p_dtype, **kw)
         ratios = (_elementwise_ratio(s_o, o, True, terms["o"]),
+                  _elementwise_ratio(s_dq, dq, False, terms["dq"]),
                   _elementwise_ratio(s_dk, dk, False, terms["dk"]))
         assert all((r > 1.0) == fails for r in ratios), (p_dtype, ratios)
         assert (_elementwise_ratio(s_dv, dv, False, terms["dv"]) > 1.0) \
@@ -335,7 +411,11 @@ K5_CASES = {
     "ragged-tile": ((200, 96, 136), (100, 32, 136), torch.bfloat16, None),
     "unaligned": ((64, 40, 70), (64, 40, 70), torch.float32,
                   torch.bfloat16),
+    "unaligned-bf16": ((64, 44, 70), (64, 44, 70), torch.bfloat16, None),
+    "rows-8": ((8, 2048, 6144), (8, 512, 1024), torch.bfloat16, None),
     "probe": ((16384, 1024, 4096), (512, 1024, 1024), torch.bfloat16, None),
+    "probe-f32-out": ((16384, 2048, 8192), (512, 1024, 1024),
+                      torch.bfloat16, torch.float32),
 }
 
 
@@ -345,17 +425,23 @@ def test_cuda_blocked_matmul_matches_plain_version(cuda, case):
     """K5 on the card and its plain version, each element within the
     f64 rule (`_f64_ratio`): the plain version passing shows the rule is
     fair to an f32 sum in another order. Shapes: the JAX test's, tiles
-    with ragged edges, rows that are not 16-byte vectors, the probe's."""
+    with ragged edges, rows that are not 16-byte vectors, 8 rows, the
+    probe's. Each call counts on the build `blocked_matmul_route` picks
+    (bf16 at aligned shapes: the tensor-core `_blocked_matmul_tc`)."""
     from shallowspeed_tpu_torch.ops import matmul as M
 
     (m, k, n), (bm, bk, bn), dtype, out_dtype = K5_CASES[case]
     g = torch.Generator(device="cpu").manual_seed(7)
     x = torch.randn(m, k, generator=g).to(cuda).to(dtype)
     y = torch.randn(k, n, generator=g).to(cuda).to(dtype)
-    before = M.blocked_matmul.launches
+    route = M.blocked_matmul_route(dtype, dtype, k, n)
+    assert route == ("fma" if case in ("f32", "unaligned", "unaligned-bf16")
+                     else "tc")
+    counter = M._blocked_matmul_tc if route == "tc" else M.blocked_matmul
+    before = counter.launches
     got = M.blocked_matmul(x, y, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert M.blocked_matmul.launches == before + 1
+    assert counter.launches == before + 1
     assert got.dtype == (out_dtype or dtype) and got.shape == (m, n)
     plain = M.blocked_matmul_reference(x, y, bm=bm, bk=bk, bn=bn,
                                        out_dtype=out_dtype)

@@ -1,7 +1,8 @@
-"""The rule the tensor-core (bf16) builds of K1 and K3 are held to on the
-card (`flash_attention.kernel_ratio` with `tc_rounding_terms`), checked
-on the CPU where no kernel runs: those kernels round P (for o and dV)
-and dS (for dK) to bf16 once before the second product, which the plain
+"""The rule the tensor-core (bf16) builds of K1, K2 and K3 are held to on
+the card (`flash_attention.kernel_ratio` with `tc_rounding_terms`),
+checked on the CPU where no kernel runs: those kernels round P (for o
+and dV) and dS (for dQ and dK) to bf16 once before the second product,
+which the plain
 versions and the JAX kernels keep in f32. The rule must accept the plain
 arithmetic with that one bf16 rounding (`rounded_reference`), accept
 the exact plain output, and reject the same arithmetic with a float8
@@ -72,8 +73,9 @@ def test_rule_accepts_a_bf16_rounding_of_p_and_ds(case):
     product, lies within the rule on every output."""
     q, k, v, do, kw = _inputs(case)
     ref, lse, delta, terms = _plain(q, k, v, do, kw)
-    got = FA.rounded_reference(q, k, v, do, lse, delta, torch.bfloat16, **kw)
-    assert max(_ratios(got, ref, terms)) <= 1.0
+    o, _, dk, dv = FA.rounded_reference(q, k, v, do, lse, delta,
+                                        torch.bfloat16, **kw)
+    assert max(_ratios((o, dk, dv), ref, terms)) <= 1.0
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -83,9 +85,9 @@ def test_rule_rejects_an_e4m3_rounding_of_p_and_ds(case):
     loose."""
     q, k, v, do, kw = _inputs(case)
     ref, lse, delta, terms = _plain(q, k, v, do, kw)
-    got = FA.rounded_reference(q, k, v, do, lse, delta, torch.float8_e4m3fn,
-                               **kw)
-    r_o, r_dk, _ = _ratios(got, ref, terms)
+    o, _, dk, dv = FA.rounded_reference(q, k, v, do, lse, delta,
+                                        torch.float8_e4m3fn, **kw)
+    r_o, r_dk, _ = _ratios((o, dk, dv), ref, terms)
     assert r_o > 1.0 and r_dk > 1.0
 
 
@@ -107,6 +109,73 @@ def test_rule_accepts_the_exact_plain_output(case):
     assert FA.kernel_ratio(exact[2], ref[2])[1] <= 1.0
 
 
+def _dq_case(case):
+    """A case's inputs, the plain dQ, lse, delta and the dq term."""
+    q, k, v, do, kw = _inputs(case)
+    o, lse = FA.flash_fwd_reference(q, k, v, **kw)
+    delta = FA.attention_delta(do, o)
+    dq = FA.flash_dq_reference(q, k, v, do, lse, delta, **kw)
+    term = FA.tc_rounding_terms(q, k, v, do, lse, delta, **kw)["dq"]
+    return (q, k, v, do, lse, delta, kw), dq, term
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_dq_rule_accepts_a_bf16_rounding_of_ds(case):
+    """K2's tensor-core build rounds dS to bf16 before dQ = dS K: the
+    plain dQ with that one rounding lies within the rule with the dq
+    term."""
+    args, ref, term = _dq_case(case)
+    _, got, _, _ = FA.rounded_reference(*args[:6], torch.bfloat16, **args[6])
+    assert FA.kernel_ratio(got, ref, extra=term)[1] <= 1.0
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_dq_rule_rejects_an_e4m3_rounding_of_ds(case):
+    """dS rounded to float8 e4m3 before dQ = dS K breaks the rule: the
+    dq term is not loose."""
+    args, ref, term = _dq_case(case)
+    _, got, _, _ = FA.rounded_reference(*args[:6], torch.float8_e4m3fn,
+                                        **args[6])
+    assert FA.kernel_ratio(got, ref, extra=term)[1] > 1.0
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_dq_rule_accepts_the_exact_plain_dq(case):
+    """The plain dQ in float64 on the same bf16 values lies within the
+    rule with the dq term, and within the f32 rule without it."""
+    (q, k, v, do, lse, delta, kw), ref, term = _dq_case(case)
+    exact = FA.flash_dq_reference(*(x.double() for x in (q, k, v, do, lse,
+                                                          delta)), **kw)
+    assert FA.kernel_ratio(exact.float(), ref, extra=term)[1] <= 1.0
+    assert FA.kernel_ratio(exact.float(), ref)[1] <= 1.0
+
+
+@pytest.mark.parametrize("case", ["gqa-128", "window-64", "full-gqa-64"])
+def test_rounded_reference_without_rounding_is_the_plain_versions(case):
+    """`rounded_reference` at p_dtype None returns the plain versions'
+    o, dQ, dK and dV exactly."""
+    (q, k, v, do, lse, delta, kw), dq, _ = _dq_case(case)
+    got = FA.rounded_reference(q, k, v, do, lse, delta, None, **kw)
+    o, _ = FA.flash_fwd_reference(q, k, v, **kw)
+    dk, dv = FA.flash_dkv_reference(q, k, v, do, lse, delta, **kw)
+    for a, b in zip(got, (o, dq, dk, dv)):
+        assert torch.equal(a, b)
+
+
+def test_rounded_reference_dq_matches_jax_chunk_dq():
+    """`rounded_reference`'s dQ at p_dtype None against the JAX
+    `_chunk_dq` in interpret mode (GQA, hd 128, rel != 0, f32), on the
+    JAX forward's lse."""
+    q, k, v, do, kw = _inputs("rel-gqa-128", torch.float32, seed=2)
+    ref = _jax_chunks(*(x.numpy() for x in (q, k, v, do)), kw["causal"],
+                      kw["window"], kw["rel"], 32)
+    jlse = torch.from_numpy(ref["lse"].copy())
+    o, _ = FA.flash_fwd_reference(q, k, v, **kw)
+    delta = FA.attention_delta(do, o)
+    _, dq, _, _ = FA.rounded_reference(q, k, v, do, jlse, delta, None, **kw)
+    assert _rel(dq, ref["dq"]) <= GRAD_TOL
+
+
 def test_rounding_terms_bound_each_output_by_its_own_magnitudes():
     """The terms are 2^-8 of the plain arithmetic over magnitudes: at
     least 2^-8 |o| and 2^-8 |dV| element by element (the triangle
@@ -116,7 +185,10 @@ def test_rounding_terms_bound_each_output_by_its_own_magnitudes():
     (o, dk, dv), _, _, terms = _plain(q, k, v, do, kw)
     assert terms["o"].shape == o.shape
     assert terms["dk"].shape == terms["dv"].shape == dk.shape
-    for name, out in (("o", o), ("dk", dk), ("dv", dv)):
+    dq = FA.flash_dq_reference(q, k, v, do, *FA.flash_fwd_reference(
+        q, k, v, **kw)[1:], FA.attention_delta(do, o), **kw)
+    assert terms["dq"].shape == q.shape
+    for name, out in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
         assert (terms[name] >= FA.BF16_ROUND * out.abs() - 1e-6).all(), name
 
 
@@ -125,12 +197,15 @@ def test_bf16_cpu_tensors_take_the_plain_versions(case):
     """bf16 tensors on the CPU go to the plain versions and launch
     nothing, the tensor-core launchers included."""
     q, k, v, do, kw = _inputs(case)
-    counters = (FA.flash_fwd, FA._flash_fwd_tc, FA.flash_dkv,
-                FA._flash_dkv_tc)
+    counters = (FA.flash_fwd, FA._flash_fwd_tc, FA.flash_dq,
+                FA._flash_dq_tc, FA.flash_dkv, FA._flash_dkv_tc)
     before = [c.launches for c in counters]
     o, lse = FA.flash_fwd(q, k, v, **kw)
     delta = FA.attention_delta(do, o)
+    dq = FA.flash_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = FA.flash_dkv(q, k, v, do, lse, delta, **kw)
+    assert torch.equal(dq, FA.flash_dq_reference(q, k, v, do, lse, delta,
+                                                 **kw))
     ref_o, ref_lse = FA.flash_fwd_reference(q, k, v, **kw)
     ref_dk, ref_dv = FA.flash_dkv_reference(q, k, v, do, lse, delta, **kw)
     assert torch.equal(o, ref_o) and torch.equal(lse, ref_lse)

@@ -22,7 +22,10 @@ import torch
 from shallowspeed_tpu.ops.matmul import blocked_matmul as jax_blocked
 from shallowspeed_tpu_torch import bench_matmul
 from shallowspeed_tpu_torch.ops.matmul import (blocked_matmul,
-                                               blocked_matmul_reference)
+                                               blocked_matmul_reference,
+                                               blocked_matmul_route,
+                                               dequant_matmul_route,
+                                               tc_splits, tc_warpgroups)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -158,3 +161,79 @@ def test_probe_prints_the_reference_records(capsys):
         assert set(want) <= set(q)
         assert q["metric"] == "matmul_tflops" and q["error"] is None
         assert q["device"] == "cpu" and q["ms"] > 0
+
+
+@pytest.mark.parametrize("x_dtype,y_dtype,k,n,route", [
+    (torch.bfloat16, torch.bfloat16, 1024, 4096, "tc"),
+    (torch.bfloat16, torch.bfloat16, 128, 384, "tc"),
+    (torch.bfloat16, torch.bfloat16, 100, 384, "fma"),   # K % 8
+    (torch.bfloat16, torch.bfloat16, 128, 380, "fma"),   # N % 8
+    (torch.float32, torch.float32, 1024, 4096, "fma"),   # f32 stays f32
+    (torch.bfloat16, torch.float32, 128, 384, "fma"),
+])
+def test_blocked_matmul_route(x_dtype, y_dtype, k, n, route):
+    """K5's build is chosen from dtypes and shape alone, before any
+    launch: bf16 with TMA's 16-byte row strides goes to the tensor
+    cores, everything else to the f32-FMA kernel."""
+    assert blocked_matmul_route(x_dtype, y_dtype, k, n) == route
+
+
+@pytest.mark.parametrize("x_dtype,k,n,route", [
+    (torch.bfloat16, 2048, 6144, "tc"),
+    (torch.bfloat16, 2048, 32768, "tc"),
+    (torch.bfloat16, 48, 40, "fma"),        # N % 16
+    (torch.bfloat16, 44, 48, "fma"),        # K % 8
+    (torch.float32, 2048, 6144, "fma"),     # the f32 logits checks
+])
+def test_dequant_matmul_route(x_dtype, k, n, route):
+    """`dequant_matmul` on the card: bf16 x at aligned shapes through
+    the tensor-core GEMM with a 1-byte B, the rest through the f32-FMA
+    kernel with a 1-byte y."""
+    assert dequant_matmul_route(x_dtype, k, n) == route
+
+
+@pytest.mark.parametrize("m,n,k", [(8, 6144, 2048), (8, 2048, 2048),
+                                   (8, 2048, 8192), (8, 8192, 2048),
+                                   (8, 32768, 2048), (300, 2048, 8192),
+                                   (16384, 4096, 1024), (8, 64, 64)])
+def test_tc_splits_fill_the_card_without_empty_splits(m, n, k):
+    """The split of K: none where the output tiles give every SM a
+    block; else at most two blocks an SM, at least 4 k tiles of 64 a
+    split, and every split of the kernel's even share (ceil(tiles /
+    splits)) non-empty."""
+    sms = 132
+    splits = tc_splits(m, n, k, sms)
+    tiles = -(-n // 128) * -(-m // (64 * tc_warpgroups(m)))
+    k_tiles = -(-k // 64)
+    if tiles >= sms or k_tiles < 8:
+        assert splits == 1
+    else:
+        assert splits > 1 and tiles * splits <= 2 * sms + tiles
+        per = -(-k_tiles // splits)
+        assert per >= 4 and (splits - 1) * per < k_tiles
+
+
+def test_tc_warpgroups_follow_the_rows():
+    """One warpgroup (64 rows) for the decode tick's 8 rows, two above
+    64."""
+    assert [tc_warpgroups(m) for m in (1, 8, 64, 65, 300)] == [1, 1, 1, 2, 2]
+
+
+@pytest.mark.parametrize("mode", [torch.int8, torch.float8_e4m3fn])
+def test_cpu_dequant_matmul_is_the_plain_version(mode):
+    """On the CPU `dequant_matmul` is `dequant_matmul_reference` and
+    launches nothing on either route."""
+    from shallowspeed_tpu_torch.ops import matmul as M
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(3, 8, 64)).astype(np.float32))
+    wq = torch.from_numpy(rng.integers(-127, 128, (64, 48)).astype(
+        np.float32)).to(mode)
+    ws = torch.from_numpy(rng.uniform(0.01, 0.1, 48).astype(np.float32))
+    before = (M._dequant_matmul_tc.launches, M._dequant_matmul_fma.launches)
+    for xx in (x, x.bfloat16()):
+        got = M.dequant_matmul(xx, wq, ws)
+        assert got.dtype == xx.dtype and got.shape == (3, 8, 48)
+        assert torch.equal(got, M.dequant_matmul_reference(xx, wq, ws))
+    assert (M._dequant_matmul_tc.launches,
+            M._dequant_matmul_fma.launches) == before
