@@ -10,15 +10,21 @@ Phases (any failure exits non-zero and prints no result line):
    from `csrc/` with nvcc (sm_90a), one nvcc per source, all started
    together; print each kernel's registers and spills, and the dynamic
    shared memory of the tensor-core builds (K1, K2, K3 in bf16 and the
-   GEMM of K5 and `dequant_matmul`), which must compile without a spill.
+   GEMM of K5 and `dequant_matmul`), which must compile without a spill,
+   and of K4's split kernel, whose 32 builds and 4 merge builds must
+   compile without a spill too; print K4's split count at the serving
+   shape.
 2. Hold each kernel against its plain torch version on the card: K4
    (float pools, and its int8 branch with q in f32 and in bf16) at
-   small shapes and at the serving path's own shapes; K1, K2 and K3
-   (flash forward, dq, dk/dv) at small MHA, GQA, window, rel != 0 and
-   ragged-T shapes in f32 and bf16, and at the training shape (B 4,
-   T 2048, 16 heads x 128, causal) in bf16, on contiguous q, k, v and
-   again on strided views of one fused qkv tensor, as the model passes
-   them. Each element is held to `flash_attention.kernel_ratio`'s rule:
+   small shapes, at the serving path's own shapes and at the edges of
+   its split (a row at pos 0 beside full tables, rows with fewer live
+   columns than splits, a window starting inside a block, W = 1, G = 8,
+   3 and 40, bs 8 and 32), each printed with its split count; K1, K2
+   and K3 (flash forward, dq, dk/dv) at small MHA, GQA, window,
+   rel != 0 and ragged-T shapes in f32 and bf16, and at the training
+   shape (B 4, T 2048, 16 heads x 128, causal) in bf16, on contiguous
+   q, k, v and again on strided views of one fused qkv tensor, as the
+   model passes them. Each element is held to `flash_attention.kernel_ratio`'s rule:
    KERNEL_TOL of |ref| + mean |ref|, plus one bf16 ulp where the kernel
    rounds its output to bf16, plus for the bf16 builds (wgmma) the
    `tc_rounding_terms` of their one rounding of P or dS to bf16; the
@@ -77,7 +83,9 @@ Phases (any failure exits non-zero and prints no result line):
    probe's narrow-K shape (16384, 1024) @ (1024, 4096) in bf16, and
    `dequant_matmul` at each dense shape of a decode tick (8 rows, int8
    weights), beside their plain versions, one library call computing
-   the same function, and their bounds.
+   the same function, and their bounds; K4 and `dequant_matmul` also by
+   the profiler's device time a call (theirs and the library's), and
+   K4's split and merge kernels against the live length.
 5b. The contiguous `generate()`: 8 prompts of 1024 tokens, 64 greedy new
    tokens, prefilled through K1 (`flash_prefill_at=1024`), with a bf16
    and with an int8 cache; K1's bf16 build launches once per layer per
@@ -98,7 +106,8 @@ Phases (any failure exits non-zero and prints no result line):
    and backward (K2 and K3 together), and their bounds.
 
 The last lines are the card's name and power limit, one JSON line with
-the kernels' numbers, and `{"ok": true, "device": {...}}`.
+the kernels' numbers (with `device_ms` / `library_device_ms` where the
+profiler timed them), and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -211,11 +220,17 @@ def _ptxas_lines(log: str) -> list[str]:
     and spills, from `nvcc -Xptxas -v` output."""
     out, name, spill = [], "?", ""
     for line in log.splitlines():
-        m = re.search(r"((?:paged_decode_int8|paged_decode|flash_fwd_tc|"
+        m = re.search(r"((?:paged_decode_combine|paged_decode|flash_fwd_tc|"
                       r"flash_fwd|flash_dq_tc|flash_dq|flash_dkv_tc|"
                       r"flash_dkv|gemm_tc|split_sum|blocked_matmul)_kernel)"
                       r"(?:I(\w+)|\w*)'", line)
-        if m and m.group(1) == "gemm_tc_kernel":        # <WG, B dtype>
+        if m and m.group(1).startswith("paged_decode") and m.group(2):
+            # <q dtype[, pool dtype], hd[, rows a warp]>
+            ints = re.findall(r"Li(\d+)E", m.group(2))
+            tag = ",".join(_type_args(m.group(2)) + ints[:1]
+                           + [f"g{g}" for g in ints[1:2]])
+            name = f"{m.group(1)}<{tag}>"
+        elif m and m.group(1) == "gemm_tc_kernel":        # <WG, B dtype>
             wg, bt = re.findall(r"Li(\d+)E", m.group(2))[:2]
             name = f"gemm_tc_kernel<wg{wg},{_GEMM_B[bt]}>"
         elif m and m.group(1).endswith("_tc_kernel"):   # <int D>, bf16
@@ -273,6 +288,33 @@ def check_tc_builds(logs: dict) -> None:
         for tag, smem in builds:
             print(f"  {src}{tag}: {smem} bytes of dynamic shared memory",
                   flush=True)
+
+
+def check_decode_builds(logs: dict, dev) -> None:
+    """Phase 1: every build of K4's split and merge kernels compiles
+    without a spill; the split kernel's dynamic shared memory at the
+    serving shape (G = 1, hd 128) and at G = 8, per pool dtype."""
+    from shallowspeed_tpu_torch.ops import flash_attention as FA
+
+    lines = [ln for ln in _ptxas_lines(logs["paged_decode"])
+             if ln.startswith("paged_decode")]
+    # 2 q dtypes x 2 hd x 2 pool kinds x 4 row counts, and 4 merges
+    if len(lines) != 36 or not all(
+            " 0 bytes spill stores, 0 bytes spill loads" in ln
+            for ln in lines):
+        raise AssertionError(f"paged_decode: want 36 builds without "
+                             f"spills, ptxas says {lines}")
+    lib = FA._kernel()
+    for pools, label in ((0, "f32"), (1, "bf16"), (2, "int8")):
+        print(f"  paged_decode_kernel {label} pools, hd 128: "
+              f"{lib.paged_decode_smem(1, 128, pools)} bytes of dynamic "
+              f"shared memory at G = 1, "
+              f"{lib.paged_decode_smem(8, 128, pools)} at G = 8",
+              flush=True)
+    s, hkv = SLICE["slots"], SLICE["kv_heads"]
+    print(f"  decode_splits at the serving shape ({s} slots x {hkv} kv "
+          f"heads, W 128, {FA._sm_count(dev)} SMs): "
+          f"{FA.decode_splits(s, hkv, 128, FA._sm_count(dev))}", flush=True)
 
 
 def _time_ms(fn, inputs, repeats=7):
@@ -357,15 +399,33 @@ def _decode_err(got, q, pool, bt, pos, window) -> tuple[float, float]:
     return float(diff.max()), float((diff / allow).max())
 
 
+def _edge_pos(name, shape, splits, rng):
+    """Positions of an edge case (the last row is then made a scratch
+    row by `_decode_inputs`), or None for random ones."""
+    s, bs, w = shape["slots"], shape["block_size"], shape["width"]
+    if name == "edge-pos0-full":        # pos 0 beside full tables
+        return [0] + [w * bs - 1] * (s - 1)
+    if name == "edge-short":            # fewer live columns than splits
+        return rng.integers(0, max(1, splits - 1) * bs, s)
+    if name == "edge-w1":
+        return rng.integers(0, bs, s)
+    return None
+
+
 def check_kernels(dev) -> dict:
     """Phase 2: the paged decode kernel against its plain version, over
     float pools (max |diff| / max |ref|: 1e-4 in f32, 1e-2 in bf16) and
-    over int8 pools (per element, `_decode_err`)."""
+    over int8 pools (per element, `_decode_err`), at small and serving
+    shapes and at the edges of the split: a row at pos 0 beside full
+    tables, rows with fewer live columns than splits, a window that
+    starts inside a block of a long table, W = 1, G = 8, G = 3 (rows
+    split unevenly over the warps), G = 40 (two row chunks), bs 8 and
+    32."""
     import torch
 
     from shallowspeed_tpu_torch.ops.flash_attention import (
-        _paged_flash_decode_int8, paged_flash_decode,
-        paged_flash_decode_reference)
+        _paged_flash_decode_int8, _sm_count, decode_splits,
+        paged_flash_decode, paged_flash_decode_reference)
 
     rng = np.random.default_rng(0)
     small = dict(slots=4, head_dim=64, block_size=8, width=3)
@@ -377,48 +437,65 @@ def check_kernels(dev) -> dict:
         ("slice-mha", big, 0),
         ("slice-gqa", dict(big, kv_heads=4), 0),
         ("slice-window", big, 100),
+        ("edge-pos0-full", big, 0),
+        ("edge-short", big, 0),
+        ("edge-window-mid", big, 77),
+        ("edge-w1", dict(big, width=1), 0),
+        ("edge-g8", dict(big, kv_heads=2), 0),
+        ("edge-g3", dict(big, heads=12, kv_heads=4), 0),
+        ("edge-g40", dict(big, heads=40, kv_heads=1), 0),
+        ("edge-bs8", dict(big, block_size=8), 0),
+        ("edge-bs32", dict(big, block_size=32, width=32), 0),
     ]
     # f32: only the summation order differs. bf16: the output is rounded
     # to bf16 once, and the reference rounds P to bf16 before PV.
     tols = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     worst = {"paged_flash_decode": 0.0, "paged_flash_decode_int8": 0.0}
     for name, shape, window in cases:
+        splits = decode_splits(shape["slots"], shape["kv_heads"],
+                               shape["width"], _sm_count(dev))
+        pos = _edge_pos(name, shape, splits, rng)
         for dtype, tol in tols.items():
-            q, pool, bt, pos, w = _decode_inputs(rng, dev, dtype,
-                                                 window=window, **shape)
-            got = paged_flash_decode(q, pool, bt, pos, window=w)
+            tag = f"{name} {str(dtype)[6:]} ({splits} splits)"
+            q, pool, bt, p, w = _decode_inputs(rng, dev, dtype,
+                                               window=window, pos=pos,
+                                               **shape)
+            before = paged_flash_decode.launches
+            got = paged_flash_decode(q, pool, bt, p, window=w)
             torch.cuda.synchronize()
-            ref = paged_flash_decode_reference(q, pool, bt, pos, window=w)
+            if paged_flash_decode.launches != before + 1:
+                raise AssertionError("float pools did not launch the "
+                                     "float kernel once")
+            ref = paged_flash_decode_reference(q, pool, bt, p, window=w)
             err = float((got.float() - ref.float()).abs().max())
             rel = err / max(1e-6, float(ref.float().abs().max()))
             if not (rel <= tol and torch.isfinite(got).all()):
-                raise AssertionError(f"paged_flash_decode {name} {dtype}: "
+                raise AssertionError(f"paged_flash_decode {tag}: "
                                      f"rel err {rel:.3e} > {tol:g}")
-            print(f"check paged_flash_decode {name} {str(dtype)[6:]}: "
+            print(f"check paged_flash_decode {tag}: "
                   f"max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g})",
                   flush=True)
             if name == "slice-mha" and dtype == torch.bfloat16:
                 worst["paged_flash_decode"] = err
 
-            q, pool, bt, pos, w = _decode_inputs(rng, dev, dtype,
-                                                 window=window,
-                                                 kv_quant="int8", **shape)
+            q, pool, bt, p, w = _decode_inputs(rng, dev, dtype,
+                                               window=window, pos=pos,
+                                               kv_quant="int8", **shape)
             before = _paged_flash_decode_int8.launches
-            got = paged_flash_decode(q, pool, bt, pos, window=w)
+            got = paged_flash_decode(q, pool, bt, p, window=w)
             torch.cuda.synchronize()
             if _paged_flash_decode_int8.launches != before + 1:
                 raise AssertionError("int8 pools did not launch the int8 "
-                                     "kernel")
-            err, ratio = _decode_err(got, q, pool, bt, pos, w)
+                                     "kernel once")
+            err, ratio = _decode_err(got, q, pool, bt, p, w)
             finite = bool(torch.isfinite(got).all())
-            print(f"check paged_flash_decode_int8 {name} {str(dtype)[6:]}: "
+            print(f"check paged_flash_decode_int8 {tag}: "
                   f"max_abs_err {err:.3e}, worst element at {ratio:.3e} of "
                   f"its allowance", flush=True)
             if not (ratio <= 1.0 and finite):
-                raise AssertionError(f"paged_flash_decode_int8 {name} "
-                                     f"{dtype}: an element off by "
-                                     f"{ratio:.3e} x its allowance "
-                                     f"(finite: {finite})")
+                raise AssertionError(f"paged_flash_decode_int8 {tag}: an "
+                                     f"element off by {ratio:.3e} x its "
+                                     f"allowance (finite: {finite})")
             if name == "slice-mha" and dtype == torch.bfloat16:
                 worst["paged_flash_decode_int8"] = err
     return worst
@@ -1127,21 +1204,24 @@ def time_kernels(dev, stats) -> dict:
     reads them, beside the plain version, one library call (SDPA over
     the gathered table; for int8 pools over the gathered table
     dequantized to bf16 beforehand, outside the timed call) and the
-    bound."""
+    bound; the kernel's and the library call's times by events and, per
+    call, on the device (the profiler)."""
     import torch
     import torch.nn.functional as F
 
     from shallowspeed_tpu_torch.ops.flash_attention import (
-        _paged_flash_decode_int8, paged_flash_decode,
-        paged_flash_decode_reference)
+        _paged_flash_decode_int8, _sm_count, decode_splits,
+        paged_flash_decode, paged_flash_decode_reference)
     from shallowspeed_tpu_torch.serving.cache import gather_table
     from shallowspeed_tpu_torch.serving.engine import table_width
 
     bs, hkv, hd = SLICE["block_size"], SLICE["kv_heads"], SLICE["head_dim"]
     s, h = SLICE["slots"], SLICE["heads"]
-    width = table_width(stats["max_table_blocks"], 4)
     rng = np.random.default_rng(2)
     pos = rng.integers(128, 1025, s) + MAX_NEW // 2
+    # the bucket of the longest request, wide enough for every position
+    width = table_width(max(stats["max_table_blocks"],
+                            int(pos.max()) // bs + 1), 4)
     out = {}
     for name, kvq in (("paged_flash_decode", ""),
                       ("paged_flash_decode_int8", "int8")):
@@ -1176,6 +1256,14 @@ def time_kernels(dev, stats) -> dict:
         ms = _time_ms(kern, sets)
         plain_ms = _time_ms(plain, sets)
         library_ms = _time_ms(library, lib_sets)
+        # device time a call, from the profiler: the event times above
+        # include the wrapper's host work between these short calls
+        device = {}
+        for key, fn, args in (("device_ms", kern, sets),
+                              ("library_device_ms", library, lib_sets)):
+            prof = _profiled(lambda: [fn(*a) for a in args], [])
+            device[key] = (prof["device_busy_ms"] / len(args)
+                           if prof["device_busy_ms"] is not None else None)
         # timing launches do not count
         paged_flash_decode.launches, _paged_flash_decode_int8.launches = \
             counts
@@ -1191,14 +1279,66 @@ def time_kernels(dev, stats) -> dict:
         n_pos = int(sum(p + 1 for p in pos[:-1])) + 1         # + scratch
         flops = 4 * h * hd * n_pos                            # QK and PV
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-        out[name] = {"ms": ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms,
+        out[name] = {"ms": ms, "device_ms": device["device_ms"],
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library_device_ms": device["library_device_ms"],
                      "bound_ms": 1e3 * max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations", "width": width,
+                     "splits": decode_splits(s, hkv, width,
+                                             _sm_count(dev)),
                      "live_kv_bytes": live * per_block}
         print(f"time {name}: " + json.dumps(out[name]), flush=True)
+    out["sweep"] = _decode_sweep(dev)
     return out
+
+
+def _decode_sweep(dev) -> list:
+    """Phase 5: K4's device time a call against the live length, every
+    row (but the scratch row) at one position over a 128-column table,
+    at the serving shapes: its split and merge kernels apart, and the
+    split kernel's rate over the live K/V bytes (the fixed cost and the
+    per-byte rate of the design)."""
+    import torch
+
+    from shallowspeed_tpu_torch.ops.flash_attention import (
+        _paged_flash_decode_int8, paged_flash_decode)
+
+    bs, hkv, hd = SLICE["block_size"], SLICE["kv_heads"], SLICE["head_dim"]
+    s = SLICE["slots"]
+    rng = np.random.default_rng(3)
+    groups = [("merge", ("paged_decode_combine",)),
+              ("split", ("paged_decode_kernel",))]
+    counts = (paged_flash_decode.launches, _paged_flash_decode_int8.launches)
+    rows = []
+    for pools, kvq in (("bf16", ""), ("int8", "int8")):
+        per_block = 2 * hkv * bs * (hd + 4 if kvq else 2 * hd)
+        for n_pos in (16, 256, 1024, 2048):
+            sets = [_decode_inputs(rng, dev, torch.bfloat16, width=128,
+                                   pos=np.full(s, n_pos - 1), kv_quant=kvq,
+                                   **SLICE) for _ in range(8)]
+            for q, pool, bt, p, w in sets[:2]:
+                paged_flash_decode(q, pool, bt, p, window=w)
+            prof = _profiled(lambda: [paged_flash_decode(q, pool, bt, p,
+                                                         window=w)
+                                      for q, pool, bt, p, w in sets],
+                             groups)
+            if prof["device_ms"] is None:
+                raise AssertionError("the profiler saw no device time")
+            split = prof["device_ms"]["split"] / len(sets)
+            live = (s - 1) * ((n_pos - 1) // bs + 1) + 1      # + scratch
+            row = {"pools": pools, "positions": n_pos,
+                   "split_ms": split,
+                   "merge_ms": prof["device_ms"]["merge"] / len(sets),
+                   "split_gb_per_s": live * per_block / (split * 1e-3)
+                   / 1e9}
+            rows.append(row)
+            print("time paged_flash_decode sweep: " + json.dumps(row),
+                  flush=True)
+            del sets
+    paged_flash_decode.launches, _paged_flash_decode_int8.launches = counts
+    torch.cuda.empty_cache()
+    return rows
 
 
 # the dense shapes of one decode tick of the 1.21B LM, (K, N) with their
@@ -1834,6 +1974,7 @@ def main() -> int:
         for line in _ptxas_lines(log):
             print("  " + line, flush=True)
     check_tc_builds(_build.build_logs)
+    check_decode_builds(_build.build_logs, dev)
 
     from shallowspeed_tpu_torch.models import transformer as T
     from shallowspeed_tpu_torch.weights import leaves, params_from_numpy
@@ -1935,6 +2076,8 @@ def main() -> int:
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
         "library_ms": timing[name]["library_ms"],
+        "device_ms": timing[name].get("device_ms"),
+        "library_device_ms": timing[name].get("library_device_ms"),
     } for name, (cu, ref) in where.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

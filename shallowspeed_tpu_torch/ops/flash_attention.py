@@ -25,9 +25,13 @@ rel != 0; `flash_attention` passes 0). lse and delta are (B, H, Tq) f32.
 The kernels read q, k, v and dO through their strides (the model's q,
 k, v are slices of one fused projection): nothing is copied.
 
-The decode kernel keeps its probabilities in f32 through the PV
-product, where its reference casts them to V's dtype (float pools) or
-to q's dtype (int8 pools) first; the JAX kernel keeps them in f32 too.
+The decode kernel splits each (slot, kv head) row's live table columns
+over `decode_splits` thread blocks, which write f32 partials (m, l,
+unnormalised acc) into scratch, and merges them in a second kernel
+launched by the same C entry. It keeps its probabilities in f32
+through the PV product, where its reference casts them to V's dtype
+(float pools) or to q's dtype (int8 pools) first; the JAX kernel keeps
+them in f32 too.
 In bf16 the kernel and its reference differ by that one rounding. The
 tensor-core K1, K2 and K3 round the other way: P (and K2's and K3's dS)
 to bf16 before the second product, where the plain versions keep f32;
@@ -49,7 +53,6 @@ from shallowspeed_tpu_torch.serving.cache import gather_table
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_MAX_SMEM = 227 * 1024
 
 
 def paged_flash_decode_reference(q, pool_blk, bt, pos, *, window: int = 0):
@@ -69,14 +72,37 @@ def paged_flash_decode_reference(q, pool_blk, bt, pos, *, window: int = 0):
 @functools.cache
 def _kernel():
     lib = _build.library("paged_decode")
-    lib.paged_decode.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+    lib.paged_decode.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
-    lib.paged_decode_int8.argtypes = [ctypes.c_void_p] * 8 \
-        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.paged_decode_int8.argtypes = [ctypes.c_void_p] * 9 \
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.paged_decode.restype = lib.paged_decode_int8.restype = ctypes.c_int
+    lib.paged_decode_smem.argtypes = [ctypes.c_int] * 3
+    lib.paged_decode_smem.restype = ctypes.c_int
     lib.paged_decode_error_string.argtypes = [ctypes.c_int]
     lib.paged_decode_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# K4's split rule: enough (slot, kv head, split) blocks for every SM to
+# hold DECODE_BLOCKS_PER_SM of them, at most one split per table column
+# and at most DECODE_MAX_SPLITS (the merge pass walks them in order)
+DECODE_BLOCKS_PER_SM = 8
+DECODE_MAX_SPLITS = 64
+
+
+def decode_splits(slots: int, kv_heads: int, width: int, sms: int) -> int:
+    """How many ways K4 splits each (slot, kv head) row's live table
+    columns: a function of the shapes and the card's SM count only, so
+    the grid is fixed for given shapes and no host code reads `pos`
+    (each block finds its own share of the live columns on the card)."""
+    want = -(-DECODE_BLOCKS_PER_SM * sms // max(1, slots * kv_heads))
+    return max(1, min(width, DECODE_MAX_SPLITS, want))
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(q, kp, vp, bt, pos, window, scales=None):
@@ -126,11 +152,6 @@ def _check(q, kp, vp, bt, pos, window, scales=None):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned (the kernel "
                              f"reads it in 16-byte vectors)")
-    g = h // hkv
-    smem = 4 * (2 * g * hd + 2 * bs * hd + g * bs + 3 * g + 2 * bs)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"group {g} x block {bs} x head_dim {hd} needs "
-                         f"{smem} bytes of shared memory, over {_MAX_SMEM}")
 
 
 def paged_flash_decode(q, pool_blk, bt, pos, *, window: int = 0):
@@ -146,9 +167,11 @@ def paged_flash_decode(q, pool_blk, bt, pos, *, window: int = 0):
     (S, H, hd) in q's dtype.
 
     A CPU q takes the plain reference. A CUDA q launches the kernel
-    (q float32 or bfloat16, hd 64 or 128) or raises; each launch of the
-    float kernel adds one to `paged_flash_decode.launches`, each of the
-    int8 kernel one to `_paged_flash_decode_int8.launches`."""
+    (q float32 or bfloat16, hd 64 or 128) or raises; each call of the
+    float kernel (its split and merge passes) adds one to
+    `paged_flash_decode.launches`, each of the int8 kernel one to
+    `_paged_flash_decode_int8.launches`. Nothing here reads device data
+    or waits for the card."""
     if q.device.type == "cpu":
         return paged_flash_decode_reference(q, pool_blk, bt, pos,
                                             window=window)
@@ -158,10 +181,10 @@ def paged_flash_decode(q, pool_blk, bt, pos, *, window: int = 0):
     _check(q, kp, vp, bt, pos, int(window))
     lib = _kernel()
     out = torch.empty_like(q)
+    dims, part = _decode_dims(q, kp, bt, window)
     _build.launch(paged_flash_decode, lib.paged_decode,
                   lib.paged_decode_error_string, q.device,
-                  *_ptrs(q, kp, vp, bt, pos, out),
-                  *_decode_dims(q, kp, bt, window))
+                  *_ptrs(q, kp, vp, bt, pos, out, part), *dims)
     return out
 
 
@@ -181,10 +204,11 @@ def _paged_flash_decode_int8(q, pool_blk, bt, pos, window):
     _check(q, kp, vp, bt, pos, int(window), scales)
     lib = _kernel()
     out = torch.empty_like(q)
+    dims, part = _decode_dims(q, kp, bt, window)
     _build.launch(_paged_flash_decode_int8, lib.paged_decode_int8,
                   lib.paged_decode_error_string, q.device,
-                  *_ptrs(q, kp, scales[0], vp, scales[1], bt, pos, out),
-                  *_decode_dims(q, kp, bt, window))
+                  *_ptrs(q, kp, scales[0], vp, scales[1], bt, pos, out,
+                         part), *dims)
     return out
 
 
@@ -192,11 +216,17 @@ _paged_flash_decode_int8.launches = 0
 
 
 def _decode_dims(q, kp, bt, window):
-    """The decode entries' trailing ints: slots, heads, kv heads,
-    head_dim, block size, table width, window, dtype."""
+    """The decode entries' trailing ints (slots, heads, kv heads,
+    head_dim, block size, table width, window, splits, dtype) and the
+    f32 scratch of the splits' partials (acc, then m and l), whose size
+    follows from the shapes alone."""
     s, h, hd = q.shape
-    return (s, h, kp.shape[1], hd, kp.shape[2], bt.shape[1], int(window),
-            _DTYPES[q.dtype])
+    hkv, w = kp.shape[1], bt.shape[1]
+    splits = decode_splits(s, hkv, w, _sm_count(q.device))
+    part = torch.empty(s * h * splits * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+    return (s, h, hkv, hd, kp.shape[2], w, int(window), splits,
+            _DTYPES[q.dtype]), part
 
 
 def _ptrs(*tensors):

@@ -91,6 +91,82 @@ def test_cuda_int8_kernel_matches_plain_version(cuda, dtype, kvh, window):
     assert float(((got - ref).abs() / allow).max()) <= 1.0
 
 
+# K4's split edges at the serving width (hd 128, 8 slots): (heads, kv
+# heads, bs, W, positions or None for random ones, window). The serving
+# shape (16 kv heads, W 64) splits each row 9 ways on an H100. G = 3
+# splits the rows 2 ways unevenly over the warps; G = 40 takes two row
+# chunks (32 + 8 rows).
+SPLIT_EDGES = {
+    "pos0-beside-full": (16, 16, 16, 64, [0] + [1023] * 7, 0),
+    "shorter-than-splits": (16, 16, 16, 64, [0, 3, 15, 16, 40, 63, 17, 50],
+                            0),
+    "window-inside-a-block": (16, 16, 16, 64, None, 77),
+    "w1": (16, 16, 16, 1, [0, 3, 15, 7, 9, 1, 12, 5], 0),
+    "g8": (16, 2, 16, 64, None, 0),
+    "g3": (12, 4, 16, 64, None, 0),
+    "g40-row-chunks": (40, 1, 16, 64, None, 0),
+    "bs8": (16, 16, 8, 64, None, 0),
+    "bs32": (16, 16, 32, 32, None, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("pools", ["float", "int8"])
+@pytest.mark.parametrize("edge", list(SPLIT_EDGES))
+def test_cuda_decode_split_edges_match_plain_version(cuda, dtype, pools,
+                                                     edge):
+    """The split kernel at the edges of its split against the plain
+    version, under the bounds above: float pools 1e-4 (f32) or 1e-2
+    (bf16) of max |ref|; int8 pools per element, 1e-4 of |ref| + mean
+    |ref|, and for bf16 q one bf16 rounding of the output and the plain
+    version's rounding of P * v_s. Each call launches its build once."""
+    from shallowspeed_tpu_torch.models.kv_cache import quantize_kv
+
+    h, kvh, bs, w, pos, window = SPLIT_EDGES[edge]
+    rng = np.random.default_rng(len(edge))
+    s, hd = 8, 128
+    n = s * w + 1
+    bt = torch.from_numpy(rng.permutation(np.arange(1, n)).reshape(s, w)
+                          .astype(np.int32)).to(cuda)
+    if pos is None:
+        pos = rng.integers(0, w * bs, s)
+    pos = torch.from_numpy(np.asarray(pos, np.int32)).to(cuda)
+    shape = (n, kvh, bs, hd)
+    if pools == "int8":
+        pool = {}
+        for name in ("k", "v"):
+            pool[name], pool[name + "_s"] = quantize_kv(
+                torch.randn(shape, device=cuda))
+        added = (0, 1)
+    else:
+        pool = {"k": torch.randn(shape, device=cuda).to(dtype),
+                "v": torch.randn(shape, device=cuda).to(dtype)}
+        added = (1, 0)
+    q = torch.randn(s, h, hd, device=cuda).to(dtype)
+    before = (FA.paged_flash_decode.launches,
+              FA._paged_flash_decode_int8.launches)
+    got = FA.paged_flash_decode(q, pool, bt, pos, window=window).float()
+    assert (FA.paged_flash_decode.launches,
+            FA._paged_flash_decode_int8.launches) == (before[0] + added[0],
+                                                      before[1] + added[1])
+    ref = FA.paged_flash_decode_reference(q, pool, bt, pos,
+                                          window=window).float()
+    assert torch.isfinite(got).all()
+    if pools == "float":
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        assert float((got - ref).abs().max() / ref.abs().max()) <= tol
+        return
+    allow = 1e-4 * (ref.abs() + ref.abs().mean())
+    if dtype == torch.bfloat16:
+        pv = FA.paged_flash_decode_reference(
+            q.float(), dict(pool, v=pool["v"].abs()), bt, pos,
+            window=window)
+        allow = allow + 2.0 ** -7 * ref.abs() + 2.0 ** -8 * pv
+    assert float(((got - ref).abs() / allow).max()) <= 1.0
+
+
 def _quantized(mode, k, n, dev, seed=0):
     from shallowspeed_tpu_torch.models import transformer as T
 

@@ -77,6 +77,85 @@ def test_paged_decode_matches_jax_kernel_and_gather_reference(kvh, window):
     assert _rel(got, ref) <= TOL
 
 
+# The split kernel's edges on the card (tests/test_torch_cuda.py holds
+# the CUDA kernel against the plain version there): the plain version
+# against the JAX kernel and the gather reference at the same edges.
+# (heads, kv heads, bs, W, positions, window)
+EDGES = {
+    "g8": (16, 2, 8, 3, [23, 13, 20, 0], 0),
+    "bs32": (4, 4, 32, 3, [95, 40, 64, 0], 0),
+    "window-in-block": (4, 4, 8, 6, [45, 30, 47, 0], 13),
+    "w1": (4, 4, 8, 1, [7, 3, 0, 5], 0),
+    "ragged-rows": (4, 2, 8, 8, [63, 0, 5, 33], 0),
+}
+
+
+@pytest.mark.parametrize("edge", list(EDGES))
+def test_paged_decode_edges_match_jax_kernel_and_gather_reference(edge):
+    heads, kvh, bs, w, pos, window = EDGES[edge]
+    rng = np.random.default_rng(len(edge))
+    n, hd = 20, 8
+    k = rng.normal(size=(n, kvh, bs, hd)).astype(np.float32)
+    v = rng.normal(size=(n, kvh, bs, hd)).astype(np.float32)
+    bt = rng.integers(1, n, (len(pos), w)).astype(np.int32)
+    pos = np.asarray(pos, np.int32)
+    q = rng.normal(size=(len(pos), heads, hd)).astype(np.float32)
+    got = _port(q, k, v, bt, pos, window)
+    pool = {"k": jnp.asarray(k), "v": jnp.asarray(v)}
+    kern = np.asarray(j_paged(jnp.asarray(q), pool, jnp.asarray(bt),
+                              jnp.asarray(pos), window=window,
+                              interpret=True))
+    cfg = JT.TransformerConfig(vocab=64, d_model=heads * hd, n_heads=heads,
+                               n_kv_heads=kvh, n_layers=1, max_seq=128,
+                               attn_window=window)
+    span = np.arange(w * bs)
+    valid = span[None, :] <= pos[:, None]
+    if window > 0:
+        valid &= span[None, :] > pos[:, None] - window
+    ref = np.asarray(j_masked(jnp.asarray(q)[:, None],
+                              j_gather(pool, jnp.asarray(bt)),
+                              jnp.asarray(valid)[:, None, None, None, :],
+                              cfg))[:, 0]
+    assert got.shape == q.shape
+    assert _rel(got, kern) <= TOL
+    assert _rel(got, ref) <= TOL
+
+
+# (slots, kv heads, W): the serving tick's shape first, then GQA,
+# single-slot, narrow-table and wide shapes
+SPLIT_SHAPES = [(8, 16, 128), (8, 2, 64), (1, 1, 2048), (4, 4, 1),
+                (8, 16, 4), (64, 8, 256), (2, 32, 16)]
+
+
+@pytest.mark.parametrize("slots,kvh,w", SPLIT_SHAPES)
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_decode_splits_is_at_least_one_and_at_most_the_table(slots, kvh, w,
+                                                             sms):
+    n = FA.decode_splits(slots, kvh, w, sms)
+    assert isinstance(n, int)
+    assert 1 <= n <= w
+    assert n <= FA.DECODE_MAX_SPLITS
+
+
+def test_decode_splits_cover_the_sms_at_the_serving_shape():
+    """8 slots x 16 kv heads over a 128-column table bucket on an H100's
+    132 SMs: the (slot, kv head, split) blocks are enough for every SM to
+    hold DECODE_BLOCKS_PER_SM of them."""
+    n = FA.decode_splits(8, 16, 128, 132)
+    assert n > 1
+    assert 8 * 16 * n >= FA.DECODE_BLOCKS_PER_SM * 132
+
+
+@pytest.mark.parametrize("slots,kvh,w", SPLIT_SHAPES)
+def test_decode_splits_depends_on_the_shapes_alone(slots, kvh, w):
+    """The same shapes give the same split count (the grid a CUDA graph
+    captures), whatever was asked before."""
+    first = FA.decode_splits(slots, kvh, w, 132)
+    for other in SPLIT_SHAPES:
+        FA.decode_splits(*other, 132)
+    assert FA.decode_splits(slots, kvh, w, 132) == first
+
+
 def test_paged_decode_scratch_rows_are_finite_and_match():
     """Inactive slots (pos 0, table all scratch) come out finite and
     equal the JAX kernel's rows."""
