@@ -97,6 +97,22 @@ Phases (any failure exits non-zero and prints no result line):
    steps, with the launch counts zeroed just before them: the
    tensor-core builds of K1, K2 and K3 must each equal n_layers x steps
    after, their f32-FMA builds 0; and a finite, falling loss.
+6b. Data and checkpoints at full width, through `train_lm.main` and
+   `serve --ckpt`'s loader: a token-shard corpus (`build_shards`, vocab
+   32768, 10 % held out, 16-token motifs from numpy seed 7); run A
+   trains 6 steps from it (--val-every 3 --prefetch 2); run B trains 3
+   and saves synchronously; run C resumes B's checkpoint to step 6
+   with --async-save --keep-last 2, and its losses must equal run A's
+   bit for bit. The launch counts are zeroed before each run: K1's
+   tensor-core build n_layers x (steps + validations), K2's and K3's
+   n_layers x steps, the f32-FMA builds 0. One byte of C's checkpoint
+   is flipped: `--sample-only` must quarantine it and restore B's,
+   whose parameters then serve 4 of phase 3's requests (K4 n_layers x
+   ticks), their paged logits against the plain forward (bf16 bound).
+   Prints a `ckpt:` line (seconds and GB/s of the fetch, write, hash,
+   verify, read and placement) and a `data:` line (prefetch depth,
+   steps/s of runs A and C). The checkpoints live in a temporary
+   directory removed at the end.
 7. Training parity in f32 at full width and 2 layers: the kernels'
    loss and every gradient leaf against the plain attention under torch
    autograd, and a bf16 rounding of q and K slipped into the plain
@@ -512,6 +528,15 @@ def slice_config():
         norm="rmsnorm", ffn="swiglu")
 
 
+def _random_prompts(vocab) -> dict:
+    """Phase 3's requests: N_REQUESTS prompts of 128-1024 random ids,
+    numpy seed 1."""
+    rng = np.random.default_rng(1)
+    lens = rng.integers(128, 1025, N_REQUESTS)
+    return {f"r{i}": rng.integers(0, vocab, n).astype(np.int32)
+            for i, n in enumerate(lens)}
+
+
 def serve(dev, cfg, params, kv_quant="", weight_quant="", prompts=None,
           max_new=MAX_NEW, profile=True, label="", **engine_kw) -> dict:
     """Phase 3: the 1.21B LM served through the port's engine from the
@@ -546,10 +571,7 @@ def serve(dev, cfg, params, kv_quant="", weight_quant="", prompts=None,
     del eng.results["warmup"], eng.request_records[:]
     base = dict(eng.counters)
     if prompts is None:
-        rng = np.random.default_rng(1)
-        lens = rng.integers(128, 1025, N_REQUESTS)
-        prompts = {f"r{i}": rng.integers(0, cfg.vocab, n).astype(np.int32)
-                   for i, n in enumerate(lens)}
+        prompts = _random_prompts(cfg.vocab)
     for rid, p in prompts.items():
         eng.submit(p, max_new, rid=rid)
 
@@ -1692,6 +1714,270 @@ def train(dev, cfg, np_params) -> dict:
     return out
 
 
+# Phase 6b: the data and checkpoint path at full width. A token-shard
+# corpus of CKPT_WINDOWS training windows of max_seq + 1 tokens (plus a
+# 10 % held-out split), drawn as CKPT_MOTIFS random 16-token motifs in
+# random order (numpy seed 7), so the loss falls; CKPT_STEPS steps, a
+# checkpoint after CKPT_SAVE_AT of them, validation every CKPT_SAVE_AT.
+CKPT_WINDOWS = 64
+CKPT_MOTIFS = 64
+CKPT_STEPS = 6
+CKPT_SAVE_AT = 3
+CKPT_REQUESTS = 4
+
+
+def _motif_corpus(vocab, seq_len) -> np.ndarray:
+    """Enough ids for CKPT_WINDOWS windows after a 10 % val split."""
+    rng = np.random.default_rng(7)
+    motifs = rng.integers(0, vocab, (CKPT_MOTIFS, 16))
+    n = -(-CKPT_WINDOWS * (seq_len + 1) * 10 // 9) + 16
+    picks = rng.integers(0, CKPT_MOTIFS, -(-n // 16))
+    return motifs[picks].reshape(-1)[:n].astype(np.int32)
+
+
+def _events(path, kind) -> list:
+    return [e for e in map(json.loads, open(path)) if e["event"] == kind]
+
+
+def _drive(dev, argv, steps, vals) -> dict:
+    """One `train_lm.main(argv)` run, its launch counts zeroed just
+    before it and read just after: in bf16 the tensor-core K1 launches
+    n_layers x (steps + validation passes), K2 and K3 n_layers x steps,
+    the f32-FMA builds none. Returns the losses `train_batch` gave, its
+    seconds, and the JSONL log's events."""
+    import torch
+
+    from shallowspeed_tpu_torch import train_lm
+    from shallowspeed_tpu_torch.ops import flash_attention as FA
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+
+    n_layers = int(argv[argv.index("--n-layers") + 1])
+    bf16 = "--bf16" in argv and dev.type == "cuda"
+    kernels = (FA._flash_fwd_tc, FA._flash_dq_tc, FA._flash_dkv_tc)
+    idle = (FA.flash_fwd, FA.flash_dq, FA.flash_dkv)
+    losses, step_s = [], []
+    step = ContextParallelEngine.train_batch
+
+    def recorded(self, tok, tgt):
+        t0 = time.perf_counter()
+        losses.append(step(self, tok, tgt))
+        step_s.append(time.perf_counter() - t0)
+        return losses[-1]
+
+    for k in kernels + idle:
+        k.launches = 0
+    ContextParallelEngine.train_batch = recorded
+    t0 = time.time()
+    try:
+        train_lm.main(argv)
+    finally:
+        ContextParallelEngine.train_batch = step
+    wall = time.time() - t0
+    launches = [k.launches for k in kernels]
+    want = [n_layers * (steps + vals), n_layers * steps,
+            n_layers * steps] if bf16 else [0, 0, 0]
+    if launches != want or any(k.launches for k in idle):
+        raise AssertionError(
+            f"train_lm {' '.join(argv[-8:])}: K1, K2, K3 (tensor cores) "
+            f"launched {launches} times, want {want}; f32-FMA builds "
+            f"{[k.launches for k in idle]}")
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train_lm ran {len(losses)} steps, want "
+                             f"{steps}: losses {losses}")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log = argv[argv.index("--log-file") + 1]
+    return {"losses": losses, "step_s": step_s, "wall_s": wall,
+            "launches": launches, "log": log}
+
+
+def deflate_cost(tmp_dir, mib=64) -> dict:
+    """What deflating a checkpoint would cost on this host: one npz of
+    `mib` MiB of N(0, 0.02) float32 (numpy seed 0) written with
+    `np.savez_compressed` (the JAX package's format) and `np.savez`
+    (the port's): seconds of each, and the compressed size's ratio."""
+    import os
+
+    x = np.random.default_rng(0).normal(0, 0.02, mib << 18).astype(
+        np.float32)
+    out = {}
+    for name, fn in (("deflated", np.savez_compressed), ("stored", np.savez)):
+        path = os.path.join(tmp_dir, f"{name}.npz")
+        t0 = time.perf_counter()
+        fn(path, leaf_0=x)
+        out[name + "_s"] = time.perf_counter() - t0
+        out[name + "_bytes"] = os.path.getsize(path)
+        os.remove(path)
+    out["ratio"] = out["deflated_bytes"] / out["stored_bytes"]
+    return out
+
+
+def _gbps(nbytes, secs):
+    return nbytes / secs / 1e9 if secs > 0 else None
+
+
+def run_data_ckpt(dev, cfg) -> dict:
+    """Phase 6b: the port's data and checkpoint path at full width,
+    through `train_lm.main` and the serve driver's checkpoint loader.
+
+    Run A trains CKPT_STEPS steps from the shard corpus with validation
+    and prefetch; run B the same flags for CKPT_SAVE_AT steps with a
+    synchronous save; run C resumes B's checkpoint with --async-save
+    --keep-last 2 and must reproduce run A's losses bit for bit. Then a
+    byte of C's checkpoint is flipped: `--sample-only` must quarantine
+    it and restore B's. B's parameters are served (CKPT_REQUESTS of
+    phase 3's requests, K4 n_layers x ticks) and their paged logits held
+    against the plain forward. The checkpoints live in a temporary
+    directory removed at the end, whatever happens."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from shallowspeed_tpu_torch import serve as S
+    from shallowspeed_tpu_torch.data import build_shards
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    t_phase = time.time()
+    try:
+        data, ck = root / "shards", root / "ckpt"
+        t0 = time.time()
+        build_shards(_motif_corpus(cfg.vocab, cfg.max_seq), data,
+                     cfg.vocab, val_fraction=0.1)
+        shards_s = time.time() - t0
+        flags = ["--data-dir", str(data), "--seq-len", str(cfg.max_seq),
+                 "--batch-size", str(TRAIN_BATCH),
+                 "--d-model", str(cfg.d_model),
+                 "--n-heads", str(cfg.n_heads),
+                 "--n-layers", str(cfg.n_layers), "--rope",
+                 "--norm", cfg.norm, "--ffn", cfg.ffn, "--optimizer",
+                 "adamw", "--lr", "3e-4", "--grad-clip", "1.0",
+                 "--val-every", str(CKPT_SAVE_AT), "--prefetch", "2",
+                 "--log-every", "1"]
+        if cfg.compute_dtype is not None:
+            flags.append("--bf16")
+        if dev.type == "cpu":
+            flags += ["--device", "cpu"]
+
+        def argv(name, *extra):
+            return [*flags, *extra, "--log-file", str(root / f"{name}.jsonl")]
+
+        a = _drive(dev, argv("a", "--steps", str(CKPT_STEPS)),
+                   CKPT_STEPS, CKPT_STEPS // CKPT_SAVE_AT)
+        b = _drive(dev, argv("b", "--steps", str(CKPT_SAVE_AT),
+                             "--save-dir", str(ck),
+                             "--save-every", str(CKPT_SAVE_AT)),
+                   CKPT_SAVE_AT, 1)
+        c = _drive(dev, argv("c", "--steps", str(CKPT_STEPS),
+                             "--save-dir", str(ck),
+                             "--save-every", str(CKPT_SAVE_AT), "--resume",
+                             "--async-save", "--keep-last", "2"),
+                   CKPT_STEPS - CKPT_SAVE_AT, 1)
+        if b["losses"] != a["losses"][:CKPT_SAVE_AT] \
+                or c["losses"] != a["losses"][CKPT_SAVE_AT:]:
+            raise AssertionError(f"resumed losses differ from the straight "
+                                 f"run's: A {a['losses']}, B {b['losses']}, "
+                                 f"C {c['losses']}")
+        if not a["losses"][-1] < a["losses"][0]:
+            raise AssertionError(f"run A's loss did not fall: {a['losses']}")
+        vals = {r: [e["val_loss"] for e in _events(x["log"], "val")]
+                for r, x in (("a", a), ("c", c))}
+        if vals["c"] != vals["a"][-1:]:
+            raise AssertionError(f"resumed val loss {vals['c']} != the "
+                                 f"straight run's {vals['a']}")
+        save_b, = _events(b["log"], "ckpt_save")
+        save_c, = _events(c["log"], "ckpt_save")
+        restore_c, = _events(c["log"], "restore")
+        kept = sorted(p.name for p in ck.iterdir())
+        last, first = ck / f"ckpt_{CKPT_STEPS - 1}", ck / \
+            f"ckpt_{CKPT_SAVE_AT - 1}"
+        if kept != sorted([first.name, last.name]) \
+                or restore_c["path"] != str(first):
+            raise AssertionError(f"checkpoints {kept}, run C restored "
+                                 f"{restore_c['path']}")
+
+        # flip one byte of the newest checkpoint's params.npz
+        with open(last / "params.npz", "r+b") as f:
+            f.seek((last / "params.npz").stat().st_size // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        s = _drive(dev, argv("s", "--steps", str(CKPT_STEPS), "--save-dir",
+                             str(ck), "--sample-only", "--generate", "16"),
+                   0, 0)
+        restore_s, = _events(s["log"], "restore")
+        if restore_s["path"] != str(first) or restore_s["quarantined"] != [
+                str(last) + ".corrupt"]:
+            raise AssertionError(f"--sample-only restored "
+                                 f"{restore_s['path']}, quarantined "
+                                 f"{restore_s['quarantined']}")
+
+        # serve the surviving checkpoint through serve --ckpt's loader
+        t0 = time.time()
+        params = S.load_ckpt_params(first, cfg, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        load_s = time.time() - t0
+        prompts = dict(list(_random_prompts(cfg.vocab).items())
+                       [:CKPT_REQUESTS])
+        run = serve(dev, cfg, params, prompts=prompts, profile=False,
+                    label="ckpt")
+        rel = check_logits(dev, cfg, params, prompts, run["eng"].results,
+                           LOGITS_TOL_BF16 if cfg.compute_dtype is not None
+                           else LOGITS_TOL_F32, tag="ckpt ")
+        served = run["stats"]
+        del run, params
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        nbytes = save_b["bytes"]
+        ckpt = {
+            "bytes": nbytes, "shards_s": shards_s,
+            "save_sync": {k: save_b[k] for k in (
+                "fetch_s", "write_s", "hash_s", "rename_s")},
+            "save_async": {k: save_c[k] for k in (
+                "fetch_s", "write_s", "hash_s", "rename_s")},
+            "restore": {k: restore_c[k] for k in (
+                "verify_s", "load_s", "place_s")},
+            "restore_after_quarantine": {k: restore_s[k] for k in (
+                "verify_s", "load_s", "place_s")},
+            "serve_ckpt_load_s": load_s,
+            "deflate_64mib": deflate_cost(root),
+        }
+        for stage in ("save_sync", "save_async", "restore",
+                      "restore_after_quarantine"):
+            ckpt[stage + "_gbps"] = {
+                k: _gbps(nbytes, v) for k, v in ckpt[stage].items()
+                if k != "rename_s"}
+        ckpt["serve_ckpt_load_gbps"] = _gbps(
+            (first / "params.npz").stat().st_size, load_s)
+        sps = {r: 1.0 / float(np.median(x["step_s"])) for r, x in
+               (("a", a), ("c", c))}
+        out = {"ckpt": ckpt, "data": {
+            "prefetch": 2, "steps_per_s_p50": sps,
+            "steps_per_s_driver": {
+                r: _events(x["log"], "step")[-1]["tokens_per_sec_cum"]
+                / (TRAIN_BATCH * cfg.max_seq) for r, x in
+                (("a", a), ("c", c))},
+            "wall_s": {r: x["wall_s"] for r, x in (
+                ("a", a), ("b", b), ("c", c), ("sample_only", s))}},
+            "losses_a": a["losses"], "losses_c": c["losses"],
+            "val_a": vals["a"], "launches_a": a["launches"],
+            "launches_c": c["launches"], "serve": {
+                k: served[k] for k in ("ticks", "launches", "wall_s")},
+            "logits_rel": rel}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.time() - t_phase
+    print("ckpt: " + json.dumps(out.pop("ckpt")), flush=True)
+    print("data: " + json.dumps(out.pop("data")), flush=True)
+    print("data ckpt: " + json.dumps(out), flush=True)
+    return out
+
+
 # device-kernel groups of a training step and of a decode tick, by
 # kernel-name fragment
 KERNEL_GROUPS = [("K1 flash_fwd", ("flash_fwd",)),
@@ -2053,6 +2339,7 @@ def main() -> int:
     del np_params
     gc.collect()
     torch.cuda.empty_cache()
+    run_data_ckpt(dev, cfg)
     check_training_parity(dev, cfg)
     gc.collect()
     torch.cuda.empty_cache()

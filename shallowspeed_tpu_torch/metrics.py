@@ -43,8 +43,8 @@ class MetricsLogger:
 
 class StepRates:
     """Per-window and cumulative training throughput between log
-    points (the reference's `StepRates` without its pause accounting
-    and telemetry attachments: the port's driver has no pauses yet)."""
+    points, with validation and checkpoint time excluded (`pause`):
+    the reference's `StepRates` without its telemetry attachments."""
 
     def __init__(self, tokens_per_step: float, clock=time.time):
         self.tokens_per_step = float(tokens_per_step)
@@ -52,15 +52,23 @@ class StepRates:
         self._t0 = clock()
         self._win_t = self._t0
         self._steps = 0
+        self._pause = 0.0
+        self._win_pause = 0.0
+
+    def pause(self, seconds: float) -> None:
+        """Exclude `seconds` of non-training wall time (a validation
+        pass, a checkpoint save) from both rates."""
+        self._pause += float(seconds)
 
     def log_point(self, steps_since_last: int) -> dict:
         """Close the window of `steps_since_last` steps; returns
         {"tokens_per_sec": window rate, "tokens_per_sec_cum": run rate}."""
         now = self._clock()
         self._steps += int(steps_since_last)
-        win_secs = max(now - self._win_t, 1e-9)
-        cum_secs = max(now - self._t0, 1e-9)
-        self._win_t = now
+        win_secs = max(now - self._win_t
+                       - (self._pause - self._win_pause), 1e-9)
+        cum_secs = max(now - self._t0 - self._pause, 1e-9)
+        self._win_t, self._win_pause = now, self._pause
         return {"tokens_per_sec":
                 self.tokens_per_step * steps_since_last / win_secs,
                 "tokens_per_sec_cum":

@@ -130,9 +130,40 @@ class TransformerConfig:
         return self.compute_dtype or getattr(torch, np.dtype(self.dtype).name)
 
 
-def _dense_init(rng, in_d, out_d, dtype):
-    w = rng.normal(0.0, 1.0 / np.sqrt(in_d), (in_d, out_d)).astype(dtype)
-    return {"W": w, "b": np.zeros((out_d,), dtype)}
+def _param_tree(cfg: TransformerConfig, normal, const):
+    """The parameter tree with its leaves from `normal(shape, std)` and
+    `const(shape, value)`, called in the reference's draw order."""
+    d = cfg.d_model
+
+    def dense(in_d, out_d):
+        return {"W": normal((in_d, out_d), 1.0 / np.sqrt(in_d)),
+                "b": const((out_d,), 0.0)}
+
+    def norm():
+        return {"g": const((d,), 1.0), "b": const((d,), 0.0)}
+
+    blocks = []
+    for _ in range(cfg.n_layers):
+        blk = {"ln1": norm(), "proj": dense(d, d), "ln2": norm()}
+        if cfg.gqa:
+            blk["q"] = dense(d, d)
+            blk["kv"] = dense(d, 2 * cfg.kv_heads * cfg.head_dim)
+        else:
+            blk["qkv"] = dense(d, 3 * d)
+        if cfg.ffn == "swiglu":
+            blk["gate"] = dense(d, cfg.ffn_dim)
+        blk["up"] = dense(d, cfg.ffn_dim)
+        blk["down"] = dense(cfg.ffn_dim, d)
+        blocks.append(blk)
+    out = {
+        "tok_emb": normal((cfg.vocab, d), 0.02),
+        "pos_emb": normal((cfg.max_seq, d), 0.02),
+        "blocks": blocks,
+        "ln_f": norm(),
+    }
+    if not cfg.tie_embeddings:
+        out["head"] = dense(d, cfg.vocab)
+    return out
 
 
 def init_numpy(cfg: TransformerConfig, seed: int = 0):
@@ -140,34 +171,21 @@ def init_numpy(cfg: TransformerConfig, seed: int = 0):
     reference's `init` draws it (same generator, same order)."""
     rng = np.random.default_rng(seed)
     dt = cfg.dtype
-    d = cfg.d_model
-    blocks = []
-    for _ in range(cfg.n_layers):
-        blk = {
-            "ln1": {"g": np.ones((d,), dt), "b": np.zeros((d,), dt)},
-            "proj": _dense_init(rng, d, d, dt),
-            "ln2": {"g": np.ones((d,), dt), "b": np.zeros((d,), dt)},
-        }
-        if cfg.gqa:
-            blk["q"] = _dense_init(rng, d, d, dt)
-            blk["kv"] = _dense_init(
-                rng, d, 2 * cfg.kv_heads * cfg.head_dim, dt)
-        else:
-            blk["qkv"] = _dense_init(rng, d, 3 * d, dt)
-        if cfg.ffn == "swiglu":
-            blk["gate"] = _dense_init(rng, d, cfg.ffn_dim, dt)
-        blk["up"] = _dense_init(rng, d, cfg.ffn_dim, dt)
-        blk["down"] = _dense_init(rng, cfg.ffn_dim, d, dt)
-        blocks.append(blk)
-    out = {
-        "tok_emb": rng.normal(0.0, 0.02, (cfg.vocab, d)).astype(dt),
-        "pos_emb": rng.normal(0.0, 0.02, (cfg.max_seq, d)).astype(dt),
-        "blocks": blocks,
-        "ln_f": {"g": np.ones((d,), dt), "b": np.zeros((d,), dt)},
-    }
-    if not cfg.tie_embeddings:
-        out["head"] = _dense_init(rng, d, cfg.vocab, dt)
-    return out
+    return _param_tree(
+        cfg, lambda shape, std: rng.normal(0.0, std, shape).astype(dt),
+        lambda shape, value: np.full(shape, value, dt))
+
+
+def param_shapes(cfg: TransformerConfig):
+    """The parameter tree's structure, with meta tensors of each leaf's
+    shape and dtype in place of values: nothing drawn or allocated (a
+    checkpoint's structure check against the config)."""
+    dt = getattr(torch, np.dtype(cfg.dtype).name)
+
+    def meta(shape, _):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    return _param_tree(cfg, meta, meta)
 
 
 def init(cfg: TransformerConfig, seed: int = 0, device=None):

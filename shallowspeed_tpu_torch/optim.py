@@ -211,3 +211,25 @@ class Adafactor(_Optimizer):
 
 OPTIMIZERS = {"sgd": SGD, "momentum": MomentumSGD, "adam": Adam,
               "adamw": AdamW, "adafactor": Adafactor}
+
+
+# ------------------------------------------------------------------- EMA
+
+
+@torch.no_grad()
+def ema_update(ema, params, decay):
+    """One exponential-moving-average step, in place: ema <- d*ema +
+    (1-d)*params in float32 (d = float32(decay)), the reference's
+    `ema_update` term for term. Returns `ema`. The driver owns the
+    average and evaluates or samples by swapping it into the engine."""
+    d = _F32(decay)
+    one_minus = float(_F32(1.0) - d)
+    for e, p in zip(leaves(ema), leaves(params)):
+        e.copy_(e * float(d) + p.float() * one_minus)
+    return ema
+
+
+def ema_init(params):
+    """Start the average AT the current params (a copy; an all-zeros
+    start would bias early evals toward zero)."""
+    return map_tree(lambda p: p.detach().clone(), params)

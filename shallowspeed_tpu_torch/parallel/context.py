@@ -29,6 +29,7 @@ from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.ops.attention import attention
 from shallowspeed_tpu_torch.ops.flash_attention import flash_attention
 from shallowspeed_tpu_torch.weights import (leaves, map_tree,
+                                            opt_state_from_numpy,
                                             params_from_numpy, unflatten)
 
 _LATER = "Queue 1, multi-device LM engines"
@@ -38,6 +39,10 @@ class ContextParallelEngine:
     """One-device trainer for the transformer LM family. `params`, when
     given, is a numpy tree to start from instead of drawing
     `init(cfg, seed)` again (a caller that already holds the draw)."""
+
+    # params and optimizer state are already in the checkpoint's
+    # canonical (one-device) layout, as the reference's engine declares
+    canonical_opt_identity = True
 
     def __init__(self, cfg: T.TransformerConfig, optimizer, seed: int = 0,
                  attn: str = "flash", device=None, *, accum: int = 1,
@@ -69,8 +74,12 @@ class ContextParallelEngine:
         self.opt_state = optimizer.init(self.params)
         self._step_count = 0
 
-    def _place(self, arr) -> torch.Tensor:
-        t = torch.as_tensor(np.asarray(arr)).to(self.device, torch.long)
+    def place(self, arr) -> torch.Tensor:
+        """A (B, T) token batch (numpy, or a tensor a prefetcher already
+        placed) as int64 on the engine's device."""
+        t = (arr if isinstance(arr, torch.Tensor)
+             else torch.as_tensor(np.asarray(arr))).to(self.device,
+                                                       torch.long)
         if t.dim() != 2 or t.shape[1] > self.cfg.max_seq:
             raise ValueError(f"token batch {tuple(t.shape)} must be (B, T) "
                              f"with T <= max_seq={self.cfg.max_seq}")
@@ -80,8 +89,8 @@ class ContextParallelEngine:
         """(loss, gradient tree) of one (B, T) batch at the current
         parameters, without updating them."""
         with torch.enable_grad():
-            loss = T.loss(self.params, self._place(tokens),
-                          self._place(targets), self.cfg,
+            loss = T.loss(self.params, self.place(tokens),
+                          self.place(targets), self.cfg,
                           attn_fn=self.attn_fn)
             # unused leaves (pos_emb under rope, norm biases under
             # rmsnorm) get zero gradients, as jax.grad gives them
@@ -102,13 +111,13 @@ class ContextParallelEngine:
     @torch.no_grad()
     def eval_loss(self, tokens, targets) -> float:
         """Plain NLL (no label smoothing) of a batch, no update."""
-        return float(T.loss(self.params, self._place(tokens),
-                            self._place(targets), self.cfg,
+        return float(T.loss(self.params, self.place(tokens),
+                            self.place(targets), self.cfg,
                             attn_fn=self.attn_fn, train=False))
 
     @torch.no_grad()
     def logits(self, tokens) -> torch.Tensor:
-        return T.forward(self.params, self._place(tokens), self.cfg,
+        return T.forward(self.params, self.place(tokens), self.cfg,
                          attn_fn=self.attn_fn)
 
     # -------------------------------------------- checkpoint interface
@@ -118,13 +127,23 @@ class ContextParallelEngine:
 
     def set_canonical_params(self, params):
         """Replace the parameters by a tree of tensors or numpy arrays
-        (the JAX package's layout)."""
-        def conv(x):
+        (the JAX package's layout) of the same structure. The new tree
+        keeps the current one's key order (a checkpoint's dicts come
+        back key-sorted), which the optimizer's and the gradient
+        clipping's leaf order follow."""
+        def conv(_, x):
             t = (x.detach() if isinstance(x, torch.Tensor)
                  else torch.from_numpy(np.ascontiguousarray(x)))
             return t.to(self.device, copy=True).requires_grad_(True)
 
-        self.params = map_tree(conv, params)
+        self.params = map_tree(conv, self.params, params)
 
     def set_opt_state(self, state):
-        self.opt_state = state
+        """Install an optimizer state in the JAX package's layout (numpy
+        leaves, `t` a 0-d int32 array, as a checkpoint holds it) or this
+        package's: leaves placed on the engine's device, `t` a Python
+        int, in the current state's key order."""
+        if isinstance(state, (dict, list, tuple)) and any(
+                isinstance(x, np.ndarray) for x in leaves(state)):
+            state = opt_state_from_numpy(state, self.device)
+        self.opt_state = map_tree(lambda _, x: x, self.opt_state, state)

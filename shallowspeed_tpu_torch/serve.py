@@ -14,7 +14,10 @@ per line, in the root driver's format:
 random prompt; `at` is the submission offset in seconds from the start.
 Each completion prints one `{"event": "result", ...}` line; the run ends
 with a `{"event": "summary", ...}` line. Runs on the GPU unless
-`--device cpu` is given.
+`--device cpu` is given. The weights are a seeded draw (`--init-seed`),
+or a checkpoint's (`--ckpt DIR`, a `ckpt_N` directory either package
+wrote: its manifest is verified and its parameters must match the
+model the flags describe).
 
 The root driver's other flags (the HTTP replica's queue and heartbeat,
 chaos, the live-monitoring and profiling planes, `--platform`) are
@@ -31,11 +34,12 @@ from pathlib import Path
 
 import numpy as np
 
-from shallowspeed_tpu_torch import NotPorted, resolve_device
+from shallowspeed_tpu_torch import NotPorted, checkpoint, resolve_device
 from shallowspeed_tpu_torch.metrics import MetricsLogger
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.report import request_summary
 from shallowspeed_tpu_torch.serving.engine import ServingEngine
+from shallowspeed_tpu_torch.weights import map_tree, params_from_numpy
 
 _LATER = "Queue 1, serving features after slice 1"
 _PLANES = "Queue 1, planes"
@@ -74,8 +78,8 @@ def parser() -> argparse.ArgumentParser:
     m.add_argument("--init-seed", type=int, default=0,
                    help="weight-init seed for the demo model")
     m.add_argument("--ckpt", default=None,
-                   help="checkpoint dir to load params from (not ported "
-                        "yet: raises)")
+                   help="checkpoint dir (a ckpt_N directory) to load the "
+                        "params from; the model flags must match it")
     s = p.add_argument_group("serving")
     s.add_argument("--n-blocks", type=int, default=128)
     s.add_argument("--block-size", type=int, default=16)
@@ -161,11 +165,20 @@ def load_requests(path: str, vocab: int) -> list[dict]:
     return reqs
 
 
+def load_ckpt_params(ckpt_dir, cfg: T.TransformerConfig, device):
+    """The parameters of checkpoint dir `ckpt_dir` (a `ckpt_N` either
+    package wrote) as tensors on `device`: the manifest verified
+    (`CheckpointError` otherwise), the tree's structure and shapes held
+    against `cfg`'s (`ValueError` on a mismatch)."""
+    shapes = T.param_shapes(cfg)
+    params = checkpoint.load_params(ckpt_dir, shapes)
+    # in the model's own key order (a checkpoint's dicts come back sorted)
+    return params_from_numpy(map_tree(lambda _, x: x, shapes, params),
+                             device)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.ckpt:
-        raise NotPorted("--ckpt (checkpoint restore)",
-                        "Queue 1, data and checkpoint")
     if args.serve:
         raise NotPorted("--serve (HTTP replica mode)", _LATER)
 
@@ -173,7 +186,10 @@ def main(argv=None) -> int:
     cfg = T.TransformerConfig(
         vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, max_seq=args.max_seq, rope=args.rope)
-    params = T.init(cfg, seed=args.init_seed, device=device)
+    if args.ckpt:
+        params = load_ckpt_params(args.ckpt, cfg, device)
+    else:
+        params = T.init(cfg, seed=args.init_seed, device=device)
     reqs = load_requests(args.requests, cfg.vocab)
     metrics = MetricsLogger(
         args.log_file, kind="serve", vocab=cfg.vocab, d_model=cfg.d_model,

@@ -1,49 +1,71 @@
-"""LM training driver of the PyTorch port: one device, synthetic data.
-Counterpart of the root `train_lm.py`.
+"""LM training driver of the PyTorch port: one device. Counterpart of
+the root `train_lm.py`.
 
     python -m shallowspeed_tpu_torch.train_lm --steps 100 --bf16 --rope
     python -m shallowspeed_tpu_torch.train_lm --device cpu --steps 5
+    python -m shallowspeed_tpu_torch.train_lm --data-dir shards/ \
+        --save-dir ck --save-every 100 --val-every 50 [--resume]
 
 Trains `models.transformer` with `parallel.context.ContextParallelEngine`
 on the reference's synthetic stream (a random 16-token motif repeated
-per row, seeded per step), printing the reference's step lines
+per row, seeded per step), on a text file (`--text`, byte-level or
+`--tokenizer bpe`), or on a token-shard corpus (`--data-dir`, built by
+`build_token_shards`), printing the reference's step lines
 (`step N  loss L  tok/s R [T TF/s (M% MFU)]`) and, with `--log-file`,
-its `"step"` JSONL events. `--attn flash` (the default) runs the
-hand-written K1/K2/K3 kernels; `--attn ring` the plain attention under
-torch autograd. Runs on the GPU unless `--device cpu` is given.
+its `"step"` JSONL events. Every batch is a pure function of (seed,
+step), built `--prefetch` steps ahead on a background thread. `--attn
+flash` (the default) runs the hand-written K1/K2/K3 kernels; `--attn
+ring` the plain attention under torch autograd. Runs on the GPU unless
+`--device cpu` is given.
+
+`--val-every N` prints `step N  val_loss L  ppl P` on held-out data.
+`--save-dir` checkpoints every `--save-every` steps and at the end
+(`checkpoint.save`, or `AsyncSaver` with `--async-save`; rotation with
+`--keep-last`); `--resume` restores the newest verified checkpoint
+(quarantining corrupt ones), `--auto-resume` does so when one exists,
+and `--sample-only` restores and samples without training.
+`--ema-decay` keeps an average of the weights that validation and
+sampling use and checkpoints carry (`ema.npz`).
 
 `--generate N` samples N tokens after training through the contiguous
 `models.generate.generate` (int8 KV cache with `--kv-int8`; sampler
-flags `--temperature --top-k --top-p`; a byte-level `--prompt` or a
-16-token prefix of the synthetic stream) and prints the root driver's
-`decode:`, `prompt:` and `sample:` lines, plus a `"generate"` event with
-`--log-file`.
+flags `--temperature --top-k --top-p`; a `--prompt`, byte-level or
+through the BPE tokenizer, or a 16-token prefix of the training stream)
+and prints the root driver's `decode:`, `prompt:` and `sample:` lines,
+plus a `"generate"` event with `--log-file`.
 
-The root driver's other flags (multi-device meshes, text data,
-checkpoints and `--sample-only`, remat, dropout, the telemetry and
-health planes) are recognised and refused with `NotPorted`.
+The root driver's other flags (multi-device meshes, remat, dropout, the
+telemetry and health planes) are recognised and refused with
+`NotPorted`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from shallowspeed_tpu_torch import NotPorted, resolve_device
+from shallowspeed_tpu_torch import NotPorted, checkpoint, resolve_device
+from shallowspeed_tpu_torch.data import (ByteBPE, TokenShards, ValSplit,
+                                         place_on, prefetch_to_device,
+                                         sync_every, train_bpe)
 from shallowspeed_tpu_torch.flops import mfu
 from shallowspeed_tpu_torch.metrics import MetricsLogger, StepRates, step_event
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.models.generate import (decode_report, generate,
                                                     prompt_bucket_len)
-from shallowspeed_tpu_torch.optim import OPTIMIZERS, SCHEDULES
+from shallowspeed_tpu_torch.optim import (OPTIMIZERS, SCHEDULES, ema_init,
+                                          ema_update)
 from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+from shallowspeed_tpu_torch.weights import map_tree
 
 _MESH = "Queue 1, multi-device LM engines"
 _TRAIN = "Queue 1, training features after slice 2"
-_DATA = "Queue 1, data and checkpoint"
 _PLANES = "Queue 1, planes"
 
 # the root driver's flags this driver does not have yet, and where each
@@ -57,12 +79,7 @@ UNPORTED = {
          "--accum", "--platform", "--host-devices"], _MESH),
     **dict.fromkeys(
         ["--dropout", "--attn-dropout", "--remat", "--remat-policy",
-         "--xent-chunk", "--ema-decay"], _TRAIN),
-    **dict.fromkeys(
-        ["--data-dir", "--text", "--tokenizer", "--vocab-size",
-         "--save-dir", "--resume", "--auto-resume", "--save-every",
-         "--keep-checkpoints", "--keep-last", "--async-save",
-         "--prefetch", "--val-every", "--sample-only"], _DATA),
+         "--xent-chunk"], _TRAIN),
     **dict.fromkeys(
         ["--heartbeat-file", "--profile-dir", "--telemetry", "--health",
          "--trace-dir", "--monitor-port", "--replica", "--slo",
@@ -91,7 +108,21 @@ def parse_args(argv=None):
                    help="FFN hidden width (0 = 4*d_model)")
     p.add_argument("--vocab", type=int, default=256,
                    help="vocabulary of the synthetic stream (the root "
-                        "driver's byte-level default)")
+                        "driver's byte-level default); --text and "
+                        "--data-dir take theirs from the data")
+    p.add_argument("--data-dir", type=str, default="",
+                   help="token-shard corpus directory (build_token_shards):"
+                        " streams windows off disk in a resumable order, "
+                        "with the held-out val.bin split")
+    p.add_argument("--text", type=str, default="",
+                   help="train on this UTF-8 text file (byte-level vocab, "
+                        "or subword with --tokenizer bpe)")
+    p.add_argument("--tokenizer", default="byte", choices=["byte", "bpe"],
+                   help="text tokenization: raw bytes (vocab 256) or "
+                        "byte-level BPE trained on --text to --vocab-size "
+                        "(saved/restored with --save-dir)")
+    p.add_argument("--vocab-size", type=int, default=512,
+                   help="BPE target vocabulary (--tokenizer bpe)")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--optimizer", default="adam", choices=list(OPTIMIZERS))
@@ -134,11 +165,44 @@ def parse_args(argv=None):
                         "scales); streams are deterministic but not "
                         "bit-equal to the compute-dtype cache")
     p.add_argument("--prompt", type=str, default="",
-                   help="UTF-8 prompt for --generate (byte-level; default: "
-                        "a 16-token prefix of the synthetic stream)")
+                   help="UTF-8 prompt for --generate (byte-level, or "
+                        "through the BPE tokenizer; default: a 16-token "
+                        "prefix of the training stream)")
+    p.add_argument("--sample-only", action="store_true",
+                   help="skip training: restore --save-dir's latest "
+                        "checkpoint and just --generate")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=20)
     p.add_argument("--log-file", type=str, default="")
+    p.add_argument("--ema-decay", type=float, default=0.0,
+                   help="keep an exponential moving average of the "
+                        "weights (e.g. 0.999); validation and sampling "
+                        "use the averaged weights, checkpoints carry "
+                        "them (0 = off)")
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="input-pipeline depth: batches built and placed on "
+                        "the device this many steps ahead on a background "
+                        "thread (0 = synchronous)")
+    p.add_argument("--async-save", action="store_true",
+                   help="write checkpoints on a background thread: the "
+                        "device->host snapshot is synchronous (pins the "
+                        "state), the file IO never blocks training")
+    p.add_argument("--keep-checkpoints", "--keep-last", type=int,
+                   default=0, dest="keep_checkpoints",
+                   help="checkpoint rotation: keep only the N newest "
+                        "ckpt_* dirs (0 = keep all); the newest verified "
+                        "one is never deleted")
+    p.add_argument("--save-every", type=int, default=100,
+                   help="checkpoint every N steps when --save-dir is set")
+    p.add_argument("--save-dir", type=str, default="")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--auto-resume", action="store_true",
+                   help="resume from the latest checkpoint if one exists, "
+                        "start fresh otherwise")
+    p.add_argument("--val-every", type=int, default=0,
+                   help="every N steps evaluate held-out loss/perplexity "
+                        "(--text: last 10%% of the file; --data-dir: its "
+                        "val.bin; synthetic: a disjoint seed stream)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "torch versions of the kernels)")
@@ -146,36 +210,147 @@ def parse_args(argv=None):
         p.add_argument(flag, nargs="?", action=_Refuse,
                        help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    if args.prompt and not args.generate:
-        args.generate = 128          # --prompt implies sampling
+    if (args.prompt or args.sample_only) and not args.generate:
+        args.generate = 128          # --prompt/--sample-only imply sampling
     prompt_len = len(args.prompt.encode()) if args.prompt else 16
-    if args.prompt and args.vocab < 256:
+    if (args.prompt and args.vocab < 256 and not args.text
+            and not args.data_dir):
         raise SystemExit(f"--prompt is byte-level and needs --vocab >= 256, "
                          f"got {args.vocab}")
     if args.generate and args.generate + prompt_len > args.seq_len:
         raise SystemExit(f"--generate {args.generate} + the {prompt_len}-"
                          f"token prompt exceeds --seq-len {args.seq_len} "
                          f"(= max_seq)")
+    if (args.resume or args.sample_only or args.auto_resume) \
+            and not args.save_dir:
+        raise SystemExit(
+            "--resume/--auto-resume/--sample-only require --save-dir")
+    if args.keep_checkpoints < 0:
+        raise SystemExit("--keep-checkpoints takes 0 (keep all) or a "
+                         "positive count")
+    if args.save_every < 1 or args.log_every < 1:
+        raise SystemExit("--save-every and --log-every take a positive "
+                         "count")
+    if not 0.0 <= args.ema_decay < 1.0:
+        raise SystemExit(f"--ema-decay must be in [0, 1), got "
+                         f"{args.ema_decay} (1.0 would freeze the average "
+                         f"at the initial weights)")
     return args
 
 
-def make_batch(args, vocab: int, step: int):
-    """(tokens, targets) (B, T) int32 batch for `step`: the root
-    driver's synthetic stream, seeded per (seed, step) — a random
-    16-token motif repeated along each row, targets the next token."""
+def prepare_text(args):
+    """(vocab, tokenizer, train data, val data) of the configured
+    stream, as the root driver prepares them. Shards: vocab and
+    tokenizer come from the shard directory, the data is the
+    `TokenShards` view and its `ValSplit`. Text: byte ids (vocab 256),
+    or a ByteBPE trained on the training split (or the one saved under
+    --save-dir, on --resume/--sample-only), with the last 10% held out
+    when --val-every is set. Synthetic: (args.vocab, None, None, None).
+    Runs before the model config is built: the data fixes the vocab."""
+    if args.data_dir:
+        if args.text:
+            raise SystemExit("--data-dir replaces --text (the shard "
+                             "index already fixes the token stream)")
+        shards = TokenShards(args.data_dir, args.seq_len)
+        tokenizer = None
+        tok_path = Path(args.data_dir) / "tokenizer.json"
+        if tok_path.exists():
+            tokenizer = ByteBPE.load(tok_path)
+            if tokenizer.vocab_size != shards.vocab:
+                raise SystemExit(
+                    f"{tok_path} has vocab {tokenizer.vocab_size} but the "
+                    f"shard index says {shards.vocab}")
+        elif args.tokenizer == "bpe":
+            raise SystemExit(
+                f"--tokenizer bpe but {args.data_dir} has no "
+                f"tokenizer.json (it was built byte-level) — rebuild "
+                f"with build_token_shards --tokenizer bpe")
+        if args.val_every and not shards.has_val:
+            raise SystemExit(
+                f"--val-every needs a held-out split but {args.data_dir}"
+                f" has no val.bin — rebuild with --val-fraction")
+        if args.val_every and shards.val_tokens <= args.seq_len + 1:
+            raise SystemExit(
+                f"val.bin holds {shards.val_tokens} tokens — shorter "
+                f"than seq_len+2; rebuild with a larger --val-fraction")
+        return (shards.vocab, tokenizer, shards,
+                ValSplit(shards) if shards.has_val else None)
+    train_bytes = val_bytes = None
+    if args.text:
+        raw = Path(args.text).read_bytes()
+        if len(raw) <= args.seq_len + 1:
+            raise SystemExit("--text is too short for --seq-len")
+        if args.val_every:
+            split = max(int(len(raw) * 0.9), args.seq_len + 2)
+            train_bytes, val_bytes = raw[:split], raw[split:]
+            if len(val_bytes) <= args.seq_len + 1:
+                raise SystemExit("--text is too short to hold out a 10% "
+                                 "validation tail")
+        else:
+            train_bytes = raw
+    if args.tokenizer == "bpe":
+        tok_path = (Path(args.save_dir) / "tokenizer.json"
+                    if args.save_dir else None)
+        if ((args.resume or args.sample_only)
+                and tok_path is not None and tok_path.exists()):
+            # the checkpointed weights are bound to the saved merges; a
+            # fresh run always retrains (and overwrites)
+            tokenizer = ByteBPE.load(tok_path)
+        elif train_bytes is not None:
+            tokenizer = train_bpe(train_bytes, args.vocab_size)
+            if tok_path is not None:
+                tok_path.parent.mkdir(parents=True, exist_ok=True)
+                tokenizer.save(tok_path)
+        else:
+            raise SystemExit("--tokenizer bpe needs --text to train on "
+                             "(or a tokenizer.json under --save-dir)")
+        encode, vocab = tokenizer.encode, tokenizer.vocab_size
+    elif args.text:
+        tokenizer, vocab = None, 256
+
+        def encode(b):
+            return np.frombuffer(b, np.uint8).astype(np.int32)
+    else:
+        return args.vocab, None, None, None
+    text_data = val_data = None
+    if train_bytes is not None:
+        text_data = encode(train_bytes)
+        if len(text_data) <= args.seq_len + 1:
+            raise SystemExit("tokenized text too short for --seq-len")
+    if val_bytes is not None:
+        val_data = encode(val_bytes)
+        if len(val_data) <= args.seq_len + 1:
+            raise SystemExit("tokenized validation tail too short for "
+                             "--seq-len")
+    return vocab, tokenizer, text_data, val_data
+
+
+def make_batch(args, vocab: int, step: int, text_data=None):
+    """(tokens, targets) (B, T) int32 batch for `step`, a pure function
+    of (seed, step) as in the root driver, so a resumed run continues
+    the exact stream: the shard corpus's (or its val split's) own
+    order, random windows of a text's ids, or the synthetic stream (a
+    random 16-token motif repeated along each row)."""
     b, t = args.batch_size, args.seq_len
+    if hasattr(text_data, "batch"):
+        return text_data.batch(step, b, seed=args.seed)
     rng = np.random.default_rng([args.seed, step])
+    if text_data is not None:
+        starts = rng.integers(0, len(text_data) - t - 1, b)
+        tok = np.stack([text_data[s:s + t] for s in starts])
+        tgt = np.stack([text_data[s + 1:s + t + 1] for s in starts])
+        return tok, tgt
     motif = rng.integers(0, vocab, (b, 16))
     tok = np.tile(motif, (1, t // 16 + 1))[:, :t].astype(np.int32)
     tgt = np.roll(tok, -1, axis=1).astype(np.int32)
     return tok, tgt
 
 
-def build(args):
+def build(args, vocab: int | None = None):
     """(config, optimizer) from the parsed flags, as the root driver
-    builds them."""
+    builds them; `vocab` is the data's (default: --vocab)."""
     cfg = T.TransformerConfig(
-        vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
+        vocab=args.vocab if vocab is None else vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, max_seq=args.seq_len,
         compute_dtype=torch.bfloat16 if args.bf16 else None,
         d_ff=args.d_ff, rope=args.rope, norm=args.norm, ffn=args.ffn,
@@ -194,27 +369,204 @@ def build(args):
     return cfg, OPTIMIZERS[args.optimizer](lr=lr, **kw)
 
 
+def _restore(args, engine):
+    """(start step, restored dir, the restore's stats, quarantined dirs)
+    for --resume / --sample-only (--auto-resume set --resume when a
+    checkpoint exists), as the root driver decides: a strict --resume
+    with every checkpoint corrupt exits with EXIT_CORRUPT_CKPT,
+    --auto-resume starts fresh instead."""
+    if not (args.resume or args.sample_only):
+        return 0, None, {}, []
+    stats = {}
+    start, restored, quarantined = checkpoint.restore_latest(
+        engine, args.save_dir, stats)
+    if restored is None:
+        if args.auto_resume and not args.sample_only:
+            print(f"--auto-resume: no restorable checkpoint under "
+                  f"{args.save_dir!r}"
+                  + (f" ({len(quarantined)} quarantined)"
+                     if quarantined else "") + "; starting fresh",
+                  flush=True)
+            args.resume = False
+            return 0, None, {}, quarantined
+        if quarantined:
+            print(f"--resume: every checkpoint under {args.save_dir!r} "
+                  f"failed verification ({len(quarantined)} quarantined)",
+                  file=sys.stderr)
+            raise SystemExit(checkpoint.EXIT_CORRUPT_CKPT)
+        raise SystemExit(f"--resume: no checkpoint under {args.save_dir!r}")
+    if quarantined:
+        print(f"quarantined {len(quarantined)} corrupt checkpoint(s); fell "
+              f"back to {restored}", flush=True)
+    print(f"resumed from {restored} at step {start}", flush=True)
+    return start, restored, stats, quarantined
+
+
+def _load_ema(args, engine, restored):
+    """The weight average to keep (None when off): the checkpoint's
+    `ema.npz` when it has one and matches the model, else a copy of the
+    current weights. --sample-only with no --ema-decay samples a saved
+    average (decay -1: loaded and used, never updated)."""
+    path = Path(restored) / "ema.npz" if restored is not None else None
+    saved = path is not None and path.exists()
+    if args.ema_decay == 0.0 and saved:
+        if args.sample_only:
+            print("checkpoint has EMA weights; sampling the average "
+                  "(delete ema.npz to sample the raw iterate)", flush=True)
+            args.ema_decay = -1.0
+        else:
+            print("warning: checkpoint has ema.npz but --ema-decay is "
+                  "unset; the running average will NOT be continued",
+                  flush=True)
+    if args.ema_decay == 0.0:
+        return None
+    if saved:
+        host = checkpoint.load_pytree(path)
+        mismatch = checkpoint._structure_mismatch(host, engine.params)
+        if mismatch is None:
+            return map_tree(
+                lambda _, x: torch.from_numpy(np.ascontiguousarray(x)).to(
+                    engine.device, copy=True), engine.params, host)
+        print(f"warning: ema.npz does not match this model ({mismatch}); "
+              f"restarting the average from the restored weights",
+              flush=True)
+    return ema_init(engine.params)
+
+
 def train(args) -> float:
-    """Run the configured training; returns the last logged loss."""
+    """Run the configured training (or, with --sample-only, restore and
+    sample); returns the last logged loss (nan with --sample-only)."""
     device = resolve_device(args.device)
-    cfg, opt = build(args)
-    engine = ContextParallelEngine(cfg, opt, seed=args.seed, attn=args.attn,
-                                   device=device)
+    vocab, tokenizer, text_data, val_data = prepare_text(args)
+    cfg, opt = build(args, vocab)
+    if args.auto_resume and not args.resume \
+            and checkpoint.has_checkpoint(args.save_dir):
+        # a cheap probe: restore_latest does the one verification pass
+        args.resume = True
+    # an engine about to restore starts from zeros, not from the seeded
+    # draw the checkpoint replaces (the draw takes ~30 s at 1.21B)
+    restoring = args.resume or args.sample_only
+    engine = ContextParallelEngine(
+        cfg, opt, seed=args.seed, attn=args.attn, device=device,
+        params=map_tree(lambda m: np.zeros(m.shape, cfg.dtype),
+                        T.param_shapes(cfg)) if restoring else None)
+    start_step, restored, restore_stats, quarantined = _restore(args,
+                                                                engine)
+    if restoring and restored is None:       # --auto-resume, fresh start
+        engine.set_canonical_params(T.init_numpy(cfg, args.seed))
+    if not args.sample_only and start_step >= args.steps:
+        raise SystemExit(f"checkpoint is already at step {start_step} >= "
+                         f"--steps {args.steps}; nothing to do")
     metrics = MetricsLogger(args.log_file, kind="train_lm",
                             d_model=cfg.d_model, n_layers=cfg.n_layers,
-                            attn=args.attn, device=str(device))
+                            attn=args.attn, device=str(device),
+                            start_step=start_step)
+    try:
+        if restored is not None:
+            metrics.log(event="restore", path=str(restored),
+                        step=start_step,
+                        quarantined=[str(q) for q in quarantined],
+                        **restore_stats)
+        ema = _load_ema(args, engine, restored)
+
+        @contextlib.contextmanager
+        def ema_weights():
+            """Temporarily swap the averaged weights into the engine."""
+            if ema is None:
+                yield
+                return
+            live, engine.params = engine.params, ema
+            try:
+                yield
+            finally:
+                engine.params = live
+
+        if args.sample_only:
+            with ema_weights():
+                sample_and_print(args, engine, cfg, metrics,
+                                 text_data=text_data, tokenizer=tokenizer)
+            return float("nan")
+        loss = _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
+                     start_step, ema, ema_weights)
+        if args.generate > 0:
+            with ema_weights():
+                sample_and_print(args, engine, cfg, metrics,
+                                 text_data=text_data, tokenizer=tokenizer)
+    finally:
+        metrics.close()
+    return loss
+
+
+def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
+          start_step, ema, ema_weights) -> float:
+    """The step loop from `start_step`: prefetched batches, step lines
+    at log points, validation and checkpoints on their cadence."""
+    device = engine.device
     rates = StepRates(args.batch_size * args.seq_len)
     dtype = "bf16" if args.bf16 else "f32"
-    loss, last = float("nan"), -1
+    saver = checkpoint.AsyncSaver() if args.async_save else None
+    queued = []          # stats of the async saves, logged once written
+
+    def save_ckpt(ckpt_dir, step):
+        stats = {"step": step, "dir": str(ckpt_dir)}
+        extra = {"ema": ema} if ema is not None else None
+        keep = args.keep_checkpoints or None
+        if saver is not None:
+            saver.save(ckpt_dir, engine, step, extra=extra, keep=keep,
+                       stats=stats)
+            queued.append(stats)
+        else:
+            checkpoint.save(ckpt_dir, engine, step, extra=extra, keep=keep,
+                            stats=stats)
+            metrics.log(event="ckpt_save", **stats)
+
+    def save_failed(step, err):
+        # the atomic rename means latest() still points at the previous
+        # checkpoint: a failed save (ENOSPC, an IO error) must not kill
+        # a healthy run
+        print(f"warning: checkpoint save failed ({err}); the previous "
+              f"checkpoint remains the restore point", flush=True)
+        metrics.log(event="ckpt_save_failed", step=step, error=str(err))
+
+    def val_loss(step: int) -> float:
+        """Held-out loss on a fresh batch seeded by the training step
+        (the --text tail, the shards' val.bin, or a seed stream disjoint
+        from training), on the averaged weights under --ema-decay."""
+        val_args = args if val_data is not None else argparse.Namespace(
+            **{**vars(args), "seed": args.seed + 1})
+        tok, tgt = make_batch(val_args, vocab, 10**9 + step, val_data)
+        with ema_weights():
+            return engine.eval_loss(tok, tgt)
+
+    def batches():
+        for step in range(start_step, args.steps):
+            yield make_batch(args, vocab, step, text_data)
+
+    placed = prefetch_to_device(batches(), place_on(device),
+                                depth=args.prefetch)
+    loss, last = float("nan"), start_step - 1
+    failed = True
     try:
-        for step in range(args.steps):
-            tok, tgt = make_batch(args, cfg.vocab, step)
+        placed_it = iter(placed)
+        for step in range(start_step, args.steps):
+            tok, tgt = next(placed_it)
             loss = engine.train_batch(tok, tgt)   # syncs with the device
-            if not np.isfinite(loss):
-                raise SystemExit(f"loss became non-finite ({loss}) at step "
-                                 f"{step}; try --grad-clip, a lower --lr, "
-                                 f"or --lr-schedule with --warmup-steps")
-            if step % args.log_every == 0 or step == args.steps - 1:
+            if ema is not None:
+                ema_update(ema, engine.params, args.ema_decay)
+            if sync_every(step, args.log_every, args.steps):
+                if not np.isfinite(loss):
+                    if args.save_dir:
+                        # forensic only: under diverged/, so --resume
+                        # keeps finding the last good checkpoint
+                        save_ckpt(f"{args.save_dir}/diverged", step)
+                        if saver is not None:
+                            saver.wait()
+                        print(f"diverged-state snapshot: {args.save_dir}/"
+                              f"diverged/ckpt_{step}", flush=True)
+                    raise SystemExit(
+                        f"loss became non-finite ({loss}) at step {step}; "
+                        f"try --grad-clip, a lower --lr, or --lr-schedule "
+                        f"with --warmup-steps")
                 r = rates.log_point(step - last)
                 last = step
                 perf = mfu(r["tokens_per_sec"], cfg, args.seq_len, dtype,
@@ -228,24 +580,72 @@ def train(args) -> float:
                       f"tok/s {r['tokens_per_sec']:,.0f}{mfu_txt}",
                       flush=True)
                 metrics.log(**step_event(step, loss, r, perf, cum))
-        if args.generate > 0:
-            sample_and_print(args, engine, cfg, metrics)
+            if args.val_every and ((step + 1) % args.val_every == 0
+                                   or step == args.steps - 1):
+                tv = time.time()
+                vl = val_loss(step)
+                rates.pause(time.time() - tv)
+                ppl = float(np.exp(min(vl, 20)))
+                print(f"step {step:5d}  val_loss {vl:.4f}  ppl {ppl:,.2f}",
+                      flush=True)
+                metrics.log(event="val", step=step, val_loss=round(vl, 6),
+                            perplexity=round(ppl, 3))
+            if args.save_dir and ((step + 1) % args.save_every == 0
+                                  or step == args.steps - 1):
+                ts = time.time()
+                if not np.isfinite(loss):
+                    # never make a poisoned iterate the restore point
+                    print(f"step {step}: loss {loss} — skipping "
+                          f"checkpoint save", flush=True)
+                    metrics.log(event="ckpt_save_skipped", step=step)
+                else:
+                    try:
+                        save_ckpt(args.save_dir, step)
+                    except (checkpoint.CheckpointError, OSError) as e:
+                        save_failed(step, e)
+                    except RuntimeError as e:
+                        # the async saver surfaces its worker's failure
+                        # on the next call, wrapped
+                        if "checkpoint" not in str(e):
+                            raise
+                        save_failed(step, e)
+                rates.pause(time.time() - ts)
+        failed = False
     finally:
-        metrics.close()
+        # abandoning mid-stream must not leave placed batches held by a
+        # blocked producer thread
+        if hasattr(placed, "close"):
+            placed.close()
+        if saver is not None:
+            if not failed:
+                saver.close()     # drains; raises a failed write
+                for stats in queued:
+                    metrics.log(event="ckpt_save", **stats)
+            else:
+                # an exception is already propagating: don't let a
+                # write error from close() replace it
+                try:
+                    saver.close()
+                except RuntimeError as err:
+                    print(f"[warn] async checkpoint save failed during "
+                          f"teardown: {err!r}", file=sys.stderr)
     return loss
 
 
-def sample_and_print(args, engine, cfg, metrics=None):
-    """Decode `args.generate` tokens from the trained parameters through
-    the contiguous `generate`, after a byte-level `--prompt` or a
-    16-token prefix of the synthetic stream, and print the root
-    driver's decode, prompt and sample lines (the rate includes the
-    prefill and, on the card, the kernels' first-use build)."""
+def sample_and_print(args, engine, cfg, metrics=None, text_data=None,
+                     tokenizer=None):
+    """Decode `args.generate` tokens from the engine's parameters
+    through the contiguous `generate`, after `--prompt` (byte-level, or
+    through `tokenizer`) or a 16-token prefix of the training stream,
+    and print the root driver's decode, prompt and sample lines (the
+    rate includes the prefill and, on the card, the kernels' first-use
+    build)."""
     if args.prompt:
-        prompt = np.frombuffer(args.prompt.encode(), np.uint8).astype(
-            np.int32)[None, :]
+        prompt = (tokenizer.encode(args.prompt) if tokenizer is not None
+                  else np.frombuffer(args.prompt.encode(), np.uint8).astype(
+                      np.int32))[None, :]
     else:
-        prompt = make_batch(args, cfg.vocab, 0)[0][:1, :16]
+        prompt = make_batch(args, cfg.vocab, 0, text_data)[0][:1, :16]
     params = engine.get_canonical_params()
     kvq = "int8" if args.kv_int8 else ""
     t0 = time.time()
@@ -266,8 +666,12 @@ def sample_and_print(args, engine, cfg, metrics=None):
           flush=True)
     if metrics is not None:
         metrics.log(event="generate", **rep)
-    print(f"prompt: {_show(prompt[0])}")
-    print(f"sample: {_show(out[0])}", flush=True)
+    if tokenizer is not None:
+        print(f"prompt: {tokenizer.decode_bytes(prompt[0])!r}")
+        print(f"sample: {tokenizer.decode_bytes(out[0])!r}", flush=True)
+    else:
+        print(f"prompt: {_show(prompt[0])}")
+        print(f"sample: {_show(out[0])}", flush=True)
     return out
 
 

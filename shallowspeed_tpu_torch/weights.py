@@ -7,7 +7,10 @@ norm scales and embeddings. So moving weights across is a copy, never
 a transpose. Optimizer state keeps the reference's layout too: Adam's
 {"m": tree, "v": tree, "t": step}, momentum's velocity tree (or
 {"v": tree, "t": step} under a schedule), SGD's () or {"t": step}; the
-step is an int32 scalar on the JAX side and a Python int here.
+step is a 0-d int32 array on the JAX side (and in a checkpoint) and a
+Python int here. Lists stay lists and tuples stay tuples both ways: a
+checkpoint's structure record tells them apart (SGD's state is the
+empty tuple), and the JAX package's restore compares it.
 """
 
 from __future__ import annotations
@@ -18,6 +21,19 @@ import torch
 from shallowspeed_tpu_torch import resolve_device
 
 
+def map_tree(fn, tree, *rest):
+    """`fn` applied leaf by leaf over trees of one structure (dicts,
+    lists and tuples), keeping the structure; dict entries come in
+    `tree`'s key order, the others looked up by key."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
 def params_from_numpy(tree, device, dtype=None):
     """The JAX package's parameter tree (numpy arrays, as its
     `transformer.init` returns or `jax.device_get` gives) as a tree of
@@ -26,16 +42,15 @@ def params_from_numpy(tree, device, dtype=None):
     dev = resolve_device(device)
 
     def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [conv(v) for v in node]
-        t = torch.from_numpy(np.ascontiguousarray(np.asarray(node)))
+        arr = np.ascontiguousarray(np.asarray(node))
+        t = torch.from_numpy(arr) if arr.flags.writeable else torch.tensor(arr)
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
-        return t.to(dev)
+        # a copy on the CPU too: the tensor owns torch-allocated memory,
+        # never aliases the caller's array
+        return t.to(dev, copy=True)
 
-    return conv(tree)
+    return map_tree(conv, tree)
 
 
 def leaves(tree):
@@ -50,18 +65,6 @@ def leaves(tree):
         yield tree
 
 
-def map_tree(fn, tree, *rest):
-    """`fn` applied leaf by leaf over trees of one structure (dicts and
-    lists), keeping the structure."""
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [map_tree(fn, v, *(r[i] for r in rest))
-                for i, v in enumerate(tree)]
-    return fn(tree, *rest)
-
-
 def unflatten(tree, flat):
     """A tree of `tree`'s structure holding the values of `flat`, in
     `leaves(tree)` order."""
@@ -69,35 +72,43 @@ def unflatten(tree, flat):
     return map_tree(lambda _: next(it), tree)
 
 
+def to_host(t) -> np.ndarray:
+    """A tensor as a numpy array that owns its memory: a snapshot that
+    later in-place updates of the tensor (the optimizer's) cannot
+    reach, on the CPU too, where `.cpu()` would return the tensor
+    itself."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
 def params_to_numpy(tree):
     """A tree of torch tensors as numpy arrays (the JAX package's
-    layout)."""
-    return map_tree(lambda t: t.detach().cpu().numpy(), tree)
+    layout), each a host copy."""
+    return map_tree(to_host, tree)
 
 
 def opt_state_to_numpy(state):
     """An optimizer state of this package in the JAX package's layout:
-    tensors as numpy arrays, the step `t` as an int32 scalar."""
+    tensors as numpy arrays (host copies), the step `t` as a 0-d int32
+    array."""
     if isinstance(state, dict):
         return {k: (np.asarray(v, np.int32) if k == "t"
                     else opt_state_to_numpy(v)) for k, v in state.items()}
-    if isinstance(state, tuple) and not state:
-        return ()
     if isinstance(state, (list, tuple)):
-        return [opt_state_to_numpy(v) for v in state]
-    return state.detach().cpu().numpy()
+        return type(state)(opt_state_to_numpy(v) for v in state)
+    return to_host(state)
 
 
 def opt_state_from_numpy(state, device):
     """The JAX package's optimizer state (numpy, as `jax.device_get`
-    gives it) as this package's: arrays as float tensors on `device`,
-    the step `t` as a Python int."""
+    gives it, or as a checkpoint holds it) as this package's: arrays as
+    float tensors on `device`, the step `t` as a Python int."""
     dev = resolve_device(device)
     if isinstance(state, dict):
         return {k: (int(v) if k == "t" else opt_state_from_numpy(v, dev))
                 for k, v in state.items()}
-    if isinstance(state, tuple) and not state:
-        return ()
     if isinstance(state, (list, tuple)):
-        return [opt_state_from_numpy(v, dev) for v in state]
-    return torch.from_numpy(np.array(state)).to(dev)   # a writable copy
+        return type(state)(opt_state_from_numpy(v, dev) for v in state)
+    arr = np.ascontiguousarray(state)
+    if dev.type == "cpu" or not arr.flags.writeable:
+        arr = np.array(arr)         # a writable copy the tensor owns
+    return torch.from_numpy(arr).to(dev)

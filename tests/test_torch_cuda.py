@@ -578,3 +578,68 @@ def test_cuda_spec_tick_streams_equal_spec_off(cuda):
     assert eng.counters["spec_drafted"] > 0
     for rid in off:
         np.testing.assert_array_equal(on[rid], off[rid], err_msg=rid)
+
+
+# ------------------------------------------------ data and checkpoints
+
+
+@pytest.mark.cuda
+def test_cuda_prefetch_places_batches_in_order(cuda):
+    """`place_on(cuda)` on the prefetcher's thread: int64 tensors on the
+    card, in order, equal to the host batches, and read correctly by
+    kernels the main thread launches on the default stream right after
+    `next()` returns."""
+    from shallowspeed_tpu_torch.data import DevicePrefetcher, place_on
+
+    rng = np.random.default_rng(0)
+    host = [(rng.integers(0, 32768, (4, 2048)).astype(np.int32),
+             rng.integers(0, 32768, (4, 2048)).astype(np.int32))
+            for _ in range(6)]
+    with DevicePrefetcher(iter(host), place_on(cuda), depth=2) as pf:
+        for (tok, tgt), (ht, hg) in zip(pf, host):
+            assert tok.device.type == "cuda" and tok.dtype == torch.int64
+            assert int(tok.sum()) == int(ht.astype(np.int64).sum())
+            np.testing.assert_array_equal(tgt.cpu().numpy(), hg)
+
+
+@pytest.mark.cuda
+def test_cuda_resume_is_bit_identical_at_two_layers(cuda, tmp_path):
+    """train_lm on the card (bf16, K1/K2/K3's tensor-core builds) from a
+    token-shard corpus: a run saved after 2 steps and resumed with an
+    async save prints, step for step, the losses of a straight 4-step
+    run, bit for bit."""
+    from shallowspeed_tpu_torch import train_lm
+    from shallowspeed_tpu_torch.data import build_shards
+    from shallowspeed_tpu_torch.parallel.context import (
+        ContextParallelEngine)
+
+    rng = np.random.default_rng(7)
+    motifs = rng.integers(0, 512, (16, 16))
+    build_shards(motifs[rng.integers(0, 16, 400)].reshape(-1), tmp_path / "d",
+                 512, val_fraction=0.1)
+    flags = ["--data-dir", str(tmp_path / "d"), "--seq-len", "256",
+             "--batch-size", "2", "--d-model", "256", "--n-heads", "2",
+             "--n-layers", "2", "--rope", "--norm", "rmsnorm", "--ffn",
+             "swiglu", "--bf16", "--optimizer", "adamw", "--lr", "1e-3",
+             "--grad-clip", "1.0", "--val-every", "2"]
+    losses = []
+    step = ContextParallelEngine.train_batch
+
+    def recorded(self, tok, tgt):
+        losses.append(step(self, tok, tgt))
+        return losses[-1]
+
+    ContextParallelEngine.train_batch = recorded
+    try:
+        train_lm.main([*flags, "--steps", "4"])
+        straight = losses[:]
+        losses.clear()
+        ck = str(tmp_path / "ck")
+        train_lm.main([*flags, "--steps", "2", "--save-dir", ck])
+        train_lm.main([*flags, "--steps", "4", "--save-dir", ck,
+                       "--resume", "--async-save"])
+    finally:
+        ContextParallelEngine.train_batch = step
+    assert len(straight) == 4 and losses == straight
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+        "ckpt_1", "ckpt_3"]

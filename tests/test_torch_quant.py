@@ -654,8 +654,8 @@ def test_train_lm_samples_after_training(tmp_path, capsys, monkeypatch):
     seen = {}
     orig = tdriver.sample_and_print
 
-    def spy(args, engine, cfg, metrics=None):
-        out = orig(args, engine, cfg, metrics)
+    def spy(args, engine, cfg, metrics=None, **data):
+        out = orig(args, engine, cfg, metrics, **data)
         seen.update(params=engine.get_canonical_params(), cfg=cfg, out=out)
         return out
 
@@ -684,11 +684,9 @@ def test_train_lm_samples_after_training(tmp_path, capsys, monkeypatch):
 
 
 def test_train_lm_sampling_flags_are_validated():
-    """--prompt implies --generate 128 (then too long for a 64-token
-    sequence), an oversized --generate is refused at parse time, and
-    --sample-only (it needs a checkpoint) is still not ported."""
-    from shallowspeed_tpu_torch import NotPorted
-
+    """--prompt and --sample-only imply --generate 128 (then too long for
+    a 64-token sequence), an oversized --generate is refused at parse
+    time, and --sample-only needs --save-dir (it samples a checkpoint)."""
     args = tdriver.parse_args(["--device", "cpu", "--prompt", "hi",
                                "--seq-len", "256"])
     assert args.generate == 128
@@ -701,5 +699,12 @@ def test_train_lm_sampling_flags_are_validated():
     with pytest.raises(SystemExit, match="vocab"):
         tdriver.parse_args(["--device", "cpu", "--prompt", "hi",
                             "--vocab", "64"])
-    with pytest.raises(NotPorted, match="sample-only"):
-        tdriver.parse_args(["--device", "cpu", "--sample-only"])
+    with pytest.raises(SystemExit, match="require --save-dir"):
+        tdriver.parse_args(["--device", "cpu", "--sample-only",
+                            "--seq-len", "256"])
+    args = tdriver.parse_args(["--device", "cpu", "--sample-only",
+                               "--save-dir", "ck", "--seq-len", "256"])
+    assert args.sample_only and args.generate == 128
+    with pytest.raises(SystemExit, match="exceeds --seq-len"):
+        tdriver.parse_args(["--device", "cpu", "--sample-only",
+                            "--save-dir", "ck", "--seq-len", "64"])

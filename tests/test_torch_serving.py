@@ -36,7 +36,8 @@ from shallowspeed_tpu_torch.serving.engine import (ServingEngine,
                                                    decode_logits,
                                                    prefill_chunk,
                                                    table_width)
-from shallowspeed_tpu_torch.weights import params_from_numpy
+from shallowspeed_tpu_torch.weights import (leaves, params_from_numpy,
+                                            params_to_numpy)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -242,14 +243,32 @@ def test_driver_results_match_reference_engine(tmp_path, monkeypatch):
 
 
 def test_driver_refuses_unported_flags(tmp_path):
-    from shallowspeed_tpu_torch import serve
+    """--serve is not ported yet; --ckpt is: it loads a verified
+    checkpoint whose parameters match the model flags, and refuses a
+    missing, corrupt or mismatched one."""
+    from shallowspeed_tpu_torch import checkpoint, serve
 
     empty = tmp_path / "none.jsonl"
     empty.write_text("")
-    for extra in (["--ckpt", "somewhere"], ["--serve"]):
-        with pytest.raises(NotPorted):
-            serve.main(["--device", "cpu", "--requests", str(empty),
-                        *extra])
+    with pytest.raises(NotPorted):
+        serve.main(["--device", "cpu", "--requests", str(empty), "--serve"])
+    with pytest.raises(checkpoint.CheckpointError):
+        serve.main(["--device", "cpu", "--requests", str(empty), "--ckpt",
+                    str(tmp_path / "somewhere")])
+    cfg = T.TransformerConfig(vocab=256, d_model=64, n_heads=4, n_layers=2,
+                              max_seq=512)
+    params = T.init(cfg, seed=4, device="cpu")
+    checkpoint._write_ckpt(tmp_path, 0, params_to_numpy(params), (),
+                           {"epoch": 0}, {})
+    got = serve.load_ckpt_params(tmp_path / "ckpt_0", cfg, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(leaves(got),
+                                                 leaves(params)))
+    with pytest.raises(ValueError, match="model config"):
+        serve.main(["--device", "cpu", "--requests", str(empty), "--ckpt",
+                    str(tmp_path / "ckpt_0"), "--n-layers", "3"])
+    (tmp_path / "ckpt_0" / "params.npz").write_bytes(b"rot")
+    with pytest.raises(checkpoint.CheckpointError):
+        serve.load_ckpt_params(tmp_path / "ckpt_0", cfg, "cpu")
 
 
 def test_allocator_matches_reference_and_keeps_invariants():
