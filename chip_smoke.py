@@ -120,6 +120,24 @@ Phases (any failure exits non-zero and prints no result line):
 8. Time K1, K2 and K3 at the training shape (their tensor-core builds)
    beside their plain versions, the library's attention forward (K1)
    and backward (K2 and K3 together), and their bounds.
+9. The source paper's MLP (no kernel of its own: `ops/functional.py`'s
+   torch ops) at the reference's full width ([784, 128, 127, 126, 125,
+   124, 123, 10]), global batch 128, 4 microbatches, SGD lr 0.006, on
+   synthetic MNIST (70,000 samples, written into a temporary
+   directory): the serial fused run (dp 1) trains 8 batches, then
+   fused dp 2, the VM at pp 1 naive, dp 4 gpipe, pp 4 naive / gpipe /
+   pipedream, dp 2 x pp 2 gpipe and dp 2 x pp 4 pipedream, and the SPMD
+   engine at pp 2 and dp 2 x pp 4 train the same 8 batches; each
+   layout's params must lie within the JAX package's cross-engine bound
+   of the serial run's (rtol 2e-4, atol 2e-6) and its replicas must be
+   bit-identical. Then `train.train` on its default path (fused, staged
+   epochs) for 2 epochs, and at --pp 4 --schedule pipedream (VM) and
+   --pp 2 --schedule gpipe (SPMD) for 50 batches: accuracy finite and
+   above epoch 0's. A 1-epoch run with --save-dir, resumed to epoch 2,
+   must equal the straight 2-epoch run bit for bit. Prints a line per
+   layout (batch ms, samples/s, device ops and busy share of one
+   profiled batch) and an `mlp:` line beside the card's name and power
+   limit.
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers (with `device_ms` / `library_device_ms` where the
@@ -2237,6 +2255,184 @@ def time_train_kernels(dev) -> dict:
     return out
 
 
+# Phase 9: the source paper's MLP at the reference's full width
+# (`train.LAYER_SIZES`), global batch 128, 4 microbatches, SGD lr 0.006,
+# on synthetic MNIST (70,000 samples). Each layout trains MLP_BATCHES
+# batches and is held against the serial fused run within the JAX
+# package's cross-engine bound (`tests/test_integration.py:81-85`).
+MLP_BATCHES = 8
+MLP_RTOL, MLP_ATOL = 2e-4, 2e-6
+MLP_LAYOUTS = {             # name: (engine, dp, pp, schedule)
+    "fused_dp1": ("fused", 1, 1, None),
+    "fused_dp2": ("fused", 2, 1, None),
+    "vm_pp1_naive": ("vm", 1, 1, "naive"),
+    "vm_dp4_gpipe": ("vm", 4, 1, "gpipe"),
+    "vm_pp4_naive": ("vm", 1, 4, "naive"),
+    "vm_pp4_gpipe": ("vm", 1, 4, "gpipe"),
+    "vm_pp4_pipedream": ("vm", 1, 4, "pipedream"),
+    "vm_dp2_pp2_gpipe": ("vm", 2, 2, "gpipe"),
+    "vm_dp2_pp4_pipedream": ("vm", 2, 4, "pipedream"),
+    "spmd_pp2": ("spmd", 1, 2, "gpipe"),
+    "spmd_dp2_pp4": ("spmd", 2, 4, "gpipe"),
+}
+MLP_GROUPS = [("matmul", ("gemm", "cutlass", "nvjet", "xmma"))]
+
+
+def _mlp_engine(dev, layout, data_dir):
+    """One of the driver's engines for `layout`, with its args parsed
+    by the driver itself (its defaults: the reference's MLP and SGD)."""
+    from shallowspeed_tpu_torch import train
+
+    kind, dp, pp, sched = layout
+    args = train.parse_args(["--dp", str(dp), "--pp", str(pp), "--engine",
+                             kind, "--schedule", sched or "naive",
+                             "--data-dir", data_dir])
+    return train.build(args, dev), train.SCHEDULES[sched or "naive"]
+
+
+def _mlp_flat(eng) -> list:
+    import torch
+
+    return [torch.as_tensor(x).to("cpu", torch.float64)
+            for layer in eng.get_canonical_params()
+            for x in (layer["W"], layer["b"])]
+
+
+def _mlp_layout(dev, name, layout, oracle, data_dir) -> tuple:
+    """Train MLP_BATCHES batches of `layout`: batches 1.. timed (synced),
+    the last one profiled; its params against the oracle's, its replicas
+    bit-identical."""
+    import torch
+
+    from shallowspeed_tpu_torch.utils import assert_replicas_in_sync
+
+    (eng, train_ds, _), sched = _mlp_engine(dev, layout, data_dir)
+    epoch_batches = train_ds[0].get_num_batches()
+
+    def batch(b):
+        if layout[0] == "vm":
+            eng.train_batch(sched, 4, b, train_ds)
+        else:
+            eng.train_batch(b, train_ds)
+
+    times = []
+    for b in range(MLP_BATCHES - 1):
+        t0 = time.perf_counter()
+        batch(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    prof = _profiled(lambda: batch(MLP_BATCHES - 1), MLP_GROUPS)
+    assert_replicas_in_sync(eng.replicas())
+    got = _mlp_flat(eng)
+    out = {"batch_ms_p50": 1e3 * _p50(times[1:]),
+           "first_batch_ms": 1e3 * times[0],
+           "device_ops_per_batch": prof["device_kernels"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "busy_share_profiled": (None if prof["idle_share"] is None
+                                   else 1.0 - prof["idle_share"]),
+           "profiled_batch_ms": prof["wall_ms"]}
+    out["samples_per_s"] = 128 / (out["batch_ms_p50"] / 1e3)
+    # the profiler lengthens the batch it watches: the busy device time
+    # over an unwatched batch's wall time is the closer busy share
+    if prof["device_busy_ms"] is not None:
+        out["busy_share"] = prof["device_busy_ms"] / out["batch_ms_p50"]
+    out["epoch_s_at_p50"] = epoch_batches * out["batch_ms_p50"] / 1e3
+    if oracle is not None:
+        err = max(float((a - b).abs().max()) for a, b in zip(got, oracle))
+        ratio = max(float(((a - b).abs() / (MLP_ATOL + MLP_RTOL * b.abs()))
+                          .max()) for a, b in zip(got, oracle))
+        out.update(max_abs_err=err, bound_ratio=ratio)
+        if ratio > 1.0:
+            raise AssertionError(f"mlp {name}: params {ratio:.3g}x the "
+                                 f"bound of the serial run (max abs {err:.3g})")
+    print(f"mlp layout {name}: " + json.dumps(out), flush=True)
+    del eng
+    return out, got
+
+
+def _mlp_drive(argv) -> dict:
+    """One `train.train` run; its JSONL's epoch records and final
+    accuracy, which must be finite and above epoch 0's."""
+    from shallowspeed_tpu_torch import train
+
+    log = argv[argv.index("--log-file") + 1]
+    t0 = time.time()
+    acc, eng = train.train(train.parse_args(argv))
+    wall = time.time() - t0
+    epochs = _events(log, "epoch")
+    start = epochs[0]["accuracy_start"]
+    if not (np.isfinite(acc) and acc > start):
+        raise AssertionError(f"train {' '.join(argv)}: accuracy {start} -> "
+                             f"{acc}, want a finite rise")
+    from shallowspeed_tpu_torch.utils import get_model_hash
+
+    return {"accuracy": [e["accuracy_start"] for e in epochs] + [acc],
+            "epoch_s": [e["epoch_seconds"] for e in epochs],
+            "samples_per_s": [e["samples_per_sec"] for e in epochs],
+            "wall_s": wall, "engine": type(eng).__name__,
+            "hash": get_model_hash(eng.params), "flat": _mlp_flat(eng)}
+
+
+def run_mlp(dev, card) -> dict:
+    """Phase 9: the MLP path of the source paper on the card — every
+    layout against the serial oracle, the driver's default, VM and SPMD
+    paths, and save/resume bit for bit. Prints `mlp layout ...` lines
+    and one `mlp:` line."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from shallowspeed_tpu_torch.data.mnist import prepare_mnist
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="mlp_smoke_")
+    try:
+        data_dir = str(prepare_mnist(root + "/mnist", synthetic=True))
+        layouts, oracle = {}, None
+        for name, layout in MLP_LAYOUTS.items():
+            layouts[name], flat = _mlp_layout(dev, name, layout, oracle,
+                                              data_dir)
+            if oracle is None:
+                oracle = flat
+            gc.collect()
+            torch.cuda.empty_cache()
+        base = ["--data-dir", data_dir]
+        runs = {}
+        for key, extra in (
+                ("fused_2_epochs", ["--epochs", "2", "--save-dir",
+                                    root + "/a"]),
+                ("vm_pp4_pipedream_50", ["--pp", "4", "--schedule",
+                                         "pipedream", "--epochs", "1",
+                                         "--max-batches", "50"]),
+                ("spmd_pp2_gpipe_50", ["--pp", "2", "--schedule", "gpipe",
+                                       "--epochs", "1", "--max-batches",
+                                       "50"])):
+            runs[key] = _mlp_drive(base + extra + [
+                "--log-file", f"{root}/{key}.jsonl"])
+        _mlp_drive(base + ["--epochs", "1", "--save-dir", root + "/b",
+                           "--log-file", root + "/b1.jsonl"])
+        resumed = _mlp_drive(base + ["--epochs", "2", "--save-dir",
+                                     root + "/b", "--resume", "--log-file",
+                                     root + "/b2.jsonl"])
+        straight = runs["fused_2_epochs"]
+        same = (resumed["hash"] == straight["hash"] and all(
+            torch.equal(a, b) for a, b in zip(resumed["flat"],
+                                              straight["flat"])))
+        if not same:
+            raise AssertionError("mlp: a 1-epoch run resumed to epoch 2 "
+                                 "differs from a straight 2-epoch run")
+        for r in runs.values():
+            del r["flat"]
+        out = {"card": card, "layouts": layouts, "driver": runs,
+               "resume_bit_identical": same, "hash": straight["hash"],
+               "phase_s": time.time() - t_phase}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("mlp: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2344,6 +2540,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     timing.update(time_train_kernels(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_mlp(dev, card)
 
     src = "shallowspeed_tpu_torch/csrc/"
     fa = "shallowspeed_tpu/ops/flash_attention.py:"

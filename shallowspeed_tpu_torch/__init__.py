@@ -26,7 +26,16 @@ What is ported so far:
 - the narrow-K matmul probe (`bench_matmul`) -> `ops.matmul.
   blocked_matmul`, a hand-written CUDA kernel (K5,
   `csrc/blocked_matmul.cu`). Every Pallas kernel of the JAX package
-  now has its Hopper counterpart.
+  now has its Hopper counterpart;
+- text data and checkpoints: `data/` (tokenizer, token shards,
+  prefetch), `build_token_shards`, `checkpoint.py` in the JAX
+  package's format;
+- the source paper's MNIST MLP: `train.py` -> `engine.FusedDPEngine`,
+  `parallel.worker.PipelineExecutor` (naive / GPipe / PipeDream-Flush
+  schedules) or `parallel.spmd_pipeline.SPMDPipelineEngine` over a
+  (dp, pp) grid of devices (`parallel.mesh`) -> `models.mlp` ->
+  `ops.functional` (torch ops with hand-written VJPs; the reference
+  has no Pallas kernel on this path), on `data.mnist` / `data.dataset`.
 ROADMAP.md lists what comes next; each feature not ported yet raises
 `NotPorted`.
 

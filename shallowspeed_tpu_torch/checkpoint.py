@@ -4,8 +4,10 @@ either package restores in the other.
 
 - **Format**: `ckpt_N/` holds one `.npz` per tree — `params.npz` (the
   canonical f32 parameters), `opt.npz` (the optimizer state, its meta
-  saying which engine and optimizer wrote it), and any `extra` trees
-  (`ema.npz`) — plus `manifest.json`. An npz holds numbered members
+  saying which engine and optimizer wrote it), `opt_canon.npz` (the
+  same state in the canonical whole-model layout, written by the
+  engines whose layout is not canonical: the MLP pipeline engines), and
+  any `extra` trees (`ema.npz`) — plus `manifest.json`. An npz holds numbered members
   `leaf_i` and a uint8 member `spec`, the JSON of {"tree": structure,
   "meta": ...}; the structure tells dicts (sorted keys), lists, tuples
   and None apart. No pickle anywhere.
@@ -26,7 +28,9 @@ either package restores in the other.
 - `restore` verifies first, then checks the parameters' structure and
   shapes against the engine (`ValueError` on a mismatch: a wrong
   config is a user error, not corruption), then installs params, then
-  the optimizer state.
+  the optimizer state: the engine's own record when the same engine
+  class wrote it, else the canonical record re-laid into this engine's
+  layout, so each MLP engine restores any other's checkpoint.
 
 Left out, with the reference's multi-process and fault-injection
 planes: the collective fetch and the barriers around a save (ROADMAP
@@ -271,8 +275,8 @@ def _structure_mismatch(a, b) -> str | None:
 
 
 def _write_ckpt(ckpt_dir, epoch: int, params, opt_state, meta: dict,
-                extra: dict, keep: int | None = None,
-                stats: dict | None = None) -> Path:
+                extra: dict, opt_canon=None, canon_meta=None,
+                keep: int | None = None, stats: dict | None = None) -> Path:
     """The one encoding of the on-disk layout + atomic rename, shared by
     the synchronous and async save paths. The trees are host copies.
     `stats`, when given, receives the seconds of the write with its
@@ -295,6 +299,8 @@ def _write_ckpt(ckpt_dir, epoch: int, params, opt_state, meta: dict,
 
     _write("params.npz", params)
     _write("opt.npz", opt_state, meta=meta)
+    if opt_canon is not None:
+        _write("opt_canon.npz", opt_canon, meta=canon_meta)
     for name, tree in sorted(extra.items()):
         _write(f"{name}.npz", tree)
     t1 = time.perf_counter()
@@ -329,16 +335,54 @@ def _opt_meta(engine, epoch: int) -> dict:
     }
 
 
+def _canon_opt_export(engine, host_opt_state):
+    """The engine-agnostic optimizer record for `opt_canon.npz` (host
+    numpy) and its meta, or (None, None) when none is needed: an
+    identity-layout engine's `opt.npz` already IS the canonical record
+    (`opt_is_canonical` in its meta). The per-stage VM merges its
+    stages (`canon_opt_export`); the stacked SPMD engine re-lays each
+    params-shaped moment tree with its params' transform
+    (`Optimizer.map_state_trees` + `canon_export_tree`)."""
+    opt = getattr(engine, "optimizer", None)
+    if opt is None or getattr(engine, "canonical_opt_identity", False):
+        return None, None
+    meta = {"optimizer": type(opt).__name__}
+    custom = getattr(engine, "canon_opt_export", None)
+    if custom is not None:
+        return opt_state_to_numpy(custom()), meta
+    export = getattr(engine, "canon_export_tree", None)
+    if export is None:
+        return None, None
+    return opt.map_state_trees(host_opt_state, export), meta
+
+
+def _canon_opt_import(engine, canon):
+    """Inverse of `_canon_opt_export`: the canonical state in this
+    engine's layout (host-side), or None when it cannot import."""
+    if getattr(engine, "canonical_opt_identity", False):
+        return canon
+    custom = getattr(engine, "canon_opt_import", None)
+    if custom is not None:
+        return custom(canon)
+    imp = getattr(engine, "canon_import_tree", None)
+    if imp is None:
+        return None
+    return engine.optimizer.map_state_trees(canon, imp)
+
+
 def _snapshot(engine, extra: dict | None, stats: dict | None):
     """Host copies of the engine's params and optimizer state (the
-    step `t` as a 0-d int32 array) and of the `extra` trees."""
+    step `t` as a 0-d int32 array), of its canonical optimizer record
+    where it has one (with that record's meta), and of the `extra`
+    trees."""
     t0 = time.perf_counter()
     params = params_to_numpy(engine.get_canonical_params())
     opt_state = opt_state_to_numpy(engine.opt_state)
+    canon = _canon_opt_export(engine, opt_state)
     extra = {k: params_to_numpy(v) for k, v in (extra or {}).items()}
     if stats is not None:
         stats["fetch_s"] = time.perf_counter() - t0
-    return params, opt_state, extra
+    return params, opt_state, canon, extra
 
 
 def _candidates(ckpt_dir) -> list[tuple[int, Path]]:
@@ -387,9 +431,9 @@ def save(ckpt_dir, engine, epoch: int, extra: dict | None = None,
     to that many checkpoints. `stats`, when given, receives the seconds
     of the device-to-host fetch (`fetch_s`) and of `_write_ckpt`'s
     stages, and the bytes written."""
-    params, opt_state, extra = _snapshot(engine, extra, stats)
+    params, opt_state, canon, extra = _snapshot(engine, extra, stats)
     return _write_ckpt(ckpt_dir, epoch, params, opt_state,
-                       _opt_meta(engine, epoch), extra, keep=keep,
+                       _opt_meta(engine, epoch), extra, *canon, keep=keep,
                        stats=stats)
 
 
@@ -436,12 +480,12 @@ class AsyncSaver:
         updating its tensors in place) at once. `stats` as `save`'s,
         filled by the worker once the write is done."""
         self._raise_pending()
-        params, opt_state, extra = _snapshot(engine, extra, stats)
+        params, opt_state, canon, extra = _snapshot(engine, extra, stats)
         meta = _opt_meta(engine, epoch)
 
         def write():
             _write_ckpt(ckpt_dir, epoch, params, opt_state, meta, extra,
-                        keep=keep, stats=stats)
+                        *canon, keep=keep, stats=stats)
 
         self._q.put(write)
 
@@ -514,10 +558,10 @@ def load_params(ckpt_path, template) -> dict:
 
 def _restore_opt_canonical(engine, d: Path, opt_state, meta) -> bool:
     """Try the engine-agnostic optimizer record: `opt_canon.npz` if
-    present (a layout-transforming engine of the reference wrote it),
-    else `opt.npz` itself when its meta says the writing engine's
-    layout was canonical. This engine's layout is canonical, so the
-    record installs as it is. Returns True when it was installed."""
+    present (a layout-transforming engine wrote it), else `opt.npz`
+    itself when its meta says the writing engine's layout was
+    canonical; re-laid into this engine's layout (`_canon_opt_import`).
+    Returns True when it was installed."""
     path = d / "opt_canon.npz"
     if path.exists():
         canon, cmeta = _load_checked(path, with_meta=True)
@@ -531,12 +575,15 @@ def _restore_opt_canonical(engine, d: Path, opt_state, meta) -> bool:
         warnings.warn(f"canonical opt state is {src_kind} but this "
                       f"engine runs {type(opt).__name__}; re-initializing")
         return False
-    mismatch = _structure_mismatch(canon, engine.opt_state)
+    state = _canon_opt_import(engine, canon)
+    if state is None:
+        return False
+    mismatch = _structure_mismatch(state, engine.opt_state)
     if mismatch is not None:
         warnings.warn(f"canonical opt state does not match this engine's "
                       f"optimizer ({mismatch}); re-initializing")
         return False
-    engine.set_opt_state(canon)
+    engine.set_opt_state(state)
     return True
 
 

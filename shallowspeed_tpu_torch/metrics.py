@@ -1,7 +1,8 @@
 """Structured JSONL metrics — the parts of `shallowspeed_tpu/metrics.py`
-the port's drivers use: `MetricsLogger` (serving and training) and
-`StepRates` (training throughput windows), plus `step_event`, the
-training driver's `"step"` line in the reference's field names. The
+the port's drivers use: `MetricsLogger` (serving and training, with the
+MLP driver's `epoch` and `final` records) and `StepRates` (training
+throughput windows), plus `step_event`, the LM driver's `"step"` line in
+the reference's field names. The
 live monitor feed, telemetry/health fields and file-rotation handling
 are not ported yet."""
 
@@ -39,6 +40,23 @@ class MetricsLogger:
     def close(self) -> None:
         if self._fh is not None and not self._fh.closed:
             self._fh.close()
+
+    def epoch(self, epoch: int, accuracy_start: float, samples: int,
+              epoch_seconds: float) -> None:
+        """One record per training epoch. `accuracy_start` is the
+        validation accuracy measured BEFORE this epoch's updates (the
+        reference's print semantics); the trained result lands in the
+        `final` record."""
+        sps = samples / epoch_seconds if epoch_seconds > 0 else 0.0
+        self.log(event="epoch", epoch=epoch,
+                 accuracy_start=round(accuracy_start, 6),
+                 epoch_seconds=round(epoch_seconds, 4),
+                 samples_per_sec=round(sps, 1))
+
+    def final(self, accuracy: float, total_seconds: float) -> None:
+        """Post-training validation accuracy — the run's headline result."""
+        self.log(event="final", accuracy=round(accuracy, 6),
+                 total_seconds=round(total_seconds, 3))
 
 
 class StepRates:

@@ -13,7 +13,9 @@ Unlike the reference, `step` updates the parameter and moment tensors
 IN PLACE (they are large, and nothing else holds them) and returns the
 same objects; the step counter `t` is a Python int and the schedule is
 evaluated on the host in float32, as the reference traces it.
-Adafactor is not ported yet and raises `NotPorted`.
+`map_state_trees` re-lays every params-shaped moment tree with an
+engine's params transform, for checkpoints' canonical optimizer
+record. Adafactor is not ported yet and raises `NotPorted`.
 """
 
 from __future__ import annotations
@@ -112,6 +114,16 @@ class _Optimizer:
             return clip_by_global_norm(grads, self.grad_clip)
         return grads
 
+    def map_state_trees(self, state, fn):
+        """Apply `fn` — a params-shaped tree -> params-shaped tree
+        transform (an engine's re-layout between its params and the
+        canonical checkpoint layout) — to every params-shaped moment
+        tree inside `state`, passing step counters through. The seam
+        that makes optimizer state engine-agnostic in checkpoints
+        (`checkpoint.py`'s `opt_canon.npz`). Default: no params-shaped
+        trees (SGD)."""
+        return state
+
 
 class SGD(_Optimizer):
     """Plain SGD: p - lr * g. Stateless with a static lr; carries a step
@@ -155,6 +167,11 @@ class MomentumSGD(_Optimizer):
             p.sub_((lr * v).to(p.dtype))
         return params, ({"v": vel, "t": t + 1} if sched else vel)
 
+    def map_state_trees(self, state, fn):
+        if isinstance(state, dict) and "v" in state:
+            return {"v": fn(state["v"]), "t": state["t"]}
+        return fn(state)
+
 
 class Adam(_Optimizer):
     """Adam with bias correction; AdamW adds decoupled weight decay."""
@@ -189,6 +206,9 @@ class Adam(_Optimizer):
                 upd = upd + wd * p
             p.sub_((lr * upd).to(p.dtype))
         return params, {"m": state["m"], "v": state["v"], "t": t}
+
+    def map_state_trees(self, state, fn):
+        return {"m": fn(state["m"]), "v": fn(state["v"]), "t": state["t"]}
 
 
 class AdamW(Adam):

@@ -29,8 +29,8 @@ from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.ops.attention import attention
 from shallowspeed_tpu_torch.ops.flash_attention import flash_attention
 from shallowspeed_tpu_torch.weights import (leaves, map_tree,
-                                            opt_state_from_numpy,
-                                            params_from_numpy, unflatten)
+                                            params_from_numpy, placed_copy,
+                                            unflatten)
 
 _LATER = "Queue 1, multi-device LM engines"
 
@@ -145,5 +145,5 @@ class ContextParallelEngine:
         int, in the current state's key order."""
         if isinstance(state, (dict, list, tuple)) and any(
                 isinstance(x, np.ndarray) for x in leaves(state)):
-            state = opt_state_from_numpy(state, self.device)
+            state = placed_copy(state, self.device)
         self.opt_state = map_tree(lambda _, x: x, self.opt_state, state)

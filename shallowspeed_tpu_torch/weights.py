@@ -73,10 +73,12 @@ def unflatten(tree, flat):
 
 
 def to_host(t) -> np.ndarray:
-    """A tensor as a numpy array that owns its memory: a snapshot that
-    later in-place updates of the tensor (the optimizer's) cannot
-    reach, on the CPU too, where `.cpu()` would return the tensor
-    itself."""
+    """A tensor (or an array) as a numpy array that owns its memory: a
+    snapshot that later in-place updates of the tensor (the
+    optimizer's) cannot reach, on the CPU too, where `.cpu()` would
+    return the tensor itself."""
+    if not isinstance(t, torch.Tensor):
+        return np.array(t)
     return t.detach().to("cpu", copy=True).numpy()
 
 
@@ -98,17 +100,17 @@ def opt_state_to_numpy(state):
     return to_host(state)
 
 
-def opt_state_from_numpy(state, device):
-    """The JAX package's optimizer state (numpy, as `jax.device_get`
-    gives it, or as a checkpoint holds it) as this package's: arrays as
-    float tensors on `device`, the step `t` as a Python int."""
-    dev = resolve_device(device)
-    if isinstance(state, dict):
-        return {k: (int(v) if k == "t" else opt_state_from_numpy(v, dev))
-                for k, v in state.items()}
-    if isinstance(state, (list, tuple)):
-        return type(state)(opt_state_from_numpy(v, dev) for v in state)
-    arr = np.ascontiguousarray(state)
-    if dev.type == "cpu" or not arr.flags.writeable:
-        arr = np.array(arr)         # a writable copy the tensor owns
-    return torch.from_numpy(arr).to(dev)
+def placed_copy(tree, device):
+    """A tree of tensors or numpy arrays (the JAX package's optimizer
+    state as `jax.device_get` gives it or a checkpoint holds it, or
+    parameters) as this package's on `device`: every array leaf a fresh
+    tensor there (never an alias of the input, so replicas never share
+    storage), a dict's step `t` a Python int."""
+    if isinstance(tree, dict):
+        return {k: (int(v) if k == "t" else placed_copy(v, device))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(placed_copy(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device, copy=True)
+    return torch.from_numpy(np.array(tree)).to(device)

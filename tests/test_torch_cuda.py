@@ -643,3 +643,89 @@ def test_cuda_resume_is_bit_identical_at_two_layers(cuda, tmp_path):
     assert len(straight) == 4 and losses == straight
     assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
         "ckpt_1", "ckpt_3"]
+
+
+# ------------------------------------------------------------ the MLP path
+
+MLP_SIZES = [784, 32, 31, 30, 29, 28, 27, 10]
+MLP_LAYOUTS = [("fused", 1, 1, None), ("fused", 2, 1, None),
+               ("vm", 1, 4, "PipeDreamSchedule"), ("vm", 2, 2, "GPipeSchedule"),
+               ("spmd", 1, 2, None), ("spmd", 2, 4, None)]
+
+
+@pytest.fixture(scope="module")
+def mlp_data(tmp_path_factory):
+    from shallowspeed_tpu_torch.data.mnist import prepare_mnist
+
+    return prepare_mnist(tmp_path_factory.mktemp("mnist"), synthetic=True,
+                         n_samples=1024)
+
+
+def _mlp_train(layout, device, data_dir, n_batches=3):
+    from shallowspeed_tpu_torch.data.dataset import Dataset
+    from shallowspeed_tpu_torch.engine import FusedDPEngine
+    from shallowspeed_tpu_torch.models.mlp import MLPStage
+    from shallowspeed_tpu_torch.optim import SGD
+    from shallowspeed_tpu_torch.parallel import schedules
+    from shallowspeed_tpu_torch.parallel.mesh import make_mesh
+    from shallowspeed_tpu_torch.parallel.spmd_pipeline import (
+        SPMDPipelineEngine)
+    from shallowspeed_tpu_torch.parallel.worker import PipelineExecutor
+
+    kind, dp, pp, sched = layout
+    gbs, n_mu, mesh = 64, 4, make_mesh(dp, pp, device)
+    ds = [Dataset(data_dir, gbs, gbs // dp // n_mu).load(r, dp)
+          for r in range(dp)]
+    if kind == "fused":
+        eng = FusedDPEngine(MLPStage(MLP_SIZES, 0, 1, gbs), SGD(0.5), mesh)
+    elif kind == "spmd":
+        eng = SPMDPipelineEngine(MLP_SIZES, SGD(0.5), mesh, n_mu,
+                                 gbs // dp // n_mu, gbs)
+    else:
+        eng = PipelineExecutor(mesh, [MLPStage(MLP_SIZES, s, pp, gbs)
+                                      for s in range(pp)], SGD(0.5))
+    for b in range(n_batches):
+        if kind == "vm":
+            eng.train_batch(getattr(schedules, sched), n_mu, b, ds)
+        else:
+            eng.train_batch(b, ds)
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MLP_LAYOUTS,
+                         ids=["x".join(map(str, la[:3])) for la in MLP_LAYOUTS])
+def test_cuda_mlp_engine_matches_cpu(cuda, mlp_data, layout):
+    """Each MLP engine on the card against the same engine on the CPU
+    after 3 batches, within the JAX package's cross-engine bound (rtol
+    2e-4, atol 2e-6); every tensor on the card; replicas bit-identical."""
+    from shallowspeed_tpu_torch.utils import (assert_replicas_in_sync,
+                                              tree_leaves)
+
+    got = _mlp_train(layout, cuda, mlp_data)
+    ref = _mlp_train(layout, "cpu", mlp_data)
+    for a, b in zip(got.get_canonical_params(), ref.get_canonical_params()):
+        for k in ("W", "b"):
+            np.testing.assert_allclose(np.asarray(torch.as_tensor(a[k]).cpu()),
+                                       np.asarray(b[k]), rtol=2e-4, atol=2e-6)
+    assert all(t.device.type == "cuda"
+               for t in tree_leaves(got.replicas()))
+    assert_replicas_in_sync(got.replicas())
+
+
+@pytest.mark.cuda
+def test_cuda_mlp_driver_default_device(cuda, mlp_data, tmp_path):
+    """`train.main` with no --device runs on the card; a save and a
+    resume reproduce the straight run's model hash."""
+    from shallowspeed_tpu_torch import train
+
+    base = ["--data-dir", str(mlp_data), "--batch-size", "64",
+            "--max-batches", "4"]
+    acc, eng = train.train(train.parse_args(base + ["--epochs", "2"]))
+    assert eng.device.type == "cuda" and 0.0 <= acc <= 1.0
+    train.main(base + ["--epochs", "1", "--save-dir", str(tmp_path)])
+    _, resumed = train.train(train.parse_args(
+        base + ["--epochs", "2", "--save-dir", str(tmp_path), "--resume"]))
+    from shallowspeed_tpu_torch.utils import get_model_hash
+
+    assert get_model_hash(resumed.params) == get_model_hash(eng.params)

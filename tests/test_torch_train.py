@@ -40,10 +40,10 @@ from shallowspeed_tpu_torch import optim as O
 from shallowspeed_tpu_torch import train_lm as tdriver
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
-from shallowspeed_tpu_torch.weights import (leaves, opt_state_from_numpy,
-                                            opt_state_to_numpy,
+from shallowspeed_tpu_torch.weights import (leaves, opt_state_to_numpy,
                                             params_from_numpy,
-                                            params_to_numpy, unflatten)
+                                            params_to_numpy, placed_copy,
+                                            unflatten)
 
 
 def _flat(tree, prefix=""):
@@ -287,7 +287,7 @@ def test_engine_trajectory_matches_jax_engine():
     for key in ("m", "v"):
         assert _worst(te.opt_state[key], jstate[key]) <= 1e-4
 
-    crossed = opt_state_from_numpy(jstate, "cpu")
+    crossed = placed_copy(jstate, "cpu")
     assert crossed["t"] == 3 and isinstance(crossed["t"], int)
     back = opt_state_to_numpy(crossed)
     assert back["t"].dtype == np.int32 and int(back["t"]) == 3
