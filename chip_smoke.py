@@ -138,10 +138,34 @@ Phases (any failure exits non-zero and prints no result line):
    layout (batch ms, samples/s, device ops and busy share of one
    profiled batch) and an `mlp:` line beside the card's name and power
    limit.
+10. The one-device training features at full width (bf16 compute).
+   (a) The 1.21B LM's own recipe at full depth: Adafactor 3e-4, remat
+   policy "dots", xent_chunk 1024, the flash kernels, phase 6's batch
+   and weights: the warm-up step's loss within LOSS_TOL_BF16 of the
+   plain attention's no-remat, unchunked no-grad loss; 6 timed steps
+   with the launch counts zeroed before them, K1, K2 and K3 each
+   n_layers a step on their tensor-core builds (the FMA builds 0),
+   finite, falling losses; a profiled step; a `recipe:` line with step
+   p50, tok/s, MFU and the peak memory (measured as phase 6's); then a
+   `recipe ladder:` line, Adafactor alone, with "dots" alone and with
+   xent_chunk 1024 alone, 3 timed steps each (step p50, tok/s, MFU,
+   peak memory). (b) The feature matrix at 2 layers: each remat policy
+   against no remat, K1 2 x n_layers under "full" and n_layers under
+   "attn" and "dots"; xent_chunk 1024 and 1000 against unchunked; accum
+   2 against accum 1 (K1-K3 2 x n_layers); dropout 0.1 under "full"
+   remat against no remat at the same key; attention dropout 0.1
+   through the plain attention (no K1) under "full" remat against no
+   remat: loss within LOSS_TOL_BF16 and every gradient leaf within
+   GRAD_TOL_BF16 of its max; each row's wall ms and peak memory. (c)
+   MoE at 4 layers, 4 experts, top-2, capacity 2.0 through
+   `ExpertParallelEngine` (the plain attention, no K1) with AdamW: 4
+   steps, falling losses, the routing stats, and the engine's logits
+   against `T.forward` on the same weights (LOGITS_TOL_BF16).
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers (with `device_ms` / `library_device_ms` where the
-profiler timed them), and `{"ok": true, "device": {...}}`.
+profiler timed them, and K1-K3's `recipe_launches` from phase 10a), and
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -219,6 +243,17 @@ GRAD_TOL_F32 = 1e-4
 # measured ~2e-5 apart. The bound catches a wrong mask or scale (order-1
 # errors), not a single rounding.
 LOSS_TOL_BF16 = 1e-3
+# Phase 10: a bf16 gradient leaf against its counterpart's, as max
+# |diff| / max |ref| (the bf16 bound of tests/test_torch_train.py: the
+# two round activations and cotangents to bf16 at different points).
+GRAD_TOL_BF16 = 5e-2
+# Phase 10's depths (width is never cut): the recipe at full depth, the
+# feature matrix at FEATURE_LAYERS, MoE at MOE_LAYERS with MOE_EXPERTS
+# experts, top-2, capacity 2.0, MOE_STEPS steps.
+FEATURE_LAYERS = 2
+MOE_LAYERS = 4
+MOE_EXPERTS = 4
+MOE_STEPS = 4
 
 
 def _card_line() -> str:
@@ -2373,6 +2408,316 @@ def _mlp_drive(argv) -> dict:
             "hash": get_model_hash(eng.params), "flat": _mlp_flat(eng)}
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+def _train_counters():
+    """(tensor-core launchers of K1, K2, K3; their f32-FMA launchers)."""
+    from shallowspeed_tpu_torch.ops import flash_attention as FA
+
+    return ((FA._flash_fwd_tc, FA._flash_dq_tc, FA._flash_dkv_tc),
+            (FA.flash_fwd, FA.flash_dq, FA.flash_dkv))
+
+
+def _zero_train_counts() -> None:
+    for group in _train_counters():
+        for k in group:
+            k.launches = 0
+
+
+def _train_counts() -> dict:
+    """{"flash_fwd_tc": n, ..., "fma": [K1, K2, K3 f32 launches]}."""
+    tc, fma = _train_counters()
+    out = {k.__name__.lstrip("_"): k.launches for k in tc}
+    out["fma"] = [k.launches for k in fma]
+    return out
+
+
+def _check_counts(label, counts, k1, k23) -> None:
+    want = {"flash_fwd_tc": k1, "flash_dq_tc": k23, "flash_dkv_tc": k23,
+            "fma": [0, 0, 0]}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, want {want}")
+
+
+def run_recipe(dev, cfg, np_params, plain_peak_gb=None) -> dict:
+    """Phase 10a: the 1.21B LM's own recipe at full width and depth
+    (Adafactor 3e-4, remat policy "dots", xent_chunk 1024, flash) on
+    phase 6's batch: the warm-up step's loss against the plain
+    attention's no-remat, unchunked no-grad loss on the same weights;
+    then timed steps whose K1, K2 and K3 launches (tensor-core builds)
+    must each be n_layers a step, and a profiled step. The peak memory
+    is measured from before the engine's construction, as phase 6's,
+    and printed beside phase 6's (`plain_peak_gb`)."""
+    import torch
+
+    from shallowspeed_tpu_torch.flops import mfu
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.ops.attention import attention
+    from shallowspeed_tpu_torch.optim import Adafactor
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+
+    rcfg = dataclasses.replace(cfg, remat=True, remat_policy="dots",
+                               xent_chunk=1024)
+    tok, tgt = _train_batch(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ContextParallelEngine(rcfg, Adafactor(3e-4), attn="flash",
+                                device=dev, params=np_params)
+    with torch.no_grad():
+        plain = float(T.loss(eng.params, torch.from_numpy(tok).to(dev),
+                             torch.from_numpy(tgt).to(dev), cfg,
+                             attn_fn=partial(attention, causal=True,
+                                             window=cfg.attn_window)))
+    t0 = time.perf_counter()
+    warm = eng.train_batch(tok, tgt)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    loss_rel = abs(warm - plain) / abs(plain)
+    print(f"recipe loss at init: dots remat + chunked xent + kernels "
+          f"{warm:.6f}, plain unchunked {plain:.6f}, rel {loss_rel:.3e} "
+          f"(tol {LOSS_TOL_BF16:g})", flush=True)
+    if not loss_rel <= LOSS_TOL_BF16:
+        raise AssertionError(f"recipe loss off the plain loss by "
+                             f"{loss_rel:.3e} > {LOSS_TOL_BF16:g}")
+    _zero_train_counts()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(tok, tgt))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = _train_counts()
+    n = rcfg.n_layers * TRAIN_STEPS
+    _check_counts("recipe", counts, n, n)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"recipe losses {losses}")
+    p50 = float(np.median(step_s))
+    tok_s = TRAIN_BATCH * cfg.max_seq / p50
+    perf = mfu(tok_s, cfg, cfg.max_seq, "bf16", device=dev)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    profile = profile_step(eng, tok, tgt)
+    out = {"steps": TRAIN_STEPS, "losses": [warm] + losses,
+           "warmup_step_s": warm_s, "step_ms": [1e3 * x for x in step_s],
+           "step_ms_p50": 1e3 * p50, "tok_per_s": tok_s,
+           "tflops": perf["tflops"], "mfu": perf["mfu"],
+           "launches": {k: v for k, v in counts.items() if k != "fma"},
+           "peak_mem_gb": peak}
+    print("recipe: " + json.dumps(out), flush=True)
+    print(f"recipe peak memory {peak:.2f} GB beside phase 6's (AdamW, no "
+          f"remat, unchunked) {plain_peak_gb} GB", flush=True)
+    print("recipe profile: " + json.dumps(profile), flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ladder"] = recipe_ladder(dev, cfg, np_params, tok, tgt)
+    return out
+
+
+# the recipe's features one at a time at full depth: (name, remat
+# policy or None, xent_chunk), all with Adafactor 3e-4
+LADDER = [("adafactor", None, 0), ("adafactor + dots", "dots", 0),
+          ("adafactor + xent_chunk 1024", None, 1024)]
+LADDER_STEPS = 3
+
+
+def recipe_ladder(dev, cfg, np_params, tok, tgt) -> dict:
+    """What each of the recipe's features buys and costs at full depth:
+    Adafactor alone, then with remat "dots" or with xent_chunk 1024
+    alone, each 1 warm-up + LADDER_STEPS timed steps on phase 6's batch:
+    step p50, tok/s, MFU and the peak memory from before the engine's
+    construction (no plain-loss check inside it, unlike phases 6 and
+    10a). The launches here do not count."""
+    import torch
+
+    from shallowspeed_tpu_torch.flops import mfu
+    from shallowspeed_tpu_torch.optim import Adafactor
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+
+    out = {}
+    for name, policy, chunk in LADDER:
+        lcfg = dataclasses.replace(cfg, remat=policy is not None,
+                                   remat_policy=policy or "full",
+                                   xent_chunk=chunk)
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = ContextParallelEngine(lcfg, Adafactor(3e-4), attn="flash",
+                                    device=dev, params=np_params)
+        eng.train_batch(tok, tgt)
+        step_s = []
+        for _ in range(LADDER_STEPS):
+            t0 = time.perf_counter()
+            loss = eng.train_batch(tok, tgt)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        if not np.isfinite(loss):
+            raise AssertionError(f"recipe ladder {name}: loss {loss}")
+        p50 = float(np.median(step_s))
+        tok_s = TRAIN_BATCH * cfg.max_seq / p50
+        out[name] = {"step_ms_p50": 1e3 * p50, "tok_per_s": tok_s,
+                     "mfu": mfu(tok_s, cfg, cfg.max_seq, "bf16",
+                                device=dev)["mfu"],
+                     "peak_mem_gb":
+                         torch.cuda.max_memory_allocated(dev) / 1e9}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("recipe ladder: " + json.dumps(out), flush=True)
+    return out
+
+
+def _worst_leaf(ga, gb) -> tuple[float, str]:
+    """(worst gradient-leaf max |diff| / max |ref|, its path) of tree a
+    against tree b."""
+    from shallowspeed_tpu_torch.weights import leaves
+
+    worst, where = 0.0, ""
+    for path, a, b in zip(leaves(_paths(gb)), leaves(ga), leaves(gb)):
+        ref = float(b.abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        rel = err / ref if ref > 0 else (0.0 if err == 0 else float("inf"))
+        if rel > worst:
+            worst, where = rel, path
+    return worst, where
+
+
+def run_feature_matrix(dev, cfg) -> dict:
+    """Phase 10b: at full width and FEATURE_LAYERS layers, bf16, phase
+    6's batch: each feature's loss and gradients (no update) against its
+    own plain counterpart's on the card, within LOSS_TOL_BF16 and
+    GRAD_TOL_BF16: each remat policy and dropout 0.1 under "full" remat
+    against no remat (the masks must repeat), xent_chunk 1024 and 1000
+    (a remainder chunk) against unchunked, accum 2 against accum 1 on
+    the same B 4 batch, attention dropout 0.1 (the plain attention,
+    which must launch no K1) under "full" remat against no remat. The
+    launch counts are zeroed before each row: K1 2 x n_layers under
+    "full", n_layers otherwise, K2 and K3 n_layers; accum 2 doubles
+    each. Each row also reports its call's wall ms and the memory it
+    allocated at its peak."""
+    import torch
+
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.optim import SGD
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+
+    cfg2 = dataclasses.replace(cfg, n_layers=FEATURE_LAYERS)
+    np2 = T.init_numpy(cfg2, seed=0)
+    tok, tgt = _train_batch(cfg2)
+    nl = cfg2.n_layers
+
+    def grads(attn="flash", accum=1, **feature):
+        """(loss, gradients, launch counts, {"ms": the call's wall ms,
+        "peak_gb": what the row allocated at its peak, the engine's
+        parameters included, over what was allocated before it})."""
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = ContextParallelEngine(
+            dataclasses.replace(cfg2, **feature), SGD(0.0), attn=attn,
+            device=dev, accum=accum, params=np2)
+        _zero_train_counts()
+        t0 = time.perf_counter()
+        loss, g = eng.loss_and_grads(tok, tgt)
+        torch.cuda.synchronize()
+        cost = {"ms": 1e3 * (time.perf_counter() - t0),
+                "peak_gb": (torch.cuda.max_memory_allocated(dev)
+                            - before) / 1e9}
+        counts = _train_counts()
+        del eng
+        return float(loss), g, counts, cost
+
+    rows = {}
+
+    def row(name, got, ref, k1, k23):
+        loss_rel = abs(got[0] - ref[0]) / abs(ref[0])
+        grad_rel, leaf = _worst_leaf(got[1], ref[1])
+        _check_counts(name, got[2], k1, k23)
+        rows[name] = {"loss": got[0], "loss_rel": loss_rel,
+                      "grad_rel": grad_rel, "leaf": leaf,
+                      "launches": {k: v for k, v in got[2].items()
+                                   if k != "fma"}, **got[3]}
+        print(f"features {name}: loss {got[0]:.6f} rel {loss_rel:.3e}, "
+              f"worst grad leaf {leaf} rel {grad_rel:.3e}, launches "
+              f"{got[2]}, {got[3]['ms']:.1f} ms, peak "
+              f"{got[3]['peak_gb']:.2f} GB", flush=True)
+        if not (loss_rel <= LOSS_TOL_BF16 and grad_rel <= GRAD_TOL_BF16):
+            raise AssertionError(f"feature {name} off its counterpart: "
+                                 f"loss {loss_rel:.3e}, {leaf} "
+                                 f"{grad_rel:.3e}")
+
+    base = grads()
+    _check_counts("no remat", base[2], nl, nl)
+    rows["off"] = {"loss": base[0], **base[3]}
+    for policy in ("full", "attn", "dots"):
+        row(f"remat {policy}", grads(remat=True, remat_policy=policy), base,
+            2 * nl if policy == "full" else nl, nl)
+    for chunk in (1024, 1000):
+        row(f"xent_chunk {chunk}", grads(xent_chunk=chunk), base, nl, nl)
+    row("accum 2", grads(accum=2), base, 2 * nl, 2 * nl)
+    del base
+    drop = grads(dropout=0.1)
+    if drop[0] == rows["off"]["loss"]:
+        raise AssertionError("dropout 0.1 left the loss unchanged")
+    rows["dropout 0.1"] = {"loss": drop[0], **drop[3]}
+    row("dropout 0.1, remat full", grads(dropout=0.1, remat=True), drop,
+        2 * nl, nl)
+    del drop
+    adrop = grads(attn="ring", attn_dropout=0.1)
+    rows["attn_dropout 0.1"] = {"loss": adrop[0], **adrop[3]}
+    row("attn_dropout 0.1, remat full",
+        grads(attn="ring", attn_dropout=0.1, remat=True), adrop, 0, 0)
+    del adrop
+    torch.cuda.empty_cache()
+    print("features: " + json.dumps(rows), flush=True)
+    return rows
+
+
+def run_moe(dev, cfg) -> dict:
+    """Phase 10c: the MoE FFN at full width (MOE_LAYERS layers,
+    MOE_EXPERTS experts, top-2, capacity 2.0, bf16) through
+    `ExpertParallelEngine` (the plain attention: no K1 launch) with
+    AdamW on phase 6's batch: MOE_STEPS steps whose losses must be
+    finite and fall, the routing stats, and the engine's logits against
+    `T.forward` on the same weights."""
+    import torch
+
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.optim import AdamW
+    from shallowspeed_tpu_torch.parallel.expert import ExpertParallelEngine
+
+    mcfg = dataclasses.replace(cfg, n_layers=MOE_LAYERS,
+                               n_experts=MOE_EXPERTS, moe_top_k=2,
+                               moe_capacity_factor=2.0)
+    npm = T.init_numpy(mcfg, seed=0)
+    tok, tgt = _train_batch(mcfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ExpertParallelEngine(mcfg, AdamW(3e-4, weight_decay=0.01,
+                                           grad_clip=1.0), device=dev,
+                               params=npm)
+    del npm
+    _zero_train_counts()
+    losses, step_s = [], []
+    for _ in range(MOE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(tok, tgt))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    _check_counts("moe", _train_counts(), 0, 0)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"moe losses {losses}")
+    stats = eng.router_stats(tok)
+    got = eng.logits(tok).float()
+    with torch.no_grad():
+        ref = T.forward(eng.params, torch.from_numpy(tok).to(dev),
+                        mcfg).float()
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    out = {"losses": losses, "step_ms": [1e3 * x for x in step_s],
+           "step_ms_p50": 1e3 * float(np.median(step_s[1:])),
+           "router": stats, "logits_rel": rel,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    print("moe: " + json.dumps(out), flush=True)
+    if not rel <= LOGITS_TOL_BF16:
+        raise AssertionError(f"moe engine logits off T.forward by {rel:.3e}")
+    return out
+
+
 def run_mlp(dev, card) -> dict:
     """Phase 9: the MLP path of the source paper on the card — every
     layout against the serial oracle, the driver's default, VM and SPMD
@@ -2531,8 +2876,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    launches.update(train(dev, cfg, np_params)["launches"])
-    del np_params
+    trained = train(dev, cfg, np_params)
+    launches.update(trained["launches"])
     gc.collect()
     torch.cuda.empty_cache()
     run_data_ckpt(dev, cfg)
@@ -2543,6 +2888,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_mlp(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    recipe = run_recipe(dev, cfg, np_params, trained["peak_mem_gb"])
+    del np_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_feature_matrix(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_moe(dev, cfg)
 
     src = "shallowspeed_tpu_torch/csrc/"
     fa = "shallowspeed_tpu/ops/flash_attention.py:"
@@ -2564,6 +2920,8 @@ def main() -> int:
         "library_ms": timing[name]["library_ms"],
         "device_ms": timing[name].get("device_ms"),
         "library_device_ms": timing[name].get("library_device_ms"),
+        **({"recipe_launches": recipe["launches"][name]}
+           if name in recipe["launches"] else {}),
     } for name, (cu, ref) in where.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

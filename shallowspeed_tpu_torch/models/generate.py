@@ -150,7 +150,7 @@ def prefill(params, tokens, cfg: T.TransformerConfig, cache,
     attn = partial(fn, causal=True, window=cfg.attn_window)
     pos = torch.arange(tp, device=tokens.device)
     for blk, cblk in zip(params["blocks"], cache):
-        x, (k, v) = T._block(blk, x, cfg, pos, attn, with_kv=True)
+        x, _, (k, v) = T._block(blk, x, cfg, pos, attn, with_kv=True)
         cache_write(cblk, k, v, 0)
     x = T._norm(params["ln_f"], x, cfg)
     x_last = x[:, tp - 1 if last_idx is None else last_idx]
@@ -170,7 +170,7 @@ def _block_decode(p, x, cfg: T.TransformerConfig, cache_blk, pos: int):
     cache_write(cache_blk, k, v, pos)
     a = cached_attention(q, cache_blk, pos, cfg.attn_window)
     x = x + T._dense(p["proj"], a.reshape(b, 1, cfg.d_model))
-    return T._ffn(p, x, cfg, T._norm(p["ln2"], x, cfg))
+    return T._ffn(p, x, cfg, T._norm(p["ln2"], x, cfg))[0]
 
 
 @torch.no_grad()

@@ -25,9 +25,14 @@ fp8-e4m3 with per-out-channel f32 scales) turns dense leaves into
 `ops.matmul.dequant_matmul`, and `cast_params` leaves both leaves in
 their storage dtypes.
 
-Dropout, attention dropout, remat, chunked cross-entropy, MoE and fp8
-training matmuls are not ported yet: a config that needs them raises
-`NotPorted`.
+Training features, as in the reference: dropout on the embedding sum
+and on each attention and FFN output, and attention-probability dropout
+in the plain attention, with masks from explicit keys (`ops.dropout`:
+a forward given no `dropout_key` runs no RNG op); remat of every block
+under the policies "full", "attn" and "dots" (`_remat_block`); chunked
+cross-entropy (`chunked_token_loss`); and the MoE FFN (`ops.moe`), its
+balance and z-losses added in `loss`. fp8 training matmuls
+(`fp8_dense`) are not ported yet and raise `NotPorted`.
 """
 
 from __future__ import annotations
@@ -35,13 +40,21 @@ from __future__ import annotations
 from dataclasses import dataclass
 from functools import partial
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from shallowspeed_tpu_torch import NotPorted, resolve_device
 from shallowspeed_tpu_torch.ops.attention import attention
+from shallowspeed_tpu_torch.ops.dropout import dropout as _dropout
+from shallowspeed_tpu_torch.ops.dropout import fold_key
+from shallowspeed_tpu_torch.ops import flash_attention as FA
 from shallowspeed_tpu_torch.ops.matmul import dequant_matmul
+from shallowspeed_tpu_torch.ops.moe import moe_ffn
 from shallowspeed_tpu_torch.weights import leaves, params_from_numpy
 
 
@@ -97,9 +110,6 @@ class TransformerConfig:
         assert self.n_heads % self.kv_heads == 0, (
             f"n_heads={self.n_heads} must be divisible by "
             f"n_kv_heads={self.kv_heads}")
-        if self.n_experts > 0:
-            raise NotPorted("mixture-of-experts FFN (n_experts > 0)",
-                            "Queue 1, multi-device LM engines")
         if self.fp8_dense:
             raise NotPorted("fp8_dense matmuls", "Queue 1, fp8 training")
         if (self.compute_dtype is not None
@@ -150,10 +160,18 @@ def _param_tree(cfg: TransformerConfig, normal, const):
             blk["kv"] = dense(d, 2 * cfg.kv_heads * cfg.head_dim)
         else:
             blk["qkv"] = dense(d, 3 * d)
-        if cfg.ffn == "swiglu":
+        if cfg.ffn == "swiglu" and cfg.n_experts == 0:
             blk["gate"] = dense(d, cfg.ffn_dim)
-        blk["up"] = dense(d, cfg.ffn_dim)
-        blk["down"] = dense(cfg.ffn_dim, d)
+        if cfg.n_experts > 0:
+            e, ff = cfg.n_experts, cfg.ffn_dim
+            blk["moe"] = {"gate": normal((d, e), 0.02),
+                          "wi": normal((e, d, ff), 1.0 / np.sqrt(d)),
+                          "bi": const((e, ff), 0.0),
+                          "wo": normal((e, ff, d), 1.0 / np.sqrt(ff)),
+                          "bo": const((e, d), 0.0)}
+        else:
+            blk["up"] = dense(d, cfg.ffn_dim)
+            blk["down"] = dense(cfg.ffn_dim, d)
         blocks.append(blk)
     out = {
         "tok_emb": normal((cfg.vocab, d), 0.02),
@@ -349,50 +367,122 @@ def _qkv(p, h, cfg: TransformerConfig):
     return q, k, v
 
 
-def _ffn(p, x, cfg: TransformerConfig, h):
-    """Post-attention half of a block: GELU (tanh form, JAX's default)
-    or SwiGLU on the norm output `h`, residual onto `x`."""
+def _ffn(p, x, cfg: TransformerConfig, h, key=None):
+    """Post-attention half of a block: GELU (tanh form, JAX's default),
+    SwiGLU or the routed MoE on the norm output `h`, dropout (with a
+    `key`), residual onto `x`. Returns (x, (balance aux, router z-loss,
+    routing stats)), the MoE terms unweighted and (0.0, 0.0, None) for
+    a dense FFN."""
     if "moe" in p:
-        raise NotPorted("mixture-of-experts FFN",
-                        "Queue 1, multi-device LM engines")
+        y, aux, z, st = moe_ffn(p["moe"], h, cfg.moe_top_k,
+                                cfg.moe_capacity_factor,
+                                priority=cfg.moe_routing == "priority")
+        return x + _dropout(y, cfg.dropout, key), (aux, z, st)
     if "gate" in p:
         u = F.silu(_dense(p["gate"], h)) * _dense(p["up"], h)
     else:
         u = F.gelu(_dense(p["up"], h), approximate="tanh")
-    return x + _dense(p["down"], u)
+    return (x + _dropout(_dense(p["down"], u), cfg.dropout, key),
+            (0.0, 0.0, None))
 
 
-def _block(p, x, cfg: TransformerConfig, pos, attn_fn,
+def _block(p, x, cfg: TransformerConfig, pos, attn_fn, key=None,
            with_kv: bool = False):
-    """One pre-norm block. With `with_kv` also returns this block's
-    (k, v) (B, T, Hkv, hd), rotated and unrepeated — what a decode
-    prefill writes into its cache."""
+    """One pre-norm block: (x, MoE terms as `_ffn` gives them). `key`
+    (training only) seeds the block's dropout masks: site 0 the
+    attention output, 1 the FFN output, 2 the attention probabilities.
+    With `with_kv` also returns this block's (k, v) (B, T, Hkv, hd),
+    rotated and unrepeated — what a decode prefill writes into its
+    cache."""
+    k_attn = k_ffn = k_prob = None
+    if key is not None:
+        k_attn, k_ffn, k_prob = (fold_key(key, site) for site in range(3))
     h = _norm(p["ln1"], x, cfg)
     q, k, v = _qkv(p, h, cfg)
     if cfg.rope:
         q = rope_rotate(q, pos, cfg.rope_theta)
         k = rope_rotate(k, pos, cfg.rope_theta)
     b, t, d = x.shape
-    a = attn_fn(q, k, v)
-    x = x + _dense(p["proj"], a.reshape(b, t, d))
-    x = _ffn(p, x, cfg, _norm(p["ln2"], x, cfg))
-    return (x, (k, v)) if with_kv else x
+    extra = {}
+    if cfg.attn_dropout > 0.0:
+        fn = attn_fn
+        while isinstance(fn, partial):
+            fn = fn.func
+        if not getattr(fn, "supports_prob_dropout", False):
+            raise ValueError(
+                "cfg.attn_dropout needs the plain attention substrate "
+                "(the fused flash kernels cannot mask probabilities "
+                "inside their score blocks)")
+        extra = {"dropout": cfg.attn_dropout, "dropout_key": k_prob}
+    a = attn_fn(q, k, v, **extra)
+    x = x + _dropout(_dense(p["proj"], a.reshape(b, t, d)), cfg.dropout,
+                     k_attn)
+    x, moe = _ffn(p, x, cfg, _norm(p["ln2"], x, cfg), k_ffn)
+    return (x, moe, (k, v)) if with_kv else (x, moe)
 
 
-def check_trainable(cfg: TransformerConfig) -> None:
-    """Raise `NotPorted` for the training features of the config that
-    the port does not have yet (eval ignores them, as the reference
-    does: dropout is train-only, remat and chunking only reshape the
-    backward)."""
-    if cfg.dropout > 0.0 or cfg.attn_dropout > 0.0:
-        raise NotPorted("dropout / attn_dropout in training",
-                        "Queue 1, training features after slice 2")
-    if cfg.remat:
-        raise NotPorted(f"remat (remat_policy={cfg.remat_policy!r})",
-                        "Queue 1, training features after slice 2")
-    if cfg.xent_chunk > 0:
-        raise NotPorted("chunked cross-entropy (xent_chunk)",
-                        "Queue 1, training features after slice 2")
+# What remat policy "dots" saves: the outputs of the 2-D dense products
+# (every projection; the reference's dots_with_no_batch_dims_saveable).
+# Batched products (the plain attention's, the MoE experts') recompute.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(stash, ctx, op, *args, **kwargs):
+    if op in _DOTS and not stash.busy:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+class _Both:
+    """Two contexts entered as one; re-enterable, as a recompute context
+    must be (a second backward recomputes again)."""
+
+    def __init__(self, *cms):
+        self.cms = cms
+        self._stacks: list = []
+
+    def __enter__(self):
+        stack = contextlib.ExitStack()
+        for cm in self.cms:
+            stack.enter_context(cm)
+        self._stacks.append(stack)
+
+    def __exit__(self, *exc):
+        return self._stacks.pop().__exit__(*exc)
+
+
+def _remat_contexts(policy: str):
+    """(forward, recompute) contexts of one rematerialized block: "attn"
+    keeps each flash call's (o, lse) through the recompute
+    (`ops.flash_attention.AttnStash`); "dots" also keeps every dense
+    product's output (a selective-checkpoint policy over torch's
+    ops)."""
+    stash = FA.AttnStash()
+    if policy == "attn":
+        return stash.recording(), stash.replaying()
+    fwd, rec = create_selective_checkpoint_contexts(
+        partial(_dots_policy, stash))
+    return _Both(fwd, stash.recording()), _Both(rec, stash.replaying())
+
+
+def _remat_block(cfg: TransformerConfig):
+    """`_block` rematerialized (torch.utils.checkpoint, non-reentrant)
+    under cfg.remat_policy: "full" saves nothing (the backward reruns
+    the whole block, K1 included); "attn" saves the attention output
+    and its lse, so the backward never relaunches K1; "dots" saves
+    those and every dense product's output, so the backward recomputes
+    only the elementwise work (norms, rope, silu / gelu, dropout masks,
+    which come from keys, not from a stream)."""
+    ctx = (None if cfg.remat_policy == "full"
+           else partial(_remat_contexts, cfg.remat_policy))
+
+    def block(p, x, cfg, pos, attn_fn, key):
+        kw = {} if ctx is None else {"context_fn": ctx}
+        return checkpoint(_block, p, x, cfg, pos, attn_fn, key,
+                          use_reentrant=False, preserve_rng_state=False,
+                          **kw)
+
+    return block
 
 
 def token_loss(logits, targets, cfg: TransformerConfig, train: bool = True):
@@ -406,30 +496,102 @@ def token_loss(logits, targets, cfg: TransformerConfig, train: bool = True):
     return nll.mean()
 
 
-def forward_with_aux(params, tokens, cfg: TransformerConfig, attn_fn=None):
+def _chunk_nll(hp, xc, tc, cfg: TransformerConfig, ls: float):
+    """Summed nll of one chunk of positions: lse minus the target logit
+    in f32 (with smoothing: -mean logp = lse - mean(logits))."""
+    logits = head_logits(hp, xc, cfg).float()                 # (n, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - torch.gather(logits, -1, tc[:, None])[:, 0]
+    if ls > 0.0:
+        nll = (1.0 - ls) * nll + ls * (lse - logits.mean(dim=-1))
+    return nll.sum()
+
+
+def chunked_token_loss(params, x, targets, cfg: TransformerConfig,
+                       train: bool = True):
+    """`token_loss(head_logits(x))` without ever holding the (B*T,
+    vocab) logits: positions go in chunks of cfg.xent_chunk, each
+    chunk's logits recomputed in the backward (a non-reentrant
+    checkpoint per chunk), so the forward and the backward hold one
+    chunk's logits at a time. The last chunk is the remainder when
+    cfg.xent_chunk does not divide B*T (the reference pads it and masks
+    the pad rows out: the same sum). `params` is the uncast tree (only
+    the head leaves are cast here); `x` is the final-norm output (B, T,
+    d)."""
+    key = "tok_emb" if cfg.tie_embeddings else "head"
+    hp = cast_params({key: params[key]}, cfg.compute_dtype)
+    b, t, d = x.shape
+    total = b * t
+    n = min(cfg.xent_chunk, total)
+    ls = cfg.label_smoothing if train else 0.0
+    grad = torch.is_grad_enabled()
+    tot = None
+    for xc, tc in zip(x.reshape(total, d).split(n),
+                      targets.reshape(total).long().split(n)):
+        part = (checkpoint(_chunk_nll, hp, xc, tc, cfg, ls,
+                           use_reentrant=False, preserve_rng_state=False)
+                if grad else _chunk_nll(hp, xc, tc, cfg, ls))
+        tot = part if tot is None else tot + part
+    return tot / total
+
+
+def forward_with_aux(params, tokens, cfg: TransformerConfig, attn_fn=None,
+                     dropout_key=None, with_stats: bool = False,
+                     head: bool = True):
     """tokens (B, T) int -> (logits (B, T, vocab), (balance aux, router
-    z-loss)); the aux terms are 0.0 (no MoE in the port yet).
+    z-loss) summed over the MoE layers, 0.0 for a dense config).
     Differentiable in `params`. `attn_fn(q, k, v)` defaults to the plain
-    causal `attention` with the config's window."""
+    causal `attention` with the config's window. `dropout_key`
+    (training only, `ops.dropout.fold_key`) switches the config's
+    dropout on: the embedding sum's mask from (key, n_layers), block i's
+    from (key, i). With cfg.remat every block is rematerialized
+    (`_remat_block`) when grad is enabled. `head=False` returns the
+    final-norm hidden states instead of logits (chunked cross-entropy
+    projects them itself); `with_stats` adds a third element, the MoE
+    routing stats averaged over the layers ({"load": (E,),
+    "drop_fraction"}, None for a dense config)."""
     if attn_fn is None:
         attn_fn = partial(attention, causal=True, window=cfg.attn_window)
+    if not head:         # not cast for nothing: chunking casts its own
+        params = {k: v for k, v in params.items() if k != "head"}
     params = cast_params(params, cfg.compute_dtype)
     b, t = tokens.shape
     if t > cfg.max_seq:
         raise ValueError(f"sequence of {t} exceeds max_seq={cfg.max_seq}")
+    if cfg.dropout == 0.0 and cfg.attn_dropout == 0.0:
+        dropout_key = None
     pos = torch.arange(t, device=tokens.device)
     x = params["tok_emb"][tokens]
     if not cfg.rope:
         x = x + params["pos_emb"][pos]
-    for blk in params["blocks"]:
-        x = _block(blk, x, cfg, pos, attn_fn)
+    if dropout_key is not None:
+        x = _dropout(x, cfg.dropout, fold_key(dropout_key, cfg.n_layers))
+    block = (_remat_block(cfg) if cfg.remat and torch.is_grad_enabled()
+             else _block)
+    aux_total, z_total = 0.0, 0.0
+    stats_sum, n_moe = None, 0
+    for i, blk in enumerate(params["blocks"]):
+        key = None if dropout_key is None else fold_key(dropout_key, i)
+        x, (aux, z, st) = block(blk, x, cfg, pos, attn_fn, key)
+        aux_total = aux_total + aux
+        z_total = z_total + z
+        if st is not None:
+            stats_sum = (st if stats_sum is None else
+                         {k: stats_sum[k] + st[k] for k in st})
+            n_moe += 1
     x = _norm(params["ln_f"], x, cfg)
-    return head_logits(params, x, cfg), (0.0, 0.0)
+    out = head_logits(params, x, cfg) if head else x
+    if with_stats:
+        stats = (None if stats_sum is None else
+                 {k: v / n_moe for k, v in stats_sum.items()})
+        return out, (aux_total, z_total), stats
+    return out, (aux_total, z_total)
 
 
-def forward(params, tokens, cfg: TransformerConfig, attn_fn=None):
+def forward(params, tokens, cfg: TransformerConfig, attn_fn=None,
+            dropout_key=None):
     """Logits only (see `forward_with_aux`)."""
-    return forward_with_aux(params, tokens, cfg, attn_fn)[0]
+    return forward_with_aux(params, tokens, cfg, attn_fn, dropout_key)[0]
 
 
 @torch.no_grad()
@@ -440,14 +602,20 @@ def eval_forward(params, tokens, cfg: TransformerConfig):
 
 
 def loss(params, tokens, targets, cfg: TransformerConfig, attn_fn=None,
-         train: bool = True):
+         dropout_key=None, train: bool = True):
     """Mean softmax cross-entropy over all (batch, seq) positions
-    (`token_loss`); with `train` the config's training features apply
-    and must be ported (`check_trainable`)."""
-    if train:
-        check_trainable(cfg)
-    elif cfg.xent_chunk > 0:
-        raise NotPorted("chunked cross-entropy (xent_chunk)",
-                        "Queue 1, training features after slice 2")
-    logits, _ = forward_with_aux(params, tokens, cfg, attn_fn)
-    return token_loss(logits, targets, cfg, train)
+    (`token_loss`, or `chunked_token_loss` with cfg.xent_chunk), plus
+    moe_aux_weight x the balance loss and, when moe_z_weight > 0, the
+    weighted router z-loss. `train=False` drops label smoothing."""
+    if cfg.xent_chunk > 0:
+        hid, (aux, z) = forward_with_aux(params, tokens, cfg, attn_fn,
+                                         dropout_key, head=False)
+        tl = chunked_token_loss(params, hid, targets, cfg, train)
+    else:
+        logits, (aux, z) = forward_with_aux(params, tokens, cfg, attn_fn,
+                                            dropout_key)
+        tl = token_loss(logits, targets, cfg, train)
+    total = tl + cfg.moe_aux_weight * aux
+    if cfg.moe_z_weight > 0.0:
+        total = total + cfg.moe_z_weight * z
+    return total

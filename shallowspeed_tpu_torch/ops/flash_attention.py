@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -633,13 +634,84 @@ def attention_delta(do, o):
     return (do.to(acc) * o.to(acc)).sum(dim=-1).transpose(1, 2).contiguous()
 
 
+class AttnStash:
+    """K1's outputs (o, lse) of one rematerialized block, kept from its
+    forward through its recompute: the remat policies "attn" and "dots"
+    save the attention output, and with it lse, so the backward never
+    relaunches K1. A selective-checkpoint policy cannot save them: K1
+    launches through ctypes, which torch's dispatch never sees, and on
+    recompute it would launch again into a fresh buffer. Inside
+    `recording()`, each `flash_attention` call keeps its (o, lse);
+    inside `replaying()`, the same calls return them in the same order
+    without a launch. `busy` is set while K1's wrapper runs, so a
+    selective policy can leave the wrapper's own ops alone."""
+
+    _local = threading.local()
+
+    def __init__(self):
+        self.saved: list = []
+        self._next = 0
+        self.busy = False
+
+    @classmethod
+    def current(cls):
+        return getattr(cls._local, "stash", None), getattr(
+            cls._local, "replay", False)
+
+    def recording(self):
+        return _StashMode(self, False)
+
+    def replaying(self):
+        return _StashMode(self, True)
+
+    def fwd(self, q, k, v, causal, window, replay):
+        if replay:
+            o, lse = self.saved[self._next]
+            self._next += 1
+            # fresh tensor objects on the same storage: autograd gives
+            # each output its own history
+            return o.detach(), lse.detach()
+        self.busy = True
+        try:
+            o, lse = flash_fwd(q, k, v, causal=causal, window=window)
+        finally:
+            self.busy = False
+        self.saved.append((o.detach(), lse.detach()))
+        return o, lse
+
+
+class _StashMode:
+    """The context in which `flash_attention` records into, or replays
+    from, a stash; re-enterable (a second backward recomputes again)."""
+
+    def __init__(self, stash: AttnStash, replay: bool):
+        self.stash, self.replay = stash, replay
+        self._prev: list = []
+
+    def __enter__(self):
+        local = AttnStash._local
+        self._prev.append(AttnStash.current())
+        local.stash, local.replay = self.stash, self.replay
+        if not self.replay:
+            self.stash.saved.clear()
+        self.stash._next = 0
+
+    def __exit__(self, *exc):
+        AttnStash._local.stash, AttnStash._local.replay = self._prev.pop()
+
+
 class _FlashAttention(torch.autograd.Function):
-    """K1 forward; backward = delta, then K2 and K3, with dq, dk, dv
+    """K1 forward (or, in a block's remat recompute, the outputs it kept,
+    `AttnStash`); backward = delta, then K2 and K3, with dq, dk, dv
     cast from f32 to the inputs' dtypes (`_flash_bwd_rule`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        o, lse = flash_fwd(q, k, v, causal=causal, window=window)
+        stash, replay = AttnStash.current()
+        if stash is None:
+            o, lse = flash_fwd(q, k, v, causal=causal, window=window)
+        else:
+            o, lse = stash.fwd(q, k, v, causal, window, replay)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o

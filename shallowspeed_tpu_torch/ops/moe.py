@@ -1,0 +1,125 @@
+"""Mixture-of-experts ops — counterpart of `shallowspeed_tpu/ops/moe.py`
+(capacity-based top-k routing and the einsum dispatch, GShard /
+Switch style), without its `axis_name` all-to-all branch: one device
+holds every expert.
+
+Shapes are static as in the reference: each expert takes a fixed
+capacity of C token slots per batch group, routing gives dense
+`dispatch` / `combine` tensors (G, S, E, C), and the token movement is
+two einsums. The router runs in float32 whatever the compute dtype.
+The expert choices and slot assignments are discrete (no gradient);
+the gate weights reach the router through `combine` and the balance
+loss, as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def expert_capacity(seq_len: int, num_experts: int, top_k: int,
+                    capacity_factor: float) -> int:
+    """Token slots per expert per batch group."""
+    return max(1, math.ceil(top_k * seq_len * capacity_factor / num_experts))
+
+
+def _one_hot(idx, n: int) -> torch.Tensor:
+    """f32 one-hot of integer `idx` over n classes; an index outside
+    [0, n) gives a zero row, as `jax.nn.one_hot` does."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
+def topk_capacity_routing(gate_logits, capacity: int, top_k: int = 2,
+                          priority: bool = False):
+    """Top-k routing with per-expert capacity over gate_logits
+    (G, S, E); the reference's algorithm step for step.
+
+    Within each k, slots go in sequence order (GShard), or with
+    `priority` in descending router probability (V-MoE batch priority;
+    a stable sort, so sequence order breaks ties); later k choices
+    stack after every earlier-k assignment. An assignment past an
+    expert's capacity is dropped.
+
+    Returns (combine (G, S, E, C) f32 — the renormalized gate weight of
+    token (g, s) on expert e's slot c, dispatch (G, S, E, C) bool, aux
+    — the Switch balance loss E * sum_e f_e P_e over the top-1 choices,
+    stats {"load": (E,) pre-drop share of the (token, k) assignments,
+    "drop_fraction": share dropped for capacity})."""
+    return route(torch.softmax(gate_logits.float(), dim=-1), capacity,
+                 top_k, priority)
+
+
+def route(probs, capacity: int, top_k: int = 2, priority: bool = False):
+    """`topk_capacity_routing` from the router's f32 probabilities
+    (G, S, E): every step after the softmax, so that the same
+    probabilities route exactly as the reference routes them."""
+    g, s, e = probs.shape
+    raw_gate, topk_idx = torch.topk(probs, top_k, dim=-1)      # (G, S, K)
+    topk_gate = raw_gate / (raw_gate.sum(-1, keepdim=True) + 1e-9)
+
+    dev = probs.device
+    combine = torch.zeros((g, s, e, capacity), dtype=torch.float32,
+                          device=dev)
+    used = torch.zeros((g, e), dtype=torch.float32, device=dev)
+    kept = torch.zeros((), dtype=torch.float32, device=dev)
+    assigned = torch.zeros((e,), dtype=torch.float32, device=dev)
+    for k in range(top_k):
+        onehot = _one_hot(topk_idx[..., k], e)                  # (G, S, E)
+        if priority:
+            # rank this k's assignments per expert by the raw router
+            # probability; unassigned tokens score 0 and sort last
+            score = onehot * raw_gate[..., k, None]
+            order = torch.argsort(-score, dim=1, stable=True)
+            rank = torch.argsort(order, dim=1, stable=True).float()
+            pos = rank + used[:, None, :]
+        else:
+            pos = torch.cumsum(onehot, dim=1) - onehot + used[:, None, :]
+        keep = onehot * (pos < capacity)                        # (G, S, E)
+        slot = _one_hot((pos * onehot).sum(-1).to(torch.int32),
+                        capacity)                               # (G, S, C)
+        combine = combine + (topk_gate[..., k, None, None]
+                             * keep[..., None] * slot[:, :, None, :])
+        used = used + keep.sum(dim=1)
+        kept = kept + keep.sum()
+        assigned = assigned + onehot.sum(dim=(0, 1))
+    dispatch = combine > 0.0
+
+    top1 = _one_hot(topk_idx[..., 0], e)
+    aux = e * torch.sum(top1.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+    total = float(g * s * top_k)
+    stats = {"load": assigned / total,
+             "drop_fraction": 1.0 - kept / total}
+    return combine, dispatch, aux, stats
+
+
+def router_z_loss(gate_logits) -> torch.Tensor:
+    """ST-MoE router z-loss: mean over tokens of logsumexp(logits)^2."""
+    z = torch.logsumexp(gate_logits.float(), dim=-1)
+    return torch.mean(z * z)
+
+
+def moe_ffn(p: dict, x, top_k: int, capacity_factor: float,
+            priority: bool = False):
+    """The MoE feed-forward layer. p: {"gate": (d, E), "wi": (E, d, ff),
+    "bi": (E, ff), "wo": (E, ff, d), "bo": (E, d)}; x: (G, S, d) ->
+    (y (G, S, d) in x's dtype, balance aux, router z-loss, stats), the
+    two losses unweighted (the config owns the weights). Experts are
+    GELU (tanh form) with biases."""
+    g, s, d = x.shape
+    e = p["gate"].shape[1]
+    cap = expert_capacity(s, e, top_k, capacity_factor)
+    # the router in f32: bf16 products are exact in f32, so this is
+    # the reference's preferred_element_type=f32
+    logits = torch.einsum("gsd,de->gse", x.float(), p["gate"].float())
+    combine, dispatch, aux, stats = topk_capacity_routing(
+        logits, cap, top_k, priority=priority)
+    xin = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), x)
+    h = F.gelu(torch.einsum("egcd,edf->egcf", xin, p["wi"])
+               + p["bi"][:, None, None, :], approximate="tanh")
+    out = (torch.einsum("egcf,efd->egcd", h, p["wo"])
+           + p["bo"][:, None, None, :])
+    y = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), out)
+    return y, aux, router_z_loss(logits), stats

@@ -15,7 +15,8 @@ same objects; the step counter `t` is a Python int and the schedule is
 evaluated on the host in float32, as the reference traces it.
 `map_state_trees` re-lays every params-shaped moment tree with an
 engine's params transform, for checkpoints' canonical optimizer
-record. Adafactor is not ported yet and raises `NotPorted`.
+record (Adafactor's factored state has none, and raises there, as
+the reference's does).
 """
 
 from __future__ import annotations
@@ -25,8 +26,7 @@ import math
 import numpy as np
 import torch
 
-from shallowspeed_tpu_torch import NotPorted
-from shallowspeed_tpu_torch.weights import leaves, map_tree
+from shallowspeed_tpu_torch.weights import leaves, map_tree, sorted_leaves
 
 _F32 = np.float32
 
@@ -224,9 +224,97 @@ class AdamW(Adam):
 
 
 class Adafactor(_Optimizer):
-    def __init__(self, *args, **kwargs):
-        raise NotPorted("the Adafactor optimizer",
-                        "Queue 1, training features after slice 2")
+    """Adafactor (Shazeer & Stern, 2018), the reference's term for term:
+    leaves with ndim >= 2 keep factored second moments over their
+    trailing two dims (a row vector vr and a column vector vc; leading
+    dims, such as MoE experts, stay elementwise), the others a full v.
+    beta2 follows 1 - t^(-decay_pow); the update is RMS-clipped at
+    `clip_threshold`; `scale_parameter` multiplies the step by
+    max(eps_scale, RMS(p)), so `lr` is a relative step size; the first
+    moment (beta1 > 0) is optional; decoupled decay uses the same
+    scaled step. On one device every leaf is unsharded, so every leaf
+    with ndim >= 2 factors.
+
+    The state is {"slots": tuple of per-leaf dicts ({"vr", "vc"} or
+    {"v"}, plus "m" with beta1), "t": step}, the slots in the JAX
+    package's leaf order (`weights.sorted_leaves`), so that the state
+    crosses packages and checkpoints as it is."""
+
+    def __init__(self, lr, beta1: float = 0.0, decay_pow: float = 0.8,
+                 eps: float = 1e-30, eps_scale: float = 1e-3,
+                 clip_threshold: float = 1.0, scale_parameter: bool = True,
+                 weight_decay: float = 0.0, grad_clip: float | None = None):
+        super().__init__(lr, grad_clip)
+        self.beta1 = beta1
+        self.decay_pow = decay_pow
+        self.eps = eps
+        self.eps_scale = eps_scale
+        self.clip_threshold = clip_threshold
+        self.scale_parameter = scale_parameter
+        self.weight_decay = weight_decay
+
+    def _slot(self, p):
+        f32 = dict(dtype=torch.float32, device=p.device)
+        if p.dim() >= 2:
+            slot = {"vr": torch.zeros(p.shape[:-1], **f32),
+                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
+        else:
+            slot = {"v": torch.zeros(p.shape, **f32)}
+        if self.beta1 > 0.0:
+            slot["m"] = torch.zeros(p.shape, **f32)
+        return slot
+
+    def init(self, params):
+        return {"slots": tuple(self._slot(p) for p in sorted_leaves(params)),
+                "t": 0}
+
+    @torch.no_grad()
+    def step(self, params, grads, state):
+        grads = self._prep(grads)
+        lr = self._lr_at(state["t"])
+        t = state["t"] + 1
+        beta2 = _F32(1.0) - _F32(t) ** _F32(-self.decay_pow)
+        b2, one_b2 = float(beta2), float(_F32(1.0) - beta2)
+        b1, one_b1 = self.beta1, float(_F32(1.0) - _F32(self.beta1))
+        for p, g, slot in zip(sorted_leaves(params), sorted_leaves(grads),
+                              state["slots"]):
+            gf = g.float()
+            g2 = gf * gf + self.eps
+            if "vr" in slot:
+                vr = b2 * slot["vr"] + one_b2 * g2.mean(dim=-1)
+                vc = b2 * slot["vc"] + one_b2 * g2.mean(dim=-2)
+                slot["vr"].copy_(vr)
+                slot["vc"].copy_(vc)
+                # v^ = (vr / mean(vr)) x vc, the rank-1 reconstruction
+                rfac = vr / vr.mean(dim=-1, keepdim=True)
+                u = gf * torch.rsqrt(rfac[..., :, None] * vc[..., None, :])
+            else:
+                v = b2 * slot["v"] + one_b2 * g2
+                slot["v"].copy_(v)
+                u = gf * torch.rsqrt(v)
+            rms_u = torch.sqrt(torch.mean(u * u))
+            u = u / torch.clamp(rms_u / self.clip_threshold, min=1.0)
+            pf = p.float()
+            if b1 > 0.0:
+                m = b1 * slot["m"] + one_b1 * u
+                slot["m"].copy_(m)
+                u = m
+            if self.scale_parameter:    # a 0-d f32 tensor: no host sync
+                a = lr * torch.clamp(torch.sqrt(torch.mean(pf * pf)),
+                                     min=self.eps_scale)
+                a_wd = a * self.weight_decay
+            else:
+                a, a_wd = lr, float(_F32(lr) * _F32(self.weight_decay))
+            upd = a * u + a_wd * pf
+            p.copy_((pf - upd).to(p.dtype))
+        return params, {"slots": state["slots"], "t": t}
+
+    def map_state_trees(self, state, fn):
+        raise ValueError(
+            "Adafactor state is factored (per-leaf vr/vc vectors keyed to "
+            "the flattened engine params), not params-shaped; it cannot "
+            "be re-laid-out by a params-tree transform. Engines whose "
+            "layout IS canonical interchange it directly.")
 
 
 OPTIMIZERS = {"sgd": SGD, "momentum": MomentumSGD, "adam": Adam,

@@ -11,10 +11,18 @@ selects the attention substrate:
 - "flash": `ops.flash_attention.flash_attention` — the hand-written
   K1/K2/K3 CUDA kernels on the card, their plain versions on the CPU;
 - "ring": the plain `ops.attention.attention` under torch autograd,
-  which is what the reference's ring substrate computes at sp = 1.
+  which is what the reference's ring substrate computes at sp = 1 (and
+  the only substrate that takes cfg.attn_dropout).
 
-Gradient accumulation, ZeRO, health packs, comm overlap and every
-multi-device mesh are not ported yet and raise `NotPorted`.
+`accum > 1` splits each batch's rows into that many microbatches, each
+with its own forward and backward (one microbatch's activations alive
+at a time); the f32 gradients are summed and scaled by 1 / accum and
+the reported loss is the microbatches' mean, as the reference's scan
+computes them. The config's dropout draws its masks from keys derived
+from (seed, step, microbatch) (`ops.dropout.fold_key`).
+
+ZeRO, health packs, comm overlap and every multi-device mesh are not
+ported yet and raise `NotPorted`.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 from shallowspeed_tpu_torch import NotPorted, resolve_device
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.ops.attention import attention
+from shallowspeed_tpu_torch.ops.dropout import fold_key
 from shallowspeed_tpu_torch.ops.flash_attention import flash_attention
 from shallowspeed_tpu_torch.weights import (leaves, map_tree,
                                             params_from_numpy, placed_copy,
@@ -48,8 +57,8 @@ class ContextParallelEngine:
                  attn: str = "flash", device=None, *, accum: int = 1,
                  zero1: bool = False, zero2: bool = False,
                  health: str = "off", overlap=None, params=None):
-        if accum != 1:
-            raise NotPorted("gradient accumulation (accum > 1)", _LATER)
+        if accum < 1:
+            raise ValueError(f"accum must be >= 1, got {accum}")
         if zero1 or zero2:
             raise NotPorted("ZeRO-1/2 optimizer sharding", _LATER)
         if health != "off":
@@ -60,9 +69,15 @@ class ContextParallelEngine:
         if attn not in ("flash", "ring"):
             raise NotPorted(f"attn={attn!r} (sequence-parallel substrates)",
                             _LATER)
-        T.check_trainable(cfg)
+        if cfg.attn_dropout > 0.0 and attn != "ring":
+            raise ValueError(
+                "cfg.attn_dropout needs the plain attention substrate "
+                "(sp=1, --attn ring); fused substrates cannot mask "
+                "probabilities")
         self.cfg = cfg
         self.optimizer = optimizer
+        self.accum = accum
+        self.seed = seed
         self.device = resolve_device(device)
         fn = flash_attention if attn == "flash" else attention
         self.attn_fn = partial(fn, causal=True, window=cfg.attn_window)
@@ -85,19 +100,52 @@ class ContextParallelEngine:
                              f"with T <= max_seq={self.cfg.max_seq}")
         return t
 
+    def dropout_key(self, microbatch: int = 0):
+        """The dropout key of this step's `microbatch` (None when the
+        config has no dropout): a pure function of (seed, step,
+        microbatch), so a resumed run draws the same masks."""
+        if self.cfg.dropout == 0.0 and self.cfg.attn_dropout == 0.0:
+            return None
+        return fold_key(self.seed, self._step_count, microbatch)
+
     def loss_and_grads(self, tokens, targets):
         """(loss, gradient tree) of one (B, T) batch at the current
-        parameters, without updating them."""
-        with torch.enable_grad():
-            loss = T.loss(self.params, self.place(tokens),
-                          self.place(targets), self.cfg,
-                          attn_fn=self.attn_fn)
-            # unused leaves (pos_emb under rope, norm biases under
-            # rmsnorm) get zero gradients, as jax.grad gives them
-            grads = torch.autograd.grad(loss, list(leaves(self.params)),
-                                        allow_unused=True,
-                                        materialize_grads=True)
-        return loss.detach(), unflatten(self.params, grads)
+        parameters, without updating them: `accum` microbatches of B /
+        accum rows, each its own forward and backward, the f32
+        gradients summed and scaled by 1 / accum, the loss their
+        mean."""
+        tok, tgt = self.place(tokens), self.place(targets)
+        b = tok.shape[0]
+        if b % self.accum:
+            raise ValueError(
+                f"--accum {self.accum} must divide the per-device batch "
+                f"rows ({b} here = batch / dp; sp shards the sequence "
+                f"dim, not rows)")
+        flat = list(leaves(self.params))
+        loss_sum, gsum = None, None
+        for mu, (tok_mu, tgt_mu) in enumerate(zip(tok.chunk(self.accum),
+                                                  tgt.chunk(self.accum))):
+            with torch.enable_grad():
+                loss = T.loss(self.params, tok_mu, tgt_mu, self.cfg,
+                              attn_fn=self.attn_fn,
+                              dropout_key=self.dropout_key(mu))
+                # unused leaves (pos_emb under rope, norm biases under
+                # rmsnorm) get zero gradients, as jax.grad gives them
+                grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                            materialize_grads=True)
+            loss = loss.detach()
+            if gsum is None:
+                loss_sum, gsum = loss, [g.float() for g in grads]
+            else:
+                loss_sum = loss_sum + loss
+                for acc, g in zip(gsum, grads):
+                    acc.add_(g)
+            del grads
+        if self.accum > 1:
+            loss_sum = loss_sum / self.accum
+            for acc in gsum:
+                acc.mul_(1.0 / self.accum)
+        return loss_sum, unflatten(self.params, gsum)
 
     def train_batch(self, tokens, targets) -> float:
         """One optimizer step on a (B, T) int token batch; returns the

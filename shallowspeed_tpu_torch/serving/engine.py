@@ -161,7 +161,7 @@ def decode_logits(params, pools, tok, pos, bt, *, cfg: T.TransformerConfig,
         else:
             a = masked_attention(q, gather_table(pool, bt), valid)
         x = x + T._dense(p["proj"], a.reshape(s_rows, 1, cfg.d_model))
-        x = T._ffn(p, x, cfg, T._norm(p["ln2"], x, cfg))
+        x = T._ffn(p, x, cfg, T._norm(p["ln2"], x, cfg))[0]
     x = T._norm(params["ln_f"], x, cfg)
     return T.head_logits(params, x[:, 0], cfg).float()
 
@@ -208,7 +208,7 @@ def prefill_chunk(params, pools, tokens, pos0: int, bt, *,
         write_rows(pool, k[0], v[0], blk, off)
         a = masked_attention(q, gather_table(pool, bt), valid)
         x = x + T._dense(p["proj"], a.reshape(1, c, cfg.d_model))
-        x = T._ffn(p, x, cfg, T._norm(p["ln2"], x, cfg))
+        x = T._ffn(p, x, cfg, T._norm(p["ln2"], x, cfg))[0]
     x = T._norm(params["ln_f"], x, cfg)
     return T.head_logits(params, x[0, -1], cfg).float()
 

@@ -34,7 +34,24 @@ through the BPE tokenizer, or a 16-token prefix of the training stream)
 and prints the root driver's `decode:`, `prompt:` and `sample:` lines,
 plus a `"generate"` event with `--log-file`.
 
-The root driver's other flags (multi-device meshes, remat, dropout, the
+The one-device training features take the root driver's flags:
+`--accum`, `--remat --remat-policy`, `--xent-chunk`, `--dropout`,
+`--attn-dropout`, `--optimizer adafactor` (with `--weight-decay`), and
+`--experts` with `--moe-top-k --moe-capacity-factor --moe-routing
+--moe-z-weight` (`parallel.expert.ExpertParallelEngine` at `--ep 1`,
+which prints the root driver's `moe drop ... load ...` line and logs
+its `"moe_router"` event at log points). `--experts` and
+`--attn-dropout` run the plain attention, as the root driver does at
+sp 1: without `--attn` they take it, and `--attn flash` with either
+exits as the root driver does. The 1.21B LM's recipe on the card:
+
+    python -m shallowspeed_tpu_torch.train_lm --vocab 32768 \
+        --d-model 2048 --n-heads 16 --n-layers 16 --d-ff 8192 \
+        --seq-len 2048 --batch-size 4 --rope --norm rmsnorm \
+        --ffn swiglu --bf16 --optimizer adafactor --lr 3e-4 \
+        --remat --remat-policy dots --xent-chunk 1024
+
+The root driver's other flags (multi-device meshes and `--ep` > 1, the
 telemetry and health planes) are recognised and refused with
 `NotPorted`.
 """
@@ -62,10 +79,10 @@ from shallowspeed_tpu_torch.models.generate import (decode_report, generate,
 from shallowspeed_tpu_torch.optim import (OPTIMIZERS, SCHEDULES, ema_init,
                                           ema_update)
 from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+from shallowspeed_tpu_torch.parallel.expert import ExpertParallelEngine
 from shallowspeed_tpu_torch.weights import map_tree
 
 _MESH = "Queue 1, multi-device LM engines"
-_TRAIN = "Queue 1, training features after slice 2"
 _PLANES = "Queue 1, planes"
 
 # the root driver's flags this driver does not have yet, and where each
@@ -73,13 +90,8 @@ _PLANES = "Queue 1, planes"
 UNPORTED = {
     **dict.fromkeys(
         ["--dp", "--pp", "--pp-schedule", "--virtual-pp", "--n-mubatches",
-         "--sp", "--tp", "--ep", "--experts", "--moe-top-k",
-         "--moe-capacity-factor", "--moe-routing", "--moe-z-weight",
-         "--fsdp", "--zero1", "--zero2", "--overlap", "--bucket-mb",
-         "--accum", "--platform", "--host-devices"], _MESH),
-    **dict.fromkeys(
-        ["--dropout", "--attn-dropout", "--remat", "--remat-policy",
-         "--xent-chunk"], _TRAIN),
+         "--sp", "--tp", "--fsdp", "--zero1", "--zero2", "--overlap",
+         "--bucket-mb", "--platform", "--host-devices"], _MESH),
     **dict.fromkeys(
         ["--heartbeat-file", "--profile-dir", "--telemetry", "--health",
          "--trace-dir", "--monitor-port", "--replica", "--slo",
@@ -127,7 +139,7 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--optimizer", default="adam", choices=list(OPTIMIZERS))
     p.add_argument("--weight-decay", type=float, default=0.01,
-                   help="decoupled weight decay (adamw)")
+                   help="decoupled weight decay (adamw/adafactor)")
     p.add_argument("--grad-clip", type=float, default=0.0,
                    help="global-norm gradient clipping (0 = off)")
     p.add_argument("--lr-schedule", default="constant",
@@ -141,13 +153,52 @@ def parse_args(argv=None):
     p.add_argument("--norm", default="layernorm",
                    choices=["layernorm", "rmsnorm"])
     p.add_argument("--ffn", default="gelu", choices=["gelu", "swiglu"])
-    p.add_argument("--attn", default="flash",
+    p.add_argument("--attn", default=None,
                    choices=["flash", "ring", "ring-flash", "ulysses",
                             "ulysses-flash"],
-                   help="flash = the K1/K2/K3 kernels; ring = plain "
-                        "attention (what the root driver's ring is at "
-                        "sp=1); the sequence-parallel substrates raise "
-                        "NotPorted")
+                   help="flash (the default) = the K1/K2/K3 kernels; ring "
+                        "= plain attention (what the root driver's ring is "
+                        "at sp=1, and the default with --experts or "
+                        "--attn-dropout); the sequence-parallel "
+                        "substrates raise NotPorted")
+    p.add_argument("--accum", type=int, default=1,
+                   help="gradient accumulation: split each batch into N "
+                        "sequential microbatches (activation memory of "
+                        "one microbatch, same gradient)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize each block's activations in the "
+                        "backward instead of storing them")
+    p.add_argument("--remat-policy", default="full",
+                   choices=["full", "attn", "dots"],
+                   help="what --remat SAVES per block: full = nothing "
+                        "(the backward reruns the block, K1 included), "
+                        "attn = the attention output (K1 never reruns), "
+                        "dots = every dense product's output too "
+                        "(elementwise-only recompute)")
+    p.add_argument("--xent-chunk", type=int, default=0,
+                   help="chunked cross-entropy: the loss over this many "
+                        "positions at a time, never the whole (B*T, "
+                        "vocab) logits; 0 = whole-batch log-softmax")
+    p.add_argument("--dropout", type=float, default=0.0,
+                   help="dropout rate on embeddings and attention/FFN "
+                        "outputs; training steps only")
+    p.add_argument("--attn-dropout", type=float, default=0.0,
+                   help="attention-probability dropout; the plain "
+                        "attention only (--attn ring)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel degree: 1 on one device (> 1 "
+                        "raises NotPorted)")
+    p.add_argument("--experts", type=int, default=0,
+                   help="number of MoE experts per block (0 = dense FFN)")
+    p.add_argument("--moe-top-k", type=int, default=2)
+    p.add_argument("--moe-capacity-factor", type=float, default=2.0,
+                   help="expert buffer slots = cf * top_k * tokens / E")
+    p.add_argument("--moe-routing", default="sequence",
+                   choices=["sequence", "priority"],
+                   help="expert slot assignment: sequence order (GShard) "
+                        "or batch priority (V-MoE)")
+    p.add_argument("--moe-z-weight", type=float, default=0.0,
+                   help="router z-loss weight (0 = off)")
     p.add_argument("--attn-window", type=int, default=0)
     p.add_argument("--tie-embeddings", action="store_true")
     p.add_argument("--label-smoothing", type=float, default=0.0)
@@ -210,6 +261,9 @@ def parse_args(argv=None):
         p.add_argument(flag, nargs="?", action=_Refuse,
                        help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.ep > 1:
+        raise NotPorted(f"train_lm --ep {args.ep}", _MESH)
+    _check_features(args)
     if (args.prompt or args.sample_only) and not args.generate:
         args.generate = 128          # --prompt/--sample-only imply sampling
     prompt_len = len(args.prompt.encode()) if args.prompt else 16
@@ -236,6 +290,31 @@ def parse_args(argv=None):
                          f"{args.ema_decay} (1.0 would freeze the average "
                          f"at the initial weights)")
     return args
+
+
+def _check_features(args) -> None:
+    """The root driver's guards on the one-device training features,
+    and the attention substrate they take: the plain one ("ring") with
+    --experts or --attn-dropout, the K1/K2/K3 kernels otherwise."""
+    if args.accum < 1:
+        raise SystemExit(f"--accum must be >= 1, got {args.accum}")
+    if args.accum > 1 and args.experts:
+        raise SystemExit("--accum composes with --dp/--sp (the context "
+                         "engine) for now; the pipeline engine already "
+                         "microbatches via --n-mubatches")
+    if args.experts and args.moe_top_k > args.experts:
+        raise SystemExit(f"--moe-top-k {args.moe_top_k} cannot exceed "
+                         f"--experts {args.experts}")
+    plain = args.experts or args.attn_dropout > 0.0
+    if args.attn is None:
+        args.attn = "ring" if plain else "flash"
+    if args.attn_dropout > 0.0 and args.attn != "ring":
+        raise SystemExit("--attn-dropout needs the plain attention "
+                         "substrate (no --pp/--sp>1, --attn ring)")
+    if args.experts and args.attn != "ring":
+        raise SystemExit(f"--attn {args.attn} is not available with "
+                         "--experts (the MoE engine uses the plain "
+                         "attention)")
 
 
 def prepare_text(args):
@@ -356,7 +435,13 @@ def build(args, vocab: int | None = None):
         d_ff=args.d_ff, rope=args.rope, norm=args.norm, ffn=args.ffn,
         n_kv_heads=args.kv_heads, tie_embeddings=args.tie_embeddings,
         label_smoothing=args.label_smoothing,
-        logit_softcap=args.logit_softcap, attn_window=args.attn_window)
+        logit_softcap=args.logit_softcap, attn_window=args.attn_window,
+        remat=args.remat, remat_policy=args.remat_policy,
+        xent_chunk=args.xent_chunk, dropout=args.dropout,
+        attn_dropout=args.attn_dropout, n_experts=args.experts,
+        moe_top_k=args.moe_top_k,
+        moe_capacity_factor=args.moe_capacity_factor,
+        moe_routing=args.moe_routing, moe_z_weight=args.moe_z_weight)
     if args.lr_schedule == "constant":
         lr = args.lr    # a static float keeps SGD stateless
     else:
@@ -364,7 +449,7 @@ def build(args, vocab: int | None = None):
             peak=args.lr, warmup=args.warmup_steps, total=args.steps,
             end=args.lr_end)
     kw = {"grad_clip": args.grad_clip or None}
-    if args.optimizer == "adamw":
+    if args.optimizer in ("adamw", "adafactor"):
         kw["weight_decay"] = args.weight_decay
     return cfg, OPTIMIZERS[args.optimizer](lr=lr, **kw)
 
@@ -446,10 +531,16 @@ def train(args) -> float:
     # an engine about to restore starts from zeros, not from the seeded
     # draw the checkpoint replaces (the draw takes ~30 s at 1.21B)
     restoring = args.resume or args.sample_only
-    engine = ContextParallelEngine(
-        cfg, opt, seed=args.seed, attn=args.attn, device=device,
-        params=map_tree(lambda m: np.zeros(m.shape, cfg.dtype),
-                        T.param_shapes(cfg)) if restoring else None)
+    zeros = (map_tree(lambda m: np.zeros(m.shape, cfg.dtype),
+                      T.param_shapes(cfg)) if restoring else None)
+    if args.experts:
+        engine = ExpertParallelEngine(cfg, opt, seed=args.seed,
+                                      device=device, ep=args.ep,
+                                      params=zeros)
+    else:
+        engine = ContextParallelEngine(cfg, opt, seed=args.seed,
+                                       attn=args.attn, device=device,
+                                       accum=args.accum, params=zeros)
     start_step, restored, restore_stats, quarantined = _restore(args,
                                                                 engine)
     if restoring and restored is None:       # --auto-resume, fresh start
@@ -580,6 +671,13 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                       f"tok/s {r['tokens_per_sec']:,.0f}{mfu_txt}",
                       flush=True)
                 metrics.log(**step_event(step, loss, r, perf, cum))
+                if args.experts:
+                    # the capacity drop is silent in the loss: show it
+                    rs = engine.router_stats(tok)
+                    print(f"             moe drop "
+                          f"{rs['drop_fraction']:.1%}  load "
+                          f"{rs['expert_load']}", flush=True)
+                    metrics.log(event="moe_router", step=step, **rs)
             if args.val_every and ((step + 1) % args.val_every == 0
                                    or step == args.steps - 1):
                 tv = time.time()

@@ -6,7 +6,10 @@ dense leaves {"W": (K, N), "b": (N,)} applied as `y = x @ W + b`, plus
 norm scales and embeddings. So moving weights across is a copy, never
 a transpose. Optimizer state keeps the reference's layout too: Adam's
 {"m": tree, "v": tree, "t": step}, momentum's velocity tree (or
-{"v": tree, "t": step} under a schedule), SGD's () or {"t": step}; the
+{"v": tree, "t": step} under a schedule), SGD's () or {"t": step},
+Adafactor's {"slots": a tuple of per-leaf dicts, "t": step} in the
+reference's leaf order (`sorted_leaves`), whatever order the engine's
+dicts keep; the
 step is a 0-d int32 array on the JAX side (and in a checkpoint) and a
 Python int here. Lists stay lists and tuples stay tuples both ways: a
 checkpoint's structure record tells them apart (SGD's state is the
@@ -61,6 +64,21 @@ def leaves(tree):
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from leaves(v)
+    else:
+        yield tree
+
+
+def sorted_leaves(tree):
+    """The tensors of a tree in the JAX package's flattening order
+    (`jax.tree_util.tree_leaves`: dict keys sorted, lists and tuples in
+    order) — the order its Adafactor keys its per-leaf slots by, so
+    that this package's slots cross as they are."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from sorted_leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from sorted_leaves(v)
     else:
         yield tree
 

@@ -729,3 +729,152 @@ def test_cuda_mlp_driver_default_device(cuda, mlp_data, tmp_path):
     from shallowspeed_tpu_torch.utils import get_model_hash
 
     assert get_model_hash(resumed.params) == get_model_hash(eng.params)
+
+
+# ------------------------------------- one-device training features (LM)
+
+# a small bf16 LM the kernels take (head_dim 64), B 2 x T 128
+FEATURE_LM = dict(vocab=256, d_model=128, n_heads=2, n_layers=2,
+                  max_seq=128, rope=True, norm="rmsnorm", ffn="swiglu",
+                  d_ff=256)
+
+
+def _feature_grads(cuda, attn="flash", accum=1, **feature):
+    """(loss, gradient tree, {K1, K2, K3 tensor-core launches, and
+    "fma": their f32 builds'}) of one batch through a fresh engine, the
+    launch counts zeroed just before."""
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.optim import SGD
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+
+    cfg = T.TransformerConfig(**FEATURE_LM, compute_dtype=torch.bfloat16,
+                              **feature)
+    eng = ContextParallelEngine(cfg, SGD(0.0), attn=attn, device=cuda,
+                                accum=accum,
+                                params=T.init_numpy(
+                                    T.TransformerConfig(**FEATURE_LM), 0))
+    rng = np.random.default_rng(3)
+    seq = rng.integers(0, 256, (4, 129))
+    tc = (FA._flash_fwd_tc, FA._flash_dq_tc, FA._flash_dkv_tc)
+    fma = (FA.flash_fwd, FA.flash_dq, FA.flash_dkv)
+    for k in tc + fma:
+        k.launches = 0
+    loss, grads = eng.loss_and_grads(seq[:, :-1], seq[:, 1:])
+    torch.cuda.synchronize()
+    counts = {"k1": tc[0].launches, "k2": tc[1].launches,
+              "k3": tc[2].launches, "fma": [k.launches for k in fma]}
+    return float(loss), grads, counts
+
+
+def _bf16_close(got, ref):
+    """loss within 1e-3 relative, each gradient leaf within 5e-2 of its
+    max (the bf16 bounds of tests/test_torch_train.py)."""
+    from shallowspeed_tpu_torch.weights import leaves
+
+    assert abs(got[0] - ref[0]) <= 1e-3 * abs(ref[0])
+    for a, b in zip(leaves(got[1]), leaves(ref[1])):
+        assert a.device.type == "cuda"
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 5e-2 * max(scale, 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["full", "attn", "dots"])
+def test_cuda_remat_launches_and_grads(cuda, policy):
+    """Each remat policy on the card against no remat: K1 launches 2 x
+    n_layers under "full" (the backward reruns it) and n_layers under
+    "attn" and "dots" (its outputs are kept), K2 and K3 n_layers; the
+    FMA builds never; gradients within the bf16 bounds."""
+    nl = FEATURE_LM["n_layers"]
+    ref = _feature_grads(cuda)
+    assert ref[2] == {"k1": nl, "k2": nl, "k3": nl, "fma": [0, 0, 0]}
+    got = _feature_grads(cuda, remat=True, remat_policy=policy)
+    k1 = 2 * nl if policy == "full" else nl
+    assert got[2] == {"k1": k1, "k2": nl, "k3": nl, "fma": [0, 0, 0]}
+    _bf16_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", ["xent-128", "xent-100", "accum-2",
+                                 "dropout-remat", "attn-dropout-remat"])
+def test_cuda_feature_matches_its_counterpart(cuda, row):
+    """Chunked cross-entropy (even, and with a remainder chunk) against
+    unchunked; accum 2 against 1 (K1-K3 each launched 2 x n_layers);
+    dropout under "full" remat against no remat at the same key (the
+    masks repeat); attention dropout through the plain attention, which
+    launches no kernel, under "full" remat against no remat."""
+    nl = FEATURE_LM["n_layers"]
+    if row.startswith("xent"):
+        got = _feature_grads(cuda, xent_chunk=int(row.split("-")[1]))
+        ref, want = _feature_grads(cuda), (nl, nl)
+    elif row == "accum-2":
+        got, ref, want = (_feature_grads(cuda, accum=2),
+                          _feature_grads(cuda), (2 * nl, 2 * nl))
+    elif row == "dropout-remat":
+        got = _feature_grads(cuda, dropout=0.1, remat=True)
+        ref, want = _feature_grads(cuda, dropout=0.1), (2 * nl, nl)
+        assert ref[0] != _feature_grads(cuda)[0]
+    else:
+        got = _feature_grads(cuda, attn="ring", attn_dropout=0.1,
+                             remat=True)
+        ref, want = _feature_grads(cuda, attn="ring", attn_dropout=0.1), \
+            (0, 0)
+    assert got[2] == {"k1": want[0], "k2": want[1], "k3": want[1],
+                      "fma": [0, 0, 0]}
+    _bf16_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_adafactor_step_matches_cpu(cuda):
+    """Three Adafactor steps (factored and full leaves, beta1, decay,
+    clipping) on the card against the CPU: parameters and slots within
+    1e-5 of their max (f32, another summation order)."""
+    from shallowspeed_tpu_torch.optim import Adafactor
+    from shallowspeed_tpu_torch.weights import leaves
+
+    rng = np.random.default_rng(0)
+    tree = {"W": rng.normal(size=(64, 48)).astype(np.float32),
+            "e": rng.normal(size=(3, 16, 8)).astype(np.float32),
+            "b": rng.normal(size=(48,)).astype(np.float32)}
+    grads = [{k: rng.normal(size=v.shape).astype(np.float32)
+              for k, v in tree.items()} for _ in range(3)]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        opt = Adafactor(1e-2, beta1=0.9, weight_decay=0.1, grad_clip=1.0)
+        p = {k: torch.from_numpy(v).to(dev) for k, v in tree.items()}
+        state = opt.init(p)
+        for g in grads:
+            p, state = opt.step(
+                p, {k: torch.from_numpy(v).to(dev) for k, v in g.items()},
+                state)
+        out.append((p, state["slots"]))
+    for a, b in zip(leaves(out[0]), leaves(out[1])):
+        assert a.device.type == "cuda"
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(
+            b.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_moe_engine_trains(cuda):
+    """The one-device MoE engine on the card (plain attention, no kernel
+    launch): losses fall over 3 steps on a repeated batch, the routing
+    stats sum to 1, and its logits equal `T.forward`'s."""
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.optim import AdamW
+    from shallowspeed_tpu_torch.parallel.expert import ExpertParallelEngine
+
+    cfg = T.TransformerConfig(**FEATURE_LM, n_experts=4,
+                              compute_dtype=torch.bfloat16)
+    eng = ExpertParallelEngine(cfg, AdamW(1e-3), device=cuda)
+    rng = np.random.default_rng(4)
+    seq = rng.integers(0, 256, (4, 129))
+    FA._flash_fwd_tc.launches = FA.flash_fwd.launches = 0
+    losses = [eng.train_batch(seq[:, :-1], seq[:, 1:]) for _ in range(3)]
+    assert FA._flash_fwd_tc.launches == FA.flash_fwd.launches == 0
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    stats = eng.router_stats(seq[:, :-1])
+    assert sum(stats["expert_load"]) == pytest.approx(1.0, abs=1e-3)
+    tok = torch.from_numpy(seq[:, :-1]).to(cuda)
+    with torch.no_grad():
+        ref = T.forward(eng.params, tok, cfg)
+    assert torch.equal(eng.logits(seq[:, :-1]), ref)

@@ -146,11 +146,6 @@ def test_clip_by_global_norm_matches_jax():
     assert _worst(got, ref) <= 1e-6
 
 
-def test_adafactor_is_not_ported():
-    with pytest.raises(NotPorted, match="Adafactor"):
-        O.OPTIMIZERS["adafactor"](1e-2)
-
-
 # ---------------------------------------------------- loss and gradients
 
 CONFIGS = {
@@ -217,35 +212,18 @@ def test_eval_loss_drops_label_smoothing():
     assert float(got) != pytest.approx(float(T.loss(*args)), rel=1e-5)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("dropout", 0.1), ("attn_dropout", 0.1), ("remat", True),
-    ("xent_chunk", 16)])
-def test_unported_training_features_raise(field, value):
-    """Training never ignores a feature it lacks: the loss and the
-    engine raise `NotPorted` (eval still runs: dropout is train-only)."""
-    cfg = T.TransformerConfig(**CONFIGS["gqa-rope-rms-swiglu"],
-                              **{field: value})
-    tp = T.init(cfg, seed=0, device="cpu")
-    tok, tgt = _batch(cfg.vocab, 4)
-    with pytest.raises(NotPorted):
-        T.loss(tp, torch.from_numpy(tok), torch.from_numpy(tgt), cfg)
-    with pytest.raises(NotPorted):
-        ContextParallelEngine(cfg, O.SGD(0.1), device="cpu")
-
-
-@pytest.mark.parametrize("field,value", [("n_experts", 4),
-                                         ("fp8_dense", True)])
+@pytest.mark.parametrize("field,value", [("fp8_dense", True)])
 def test_unported_model_features_raise(field, value):
     with pytest.raises(NotPorted):
         T.TransformerConfig(**{field: value})
 
 
-@pytest.mark.parametrize("kwargs", [dict(accum=2), dict(zero1=True),
+@pytest.mark.parametrize("kwargs", [dict(zero1=True),
                                     dict(zero2=True),
                                     dict(health="monitor"),
                                     dict(overlap=object()),
                                     dict(attn="ring-flash")],
-                         ids=["accum", "zero1", "zero2", "health",
+                         ids=["zero1", "zero2", "health",
                               "overlap", "ring-flash"])
 def test_unported_engine_options_raise(kwargs):
     cfg = T.TransformerConfig(**CONFIGS["gqa-rope-rms-swiglu"])
