@@ -9,8 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
 1. Build every CUDA kernel of the serving, training and probe paths
    from `csrc/` with nvcc (sm_90a), one nvcc per source, all started
    together; print each kernel's registers and spills, and the dynamic
-   shared memory of the tensor-core builds (K1, K2, K3 in bf16 and the
-   GEMM of K5 and `dequant_matmul`), which must compile without a spill,
+   shared memory of the tensor-core builds (K1, K2, K3 in bf16, the
+   GEMM of K5 and `dequant_matmul`, and the e4m3 GEMM of `fp8_dense`),
+   which must compile without a spill,
    and of K4's split kernel, whose 32 builds and 4 merge builds must
    compile without a spill too; print K4's split count at the serving
    shape.
@@ -161,6 +162,29 @@ Phases (any failure exits non-zero and prints no result line):
    `ExpertParallelEngine` (the plain attention, no K1) with AdamW: 4
    steps, falling losses, the routing stats, and the engine's logits
    against `T.forward` on the same weights (LOGITS_TOL_BF16).
+11. fp8 training and the health pack, each line with the card's name
+   and power limit. (a) The e4m3 GEMM (`ops/matmul.fp8_matmul`, the
+   product of `fp8_dense`) at each dense shape of the 1.21B step (M
+   8192) and each layer of the MLP (M 128), on the build
+   `fp8_matmul_route` picks (one launch each): the card's quantized
+   bytes equal the CPU's, the kernel's and the plain version's outputs
+   within the f32 order bound K 2^-24 sum|terms| of the exact (f64)
+   product, a NaN input row a NaN output row; the tensor-core build at
+   K 128 shown past that bound; times of the tensor-core build at the
+   LM shapes and the FMA build at the MLP's first layer beside the
+   plain version, `torch._scaled_mm` and the bound. (b) The 1.21B LM
+   with `fp8_dense=True` (AdamW 3e-4, phase 6's batch and weights,
+   flash): the loss at init within PARITY_LOSS_BUDGET of phase 6's
+   bf16 loss, finite gradients (the health pack), FP8_STEPS timed steps
+   with the counts zeroed before them (the tensor-core e4m3 build 81 a
+   step, K1-K3 16 a step), falling losses, step p50, MFU (989 TFLOP/s
+   bf16), peak memory, a profiled step's device ms (the fp8 GEMM, the
+   backward's f32 products, K1-K3, the rest). (c) `train --engine fp8
+   --health guard --shadow-every 4 --log-every 4`, 14 batches on the
+   card (the FMA build), against the same run on the CPU
+   (FP8_DRIVER_TOL); a NaN batch into the fused MLP engine under
+   health="guard" leaves its state bit for bit; phase 6's step with
+   health "off" and "monitor" in turns, the pack's added ms.
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers (with `device_ms` / `library_device_ms` where the
@@ -291,7 +315,8 @@ def _ptxas_lines(log: str) -> list[str]:
     for line in log.splitlines():
         m = re.search(r"((?:paged_decode_combine|paged_decode|flash_fwd_tc|"
                       r"flash_fwd|flash_dq_tc|flash_dq|flash_dkv_tc|"
-                      r"flash_dkv|gemm_tc|split_sum|blocked_matmul)_kernel)"
+                      r"flash_dkv|gemm_tc|gemm_fp8|split_sum|"
+                      r"blocked_matmul)_kernel)"
                       r"(?:I(\w+)|\w*)'", line)
         if m and m.group(1).startswith("paged_decode") and m.group(2):
             # <q dtype[, pool dtype], hd[, rows a warp]>
@@ -302,6 +327,9 @@ def _ptxas_lines(log: str) -> list[str]:
         elif m and m.group(1) == "gemm_tc_kernel":        # <WG, B dtype>
             wg, bt = re.findall(r"Li(\d+)E", m.group(2))[:2]
             name = f"gemm_tc_kernel<wg{wg},{_GEMM_B[bt]}>"
+        elif m and m.group(1) == "gemm_fp8_kernel":       # <WG>
+            wg = re.findall(r"Li(\d+)E", m.group(2))[0]
+            name = f"gemm_fp8_kernel<wg{wg}>"
         elif m and m.group(1).endswith("_tc_kernel"):   # <int D>, bf16
             d = re.match(r"Li(\d+)E", m.group(2)).group(1)
             name = f"{m.group(1)}<bf16,{d}>"
@@ -341,6 +369,8 @@ def _tc_builds():
          [(f"<wg{wg},{b}>", mm.gemm_tc_smem(wg, code))
           for wg in (1, 2) for code, b in ((1, "bf16"), (2, "int8"),
                                            (3, "e4m3"))]),
+        ("blocked_matmul", "gemm_fp8_kernel",
+         [(f"<wg{wg}>", mm.gemm_fp8_smem(wg)) for wg in (1, 2)]),
     ]
 
 
@@ -2778,6 +2808,353 @@ def run_mlp(dev, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+
+# H100 SXM data-sheet peak for e4m3 x e4m3 on the tensor cores, dense
+FP8_FLOPS_PER_S = 1979e12
+# fp8_matmul's shapes on the main paths: the 1.21B step's denses (M =
+# B x T = 8192: qkv, proj, gate / up, down, head) and the MLP's layers
+# (M = its batch, 128)
+FP8_LM_SHAPES = [(8192, 2048, 6144), (8192, 2048, 2048), (8192, 2048, 8192),
+                 (8192, 8192, 2048), (8192, 2048, 32768)]
+FP8_MLP_SHAPES = [(128, 784, 128), (128, 128, 127), (128, 127, 126),
+                  (128, 126, 125), (128, 125, 124), (128, 124, 123),
+                  (128, 123, 10)]
+# the reference's runtime loss-parity envelope (telemetry/numerics.py),
+# the rule of its tests/test_numerics.py:506-531: the fp8 step's loss at
+# init against the bf16 step's
+PARITY_LOSS_BUDGET = 0.05
+FP8_STEPS = 3
+# the fp8 MLP driver on the card against the same run on the CPU: the
+# f32 sums differ in order, and an amax an ulp apart can move a delayed
+# scale across an e4m3 tie (one byte one e4m3 step), so losses and the
+# final validation loss are held within 1e-3 relative
+# (tests/test_torch_fp8.py's cross-package bound)
+FP8_DRIVER_TOL = 1e-3
+FP8_DRIVER_ARGV = ["--engine", "fp8", "--epochs", "1", "--max-batches", "14",
+                   "--shadow-every", "4", "--log-every", "4", "--health",
+                   "guard"]
+MONITOR_STEPS = 3
+
+
+def _fp8_counters():
+    from shallowspeed_tpu_torch.ops import matmul as MM
+
+    return {"tc": MM._fp8_matmul_tc, "fma": MM._fp8_matmul_fma}
+
+
+def _fp8_ratio(got, xq, wq, scale) -> float:
+    """max over elements of |got - exact| / (K 2^-24 sum|terms|): the
+    f32 order bound of a sum of K products, in f64 on the card."""
+    import torch
+
+    xd, wd, sd = xq.double(), wq.double(), scale.double()
+    exact = (xd @ wd) * sd
+    bound = xq.shape[1] * 2.0 ** -24 * ((xd.abs() @ wd.abs()) * sd.abs())
+    return float(((got.double() - exact).abs()
+                  / bound.clamp(min=1e-300)).max())
+
+
+def check_fp8_matmul(dev, card) -> dict:
+    """Phase 11a: the e4m3 GEMM (`fp8_matmul`) at every shape of the LM
+    step and the MLP, each on the build `fp8_matmul_route` picks: the
+    card's quantized bytes equal the CPU's, the kernel's and the plain
+    version's outputs within the f32 order bound (ratio <= 1), a NaN
+    input row a NaN output row; the tensor-core build at K 128 is shown
+    past the bound (why small K routes to the FMA build). Times the tc
+    build at the LM shapes and the FMA build at the MLP's first, beside
+    the plain version, `torch._scaled_mm` (unit scales, f32 out: the
+    product alone; a yardstick) and the bound."""
+    import torch
+
+    from shallowspeed_tpu_torch.ops import matmul as MM
+
+    g = torch.Generator().manual_seed(11)
+    counters = _fp8_counters()
+    worst = {"tc": 0.0, "fma": 0.0}
+    timing, lines = {}, []
+    for (m, k, n) in FP8_LM_SHAPES + FP8_MLP_SHAPES:
+        x = torch.randn(m, k, generator=g) * 3
+        w = torch.randn(k, n, generator=g) * 0.05
+        xd, wd = x.to(dev), w.to(dev)
+        sx = torch.clamp(torch.amax(xd.abs()) / MM.E4M3_MAX, min=1e-12)
+        sw = MM._w_scale(wd)
+        xq, wq = MM.fp8_quantize(xd, sx), MM.fp8_quantize(wd, sw)
+        for q, ref in ((xq, MM.fp8_quantize(x, sx.cpu())),
+                       (wq, MM.fp8_quantize(w, sw.cpu()))):
+            if not torch.equal(q.view(torch.uint8).cpu(),
+                               ref.view(torch.uint8)):
+                raise AssertionError(f"fp8_quantize ({m},{k},{n}): the "
+                                     f"card's bytes differ from the CPU's")
+        scale = sx * sw
+        route = MM.fp8_matmul_route(k)
+        before = {r: c.launches for r, c in counters.items()}
+        got = MM.fp8_matmul(xq, wq, scale)
+        torch.cuda.synchronize()
+        after = {r: c.launches for r, c in counters.items()}
+        if after[route] != before[route] + 1 or sum(after.values()) != \
+                sum(before.values()) + 1:
+            raise AssertionError(f"fp8_matmul ({m},{k},{n}) did not launch "
+                                 f"its {route} build once: {after}")
+        plain = MM.fp8_matmul_reference(xq, wq, scale)
+        ratio = _fp8_ratio(got, xq, wq, scale)
+        plain_ratio = _fp8_ratio(plain, xq, wq, scale)
+        err = float((got - plain).abs().max())
+        worst[route] = max(worst[route], err)
+        xn = xd.clone()
+        xn[m // 2] = float("nan")
+        out_n = MM.fp8_matmul(MM.fp8_quantize(xn, sx), wq, scale)
+        nan_ok = bool(torch.isnan(out_n[m // 2]).all()
+                      and torch.isfinite(out_n[:m // 2]).all())
+        lines.append({"card": card, "shape": [m, k, n], "route": route,
+                      "ratio": ratio,
+                      "plain_ratio": plain_ratio, "max_abs_err": err,
+                      "nan_row": nan_ok})
+        if not (ratio <= 1.0 and plain_ratio <= 1.0 and nan_ok):
+            raise AssertionError(f"fp8_matmul ({m},{k},{n}) {route}: ratio "
+                                 f"{ratio:.3e} (plain {plain_ratio:.3e}) to "
+                                 f"the f32 order bound, NaN row {nan_ok}")
+        if (m, k, n) in (FP8_LM_SHAPES[-1], FP8_MLP_SHAPES[0]) or m == 8192:
+            name = f"fp8_matmul_{route}"
+            ins = [(MM.fp8_quantize(torch.randn(m, k, device=dev) * 3, sx),
+                    wq, scale) for _ in range(3)]
+            wq_t = wq.view(torch.uint8).t().contiguous().view(
+                torch.float8_e4m3fn)
+            one = torch.ones((), device=dev)
+            ms = _time_ms(MM.fp8_matmul, ins)
+            plain_ms = _time_ms(MM.fp8_matmul_reference, ins)
+            lib_ms = _time_ms(lambda a, b, c: torch._scaled_mm(
+                a, wq_t.t(), scale_a=one, scale_b=one,
+                out_dtype=torch.float32), ins)
+            flops = 2.0 * m * n * k
+            nbytes = m * k + k * n + 4 * n + 4 * m * n
+            bound = max(flops / FP8_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+            row = {"shape": [m, k, n], "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "bound_ms": 1e3 * bound,
+                   "bound_by": ("operations" if flops / FP8_FLOPS_PER_S
+                                >= nbytes / HBM_BYTES_PER_S else "bytes"),
+                   "tflops": flops / ms / 1e9}
+            lines[-1].update(row)
+            # the kernels line reports the head (tc) and the MLP's first
+            # layer (fma), the largest call of each build
+            if (m, k, n) in (FP8_LM_SHAPES[-1], FP8_MLP_SHAPES[0]):
+                timing[name] = row
+    # the tensor-core build at K 128 (not a route): past the bound
+    x = torch.randn(128, 128, generator=g).to(dev) * 3
+    w = torch.randn(128, 127, generator=g).to(dev) * 0.05
+    sx = torch.clamp(torch.amax(x.abs()) / MM.E4M3_MAX, min=1e-12)
+    sw = MM._w_scale(w)
+    xq, wq = MM.fp8_quantize(x, sx), MM.fp8_quantize(w, sw)
+    small = _fp8_ratio(MM._fp8_matmul_tc(xq, wq, sx * sw), xq, wq, sx * sw)
+    for line in lines:
+        print("check fp8_matmul: " + json.dumps(line), flush=True)
+    print(f"check fp8_matmul: the tensor-core build at (128,128,127) sits at "
+          f"{small:.2f}x the f32 order bound (routed to the FMA build); "
+          f"{card}", flush=True)
+    return {"errs": {f"fp8_matmul_{r}": e for r, e in worst.items()},
+            "timing": timing, "tc_k128_ratio": small}
+
+
+def run_fp8_lm(dev, cfg, np_params, bf16_loss, card) -> dict:
+    """Phase 11b: the 1.21B LM with fp8_dense (bf16 compute, AdamW 3e-4,
+    phase 6's batch, flash): the warm-up step's loss within
+    PARITY_LOSS_BUDGET of phase 6's bf16 loss at the same weights, its
+    gradients finite (the health pack's sentinel); FP8_STEPS timed steps
+    with the counts zeroed before them: the e4m3 GEMM's tensor-core
+    build 81 a step (16 layers x 5 denses + the head), the FMA build 0,
+    K1-K3 16 a step; losses finite and falling; step p50, MFU against
+    989 TFLOP/s bf16 (the model's FLOPs), the peak memory, and a
+    profiled step's device ms by group (the fp8 GEMM, the f32 cuBLAS
+    products of the backward, K1-K3, the rest)."""
+    import torch
+
+    from shallowspeed_tpu_torch.flops import mfu
+    from shallowspeed_tpu_torch.optim import AdamW
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+
+    cfg8 = dataclasses.replace(cfg, fp8_dense=True)
+    tok, tgt = _train_batch(cfg8)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ContextParallelEngine(cfg8, AdamW(3e-4, weight_decay=0.01,
+                                            grad_clip=1.0),
+                                attn="flash", device=dev, params=np_params,
+                                health="monitor")
+    warm = eng.train_batch(tok, tgt)
+    snap = eng.health_snapshot()
+    rel = abs(warm - bf16_loss) / abs(bf16_loss)
+    print(f"fp8 train loss at init: fp8 {warm:.6f} bf16 {bf16_loss:.6f} "
+          f"rel {rel:.3e} (budget {PARITY_LOSS_BUDGET:g}); grad norm "
+          f"{snap['grad_norm']:.4g}, nonfinite {snap['nonfinite']}; {card}",
+          flush=True)
+    if not (rel <= PARITY_LOSS_BUDGET and snap["nonfinite"] == 0
+            and np.isfinite(snap["grad_norm"])):
+        raise AssertionError(f"fp8 step at init: loss rel {rel:.3e}, pack "
+                             f"{snap}")
+    eng.health = "off"
+    counters = _fp8_counters()
+    for c in counters.values():
+        c.launches = 0
+    _zero_train_counts()
+    losses, step_s = [], []
+    for _ in range(FP8_STEPS):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(tok, tgt))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = {f"fp8_matmul_{r}": c.launches for r, c in counters.items()}
+    want = (5 * cfg8.n_layers + 1) * FP8_STEPS
+    if launches != {"fp8_matmul_tc": want, "fp8_matmul_fma": 0}:
+        raise AssertionError(f"fp8 step launches {launches}, want {want} "
+                             f"tensor-core launches")
+    _check_counts("fp8 step", _train_counts(), cfg8.n_layers * FP8_STEPS,
+                  cfg8.n_layers * FP8_STEPS)
+    if not (all(np.isfinite(losses)) and losses[-1] < warm):
+        raise AssertionError(f"fp8 training losses {[warm] + losses}")
+    p50 = float(np.median(step_s))
+    tok_s = TRAIN_BATCH * cfg8.max_seq / p50
+    perf = mfu(tok_s, cfg8, cfg8.max_seq, "bf16", device=dev)
+    profile = _profiled(lambda: eng.train_batch(tok, tgt), [
+        ("fp8 GEMM", ("gemm_fp8",)), ("K1 flash_fwd", ("flash_fwd",)),
+        ("K2 flash_dq", ("flash_dq",)), ("K3 flash_dkv", ("flash_dkv",)),
+        ("f32 matmul", ("gemm", "cutlass", "nvjet", "xmma"))])
+    out = {"card": card, "losses": [warm] + losses,
+           "loss_rel_to_bf16": rel,
+           "step_ms": [1e3 * x for x in step_s], "step_ms_p50": 1e3 * p50,
+           "tok_per_s": tok_s, "tflops": perf["tflops"], "mfu": perf["mfu"],
+           "mfu_peak": "989 TFLOP/s bf16 (model FLOPs)",
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": launches}
+    print("fp8 train: " + json.dumps(out), flush=True)
+    print("fp8 train profile: " + json.dumps({"card": card, **profile}),
+          flush=True)
+    del eng
+    return out
+
+
+def _mlp_steps(log) -> list:
+    return [(e["step"], e["loss"]) for e in _events(log, "step")]
+
+
+def run_fp8_mlp(dev, cfg, np_params, card) -> dict:
+    """Phase 11c: `train --engine fp8 --health guard --shadow-every 4
+    --log-every 4` on the card at the MLP's full width, 14 batches, with
+    the counts zeroed before it (the e4m3 GEMM's FMA build must run, its
+    tensor-core build not: the MLP's K are under FP8_TC_MIN_K), against
+    the same run on the CPU (FP8_DRIVER_TOL); then the guard on the card:
+    a NaN batch into the fused MLP engine under health="guard" leaves
+    every parameter and momentum leaf bit for bit; then phase 6's 1.21B
+    step with health "off" and "monitor" in turns (off, monitor,
+    monitor, off), the pack's added ms."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from shallowspeed_tpu_torch import train
+    from shallowspeed_tpu_torch.data.dataset import Dataset
+    from shallowspeed_tpu_torch.data.mnist import prepare_mnist
+    from shallowspeed_tpu_torch.engine import FusedDPEngine
+    from shallowspeed_tpu_torch.models.mlp import MLPStage
+    from shallowspeed_tpu_torch.optim import AdamW, MomentumSGD
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+    from shallowspeed_tpu_torch.parallel.mesh import make_mesh
+    from shallowspeed_tpu_torch.weights import leaves
+
+    root = tempfile.mkdtemp(prefix="fp8_smoke_")
+    try:
+        data_dir = str(prepare_mnist(root + "/mnist", synthetic=True))
+        base = FP8_DRIVER_ARGV + ["--data-dir", data_dir]
+        counters = _fp8_counters()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.time()
+        final, eng = train.train(train.parse_args(
+            base + ["--log-file", root + "/card.jsonl"]))
+        card_s = time.time() - t0
+        launches = {f"fp8_matmul_{r}": c.launches
+                    for r, c in counters.items()}
+        if launches["fp8_matmul_fma"] == 0 or launches["fp8_matmul_tc"]:
+            raise AssertionError(f"fp8 driver launches {launches}")
+        if eng.device.type != dev.type or eng.precision != "fp8":
+            raise AssertionError(f"fp8 driver ran on {eng.device}, "
+                                 f"precision {eng.precision}")
+        final_cpu, _ = train.train(train.parse_args(
+            base + ["--log-file", root + "/cpu.jsonl", "--device", "cpu"]))
+        card_steps = _mlp_steps(root + "/card.jsonl")
+        cpu_steps = _mlp_steps(root + "/cpu.jsonl")
+        worst = max([abs(a[1] - b[1]) / abs(b[1])
+                     for a, b in zip(card_steps, cpu_steps)]
+                    + [abs(final - final_cpu) / abs(final_cpu)])
+        shadow = _events(root + "/card.jsonl", "step")[-1][
+            "num_shadow_total"]
+        if [s for s, _ in card_steps] != [s for s, _ in cpu_steps] \
+                or not worst <= FP8_DRIVER_TOL or shadow != 3:
+            raise AssertionError(f"fp8 driver card {card_steps} final "
+                                 f"{final} vs CPU {cpu_steps} {final_cpu}; "
+                                 f"shadow samples {shadow}")
+
+        # the guard on the card: batch 1's inputs are NaN
+        ds = Dataset(data_dir, 128, 32).load(0, 1)
+        guard = FusedDPEngine(MLPStage(train.LAYER_SIZES, 0, 1,
+                                       batch_size=128),
+                              MomentumSGD(0.006), make_mesh(1, 1, dev),
+                              health="guard")
+        stack = ds.load_mubatch_stack(0)
+        xs = [torch.from_numpy(stack[0]).to(dev)]
+        ys = [torch.from_numpy(stack[1]).to(dev)]
+        guard._step(xs, ys)
+
+        def state():
+            return [t.clone() for t in leaves((guard.params,
+                                               guard.opt_state))]
+
+        before = state()
+        guard._step([xs[0] * float("nan")], ys)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(state(), before))
+        snap = guard.health_snapshot()
+        guard._step(xs, ys)
+        moved = not all(torch.equal(a, b) for a, b in zip(state(), before))
+        if not (same and moved and snap["skipped"] == 1
+                and snap["skipped_total"] == 1 and snap["nonfinite"] > 0):
+            raise AssertionError(f"guard on the card: unchanged {same}, "
+                                 f"trains after {moved}, pack {snap}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the health pack's cost on phase 6's step, off and monitor in turns
+    tok, tgt = _train_batch(cfg)
+    lm = ContextParallelEngine(cfg, AdamW(3e-4, weight_decay=0.01,
+                                          grad_clip=1.0),
+                               attn="flash", device=dev, params=np_params)
+    lm.train_batch(tok, tgt)
+    times = {"off": [], "monitor": []}
+    for mode in ("off", "monitor", "monitor", "off"):
+        lm.health = mode
+        for _ in range(MONITOR_STEPS):
+            t0 = time.perf_counter()
+            lm.train_batch(tok, tgt)
+            torch.cuda.synchronize()
+            times[mode].append(time.perf_counter() - t0)
+    pack = lm.health_snapshot()
+    del lm
+    if not (pack["nonfinite"] == 0 and np.isfinite(pack["grad_norm"])
+            and pack["update_ratio"] > 0):
+        raise AssertionError(f"monitor pack {pack}")
+    p50 = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
+    out = {"card": card, "driver_s": card_s, "final_val_loss": final,
+           "final_val_loss_cpu": final_cpu, "worst_rel": worst,
+           "shadow_samples": shadow, "launches": launches,
+           "guard_skip_bit_identical": same,
+           "step_ms_p50_off": p50["off"],
+           "step_ms_p50_monitor": p50["monitor"],
+           "pack_added_ms": p50["monitor"] - p50["off"],
+           "pack": {k: pack[k] for k in ("grad_norm", "param_norm",
+                                         "update_ratio", "nonfinite")}}
+    print("fp8 mlp and health: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2892,6 +3269,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     recipe = run_recipe(dev, cfg, np_params, trained["peak_mem_gb"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp8 = check_fp8_matmul(dev, card)
+    errs.update(fp8["errs"])
+    timing.update(fp8["timing"])
+    fp8_lm = run_fp8_lm(dev, cfg, np_params, trained["losses"][0], card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp8_mlp = run_fp8_mlp(dev, cfg, np_params, card)
+    launches["fp8_matmul_tc"] = fp8_lm["launches"]["fp8_matmul_tc"]
+    launches["fp8_matmul_fma"] = fp8_mlp["launches"]["fp8_matmul_fma"]
     del np_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2909,7 +3297,9 @@ def main() -> int:
              "flash_dq_tc": ("flash_bwd.cu", fa + "552"),
              "flash_dkv_tc": ("flash_bwd.cu", fa + "597"),
              "blocked_matmul_tc": ("blocked_matmul.cu", mm + "87"),
-             "dequant_matmul_tc": ("blocked_matmul.cu", mm + "58")}
+             "dequant_matmul_tc": ("blocked_matmul.cu", mm + "58"),
+             "fp8_matmul_tc": ("blocked_matmul.cu", mm + "202"),
+             "fp8_matmul_fma": ("blocked_matmul.cu", mm + "202")}
     kernels = [{
         "name": name, "route": "cuda", "source": src + cu,
         "replaces": ref, "launches": launches[name],

@@ -35,7 +35,14 @@ What is ported so far:
   schedules) or `parallel.spmd_pipeline.SPMDPipelineEngine` over a
   (dp, pp) grid of devices (`parallel.mesh`) -> `models.mlp` ->
   `ops.functional` (torch ops with hand-written VJPs; the reference
-  has no Pallas kernel on this path), on `data.mnist` / `data.dataset`.
+  has no Pallas kernel on this path), on `data.mnist` / `data.dataset`;
+- fp8 training and the health pack: `ops.matmul.fp8_dense` (e4m3
+  operands, f32 sums on a hand-written e4m3 GEMM in
+  `csrc/blocked_matmul.cu`, straight-through f32 gradients) under
+  `TransformerConfig(fp8_dense=True)` and `fp8.Fp8TrainEngine` (`train
+  --engine fp8`); `telemetry.health` / `anomaly` / `numerics` and
+  `optim`'s `guarded_step` behind every engine's `health=` and the
+  drivers' `--health`.
 ROADMAP.md lists what comes next; each feature not ported yet raises
 `NotPorted`.
 

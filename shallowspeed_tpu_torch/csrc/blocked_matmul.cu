@@ -61,6 +61,26 @@
 //   are masked and misaligned vectors read element by element, so it
 //   takes any M, N, K. The f32 build stays full f32 (the parity bounds
 //   need it).
+// - `gemm_fp8_kernel`, fp8_dense's forward product (the reference's
+//   `fp8_dense`, matmul.py:202, an XLA dot of two e4m3 operands with
+//   f32 accumulation there): xq (M, K) e4m3 @ wq (K, N) e4m3, the f32
+//   sum times a per-column f32 scale (sx * sw) in the epilogue, out f32.
+//   Hopper's 8-bit wgmma (m64n128k32 .e4m3.e4m3) reads both shared
+//   operands K-major only, so the wrapper hands it wq transposed, (N, K)
+//   row major (a 1-byte copy). Both arrive by TMA as 1-byte elements in
+//   boxes of 64 rows x 128 bytes (128 values of K a row), 128B-swizzled,
+//   so a stage covers k 128 and a k32 step is 32 bytes along the row.
+//   The tensor cores sum an fp8 product with fewer bits than f32 (the
+//   DeepSeek-V3 report measures ~14), so each stage's four k32 steps
+//   run into a fresh register tile that is then added to the f32
+//   accumulator on the CUDA cores (the promotion DeepGEMM does every
+//   128 values of K). Bound: operations, 2 M N K at 1,979 TFLOP/s (the
+//   head at the 1.21B step, 8192 x 2048 x 32768: 0.56 ms). K must be a
+//   multiple of 16 (TMA's 16-byte row strides). Even promoted every 128
+//   values the tensor cores' sum leaves the f32 order bound below K
+//   ~800, so the wrapper routes K < 2048 and unaligned K to
+//   `blocked_matmul_kernel<e4m3, e4m3, float>` (exact f32 FMA) with the
+//   scale as its `ws`. NaN (0x7F / 0xFF in e4m3) reaches the output.
 // The TPU grid runs K as its sequential third axis and carries the sum
 // in VMEM from one grid step to the next; blocks here run in no order,
 // so the K loop lives inside the block. The wrapper's (bm, bk, bn) are
@@ -624,6 +644,188 @@ int dispatch_tc(const CUtensorMap& ma, const CUtensorMap& mb, const void* wq,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ------------------------------------- the e4m3 tensor-core build
+
+constexpr int kF8BN = 128;   // output columns of a block
+constexpr int kF8BK = 128;   // k of one stage: one 128-byte e4m3 box row
+
+template <int WG>
+struct Fp8Gemm {
+  static constexpr int kThreads = 128 * WG;
+  static constexpr int kStages = 4;
+  static constexpr int kABytes = WG * tc::kBoxBytes;   // 64 WG rows x k 128
+  static constexpr int kBBytes = 2 * tc::kBoxBytes;    // 128 n rows x k 128
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kSmem = kStages * kStageBytes + kStages * 8 + 1024;
+};
+
+// d (64 x 128, f32) = A B^T (+ d when `accumulate`): A (64 x 32) and B
+// (128 x 32) e4m3 in shared memory, both K-major, 128B-swizzled.
+__device__ __forceinline__ void wgmma_e4m3_n128(float (&d)[64], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// One block: output rows [m0, m0 + 64 WG) x columns [n0, n0 + 128) over
+// all of K. xq (M, K) by TMA (`ma`), wq^T (N, K) by TMA (`mb`), both
+// 1-byte boxes of 64 rows x 128 k, zero past M, N and K. out (M, N) f32
+// = sum * scale[n].
+template <int WG>
+__global__ void __launch_bounds__(128 * WG, 1)
+    gemm_fp8_kernel(const __grid_constant__ CUtensorMap ma,
+                    const __grid_constant__ CUtensorMap mb,
+                    const float* __restrict__ scale, float* __restrict__ out,
+                    int m, int n, int k) {
+  using G = Fp8Gemm<WG>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(base + G::kStages * G::kStageBytes);
+
+  const int n0 = blockIdx.x * kF8BN;
+  const int m0 = blockIdx.y * 64 * WG;
+  const int nk = (k + kF8BK - 1) / kF8BK;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+
+  // k tile j into stage j % S (thread 0 only)
+  auto issue = [&](int j) {
+    uint8_t* st = base + (j % G::kStages) * G::kStageBytes;
+    uint64_t* bar = &bars[j % G::kStages];
+    const int k0 = j * kF8BK;
+    tc::bar_expect(bar, G::kStageBytes);
+#pragma unroll
+    for (int w = 0; w < WG; ++w)
+      tc::load_box(st + w * tc::kBoxBytes, &ma, bar, k0, m0 + 64 * w);
+    tc::load_box(st + G::kABytes, &mb, bar, k0, n0);
+    tc::load_box(st + G::kABytes + tc::kBoxBytes, &mb, bar, k0, n0 + 64);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < G::kStages; ++i) tc::bar_init(&bars[i]);
+    tc::fence_bar_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int j = 0; j < G::kStages - 1 && j < nk; ++j) issue(j);
+
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % G::kStages;
+    // every warpgroup has waited on its products of tile i - 1, so that
+    // stage is free for tile i + S - 1
+    __syncthreads();
+    if (tid == 0 && i + G::kStages - 1 < nk) issue(i + G::kStages - 1);
+    tc::bar_wait(&bars[s], (i / G::kStages) & 1);
+    uint8_t* st = base + s * G::kStageBytes;
+    const uint32_t a_addr = tc::smem_u32(st + wg * tc::kBoxBytes);
+    const uint32_t b_addr = tc::smem_u32(st + G::kABytes);
+    tc::wgmma_fence();
+    // K-major, 128B swizzle: a k32 step is 32 bytes along the 128-byte
+    // row, 8 rows are 1024 bytes apart
+#pragma unroll
+    for (int ks = 0; ks < kF8BK / 32; ++ks)
+      wgmma_e4m3_n128(part, tc::desc(a_addr + 32 * ks, 16, 1024),
+                      tc::desc(b_addr + 32 * ks, 16, 1024), ks);
+    tc::wgmma_commit();
+    tc::wgmma_wait();
+    tc::fence_regs(part);
+    // the promotion: this stage's sum joins the f32 accumulator
+#pragma unroll
+    for (int r = 0; r < 64; ++r) acc[r] += part[r];
+  }
+
+  // thread t of warpgroup wg: rows 16 (t / 32) + (t % 32) / 4 (+ 8) of
+  // its 64, columns 8 j + 2 (t % 4) (+ 1), j < 16
+  const int lane = tid % 32;
+  const int row0 = m0 + 64 * wg + 16 * ((tid % 128) / 32) + lane / 4;
+  const int col0 = n0 + 2 * (lane % 4);
+  const bool pairs = n % 2 == 0;      // then col < N gives col + 1 < N
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= m) continue;
+    float* dst = out + static_cast<long long>(row) * n;
+#pragma unroll
+    for (int j = 0; j < kF8BN / 8; ++j) {
+      const int col = col0 + 8 * j;
+      if (col >= n) continue;
+      const float v0 = acc[4 * j + 2 * r] * scale[col];
+      if (pairs) {
+        *reinterpret_cast<float2*>(dst + col) =
+            make_float2(v0, acc[4 * j + 2 * r + 1] * scale[col + 1]);
+      } else {
+        dst[col] = v0;
+        if (col + 1 < n) dst[col + 1] = acc[4 * j + 2 * r + 1] * scale[col + 1];
+      }
+    }
+  }
+}
+
+// A TMA map of a row-major (rows, cols) matrix of 1-byte values, in
+// boxes of 128 columns x 64 rows, swizzled 128B; columns past cols and
+// rows past rows read as zeros. The caller checked cols % 16 == 0 and a
+// 16-byte aligned base. Returns a cudaError_t (0 = success).
+inline int map_2d_u8(CUtensorMap* map, const void* base, long long rows,
+                     long long cols) {
+  const tc::EncodeTiled fn = tc::encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {kF8BK, 64};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                        const_cast<void*>(base), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int WG>
+int launch_fp8(const CUtensorMap& ma, const CUtensorMap& mb,
+               const void* scale, void* out, int m, int n, int k,
+               cudaStream_t stream) {
+  using G = Fp8Gemm<WG>;
+  auto kernel = gemm_fp8_kernel<WG>;
+  int e = tc::set_smem(reinterpret_cast<const void*>(kernel), G::kSmem);
+  if (e != 0) return e;
+  const dim3 grid((n + kF8BN - 1) / kF8BN, (m + 64 * WG - 1) / (64 * WG));
+  kernel<<<grid, G::kThreads, G::kSmem, stream>>>(
+      ma, mb, static_cast<const float*>(scale), static_cast<float*>(out), m,
+      n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -631,7 +833,8 @@ extern "C" {
 // The f32-FMA build. x (m, k) and y (k, n) row major, contiguous; out
 // (m, n) row major; ws (n,) f32 scales of the sums, or null. Dtype codes:
 // 0 float32, 1 bfloat16, 2 int8, 3 float8 e4m3. Takes x f32 or bf16 with
-// y of x's dtype (out f32 or bf16), or a 1-byte y (out in x's dtype).
+// y of x's dtype (out f32 or bf16), or a 1-byte y (out in x's dtype), or
+// e4m3 x and y (out f32).
 // m, n, k > 0 and m at most 65535 * 128 (the grid's y extent). Returns
 // the launch's cudaGetLastError() (0 = success); the Python wrapper
 // checks shapes, types and devices before the call.
@@ -653,6 +856,7 @@ int blocked_matmul(const void* x, const void* y, const void* ws, void* out,
   BLOCKED_MATMUL(kF32, kE4M3, kF32, float, e4m3, float);
   BLOCKED_MATMUL(kBF16, kI8, kBF16, __nv_bfloat16, int8_t, __nv_bfloat16);
   BLOCKED_MATMUL(kBF16, kE4M3, kBF16, __nv_bfloat16, e4m3, __nv_bfloat16);
+  BLOCKED_MATMUL(kE4M3, kE4M3, kF32, e4m3, e4m3, float);
 #undef BLOCKED_MATMUL
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -689,6 +893,30 @@ int gemm_tc_smem(int wg, int b_dtype) {
   if (b_dtype == kBF16) return wg == 1 ? Gemm<1, kBF16>::kSmem
                                        : Gemm<2, kBF16>::kSmem;
   return wg == 1 ? Gemm<1, kI8>::kSmem : Gemm<2, kI8>::kSmem;
+}
+
+// The e4m3 tensor-core build: out (m, n) f32 = (xq @ wq) * scale with xq
+// (m, k) e4m3 row major and wq given TRANSPOSED, wq_t (n, k) e4m3 row
+// major; scale (n,) f32. k % 16 == 0, xq and wq_t 16-byte aligned; `wg`
+// the warpgroups of a block (1 or 2: 64 or 128 output rows). Returns the
+// launch's cudaGetLastError() (0 = success).
+int gemm_fp8(const void* xq, const void* wq_t, const void* scale, void* out,
+             int m, int n, int k, int wg, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m <= 0 || n <= 0 || k <= 0 || k % 16 != 0 || (wg != 1 && wg != 2) ||
+      (m + 64 * wg - 1) / (64 * wg) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ma, mb;
+  int e = map_2d_u8(&ma, xq, m, k);
+  if (e == 0) e = map_2d_u8(&mb, wq_t, n, k);
+  if (e != 0) return e;
+  return wg == 1 ? launch_fp8<1>(ma, mb, scale, out, m, n, k, s)
+                 : launch_fp8<2>(ma, mb, scale, out, m, n, k, s);
+}
+
+// Dynamic shared memory of the e4m3 build, in bytes.
+int gemm_fp8_smem(int wg) {
+  return wg == 1 ? Fp8Gemm<1>::kSmem : Fp8Gemm<2>::kSmem;
 }
 
 const char* blocked_matmul_error_string(int code) {

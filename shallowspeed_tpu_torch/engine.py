@@ -17,9 +17,11 @@ drives the replicas of a (dp, 1) grid of devices (`parallel/mesh.py`):
   `train_epoch` / `train_run` step through it with no host copy per
   batch.
 
-Sequential training (`--dp 1 --pp 1`) is the dp = 1 case. The health
-packs (`health != "off"`) and the bucketed overlapped reduction
-(`overlap`) are not ported and raise `NotPorted`.
+Sequential training (`--dp 1 --pp 1`) is the dp = 1 case. With
+`health` "monitor" or "guard" each step also computes the health pack
+(`telemetry/health.py`) on the reduced gradients; under "guard" every
+replica's update is gated on its `nonfinite == 0`. The bucketed
+overlapped reduction (`overlap`) is not ported and raises `NotPorted`.
 """
 
 from __future__ import annotations
@@ -30,10 +32,13 @@ import torch
 from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch.data.dataset import stack_epoch
 from shallowspeed_tpu_torch.models.mlp import MLPStage, accumulate_grads
+from shallowspeed_tpu_torch.telemetry.health import (check_mode,
+                                                     engine_snapshot,
+                                                     note_step,
+                                                     step_with_health)
 from shallowspeed_tpu_torch.weights import (map_tree, params_from_numpy,
                                             placed_copy)
 
-_HEALTH = "Queue 1 item 6, planes"
 _OVERLAP = "Queue 1 item 5, comm overlap"
 
 
@@ -51,9 +56,8 @@ def reduce_replicas(accs, devices):
 
 
 def check_planes(health, overlap):
-    """Refuse the reference's health packs and overlapped reduction."""
-    if health != "off":
-        raise NotPorted(f"health={health!r} packs", _HEALTH)
+    """Check the health mode; refuse the overlapped reduction."""
+    check_mode(health)
     if overlap is not None:
         raise NotPorted("the bucketed overlapped dp reduction (overlap)",
                         _OVERLAP)
@@ -73,6 +77,8 @@ class FusedDPEngine:
                  health: str = "off", overlap=None):
         check_planes(health, overlap)
         assert stage.n_stages == 1
+        self.health = health
+        self.last_health = None
         self.stage = stage
         self.optimizer = optimizer
         self.devices = list(np.asarray(mesh, dtype=object).reshape(-1))
@@ -97,9 +103,31 @@ class FusedDPEngine:
                 acc = grads if acc is None else accumulate_grads(acc, grads)
             accs.append(acc)
         totals = reduce_replicas(accs, self.devices)
-        for r, g in enumerate(totals):
-            _, self._opt_states[r] = self.optimizer.step(
-                self._replicas[r], g, self._opt_states[r])
+        if self.health == "off":
+            for r, g in enumerate(totals):
+                _, self._opt_states[r] = self.optimizer.step(
+                    self._replicas[r], g, self._opt_states[r])
+            return
+        # the pack on replica 0's total (the replicas' are equal); the
+        # other replicas take the same guard decision
+        _, self._opt_states[0], pack = step_with_health(
+            self.optimizer, self._replicas[0], totals[0],
+            self._opt_states[0], self.health)
+        for r, g in enumerate(totals[1:], 1):
+            if self.health == "guard":
+                ok = pack["skipped"] == 0
+                _, self._opt_states[r] = self.optimizer.guarded_step(
+                    self._replicas[r], g, self._opt_states[r], ok)
+            else:
+                _, self._opt_states[r] = self.optimizer.step(
+                    self._replicas[r], g, self._opt_states[r])
+        note_step(self, pack)
+
+    def health_snapshot(self) -> dict | None:
+        """The last step's health pack and the cumulative counters as a
+        host dict (one fetch); None before the first step or with
+        health='off'."""
+        return engine_snapshot(self)
 
     def _place(self, arr, device):
         return torch.from_numpy(np.ascontiguousarray(arr, np.float32)

@@ -1,10 +1,10 @@
 """Structured JSONL metrics — the parts of `shallowspeed_tpu/metrics.py`
 the port's drivers use: `MetricsLogger` (serving and training, with the
 MLP driver's `epoch` and `final` records) and `StepRates` (training
-throughput windows), plus `step_event`, the LM driver's `"step"` line in
-the reference's field names. The
-live monitor feed, telemetry/health fields and file-rotation handling
-are not ported yet."""
+throughput windows, with the health and numerics monitors' fields),
+plus `step_event`, the LM driver's `"step"` line in the reference's
+field names. The live monitor feed, the goodput ledger, the telemetry
+fields and file-rotation handling are not ported yet."""
 
 from __future__ import annotations
 
@@ -62,9 +62,13 @@ class MetricsLogger:
 class StepRates:
     """Per-window and cumulative training throughput between log
     points, with validation and checkpoint time excluded (`pause`):
-    the reference's `StepRates` without its telemetry attachments."""
+    the reference's `StepRates` with its health and numerics
+    attachments. With `health` (a `telemetry.health.HealthMonitor`)
+    every log point also carries its `health_*` fields, with `numerics`
+    (a `telemetry.numerics.NumericsMonitor`) its `num_*` fields."""
 
-    def __init__(self, tokens_per_step: float, clock=time.time):
+    def __init__(self, tokens_per_step: float, clock=time.time,
+                 health=None, numerics=None):
         self.tokens_per_step = float(tokens_per_step)
         self._clock = clock
         self._t0 = clock()
@@ -72,10 +76,14 @@ class StepRates:
         self._steps = 0
         self._pause = 0.0
         self._win_pause = 0.0
+        self.health = health
+        self.numerics = numerics
 
-    def pause(self, seconds: float) -> None:
-        """Exclude `seconds` of non-training wall time (a validation
-        pass, a checkpoint save) from both rates."""
+    def pause(self, seconds: float, kind: str | None = None) -> None:
+        """Exclude `seconds` of non-training wall time from both rates.
+        `kind` names it as the reference's goodput buckets do ("val",
+        "ckpt_save", "shadow_parity"); the ledger is not ported, so it
+        is not recorded."""
         self._pause += float(seconds)
 
     def log_point(self, steps_since_last: int) -> dict:
@@ -87,10 +95,15 @@ class StepRates:
                        - (self._pause - self._win_pause), 1e-9)
         cum_secs = max(now - self._t0 - self._pause, 1e-9)
         self._win_t, self._win_pause = now, self._pause
-        return {"tokens_per_sec":
-                self.tokens_per_step * steps_since_last / win_secs,
-                "tokens_per_sec_cum":
-                self.tokens_per_step * self._steps / cum_secs}
+        out = {"tokens_per_sec":
+               self.tokens_per_step * steps_since_last / win_secs,
+               "tokens_per_sec_cum":
+               self.tokens_per_step * self._steps / cum_secs}
+        if self.health is not None:
+            out.update(self.health.step_fields())
+        if self.numerics is not None:
+            out.update(self.numerics.step_fields())
+        return out
 
 
 def step_event(step: int, loss: float, rates: dict, perf: dict,

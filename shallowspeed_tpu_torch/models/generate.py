@@ -54,7 +54,10 @@ def _embed(params, tokens, pos0: int, cfg: T.TransformerConfig):
     t = tokens.shape[1]
     x = params["tok_emb"][tokens]
     if not cfg.rope:
-        pos = pos0 + torch.arange(t, device=tokens.device)
+        # positions past the table clamp to its last row, as JAX's
+        # gather does (a serving chunk's padding may run past max_seq)
+        pos = torch.clamp(pos0 + torch.arange(t, device=tokens.device),
+                          max=params["pos_emb"].shape[0] - 1)
         x = x + params["pos_emb"][pos]
     if cfg.compute_dtype is not None:
         x = x.to(cfg.compute_dtype)

@@ -31,8 +31,10 @@ in the plain attention, with masks from explicit keys (`ops.dropout`:
 a forward given no `dropout_key` runs no RNG op); remat of every block
 under the policies "full", "attn" and "dots" (`_remat_block`); chunked
 cross-entropy (`chunked_token_loss`); and the MoE FFN (`ops.moe`), its
-balance and z-losses added in `loss`. fp8 training matmuls
-(`fp8_dense`) are not ported yet and raise `NotPorted`.
+balance and z-losses added in `loss`. With cfg.fp8_dense every dense
+product of a block and the untied head runs as `ops.matmul.fp8_dense`
+(e4m3 operands, f32 sum, straight-through f32 gradients), the
+activation scale per tensor and just in time.
 """
 
 from __future__ import annotations
@@ -48,12 +50,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from shallowspeed_tpu_torch import NotPorted, resolve_device
+from shallowspeed_tpu_torch import resolve_device
 from shallowspeed_tpu_torch.ops.attention import attention
 from shallowspeed_tpu_torch.ops.dropout import dropout as _dropout
 from shallowspeed_tpu_torch.ops.dropout import fold_key
 from shallowspeed_tpu_torch.ops import flash_attention as FA
-from shallowspeed_tpu_torch.ops.matmul import dequant_matmul
+from shallowspeed_tpu_torch.ops.matmul import (E4M3_MAX, dequant_matmul,
+                                               fp8_dense)
 from shallowspeed_tpu_torch.ops.moe import moe_ffn
 from shallowspeed_tpu_torch.weights import leaves, params_from_numpy
 
@@ -110,8 +113,6 @@ class TransformerConfig:
         assert self.n_heads % self.kv_heads == 0, (
             f"n_heads={self.n_heads} must be divisible by "
             f"n_kv_heads={self.kv_heads}")
-        if self.fp8_dense:
-            raise NotPorted("fp8_dense matmuls", "Queue 1, fp8 training")
         if (self.compute_dtype is not None
                 and not isinstance(self.compute_dtype, torch.dtype)):
             raise TypeError(f"compute_dtype must be a torch dtype or None, "
@@ -316,9 +317,19 @@ def _norm(p, x, cfg: TransformerConfig):
     return (_rmsnorm if cfg.norm == "rmsnorm" else _layernorm)(p, x)
 
 
-def _dense(p, x):
+def _dense(p, x, fp8: bool = False):
     if "Wq" in p:      # quantized storage: the scale meets the f32 sum
         return dequant_matmul(x, p["Wq"], p["Ws"]) + p["b"]
+    if fp8:     # cfg.fp8_dense: the training-time e4m3 product, with a
+        #         just-in-time per-tensor activation scale (no gradient)
+        w = p["W"]
+        x2 = x.reshape(-1, x.shape[-1]).float()
+        with torch.no_grad():
+            sx = torch.clamp(torch.amax(torch.abs(x2)) / E4M3_MAX,
+                             min=1e-12)
+        out = fp8_dense(x2, w.float(), sx)
+        return (out.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
+                + p["b"])
     return x @ p["W"] + p["b"]
 
 
@@ -326,7 +337,7 @@ def head_logits(params, x, cfg: TransformerConfig):
     """Vocabulary projection: the untied head, or tok_emb^T when tied;
     optionally soft-capped in f32."""
     logits = (x @ params["tok_emb"].T if cfg.tie_embeddings
-              else _dense(params["head"], x))
+              else _dense(params["head"], x, cfg.fp8_dense))
     if cfg.logit_softcap > 0.0:
         cap = cfg.logit_softcap
         logits = cap * torch.tanh(logits.float() / cap)
@@ -358,11 +369,14 @@ def _qkv(p, h, cfg: TransformerConfig):
     split q / fused kv under GQA."""
     b, t, _ = h.shape
     if "kv" in p:
-        q = _dense(p["q"], h).reshape(b, t, cfg.n_heads, cfg.head_dim)
-        kv = _dense(p["kv"], h).reshape(b, t, cfg.kv_heads, 2, cfg.head_dim)
+        q = _dense(p["q"], h, cfg.fp8_dense).reshape(b, t, cfg.n_heads,
+                                                     cfg.head_dim)
+        kv = _dense(p["kv"], h, cfg.fp8_dense).reshape(b, t, cfg.kv_heads,
+                                                       2, cfg.head_dim)
         k, v = kv[..., 0, :], kv[..., 1, :]
     else:
-        qkv = _dense(p["qkv"], h).reshape(b, t, cfg.n_heads, 3, cfg.head_dim)
+        qkv = _dense(p["qkv"], h, cfg.fp8_dense).reshape(b, t, cfg.n_heads,
+                                                         3, cfg.head_dim)
         q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
     return q, k, v
 
@@ -379,10 +393,12 @@ def _ffn(p, x, cfg: TransformerConfig, h, key=None):
                                 priority=cfg.moe_routing == "priority")
         return x + _dropout(y, cfg.dropout, key), (aux, z, st)
     if "gate" in p:
-        u = F.silu(_dense(p["gate"], h)) * _dense(p["up"], h)
+        u = (F.silu(_dense(p["gate"], h, cfg.fp8_dense))
+             * _dense(p["up"], h, cfg.fp8_dense))
     else:
-        u = F.gelu(_dense(p["up"], h), approximate="tanh")
-    return (x + _dropout(_dense(p["down"], u), cfg.dropout, key),
+        u = F.gelu(_dense(p["up"], h, cfg.fp8_dense), approximate="tanh")
+    return (x + _dropout(_dense(p["down"], u, cfg.fp8_dense), cfg.dropout,
+                         key),
             (0.0, 0.0, None))
 
 
@@ -415,7 +431,8 @@ def _block(p, x, cfg: TransformerConfig, pos, attn_fn, key=None,
                 "inside their score blocks)")
         extra = {"dropout": cfg.attn_dropout, "dropout_key": k_prob}
     a = attn_fn(q, k, v, **extra)
-    x = x + _dropout(_dense(p["proj"], a.reshape(b, t, d)), cfg.dropout,
+    x = x + _dropout(_dense(p["proj"], a.reshape(b, t, d), cfg.fp8_dense),
+                     cfg.dropout,
                      k_attn)
     x, moe = _ffn(p, x, cfg, _norm(p["ln2"], x, cfg), k_ffn)
     return (x, moe, (k, v)) if with_kv else (x, moe)

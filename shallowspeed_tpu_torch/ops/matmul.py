@@ -1,12 +1,13 @@
 """Matmuls — counterpart of `shallowspeed_tpu/ops/matmul.py`: the
-quantized-weight `dequant_matmul`, and the blocked matmul K5
-(`blocked_matmul`), both on the kernels of `csrc/blocked_matmul.cu`: a
-tensor-core GEMM (bf16 x; y bf16, or 1-byte weight values converted in
-shared memory) and an f32-FMA kernel (f32 inputs, unaligned shapes).
+quantized-weight `dequant_matmul`, the blocked matmul K5
+(`blocked_matmul`) and the fp8-e4m3 training matmul `fp8_dense`, all on
+the kernels of `csrc/blocked_matmul.cu`: a tensor-core GEMM (bf16 x;
+y bf16, or 1-byte weight values converted in shared memory), an e4m3 x
+e4m3 tensor-core GEMM (`fp8_matmul`, fp8_dense's forward product) and an
+f32-FMA kernel (f32 inputs, e4m3 inputs, unaligned shapes).
 
 K5 lies on one path only, the narrow-K probe (`bench_matmul`), as its
-reference does; no model calls it. The fp8 training matmul
-(`fp8_dense`) is not ported yet (ROADMAP Queue 1 item 7).
+reference does; no model calls it.
 """
 
 from __future__ import annotations
@@ -216,8 +217,12 @@ def _kernel():
     lib.gemm_tc.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     lib.gemm_tc_smem.argtypes = [ctypes.c_int] * 2
+    lib.gemm_fp8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    lib.gemm_fp8_smem.argtypes = [ctypes.c_int]
     lib.blocked_matmul.restype = lib.gemm_tc.restype = ctypes.c_int
-    lib.gemm_tc_smem.restype = ctypes.c_int
+    lib.gemm_tc_smem.restype = lib.gemm_fp8.restype = ctypes.c_int
+    lib.gemm_fp8_smem.restype = ctypes.c_int
     lib.blocked_matmul_error_string.argtypes = [ctypes.c_int]
     lib.blocked_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -289,3 +294,202 @@ def _blocked_matmul_tc(x, y, out_dtype):
 
 
 _blocked_matmul_tc.launches = 0
+
+
+# ----------------------------------------------------- fp8 training matmul
+#
+# The reference's `fp8_dense` (matmul.py:202, XLA there): x with a
+# DELAYED per-tensor scale, w with a just-in-time per-out-channel scale,
+# both rounded once into e4m3, their product summed in f32 and the
+# dequant `* (sx * sw)` on the f32 sum. The backward is its hand
+# straight-through VJP: gradients stay f32 end to end, computed from
+# the stored e4m3 operands (f32 products of exact e4m3 values; on the
+# card `torch.matmul` in full f32, as the reference leaves them to XLA).
+
+E4M3_MAX = 448.0          # finfo(float8_e4m3fn).max
+E4M3_TINY = 2.0 ** -9     # the smallest e4m3 subnormal
+
+
+def _check_fp8_operands(x, w):
+    """fp8_dense's shape contract as a typed error: the hand VJP
+    contracts the batch axis for dw, so only 2-D operands are taken."""
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError(
+            f"fp8_dense takes 2-D operands x (B, K) @ w (K, N); got "
+            f"x.shape={tuple(x.shape)}, w.shape={tuple(w.shape)} — "
+            f"reshape (..., K) activations to (-1, K) at the call site")
+    if x.shape[1] != w.shape[0]:
+        raise ValueError(
+            f"fp8_dense contraction mismatch: x (B, K={x.shape[1]}) @ "
+            f"w (K={w.shape[0]}, N)")
+
+
+def fp8_clamp_stats(x, scale):
+    """Per-tensor clamp statistics of one activation quantize, on the
+    same (x, scale) `fp8_quantize` sees: (overflow — the share of
+    elements the ±E4M3_MAX clip saturates, underflow — the share of
+    NONZERO elements that round to zero in e4m3), two f32 0-d
+    tensors."""
+    y = torch.abs(x.float()) / scale
+    overflow = torch.mean((y > E4M3_MAX).float())
+    nz = y > 0.0
+    under = nz & (y < 0.5 * E4M3_TINY)
+    denom = torch.clamp(torch.sum(nz.float()), min=1.0)
+    return overflow, torch.sum(under.float()) / denom
+
+
+def fp8_quantize(x, scale):
+    """`x / scale` in f32, saturated to ±E4M3_MAX and rounded once into
+    float8_e4m3fn (NaN stays NaN: the clamp passes it through)."""
+    y = x.float() / scale
+    return torch.clamp(y, -E4M3_MAX, E4M3_MAX).to(torch.float8_e4m3fn)
+
+
+@torch.no_grad()
+def _w_scale(w):
+    """Just-in-time per-out-channel weight scale, no gradient:
+    max(max_k |w[k, n]| / E4M3_MAX, 1e-12)."""
+    amax = torch.amax(torch.abs(w.float()), dim=0)
+    return torch.clamp(amax / E4M3_MAX, min=1e-12)
+
+
+# The tensor cores sum e4m3 products with fewer bits than f32, so the
+# wgmma build's error grows against the f32 order bound K 2^-24 sum|terms|
+# as K shrinks: past the bound below K ~800, a third of it at K 2048
+# (chip_smoke.py phase 11a prints the ratio at K 128 and at every
+# routed shape). Below this K the exact-f32 FMA build is the route.
+FP8_TC_MIN_K = 2048
+
+
+def fp8_matmul_route(k: int) -> str:
+    """Which build `fp8_matmul` launches on the card for xq (M, K) @
+    wq (K, N), chosen before the launch: "tc" (`_fp8_matmul_tc`, the
+    e4m3 wgmma GEMM) when K % 16 == 0 (TMA's 16-byte row strides of
+    xq and of wq transposed) and K >= FP8_TC_MIN_K (where its sum stays
+    inside the f32 order bound); else "fma" (`_fp8_matmul_fma`, the
+    f32-FMA kernel reading the e4m3 bytes, any shape)."""
+    return "tc" if k % 16 == 0 and k >= FP8_TC_MIN_K else "fma"
+
+
+def fp8_matmul_reference(xq, wq, scale):
+    """Plain torch `fp8_matmul`: the e4m3 values in f32 (exact), their
+    product summed in f32, times the per-column scale."""
+    return (xq.float() @ wq.float()) * scale
+
+
+def fp8_matmul(xq, wq, scale):
+    """(xq @ wq) * scale in f32: xq (M, K) and wq (K, N)
+    float8_e4m3fn, scale (N,) f32 (fp8_dense's sx * sw), the product
+    summed in f32 and scaled on the f32 sum.
+
+    A CPU xq takes `fp8_matmul_reference`. A CUDA xq launches a kernel
+    of `csrc/blocked_matmul.cu` or raises, as `fp8_matmul_route`
+    picks: the e4m3 tensor-core GEMM through `_fp8_matmul_tc`, or the
+    f32-FMA kernel through `_fp8_matmul_fma`."""
+    if xq.device.type == "cpu":
+        return fp8_matmul_reference(xq, wq, scale)
+    if xq.dtype != torch.float8_e4m3fn or wq.dtype != torch.float8_e4m3fn \
+            or scale.dtype != torch.float32:
+        raise TypeError(f"fp8_matmul takes float8_e4m3fn xq and wq and a "
+                        f"float32 scale; got xq={xq.dtype}, wq={wq.dtype}, "
+                        f"scale={scale.dtype}")
+    if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[0] \
+            or scale.shape != (wq.shape[1],):
+        raise ValueError(f"fp8_matmul: xq {tuple(xq.shape)}, wq "
+                         f"{tuple(wq.shape)}, scale {tuple(scale.shape)} do "
+                         f"not fit")
+    for name, t in (("wq", wq), ("scale", scale)):
+        if t.device != xq.device:
+            raise ValueError(f"{name} is on {t.device}, xq on {xq.device}")
+    xq, wq, scale = xq.contiguous(), wq.contiguous(), scale.contiguous()
+    launcher = (_fp8_matmul_tc if fp8_matmul_route(xq.shape[1]) == "tc"
+                else _fp8_matmul_fma)
+    return launcher(xq, wq, scale)
+
+
+def _fp8_matmul_tc(xq, wq, scale):
+    """`fp8_matmul` on the card through `csrc/blocked_matmul.cu::
+    gemm_fp8_kernel`: wq copied transposed to (N, K) (the 8-bit wgmma
+    reads both operands K-major), both by TMA, four k32 wgmmas a stage
+    promoted into the f32 accumulator, the scale in the epilogue.
+    Reached only through `fp8_matmul`; its own function so that its
+    launches count apart."""
+    (m, k), n = xq.shape, wq.shape[1]
+    if -(-m // (64 * tc_warpgroups(m))) > 65535:
+        raise ValueError(f"M={m} is over the kernel's 65535 x 128 rows")
+    wq_t = wq.view(torch.uint8).t().contiguous()
+    for name, t in (("xq", xq), ("wq_t", wq_t)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"the e4m3 matmul reads {name} by TMA, which "
+                             f"needs a 16-byte aligned address; got "
+                             f"{t.data_ptr():#x}")
+    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    lib = _kernel()
+    _build.launch(_fp8_matmul_tc, lib.gemm_fp8,
+                  lib.blocked_matmul_error_string, xq.device, xq.data_ptr(),
+                  wq_t.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k,
+                  tc_warpgroups(m))
+    return out
+
+
+_fp8_matmul_tc.launches = 0
+
+
+def _fp8_matmul_fma(xq, wq, scale):
+    """`fp8_matmul` on the card through the f32-FMA kernel
+    (`csrc/blocked_matmul.cu::blocked_matmul_kernel<e4m3, e4m3, f32>`,
+    the scale as its per-column `ws`), for K the tensor-core build does
+    not take. Reached only through `fp8_matmul`."""
+    (m, k), n = xq.shape, wq.shape[1]
+    if -(-m // 128) > 65535:
+        raise ValueError(f"M={m} is over the kernel's 65535 x 128 rows")
+    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    lib = _kernel()
+    _build.launch(_fp8_matmul_fma, lib.blocked_matmul,
+                  lib.blocked_matmul_error_string, xq.device, xq.data_ptr(),
+                  wq.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k,
+                  _CODES[xq.dtype], _CODES[wq.dtype], _CODES[torch.float32])
+    return out
+
+
+_fp8_matmul_fma.launches = 0
+
+
+class _Fp8Dense(torch.autograd.Function):
+    """fp8_dense with the reference's straight-through VJP
+    (`_fp8_dense_bwd`): saves the e4m3 operands and both scales;
+    dx = ((g * sw) @ wq^T) * sx and dw = (xq^T @ g) * sx in f32, and no
+    gradient for the scale (bookkeeping, not a parameter)."""
+
+    @staticmethod
+    def forward(ctx, x, w, sx):
+        sw = _w_scale(w)
+        xq, wq = fp8_quantize(x, sx), fp8_quantize(w, sw)
+        ctx.save_for_backward(xq, wq, sx, sw)
+        return fp8_matmul(xq, wq, sx * sw)
+
+    @staticmethod
+    def backward(ctx, g):
+        xq, wq, sx, sw = ctx.saved_tensors
+        g = g.float()
+        dx = ((g * sw) @ wq.float().t()) * sx
+        dw = (xq.float().t() @ g) * sx
+        return dx, dw, None
+
+
+def fp8_dense(x, w, sx):
+    """x (B, K) @ w (K, N), both quantized to e4m3 for the product: x
+    with the per-tensor scale `sx` (a 0-d f32 tensor, no gradient), w
+    with `_w_scale`'s per-out-channel scale. Returns (B, N) f32: the f32
+    sum times sx * sw. 2-D operands only (ValueError otherwise)."""
+    _check_fp8_operands(x, w)
+    return _Fp8Dense.apply(x, w, sx)
+
+
+def fp8_dense_reference(x, w, sx):
+    """Plain torch forward of `fp8_dense` (no autograd Function): the
+    same quantize, `fp8_matmul_reference` for the product."""
+    _check_fp8_operands(x, w)
+    sw = _w_scale(w)
+    return fp8_matmul_reference(fp8_quantize(x, sx), fp8_quantize(w, sw),
+                                sx * sw)

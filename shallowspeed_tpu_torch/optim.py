@@ -124,6 +124,37 @@ class _Optimizer:
         trees (SGD)."""
         return state
 
+    @torch.no_grad()
+    def guarded_step(self, params, grads, state, ok):
+        """`step` with the whole update gated on `ok`: when it is false
+        every parameter and every optimizer-state leaf — moments,
+        Adafactor's factored slots, the step counter — keeps its old
+        value bit for bit, so a skipped step is indistinguishable from
+        never having run (the health layer's `skip_step` guard).
+
+        `ok` is a 0-d bool tensor on the device (the health pack's
+        `nonfinite == 0`): the tensors are snapshotted, updated in
+        place and put back with `torch.where`, no host branch. The step
+        counter is a host int, so an optimizer whose state carries one
+        reads `ok` once, after the update's kernels are queued (the
+        card keeps running them while the host waits). A host bool `ok`
+        (the pipeline VM decides once per batch on the host) skips the
+        update outright."""
+        if not isinstance(ok, torch.Tensor):
+            return self.step(params, grads, state) if ok \
+                else (params, state)
+        # every optimizer here updates its tensors in place, so the
+        # snapshot pairs each tensor with its own old value
+        pairs = [(t, t.clone()) for t in leaves((params, state))
+                 if isinstance(t, torch.Tensor)]
+        params, new_state = self.step(params, grads, state)
+        for t, o in pairs:
+            t.copy_(torch.where(ok.to(t.device), t, o))
+        if isinstance(new_state, dict) and "t" in new_state \
+                and not bool(ok):
+            new_state = {**new_state, "t": state["t"]}
+        return params, new_state
+
 
 class SGD(_Optimizer):
     """Plain SGD: p - lr * g. Stateless with a static lr; carries a step

@@ -21,8 +21,11 @@ the reported loss is the microbatches' mean, as the reference's scan
 computes them. The config's dropout draws its masks from keys derived
 from (seed, step, microbatch) (`ops.dropout.fold_key`).
 
-ZeRO, health packs, comm overlap and every multi-device mesh are not
-ported yet and raise `NotPorted`.
+With `health` "monitor" or "guard" each step also computes the health
+pack (`telemetry/health.py`) on the step's gradients; under "guard"
+the update is gated on its `nonfinite == 0` (`guarded_step`). ZeRO,
+comm overlap and every multi-device mesh are not ported yet and raise
+`NotPorted`.
 """
 
 from __future__ import annotations
@@ -37,6 +40,10 @@ from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.ops.attention import attention
 from shallowspeed_tpu_torch.ops.dropout import fold_key
 from shallowspeed_tpu_torch.ops.flash_attention import flash_attention
+from shallowspeed_tpu_torch.telemetry.health import (check_mode,
+                                                     engine_snapshot,
+                                                     note_step,
+                                                     step_with_health)
 from shallowspeed_tpu_torch.weights import (leaves, map_tree,
                                             params_from_numpy, placed_copy,
                                             unflatten)
@@ -61,9 +68,7 @@ class ContextParallelEngine:
             raise ValueError(f"accum must be >= 1, got {accum}")
         if zero1 or zero2:
             raise NotPorted("ZeRO-1/2 optimizer sharding", _LATER)
-        if health != "off":
-            raise NotPorted(f"health={health!r} packs",
-                            "Queue 1, training features after slice 2")
+        check_mode(health)
         if overlap is not None:
             raise NotPorted("communication overlap", _LATER)
         if attn not in ("flash", "ring"):
@@ -76,6 +81,8 @@ class ContextParallelEngine:
                 "probabilities")
         self.cfg = cfg
         self.optimizer = optimizer
+        self.health = health
+        self.last_health = None
         self.accum = accum
         self.seed = seed
         self.device = resolve_device(device)
@@ -151,10 +158,22 @@ class ContextParallelEngine:
         """One optimizer step on a (B, T) int token batch; returns the
         loss before the update."""
         loss, grads = self.loss_and_grads(tokens, targets)
-        self.params, self.opt_state = self.optimizer.step(
-            self.params, grads, self.opt_state)
+        if self.health == "off":
+            self.params, self.opt_state = self.optimizer.step(
+                self.params, grads, self.opt_state)
+        else:
+            self.params, self.opt_state, pack = step_with_health(
+                self.optimizer, self.params, grads, self.opt_state,
+                self.health)
+            note_step(self, pack)
         self._step_count += 1
         return float(loss)
+
+    def health_snapshot(self) -> dict | None:
+        """The last step's health pack and the cumulative counters as a
+        host dict (call at log points); None before the first step or
+        with health='off'."""
+        return engine_snapshot(self)
 
     @torch.no_grad()
     def eval_loss(self, tokens, targets) -> float:

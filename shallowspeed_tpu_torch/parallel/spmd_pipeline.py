@@ -28,8 +28,11 @@ axis (`torch.roll`).
   rank order and every replica applies the same update.
 
 Every cell of the grid must be one device (the stage axis is a tensor
-axis). The double-buffered `--overlap` ticks, the peeled bucketed
-reduction and the health packs are not ported and raise `NotPorted`.
+axis). With `health` "monitor" or "guard" each batch also computes the
+health pack over the whole {"W", "b"} stacks (every stage at once, the
+reference's psum over 'pp'); under "guard" all stages skip in
+lockstep. The double-buffered `--overlap` ticks and the peeled bucketed
+reduction are not ported and raise `NotPorted`.
 """
 
 from __future__ import annotations
@@ -40,6 +43,9 @@ import torch
 from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch.data.dataset import stack_epoch
 from shallowspeed_tpu_torch.engine import check_planes, reduce_replicas
+from shallowspeed_tpu_torch.telemetry.health import (engine_snapshot,
+                                                     note_step,
+                                                     step_with_health)
 from shallowspeed_tpu_torch.models.mlp import init_linear_np, stage_layer_sizes
 from shallowspeed_tpu_torch.weights import map_tree, placed_copy, to_host
 
@@ -131,6 +137,8 @@ class SPMDPipelineEngine:
                  mubatch_size: int, global_batch_size: int,
                  health: str = "off", overlap=None):
         check_planes(health, overlap)
+        self.health = health
+        self.last_health = None
         mesh = np.asarray(mesh, dtype=object)
         self.dp, self.pp = mesh.shape
         if len(set(mesh.reshape(-1))) != 1:
@@ -277,9 +285,28 @@ class SPMDPipelineEngine:
         totals = reduce_replicas(
             [{"W": gW[r], "b": gb[r]} for r in range(dp)],
             [self.device] * dp)
-        for r, g in enumerate(totals):
-            _, self._opt_states[r] = self.optimizer.step(
-                self._replicas[r], g, self._opt_states[r])
+        if self.health == "off":
+            for r, g in enumerate(totals):
+                _, self._opt_states[r] = self.optimizer.step(
+                    self._replicas[r], g, self._opt_states[r])
+            return
+        _, self._opt_states[0], pack = step_with_health(
+            self.optimizer, self._replicas[0], totals[0],
+            self._opt_states[0], self.health)
+        for r, g in enumerate(totals[1:], 1):
+            if self.health == "guard":
+                _, self._opt_states[r] = self.optimizer.guarded_step(
+                    self._replicas[r], g, self._opt_states[r],
+                    pack["skipped"] == 0)
+            else:
+                _, self._opt_states[r] = self.optimizer.step(
+                    self._replicas[r], g, self._opt_states[r])
+        note_step(self, pack)
+
+    def health_snapshot(self) -> dict | None:
+        """The last batch's health pack and the cumulative counters as a
+        host dict; None before the first batch or with health='off'."""
+        return engine_snapshot(self)
 
     def head_grad(self, probs, target):
         """MSELoss head then the softmax VJP expressed through `probs`."""

@@ -18,9 +18,13 @@ streams with a make-progress loop over FIFO channels, and raises
 - Activation stashes live in a per-stage dict keyed by mubatch_id,
   sized by the schedule (GPipe: n_mu; 1F1B: pipeline depth).
 
-The reference's health packs, telemetry spans and comm-byte counters
-are not ported (ROADMAP Queue 1 item 6); `health != "off"` raises
-`NotPorted`.
+With `health` "monitor" or "guard" every stage computes its LOCAL
+health pack on its reduced gradients and finishes it at its update;
+`health_snapshot` merges the stages' packs (`merge_packs`). Under
+"guard" the first OptimizerStep of a batch waits until every stage has
+reduced, then one host read of the stages' sentinels decides the skip
+for all stages (they skip in lockstep). The reference's telemetry spans
+and comm-byte counters are not ported (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -46,6 +50,11 @@ from shallowspeed_tpu_torch.parallel.instructions import (
     SendInputGrad,
     ZeroGrad,
 )
+from shallowspeed_tpu_torch.telemetry.health import (fetch_pack,
+                                                     grad_health,
+                                                     merge_packs, param_l2,
+                                                     snapshot,
+                                                     update_health)
 from shallowspeed_tpu_torch.weights import (map_tree, params_from_numpy,
                                             placed_copy)
 
@@ -56,7 +65,12 @@ class StageRuntime:
     the activation stashes and the comm buffers (each buffer one tensor
     per replica)."""
 
-    def __init__(self, stage: MLPStage, devices, optimizer):
+    def __init__(self, stage: MLPStage, devices, optimizer,
+                 health: str = "off"):
+        self.health = health
+        self.last_pack = None     # this STAGE's local health pack
+        self._nf_batches = None   # device-side: batches with non-finite
+        #                           gradients on this stage
         self.stage = stage
         self.devices = list(devices)
         self.dp = len(self.devices)
@@ -97,14 +111,36 @@ class StageRuntime:
             dxs.append(dx)
         if allreduce:
             self.reduced_grads = reduce_replicas(self.grad_acc, self.devices)
+            if self.health != "off":
+                self.last_pack = grad_health(self.replicas[0],
+                                             self.reduced_grads[0])
+                bad = (self.last_pack["nonfinite"] > 0).to(torch.int32)
+                self._nf_batches = (bad if self._nf_batches is None
+                                    else self._nf_batches + bad)
         return dxs
 
-    def optimizer_step(self):
+    def optimizer_step(self, ok: bool | None = None):
+        """The stage's update; under guard `ok` is the executor's global
+        decision (a host bool), and a false one leaves every tensor as
+        it was."""
         assert self.reduced_grads is not None, \
             "OptimizerStep before BackwardGradAllReduce"
+        if self.health != "off":
+            norm, old = param_l2(self.replicas[0]), snapshot(self.replicas[0])
+        else:
+            old = None
         for r, g in enumerate(self.reduced_grads):
-            _, self.opt_states[r] = self.optimizer.step(
-                self.replicas[r], g, self.opt_states[r])
+            if self.health == "guard":
+                _, self.opt_states[r] = self.optimizer.guarded_step(
+                    self.replicas[r], g, self.opt_states[r], ok)
+            else:
+                _, self.opt_states[r] = self.optimizer.step(
+                    self.replicas[r], g, self.opt_states[r])
+        if old is not None:
+            skipped = None if self.health != "guard" else int(not ok)
+            upd = update_health({"param_norm": norm}, old,
+                                self.replicas[0], skipped=skipped)
+            self.last_pack = {**(self.last_pack or {}), **upd}
         self.reduced_grads = None
 
 
@@ -117,11 +153,14 @@ class PipelineExecutor:
     def __init__(self, mesh, stages: Sequence[MLPStage], optimizer,
                  health: str = "off"):
         check_planes(health, None)
+        self.health = health
+        self.health_skipped = 0     # batches skipped under "guard"
+        self._guard_ok: bool | None = None
         mesh = np.asarray(mesh, dtype=object)
         self.dp, self.pp = mesh.shape
         assert len(stages) == self.pp
         self.device = mesh[0, 0]
-        self.runtimes = [StageRuntime(stage, mesh[:, s], optimizer)
+        self.runtimes = [StageRuntime(stage, mesh[:, s], optimizer, health)
                          for s, stage in enumerate(stages)]
         self._infer_outputs: list = []
 
@@ -167,6 +206,16 @@ class PipelineExecutor:
                         break
                     if isinstance(cmd, RecvOutputGrad) and not chan(s + 1, s):
                         break
+                    if isinstance(cmd, OptimizerStep) \
+                            and self.health == "guard" \
+                            and self._guard_ok is None \
+                            and any(r.reduced_grads is None
+                                    for r in self.runtimes):
+                        # the guarded update needs every stage's
+                        # sentinel: the batch's first step waits until
+                        # all stages have reduced (a reduction never
+                        # waits on a step, so this cannot deadlock)
+                        break
                     self._dispatch(cmd, rt, s, batch_id, datasets, chan,
                                    training)
                     pcs[s] += 1
@@ -179,8 +228,19 @@ class PipelineExecutor:
                   chan, training):
         if isinstance(cmd, ZeroGrad):
             rt.zero_grad()
+            self._guard_ok = None    # a fresh batch, a fresh decision
         elif isinstance(cmd, OptimizerStep):
-            rt.optimizer_step()
+            ok = None
+            if self.health == "guard":
+                if self._guard_ok is None:
+                    # one host read a batch: every stage's sentinel
+                    # combined into the decision all stages share
+                    nf = sum(int(r.last_pack["nonfinite"])
+                             for r in self.runtimes)
+                    self._guard_ok = nf == 0
+                    self.health_skipped += int(nf > 0)
+                ok = self._guard_ok
+            rt.optimizer_step(ok)
         elif isinstance(cmd, LoadMuBatchInput):
             rt.input_buffers[cmd.buffer_id] = self._stacked(
                 datasets, batch_id, cmd.mubatch_id, False, rt.devices)
@@ -240,6 +300,26 @@ class PipelineExecutor:
         dev = self.last.devices[0]
         return torch.cat([t.to(dev) for out in self._infer_outputs
                           for t in out])
+
+    def health_snapshot(self) -> dict | None:
+        """The last batch's health pack: the stages' local packs fetched
+        and merged (`merge_packs`: norms as the root of the summed
+        squares, groups prefixed `s<i>.`), with the cumulative
+        counters. None before the first batch or with health='off'."""
+        merged = merge_packs([fetch_pack(rt.last_pack)
+                              for rt in self.runtimes])
+        if merged is None:
+            return None
+        # batches with non-finite gradients: the worst stage's count (a
+        # backward's NaN reaches a contiguous run of stages)
+        nf = [int(rt._nf_batches) for rt in self.runtimes
+              if rt._nf_batches is not None]
+        if nf:
+            merged["nonfinite_steps_total"] = max(nf)
+        if self.health == "guard":
+            merged["skipped"] = int(self._guard_ok is False)
+            merged["skipped_total"] = self.health_skipped
+        return merged
 
     @property
     def params(self):

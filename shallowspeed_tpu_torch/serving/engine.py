@@ -168,7 +168,7 @@ def decode_logits(params, pools, tok, pos, bt, *, cfg: T.TransformerConfig,
 
 @torch.no_grad()
 def prefill_chunk(params, pools, tokens, pos0: int, bt, *,
-                  cfg: T.TransformerConfig, cow=None):
+                  cfg: T.TransformerConfig, cow=None, chunk: int = 0):
     """One chunk of a request's prefill: tokens (C,) at positions
     pos0..pos0+C-1 write their K/V through the block table bt (1, W)
     (in place) and attend causally over the table, earlier chunks
@@ -179,9 +179,13 @@ def prefill_chunk(params, pools, tokens, pos0: int, bt, *,
     copies block src into block dst, so the chunk writes its own copy
     and the shared block stays bit-unchanged.
 
-    The reference pads every chunk to a fixed length for its compiler
-    and steers the padding to scratch; eager torch runs the true tokens
-    only, which gives the true rows the same values. The reference also
+    The reference pads every chunk to the engine's fixed `chunk` length
+    (token 0 at the following positions) and steers the padding's K/V
+    writes to the scratch block. For a dense FFN the true rows do not
+    see the padding, so eager torch runs the true tokens only. An MoE
+    FFN routes the chunk as one group, whose expert capacity and slot
+    order count the padding rows; so when a block has `moe` the chunk
+    is padded to `chunk` as the reference pads it. The reference also
     copies scratch onto itself when there is no pair; here nothing is
     copied then."""
     if cow is not None:
@@ -190,13 +194,20 @@ def prefill_chunk(params, pools, tokens, pos0: int, bt, *,
             for leaf in pool.values():
                 leaf[dst] = leaf[src]
     params = T.cast_params(params, cfg.compute_dtype)
+    n_tok = tokens.shape[0]
+    if chunk > n_tok and any("moe" in p for p in params["blocks"]):
+        tokens = torch.cat([tokens, tokens.new_zeros(chunk - n_tok)])
     c = tokens.shape[0]
     bs = pools[0]["k"].shape[2]
     w = bt.shape[1]
     pos = pos0 + torch.arange(c, device=tokens.device)
     x = G._embed(params, tokens[None].long(), pos0, cfg)        # (1, C, d)
-    blk = bt.long()[0, pos // bs]
+    blk = bt.long()[0, torch.clamp(pos // bs, max=w - 1)]
     off = pos % bs
+    if c > n_tok:        # the padding writes to scratch, offset 0
+        keep = torch.arange(c, device=tokens.device) < n_tok
+        blk = torch.where(keep, blk, SCRATCH_BLOCK)
+        off = torch.where(keep, off, 0)
     valid = position_mask(w * bs, pos[:, None], cfg.attn_window,
                           device=tokens.device)[None, None, None]
     for p, pool in zip(params["blocks"], pools):
@@ -210,7 +221,7 @@ def prefill_chunk(params, pools, tokens, pos0: int, bt, *,
         x = x + T._dense(p["proj"], a.reshape(1, c, cfg.d_model))
         x = T._ffn(p, x, cfg, T._norm(p["ln2"], x, cfg))[0]
     x = T._norm(params["ln_f"], x, cfg)
-    return T.head_logits(params, x[0, -1], cfg).float()
+    return T.head_logits(params, x[0, n_tok - 1], cfg).float()
 
 
 class _Req:
@@ -495,7 +506,7 @@ class ServingEngine:
         bt[0, :len(req.table)] = req.table
         logits = prefill_chunk(self.params, self.pools, self._tensor(tokens),
                                req.written, self._tensor(bt), cfg=self.cfg,
-                               cow=req.cow)
+                               cow=req.cow, chunk=self.prefill_chunk)
         if req.cow is not None:
             # the copy landed: drop the reference that kept its source
             self.alloc.release([req.cow[0]])

@@ -30,10 +30,18 @@ with the canonical optimizer record, so any engine, of either package,
 resumes any other's); `--resume` / `--auto-resume` restore the newest
 verified checkpoint.
 
-The root driver's other flags (the fp8 engine, the overlapped
-reduction, the telemetry, health, chaos and profiling planes) are
-recognised and refused with `NotPorted`; `--platform` and
-`--host-devices` give way to `--device`.
+`--health monitor|guard` computes the health pack on the device every
+batch (guard skips an update with non-finite gradients, bit for bit),
+steps the fused and SPMD engines batch by batch, prints the anomaly
+verdicts and writes a `health` record after every epoch, and skips the
+checkpoint of an unhealthy epoch. `--engine fp8` is the single-device
+fp8-e4m3 trainer (`fp8.Fp8TrainEngine`, `train_fp8`): step lines every
+`--log-every` steps with the numerics fields, shadow parity every
+`--shadow-every` steps, the guard's bf16 fallback.
+
+The root driver's other flags (the overlapped reduction, the
+telemetry, chaos and profiling planes) are recognised and refused with
+`NotPorted`; `--platform` and `--host-devices` give way to `--device`.
 """
 
 from __future__ import annotations
@@ -50,7 +58,8 @@ from shallowspeed_tpu_torch import NotPorted, checkpoint, resolve_device
 from shallowspeed_tpu_torch.data.dataset import Dataset
 from shallowspeed_tpu_torch.data.mnist import ensure_mnist
 from shallowspeed_tpu_torch.engine import FusedDPEngine
-from shallowspeed_tpu_torch.metrics import MetricsLogger
+from shallowspeed_tpu_torch.fp8 import Fp8TrainEngine
+from shallowspeed_tpu_torch.metrics import MetricsLogger, StepRates
 from shallowspeed_tpu_torch.models.mlp import MLPStage
 from shallowspeed_tpu_torch.optim import OPTIMIZERS
 from shallowspeed_tpu_torch.parallel.mesh import make_mesh
@@ -60,6 +69,9 @@ from shallowspeed_tpu_torch.parallel.schedules import (GPipeSchedule,
                                                        PipeDreamSchedule)
 from shallowspeed_tpu_torch.parallel.spmd_pipeline import SPMDPipelineEngine
 from shallowspeed_tpu_torch.parallel.worker import PipelineExecutor
+from shallowspeed_tpu_torch.telemetry.anomaly import GuardPolicy
+from shallowspeed_tpu_torch.telemetry.health import HealthMonitor
+from shallowspeed_tpu_torch.telemetry.numerics import NumericsMonitor
 from shallowspeed_tpu_torch.utils import (assert_replicas_in_sync,
                                           get_model_hash, rprint)
 
@@ -72,7 +84,6 @@ LR = 0.006
 SCHEDULES = {"naive": NaiveParallelSchedule, "gpipe": GPipeSchedule,
              "pipedream": PipeDreamSchedule}
 
-_FP8 = "Queue 1 item 4, fp8 training"
 _MESH = "Queue 1 item 5, multi-device engines and comm overlap"
 _PLANES = "Queue 1 item 6, planes"
 _DEVICE = "--device replaces it: every cell of the dp x pp grid runs there"
@@ -80,10 +91,9 @@ _DEVICE = "--device replaces it: every cell of the dp x pp grid runs there"
 # the root driver's flags this driver does not have, and where each
 # comes from
 UNPORTED = {
-    **dict.fromkeys(["--shadow-every", "--log-every"], _FP8),
     "--bucket-mb": _MESH,
     **dict.fromkeys(
-        ["--health", "--telemetry", "--trace-dir", "--chaos",
+        ["--telemetry", "--trace-dir", "--chaos",
          "--chaos-state", "--chaos-seed", "--profile-dir", "--profile",
          "--profile-hz", "--monitor-port", "--slo", "--flight-recorder",
          "--heartbeat-file", "--replica"], _PLANES),
@@ -110,7 +120,9 @@ def parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="auto: fused for pp=1, spmd (the GPipe clock) for "
                         "pp>1 with --schedule gpipe, else the instruction "
-                        "VM; fp8 is not ported")
+                        "VM; fp8: the single-device fp8-e4m3 trainer with "
+                        "its numerics pack, shadow parity and bf16 "
+                        "fallback")
     p.add_argument("--epochs", type=int, default=EPOCHS)
     p.add_argument("--batch-size", type=int, default=GLOBAL_BATCH_SIZE)
     p.add_argument("--mubatches", type=int, default=N_MUBATCHES)
@@ -136,6 +148,17 @@ def parser() -> argparse.ArgumentParser:
                         "start fresh otherwise")
     p.add_argument("--log-file", type=str, default="",
                    help="append per-epoch JSONL metrics here")
+    p.add_argument("--health", default="off",
+                   choices=["off", "monitor", "guard"],
+                   help="monitor: the health pack (grad/param norms, "
+                        "non-finite sentinel) every batch, anomaly "
+                        "verdicts per epoch; guard: monitor + skip any "
+                        "update with non-finite gradients bit for bit")
+    p.add_argument("--shadow-every", type=int, default=16,
+                   help="--engine fp8: the f32 oracle's parity on the "
+                        "live batch every N steps (0 = off; never step 0)")
+    p.add_argument("--log-every", type=int, default=10,
+                   help="--engine fp8: step-line cadence")
     p.add_argument("--device", type=str, default=None,
                    help="the device every cell of the grid runs on "
                         "(default: the GPU; 'cpu' only when asked)")
@@ -155,16 +178,11 @@ def build(args, device):
     dp, pp = args.dp, args.pp
     assert dp >= 1 and pp >= 1
     assert args.batch_size % dp == 0, "Batch size must be divisible by DP"
-    if args.engine == "fp8":
-        raise NotPorted("train --engine fp8", _FP8)
     if args.overlap != "off":
         raise NotPorted("train --overlap on", _MESH)
 
     mesh = make_mesh(dp, pp, device)
-    opt_kw = {"grad_clip": args.grad_clip or None}
-    if args.optimizer == "adamw":
-        opt_kw["weight_decay"] = args.weight_decay
-    optimizer = OPTIMIZERS[args.optimizer](lr=args.lr, **opt_kw)
+    optimizer = _optimizer(args)
 
     data_dir = ensure_mnist(Path(args.data_dir))
     local_bs = args.batch_size // dp
@@ -189,15 +207,16 @@ def build(args, device):
                          "--schedule gpipe (or --engine vm)")
     if kind == "fused":
         stage = MLPStage(LAYER_SIZES, 0, 1, batch_size=args.batch_size)
-        engine = FusedDPEngine(stage, optimizer, mesh)
+        engine = FusedDPEngine(stage, optimizer, mesh, health=args.health)
     elif kind == "spmd":
         engine = SPMDPipelineEngine(LAYER_SIZES, optimizer, mesh,
                                     args.mubatches, mubatch_size,
-                                    args.batch_size)
+                                    args.batch_size, health=args.health)
     else:
         stages = [MLPStage(LAYER_SIZES, s, pp, batch_size=args.batch_size)
                   for s in range(pp)]
-        engine = PipelineExecutor(mesh, stages, optimizer)
+        engine = PipelineExecutor(mesh, stages, optimizer,
+                                  health=args.health)
     return engine, train_ds, val_ds
 
 
@@ -255,9 +274,126 @@ def _restore(args, engine) -> int:
     return start_epoch
 
 
+def _optimizer(args):
+    opt_kw = {"grad_clip": args.grad_clip or None}
+    if args.optimizer == "adamw":
+        opt_kw["weight_decay"] = args.weight_decay
+    return OPTIMIZERS[args.optimizer](lr=args.lr, **opt_kw)
+
+
+def train_fp8(args):
+    """The fp8 driver: a step loop over `fp8.Fp8TrainEngine` whose step
+    lines carry the numerics fields (`NumericsMonitor`, always on) and,
+    under `--health`, the health fields; shadow parity against the f32
+    oracle every `--shadow-every` steps; under `--health guard` a
+    `fallback_bf16` verdict switches the engine to the master-precision
+    step and a repeated one (`abort`) exits. Returns (the final
+    validation loss, the engine). The reference's goodput `ledger`
+    lines, chaos hooks, heartbeat and live monitor are not ported, so
+    this driver writes no `ledger` events."""
+    for flag, val in (("--dp", args.dp != 1), ("--pp", args.pp != 1),
+                      ("--save-dir", bool(args.save_dir)),
+                      ("--overlap", args.overlap != "off")):
+        if val:
+            raise SystemExit(
+                f"--engine fp8 is the single-device numerics trainer; "
+                f"{flag} is not supported with it")
+    device = resolve_device(args.device)
+    engine = Fp8TrainEngine(LAYER_SIZES, _optimizer(args), device=device)
+    data_dir = ensure_mnist(Path(args.data_dir))
+    train_ds = Dataset(data_dir, args.batch_size,
+                       args.batch_size).load(0, 1)
+    val_ds = Dataset(data_dir, args.batch_size, args.batch_size,
+                     validation=True).load(0, 1)
+    n_batches = train_ds.get_num_batches()
+    if args.max_batches:
+        n_batches = min(n_batches, args.max_batches)
+    total_steps = n_batches * args.epochs
+    metrics = MetricsLogger(
+        args.log_file, engine=type(engine).__name__, dp=1, pp=1,
+        schedule="fp8", batch_size=args.batch_size, device=str(device))
+    policy = (GuardPolicy.for_mode(args.health)
+              if args.health != "off" else None)
+    num_mon = NumericsMonitor(policy=policy)
+    monitor = HealthMonitor(policy=policy) if args.health != "off" else None
+    guarded = args.health == "guard"
+    rates = StepRates(args.batch_size, health=monitor, numerics=num_mon)
+
+    def val_loss() -> float:
+        t0 = time.time()
+        nb = val_ds.get_num_batches()
+        tot = sum(engine.eval_loss(val_ds.load_micro_batch_input(b, 0),
+                                   val_ds.load_micro_batch_target(b, 0))
+                  for b in range(nb))
+        rates.pause(time.time() - t0, kind="val")
+        return tot / max(nb, 1)
+
+    last_logged = -1
+    try:
+        for step in range(total_steps):
+            batch_id = step % n_batches
+            x = train_ds.load_micro_batch_input(batch_id, 0)
+            y = train_ds.load_micro_batch_target(batch_id, 0)
+            loss = engine.train_batch(x, y)
+            # one fetch of the pack a step: the scale-collapse signature
+            # shows only at the step it happens
+            snap = engine.health_snapshot()
+            verdicts = num_mon.observe(step, snap)
+            if args.shadow_every and step and step % args.shadow_every == 0:
+                t_sh = time.time()
+                parity = engine.shadow_parity(x, y)
+                rates.pause(time.time() - t_sh, kind="shadow_parity")
+                verdicts += num_mon.note_parity(step, parity)
+            if monitor is not None:
+                verdicts += monitor.observe(step, loss, snap)
+            fatal = []
+            for v in verdicts:
+                rprint(str(v))
+                if v.action == "fallback_bf16" and guarded \
+                        and engine.precision == "fp8":
+                    engine.fallback_bf16()
+                    num_mon.note_fallback()
+                    rprint(f"numerics guard: falling back to the bf16 "
+                           f"master-precision step at step {step} "
+                           f"({v.kind})")
+                elif v.action == "abort" and guarded:
+                    fatal.append(v)
+            at_end = step == total_steps - 1
+            if verdicts or at_end or step - last_logged >= args.log_every:
+                r = rates.log_point(step - last_logged)
+                last_logged = step
+                metrics.log(event="step", step=step,
+                            loss=round(float(loss), 6),
+                            tokens_per_sec=round(r.pop("tokens_per_sec"),
+                                                 1),
+                            tokens_per_sec_cum=round(
+                                r.pop("tokens_per_sec_cum"), 1), **r)
+                rprint(f"step {step:5d}  loss {loss:.5f}  "
+                       f"precision {engine.precision}"
+                       + (f"  parity "
+                          f"{num_mon._last_parity['loss_rel']:.3g}"
+                          if num_mon._last_parity else ""))
+            if fatal:
+                raise SystemExit(
+                    f"numerics policy abort at step {step}: "
+                    + "; ".join(v.detail for v in fatal))
+        final = val_loss()
+        rprint(f"final val loss {final:.5f}  precision "
+               f"{engine.precision}  shadow samples "
+               f"{num_mon.shadow_total}")
+        metrics.log(event="val", step=max(total_steps - 1, 0),
+                    val_loss=round(final, 6))
+    finally:
+        metrics.close()
+    return final, engine
+
+
 def train(args):
     """Run the configured training; returns (final validation accuracy,
-    the trained engine)."""
+    the trained engine) — for `--engine fp8`, (the final validation
+    loss, the engine)."""
+    if args.engine == "fp8":
+        return train_fp8(args)
     device = resolve_device(args.device)
     schedule_cls = SCHEDULES[args.schedule]
     engine, train_ds, val_ds = build(args, device)
@@ -269,10 +405,16 @@ def train(args):
         args.log_file, dp=args.dp, pp=args.pp, schedule=args.schedule,
         engine=type(engine).__name__, batch_size=args.batch_size,
         device=str(device))
+    # the health pack and its monitor, fed once an epoch (the pack is
+    # computed on the device every batch; a guard skip happens in-step)
+    monitor = (HealthMonitor(policy=GuardPolicy.for_mode(args.health))
+               if args.health != "off" else None)
     # fused / spmd engines: the epoch's batches placed on the device
-    # once, each epoch stepped with no host copy per batch
+    # once, each epoch stepped with no host copy per batch — unless
+    # health is on, whose pack rides the per-batch step
     staged = (engine.stage_epoch(train_ds, n_batches)
-              if hasattr(engine, "train_epoch") else None)
+              if hasattr(engine, "train_epoch") and monitor is None
+              else None)
     start = time.time()
     try:
         for epoch in range(start_epoch, args.epochs):
@@ -282,6 +424,9 @@ def train(args):
             t_epoch = time.time()
             if staged is not None:
                 engine.train_epoch(staged)
+            elif hasattr(engine, "train_epoch"):
+                for batch_id in range(n_batches):
+                    engine.train_batch(batch_id, train_ds)
             else:
                 for batch_id in range(n_batches):
                     engine.train_batch(schedule_cls, args.mubatches,
@@ -289,7 +434,21 @@ def train(args):
             _sync(device)   # the epoch's time is the device's work
             metrics.epoch(epoch, accuracy, n_batches * args.batch_size,
                           time.time() - t_epoch)
-            if args.save_dir:
+            if monitor is not None:
+                # the last batch's pack and the verdicts, once an epoch
+                # (the MLP driver has no step lines)
+                for v in monitor.observe(epoch, None,
+                                         engine.health_snapshot()):
+                    rprint(str(v))
+                metrics.log(event="health", step=epoch,
+                            **monitor.step_fields())
+            if args.save_dir and monitor is not None \
+                    and monitor.unhealthy():
+                # never checkpoint a poisoned iterate
+                rprint(f"epoch {epoch}: health is "
+                       f"{monitor.heartbeat_status()!r} — skipping "
+                       f"checkpoint save")
+            elif args.save_dir:
                 try:
                     checkpoint.save(args.save_dir, engine, epoch)
                 except (checkpoint.CheckpointError, OSError) as e:

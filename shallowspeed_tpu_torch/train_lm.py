@@ -51,9 +51,15 @@ exits as the root driver does. The 1.21B LM's recipe on the card:
         --ffn swiglu --bf16 --optimizer adafactor --lr 3e-4 \
         --remat --remat-policy dots --xent-chunk 1024
 
+`--health monitor|guard` computes the health pack on the device every
+step; each log point fetches it, runs the anomaly detector, prints its
+verdicts and carries the `health_*` fields on the step line; an
+`abort` verdict exits (after a forensic save under `--save-dir`), and
+a checkpoint of an unhealthy state is skipped. Under guard an update
+with non-finite gradients is skipped bit for bit.
+
 The root driver's other flags (multi-device meshes and `--ep` > 1, the
-telemetry and health planes) are recognised and refused with
-`NotPorted`.
+telemetry planes) are recognised and refused with `NotPorted`.
 """
 
 from __future__ import annotations
@@ -80,6 +86,8 @@ from shallowspeed_tpu_torch.optim import (OPTIMIZERS, SCHEDULES, ema_init,
                                           ema_update)
 from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
 from shallowspeed_tpu_torch.parallel.expert import ExpertParallelEngine
+from shallowspeed_tpu_torch.telemetry.anomaly import GuardPolicy
+from shallowspeed_tpu_torch.telemetry.health import HealthMonitor
 from shallowspeed_tpu_torch.weights import map_tree
 
 _MESH = "Queue 1, multi-device LM engines"
@@ -93,7 +101,7 @@ UNPORTED = {
          "--sp", "--tp", "--fsdp", "--zero1", "--zero2", "--overlap",
          "--bucket-mb", "--platform", "--host-devices"], _MESH),
     **dict.fromkeys(
-        ["--heartbeat-file", "--profile-dir", "--telemetry", "--health",
+        ["--heartbeat-file", "--profile-dir", "--telemetry",
          "--trace-dir", "--monitor-port", "--replica", "--slo",
          "--flight-recorder", "--profile", "--profile-hz", "--chaos",
          "--chaos-state", "--chaos-seed"], _PLANES),
@@ -135,6 +143,13 @@ def parse_args(argv=None):
                         "(saved/restored with --save-dir)")
     p.add_argument("--vocab-size", type=int, default=512,
                    help="BPE target vocabulary (--tokenizer bpe)")
+    p.add_argument("--health", default="off",
+                   choices=["off", "monitor", "guard"],
+                   help="monitor: the health pack (grad/param norms, "
+                        "update ratio, non-finite sentinel) every step, "
+                        "the anomaly detector over the step lines; "
+                        "guard: monitor + skip any update with "
+                        "non-finite gradients bit for bit")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--optimizer", default="adam", choices=list(OPTIMIZERS))
@@ -536,11 +551,12 @@ def train(args) -> float:
     if args.experts:
         engine = ExpertParallelEngine(cfg, opt, seed=args.seed,
                                       device=device, ep=args.ep,
-                                      params=zeros)
+                                      health=args.health, params=zeros)
     else:
         engine = ContextParallelEngine(cfg, opt, seed=args.seed,
                                        attn=args.attn, device=device,
-                                       accum=args.accum, params=zeros)
+                                       accum=args.accum, health=args.health,
+                                       params=zeros)
     start_step, restored, restore_stats, quarantined = _restore(args,
                                                                 engine)
     if restoring and restored is None:       # --auto-resume, fresh start
@@ -593,7 +609,9 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
     """The step loop from `start_step`: prefetched batches, step lines
     at log points, validation and checkpoints on their cadence."""
     device = engine.device
-    rates = StepRates(args.batch_size * args.seq_len)
+    monitor = (HealthMonitor(policy=GuardPolicy.for_mode(args.health))
+               if args.health != "off" else None)
+    rates = StepRates(args.batch_size * args.seq_len, health=monitor)
     dtype = "bf16" if args.bf16 else "f32"
     saver = checkpoint.AsyncSaver() if args.async_save else None
     queued = []          # stats of the async saves, logged once written
@@ -645,6 +663,20 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
             if ema is not None:
                 ema_update(ema, engine.params, args.ema_decay)
             if sync_every(step, args.log_every, args.steps):
+                if monitor is not None:
+                    verdicts = monitor.observe(step, loss,
+                                               engine.health_snapshot())
+                    for v in verdicts:
+                        print(str(v), flush=True)
+                    fatal = [v for v in verdicts if v.action == "abort"]
+                    if fatal:
+                        if args.save_dir:
+                            save_ckpt(f"{args.save_dir}/diverged", step)
+                            if saver is not None:
+                                saver.wait()
+                        raise SystemExit(
+                            f"health policy abort at step {step}: "
+                            + "; ".join(v.detail for v in fatal))
                 if not np.isfinite(loss):
                     if args.save_dir:
                         # forensic only: under diverged/, so --resume
@@ -670,7 +702,9 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                 print(f"step {step:5d}  loss {loss:.4f}  "
                       f"tok/s {r['tokens_per_sec']:,.0f}{mfu_txt}",
                       flush=True)
-                metrics.log(**step_event(step, loss, r, perf, cum))
+                metrics.log(**step_event(step, loss, r, perf, cum),
+                            **{k: v for k, v in r.items()
+                               if k.startswith("health_")})
                 if args.experts:
                     # the capacity drop is silent in the loss: show it
                     rs = engine.router_stats(tok)
@@ -682,7 +716,7 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                                    or step == args.steps - 1):
                 tv = time.time()
                 vl = val_loss(step)
-                rates.pause(time.time() - tv)
+                rates.pause(time.time() - tv, kind="val")
                 ppl = float(np.exp(min(vl, 20)))
                 print(f"step {step:5d}  val_loss {vl:.4f}  ppl {ppl:,.2f}",
                       flush=True)
@@ -691,9 +725,12 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
             if args.save_dir and ((step + 1) % args.save_every == 0
                                   or step == args.steps - 1):
                 ts = time.time()
-                if not np.isfinite(loss):
+                if not np.isfinite(loss) or (monitor is not None
+                                             and monitor.unhealthy()):
                     # never make a poisoned iterate the restore point
-                    print(f"step {step}: loss {loss} — skipping "
+                    status = (f"loss {loss}" if not np.isfinite(loss)
+                              else monitor.heartbeat_status())
+                    print(f"step {step}: state is {status!r} — skipping "
                           f"checkpoint save", flush=True)
                     metrics.log(event="ckpt_save_skipped", step=step)
                 else:
@@ -707,7 +744,7 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                         if "checkpoint" not in str(e):
                             raise
                         save_failed(step, e)
-                rates.pause(time.time() - ts)
+                rates.pause(time.time() - ts, kind="ckpt_save")
         failed = False
     finally:
         # abandoning mid-stream must not leave placed batches held by a

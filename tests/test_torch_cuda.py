@@ -878,3 +878,126 @@ def test_cuda_moe_engine_trains(cuda):
     with torch.no_grad():
         ref = T.forward(eng.params, tok, cfg)
     assert torch.equal(eng.logits(seq[:, :-1]), ref)
+
+
+# ------------------------------------------- fp8 training, the guard
+
+
+def _fp8_inputs(m, k, n, dev, seed=0):
+    from shallowspeed_tpu_torch.ops import matmul as MM
+
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(m, k, generator=g) * 3).to(dev)
+    w = (torch.randn(k, n, generator=g) * 0.05).to(dev)
+    sx = torch.clamp(torch.amax(x.abs()) / MM.E4M3_MAX, min=1e-12)
+    sw = MM._w_scale(w)
+    return x, w, sx, sw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8192, 2048, 2048), (256, 8192, 384),
+                                   (100, 2048, 130), (128, 784, 128),
+                                   (128, 127, 126), (128, 123, 10)])
+def test_cuda_fp8_matmul_routes_and_bound(cuda, m, k, n):
+    """The e4m3 GEMM on the build its route picks (one launch), within
+    the f32 order bound K 2^-24 sum|terms| of the exact product, its
+    quantized bytes the CPU's, a NaN input row a NaN output row."""
+    from shallowspeed_tpu_torch.ops import matmul as MM
+
+    x, w, sx, sw = _fp8_inputs(m, k, n, cuda, m + k)
+    xq, wq = MM.fp8_quantize(x, sx), MM.fp8_quantize(w, sw)
+    assert torch.equal(xq.view(torch.uint8).cpu(),
+                       MM.fp8_quantize(x.cpu(), sx.cpu()).view(torch.uint8))
+    counter = {"tc": MM._fp8_matmul_tc,
+               "fma": MM._fp8_matmul_fma}[MM.fp8_matmul_route(k)]
+    before = counter.launches
+    got = MM.fp8_matmul(xq, wq, sx * sw)
+    assert counter.launches == before + 1
+    xd, wd, sd = xq.double(), wq.double(), (sx * sw).double()
+    exact = (xd @ wd) * sd
+    bound = k * 2.0 ** -24 * (xd.abs() @ wd.abs()) * sd
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    x[m // 2] = float("nan")
+    out = MM.fp8_matmul(MM.fp8_quantize(x, sx), wq, sx * sw)
+    assert torch.isnan(out[m // 2]).all() and torch.isfinite(out[0]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_fp8_dense_grads_match_cpu(cuda):
+    """fp8_dense's forward and straight-through gradients on the card
+    against the CPU's on the same inputs: the same bytes; the card's
+    forward is the tensor-core build, whose sum keeps fewer bits than
+    f32 (inside the f32 order bound, ~2e-4 of the largest output at K
+    2048), and the gradients inherit it through the cotangent 2y: 1e-3
+    of each tensor's largest entry."""
+    from shallowspeed_tpu_torch.ops import matmul as MM
+
+    x, w, sx, _ = _fp8_inputs(256, 2048, 384, cuda)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        tx = x.detach().to(dev).requires_grad_(True)
+        tw = w.detach().to(dev).requires_grad_(True)
+        y = MM.fp8_dense(tx, tw, sx.to(dev))
+        y.square().sum().backward()
+        out[dev.type] = [t.detach().cpu() for t in (y, tx.grad, tw.grad)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_fp8_engine_matches_cpu(cuda):
+    """Fp8TrainEngine at the MLP's full width, 6 steps with shadow
+    parity, on the card and on the CPU: losses within 1e-3 relative
+    (an amax an ulp apart can move a delayed scale across an e4m3 tie),
+    every forward product on the FMA build (K < FP8_TC_MIN_K)."""
+    from shallowspeed_tpu_torch.fp8 import Fp8TrainEngine
+    from shallowspeed_tpu_torch.ops import matmul as MM
+    from shallowspeed_tpu_torch.optim import SGD
+
+    sizes = [784, 128, 127, 126, 125, 124, 123, 10]
+    rng = np.random.default_rng(0)
+    batches = [(rng.random((128, 784)).astype(np.float32),
+                np.eye(10, dtype=np.float32)[rng.integers(0, 10, 128)])
+               for _ in range(6)]
+    losses = {}
+    for dev in (cuda, "cpu"):
+        eng = Fp8TrainEngine(sizes, SGD(0.006), device=dev)
+        losses[str(dev)] = [eng.train_batch(x, y) for x, y in batches]
+        par = eng.shadow_parity(*batches[-1])
+        assert np.isfinite(par["parity_loss_rel"])
+    before = MM._fp8_matmul_fma.launches
+    Fp8TrainEngine(sizes, SGD(0.006), device=cuda).train_batch(*batches[0])
+    assert MM._fp8_matmul_fma.launches == before + len(sizes) - 1
+    np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_guard_skips_bit_for_bit(cuda):
+    """health="guard" on the card: a NaN batch leaves the fused MLP
+    engine's parameters and momentum bit for bit, and the pack counts
+    the skip; the next batch trains."""
+    from shallowspeed_tpu_torch.engine import FusedDPEngine
+    from shallowspeed_tpu_torch.models.mlp import MLPStage
+    from shallowspeed_tpu_torch.optim import MomentumSGD
+    from shallowspeed_tpu_torch.parallel.mesh import make_mesh
+    from shallowspeed_tpu_torch.weights import leaves
+
+    sizes = [784, 128, 127, 126, 125, 124, 123, 10]
+    eng = FusedDPEngine(MLPStage(sizes, 0, 1, batch_size=128),
+                        MomentumSGD(0.006), make_mesh(1, 1, cuda),
+                        health="guard")
+    g = torch.Generator().manual_seed(1)
+    xs = [torch.rand(4, 32, 784, generator=g).to(cuda)]
+    ys = [torch.eye(10)[torch.randint(0, 10, (4, 32), generator=g)].to(cuda)]
+    eng._step(xs, ys)
+
+    def state():
+        return [t.clone() for t in leaves((eng.params, eng.opt_state))]
+
+    before = state()
+    eng._step([xs[0] * float("nan")], ys)
+    assert all(torch.equal(a, b) for a, b in zip(state(), before))
+    snap = eng.health_snapshot()
+    assert snap["skipped"] == 1 and snap["skipped_total"] == 1
+    eng._step(xs, ys)
+    assert not all(torch.equal(a, b) for a, b in zip(state(), before))

@@ -164,8 +164,7 @@ def test_driver_refuses_root_flags_it_lacks(flag):
         assert err.value.later == driver.UNPORTED[flag]
 
 
-@pytest.mark.parametrize("argv,what", [(["--engine", "fp8"], "fp8"),
-                                       (["--overlap", "on"], "overlap")])
+@pytest.mark.parametrize("argv,what", [(["--overlap", "on"], "overlap")])
 def test_driver_refuses_unported_values(data_dir, argv, what):
     with pytest.raises(NotPorted, match=what):
         driver.main(["--device", "cpu", "--data-dir", str(data_dir), *argv])

@@ -276,12 +276,8 @@ def test_vm_raises_on_deadlock(data_dir):
 def test_unported_options_raise():
     mesh = make_mesh(1, 1, "cpu")
     stage = MLPStage(SIZES, 0, 1, batch_size=GBS)
-    with pytest.raises(NotPorted, match="health"):
-        FusedDPEngine(stage, SGD(LR), mesh, health="monitor")
     with pytest.raises(NotPorted, match="overlap"):
         FusedDPEngine(stage, SGD(LR), mesh, overlap=object())
-    with pytest.raises(NotPorted, match="health"):
-        PipelineExecutor(mesh, [stage], SGD(LR), health="guard")
     with pytest.raises(NotPorted, match="overlap"):
         SPMDPipelineEngine(SIZES, SGD(LR), make_mesh(1, 2, "cpu"), N_MU, 16,
                            GBS, overlap=object())

@@ -12,7 +12,6 @@ import torch
 
 from shallowspeed_tpu.models import transformer as JT
 from shallowspeed_tpu.models.generate import filter_logits as j_filter
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.models.generate import filter_logits
 from shallowspeed_tpu_torch.weights import params_from_numpy
@@ -134,7 +133,7 @@ def test_cast_params_keeps_norms_in_master_dtype():
 
 
 def test_unported_config_features_raise():
-    with pytest.raises(NotPorted):
-        T.TransformerConfig(fp8_dense=True)
+    # fp8_dense is ported (tests/test_torch_fp8.py): no longer refused
+    assert T.TransformerConfig(fp8_dense=True).fp8_dense
     with pytest.raises(TypeError):
         T.TransformerConfig(compute_dtype=np.float16)

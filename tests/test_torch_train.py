@@ -212,19 +212,11 @@ def test_eval_loss_drops_label_smoothing():
     assert float(got) != pytest.approx(float(T.loss(*args)), rel=1e-5)
 
 
-@pytest.mark.parametrize("field,value", [("fp8_dense", True)])
-def test_unported_model_features_raise(field, value):
-    with pytest.raises(NotPorted):
-        T.TransformerConfig(**{field: value})
-
-
 @pytest.mark.parametrize("kwargs", [dict(zero1=True),
                                     dict(zero2=True),
-                                    dict(health="monitor"),
                                     dict(overlap=object()),
                                     dict(attn="ring-flash")],
-                         ids=["zero1", "zero2", "health",
-                              "overlap", "ring-flash"])
+                         ids=["zero1", "zero2", "overlap", "ring-flash"])
 def test_unported_engine_options_raise(kwargs):
     cfg = T.TransformerConfig(**CONFIGS["gqa-rope-rms-swiglu"])
     with pytest.raises(NotPorted):
