@@ -169,10 +169,12 @@ Phases (any failure exits non-zero and prints no result line):
    `fp8_matmul_route` picks (one launch each): the card's quantized
    bytes equal the CPU's, the kernel's and the plain version's outputs
    within the f32 order bound K 2^-24 sum|terms| of the exact (f64)
-   product, a NaN input row a NaN output row; the tensor-core build at
-   K 128 shown past that bound; times of the tensor-core build at the
-   LM shapes and the FMA build at the MLP's first layer beside the
-   plain version, `torch._scaled_mm` and the bound. (b) The 1.21B LM
+   product, the tensor-core build's error within FP8_TC_VS_FMA times
+   the exact-f32 FMA build's on the same inputs (an accumulator of 14
+   bits, the 8-bit wgmma's, simulated, must exceed it), a NaN input row
+   a NaN output row; times of the tensor-core build at the LM shapes
+   and the FMA build at the MLP's (128, 128, 127) beside the plain
+   version, `torch._scaled_mm` and the bound. (b) The 1.21B LM
    with `fp8_dense=True` (AdamW 3e-4, phase 6's batch and weights,
    flash): the loss at init within PARITY_LOSS_BUDGET of phase 6's
    bf16 loss, finite gradients (the health pack), FP8_STEPS timed steps
@@ -181,10 +183,11 @@ Phases (any failure exits non-zero and prints no result line):
    bf16), peak memory, a profiled step's device ms (the fp8 GEMM, the
    backward's f32 products, K1-K3, the rest). (c) `train --engine fp8
    --health guard --shadow-every 4 --log-every 4`, 14 batches on the
-   card (the FMA build), against the same run on the CPU
+   card (both builds), against the same run on the CPU
    (FP8_DRIVER_TOL); a NaN batch into the fused MLP engine under
    health="guard" leaves its state bit for bit; phase 6's step with
-   health "off" and "monitor" in turns, the pack's added ms.
+   health "off", "monitor" and "guard" in turns, the pack's and the
+   guard's added ms and peak memory.
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers (with `device_ms` / `library_device_ms` where the
@@ -315,7 +318,7 @@ def _ptxas_lines(log: str) -> list[str]:
     for line in log.splitlines():
         m = re.search(r"((?:paged_decode_combine|paged_decode|flash_fwd_tc|"
                       r"flash_fwd|flash_dq_tc|flash_dq|flash_dkv_tc|"
-                      r"flash_dkv|gemm_tc|gemm_fp8|split_sum|"
+                      r"flash_dkv|gemm_tc|split_sum|"
                       r"blocked_matmul)_kernel)"
                       r"(?:I(\w+)|\w*)'", line)
         if m and m.group(1).startswith("paged_decode") and m.group(2):
@@ -324,12 +327,10 @@ def _ptxas_lines(log: str) -> list[str]:
             tag = ",".join(_type_args(m.group(2)) + ints[:1]
                            + [f"g{g}" for g in ints[1:2]])
             name = f"{m.group(1)}<{tag}>"
-        elif m and m.group(1) == "gemm_tc_kernel":        # <WG, B dtype>
-            wg, bt = re.findall(r"Li(\d+)E", m.group(2))[:2]
-            name = f"gemm_tc_kernel<wg{wg},{_GEMM_B[bt]}>"
-        elif m and m.group(1) == "gemm_fp8_kernel":       # <WG>
-            wg = re.findall(r"Li(\d+)E", m.group(2))[0]
-            name = f"gemm_fp8_kernel<wg{wg}>"
+        elif m and m.group(1) == "gemm_tc_kernel":   # <WG, B, A dtype>
+            wg, bt, at = re.findall(r"Li(\d+)E", m.group(2))[:3]
+            name = (f"gemm_tc_kernel<wg{wg},{_GEMM_B[bt]}>" if at == "1"
+                    else f"gemm_tc_kernel<wg{wg},e4m3 x e4m3>")
         elif m and m.group(1).endswith("_tc_kernel"):   # <int D>, bf16
             d = re.match(r"Li(\d+)E", m.group(2)).group(1)
             name = f"{m.group(1)}<bf16,{d}>"
@@ -366,11 +367,11 @@ def _tc_builds():
         ("flash_bwd", "flash_dkv_tc_kernel",
          [(t, bwd.flash_dkv_tc_smem(d)) for t, d in per_d]),
         ("blocked_matmul", "gemm_tc_kernel",
-         [(f"<wg{wg},{b}>", mm.gemm_tc_smem(wg, code))
+         [(f"<wg{wg},{b}>", mm.gemm_tc_smem(wg, 1, code))
           for wg in (1, 2) for code, b in ((1, "bf16"), (2, "int8"),
-                                           (3, "e4m3"))]),
-        ("blocked_matmul", "gemm_fp8_kernel",
-         [(f"<wg{wg}>", mm.gemm_fp8_smem(wg)) for wg in (1, 2)]),
+                                           (3, "e4m3"))]
+         + [(f"<wg{wg},e4m3 x e4m3>", mm.gemm_tc_smem(wg, 3, 3))
+            for wg in (1, 2)]),
     ]
 
 
@@ -2820,6 +2821,14 @@ FP8_LM_SHAPES = [(8192, 2048, 6144), (8192, 2048, 2048), (8192, 2048, 8192),
 FP8_MLP_SHAPES = [(128, 784, 128), (128, 128, 127), (128, 127, 126),
                   (128, 126, 125), (128, 125, 124), (128, 124, 123),
                   (128, 123, 10)]
+# the e4m3 GEMM's tensor-core build against its exact-f32 FMA build on
+# the same inputs: ||tc - exact|| <= FP8_TC_VS_FMA ||fma - exact||. Both
+# sum in f32; the tensor cores truncate once a group of products, the
+# FMA rounds to nearest once a product, so the ratio grows with K: on an
+# H100 it read 0.97 at K 784, 1.82 at K 2048 and 4.07 at K 8192; the
+# rule is twice the largest. An accumulator of 14 bits (the 8-bit
+# wgmma's), simulated by `_fp8_coarse`, read ~15,000-25,000x.
+FP8_TC_VS_FMA = 8.0
 # the reference's runtime loss-parity envelope (telemetry/numerics.py),
 # the rule of its tests/test_numerics.py:506-531: the fp8 step's loss at
 # init against the bf16 step's
@@ -2843,28 +2852,56 @@ def _fp8_counters():
     return {"tc": MM._fp8_matmul_tc, "fma": MM._fp8_matmul_fma}
 
 
-def _fp8_ratio(got, xq, wq, scale) -> float:
-    """max over elements of |got - exact| / (K 2^-24 sum|terms|): the
-    f32 order bound of a sum of K products, in f64 on the card."""
-    import torch
-
+def _fp8_exact(xq, wq, scale):
+    """The exact product (f64 on the card) and the f32 order bound of a
+    sum of K products, K 2^-24 sum|terms|, per element."""
     xd, wd, sd = xq.double(), wq.double(), scale.double()
     exact = (xd @ wd) * sd
     bound = xq.shape[1] * 2.0 ** -24 * ((xd.abs() @ wd.abs()) * sd.abs())
+    return exact, bound
+
+
+def _fp8_ratio(got, exact, bound) -> float:
+    """max over elements of |got - exact| / the f32 order bound."""
     return float(((got.double() - exact).abs()
                   / bound.clamp(min=1e-300)).max())
+
+
+def _fp8_rel(got, exact) -> float:
+    """||got - exact|| / ||exact|| (Frobenius): the error against a
+    typical output."""
+    return float((got.double() - exact).norm() / exact.norm())
+
+
+def _fp8_coarse(xq, wq, scale, bits=14, step=32):
+    """The product summed the way the 8-bit wgmma sums: each `step` of K
+    added (exactly) to an f32 accumulator that keeps `bits` significant
+    bits (truncated), then scaled. The slip the tensor-core build's
+    FP8_TC_VS_FMA rule must catch."""
+    import torch
+
+    acc = torch.zeros(xq.shape[0], wq.shape[1], dtype=torch.float32,
+                      device=xq.device)
+    mask = ~((1 << (24 - bits)) - 1)
+    for k0 in range(0, xq.shape[1], step):
+        part = xq[:, k0:k0 + step].double() @ wq[k0:k0 + step].double()
+        acc = ((acc.double() + part).float().view(torch.int32)
+               & mask).view(torch.float32)
+    return acc * scale
 
 
 def check_fp8_matmul(dev, card) -> dict:
     """Phase 11a: the e4m3 GEMM (`fp8_matmul`) at every shape of the LM
     step and the MLP, each on the build `fp8_matmul_route` picks: the
-    card's quantized bytes equal the CPU's, the kernel's and the plain
-    version's outputs within the f32 order bound (ratio <= 1), a NaN
-    input row a NaN output row; the tensor-core build at K 128 is shown
-    past the bound (why small K routes to the FMA build). Times the tc
-    build at the LM shapes and the FMA build at the MLP's first, beside
-    the plain version, `torch._scaled_mm` (unit scales, f32 out: the
-    product alone; a yardstick) and the bound."""
+    card's quantized bytes equal the CPU's; the kernel's and the plain
+    version's outputs within the f32 order bound (ratio <= 1); at the
+    tensor-core build's shapes its error against the exact product
+    within FP8_TC_VS_FMA times the exact-f32 FMA build's on the same
+    inputs, where a simulated 14-bit accumulator (`_fp8_coarse`) must
+    land past it; a NaN input row a NaN output row. Times the tc build
+    at the LM shapes and the FMA build at the MLP's (128, 128, 127)
+    beside the plain version, `torch._scaled_mm` (unit scales, f32 out:
+    the product alone; a yardstick) and the bound."""
     import torch
 
     from shallowspeed_tpu_torch.ops import matmul as MM
@@ -2887,7 +2924,7 @@ def check_fp8_matmul(dev, card) -> dict:
                 raise AssertionError(f"fp8_quantize ({m},{k},{n}): the "
                                      f"card's bytes differ from the CPU's")
         scale = sx * sw
-        route = MM.fp8_matmul_route(k)
+        route = MM.fp8_matmul_route(k, n)
         before = {r: c.launches for r, c in counters.items()}
         got = MM.fp8_matmul(xq, wq, scale)
         torch.cuda.synchronize()
@@ -2897,24 +2934,36 @@ def check_fp8_matmul(dev, card) -> dict:
             raise AssertionError(f"fp8_matmul ({m},{k},{n}) did not launch "
                                  f"its {route} build once: {after}")
         plain = MM.fp8_matmul_reference(xq, wq, scale)
-        ratio = _fp8_ratio(got, xq, wq, scale)
-        plain_ratio = _fp8_ratio(plain, xq, wq, scale)
-        err = float((got - plain).abs().max())
-        worst[route] = max(worst[route], err)
+        exact, bound = _fp8_exact(xq, wq, scale)
+        line = {"card": card, "shape": [m, k, n], "route": route,
+                "ratio": _fp8_ratio(got, exact, bound),
+                "plain_ratio": _fp8_ratio(plain, exact, bound),
+                "rel_err": _fp8_rel(got, exact),
+                "plain_rel_err": _fp8_rel(plain, exact),
+                "max_abs_err": float((got - plain).abs().max())}
+        ok = line["ratio"] <= 1.0 and line["plain_ratio"] <= 1.0
+        if route == "tc":
+            fma = MM._fp8_matmul_fma(xq, wq, scale)
+            line["fma_rel_err"] = _fp8_rel(fma, exact)
+            line["vs_fma"] = line["rel_err"] / line["fma_rel_err"]
+            ok = ok and line["vs_fma"] <= FP8_TC_VS_FMA
+            if (m, k, n) in (FP8_LM_SHAPES[0], FP8_MLP_SHAPES[0]):
+                coarse = _fp8_coarse(xq, wq, scale)
+                line["coarse14_vs_fma"] = (_fp8_rel(coarse, exact)
+                                           / line["fma_rel_err"])
+                ok = ok and line["coarse14_vs_fma"] > FP8_TC_VS_FMA
+                del coarse
+            del fma
+        worst[route] = max(worst[route], line["max_abs_err"])
         xn = xd.clone()
         xn[m // 2] = float("nan")
         out_n = MM.fp8_matmul(MM.fp8_quantize(xn, sx), wq, scale)
-        nan_ok = bool(torch.isnan(out_n[m // 2]).all()
-                      and torch.isfinite(out_n[:m // 2]).all())
-        lines.append({"card": card, "shape": [m, k, n], "route": route,
-                      "ratio": ratio,
-                      "plain_ratio": plain_ratio, "max_abs_err": err,
-                      "nan_row": nan_ok})
-        if not (ratio <= 1.0 and plain_ratio <= 1.0 and nan_ok):
-            raise AssertionError(f"fp8_matmul ({m},{k},{n}) {route}: ratio "
-                                 f"{ratio:.3e} (plain {plain_ratio:.3e}) to "
-                                 f"the f32 order bound, NaN row {nan_ok}")
-        if (m, k, n) in (FP8_LM_SHAPES[-1], FP8_MLP_SHAPES[0]) or m == 8192:
+        line["nan_row"] = bool(torch.isnan(out_n[m // 2]).all()
+                               and torch.isfinite(out_n[:m // 2]).all())
+        lines.append(line)
+        if not (ok and line["nan_row"]):
+            raise AssertionError(f"fp8_matmul ({m},{k},{n}) {route}: {line}")
+        if m == 8192 or (m, k, n) == FP8_MLP_SHAPES[1]:
             name = f"fp8_matmul_{route}"
             ins = [(MM.fp8_quantize(torch.randn(m, k, device=dev) * 3, sx),
                     wq, scale) for _ in range(3)]
@@ -2923,36 +2972,29 @@ def check_fp8_matmul(dev, card) -> dict:
             one = torch.ones((), device=dev)
             ms = _time_ms(MM.fp8_matmul, ins)
             plain_ms = _time_ms(MM.fp8_matmul_reference, ins)
-            lib_ms = _time_ms(lambda a, b, c: torch._scaled_mm(
+            lib_ms = (_time_ms(lambda a, b, c: torch._scaled_mm(
                 a, wq_t.t(), scale_a=one, scale_b=one,
-                out_dtype=torch.float32), ins)
+                out_dtype=torch.float32), ins) if n % 16 == 0 and k % 16 == 0
+                else None)
             flops = 2.0 * m * n * k
             nbytes = m * k + k * n + 4 * n + 4 * m * n
-            bound = max(flops / FP8_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+            bound_s = max(flops / FP8_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
             row = {"shape": [m, k, n], "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": lib_ms, "bound_ms": 1e3 * bound,
+                   "library_ms": lib_ms, "bound_ms": 1e3 * bound_s,
                    "bound_by": ("operations" if flops / FP8_FLOPS_PER_S
                                 >= nbytes / HBM_BYTES_PER_S else "bytes"),
                    "tflops": flops / ms / 1e9}
-            lines[-1].update(row)
-            # the kernels line reports the head (tc) and the MLP's first
-            # layer (fma), the largest call of each build
-            if (m, k, n) in (FP8_LM_SHAPES[-1], FP8_MLP_SHAPES[0]):
+            line.update(row)
+            # the kernels line reports the head (tc) and the MLP's
+            # (128, 128, 127) (fma), the largest call of each build
+            if (m, k, n) in (FP8_LM_SHAPES[-1], FP8_MLP_SHAPES[1]):
                 timing[name] = row
-    # the tensor-core build at K 128 (not a route): past the bound
-    x = torch.randn(128, 128, generator=g).to(dev) * 3
-    w = torch.randn(128, 127, generator=g).to(dev) * 0.05
-    sx = torch.clamp(torch.amax(x.abs()) / MM.E4M3_MAX, min=1e-12)
-    sw = MM._w_scale(w)
-    xq, wq = MM.fp8_quantize(x, sx), MM.fp8_quantize(w, sw)
-    small = _fp8_ratio(MM._fp8_matmul_tc(xq, wq, sx * sw), xq, wq, sx * sw)
+        del exact, bound, plain, got
     for line in lines:
         print("check fp8_matmul: " + json.dumps(line), flush=True)
-    print(f"check fp8_matmul: the tensor-core build at (128,128,127) sits at "
-          f"{small:.2f}x the f32 order bound (routed to the FMA build); "
-          f"{card}", flush=True)
+    torch.cuda.empty_cache()
     return {"errs": {f"fp8_matmul_{r}": e for r, e in worst.items()},
-            "timing": timing, "tc_k128_ratio": small}
+            "timing": timing}
 
 
 def run_fp8_lm(dev, cfg, np_params, bf16_loss, card) -> dict:
@@ -3014,7 +3056,8 @@ def run_fp8_lm(dev, cfg, np_params, bf16_loss, card) -> dict:
     tok_s = TRAIN_BATCH * cfg8.max_seq / p50
     perf = mfu(tok_s, cfg8, cfg8.max_seq, "bf16", device=dev)
     profile = _profiled(lambda: eng.train_batch(tok, tgt), [
-        ("fp8 GEMM", ("gemm_fp8",)), ("K1 flash_fwd", ("flash_fwd",)),
+        ("fp8 GEMM", ("gemm_tc_kernel", "split_sum")),
+        ("K1 flash_fwd", ("flash_fwd",)),
         ("K2 flash_dq", ("flash_dq",)), ("K3 flash_dkv", ("flash_dkv",)),
         ("f32 matmul", ("gemm", "cutlass", "nvjet", "xmma"))])
     out = {"card": card, "losses": [warm] + losses,
@@ -3038,13 +3081,15 @@ def _mlp_steps(log) -> list:
 def run_fp8_mlp(dev, cfg, np_params, card) -> dict:
     """Phase 11c: `train --engine fp8 --health guard --shadow-every 4
     --log-every 4` on the card at the MLP's full width, 14 batches, with
-    the counts zeroed before it (the e4m3 GEMM's FMA build must run, its
-    tensor-core build not: the MLP's K are under FP8_TC_MIN_K), against
-    the same run on the CPU (FP8_DRIVER_TOL); then the guard on the card:
-    a NaN batch into the fused MLP engine under health="guard" leaves
-    every parameter and momentum leaf bit for bit; then phase 6's 1.21B
-    step with health "off" and "monitor" in turns (off, monitor,
-    monitor, off), the pack's added ms."""
+    the counts zeroed before it (both builds of the e4m3 GEMM must run:
+    the tensor-core one for the 784 -> 128 layer, the FMA one for the
+    widths that are not multiples of 16), against the same run on the
+    CPU (FP8_DRIVER_TOL); then the guard on the card: a NaN batch into
+    the fused MLP engine under health="guard" leaves every parameter and
+    momentum leaf bit for bit; then phase 6's 1.21B step with health
+    "off", "monitor" and "guard" in turns (off, monitor, guard, guard,
+    monitor, off): the pack's and the guard's added ms, and each mode's
+    peak memory."""
     import shutil
     import tempfile
 
@@ -3073,7 +3118,7 @@ def run_fp8_mlp(dev, cfg, np_params, card) -> dict:
         card_s = time.time() - t0
         launches = {f"fp8_matmul_{r}": c.launches
                     for r, c in counters.items()}
-        if launches["fp8_matmul_fma"] == 0 or launches["fp8_matmul_tc"]:
+        if not (launches["fp8_matmul_fma"] and launches["fp8_matmul_tc"]):
             raise AssertionError(f"fp8 driver launches {launches}")
         if eng.device.type != dev.type or eng.precision != "fp8":
             raise AssertionError(f"fp8 driver ran on {eng.device}, "
@@ -3122,20 +3167,29 @@ def run_fp8_mlp(dev, cfg, np_params, card) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # the health pack's cost on phase 6's step, off and monitor in turns
+    # the health pack's and the guard's cost on phase 6's step, in turns
     tok, tgt = _train_batch(cfg)
     lm = ContextParallelEngine(cfg, AdamW(3e-4, weight_decay=0.01,
                                           grad_clip=1.0),
                                attn="flash", device=dev, params=np_params)
     lm.train_batch(tok, tgt)
-    times = {"off": [], "monitor": []}
-    for mode in ("off", "monitor", "monitor", "off"):
+    times = {"off": [], "monitor": [], "guard": []}
+    peak = dict.fromkeys(times, 0.0)
+    for mode in ("off", "monitor", "guard", "guard", "monitor", "off"):
         lm.health = mode
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         for _ in range(MONITOR_STEPS):
             t0 = time.perf_counter()
             lm.train_batch(tok, tgt)
             torch.cuda.synchronize()
             times[mode].append(time.perf_counter() - t0)
+        peak[mode] = max(peak[mode],
+                         torch.cuda.max_memory_allocated(dev) / 1e9)
+        if mode == "guard":
+            snap = lm.health_snapshot()
+            if not (snap["skipped"] == 0 and snap["update_ratio"] > 0):
+                raise AssertionError(f"guard pack {snap}")
     pack = lm.health_snapshot()
     del lm
     if not (pack["nonfinite"] == 0 and np.isfinite(pack["grad_norm"])
@@ -3148,7 +3202,10 @@ def run_fp8_mlp(dev, cfg, np_params, card) -> dict:
            "guard_skip_bit_identical": same,
            "step_ms_p50_off": p50["off"],
            "step_ms_p50_monitor": p50["monitor"],
+           "step_ms_p50_guard": p50["guard"],
            "pack_added_ms": p50["monitor"] - p50["off"],
+           "guard_added_ms": p50["guard"] - p50["off"],
+           "peak_mem_gb": peak,
            "pack": {k: pack[k] for k in ("grad_norm", "param_norm",
                                          "update_ratio", "nonfinite")}}
     print("fp8 mlp and health: " + json.dumps(out), flush=True)

@@ -61,26 +61,24 @@
 //   are masked and misaligned vectors read element by element, so it
 //   takes any M, N, K. The f32 build stays full f32 (the parity bounds
 //   need it).
-// - `gemm_fp8_kernel`, fp8_dense's forward product (the reference's
-//   `fp8_dense`, matmul.py:202, an XLA dot of two e4m3 operands with
-//   f32 accumulation there): xq (M, K) e4m3 @ wq (K, N) e4m3, the f32
-//   sum times a per-column f32 scale (sx * sw) in the epilogue, out f32.
-//   Hopper's 8-bit wgmma (m64n128k32 .e4m3.e4m3) reads both shared
-//   operands K-major only, so the wrapper hands it wq transposed, (N, K)
-//   row major (a 1-byte copy). Both arrive by TMA as 1-byte elements in
-//   boxes of 64 rows x 128 bytes (128 values of K a row), 128B-swizzled,
-//   so a stage covers k 128 and a k32 step is 32 bytes along the row.
-//   The tensor cores sum an fp8 product with fewer bits than f32 (the
-//   DeepSeek-V3 report measures ~14), so each stage's four k32 steps
-//   run into a fresh register tile that is then added to the f32
-//   accumulator on the CUDA cores (the promotion DeepGEMM does every
-//   128 values of K). Bound: operations, 2 M N K at 1,979 TFLOP/s (the
-//   head at the 1.21B step, 8192 x 2048 x 32768: 0.56 ms). K must be a
-//   multiple of 16 (TMA's 16-byte row strides). Even promoted every 128
-//   values the tensor cores' sum leaves the f32 order bound below K
-//   ~800, so the wrapper routes K < 2048 and unaligned K to
+// - fp8_dense's forward product (the reference's `fp8_dense`,
+//   matmul.py:202, an XLA dot of two e4m3 operands with f32
+//   accumulation there): `gemm_tc_kernel` with an e4m3 A as well, xq
+//   (M, K) e4m3 @ wq (K, N) e4m3, the f32 sum times a per-column f32
+//   scale (sx * sw) in the epilogue, out f32. Both operands arrive by
+//   16-byte cp.async as bytes and the block converts them to f16 (one
+//   instruction a pair; every e4m3 value, NaN too, is exact in f16) in
+//   the swizzled layouts above: A K-major, B MN-major. The products run
+//   on m64n128k16 f16 wgmma into the f32 accumulator. Hopper's 8-bit
+//   wgmma (m64nNk32 .e4m3) does twice the operations a cycle but sums
+//   with about 14 bits (the DeepSeek-V3 report's reading), a different
+//   result from the reference's f32 sum; the 16-bit path keeps an f32
+//   sum. K % 16 == 0 and N % 16 == 0 (whole chunks); the wrapper routes
+//   other shapes (the MLP's 127, 125, 123 widths and N 10) to
 //   `blocked_matmul_kernel<e4m3, e4m3, float>` (exact f32 FMA) with the
-//   scale as its `ws`. NaN (0x7F / 0xFF in e4m3) reaches the output.
+//   scale as its `ws`. Bound: operations, 2 M N K at the e4m3 peak,
+//   1,979 TFLOP/s (the head at the 1.21B step, 8192 x 2048 x 32768:
+//   0.56 ms); the f16 peak this build can reach is half that.
 // The TPU grid runs K as its sequential third axis and carries the sum
 // in VMEM from one grid step to the next; blocks here run in no order,
 // so the K loop lives inside the block. The wrapper's (bm, bk, bn) are
@@ -364,23 +362,31 @@ constexpr int kTcBN = 128;   // output columns of a block
 constexpr int kTcBK = 64;    // k of one stage: one 128-byte bf16 box row
 
 // The block's shared memory, per build: WG warpgroups (64 WG output
-// rows), B of dtype code BT (kBF16 by TMA, kI8 / kE4M3 by cp.async).
-template <int WG, int BT>
+// rows), B of dtype code BT (kBF16 by TMA, kI8 / kE4M3 by cp.async), A
+// of dtype code AT (kBF16 by TMA; kE4M3 by cp.async, with an e4m3 B:
+// fp8_dense's build, both converted to f16).
+template <int WG, int BT, int AT = kBF16>
 struct Gemm {
+  static_assert(AT == kBF16 || (AT == kE4M3 && BT == kE4M3),
+                "an e4m3 A takes an e4m3 B");
   static constexpr bool kByte = BT != kBF16;
+  static constexpr bool kAByte = AT != kBF16;
   static constexpr int kThreads = 128 * WG;
   static constexpr int kStages = 3;
   // one warpgroup (the tick's rows) fits three blocks an SM
   static constexpr int kMinBlocks = WG == 1 ? 3 : 2;
-  static constexpr int kABytes = WG * tc::kBoxBytes;   // 64 WG x 64 k
+  static constexpr int kABytes = WG * tc::kBoxBytes;   // 64 WG x 64 k bf16
   static constexpr int kBBytes = 2 * tc::kBoxBytes;    // 64 k x 128 n bf16
+  static constexpr int kRawABytes = 64 * WG * kTcBK;   // 64 WG x 64 k bytes
   static constexpr int kRawBytes = kTcBK * kTcBN;      // 64 k x 128 n bytes
-  // a stage: A, then B (bf16) or the raw 1-byte tile; the 1-byte build
-  // converts into one B tile after the ring
-  static constexpr int kStageBytes = kABytes + (kByte ? kRawBytes : kBBytes);
+  // a stage: A (bf16, or the raw 1-byte tile), then B (bf16, or the raw
+  // 1-byte tile); a 1-byte operand converts into one 2-byte tile after
+  // the ring (A's first)
+  static constexpr int kAPart = kAByte ? kRawABytes : kABytes;
+  static constexpr int kStageBytes = kAPart + (kByte ? kRawBytes : kBBytes);
   static constexpr int kRing = kStages * kStageBytes;
-  static constexpr int kSmem =
-      kRing + (kByte ? kBBytes : 0) + kStages * 8 + 1024;
+  static constexpr int kConv = (kAByte ? kABytes : 0) + (kByte ? kBBytes : 0);
+  static constexpr int kSmem = kRing + kConv + kStages * 8 + 1024;
 };
 
 // Four bf16 pairs (one 16-byte chunk) from 8 one-byte values. int8 v
@@ -421,10 +427,36 @@ __device__ __forceinline__ uint4 to_bf16x8(uint2 raw, e4m3) {
   return out;
 }
 
-// The raw 64 k x 128 n tile of 1-byte values (row major) as bf16 in the
-// layout TMA's SWIZZLE_128B writes: two boxes (n 0-63, 64-127) of 64
-// rows x 128 bytes, the 16-byte chunk c of row r at chunk c ^ (r % 8).
-template <typename TB>
+// Four f16 pairs from 8 e4m3 values: one conversion a pair, exact (e4m3
+// lies inside f16's range and precision; NaN stays NaN).
+__device__ __forceinline__ uint4 to_f16x8(uint2 raw) {
+  const __nv_fp8x2_storage_t* v =
+      reinterpret_cast<const __nv_fp8x2_storage_t*>(&raw);
+  uint4 out;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(v[i], __NV_E4M3);
+    w[i] = static_cast<uint32_t>(h.x) | static_cast<uint32_t>(h.y) << 16;
+  }
+  return out;
+}
+
+// 8 one-byte values as 8 two-byte operands: f16 for fp8_dense's build
+// (F16), else bf16.
+template <typename TB, bool F16>
+__device__ __forceinline__ uint4 to_operand_x8(uint2 raw) {
+  if constexpr (F16)
+    return to_f16x8(raw);
+  else
+    return to_bf16x8(raw, TB{});
+}
+
+// The raw 64 k x 128 n tile of 1-byte values (row major) as bf16 (f16
+// when F16) in the layout TMA's SWIZZLE_128B writes: two boxes (n 0-63,
+// 64-127) of 64 rows x 128 bytes, the 16-byte chunk c of row r at chunk
+// c ^ (r % 8).
+template <typename TB, bool F16>
 __device__ __forceinline__ void convert_tile(const uint8_t* raw, uint8_t* b,
                                              int tid, int threads) {
   for (int c = tid; c < kTcBK * kTcBN / 16; c += threads) {
@@ -434,32 +466,85 @@ __device__ __forceinline__ void convert_tile(const uint8_t* raw, uint8_t* b,
     uint8_t* row = b + (c16 / 4) * tc::kBoxBytes + r * 128;
     const int ch = 2 * (c16 % 4);        // its first chunk in the box row
     *reinterpret_cast<uint4*>(row + 16 * (ch ^ (r % 8))) =
-        to_bf16x8(make_uint2(v.x, v.y), TB{});
+        to_operand_x8<TB, F16>(make_uint2(v.x, v.y));
     *reinterpret_cast<uint4*>(row + 16 * ((ch + 1) ^ (r % 8))) =
-        to_bf16x8(make_uint2(v.z, v.w), TB{});
+        to_operand_x8<TB, F16>(make_uint2(v.z, v.w));
   }
+}
+
+// The raw ROWS m x 64 k tile of e4m3 values (row major) as f16, K-major
+// in the layout TMA's SWIZZLE_128B writes for a 2-byte A: ROWS / 64
+// boxes of 64 rows x 128 bytes (k 0-63), the 16-byte chunk c of row r at
+// chunk c ^ (r % 8).
+template <int ROWS>
+__device__ __forceinline__ void convert_a(const uint8_t* raw, uint8_t* a,
+                                          int tid, int threads) {
+  for (int c = tid; c < ROWS * kTcBK / 16; c += threads) {
+    const int r = c / (kTcBK / 16);
+    const int c16 = c % (kTcBK / 16);    // k 16 c16 ... 16 c16 + 15
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + r * kTcBK + 16 * c16);
+    uint8_t* row = a + (r / 64) * tc::kBoxBytes + (r % 64) * 128;
+    const int ch = 2 * c16;              // its first chunk in the box row
+    *reinterpret_cast<uint4*>(row + 16 * (ch ^ (r % 8))) =
+        to_f16x8(make_uint2(v.x, v.y));
+    *reinterpret_cast<uint4*>(row + 16 * ((ch + 1) ^ (r % 8))) =
+        to_f16x8(make_uint2(v.z, v.w));
+  }
+}
+
+// `tc::wgmma_ss_n128_t` with f16 operands: d (64 x 128, f32) += A B, A
+// (64 x 16 f16) K-major, B (16 x 128 f16) MN-major, both in shared
+// memory.
+__device__ __forceinline__ void wgmma_ss_n128_t_f16(float (&d)[64],
+                                                    uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
 }
 
 // One block: output rows [m0, m0 + 64 WG) x columns [n0, n0 + 128),
 // over the k tiles [kt0, kt0 + k_tiles) of split blockIdx.z. x by TMA
-// (`ma`); y by TMA (`mb`, BT == kBF16) or as 1-byte values `wq` with
-// N % 16 == 0. With `part` the f32 sums go there, (split, M, N); else
-// they are scaled by `ws` (when given) and stored in `out`, bf16 when
-// `out_bf16`, else f32.
-template <int WG, int BT>
-__global__ void __launch_bounds__(128 * WG, Gemm<WG, BT>::kMinBlocks)
+// (`ma`, AT == kBF16) or as e4m3 values `xa` with K % 16 == 0; y by TMA
+// (`mb`, BT == kBF16) or as 1-byte values `wq` with N % 16 == 0. With
+// `part` the f32 sums go there, (split, M, N); else they are scaled by
+// `ws` (when given) and stored in `out`, bf16 when `out_bf16`, else f32.
+template <int WG, int BT, int AT>
+__global__ void __launch_bounds__(128 * WG, Gemm<WG, BT, AT>::kMinBlocks)
     gemm_tc_kernel(const __grid_constant__ CUtensorMap ma,
                    const __grid_constant__ CUtensorMap mb,
+                   const uint8_t* __restrict__ xa,
                    const uint8_t* __restrict__ wq,
                    const float* __restrict__ ws, void* __restrict__ out,
                    float* __restrict__ part, int m, int n, int k,
                    int k_tiles, int out_bf16) {
-  using G = Gemm<WG, BT>;
+  using G = Gemm<WG, BT, AT>;
   using TB = typename std::conditional<BT == kE4M3, e4m3, int8_t>::type;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base =
       smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* bconv = base + G::kRing;   // the 1-byte build's bf16 B
+  uint8_t* aconv = base + G::kRing;   // an e4m3 A as f16
+  uint8_t* bconv = aconv + (G::kAByte ? G::kABytes : 0);   // a 1-byte B
   uint64_t* bars =
       reinterpret_cast<uint64_t*>(bconv + (G::kByte ? G::kBBytes : 0));
 
@@ -475,7 +560,7 @@ __global__ void __launch_bounds__(128 * WG, Gemm<WG, BT>::kMinBlocks)
     uint8_t* st = base + (j % G::kStages) * G::kStageBytes;
     uint64_t* bar = &bars[j % G::kStages];
     const int k0 = (kt0 + j) * kTcBK;
-    if (tid == 0) {
+    if (tid == 0 && !G::kAByte) {
       tc::bar_expect(bar, G::kABytes + (G::kByte ? 0 : G::kBBytes));
 #pragma unroll
       for (int w = 0; w < WG; ++w)
@@ -485,8 +570,20 @@ __global__ void __launch_bounds__(128 * WG, Gemm<WG, BT>::kMinBlocks)
         tc::load_box(st + G::kABytes + tc::kBoxBytes, &mb, bar, n0 + 64, k0);
       }
     }
+    if (G::kAByte) {
+      for (int c = tid; c < 64 * WG * kTcBK / 16; c += G::kThreads) {
+        const int r = c / (kTcBK / 16);
+        const int col = 16 * (c % (kTcBK / 16));
+        // K % 16 == 0: a chunk lies wholly inside or wholly past K
+        const bool ok = m0 + r < m && k0 + col < k;
+        tc::cp_async16(st + r * kTcBK + col,
+                       ok ? xa + static_cast<long long>(m0 + r) * k + k0 + col
+                          : xa,
+                       ok);
+      }
+    }
     if (G::kByte) {
-      uint8_t* raw = st + G::kABytes;
+      uint8_t* raw = st + G::kAPart;
       for (int c = tid; c < kTcBK * kTcBN / 16; c += G::kThreads) {
         const int r = c / (kTcBN / 16);
         const int col = 16 * (c % (kTcBN / 16));
@@ -530,20 +627,29 @@ __global__ void __launch_bounds__(128 * WG, Gemm<WG, BT>::kMinBlocks)
       issue(i + G::kStages - 1);
     else if (G::kByte)
       tc::cp_async_commit();
-    uint32_t b_addr = tc::smem_u32(st + G::kABytes);
+    uint32_t b_addr = tc::smem_u32(st + G::kAPart);
+    uint32_t a_addr = tc::smem_u32(st + wg * tc::kBoxBytes);
     if (G::kByte) {
-      convert_tile<TB>(st + G::kABytes, bconv, tid, G::kThreads);
+      if (G::kAByte) {
+        convert_a<64 * WG>(st, aconv, tid, G::kThreads);
+        a_addr = tc::smem_u32(aconv + wg * tc::kBoxBytes);
+      }
+      convert_tile<TB, G::kAByte>(st + G::kAPart, bconv, tid, G::kThreads);
       tc::fence_proxy_async();   // the generic writes, before wgmma reads
       __syncthreads();
       b_addr = tc::smem_u32(bconv);
     }
-    tc::bar_wait(&bars[s], (i / G::kStages) & 1);
-    const uint32_t a_addr = tc::smem_u32(st + wg * tc::kBoxBytes);
+    if (!G::kAByte) tc::bar_wait(&bars[s], (i / G::kStages) & 1);
     tc::wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kTcBK / 16; ++ks)
-      tc::wgmma_ss_n128_t(acc, tc::desc_k(a_addr, ks),
-                          tc::desc_mn(b_addr, ks));
+    for (int ks = 0; ks < kTcBK / 16; ++ks) {
+      if constexpr (G::kAByte)
+        wgmma_ss_n128_t_f16(acc, tc::desc_k(a_addr, ks),
+                            tc::desc_mn(b_addr, ks));
+      else
+        tc::wgmma_ss_n128_t(acc, tc::desc_k(a_addr, ks),
+                            tc::desc_mn(b_addr, ks));
+    }
     tc::wgmma_commit();
     tc::wgmma_wait();
     tc::fence_regs(acc);
@@ -603,12 +709,12 @@ __global__ void split_sum_kernel(const float* __restrict__ part,
     static_cast<float*>(out)[i] = v;
 }
 
-template <int WG, int BT>
-int launch_tc(const CUtensorMap& ma, const CUtensorMap& mb, const void* wq,
-              const void* ws, void* out, void* part, int m, int n, int k,
-              int splits, int out_bf16, cudaStream_t stream) {
-  using G = Gemm<WG, BT>;
-  auto kernel = gemm_tc_kernel<WG, BT>;
+template <int WG, int BT, int AT = kBF16>
+int launch_tc(const CUtensorMap& ma, const CUtensorMap& mb, const void* xa,
+              const void* wq, const void* ws, void* out, void* part, int m,
+              int n, int k, int splits, int out_bf16, cudaStream_t stream) {
+  using G = Gemm<WG, BT, AT>;
+  auto kernel = gemm_tc_kernel<WG, BT, AT>;
   int e = tc::set_smem(reinterpret_cast<const void*>(kernel), G::kSmem);
   if (e != 0) return e;
   const int k_all = (k + kTcBK - 1) / kTcBK;
@@ -616,7 +722,8 @@ int launch_tc(const CUtensorMap& ma, const CUtensorMap& mb, const void* wq,
   const dim3 grid((n + kTcBN - 1) / kTcBN, (m + 64 * WG - 1) / (64 * WG),
                   splits);
   kernel<<<grid, G::kThreads, G::kSmem, stream>>>(
-      ma, mb, static_cast<const uint8_t*>(wq),
+      ma, mb, static_cast<const uint8_t*>(xa),
+      static_cast<const uint8_t*>(wq),
       static_cast<const float*>(ws), out,
       splits > 1 ? static_cast<float*>(part) : nullptr, m, n, k, k_tiles,
       out_bf16);
@@ -635,195 +742,13 @@ int dispatch_tc(const CUtensorMap& ma, const CUtensorMap& mb, const void* wq,
                 const void* ws, void* out, void* part, int m, int n, int k,
                 int splits, int b_dtype, int out_bf16, cudaStream_t stream) {
 #define LAUNCH_TC(BT)                                                    \
-  return launch_tc<WG, BT>(ma, mb, wq, ws, out, part, m, n, k, splits,  \
-                           out_bf16, stream)
+  return launch_tc<WG, BT>(ma, mb, nullptr, wq, ws, out, part, m, n, k, \
+                           splits, out_bf16, stream)
   if (b_dtype == kBF16) LAUNCH_TC(kBF16);
   if (b_dtype == kI8) LAUNCH_TC(kI8);
   if (b_dtype == kE4M3) LAUNCH_TC(kE4M3);
 #undef LAUNCH_TC
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// ------------------------------------- the e4m3 tensor-core build
-
-constexpr int kF8BN = 128;   // output columns of a block
-constexpr int kF8BK = 128;   // k of one stage: one 128-byte e4m3 box row
-
-template <int WG>
-struct Fp8Gemm {
-  static constexpr int kThreads = 128 * WG;
-  static constexpr int kStages = 4;
-  static constexpr int kABytes = WG * tc::kBoxBytes;   // 64 WG rows x k 128
-  static constexpr int kBBytes = 2 * tc::kBoxBytes;    // 128 n rows x k 128
-  static constexpr int kStageBytes = kABytes + kBBytes;
-  static constexpr int kSmem = kStages * kStageBytes + kStages * 8 + 1024;
-};
-
-// d (64 x 128, f32) = A B^T (+ d when `accumulate`): A (64 x 32) and B
-// (128 x 32) e4m3 in shared memory, both K-major, 128B-swizzled.
-__device__ __forceinline__ void wgmma_e4m3_n128(float (&d)[64], uint64_t a,
-                                                uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// One block: output rows [m0, m0 + 64 WG) x columns [n0, n0 + 128) over
-// all of K. xq (M, K) by TMA (`ma`), wq^T (N, K) by TMA (`mb`), both
-// 1-byte boxes of 64 rows x 128 k, zero past M, N and K. out (M, N) f32
-// = sum * scale[n].
-template <int WG>
-__global__ void __launch_bounds__(128 * WG, 1)
-    gemm_fp8_kernel(const __grid_constant__ CUtensorMap ma,
-                    const __grid_constant__ CUtensorMap mb,
-                    const float* __restrict__ scale, float* __restrict__ out,
-                    int m, int n, int k) {
-  using G = Fp8Gemm<WG>;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* base =
-      smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(base + G::kStages * G::kStageBytes);
-
-  const int n0 = blockIdx.x * kF8BN;
-  const int m0 = blockIdx.y * 64 * WG;
-  const int nk = (k + kF8BK - 1) / kF8BK;
-  const int tid = threadIdx.x;
-  const int wg = tid / 128;
-
-  // k tile j into stage j % S (thread 0 only)
-  auto issue = [&](int j) {
-    uint8_t* st = base + (j % G::kStages) * G::kStageBytes;
-    uint64_t* bar = &bars[j % G::kStages];
-    const int k0 = j * kF8BK;
-    tc::bar_expect(bar, G::kStageBytes);
-#pragma unroll
-    for (int w = 0; w < WG; ++w)
-      tc::load_box(st + w * tc::kBoxBytes, &ma, bar, k0, m0 + 64 * w);
-    tc::load_box(st + G::kABytes, &mb, bar, k0, n0);
-    tc::load_box(st + G::kABytes + tc::kBoxBytes, &mb, bar, k0, n0 + 64);
-  };
-
-  if (tid == 0) {
-    for (int i = 0; i < G::kStages; ++i) tc::bar_init(&bars[i]);
-    tc::fence_bar_init();
-  }
-  __syncthreads();
-  if (tid == 0)
-    for (int j = 0; j < G::kStages - 1 && j < nk; ++j) issue(j);
-
-  float acc[64], part[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
-
-  for (int i = 0; i < nk; ++i) {
-    const int s = i % G::kStages;
-    // every warpgroup has waited on its products of tile i - 1, so that
-    // stage is free for tile i + S - 1
-    __syncthreads();
-    if (tid == 0 && i + G::kStages - 1 < nk) issue(i + G::kStages - 1);
-    tc::bar_wait(&bars[s], (i / G::kStages) & 1);
-    uint8_t* st = base + s * G::kStageBytes;
-    const uint32_t a_addr = tc::smem_u32(st + wg * tc::kBoxBytes);
-    const uint32_t b_addr = tc::smem_u32(st + G::kABytes);
-    tc::wgmma_fence();
-    // K-major, 128B swizzle: a k32 step is 32 bytes along the 128-byte
-    // row, 8 rows are 1024 bytes apart
-#pragma unroll
-    for (int ks = 0; ks < kF8BK / 32; ++ks)
-      wgmma_e4m3_n128(part, tc::desc(a_addr + 32 * ks, 16, 1024),
-                      tc::desc(b_addr + 32 * ks, 16, 1024), ks);
-    tc::wgmma_commit();
-    tc::wgmma_wait();
-    tc::fence_regs(part);
-    // the promotion: this stage's sum joins the f32 accumulator
-#pragma unroll
-    for (int r = 0; r < 64; ++r) acc[r] += part[r];
-  }
-
-  // thread t of warpgroup wg: rows 16 (t / 32) + (t % 32) / 4 (+ 8) of
-  // its 64, columns 8 j + 2 (t % 4) (+ 1), j < 16
-  const int lane = tid % 32;
-  const int row0 = m0 + 64 * wg + 16 * ((tid % 128) / 32) + lane / 4;
-  const int col0 = n0 + 2 * (lane % 4);
-  const bool pairs = n % 2 == 0;      // then col < N gives col + 1 < N
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= m) continue;
-    float* dst = out + static_cast<long long>(row) * n;
-#pragma unroll
-    for (int j = 0; j < kF8BN / 8; ++j) {
-      const int col = col0 + 8 * j;
-      if (col >= n) continue;
-      const float v0 = acc[4 * j + 2 * r] * scale[col];
-      if (pairs) {
-        *reinterpret_cast<float2*>(dst + col) =
-            make_float2(v0, acc[4 * j + 2 * r + 1] * scale[col + 1]);
-      } else {
-        dst[col] = v0;
-        if (col + 1 < n) dst[col + 1] = acc[4 * j + 2 * r + 1] * scale[col + 1];
-      }
-    }
-  }
-}
-
-// A TMA map of a row-major (rows, cols) matrix of 1-byte values, in
-// boxes of 128 columns x 64 rows, swizzled 128B; columns past cols and
-// rows past rows read as zeros. The caller checked cols % 16 == 0 and a
-// 16-byte aligned base. Returns a cudaError_t (0 = success).
-inline int map_2d_u8(CUtensorMap* map, const void* base, long long rows,
-                     long long cols) {
-  const tc::EncodeTiled fn = tc::encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
-  const cuuint32_t box[2] = {kF8BK, 64};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                        const_cast<void*>(base), dims, strides, box, step,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <int WG>
-int launch_fp8(const CUtensorMap& ma, const CUtensorMap& mb,
-               const void* scale, void* out, int m, int n, int k,
-               cudaStream_t stream) {
-  using G = Fp8Gemm<WG>;
-  auto kernel = gemm_fp8_kernel<WG>;
-  int e = tc::set_smem(reinterpret_cast<const void*>(kernel), G::kSmem);
-  if (e != 0) return e;
-  const dim3 grid((n + kF8BN - 1) / kF8BN, (m + 64 * WG - 1) / (64 * WG));
-  kernel<<<grid, G::kThreads, G::kSmem, stream>>>(
-      ma, mb, static_cast<const float*>(scale), static_cast<float*>(out), m,
-      n, k);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -861,22 +786,35 @@ int blocked_matmul(const void* x, const void* y, const void* ws, void* out,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor-core build. x (m, k) bf16 row major with k % 8 == 0; y
-// (k, n) row major, bf16 with n % 8 == 0 (b_dtype 1) or int8 / e4m3
-// values with n % 16 == 0 (b_dtype 2 / 3); x, y 16-byte aligned. ws (n,)
-// f32 or null; out (m, n) bf16 (out_dtype 1) or f32 (0). `wg` is the
+// The tensor-core build. x (m, k) bf16 row major with k % 8 == 0 (a_dtype
+// 1) or e4m3 with k % 16 == 0 (a_dtype 3, fp8_dense's build: y e4m3, out
+// f32); y (k, n) row major, bf16 with n % 8 == 0 (b_dtype 1) or int8 /
+// e4m3 values with n % 16 == 0 (b_dtype 2 / 3); x, y 16-byte aligned. ws
+// (n,) f32 or null; out (m, n) bf16 (out_dtype 1) or f32 (0). `wg` is the
 // warpgroups of a block (1 or 2: 64 or 128 output rows). With splits > 1
 // K is split that many ways over blockIdx.z and `part` holds
 // splits x m x n f32 partial sums; `split_sum_kernel` then writes out.
 // Returns the launches' cudaGetLastError() (0 = success).
 int gemm_tc(const void* x, const void* y, const void* ws, void* out,
-            void* part, int m, int n, int k, int wg, int splits, int b_dtype,
-            int out_dtype, void* stream) {
+            void* part, int m, int n, int k, int wg, int splits, int a_dtype,
+            int b_dtype, int out_dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m <= 0 || n <= 0 || k <= 0 || splits < 1 || (wg != 1 && wg != 2) ||
       (m + 64 * wg - 1) / (64 * wg) > 65535 ||
       (splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (a_dtype == kE4M3) {
+    if (b_dtype != kE4M3 || out_dtype != kF32 || k % 16 != 0 || n % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const CUtensorMap none = {};   // both operands come by cp.async
+#define LAUNCH_FP8(WG)                                                  \
+  return launch_tc<WG, kE4M3, kE4M3>(none, none, x, y, ws, out, part, m, \
+                                     n, k, splits, 0, s)
+    if (wg == 1) LAUNCH_FP8(1);
+    LAUNCH_FP8(2);
+#undef LAUNCH_FP8
+  }
+  if (a_dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ma, mb = {};
   int e = tc::map_2d(&ma, x, m, k, k);
   if (e == 0 && b_dtype == kBF16) e = tc::map_2d(&mb, y, k, n, n);
@@ -889,34 +827,12 @@ int gemm_tc(const void* x, const void* y, const void* ws, void* out,
 }
 
 // Dynamic shared memory of the tensor-core build, in bytes.
-int gemm_tc_smem(int wg, int b_dtype) {
+int gemm_tc_smem(int wg, int a_dtype, int b_dtype) {
+  if (a_dtype == kE4M3) return wg == 1 ? Gemm<1, kE4M3, kE4M3>::kSmem
+                                       : Gemm<2, kE4M3, kE4M3>::kSmem;
   if (b_dtype == kBF16) return wg == 1 ? Gemm<1, kBF16>::kSmem
                                        : Gemm<2, kBF16>::kSmem;
   return wg == 1 ? Gemm<1, kI8>::kSmem : Gemm<2, kI8>::kSmem;
-}
-
-// The e4m3 tensor-core build: out (m, n) f32 = (xq @ wq) * scale with xq
-// (m, k) e4m3 row major and wq given TRANSPOSED, wq_t (n, k) e4m3 row
-// major; scale (n,) f32. k % 16 == 0, xq and wq_t 16-byte aligned; `wg`
-// the warpgroups of a block (1 or 2: 64 or 128 output rows). Returns the
-// launch's cudaGetLastError() (0 = success).
-int gemm_fp8(const void* xq, const void* wq_t, const void* scale, void* out,
-             int m, int n, int k, int wg, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m <= 0 || n <= 0 || k <= 0 || k % 16 != 0 || (wg != 1 && wg != 2) ||
-      (m + 64 * wg - 1) / (64 * wg) > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap ma, mb;
-  int e = map_2d_u8(&ma, xq, m, k);
-  if (e == 0) e = map_2d_u8(&mb, wq_t, n, k);
-  if (e != 0) return e;
-  return wg == 1 ? launch_fp8<1>(ma, mb, scale, out, m, n, k, s)
-                 : launch_fp8<2>(ma, mb, scale, out, m, n, k, s);
-}
-
-// Dynamic shared memory of the e4m3 build, in bytes.
-int gemm_fp8_smem(int wg) {
-  return wg == 1 ? Fp8Gemm<1>::kSmem : Fp8Gemm<2>::kSmem;
 }
 
 const char* blocked_matmul_error_string(int code) {

@@ -35,7 +35,7 @@ from shallowspeed_tpu_torch.models.mlp import MLPStage, accumulate_grads
 from shallowspeed_tpu_torch.telemetry.health import (check_mode,
                                                      engine_snapshot,
                                                      note_step,
-                                                     step_with_health)
+                                                     step_replicas_with_health)
 from shallowspeed_tpu_torch.weights import (map_tree, params_from_numpy,
                                             placed_copy)
 
@@ -108,20 +108,9 @@ class FusedDPEngine:
                 _, self._opt_states[r] = self.optimizer.step(
                     self._replicas[r], g, self._opt_states[r])
             return
-        # the pack on replica 0's total (the replicas' are equal); the
-        # other replicas take the same guard decision
-        _, self._opt_states[0], pack = step_with_health(
-            self.optimizer, self._replicas[0], totals[0],
-            self._opt_states[0], self.health)
-        for r, g in enumerate(totals[1:], 1):
-            if self.health == "guard":
-                ok = pack["skipped"] == 0
-                _, self._opt_states[r] = self.optimizer.guarded_step(
-                    self._replicas[r], g, self._opt_states[r], ok)
-            else:
-                _, self._opt_states[r] = self.optimizer.step(
-                    self._replicas[r], g, self._opt_states[r])
-        note_step(self, pack)
+        note_step(self, step_replicas_with_health(
+            self.optimizer, self._replicas, totals, self._opt_states,
+            self.health))
 
     def health_snapshot(self) -> dict | None:
         """The last step's health pack and the cumulative counters as a

@@ -2,9 +2,10 @@
 quantized-weight `dequant_matmul`, the blocked matmul K5
 (`blocked_matmul`) and the fp8-e4m3 training matmul `fp8_dense`, all on
 the kernels of `csrc/blocked_matmul.cu`: a tensor-core GEMM (bf16 x;
-y bf16, or 1-byte weight values converted in shared memory), an e4m3 x
-e4m3 tensor-core GEMM (`fp8_matmul`, fp8_dense's forward product) and an
-f32-FMA kernel (f32 inputs, e4m3 inputs, unaligned shapes).
+y bf16, or 1-byte weight values converted in shared memory; or e4m3 x
+and y, both converted to f16 in shared memory: `fp8_matmul`, fp8_dense's
+forward product) and an f32-FMA kernel (f32 inputs, e4m3 inputs,
+unaligned shapes).
 
 K5 lies on one path only, the narrow-K probe (`bench_matmul`), as its
 reference does; no model calls it.
@@ -152,8 +153,9 @@ def _sm_count(index: int) -> int:
 
 def _launch_tc(counter, x, y, ws, out_dtype):
     """One call of the C entry `gemm_tc`: x (M, K) bf16 @ y (K, N) (bf16,
-    int8 or e4m3), scaled by ws (or None), out (M, N) in out_dtype; the
-    split-K partial sums in a scratch tensor when `tc_splits` > 1."""
+    int8 or e4m3), or e4m3 x @ e4m3 y, scaled by ws (or None), out (M, N)
+    in out_dtype; the split-K partial sums in a scratch tensor when
+    `tc_splits` > 1."""
     m, k = x.shape
     n = y.shape[1]
     wg = tc_warpgroups(m)
@@ -172,7 +174,8 @@ def _launch_tc(counter, x, y, ws, out_dtype):
     _build.launch(counter, lib.gemm_tc, lib.blocked_matmul_error_string,
                   x.device, *(t.data_ptr() if t is not None else None
                               for t in (x, y, ws, out, part)),
-                  m, n, k, wg, splits, _CODES[y.dtype], _CODES[out_dtype])
+                  m, n, k, wg, splits, _CODES[x.dtype], _CODES[y.dtype],
+                  _CODES[out_dtype])
     return out
 
 
@@ -214,15 +217,11 @@ def _kernel():
     lib = _build.library("blocked_matmul")
     lib.blocked_matmul.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
-    lib.gemm_tc.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+    lib.gemm_tc.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
-    lib.gemm_tc_smem.argtypes = [ctypes.c_int] * 2
-    lib.gemm_fp8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    lib.gemm_fp8_smem.argtypes = [ctypes.c_int]
+    lib.gemm_tc_smem.argtypes = [ctypes.c_int] * 3
     lib.blocked_matmul.restype = lib.gemm_tc.restype = ctypes.c_int
-    lib.gemm_tc_smem.restype = lib.gemm_fp8.restype = ctypes.c_int
-    lib.gemm_fp8_smem.restype = ctypes.c_int
+    lib.gemm_tc_smem.restype = ctypes.c_int
     lib.blocked_matmul_error_string.argtypes = [ctypes.c_int]
     lib.blocked_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -353,22 +352,14 @@ def _w_scale(w):
     return torch.clamp(amax / E4M3_MAX, min=1e-12)
 
 
-# The tensor cores sum e4m3 products with fewer bits than f32, so the
-# wgmma build's error grows against the f32 order bound K 2^-24 sum|terms|
-# as K shrinks: past the bound below K ~800, a third of it at K 2048
-# (chip_smoke.py phase 11a prints the ratio at K 128 and at every
-# routed shape). Below this K the exact-f32 FMA build is the route.
-FP8_TC_MIN_K = 2048
-
-
-def fp8_matmul_route(k: int) -> str:
+def fp8_matmul_route(k: int, n: int) -> str:
     """Which build `fp8_matmul` launches on the card for xq (M, K) @
     wq (K, N), chosen before the launch: "tc" (`_fp8_matmul_tc`, the
-    e4m3 wgmma GEMM) when K % 16 == 0 (TMA's 16-byte row strides of
-    xq and of wq transposed) and K >= FP8_TC_MIN_K (where its sum stays
-    inside the f32 order bound); else "fma" (`_fp8_matmul_fma`, the
-    f32-FMA kernel reading the e4m3 bytes, any shape)."""
-    return "tc" if k % 16 == 0 and k >= FP8_TC_MIN_K else "fma"
+    tensor-core GEMM on f16 conversions of the e4m3 bytes, f32 sum) when
+    K % 16 == 0 and N % 16 == 0 (whole 16-byte cp.async chunks of xq's
+    and wq's rows); else "fma" (`_fp8_matmul_fma`, the f32-FMA kernel
+    reading the e4m3 bytes, any shape)."""
+    return "tc" if k % 16 == 0 and n % 16 == 0 else "fma"
 
 
 def fp8_matmul_reference(xq, wq, scale):
@@ -402,34 +393,20 @@ def fp8_matmul(xq, wq, scale):
         if t.device != xq.device:
             raise ValueError(f"{name} is on {t.device}, xq on {xq.device}")
     xq, wq, scale = xq.contiguous(), wq.contiguous(), scale.contiguous()
-    launcher = (_fp8_matmul_tc if fp8_matmul_route(xq.shape[1]) == "tc"
-                else _fp8_matmul_fma)
+    launcher = (_fp8_matmul_tc
+                if fp8_matmul_route(*wq.shape) == "tc" else _fp8_matmul_fma)
     return launcher(xq, wq, scale)
 
 
 def _fp8_matmul_tc(xq, wq, scale):
     """`fp8_matmul` on the card through `csrc/blocked_matmul.cu::
-    gemm_fp8_kernel`: wq copied transposed to (N, K) (the 8-bit wgmma
-    reads both operands K-major), both by TMA, four k32 wgmmas a stage
-    promoted into the f32 accumulator, the scale in the epilogue.
-    Reached only through `fp8_matmul`; its own function so that its
-    launches count apart."""
-    (m, k), n = xq.shape, wq.shape[1]
-    if -(-m // (64 * tc_warpgroups(m))) > 65535:
-        raise ValueError(f"M={m} is over the kernel's 65535 x 128 rows")
-    wq_t = wq.view(torch.uint8).t().contiguous()
-    for name, t in (("xq", xq), ("wq_t", wq_t)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"the e4m3 matmul reads {name} by TMA, which "
-                             f"needs a 16-byte aligned address; got "
-                             f"{t.data_ptr():#x}")
-    out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
-    lib = _kernel()
-    _build.launch(_fp8_matmul_tc, lib.gemm_fp8,
-                  lib.blocked_matmul_error_string, xq.device, xq.data_ptr(),
-                  wq_t.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k,
-                  tc_warpgroups(m))
-    return out
+    gemm_tc_kernel` with both operands e4m3: xq and wq staged as bytes by
+    cp.async, converted to f16 (exact) in shared memory, multiplied on
+    the tensor cores into an f32 sum, the scale in the epilogue; K split
+    over more blocks when the output tiles are too few (`tc_splits`,
+    partial sums added in split order). Reached only through
+    `fp8_matmul`; its own function so that its launches count apart."""
+    return _launch_tc(_fp8_matmul_tc, xq, wq, scale, torch.float32)
 
 
 _fp8_matmul_tc.launches = 0

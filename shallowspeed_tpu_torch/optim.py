@@ -125,7 +125,7 @@ class _Optimizer:
         return state
 
     @torch.no_grad()
-    def guarded_step(self, params, grads, state, ok):
+    def guarded_step(self, params, grads, state, ok, old_params=None):
         """`step` with the whole update gated on `ok`: when it is false
         every parameter and every optimizer-state leaf — moments,
         Adafactor's factored slots, the step counter — keeps its old
@@ -134,7 +134,10 @@ class _Optimizer:
 
         `ok` is a 0-d bool tensor on the device (the health pack's
         `nonfinite == 0`): the tensors are snapshotted, updated in
-        place and put back with `torch.where`, no host branch. The step
+        place and put back with `torch.where`, no host branch.
+        `old_params`, bit-exact copies of the parameters in JAX leaf
+        order (`telemetry.health.snapshot`, which the health pack takes
+        anyway), stand in for the parameters' own snapshot. The step
         counter is a host int, so an optimizer whose state carries one
         reads `ok` once, after the update's kernels are queued (the
         card keeps running them while the host waits). A host bool `ok`
@@ -145,8 +148,13 @@ class _Optimizer:
                 else (params, state)
         # every optimizer here updates its tensors in place, so the
         # snapshot pairs each tensor with its own old value
-        pairs = [(t, t.clone()) for t in leaves((params, state))
-                 if isinstance(t, torch.Tensor)]
+        if old_params is None:
+            pairs = [(t, t.clone()) for t in leaves(params)
+                     if isinstance(t, torch.Tensor)]
+        else:
+            pairs = list(zip(sorted_leaves(params), old_params))
+        pairs += [(t, t.clone()) for t in leaves(state)
+                  if isinstance(t, torch.Tensor)]
         params, new_state = self.step(params, grads, state)
         for t, o in pairs:
             t.copy_(torch.where(ok.to(t.device), t, o))

@@ -45,7 +45,7 @@ from shallowspeed_tpu_torch.data.dataset import stack_epoch
 from shallowspeed_tpu_torch.engine import check_planes, reduce_replicas
 from shallowspeed_tpu_torch.telemetry.health import (engine_snapshot,
                                                      note_step,
-                                                     step_with_health)
+                                                     step_replicas_with_health)
 from shallowspeed_tpu_torch.models.mlp import init_linear_np, stage_layer_sizes
 from shallowspeed_tpu_torch.weights import map_tree, placed_copy, to_host
 
@@ -290,18 +290,9 @@ class SPMDPipelineEngine:
                 _, self._opt_states[r] = self.optimizer.step(
                     self._replicas[r], g, self._opt_states[r])
             return
-        _, self._opt_states[0], pack = step_with_health(
-            self.optimizer, self._replicas[0], totals[0],
-            self._opt_states[0], self.health)
-        for r, g in enumerate(totals[1:], 1):
-            if self.health == "guard":
-                _, self._opt_states[r] = self.optimizer.guarded_step(
-                    self._replicas[r], g, self._opt_states[r],
-                    pack["skipped"] == 0)
-            else:
-                _, self._opt_states[r] = self.optimizer.step(
-                    self._replicas[r], g, self._opt_states[r])
-        note_step(self, pack)
+        note_step(self, step_replicas_with_health(
+            self.optimizer, self._replicas, totals, self._opt_states,
+            self.health))
 
     def health_snapshot(self) -> dict | None:
         """The last batch's health pack and the cumulative counters as a

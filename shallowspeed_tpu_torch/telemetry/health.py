@@ -91,10 +91,14 @@ def grad_health(params, grads) -> dict:
 
 @torch.no_grad()
 def snapshot(params) -> list:
-    """Copies of the parameters' leaves (JAX leaf order): the "old"
-    side of `update_health`, taken before an in-place update."""
-    return torch._foreach_mul([p.detach() for p in sorted_leaves(params)],
-                              1.0)
+    """Bit-exact copies of the parameters' leaves (JAX leaf order): the
+    "old" side of `update_health`, taken before an in-place update, and
+    under guard what a skipped step puts back (`guarded_step`'s
+    `old_params`)."""
+    src = [p.detach() for p in sorted_leaves(params)]
+    out = [torch.empty_like(p) for p in src]
+    torch._foreach_copy_(out, src)
+    return out
 
 
 @torch.no_grad()
@@ -313,14 +317,34 @@ def step_with_health(optimizer, params, grads, state, mode: str):
     """The engines' update under health `mode` ("monitor" or "guard"):
     the pack of the reduced `grads`, the optimizer step — under "guard"
     gated on the pack's `nonfinite == 0` (`guarded_step`) — and
-    `update_health` (with `skipped` under guard). Returns (params,
-    state, pack)."""
+    `update_health` (with `skipped` under guard). One parameter
+    `snapshot` serves both the update ratio and the guard's restore.
+    Returns (params, state, pack)."""
     pack = grad_health(params, grads)
     old = snapshot(params)
     if mode == "guard":
         ok = pack["nonfinite"] == 0
-        params, state = optimizer.guarded_step(params, grads, state, ok)
+        params, state = optimizer.guarded_step(params, grads, state, ok,
+                                               old_params=old)
         return params, state, update_health(pack, old, params,
                                             skipped=(~ok).to(torch.int32))
     params, state = optimizer.step(params, grads, state)
     return params, state, update_health(pack, old, params)
+
+
+def step_replicas_with_health(optimizer, replicas, totals, states,
+                              mode: str) -> dict:
+    """The data-parallel engines' update under health `mode`: replica 0
+    through `step_with_health` (the pack: the replicas' reduced
+    gradients are equal), every other replica taking the same guard
+    decision. Replaces `states[r]` with each replica's new state;
+    returns the pack."""
+    _, states[0], pack = step_with_health(optimizer, replicas[0], totals[0],
+                                          states[0], mode)
+    for r in range(1, len(replicas)):
+        if mode == "guard":
+            _, states[r] = optimizer.guarded_step(
+                replicas[r], totals[r], states[r], pack["skipped"] == 0)
+        else:
+            _, states[r] = optimizer.step(replicas[r], totals[r], states[r])
+    return pack

@@ -32,8 +32,7 @@ verified checkpoint.
 
 `--health monitor|guard` computes the health pack on the device every
 batch (guard skips an update with non-finite gradients, bit for bit),
-steps the fused and SPMD engines batch by batch, prints the anomaly
-verdicts and writes a `health` record after every epoch, and skips the
+prints the anomaly verdicts and writes a `health` record after every epoch, and skips the
 checkpoint of an unhealthy epoch. `--engine fp8` is the single-device
 fp8-e4m3 trainer (`fp8.Fp8TrainEngine`, `train_fp8`): step lines every
 `--log-every` steps with the numerics fields, shadow parity every
@@ -406,15 +405,14 @@ def train(args):
         engine=type(engine).__name__, batch_size=args.batch_size,
         device=str(device))
     # the health pack and its monitor, fed once an epoch (the pack is
-    # computed on the device every batch; a guard skip happens in-step)
+    # computed on the device every batch, by the engine's step, staged
+    # epoch or not; a guard skip happens in-step)
     monitor = (HealthMonitor(policy=GuardPolicy.for_mode(args.health))
                if args.health != "off" else None)
     # fused / spmd engines: the epoch's batches placed on the device
-    # once, each epoch stepped with no host copy per batch — unless
-    # health is on, whose pack rides the per-batch step
+    # once, each epoch stepped with no host copy per batch
     staged = (engine.stage_epoch(train_ds, n_batches)
-              if hasattr(engine, "train_epoch") and monitor is None
-              else None)
+              if hasattr(engine, "train_epoch") else None)
     start = time.time()
     try:
         for epoch in range(start_epoch, args.epochs):
@@ -424,9 +422,6 @@ def train(args):
             t_epoch = time.time()
             if staged is not None:
                 engine.train_epoch(staged)
-            elif hasattr(engine, "train_epoch"):
-                for batch_id in range(n_batches):
-                    engine.train_batch(batch_id, train_ds)
             else:
                 for batch_id in range(n_batches):
                     engine.train_batch(schedule_cls, args.mubatches,

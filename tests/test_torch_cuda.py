@@ -894,42 +894,84 @@ def _fp8_inputs(m, k, n, dev, seed=0):
     return x, w, sx, sw
 
 
+# the e4m3 GEMM's tensor-core build against its exact-f32 FMA build on
+# the same inputs: ||tc - exact|| <= FP8_TC_VS_FMA ||fma - exact||
+# (chip_smoke.py's rule: twice the largest ratio an H100 read, 4.07 at
+# K 8192; a 14-bit accumulator must land past it)
+FP8_TC_VS_FMA = 8.0
+
+
+def _fp8_exact(xq, wq, scale):
+    """The exact product (f64) and the f32 order bound K 2^-24
+    sum|terms| per element."""
+    xd, wd, sd = xq.double(), wq.double(), scale.double()
+    bound = xq.shape[1] * 2.0 ** -24 * (xd.abs() @ wd.abs()) * sd
+    return (xd @ wd) * sd, bound
+
+
+def _rel(got, exact):
+    return float((got.double() - exact).norm() / exact.norm())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(8192, 2048, 2048), (256, 8192, 384),
-                                   (100, 2048, 130), (128, 784, 128),
-                                   (128, 127, 126), (128, 123, 10)])
+                                   (100, 2048, 130), (100, 2048, 144),
+                                   (128, 784, 128), (128, 127, 126),
+                                   (128, 123, 10)])
 def test_cuda_fp8_matmul_routes_and_bound(cuda, m, k, n):
     """The e4m3 GEMM on the build its route picks (one launch), within
-    the f32 order bound K 2^-24 sum|terms| of the exact product, its
-    quantized bytes the CPU's, a NaN input row a NaN output row."""
+    the f32 order bound K 2^-24 sum|terms| of the exact product, the
+    tensor-core build within FP8_TC_VS_FMA of the FMA build's error,
+    its quantized bytes the CPU's, a NaN input row a NaN output row."""
     from shallowspeed_tpu_torch.ops import matmul as MM
 
     x, w, sx, sw = _fp8_inputs(m, k, n, cuda, m + k)
     xq, wq = MM.fp8_quantize(x, sx), MM.fp8_quantize(w, sw)
     assert torch.equal(xq.view(torch.uint8).cpu(),
                        MM.fp8_quantize(x.cpu(), sx.cpu()).view(torch.uint8))
-    counter = {"tc": MM._fp8_matmul_tc,
-               "fma": MM._fp8_matmul_fma}[MM.fp8_matmul_route(k)]
+    route = MM.fp8_matmul_route(k, n)
+    counter = {"tc": MM._fp8_matmul_tc, "fma": MM._fp8_matmul_fma}[route]
     before = counter.launches
     got = MM.fp8_matmul(xq, wq, sx * sw)
     assert counter.launches == before + 1
-    xd, wd, sd = xq.double(), wq.double(), (sx * sw).double()
-    exact = (xd @ wd) * sd
-    bound = k * 2.0 ** -24 * (xd.abs() @ wd.abs()) * sd
+    exact, bound = _fp8_exact(xq, wq, sx * sw)
     assert bool(((got.double() - exact).abs() <= bound).all())
+    if route == "tc":
+        fma = MM._fp8_matmul_fma(xq, wq, sx * sw)
+        assert _rel(got, exact) <= FP8_TC_VS_FMA * _rel(fma, exact)
     x[m // 2] = float("nan")
     out = MM.fp8_matmul(MM.fp8_quantize(x, sx), wq, sx * sw)
     assert torch.isnan(out[m // 2]).all() and torch.isfinite(out[0]).all()
 
 
 @pytest.mark.cuda
+def test_cuda_fp8_matmul_coarse_accumulator_fails_rule(cuda):
+    """The FP8_TC_VS_FMA rule catches an accumulator coarser than f32:
+    the product summed 32 values of K at a time into an f32 accumulator
+    truncated to 14 significant bits (the 8-bit wgmma's) lands past it
+    at a tensor-core shape."""
+    from shallowspeed_tpu_torch.ops import matmul as MM
+
+    x, w, sx, sw = _fp8_inputs(512, 2048, 384, cuda, 5)
+    xq, wq, scale = MM.fp8_quantize(x, sx), MM.fp8_quantize(w, sw), sx * sw
+    acc = torch.zeros(512, 384, device=cuda)
+    for k0 in range(0, 2048, 32):
+        part = xq[:, k0:k0 + 32].double() @ wq[k0:k0 + 32].double()
+        acc = ((acc.double() + part).float().view(torch.int32)
+               & ~((1 << 10) - 1)).view(torch.float32)
+    exact, _ = _fp8_exact(xq, wq, scale)
+    fma = MM._fp8_matmul_fma(xq, wq, scale)
+    assert _rel(acc * scale, exact) > FP8_TC_VS_FMA * _rel(fma, exact)
+
+
+@pytest.mark.cuda
 def test_cuda_fp8_dense_grads_match_cpu(cuda):
     """fp8_dense's forward and straight-through gradients on the card
     against the CPU's on the same inputs: the same bytes; the card's
-    forward is the tensor-core build, whose sum keeps fewer bits than
-    f32 (inside the f32 order bound, ~2e-4 of the largest output at K
-    2048), and the gradients inherit it through the cotangent 2y: 1e-3
-    of each tensor's largest entry."""
+    forward is the tensor-core build, an f32 sum in another order
+    (inside the f32 order bound), and the gradients inherit the
+    difference through the cotangent 2y: 1e-3 of each tensor's largest
+    entry."""
     from shallowspeed_tpu_torch.ops import matmul as MM
 
     x, w, sx, _ = _fp8_inputs(256, 2048, 384, cuda)
@@ -948,8 +990,9 @@ def test_cuda_fp8_dense_grads_match_cpu(cuda):
 def test_cuda_fp8_engine_matches_cpu(cuda):
     """Fp8TrainEngine at the MLP's full width, 6 steps with shadow
     parity, on the card and on the CPU: losses within 1e-3 relative
-    (an amax an ulp apart can move a delayed scale across an e4m3 tie),
-    every forward product on the FMA build (K < FP8_TC_MIN_K)."""
+    (an amax an ulp apart can move a delayed scale across an e4m3 tie);
+    the first layer (784 -> 128) on the tensor-core build, the others
+    (widths not multiples of 16) on the FMA build."""
     from shallowspeed_tpu_torch.fp8 import Fp8TrainEngine
     from shallowspeed_tpu_torch.ops import matmul as MM
     from shallowspeed_tpu_torch.optim import SGD
@@ -965,9 +1008,10 @@ def test_cuda_fp8_engine_matches_cpu(cuda):
         losses[str(dev)] = [eng.train_batch(x, y) for x, y in batches]
         par = eng.shadow_parity(*batches[-1])
         assert np.isfinite(par["parity_loss_rel"])
-    before = MM._fp8_matmul_fma.launches
+    before = (MM._fp8_matmul_tc.launches, MM._fp8_matmul_fma.launches)
     Fp8TrainEngine(sizes, SGD(0.006), device=cuda).train_batch(*batches[0])
-    assert MM._fp8_matmul_fma.launches == before + len(sizes) - 1
+    assert (MM._fp8_matmul_tc.launches, MM._fp8_matmul_fma.launches) == (
+        before[0] + 1, before[1] + len(sizes) - 2)
     np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-3)
 
 

@@ -180,15 +180,16 @@ def test_fp8_dense_typed_errors(xs, ws, what):
         M.fp8_dense(torch.zeros(xs), torch.zeros(ws), torch.tensor(1.0))
 
 
-@pytest.mark.parametrize("k,route", [(2048, "tc"), (8192, "tc"),
-                                     (4096, "tc"), (2040, "fma"),
-                                     (1024, "fma"), (784, "fma"),
-                                     (127, "fma"), (123, "fma"),
-                                     (16, "fma")])
-def test_fp8_matmul_route(k, route):
-    """The tensor-core build takes K a multiple of 16 (TMA strides) from
-    FP8_TC_MIN_K up; the rest go to the exact-f32 FMA build."""
-    assert M.fp8_matmul_route(k) == route
+@pytest.mark.parametrize("k,n,route", [(2048, 6144, "tc"), (8192, 2048, "tc"),
+                                       (2048, 32768, "tc"), (784, 128, "tc"),
+                                       (16, 16, "tc"), (2040, 128, "fma"),
+                                       (128, 127, "fma"), (127, 126, "fma"),
+                                       (123, 10, "fma"), (2048, 10, "fma")])
+def test_fp8_matmul_route(k, n, route):
+    """The tensor-core build takes K and N multiples of 16 (whole
+    16-byte chunks of xq's and wq's rows); the rest go to the exact-f32
+    FMA build."""
+    assert M.fp8_matmul_route(k, n) == route
 
 
 def test_fp8_matmul_plain_version_nan_rows():

@@ -273,6 +273,43 @@ def test_guarded_step_skips_bit_for_bit(name):
     assert _same(_state_copy((params, state)), before)
 
 
+@pytest.mark.parametrize("name", list(OPTS))
+def test_step_replicas_with_health_guard_skips_bit_for_bit(name):
+    """`step_replicas_with_health` under guard on two replicas: a NaN
+    gradient leaves both replicas' parameters and state bit for bit
+    (replica 0 restored from the pack's own parameter snapshot), the
+    pack counts the skip with a zero update ratio; a finite gradient is
+    the plain step on both."""
+    opt = OPTS[name]()
+    rng = np.random.default_rng(1)
+    mk = lambda: {"W": torch.from_numpy(  # noqa: E731
+        rng.standard_normal((6, 4)).astype(np.float32)),
+        "b": [torch.from_numpy(rng.standard_normal(4).astype(np.float32))]}
+    p0 = mk()
+    reps = [p0, deepcopy(p0)]
+    states = [opt.init(p) for p in reps]
+    g = mk()
+    pack = H.step_replicas_with_health(opt, reps, [g, deepcopy(g)], states,
+                                       "guard")
+    assert int(pack["skipped"]) == 0
+    before = [_state_copy((p, st)) for p, st in zip(reps, states)]
+    bad = mk()
+    bad["W"][2, 1] = float("inf")
+    pack = H.step_replicas_with_health(opt, reps, [bad, deepcopy(bad)],
+                                       states, "guard")
+    assert int(pack["skipped"]) == 1 and float(pack["update_ratio"]) == 0.0
+    for r in range(2):
+        assert _same(_state_copy((reps[r], states[r])), before[r])
+    twin_p, twin_s = deepcopy(reps[0]), deepcopy(states[0])
+    g = mk()
+    gs = [deepcopy(g) for _ in range(3)]    # a step may clip in place
+    H.step_replicas_with_health(opt, reps, gs[:2], states, "guard")
+    twin_p, twin_s = opt.step(twin_p, gs[2], twin_s)
+    for r in range(2):
+        assert _same(_state_copy((reps[r], states[r])),
+                     _state_copy((twin_p, twin_s)))
+
+
 # ------------------------------------------------------- the engines
 
 SIZES = [784, 32, 31, 30, 29, 28, 27, 10]
