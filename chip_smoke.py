@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
 1. Build every CUDA kernel of the serving, training and probe paths
    from `csrc/` with nvcc (sm_90a), one nvcc per source, all started
    together; print each kernel's registers and spills, and the dynamic
-   shared memory of the tensor-core builds (K1, K2, K3 in bf16, the
+   shared memory of the tensor-core builds (K1, K2, K3 in bf16, K1
+   also with its f32 epilogue, the
    GEMM of K5 and `dequant_matmul`, and the e4m3 GEMM of `fp8_dense`),
    which must compile without a spill,
    and of K4's split kernel, whose 32 builds and 4 merge builds must
@@ -98,8 +99,9 @@ Phases (any failure exits non-zero and prints no result line):
    steps, with the launch counts zeroed just before them: the
    tensor-core builds of K1, K2 and K3 must each equal n_layers x steps
    after, their f32-FMA builds 0; and a finite, falling loss.
-6b. Data and checkpoints at full width, through `train_lm.main` and
-   `serve --ckpt`'s loader: a token-shard corpus (`build_shards`, vocab
+6b. Data and checkpoints at full width and CKPT_LAYERS (4) of the 16
+   layers, through `train_lm.main` and `serve --ckpt`'s loader: a
+   token-shard corpus (`build_shards`, vocab
    32768, 10 % held out, 16-token motifs from numpy seed 7); run A
    trains 6 steps from it (--val-every 3 --prefetch 2); run B trains 3
    and saves synchronously; run C resumes B's checkpoint to step 6
@@ -188,11 +190,34 @@ Phases (any failure exits non-zero and prints no result line):
    health="guard" leaves its state bit for bit; phase 6's step with
    health "off", "monitor" and "guard" in turns, the pack's and the
    guard's added ms and peak memory.
+12. Data x sequence parallelism, every cell of a (dp, sp) grid the
+   card. (a) K1's bf16 build with the f32 epilogue (`_flash_fwd_tc_f32o`,
+   ring attention's chunk output) at the ring's chunk shape (2 x 1024 x
+   16 x 128) at rel 0, rel 1024, rel -1024 with window 512 (every row
+   masked: o 0, lse -1e30) and with 4 kv heads, against its plain
+   version under the kernels' rule; its time at rel 1024 beside the
+   plain version, SDPA's non-causal forward and the bound. (b)
+   `ring_flash_attention` at sp 2 and 4 on 2 x 2048 x 16 x 128 against
+   `flash_attention` over the gathered sequence: o and the gradients
+   within RING_TOL_BF16, o also per element against the plain f32
+   attention, K1-K3 launches sp (sp + 1) / 2 each. (c)
+   `ContextParallelEngine` at full width and depth (AdamW 3e-4, phase
+   6's batch and weights) in CP_LAYOUTS: dp 2 x sp 2 ring-flash, dp 1 x
+   sp 4 ulysses-flash, dp 2 flash ZeRO-1, dp 2 x sp 2 ring-flash ZeRO-2
+   accum 2: the loss at init within PARITY_LOSS_BUDGET of phase 6's,
+   every first-step gradient leaf within GRAD_TOL_BF16 of the one-device
+   flash engine's, CP_STEPS timed steps with the counts zeroed before
+   them (K1, K2, K3 each `cp_launches_per_step`), falling losses, step
+   p50, tok/s, MFU, peak memory, the optimizer state the cells hold, and
+   the dense dp 2 layout beside ZeRO-1 and ZeRO-2. (d) `train_lm --dp 2
+   --sp 2 --attn ring-flash --zero2 --accum 2` at full width and 2
+   layers, 4 steps and a save, then `--resume` at dp 1, sp 1 (flash):
+   its losses within PARITY_LOSS_BUDGET of a straight run's.
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers (with `device_ms` / `library_device_ms` where the
-profiler timed them, and K1-K3's `recipe_launches` from phase 10a), and
-`{"ok": true, "device": {...}}`.
+profiler timed them, K1-K3's `recipe_launches` from phase 10a and
+`cp_launches` from phase 12c), and `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -331,9 +356,10 @@ def _ptxas_lines(log: str) -> list[str]:
             wg, bt, at = re.findall(r"Li(\d+)E", m.group(2))[:3]
             name = (f"gemm_tc_kernel<wg{wg},{_GEMM_B[bt]}>" if at == "1"
                     else f"gemm_tc_kernel<wg{wg},e4m3 x e4m3>")
-        elif m and m.group(1).endswith("_tc_kernel"):   # <int D>, bf16
+        elif m and m.group(1).endswith("_tc_kernel"):   # <int D[, f32 o]>
             d = re.match(r"Li(\d+)E", m.group(2)).group(1)
-            name = f"{m.group(1)}<bf16,{d}>"
+            f32o = ",f32o" if "Lb1E" in m.group(2) else ""
+            name = f"{m.group(1)}<bf16,{d}{f32o}>"
         elif m and m.group(1) == "blocked_matmul_kernel":   # <x, y, out>
             name = m.group(1) + "<" + ",".join(_type_args(m.group(2))) + ">"
         elif m and m.group(2):
@@ -361,7 +387,8 @@ def _tc_builds():
     per_d = [(f"<bf16,{d}>", d) for d in (64, 128)]
     return [
         ("flash_fwd", "flash_fwd_tc_kernel",
-         [(t, fwd.flash_fwd_tc_smem(d)) for t, d in per_d]),
+         [(f"<bf16,{d}{o}>", fwd.flash_fwd_tc_smem(d))
+          for o in ("", ",f32o") for d in (64, 128)]),
         ("flash_bwd", "flash_dq_tc_kernel",
          [(t, bwd.flash_dq_tc_smem(d)) for t, d in per_d]),
         ("flash_bwd", "flash_dkv_tc_kernel",
@@ -1804,6 +1831,9 @@ def train(dev, cfg, np_params) -> dict:
 # random order (numpy seed 7), so the loss falls; CKPT_STEPS steps, a
 # checkpoint after CKPT_SAVE_AT of them, validation every CKPT_SAVE_AT.
 CKPT_WINDOWS = 64
+# phase 6b's depth (its width is never cut): 4 of the 16 layers, a 4.8 GB
+# checkpoint in place of 14.55 GB, to keep the script within its time
+CKPT_LAYERS = 4
 CKPT_MOTIFS = 64
 CKPT_STEPS = 6
 CKPT_SAVE_AT = 3
@@ -3212,6 +3242,418 @@ def run_fp8_mlp(dev, cfg, np_params, card) -> dict:
     return out
 
 
+# Phase 12: data x sequence parallelism on the one card, every cell of a
+# (dp, sp) grid the card. (a) K1's f32-output build at the ring's chunk
+# shape; (b) `ring_flash_attention` whole against one-device
+# `flash_attention`; (c) `ContextParallelEngine` at full depth in
+# CP_LAYOUTS; (d) the driver at CP_DRIVER_LAYERS layers with a checkpoint
+# that crosses layouts.
+RING_CHUNK = (2, 1024, 16, 128)          # B, T / sp, heads, head_dim
+RING_CHUNK_CASES = [("rel0", 0, 0, 16), ("rel1024", 1024, 0, 16),
+                    ("rel-1024-window512", -1024, 512, 16),
+                    ("gqa", 0, 0, 4)]    # name, rel, window, kv heads
+RING_WHOLE = (2, 2048, 16, 128)
+RING_SPS = (2, 4)
+# ring (or the engine) against one-device flash_attention: both round o
+# and the gradients to bf16 once, at other points; the bf16 bound of
+# tests/test_torch_cuda.py::test_flash_attention_grads_match_plain_
+# attention, as max |diff| / max |ref|
+RING_TOL_BF16 = 2e-2
+# name, dp, sp, attn, engine options
+CP_LAYOUTS = [("dp2-sp2-ring-flash", 2, 2, "ring-flash", {}),
+              ("dp1-sp4-ulysses-flash", 1, 4, "ulysses-flash", {}),
+              ("dp2-sp1-flash-zero1", 2, 1, "flash", {"zero1": True}),
+              ("dp2-sp2-ring-flash-zero2-accum2", 2, 2, "ring-flash",
+               {"zero2": True, "accum": 2})]
+CP_STEPS = 5
+CP_DRIVER_LAYERS = 2
+CP_DRIVER_STEPS = 4
+
+
+def check_ring_chunk(dev) -> tuple[float, dict]:
+    """Phase 12a: K1's bf16 build with the f32 epilogue
+    (`_flash_fwd_tc_f32o`) at RING_CHUNK, for each RING_CHUNK_CASES entry,
+    against its plain version (`out_dtype` float32) under
+    `FA.kernel_ratio`'s rule with the o term of `tc_rounding_terms` (the
+    output is f32: no bf16 ulp), lse within LSE_TOL; a fully masked
+    chunk must give o 0 and lse -1e30; the bf16 build's o must be the
+    f32 o rounded once. Then its time at rel 1024 (no mask) beside the
+    plain version, SDPA's non-causal forward and the bound. Returns
+    (max |diff|, timing)."""
+    import torch
+    import torch.nn.functional as F
+
+    from shallowspeed_tpu_torch.ops import flash_attention as FA
+
+    b, t, h, d = RING_CHUNK
+    f32 = torch.float32
+    worst = 0.0
+    for ci, (name, rel, window, hkv) in enumerate(RING_CHUNK_CASES):
+        q, k, v, _ = _train_kernel_inputs(dev, torch.bfloat16,
+                                          (b, t, t, h, hkv, d), 200 + ci)
+        kw = dict(causal=True, window=window, rel=rel)
+        before = FA._flash_fwd_tc_f32o.launches
+        o, lse = FA.flash_fwd(q, k, v, out_dtype=f32, **kw)
+        torch.cuda.synchronize()
+        if FA._flash_fwd_tc_f32o.launches != before + 1 or o.dtype != f32:
+            raise AssertionError(f"ring chunk {name}: the call did not "
+                                 f"launch _flash_fwd_tc_f32o or gave "
+                                 f"{o.dtype}")
+        if not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"ring chunk {name}: non-finite o")
+        o_ref, lse_ref = FA.flash_fwd_reference(q, k, v, out_dtype=f32, **kw)
+        if not bool((lse_ref > -1e29).any()):
+            if float(o.abs().max()) != 0.0 or not bool((lse == -1e30).all()):
+                raise AssertionError(f"ring chunk {name}: every row is "
+                                     f"masked, yet o or lse is not 0 / -1e30")
+            print(f"check flash_fwd_tc_f32o {name}: every row masked, o 0 "
+                  f"and lse -1e30", flush=True)
+            continue
+        terms = FA.tc_rounding_terms(q, k, v, **kw)
+        err, ratio = FA.kernel_ratio(o, o_ref, extra=terms["o"])
+        lse_rel = _lse_err(lse, lse_ref)
+        o16, _ = FA.flash_fwd(q, k, v, **kw)
+        r16 = FA.kernel_ratio(o16, o, rounded=True)[1]
+        print(f"check flash_fwd_tc_f32o {name}: max_abs_err {err:.3e}, "
+              f"worst element at {ratio:.3e} of its allowance, lse rel "
+              f"{lse_rel:.3e}; the bf16 build's o at {r16:.3e} of one "
+              f"rounding of it (bit-equal: "
+              f"{torch.equal(o16, o.to(torch.bfloat16))})", flush=True)
+        if not (ratio <= 1.0 and lse_rel <= LSE_TOL and r16 <= 1.0):
+            raise AssertionError(f"ring chunk {name}: o at {ratio:.3e}, "
+                                 f"lse {lse_rel:.3e}, bf16 o at {r16:.3e}")
+        worst = max(worst, err)
+        del o_ref, lse_ref, terms
+
+    # timing at rel 1024: every key before every query, no mask
+    counts = FA._flash_fwd_tc_f32o.launches
+    sets = [_train_kernel_inputs(dev, torch.bfloat16, (b, t, t, h, h, d),
+                                 210 + i)[:3] for i in range(6)]
+
+    def kern(q, k, v):
+        FA.flash_fwd(q, k, v, rel=t, out_dtype=f32)
+
+    def plain(q, k, v):
+        FA.flash_fwd_reference(q, k, v, rel=t, out_dtype=f32)
+
+    lib = [tuple(x.transpose(1, 2).contiguous() for x in s) for s in sets]
+
+    def library(q, k, v):
+        F.scaled_dot_product_attention(q, k, v)
+
+    out = {"ms": _time_ms(kern, sets), "plain_ms": _time_ms(plain, sets),
+           "library_ms": _time_ms(library, lib)}
+    for key, fn, args in (("device_ms", kern, sets),
+                          ("library_device_ms", library, lib)):
+        prof = _profiled(lambda: [fn(*a) for a in args], [])
+        out[key] = (prof["device_busy_ms"] / len(args)
+                    if prof["device_busy_ms"] is not None else None)
+    FA._flash_fwd_tc_f32o.launches = counts     # timing launches do not count
+    flops = 4 * d * b * h * t * t
+    nbytes = 3 * b * t * h * d * 2 + b * t * h * d * 4 + b * h * t * 4
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    out.update(bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    print("time flash_fwd_tc_f32o: " + json.dumps(out), flush=True)
+    return worst, out
+
+
+def _max_rel(got, ref) -> float:
+    got, ref = got.float(), ref.float()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def check_ring_whole(dev) -> dict:
+    """Phase 12b: `ring_flash_attention` at RING_WHOLE over sp cells of
+    the card, for each of RING_SPS, against `flash_attention` over the
+    gathered sequence: o and dq, dk, dv (the cotangent dO random) within
+    RING_TOL_BF16, o also per element against the plain f32 attention
+    under the kernels' rule (one bf16 rounding of o, the P term of
+    `tc_rounding_terms`); each layer's K1 (f32 o), K2 and K3 launches
+    sp (sp + 1) / 2."""
+    import torch
+
+    from shallowspeed_tpu_torch.ops import flash_attention as FA
+
+    b, t, h, d = RING_WHOLE
+    q, k, v, do = _train_kernel_inputs(dev, torch.bfloat16, (b, t, t, h, h, d),
+                                       300)
+
+    def run(fn):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        o = fn(*xs)
+        grads = torch.autograd.grad(o, xs, do)
+        torch.cuda.synchronize()
+        return o.detach(), grads
+
+    o_flash, g_flash = run(lambda a, b_, c: FA.flash_attention(a, b_, c))
+    o_plain, _ = FA.flash_fwd_reference(q, k, v, out_dtype=torch.float32)
+    term = FA.tc_rounding_terms(q, k, v)["o"]
+    counters = (FA._flash_fwd_tc_f32o, FA._flash_dq_tc, FA._flash_dkv_tc)
+    saved = [c.launches for c in counters]
+    out = {}
+    for sp in RING_SPS:
+        before = [c.launches for c in counters]
+        o, grads = run(lambda a, b_, c: FA.ring_flash_attention(
+            a, b_, c, [dev] * sp))
+        launched = [c.launches - n for c, n in zip(counters, before)]
+        want = [sp * (sp + 1) // 2] * 3
+        rels = {"o": _max_rel(o, o_flash), **{
+            f"d{n}": _max_rel(g, r) for n, g, r in zip("qkv", grads,
+                                                       g_flash)}}
+        ratio = FA.kernel_ratio(o, o_plain, rounded=True, extra=term)[1]
+        out[f"sp{sp}"] = {"vs_flash": rels, "o_vs_plain_ratio": ratio,
+                          "launches": launched}
+        print(f"check ring_flash_attention sp {sp}: vs flash_attention "
+              f"{json.dumps(rels)} (tol {RING_TOL_BF16:g}), o at "
+              f"{ratio:.3e} of the kernels' allowance against the plain "
+              f"f32 attention; K1 (f32 o), K2, K3 launches {launched} "
+              f"(want {want})", flush=True)
+        if launched != want or ratio > 1.0 or not all(
+                np.isfinite(x) and x <= RING_TOL_BF16 for x in rels.values()):
+            raise AssertionError(f"ring_flash_attention sp {sp}: {rels}, o "
+                                 f"ratio {ratio:.3e}, launches {launched}")
+    for c, n in zip(counters, saved):
+        c.launches = n
+    return out
+
+
+def _cp_counters(attn):
+    """The K1, K2, K3 launchers a bf16 substrate runs: ring-flash's K1
+    writes f32 chunk outputs."""
+    from shallowspeed_tpu_torch.ops import flash_attention as FA
+
+    k1 = FA._flash_fwd_tc_f32o if attn == "ring-flash" else FA._flash_fwd_tc
+    return k1, FA._flash_dq_tc, FA._flash_dkv_tc
+
+
+def _all_train_counters():
+    """Every launcher of K1, K2 and K3: `_train_counters`' and K1's
+    f32-output build."""
+    from shallowspeed_tpu_torch.ops import flash_attention as FA
+
+    tc, fma = _train_counters()
+    return (*tc, FA._flash_fwd_tc_f32o, *fma)
+
+
+def cp_launches_per_step(attn, dp, sp, accum, n_layers, window=0) -> int:
+    """K1, K2 and K3 launches (each) of one step, the reference's
+    branches: per layer, replica and microbatch, ring-flash sp (sp + 1) /
+    2 under causal masking with no window (sp^2 with one),
+    ulysses-flash sp (one per cell's head group), flash 1."""
+    per = {"ring-flash": sp * (sp + 1) // 2 if window == 0 else sp * sp,
+           "ulysses-flash": sp, "flash": 1}[attn]
+    return per * dp * accum * n_layers
+
+
+def _tensor_bytes(tree) -> int:
+    from shallowspeed_tpu_torch.weights import leaves
+
+    return sum(x.numel() * x.element_size() for x in leaves(tree)
+               if hasattr(x, "element_size"))
+
+
+def run_context_parallel(dev, cfg, np_params, bf16_loss, card) -> dict:
+    """Phase 12c: `ContextParallelEngine` at full width and depth in each
+    CP_LAYOUTS layout (AdamW 3e-4, phase 6's batch and weights): the
+    loss at init within PARITY_LOSS_BUDGET of phase 6's and every
+    first-step gradient leaf within GRAD_TOL_BF16 of the one-device
+    flash engine's (max |diff| / max |ref|); CP_STEPS timed steps with
+    the launch counts zeroed before them (K1, K2, K3 each
+    `cp_launches_per_step`, the other builds 0), finite and falling
+    losses, step p50, tok/s, MFU, the steps' peak memory and the
+    optimizer state the cells hold, and one profiled step; then the
+    dense dp 2 layout beside ZeRO-1 and ZeRO-2 with the bytes ZeRO
+    should free."""
+    import torch
+
+    from shallowspeed_tpu_torch.flops import mfu
+    from shallowspeed_tpu_torch.optim import SGD, AdamW
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+    from shallowspeed_tpu_torch.parallel.mesh import make_context_mesh
+    from shallowspeed_tpu_torch.weights import leaves
+
+    tok, tgt = _train_batch(cfg)
+    ref = ContextParallelEngine(cfg, SGD(0.0), attn="flash", device=dev,
+                                params=np_params)
+    _, ref_grads = ref.loss_and_grads(tok, tgt)
+    ref_grads = [g.to("cpu") for g in leaves(ref_grads)]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = _all_train_counters()
+    results, launches = {}, {}
+    for name, dp, sp, attn, kw in CP_LAYOUTS:
+        t0 = time.perf_counter()
+        eng = ContextParallelEngine(
+            cfg, AdamW(3e-4, weight_decay=0.01, grad_clip=1.0), attn=attn,
+            mesh=make_context_mesh(dp, sp, dev), params=np_params, **kw)
+        init_s = time.perf_counter() - t0
+        loss0, grads = eng.loss_and_grads(tok, tgt)
+        loss0 = float(loss0)
+        worst, where = 0.0, ""
+        for path, g, r in zip(leaves(_paths(grads)), leaves(grads),
+                              ref_grads):
+            rel = _max_rel(g, r.to(dev))
+            if not rel <= worst:
+                worst, where = rel, path
+        del grads
+        print(f"cp {name}: loss at init {loss0:.6f} vs phase 6's "
+              f"{bf16_loss:.6f} (budget {PARITY_LOSS_BUDGET}), worst first-"
+              f"step grad leaf {where} at {worst:.3e} of the one-device "
+              f"flash engine's (tol {GRAD_TOL_BF16:g})", flush=True)
+        if not (abs(loss0 - bf16_loss) <= PARITY_LOSS_BUDGET
+                and worst <= GRAD_TOL_BF16):
+            raise AssertionError(f"cp {name}: loss {loss0} vs {bf16_loss}, "
+                                 f"grad leaf {where} {worst:.3e}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters:
+            c.launches = 0
+        losses, step_s = [], []
+        for _ in range(CP_STEPS):
+            t0 = time.perf_counter()
+            losses.append(eng.train_batch(tok, tgt))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        counts = {c.__name__.lstrip("_"): c.launches for c in counters}
+        used = _cp_counters(attn)
+        n = CP_STEPS * cp_launches_per_step(attn, dp, sp, kw.get("accum", 1),
+                                            cfg.n_layers, cfg.attn_window)
+        want = {c.__name__.lstrip("_"): (n if c in used else 0)
+                for c in counters}
+        if counts != want:
+            raise AssertionError(f"cp {name}: launches {counts}, want "
+                                 f"{want}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"cp {name}: losses {losses}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        p50 = float(np.median(step_s))
+        tok_s = TRAIN_BATCH * cfg.max_seq / p50
+        perf = mfu(tok_s, cfg, cfg.max_seq, "bf16", device=dev)
+        results[name] = {
+            "dp": dp, "sp": sp, "attn": attn, **kw,
+            "loss_at_init": loss0, "grad_rel_worst": worst,
+            "losses": losses, "step_ms": [1e3 * x for x in step_s],
+            "step_ms_p50": 1e3 * p50, "tok_per_s": tok_s,
+            "tflops": perf["tflops"], "mfu": perf["mfu"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "opt_state_gb": _tensor_bytes(
+                eng._zero.shards if eng._zero is not None
+                else eng._states) / 1e9,
+            "params_gb": _tensor_bytes(eng._replicas) / 1e9,
+            "launches": {k: v for k, v in counts.items() if v},
+            "init_s": init_s}
+        print(f"cp layout {name}: " + json.dumps(results[name]) + f"  [{card}]",
+              flush=True)
+        print(f"cp profile {name}: " + json.dumps(profile_step(eng, tok, tgt)),
+              flush=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    dense, z1, z2 = (results[n] for n in (CP_LAYOUTS[0][0], CP_LAYOUTS[2][0],
+                                          CP_LAYOUTS[3][0]))
+    per_replica = dense["params_gb"] / 2
+    print("cp zero memory: " + json.dumps({
+        "dense_dp2": {k: dense[k] for k in ("peak_mem_gb", "opt_state_gb")},
+        "zero1_dp2": {k: z1[k] for k in ("peak_mem_gb", "opt_state_gb")},
+        "zero2_dp2": {k: z2[k] for k in ("peak_mem_gb", "opt_state_gb")},
+        # AdamW's two moments per replica, halved over 2 cells; ZeRO-2
+        # also keeps one slice of the reduced f32 gradient a cell instead
+        # of a whole copy a replica
+        "zero1_should_free_gb": dense["opt_state_gb"] / 2,
+        "zero2_should_free_gb": dense["opt_state_gb"] / 2 + per_replica,
+        "note": "the layouts differ in substrate and accum too"}) +
+        f"  [{card}]", flush=True)
+    return {"layouts": results, "launches": launches}
+
+
+def run_cp_driver(dev, cfg) -> dict:
+    """Phase 12d: `train_lm --dp 2 --sp 2 --attn ring-flash --zero2
+    --accum 2` at full width and CP_DRIVER_LAYERS layers, CP_DRIVER_STEPS
+    steps with a save at the end (K1 f32 o, K2, K3 launches as
+    `cp_launches_per_step`); `--resume` of that checkpoint at --dp 1
+    --sp 1 --attn flash to CP_DRIVER_STEPS + 2 steps; its losses within
+    PARITY_LOSS_BUDGET of a straight (1, 1) run's at the same steps.
+    The checkpoints live in a temporary directory removed at the end."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from shallowspeed_tpu_torch import train_lm
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cp_"))
+    n, total = CP_DRIVER_LAYERS, CP_DRIVER_STEPS + 2
+    flags = ["--vocab", str(cfg.vocab), "--d-model", str(cfg.d_model),
+             "--n-heads", str(cfg.n_heads), "--n-layers", str(n),
+             "--d-ff", str(cfg.ffn_dim), "--seq-len", str(cfg.max_seq),
+             "--batch-size", str(TRAIN_BATCH), "--rope", "--norm", cfg.norm,
+             "--ffn", cfg.ffn, "--optimizer", "adamw", "--lr", "3e-4",
+             "--grad-clip", "1.0", "--log-every", "1"]
+    if cfg.compute_dtype is not None:
+        flags.append("--bf16")
+    if dev.type == "cpu":
+        flags += ["--device", "cpu"]
+    counters = _all_train_counters()
+
+    def drive(tag, *extra):
+        for c in counters:
+            c.launches = 0
+        log = root / f"{tag}.jsonl"
+        t0 = time.time()
+        train_lm.main([*flags, *extra, "--log-file", str(log)])
+        wall = time.time() - t0
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return {"losses": [e["loss"] for e in _events(log, "step")],
+                "launches": {c.__name__.lstrip("_"): c.launches
+                             for c in counters if c.launches},
+                "wall_s": wall, "log": log}
+
+    try:
+        ck = str(root / "ck")
+        a = drive("a", "--dp", "2", "--sp", "2", "--attn", "ring-flash",
+                  "--zero2", "--accum", "2", "--steps", str(CP_DRIVER_STEPS),
+                  "--save-dir", ck, "--save-every", str(CP_DRIVER_STEPS))
+        k = CP_DRIVER_STEPS * cp_launches_per_step("ring-flash", 2, 2, 2, n)
+        if a["launches"] != dict.fromkeys(("flash_fwd_tc_f32o",
+                                           "flash_dq_tc", "flash_dkv_tc"), k):
+            raise AssertionError(f"cp driver: launches {a['launches']}, "
+                                 f"want {k} each of K1 (f32 o), K2, K3")
+        b = drive("b", "--attn", "flash", "--steps", str(total),
+                  "--save-dir", ck, "--resume")
+        restore, = _events(b["log"], "restore")
+        c = drive("c", "--attn", "flash", "--steps", str(total))
+        gap = max(abs(x - y) for x, y in zip(b["losses"],
+                                             c["losses"][CP_DRIVER_STEPS:]))
+        out = {"losses_dp2_sp2_zero2": a["losses"],
+               "losses_resumed_dp1": b["losses"],
+               "losses_straight_dp1": c["losses"],
+               "resumed_gap": gap, "restore": {
+                   k: restore[k] for k in ("path", "step", "verify_s",
+                                           "load_s", "place_s")},
+               "launches": {"a": a["launches"], "b": b["launches"]},
+               "wall_s": {r: x["wall_s"] for r, x in
+                          (("a", a), ("b", b), ("c", c))}}
+        print("cp driver: " + json.dumps(out), flush=True)
+        if not (len(a["losses"]) == CP_DRIVER_STEPS and len(b["losses"]) == 2
+                and restore["step"] == CP_DRIVER_STEPS
+                and all(np.isfinite(a["losses"] + b["losses"]))
+                and gap <= PARITY_LOSS_BUDGET):
+            raise AssertionError(f"cp driver: the resumed run {b['losses']} "
+                                 f"does not continue the straight run's "
+                                 f"{c['losses']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3314,7 +3756,7 @@ def main() -> int:
     launches.update(trained["launches"])
     gc.collect()
     torch.cuda.empty_cache()
-    run_data_ckpt(dev, cfg)
+    run_data_ckpt(dev, dataclasses.replace(cfg, n_layers=CKPT_LAYERS))
     check_training_parity(dev, cfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3337,6 +3779,17 @@ def main() -> int:
     fp8_mlp = run_fp8_mlp(dev, cfg, np_params, card)
     launches["fp8_matmul_tc"] = fp8_lm["launches"]["fp8_matmul_tc"]
     launches["fp8_matmul_fma"] = fp8_mlp["launches"]["fp8_matmul_fma"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs["flash_fwd_tc_f32o"], timing["flash_fwd_tc_f32o"] = \
+        check_ring_chunk(dev)
+    check_ring_whole(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cp = run_context_parallel(dev, cfg, np_params, trained["losses"][0],
+                              card)
+    launches["flash_fwd_tc_f32o"] = cp["launches"]["flash_fwd_tc_f32o"]
+    run_cp_driver(dev, cfg)
     del np_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3351,6 +3804,7 @@ def main() -> int:
     where = {"paged_flash_decode": ("paged_decode.cu", fa + "947"),
              "paged_flash_decode_int8": ("paged_decode.cu", fa + "947"),
              "flash_fwd_tc": ("flash_fwd.cu", fa + "487"),
+             "flash_fwd_tc_f32o": ("flash_fwd.cu", fa + "487"),
              "flash_dq_tc": ("flash_bwd.cu", fa + "552"),
              "flash_dkv_tc": ("flash_bwd.cu", fa + "597"),
              "blocked_matmul_tc": ("blocked_matmul.cu", mm + "87"),
@@ -3369,6 +3823,8 @@ def main() -> int:
         "library_device_ms": timing[name].get("library_device_ms"),
         **({"recipe_launches": recipe["launches"][name]}
            if name in recipe["launches"] else {}),
+        **({"cp_launches": cp["launches"][name]}
+           if cp["launches"].get(name) else {}),
     } for name, (cu, ref) in where.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -42,7 +42,14 @@ What is ported so far:
   `TransformerConfig(fp8_dense=True)` and `fp8.Fp8TrainEngine` (`train
   --engine fp8`); `telemetry.health` / `anomaly` / `numerics` and
   `optim`'s `guarded_step` behind every engine's `health=` and the
-  drivers' `--health`.
+  drivers' `--health`;
+- data x sequence parallel LM training: `train_lm --dp D --sp S --attn
+  ring|ring-flash|ulysses|ulysses-flash [--zero1|--zero2]` ->
+  `parallel.context.ContextParallelEngine` over a (dp, sp) grid of
+  devices (`parallel.mesh.make_context_mesh`), ZeRO-1/2 in
+  `parallel.zero`, the sequence-parallel substrates in `ops.attention`
+  and `ops.flash_attention.ring_flash_attention` (K1 with f32 chunk
+  outputs, K2 and K3 on every hop of the ring).
 ROADMAP.md lists what comes next; each feature not ported yet raises
 `NotPorted`.
 

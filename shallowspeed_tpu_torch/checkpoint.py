@@ -30,11 +30,16 @@ either package restores in the other.
   config is a user error, not corruption), then installs params, then
   the optimizer state: the engine's own record when the same engine
   class wrote it, else the canonical record re-laid into this engine's
-  layout, so each MLP engine restores any other's checkpoint.
+  layout, so each MLP engine restores any other's checkpoint. The LM
+  engine's ZeRO layouts hand `opt.npz` the canonical (unsharded) state
+  and cut a restored one into their slices (`parallel/zero.py`), so its
+  checkpoints cross between (dp, sp) layouts and packages.
 
 Left out, with the reference's multi-process and fault-injection
 planes: the collective fetch and the barriers around a save (ROADMAP
-Queue 1 item 5) and the chaos hooks (item 6).
+Queue 1 item 5, `distributed.py` and the multi-process launch; one
+process drives every cell of a grid here) and the chaos hooks (item
+6).
 """
 
 from __future__ import annotations
@@ -285,7 +290,8 @@ def _write_ckpt(ckpt_dir, epoch: int, params, opt_state, meta: dict,
     final = Path(ckpt_dir) / f"ckpt_{epoch}"
     tmp = Path(ckpt_dir) / f"ckpt_{epoch}.tmp"
     # multi-process runs: the collective fetch and the barrier around
-    # this write come with ROADMAP Queue 1 item 5; the chaos hooks
+    # this write come with ROADMAP Queue 1 item 5's multi-process
+    # launch; the chaos hooks
     # (chaos.on_save) with item 6
     t0 = time.perf_counter()
     if tmp.exists():

@@ -27,7 +27,11 @@
 //   online softmax runs on the accumulator fragment in registers, so P
 //   never touches shared memory; l sums the unrounded P in f32. Two
 //   blocks an SM (83 KB of shared memory at hd 128), so one block's
-//   softmax overlaps the other's products.
+//   softmax overlaps the other's products. Its epilogue writes o as bf16
+//   or, for ring attention's chunks (`out_dtype` float32 in the wrapper,
+//   `_chunk_fwd(out_dtype=jnp.float32)` in the reference), as f32 from
+//   the same f32 accumulator, so the log-sum-exp merge of the hops sees
+//   each chunk's output unrounded.
 // - f32: `flash_fwd_kernel`, full f32 FMA on the CUDA cores (no TF32,
 //   which would break the f32 parity bounds): tiles staged in shared
 //   memory as f32, 256 threads, each owning 4 rows of the (m, l, acc)
@@ -184,12 +188,12 @@ namespace tc = flash_tc;
 // tested only on tiles that cross the diagonal, the window edge or Tk),
 // l summed from the unrounded probabilities, then O += P V with P
 // rounded to bf16 as the register A operand and V read transposed.
-template <int D>
+template <int D, bool kF32Out>
 __global__ void __launch_bounds__(tc::kThreads, 2)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
                         const __grid_constant__ CUtensorMap mk,
                         const __grid_constant__ CUtensorMap mv,
-                        __nv_bfloat16* __restrict__ o,
+                        void* __restrict__ o_raw,
                         float* __restrict__ lse, Layout lo, int heads,
                         int kv_heads, int tq, int tk, int causal, int window,
                         int rel, float scale_log2) {
@@ -330,11 +334,21 @@ __global__ void __launch_bounds__(tc::kThreads, 2)
     const float lg = fmaxf(tc::quad_sum(l[r]), 1e-30f);
     if (row >= tq) continue;
     const float inv = 1.f / lg;
-    __nv_bfloat16* dst = o + b * lo.b + row * lo.t + h * lo.h + col0;
+    const long long at = b * lo.b + row * lo.t + h * lo.h + col0;
+    if constexpr (kF32Out) {
+      float* dst = static_cast<float*>(o_raw) + at;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
-          acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(
+            acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+    } else {
+      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(o_raw) + at;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
+                                  acc[4 * j + 2 * r + 1] * inv);
+    }
     if (lane % 4 == 0)
       lse[(static_cast<long long>(b) * heads + h) * tq + row] =
           m[r] <= kNeg ? kNeg : m[r] * tc::kLn2 + logf(lg);
@@ -346,7 +360,7 @@ constexpr int tc_smem() {
   return 5 * tc::Tile<D>::kBytes + 3 * 8 + 1024;
 }
 
-template <int D>
+template <int D, bool kF32Out>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               void* lse, Layout lq, Layout lk, Layout lv, Layout lo,
               int batch, int heads, int kv_heads, int tq, int tk, int causal,
@@ -356,14 +370,13 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   if (e == 0) e = tc::tile_map(&mk, k, lk, batch, tk, kv_heads, D);
   if (e == 0) e = tc::tile_map(&mv, v, lv, batch, tk, kv_heads, D);
   if (e != 0) return e;
-  auto kernel = flash_fwd_tc_kernel<D>;
+  auto kernel = flash_fwd_tc_kernel<D, kF32Out>;
   e = tc::set_smem(reinterpret_cast<const void*>(kernel), tc_smem<D>());
   if (e != 0) return e;
   const float scale_log2 = tc::kLog2e / sqrtf(static_cast<float>(D));
   const dim3 grid((tq + tc::kRows - 1) / tc::kRows, heads, batch);
   kernel<<<grid, tc::kThreads, tc_smem<D>(), stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      lo, heads, kv_heads, tq, tk, causal, window, rel, scale_log2);
+      mq, mk, mv, o, static_cast<float*>(lse), lo, heads, kv_heads, tq, tk, causal, window, rel, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -371,31 +384,36 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim 64 or 128. Strides are in
-// elements, (batch, seq, head) for each of q, k, v, o; head_dim is
-// contiguous. lse is (batch, heads, tq) f32, contiguous. Returns the
-// launch's cudaGetLastError() (0 = success); the Python wrapper checks
-// shapes, types and alignment before the call.
+// dtype: 0 = float32, 1 = bfloat16, of q, k, v; out_dtype that of o:
+// q's, or float32 for bfloat16 q (the tensor-core build's f32 epilogue).
+// head_dim 64 or 128. Strides are in elements, (batch, seq, head) for
+// each of q, k, v, o; head_dim is contiguous. lse is (batch, heads, tq)
+// f32, contiguous. Returns the launch's cudaGetLastError() (0 =
+// success); the Python wrapper checks shapes, types and alignment
+// before the call.
 int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
               long long qb, long long qt, long long qh, long long kb,
               long long kt, long long kh, long long vb, long long vt,
               long long vh, long long ob, long long ot, long long oh,
               int batch, int heads, int kv_heads, int tq, int tk,
               int head_dim, int causal, int window, int rel, int dtype,
-              void* stream) {
+              int out_dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lq{qb, qt, qh}, lk{kb, kt, kh}, lv{vb, vt, vh}, lo{ob, ot, oh};
 #define FLASH_FWD(T, D)                                                     \
   return launch<T, D>(q, k, v, o, lse, lq, lk, lv, lo, batch, heads,       \
                       kv_heads, tq, tk, causal, window, rel, s)
-  if (dtype == 0 && head_dim == 64) FLASH_FWD(float, 64);
-  if (dtype == 0 && head_dim == 128) FLASH_FWD(float, 128);
+  if (dtype == 0 && out_dtype == 0 && head_dim == 64) FLASH_FWD(float, 64);
+  if (dtype == 0 && out_dtype == 0 && head_dim == 128) FLASH_FWD(float, 128);
 #undef FLASH_FWD
-#define FLASH_FWD_TC(D)                                                    \
-  return launch_tc<D>(q, k, v, o, lse, lq, lk, lv, lo, batch, heads,       \
-                      kv_heads, tq, tk, causal, window, rel, s)
-  if (dtype == 1 && head_dim == 64) FLASH_FWD_TC(64);
-  if (dtype == 1 && head_dim == 128) FLASH_FWD_TC(128);
+#define FLASH_FWD_TC(D, F32)                                               \
+  return launch_tc<D, F32>(q, k, v, o, lse, lq, lk, lv, lo, batch, heads,  \
+                           kv_heads, tq, tk, causal, window, rel, s)
+  if (dtype == 1 && out_dtype == 1 && head_dim == 64) FLASH_FWD_TC(64, false);
+  if (dtype == 1 && out_dtype == 1 && head_dim == 128)
+    FLASH_FWD_TC(128, false);
+  if (dtype == 1 && out_dtype == 0 && head_dim == 64) FLASH_FWD_TC(64, true);
+  if (dtype == 1 && out_dtype == 0 && head_dim == 128) FLASH_FWD_TC(128, true);
 #undef FLASH_FWD_TC
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,6 +11,12 @@ same mask however often it is drawn: a remat recompute redraws the
 masks of the forward, and eval, decode and serving, which pass no key,
 run no RNG op at all. The masks are not JAX's bits (ROADMAP.md,
 "Deliberate divergences"); they have the same distribution.
+
+A sequence-parallel replica runs its whole sequence through the model
+but draws each sp tile's masks from that tile's own key, as the
+reference's tiles do: its key is a tuple of per-tile keys, which
+`fold_key` folds tile by tile and `dropout` applies to equal slices of
+the sequence axis (dim 1).
 """
 
 from __future__ import annotations
@@ -21,9 +27,12 @@ import torch
 _MASK63 = (1 << 63) - 1
 
 
-def fold_key(key: int, *data: int) -> int:
+def fold_key(key, *data: int):
     """A key derived from `key` and `data` (non-negative ints): equal
-    inputs give equal keys, any change gives an unrelated one."""
+    inputs give equal keys, any change gives an unrelated one. A tuple
+    of per-tile keys folds tile by tile."""
+    if isinstance(key, tuple):
+        return tuple(fold_key(k, *data) for k in key)
     words = np.random.SeedSequence([int(key), *map(int, data)])
     return int(words.generate_state(1, np.uint64)[0]) & _MASK63
 
@@ -38,9 +47,15 @@ def keep_mask(shape, rate: float, key: int, device) -> torch.Tensor:
 
 def dropout(x: torch.Tensor, rate: float, key) -> torch.Tensor:
     """Inverted dropout (kept elements scaled by 1 / (1 - rate), in x's
-    dtype); identity when `key` is None or rate is 0."""
+    dtype); identity when `key` is None or rate is 0. With a tuple of n
+    keys, x's dim 1 splits into n equal tiles, each masked from its
+    key."""
     if key is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = keep_mask(x.shape, rate, key, x.device)
+    if isinstance(key, tuple):
+        mask = torch.cat([keep_mask(t.shape, rate, k, x.device) for k, t in
+                          zip(key, x.chunk(len(key), dim=1))], dim=1)
+    else:
+        mask = keep_mask(x.shape, rate, key, x.device)
     return torch.where(mask, x / keep, 0.0).to(x.dtype)

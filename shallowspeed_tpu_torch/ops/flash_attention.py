@@ -49,7 +49,7 @@ import torch
 from shallowspeed_tpu_torch.models.kv_cache import (masked_attention,
                                                     position_mask)
 from shallowspeed_tpu_torch.ops import _build
-from shallowspeed_tpu_torch.ops.attention import NEG
+from shallowspeed_tpu_torch.ops.attention import NEG, cell_devices, seq_tiles
 from shallowspeed_tpu_torch.serving.cache import gather_table
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -270,17 +270,19 @@ def _scores(q, k, causal, window, rel):
     return torch.where(ok, s, torch.full_like(s, NEG)), ok
 
 
-def flash_fwd_reference(q, k, v, *, causal=True, window=0, rel=0):
-    """Plain torch K1: (o in q's dtype (B, Tq, H, D), lse f32 (B, H, Tq)).
-    Masked scores are -1e30 with probability exactly 0 and l is guarded
-    by max(l, 1e-30), as in the JAX kernel: a row that sees nothing
-    gives o = 0 and lse = -1e30."""
-    return _fwd(q, k, v, causal, window, rel)
+def flash_fwd_reference(q, k, v, *, causal=True, window=0, rel=0,
+                        out_dtype=None):
+    """Plain torch K1: (o in `out_dtype` (default q's) (B, Tq, H, D),
+    lse f32 (B, H, Tq)). Masked scores are -1e30 with probability
+    exactly 0 and l is guarded by max(l, 1e-30), as in the JAX kernel: a
+    row that sees nothing gives o = 0 and lse = -1e30."""
+    return _fwd(q, k, v, causal, window, rel, out_dtype=out_dtype)
 
 
-def _fwd(q, k, v, causal, window, rel, p_dtype=None):
+def _fwd(q, k, v, causal, window, rel, p_dtype=None, out_dtype=None):
     """K1's plain arithmetic; with `p_dtype`, P is rounded to it before
-    PV (l still sums the unrounded P)."""
+    PV (l still sums the unrounded P); o comes out in `out_dtype`
+    (default q's)."""
     b, tq, h, d = q.shape
     s, ok = _scores(q, k, causal, window, rel)
     m = s.amax(dim=-1, keepdim=True)
@@ -288,7 +290,7 @@ def _fwd(q, k, v, causal, window, rel, p_dtype=None):
     lg = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     pv = p if p_dtype is None else p.to(p_dtype).to(s.dtype)
     o = torch.einsum("bhgqk,bkhd->bhgqd", pv, v.to(s.dtype)) / lg
-    o = o.permute(0, 3, 1, 2, 4).reshape(b, tq, h, d).to(q.dtype)
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, tq, h, d).to(out_dtype or q.dtype)
     return o, (m + torch.log(lg)).reshape(b, h, tq)
 
 
@@ -421,7 +423,7 @@ def rounded_reference(q, k, v, do, lse, delta, p_dtype, *, causal=True,
 def _train_kernels():
     fwd = _build.library("flash_fwd")
     fwd.flash_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 12
-                              + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+                              + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     fwd.flash_fwd.restype = fwd.flash_fwd_tc_smem.restype = ctypes.c_int
     fwd.flash_fwd_tc_smem.argtypes = [ctypes.c_int]
     fwd.flash_fwd_error_string.argtypes = [ctypes.c_int]
@@ -503,17 +505,24 @@ def _check_train(name, window, q, k, v, do=None, lse=None, delta=None):
                              f"head_dim contiguous and 16-byte aligned rows")
 
 
-def flash_fwd(q, k, v, *, causal=True, window=0, rel=0):
-    """K1: (o in q's dtype (B, Tq, H, D), lse f32 (B, H, Tq)). A CPU q
-    takes `flash_fwd_reference`; a CUDA q launches `csrc/flash_fwd.cu`
-    (head_dim 64 or 128) or raises: float32 its f32-FMA kernel, counted
-    on `flash_fwd.launches`; bfloat16 its tensor-core kernel, through
-    `_flash_fwd_tc`."""
+def flash_fwd(q, k, v, *, causal=True, window=0, rel=0, out_dtype=None):
+    """K1: (o in `out_dtype` (default q's) (B, Tq, H, D), lse f32 (B, H,
+    Tq)); `out_dtype` float32 is the reference's f32 chunk output of
+    ring attention. A CPU q takes `flash_fwd_reference`; a CUDA q
+    launches `csrc/flash_fwd.cu` (head_dim 64 or 128) or raises: float32
+    its f32-FMA kernel, counted on `flash_fwd.launches`; bfloat16 its
+    tensor-core kernel, through `_flash_fwd_tc` (bf16 o) or
+    `_flash_fwd_tc_f32o` (f32 o)."""
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal=causal, window=window,
-                                   rel=rel)
+                                   rel=rel, out_dtype=out_dtype)
     _check_train("flash_fwd", window, q, k, v)
+    if out_dtype not in (None, q.dtype, torch.float32):
+        raise TypeError(f"flash_fwd writes o in q's dtype or float32, not "
+                        f"{out_dtype}")
     if q.dtype == torch.bfloat16:
+        if out_dtype == torch.float32:
+            return _flash_fwd_tc_f32o(q, k, v, causal, window, rel)
         return _flash_fwd_tc(q, k, v, causal, window, rel)
     return _launch_fwd(flash_fwd, q, k, v, causal, window, rel)
 
@@ -533,14 +542,28 @@ def _flash_fwd_tc(q, k, v, causal, window, rel):
 _flash_fwd_tc.launches = 0
 
 
-def _launch_fwd(counter, q, k, v, causal, window, rel):
+def _flash_fwd_tc_f32o(q, k, v, causal, window, rel):
+    """K1's bf16 build with an f32 epilogue, `csrc/flash_fwd.cu::
+    flash_fwd_tc_kernel<D, true>`: the same wgmma kernel, o written as
+    f32 from its f32 accumulator (ring attention's chunks, whose
+    log-sum-exp merge then sees each chunk unrounded). Reached only
+    through `flash_fwd(..., out_dtype=torch.float32)`; its own function
+    so that its launches count apart."""
+    return _launch_fwd(_flash_fwd_tc_f32o, q, k, v, causal, window, rel,
+                       torch.float32)
+
+
+_flash_fwd_tc_f32o.launches = 0
+
+
+def _launch_fwd(counter, q, k, v, causal, window, rel, out_dtype=None):
     b, tq, h, _ = q.shape
     fwd, _ = _train_kernels()
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    o = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     _build.launch(counter, fwd.flash_fwd, fwd.flash_fwd_error_string,
                   q.device, *_ptrs(q, k, v, o, lse), *_strides(q, k, v, o),
-                  *_dims(q, k, causal, window, rel))
+                  *_dims(q, k, causal, window, rel), _DTYPES[o.dtype])
     return o, lse
 
 
@@ -734,3 +757,126 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     GQA, `window > 0` a sliding window). CUDA tensors run K1/K2/K3, CPU
     tensors their plain versions."""
     return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+
+
+# ------------------------------------------- ring flash (sequence parallel)
+
+def ring_hops(sp: int, idx: int, t: int, causal: bool, window: int):
+    """(hop i, rel) of every chunk cell `idx` of an sp ring computes, in
+    hop order: at hop i it holds the K/V block of cell (idx - i) mod sp,
+    whose keys start (i t) before its queries when idx >= i and
+    ((i - sp) t) after them otherwise. Under causal masking with no
+    window the idx < i chunks see nothing and are skipped, as the
+    reference's `lax.cond` skips them; otherwise they run at their
+    negative rel."""
+    for i in range(sp):
+        if idx >= i:
+            yield i, i * t
+        elif not (causal and window == 0):
+            yield i, (i - sp) * t
+
+
+def merge_chunks(o_acc, lse_acc, o_i, lse_i):
+    """The reference's `_merge_chunks`: the log-sum-exp merge of two
+    normalised chunks, o (B, Tq, H, D) f32 and lse (B, H, Tq) f32; a
+    fully masked chunk (lse -1e30) adds nothing."""
+    m = torch.maximum(lse_acc, lse_i)
+    a = torch.exp(lse_acc - m)
+    b = torch.exp(lse_i - m)
+    denom = torch.clamp(a + b, min=1e-30)
+
+    def rows(x):                     # (B, H, Tq) -> (B, Tq, H, 1)
+        return x.transpose(1, 2)[..., None]
+
+    o = (o_acc * rows(a) + o_i.float() * rows(b)) / rows(denom)
+    return o, m + torch.log(denom)
+
+
+class _RingFlash(torch.autograd.Function):
+    """Ring attention over one replica's sp cells with K1/K2/K3 as each
+    chunk's compute — `shallowspeed_tpu/ops/flash_attention.py::
+    ring_flash_attention`. Forward: each cell's query tile meets every
+    visiting K/V block in hop order (`ring_hops`), K1 writing each
+    chunk's o in f32 and `merge_chunks` folding it in. Backward: delta
+    from the merged f32 o, then the reverse ring, hop by hop: K2 adds
+    into the cell's dq, K3's dk and dv into accumulators that travel with
+    their block and come home after the last hop. Each hop's move of a
+    block or an accumulator is a `.to(cell device)`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, devices, causal, window):
+        sp = len(devices)
+        qs, ks, vs = (seq_tiles(x, devices) for x in (q, k, v))
+        t = qs[0].shape[1]
+        b, _, h, _ = q.shape
+        outs, lses = [], []
+        for idx, dev in enumerate(devices):
+            o = torch.zeros(qs[idx].shape, dtype=torch.float32, device=dev)
+            lse = torch.full((b, h, t), NEG, dtype=torch.float32, device=dev)
+            for i, rel in ring_hops(sp, idx, t, causal, window):
+                src = (idx - i) % sp
+                o_i, lse_i = flash_fwd(qs[idx], ks[src].to(dev),
+                                       vs[src].to(dev), causal=causal,
+                                       window=window, rel=rel,
+                                       out_dtype=torch.float32)
+                o, lse = merge_chunks(o, lse, o_i, lse_i)
+            outs.append(o)
+            lses.append(lse)
+        ctx.save_for_backward(*qs, *ks, *vs, *outs, *lses)
+        ctx.devices, ctx.causal, ctx.window = devices, causal, window
+        ctx.home = q.device
+        return torch.cat([o.to(q.dtype).to(q.device) for o in outs], dim=1)
+
+    @staticmethod
+    def backward(ctx, do):
+        devices = ctx.devices
+        sp = len(devices)
+        saved = ctx.saved_tensors
+        qs, ks, vs, outs, lses = (list(saved[i * sp:(i + 1) * sp])
+                                  for i in range(5))
+        t = qs[0].shape[1]
+        dos = []
+        for x in seq_tiles(do, devices):
+            if x.device.type == "cuda" and not kernel_ready(x):
+                x = x.contiguous()   # e.g. an expanded (stride-0) cotangent
+            dos.append(x)
+        deltas = [attention_delta(d, o) for d, o in zip(dos, outs)]
+        dq = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+              for x in qs]
+        dk = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+              for x in ks]
+        dv = [torch.zeros_like(x) for x in dk]
+        kw = dict(causal=ctx.causal, window=ctx.window)
+        for i in range(sp):
+            for idx, dev in enumerate(devices):
+                rel = dict(ring_hops(sp, idx, t, ctx.causal,
+                                     ctx.window)).get(i)
+                if rel is None:
+                    continue
+                src = (idx - i) % sp
+                args = (qs[idx], ks[src].to(dev), vs[src].to(dev), dos[idx],
+                        lses[idx], deltas[idx])
+                dq[idx] += flash_dq(*args, rel=rel, **kw)
+                dk_i, dv_i = flash_dkv(*args, rel=rel, **kw)
+                dk[src] = dk[src].to(dev) + dk_i
+                dv[src] = dv[src].to(dev) + dv_i
+
+        def home(parts, like):
+            return torch.cat([x.to(ctx.home) for x in parts],
+                             dim=1).to(like.dtype)
+
+        return (home(dq, qs[0]), home(dk, ks[0]), home(dv, vs[0]), None,
+                None, None)
+
+
+def ring_flash_attention(q, k, v, devices, causal: bool = True,
+                         window: int = 0):
+    """Ring attention with the flash kernels as the local compute; the
+    reference's contract on the gathered sequence: q (B, T, H, D), k/v
+    (B, T, Hkv, D) on the replica's home cell, the sequence cut into one
+    tile per cell of `devices` (a sequence of devices, or a count of
+    cells on q's device), the result (B, T, H, D) in q's dtype on q's
+    device. Under causal masking with no window each layer launches K1,
+    K2 and K3 sp (sp + 1) / 2 times each, else sp^2 times."""
+    return _RingFlash.apply(q, k, v, cell_devices(devices, q), bool(causal),
+                            int(window))

@@ -98,7 +98,14 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 class _Optimizer:
-    """Shared lr / schedule / clipping plumbing."""
+    """Shared lr / schedule / clipping plumbing. `step` clips (unless
+    `clip=False`: a caller that clipped the whole tree already, such as
+    ZeRO's sharded update over slices) and hands the tree to the
+    subclass's `_update`. `elementwise` says whether the update of each
+    element reads that element's gradient and state only, so that it
+    can run on any slice of the tree (`parallel/zero.py`)."""
+
+    elementwise = True
 
     def __init__(self, lr, grad_clip: float | None = None):
         self.lr = lr
@@ -114,6 +121,13 @@ class _Optimizer:
             return clip_by_global_norm(grads, self.grad_clip)
         return grads
 
+    @torch.no_grad()
+    def step(self, params, grads, state=(), clip: bool = True):
+        """One update of `params` and `state` in place by `grads`,
+        clipped first unless `clip` is False; returns (params, state)."""
+        return self._update(params, self._prep(grads) if clip else grads,
+                            state)
+
     def map_state_trees(self, state, fn):
         """Apply `fn` — a params-shaped tree -> params-shaped tree
         transform (an engine's re-layout between its params and the
@@ -125,7 +139,8 @@ class _Optimizer:
         return state
 
     @torch.no_grad()
-    def guarded_step(self, params, grads, state, ok, old_params=None):
+    def guarded_step(self, params, grads, state, ok, old_params=None,
+                     clip: bool = True):
         """`step` with the whole update gated on `ok`: when it is false
         every parameter and every optimizer-state leaf — moments,
         Adafactor's factored slots, the step counter — keeps its old
@@ -144,7 +159,7 @@ class _Optimizer:
         (the pipeline VM decides once per batch on the host) skips the
         update outright."""
         if not isinstance(ok, torch.Tensor):
-            return self.step(params, grads, state) if ok \
+            return self.step(params, grads, state, clip=clip) if ok \
                 else (params, state)
         # every optimizer here updates its tensors in place, so the
         # snapshot pairs each tensor with its own old value
@@ -155,7 +170,7 @@ class _Optimizer:
             pairs = list(zip(sorted_leaves(params), old_params))
         pairs += [(t, t.clone()) for t in leaves(state)
                   if isinstance(t, torch.Tensor)]
-        params, new_state = self.step(params, grads, state)
+        params, new_state = self.step(params, grads, state, clip=clip)
         for t, o in pairs:
             t.copy_(torch.where(ok.to(t.device), t, o))
         if isinstance(new_state, dict) and "t" in new_state \
@@ -171,9 +186,7 @@ class SGD(_Optimizer):
     def init(self, params):
         return {"t": 0} if callable(self.lr) else ()
 
-    @torch.no_grad()
-    def step(self, params, grads, state=()):
-        grads = self._prep(grads)
+    def _update(self, params, grads, state=()):
         sched = callable(self.lr)
         t = state["t"] if sched else 0
         lr = self._lr_at(t)
@@ -194,9 +207,7 @@ class MomentumSGD(_Optimizer):
         vel = map_tree(torch.zeros_like, params)
         return {"v": vel, "t": 0} if callable(self.lr) else vel
 
-    @torch.no_grad()
-    def step(self, params, grads, state):
-        grads = self._prep(grads)
+    def _update(self, params, grads, state):
         sched = callable(self.lr)
         vel = state["v"] if sched else state
         t = state["t"] if sched else 0
@@ -226,9 +237,7 @@ class Adam(_Optimizer):
         return {"m": map_tree(torch.zeros_like, params),
                 "v": map_tree(torch.zeros_like, params), "t": 0}
 
-    @torch.no_grad()
-    def step(self, params, grads, state):
-        grads = self._prep(grads)
+    def _update(self, params, grads, state):
         lr = self._lr_at(state["t"])        # schedule indexed 0-based
         t = state["t"] + 1
         b1, b2 = self.b1, self.b2
@@ -272,12 +281,16 @@ class Adafactor(_Optimizer):
     max(eps_scale, RMS(p)), so `lr` is a relative step size; the first
     moment (beta1 > 0) is optional; decoupled decay uses the same
     scaled step. On one device every leaf is unsharded, so every leaf
-    with ndim >= 2 factors.
+    with ndim >= 2 factors. Its row and column statistics, the update's
+    RMS and the parameter's RMS reduce over whole leaves, so it is not
+    `elementwise`: ZeRO gathers a leaf's slices before this update.
 
     The state is {"slots": tuple of per-leaf dicts ({"vr", "vc"} or
     {"v"}, plus "m" with beta1), "t": step}, the slots in the JAX
     package's leaf order (`weights.sorted_leaves`), so that the state
     crosses packages and checkpoints as it is."""
+
+    elementwise = False
 
     def __init__(self, lr, beta1: float = 0.0, decay_pow: float = 0.8,
                  eps: float = 1e-30, eps_scale: float = 1e-3,
@@ -307,9 +320,7 @@ class Adafactor(_Optimizer):
         return {"slots": tuple(self._slot(p) for p in sorted_leaves(params)),
                 "t": 0}
 
-    @torch.no_grad()
-    def step(self, params, grads, state):
-        grads = self._prep(grads)
+    def _update(self, params, grads, state):
         lr = self._lr_at(state["t"])
         t = state["t"] + 1
         beta2 = _F32(1.0) - _F32(t) ** _F32(-self.decay_pow)

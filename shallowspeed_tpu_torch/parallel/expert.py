@@ -21,7 +21,7 @@ from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
 
-_LATER = "Queue 1, multi-device LM engines"
+_LATER = "Queue 1 item 5, ep > 1"
 
 
 class ExpertParallelEngine(ContextParallelEngine):

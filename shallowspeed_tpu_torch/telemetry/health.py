@@ -69,17 +69,45 @@ def _sq(tensors) -> torch.Tensor:
     return torch.square(torch.stack(norms))
 
 
+def _parts(g) -> tuple:
+    """The tensors holding one gradient leaf: a ZeRO-2 leaf's slices
+    (`parallel.zero.Slices`), else the leaf itself."""
+    return getattr(g, "parts", (g,))
+
+
+@torch.no_grad()
+def leaf_squares(gs) -> torch.Tensor:
+    """(n,) f32: each leaf's sum of squares (`_sq`), a leaf held as
+    slices summing its slices' in rank order."""
+    parts = [_parts(g) for g in gs]
+    flat = [t for p in parts for t in p]
+    sq = _sq([t.to(flat[0].device) for t in flat])
+    if len(flat) == len(gs):
+        return sq
+    out, at = [], 0
+    for p in parts:
+        acc = sq[at]
+        for j in range(1, len(p)):
+            acc = acc + sq[at + j]
+        out.append(acc)
+        at += len(p)
+    return torch.stack(out)
+
+
 @torch.no_grad()
 def grad_health(params, grads) -> dict:
     """The health pack of one step: {"grad_norm", "param_norm",
     "nonfinite" (int32), "groups": {name: grad norm}}, 0-d tensors on
     the gradients' device, summed in the reference's leaf order. Call
     on the engine's fully reduced gradients, before the update (the
-    optimizer may clip them in place)."""
+    optimizer may clip them in place). A ZeRO-2 engine's leaves come as
+    `Slices`: each leaf's statistics sum its slices in rank order, the
+    reference's psum over the dp axis."""
     names, gs = zip(*_grouped(grads))
-    sq = _sq(gs)
-    nf = torch.stack([g.numel() - torch.isfinite(g.detach()).sum()
-                      for g in gs]).sum().to(torch.int32)
+    sq = leaf_squares(gs)
+    dev = sq.device
+    nf = torch.stack([t.numel() - torch.isfinite(t.detach()).sum().to(dev)
+                      for g in gs for t in _parts(g)]).sum().to(torch.int32)
     groups = {}
     for i, name in enumerate(names):
         groups.setdefault(name, []).append(i)

@@ -1,5 +1,5 @@
-"""LM training driver of the PyTorch port: one device. Counterpart of
-the root `train_lm.py`.
+"""LM training driver of the PyTorch port. Counterpart of the root
+`train_lm.py`.
 
     python -m shallowspeed_tpu_torch.train_lm --steps 100 --bf16 --rope
     python -m shallowspeed_tpu_torch.train_lm --device cpu --steps 5
@@ -14,9 +14,20 @@ per row, seeded per step), on a text file (`--text`, byte-level or
 (`step N  loss L  tok/s R [T TF/s (M% MFU)]`) and, with `--log-file`,
 its `"step"` JSONL events. Every batch is a pure function of (seed,
 step), built `--prefetch` steps ahead on a background thread. `--attn
-flash` (the default) runs the hand-written K1/K2/K3 kernels; `--attn
-ring` the plain attention under torch autograd. Runs on the GPU unless
-`--device cpu` is given.
+flash` (the default at --sp 1) runs the hand-written K1/K2/K3 kernels;
+`--attn ring` the plain attention under torch autograd. Runs on the
+GPU unless `--device cpu` is given.
+
+`--dp D --sp S` train over a (dp, sp) grid of that one device
+(`parallel.mesh.make_context_mesh`): D replicas, each its B/D rows,
+each sequence cut into S tiles for the attention substrate: `--attn
+ring` (plain ring attention), `ring-flash` (the default at --sp > 1:
+K1/K2/K3 on every hop), `ulysses` / `ulysses-flash` (the all-to-all;
+heads divisible by S). `--zero1` / `--zero2` shard the optimizer state
+(and with --zero2 the gradient) over the dp cells; `--accum` divides
+each replica's rows. The root driver's checks hold (--zero2 subsumes
+--zero1, batch % dp, seq_len % sp, --attn flash only at sp 1,
+--attn-dropout only at sp 1 with ring).
 
 `--val-every N` prints `step N  val_loss L  ppl P` on held-out data.
 `--save-dir` checkpoints every `--save-every` steps and at the end
@@ -58,8 +69,10 @@ verdicts and carries the `health_*` fields on the step line; an
 a checkpoint of an unhealthy state is skipped. Under guard an update
 with non-finite gradients is skipped bit for bit.
 
-The root driver's other flags (multi-device meshes and `--ep` > 1, the
-telemetry planes) are recognised and refused with `NotPorted`.
+The root driver's other flags (the tensor, FSDP and pipeline
+placements, `--ep` > 1, comm overlap, the telemetry planes) are
+recognised and refused with `NotPorted`; `--platform` and
+`--host-devices` give way to `--device`.
 """
 
 from __future__ import annotations
@@ -86,20 +99,26 @@ from shallowspeed_tpu_torch.optim import (OPTIMIZERS, SCHEDULES, ema_init,
                                           ema_update)
 from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
 from shallowspeed_tpu_torch.parallel.expert import ExpertParallelEngine
+from shallowspeed_tpu_torch.parallel.mesh import make_context_mesh
 from shallowspeed_tpu_torch.telemetry.anomaly import GuardPolicy
 from shallowspeed_tpu_torch.telemetry.health import HealthMonitor
 from shallowspeed_tpu_torch.weights import map_tree
 
-_MESH = "Queue 1, multi-device LM engines"
+_GSPMD = "Queue 1 item 5, tensor, FSDP and composite placements"
+_EP = "Queue 1 item 5, ep > 1"
+_PIPE = "Queue 1 item 5, the LM pipeline"
+_OVERLAP = "Queue 1 item 5, comm overlap"
 _PLANES = "Queue 1, planes"
+_DEVICE = "--device replaces it: every cell of the dp x sp grid runs there"
 
 # the root driver's flags this driver does not have yet, and where each
 # comes from
 UNPORTED = {
-    **dict.fromkeys(
-        ["--dp", "--pp", "--pp-schedule", "--virtual-pp", "--n-mubatches",
-         "--sp", "--tp", "--fsdp", "--zero1", "--zero2", "--overlap",
-         "--bucket-mb", "--platform", "--host-devices"], _MESH),
+    **dict.fromkeys(["--tp", "--fsdp"], _GSPMD),
+    **dict.fromkeys(["--pp", "--pp-schedule", "--virtual-pp",
+                     "--n-mubatches"], _PIPE),
+    **dict.fromkeys(["--overlap", "--bucket-mb"], _OVERLAP),
+    **dict.fromkeys(["--platform", "--host-devices"], _DEVICE),
     **dict.fromkeys(
         ["--heartbeat-file", "--profile-dir", "--telemetry",
          "--trace-dir", "--monitor-port", "--replica", "--slo",
@@ -168,14 +187,26 @@ def parse_args(argv=None):
     p.add_argument("--norm", default="layernorm",
                    choices=["layernorm", "rmsnorm"])
     p.add_argument("--ffn", default="gelu", choices=["gelu", "swiglu"])
+    p.add_argument("--dp", type=int, default=1, help="data-parallel degree")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence/context-parallel degree (the attention "
+                        "substrate's tiles)")
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: shard the optimizer state over the dp "
+                        "cells (1/dp of the moments each)")
+    p.add_argument("--zero2", action="store_true",
+                   help="ZeRO-2: ZeRO-1 plus dp-sharded gradients (a "
+                        "reduce-scatter; 1/dp of the gradient each)")
     p.add_argument("--attn", default=None,
                    choices=["flash", "ring", "ring-flash", "ulysses",
                             "ulysses-flash"],
-                   help="flash (the default) = the K1/K2/K3 kernels; ring "
-                        "= plain attention (what the root driver's ring is "
-                        "at sp=1, and the default with --experts or "
-                        "--attn-dropout); the sequence-parallel "
-                        "substrates raise NotPorted")
+                   help="flash (the default at --sp 1) = the K1/K2/K3 "
+                        "kernels; ring = plain attention (ring attention "
+                        "at --sp > 1; the default with --experts or "
+                        "--attn-dropout); ring-flash (the default at --sp "
+                        "> 1) = the ring with K1/K2/K3 on every hop; "
+                        "ulysses / ulysses-flash = the all-to-all, needs "
+                        "heads divisible by --sp")
     p.add_argument("--accum", type=int, default=1,
                    help="gradient accumulation: split each batch into N "
                         "sequential microbatches (activation memory of "
@@ -277,8 +308,9 @@ def parse_args(argv=None):
                        help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.ep > 1:
-        raise NotPorted(f"train_lm --ep {args.ep}", _MESH)
+        raise NotPorted(f"train_lm --ep {args.ep}", _EP)
     _check_features(args)
+    _check_mesh(args)
     if (args.prompt or args.sample_only) and not args.generate:
         args.generate = 128          # --prompt/--sample-only imply sampling
     prompt_len = len(args.prompt.encode()) if args.prompt else 16
@@ -322,14 +354,36 @@ def _check_features(args) -> None:
                          f"--experts {args.experts}")
     plain = args.experts or args.attn_dropout > 0.0
     if args.attn is None:
-        args.attn = "ring" if plain else "flash"
-    if args.attn_dropout > 0.0 and args.attn != "ring":
+        args.attn = ("ring" if plain else "ring-flash" if args.sp > 1
+                     else "flash")
+    if args.attn_dropout > 0.0 and (args.sp > 1 or args.attn != "ring"):
         raise SystemExit("--attn-dropout needs the plain attention "
                          "substrate (no --pp/--sp>1, --attn ring)")
     if args.experts and args.attn != "ring":
         raise SystemExit(f"--attn {args.attn} is not available with "
                          "--experts (the MoE engine uses the plain "
                          "attention)")
+
+
+def _check_mesh(args) -> None:
+    """The root driver's checks on the (dp, sp) grid, with its messages
+    where it gives one."""
+    if args.dp < 1 or args.sp < 1:
+        raise SystemExit(f"--dp and --sp take a positive degree, got "
+                         f"{args.dp} and {args.sp}")
+    if args.zero1 and args.zero2:
+        raise SystemExit("--zero2 subsumes --zero1; pick one")
+    if args.experts and (args.dp > 1 or args.sp > 1):
+        raise NotPorted(f"train_lm --experts over a (dp={args.dp}, "
+                        f"sp={args.sp}) mesh", _EP)
+    if args.attn == "flash" and args.sp > 1:
+        raise SystemExit("--attn flash requires sp=1 (use ring)")
+    if args.batch_size % args.dp:
+        raise SystemExit(f"--batch-size {args.batch_size} does not split "
+                         f"over --dp {args.dp}")
+    if args.seq_len % args.sp:
+        raise SystemExit(f"--seq-len {args.seq_len} does not split over "
+                         f"--sp {args.sp}")
 
 
 def prepare_text(args):
@@ -553,10 +607,11 @@ def train(args) -> float:
                                       device=device, ep=args.ep,
                                       health=args.health, params=zeros)
     else:
-        engine = ContextParallelEngine(cfg, opt, seed=args.seed,
-                                       attn=args.attn, device=device,
-                                       accum=args.accum, health=args.health,
-                                       params=zeros)
+        engine = ContextParallelEngine(
+            cfg, opt, seed=args.seed, attn=args.attn,
+            mesh=make_context_mesh(args.dp, args.sp, device),
+            accum=args.accum, zero1=args.zero1, zero2=args.zero2,
+            health=args.health, params=zeros)
     start_step, restored, restore_stats, quarantined = _restore(args,
                                                                 engine)
     if restoring and restored is None:       # --auto-resume, fresh start

@@ -1045,3 +1045,122 @@ def test_cuda_guard_skips_bit_for_bit(cuda):
     assert snap["skipped"] == 1 and snap["skipped_total"] == 1
     eng._step(xs, ys)
     assert not all(torch.equal(a, b) for a, b in zip(state(), before))
+
+
+# ------------------------------------------- ring attention, (dp, sp) grid
+
+RING_CHUNK_CASES = {"rel0": (0, 0, 4), "relT": (128, 0, 4),
+                    "rel-T-window": (-128, 64, 4), "gqa": (0, 0, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RING_CHUNK_CASES))
+def test_f32_output_build_matches_plain_version(cuda, case):
+    """K1's bf16 build with the f32 epilogue (`_flash_fwd_tc_f32o`, ring
+    attention's chunks) against its plain version with `out_dtype`
+    float32, per element under the kernels' rule (no bf16 ulp: o is
+    f32; the P term of `tc_rounding_terms`); a fully masked chunk gives
+    o 0 and lse -1e30; the bf16 build's o is this o rounded once."""
+    rel, window, kvh = RING_CHUNK_CASES[case]
+    g = torch.Generator(device="cpu").manual_seed(rel + window + kvh)
+    b, t, h, d = 2, 128, 4, 128
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(cuda).to(torch.bfloat16)
+
+    q, k, v = rnd(b, t, h, d), rnd(b, t, kvh, d), rnd(b, t, kvh, d)
+    kw = dict(causal=True, window=window, rel=rel)
+    before = (FA._flash_fwd_tc_f32o.launches, FA._flash_fwd_tc.launches)
+    o, lse = FA.flash_fwd(q, k, v, out_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32
+    assert (FA._flash_fwd_tc_f32o.launches, FA._flash_fwd_tc.launches) == \
+        (before[0] + 1, before[1])
+    o_ref, lse_ref = FA.flash_fwd_reference(q, k, v,
+                                            out_dtype=torch.float32, **kw)
+    if rel < 0:
+        assert not o.any() and bool((lse == -1e30).all())
+        assert not o_ref.any()
+        return
+    terms = FA.tc_rounding_terms(q, k, v, **kw)
+    assert _elementwise_ratio(o, o_ref, False, terms["o"]) <= 1.0
+    assert _rel_err(lse, lse_ref) <= 1e-5
+    o16, _ = FA.flash_fwd(q, k, v, **kw)
+    assert _elementwise_ratio(o16, o, True) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp,window", [(2, 0), (4, 0), (4, 96)],
+                         ids=["sp2", "sp4", "sp4-window"])
+def test_ring_flash_attention_on_the_card(cuda, sp, window):
+    """`ring_flash_attention` over sp cells of the card against
+    `flash_attention` over the gathered sequence: o and the input
+    gradients within the bf16 bound of
+    `test_flash_attention_grads_match_plain_attention` (both round o and
+    the gradients once, at other points), and K1 (f32 o), K2, K3
+    launched sp (sp + 1) / 2 times each (sp^2 with a window)."""
+    g = torch.Generator(device="cpu").manual_seed(sp + window)
+    b, t, h, d = 2, 512, 4, 128
+    q, k, v, do = (torch.randn(b, t, h, d, generator=g).to(cuda).to(
+        torch.bfloat16) for _ in range(4))
+    outs = []
+    counters = (FA._flash_fwd_tc_f32o, FA._flash_dq_tc, FA._flash_dkv_tc)
+    for fn in (FA.flash_attention,
+               lambda a, b_, c, causal, w: FA.ring_flash_attention(
+                   a, b_, c, [cuda] * sp, causal, w)):
+        before = [c.launches for c in counters]
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        o = fn(*xs, True, window)
+        grads = torch.autograd.grad(o, xs, do)
+        torch.cuda.synchronize()
+        outs.append((o.detach(), grads, [c.launches - n for c, n in
+                                         zip(counters, before)]))
+    (o_ref, g_ref, _), (o, grads, launched) = outs
+    want = sp * (sp + 1) // 2 if window == 0 else sp * sp
+    assert launched == [want] * 3
+    assert _rel_err(o, o_ref) <= 2e-2
+    for got, ref in zip(grads, g_ref):
+        assert _rel_err(got, ref) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn,zero", [("ring-flash", "zero2"),
+                                       ("ulysses-flash", "zero1"),
+                                       ("ring", "")])
+def test_context_engine_grid_on_the_card_matches_the_cpu(cuda, attn, zero):
+    """The (2, 2) engine in f32 on the card (the FMA builds of K1-K3)
+    against the same engine on the CPU (their plain versions), three
+    steps with accum 2: losses 1e-4 relative and parameters 1e-4
+    absolute (f32 sums in another order)."""
+    from shallowspeed_tpu_torch import optim as O
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.parallel.context import (
+        ContextParallelEngine)
+    from shallowspeed_tpu_torch.parallel.mesh import make_context_mesh
+
+    cfg = T.TransformerConfig(vocab=128, d_model=256, n_heads=2,
+                              n_kv_heads=2, n_layers=2, max_seq=256,
+                              rope=True, norm="rmsnorm", ffn="swiglu")
+    engines = [ContextParallelEngine(
+        cfg, O.MomentumSGD(0.05, momentum=0.9, grad_clip=1.0), seed=4,
+        attn=attn, mesh=make_context_mesh(2, 2, dev), accum=2,
+        **({zero: True} if zero else {})) for dev in (cuda, "cpu")]
+    rng = np.random.default_rng(8)
+    fwd = FA.flash_fwd.launches
+    for _ in range(3):
+        tok = rng.integers(0, cfg.vocab, (4, cfg.max_seq)).astype(np.int32)
+        tgt = np.roll(tok, -1, axis=1)
+        got, ref = (e.train_batch(tok, tgt) for e in engines)
+        assert abs(got - ref) <= 1e-4 * abs(ref)
+    if attn != "ring":
+        assert FA.flash_fwd.launches > fwd
+    for a, b in zip(*(
+            [p.detach().float().cpu() for p in _leaves(e.params)]
+            for e in engines)):
+        assert float((a - b).abs().max()) <= 1e-4
+
+
+def _leaves(tree):
+    from shallowspeed_tpu_torch.weights import leaves
+
+    return list(leaves(tree))

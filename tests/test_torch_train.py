@@ -40,6 +40,7 @@ from shallowspeed_tpu_torch import optim as O
 from shallowspeed_tpu_torch import train_lm as tdriver
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+from shallowspeed_tpu_torch.parallel.mesh import make_context_mesh
 from shallowspeed_tpu_torch.weights import (leaves, opt_state_to_numpy,
                                             params_from_numpy,
                                             params_to_numpy, placed_copy,
@@ -212,15 +213,22 @@ def test_eval_loss_drops_label_smoothing():
     assert float(got) != pytest.approx(float(T.loss(*args)), rel=1e-5)
 
 
-@pytest.mark.parametrize("kwargs", [dict(zero1=True),
-                                    dict(zero2=True),
+@pytest.mark.parametrize("kwargs", [dict(zero1=True, overlap=object()),
+                                    dict(zero2=True, overlap=object()),
                                     dict(overlap=object()),
-                                    dict(attn="ring-flash")],
+                                    dict(attn="ring-flash", experts=2)],
                          ids=["zero1", "zero2", "overlap", "ring-flash"])
 def test_unported_engine_options_raise(kwargs):
-    cfg = T.TransformerConfig(**CONFIGS["gqa-rope-rms-swiglu"])
+    """What the engine still refuses: the overlapped reduction, with
+    ZeRO-1, ZeRO-2 or without, and an MoE config at sp > 1 (ring-flash
+    on a (1, 2) grid)."""
+    kwargs = dict(kwargs)
+    experts = kwargs.pop("experts", 0)
+    cfg = T.TransformerConfig(**CONFIGS["gqa-rope-rms-swiglu"],
+                              n_experts=experts)
+    mesh = make_context_mesh(1, 2 if experts else 1, "cpu")
     with pytest.raises(NotPorted):
-        ContextParallelEngine(cfg, O.SGD(0.1), device="cpu", **kwargs)
+        ContextParallelEngine(cfg, O.SGD(0.1), mesh=mesh, **kwargs)
 
 
 # ---------------------------------------------------------- the engine
@@ -376,5 +384,9 @@ def test_driver_needs_a_card_unless_the_cpu_is_named():
 
 @pytest.mark.parametrize("attn", ["ring-flash", "ulysses"])
 def test_driver_refuses_sequence_parallel_substrates(attn):
-    with pytest.raises(NotPorted):
-        tdriver.main(["--device", "cpu", "--steps", "1", "--attn", attn])
+    """The sequence-parallel substrates run (tests/test_torch_context_
+    mesh.py); what stays refused around them is the overlapped
+    reduction."""
+    with pytest.raises(NotPorted, match="--overlap"):
+        tdriver.main(["--device", "cpu", "--steps", "1", "--attn", attn,
+                      "--sp", "2", "--overlap", "on"])
