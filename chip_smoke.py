@@ -214,6 +214,24 @@ Phases (any failure exits non-zero and prints no result line):
    layers, 4 steps and a save, then `--resume` at dp 1, sp 1 (flash):
    its losses within PARITY_LOSS_BUDGET of a straight run's.
 
+13. The GSPMD engine family (no kernel: the plain attention, as the
+   reference's GSPMD engines run XLA attention), the 1.21B LM's width
+   at GSPMD_LAYERS = 4 layers of 16 (the plain attention's f32 score
+   tensors): (a) the one-device plain-attention engine as the
+   yardstick (`ExpertParallelEngine` at (1, 1) for MoE); (b)
+   `TensorParallelEngine` at tp 4 and dp 2 x tp 2 ZeRO-1, `FSDPEngine`
+   at dp 4, `Composite3DEngine` at dp 2 x sp 2 x tp 2 with fsdp, and
+   `ExpertParallelEngine` (phase 10c's MoE) at ep 4 and dp 2 x sp 2 x
+   ep 2: the loss at init within PARITY_LOSS_BUDGET of (a)'s, every
+   first-step gradient leaf within GRAD_TOL_BF16 (MoE compared in f32
+   compute: a bf16 ulp can flip a near-tied token's expert), K1-K3
+   launched 0 times over GSPMD_STEPS timed steps (and (a)'s), falling
+   losses, step p50, tok/s, MFU, peak memory and the bytes the fullest
+   cell holds (`gspmd layout` / `gspmd profile` lines); (c) `train_lm
+   --dp 2 --tp 2` with a save, resumed at `--fsdp --dp 4` (within
+   PARITY_LOSS_BUDGET of a straight run), and `--ep 2 --experts 4`
+   (`gspmd driver:`).
+
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers (with `device_ms` / `library_device_ms` where the
 profiler timed them, K1-K3's `recipe_launches` from phase 10a and
@@ -3654,6 +3672,288 @@ def run_cp_driver(dev, cfg) -> dict:
     return out
 
 
+# Phase 13: the GSPMD engine family (tensor, FSDP, composite dp x sp x
+# tp, expert parallelism) on the one card, every cell of each grid the
+# card. The family runs the plain attention (the reference's GSPMD
+# engines run XLA attention), so it launches no K1-K3. Depth is cut to
+# GSPMD_LAYERS of 16: the plain attention keeps ~3 f32 (B, H, T, T)
+# tensors a layer for its backward (~3.2 GB a layer at 4 x 16 x 2048^2).
+GSPMD_LAYERS = 4
+GSPMD_STEPS = 3
+# name, engine class name, grid axes, grid sizes, options
+GSPMD_LAYOUTS = [("tp4", "TensorParallelEngine", ("dp", "tp"), (1, 4), {}),
+                 ("dp2-tp2-zero1", "TensorParallelEngine", ("dp", "tp"),
+                  (2, 2), {"zero1": True}),
+                 ("fsdp-dp4", "FSDPEngine", ("dp",), (4,), {}),
+                 ("dp2-sp2-tp2-fsdp", "Composite3DEngine",
+                  ("dp", "sp", "tp"), (2, 2, 2), {"fsdp": True}),
+                 ("moe-ep4", "ExpertParallelEngine", ("dp", "ep"), (1, 4),
+                  {}),
+                 ("moe-dp2-sp2-ep2", "ExpertParallelEngine",
+                  ("dp", "sp", "ep"), (2, 2, 2), {})]
+GSPMD_DRIVER_LAYERS = 2
+GSPMD_DRIVER_STEPS = 4
+
+
+def _gspmd_class(name):
+    from shallowspeed_tpu_torch.parallel import (composite, expert, fsdp,
+                                                 tensor)
+
+    for mod in (tensor, fsdp, composite, expert):
+        if hasattr(mod, name):
+            return getattr(mod, name)
+    raise KeyError(name)
+
+
+def _kernel_counts(counters) -> dict:
+    return {c.__name__.lstrip("_"): c.launches for c in counters}
+
+
+def _timed_steps(dev, eng, mcfg, tok, tgt, counters, label) -> dict:
+    """GSPMD_STEPS timed steps of `eng` with the K1-K3 counts zeroed
+    before them and 0 after, finite and falling losses: step p50,
+    tok/s, MFU, the steps' peak memory."""
+    import torch
+
+    from shallowspeed_tpu_torch.flops import mfu
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.launches = 0
+    losses, step_s = [], []
+    for _ in range(GSPMD_STEPS):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(tok, tgt))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = _kernel_counts(counters)
+    if any(counts.values()):
+        raise AssertionError(f"gspmd {label}: K1-K3 launches {counts}, "
+                             f"want none (plain attention)")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"gspmd {label}: losses {losses}")
+    p50 = float(np.median(step_s))
+    tok_s = TRAIN_BATCH * mcfg.max_seq / p50
+    perf = mfu(tok_s, mcfg, mcfg.max_seq, "bf16", device=dev)
+    return {"losses": losses, "step_ms": [1e3 * x for x in step_s],
+            "step_ms_p50": 1e3 * p50, "tok_per_s": tok_s,
+            "tflops": perf["tflops"], "mfu": perf["mfu"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "launches": counts}
+
+
+def run_gspmd(dev, cfg, card) -> dict:
+    """Phase 13a/b: the 1.21B LM's width at GSPMD_LAYERS layers (MoE at
+    phase 10c's config), phase 6's batch, `init_numpy(seed 0)`, AdamW
+    3e-4. (a) The yardstick: the one-device plain-attention engine
+    (`ContextParallelEngine(attn="ring")`; for MoE `ExpertParallelEngine`
+    at (1, 1)) on the same weights and batch, its loss and gradient at
+    init and its timed steps. (b) Each GSPMD_LAYOUTS layout: the loss at
+    init within PARITY_LOSS_BUDGET of (a)'s, every first-step gradient
+    leaf within GRAD_TOL_BF16 of (a)'s (max |diff| / max |ref|),
+    `_timed_steps`, and the parameter and optimizer bytes the fullest
+    cell holds beside the one-device total; one profiled step. MoE's
+    loss and gradients are compared in f32 compute: a bf16 ulp moved by
+    another blocking of the same products flips a near-tied token's
+    expert in a later layer, and that token's whole contribution to a
+    leaf (its head column) moves with it."""
+    import torch
+
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.optim import SGD, AdamW
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+    from shallowspeed_tpu_torch.parallel.expert import ExpertParallelEngine
+    from shallowspeed_tpu_torch.parallel.mesh import make_grid
+    from shallowspeed_tpu_torch.weights import leaves
+
+    dense = dataclasses.replace(cfg, n_layers=GSPMD_LAYERS)
+    moe = dataclasses.replace(dense, n_experts=MOE_EXPERTS, moe_top_k=2,
+                              moe_capacity_factor=2.0)
+    counters = _all_train_counters()
+    results = {}
+
+    def adamw():
+        return AdamW(3e-4, weight_decay=0.01, grad_clip=1.0)
+
+    def one_device(c, opt, npm):
+        if c.n_experts:
+            return ExpertParallelEngine(c, opt, device=dev, params=npm)
+        return ContextParallelEngine(c, opt, attn="ring", device=dev,
+                                     params=npm)
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for kind, mcfg in (("dense", dense), ("moe", moe)):
+        npm = T.init_numpy(mcfg, seed=0)
+        tok, tgt = _train_batch(mcfg)
+        pcfg = (mcfg if kind == "dense"
+                else dataclasses.replace(mcfg, compute_dtype=None))
+        ref = one_device(pcfg, SGD(0.0), npm)
+        ref_loss, grads = ref.loss_and_grads(tok, tgt)
+        ref_loss = float(ref_loss)
+        ref_grads = [g.to("cpu") for g in leaves(grads)]
+        del ref, grads
+        release()
+        n_params = sum(x.size for x in leaves(npm))
+        one_bytes = 3 * 4 * n_params   # f32 masters and AdamW's 2 moments
+        eng = one_device(mcfg, adamw(), npm)
+        results[f"one-device-{kind}"] = {
+            "engine": type(eng).__name__, "layers": mcfg.n_layers,
+            "experts": mcfg.n_experts, "params": n_params,
+            "loss_at_init": ref_loss, "parity_dtype":
+                "bf16" if pcfg is mcfg else "f32",
+            **_timed_steps(dev, eng, mcfg, tok, tgt, counters, kind)}
+        print(f"gspmd layout one-device-{kind}: "
+              + json.dumps(results[f"one-device-{kind}"]) + f"  [{card}]",
+              flush=True)
+        del eng
+        release()
+        for name, cls, axes, sizes, kw in GSPMD_LAYOUTS:
+            if (cls == "ExpertParallelEngine") != (kind == "moe"):
+                continue
+            mesh = make_grid(axes, sizes, dev)
+            t0 = time.perf_counter()
+            eng = _gspmd_class(cls)(pcfg, adamw(), 0, mesh=mesh, params=npm,
+                                    **kw)
+            init_s = time.perf_counter() - t0
+            loss0, grads = eng.loss_and_grads(tok, tgt)
+            loss0 = float(loss0)
+            worst, where = 0.0, ""
+            for path, g, r in zip(leaves(_paths(grads)), leaves(grads),
+                                  ref_grads):
+                rel = _max_rel(g, r.to(dev))
+                if not rel <= worst:
+                    worst, where = rel, path
+            del grads
+            if pcfg is not mcfg:       # the timed engine computes in bf16
+                del eng
+                release()
+                t0 = time.perf_counter()
+                eng = _gspmd_class(cls)(mcfg, adamw(), 0, mesh=mesh,
+                                        params=npm, **kw)
+                init_s = time.perf_counter() - t0
+            print(f"gspmd {name}: loss at init {loss0:.6f} vs the one-device "
+                  f"engine's {ref_loss:.6f} (budget {PARITY_LOSS_BUDGET}), "
+                  f"worst first-step grad leaf {where} at {worst:.3e} "
+                  f"(tol {GRAD_TOL_BF16:g})", flush=True)
+            if not (abs(loss0 - ref_loss) <= PARITY_LOSS_BUDGET
+                    and worst <= GRAD_TOL_BF16):
+                raise AssertionError(f"gspmd {name}: loss {loss0} vs "
+                                     f"{ref_loss}, grad leaf {where} "
+                                     f"{worst:.3e}")
+            timed = _timed_steps(dev, eng, mcfg, tok, tgt, counters, name)
+            held = eng.cell_bytes()
+            full = max(held, key=lambda c: sum(held[c]))
+            results[name] = {
+                "engine": cls, "grid": dict(zip(axes, sizes)), **kw,
+                "layers": mcfg.n_layers, "experts": mcfg.n_experts,
+                "parity_dtype": "bf16" if pcfg is mcfg else "f32",
+                "loss_at_init": loss0, "yardstick_loss": ref_loss,
+                "grad_rel_worst": worst, "grad_rel_worst_leaf": where,
+                **timed, "fullest_cell": list(full),
+                "fullest_cell_params_gb": held[full][0] / 1e9,
+                "fullest_cell_opt_gb": held[full][1] / 1e9,
+                "one_device_params_opt_gb": one_bytes / 1e9,
+                "init_s": init_s}
+            print(f"gspmd layout {name}: " + json.dumps(results[name])
+                  + f"  [{card}]", flush=True)
+            print(f"gspmd profile {name}: "
+                  + json.dumps(profile_step(eng, tok, tgt)), flush=True)
+            del eng
+            release()
+        del npm, ref_grads
+    return results
+
+
+def run_gspmd_driver(dev, cfg) -> dict:
+    """Phase 13c: `train_lm --dp 2 --tp 2` at full width and
+    GSPMD_DRIVER_LAYERS layers, GSPMD_DRIVER_STEPS steps with a save at
+    the end; `--resume` of that checkpoint at `--fsdp --dp 4` to
+    GSPMD_DRIVER_STEPS + 2 steps, its losses within PARITY_LOSS_BUDGET of
+    a straight `--fsdp --dp 4` run's at the same steps; one `--ep 2
+    --experts 4` run of GSPMD_DRIVER_STEPS steps with finite losses (a
+    new motif each step: the stream's losses need not fall).
+    K1-K3 launch in none of them. The checkpoints live in a temporary
+    directory removed at the end."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from shallowspeed_tpu_torch import train_lm
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_gspmd_"))
+    total = GSPMD_DRIVER_STEPS + 2
+    flags = ["--vocab", str(cfg.vocab), "--d-model", str(cfg.d_model),
+             "--n-heads", str(cfg.n_heads),
+             "--n-layers", str(GSPMD_DRIVER_LAYERS),
+             "--d-ff", str(cfg.ffn_dim), "--seq-len", str(cfg.max_seq),
+             "--batch-size", str(TRAIN_BATCH), "--rope", "--norm", cfg.norm,
+             "--ffn", cfg.ffn, "--optimizer", "adamw", "--lr", "3e-4",
+             "--grad-clip", "1.0", "--log-every", "1"]
+    if cfg.compute_dtype is not None:
+        flags.append("--bf16")
+    if dev.type == "cpu":
+        flags += ["--device", "cpu"]
+    counters = _all_train_counters()
+
+    def drive(tag, *extra):
+        for c in counters:
+            c.launches = 0
+        log = root / f"{tag}.jsonl"
+        t0 = time.time()
+        train_lm.main([*flags, *extra, "--log-file", str(log)])
+        wall = time.time() - t0
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        counts = _kernel_counts(counters)
+        if any(counts.values()):
+            raise AssertionError(f"gspmd driver {tag}: K1-K3 launches "
+                                 f"{counts}, want none")
+        return {"losses": [e["loss"] for e in _events(log, "step")],
+                "wall_s": wall, "log": log}
+
+    try:
+        ck = str(root / "ck")
+        a = drive("a", "--dp", "2", "--tp", "2",
+                  "--steps", str(GSPMD_DRIVER_STEPS), "--save-dir", ck,
+                  "--save-every", str(GSPMD_DRIVER_STEPS))
+        b = drive("b", "--fsdp", "--dp", "4", "--steps", str(total),
+                  "--save-dir", ck, "--resume")
+        restore, = _events(b["log"], "restore")
+        c = drive("c", "--fsdp", "--dp", "4", "--steps", str(total))
+        gap = max(abs(x - y) for x, y in
+                  zip(b["losses"], c["losses"][GSPMD_DRIVER_STEPS:]))
+        e = drive("e", "--ep", "2", "--experts", str(MOE_EXPERTS),
+                  "--steps", str(GSPMD_DRIVER_STEPS))
+        out = {"losses_dp2_tp2": a["losses"],
+               "losses_resumed_fsdp_dp4": b["losses"],
+               "losses_straight_fsdp_dp4": c["losses"],
+               "resumed_gap": gap,
+               "losses_ep2": e["losses"],
+               "restore": {k: restore[k] for k in ("path", "step", "verify_s",
+                                                   "load_s", "place_s")},
+               "wall_s": {r: x["wall_s"] for r, x in
+                          (("a", a), ("b", b), ("c", c), ("e", e))}}
+        print("gspmd driver: " + json.dumps(out), flush=True)
+        if not (len(a["losses"]) == GSPMD_DRIVER_STEPS
+                and len(b["losses"]) == 2
+                and restore["step"] == GSPMD_DRIVER_STEPS
+                and len(e["losses"]) == GSPMD_DRIVER_STEPS
+                and all(np.isfinite(a["losses"] + b["losses"] + e["losses"]))
+                and gap <= PARITY_LOSS_BUDGET):
+            raise AssertionError(f"gspmd driver: {out}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3797,6 +4097,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_moe(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_gspmd(dev, cfg, card)
+    run_gspmd_driver(dev, cfg)
 
     src = "shallowspeed_tpu_torch/csrc/"
     fa = "shallowspeed_tpu/ops/flash_attention.py:"

@@ -49,7 +49,13 @@ What is ported so far:
   devices (`parallel.mesh.make_context_mesh`), ZeRO-1/2 in
   `parallel.zero`, the sequence-parallel substrates in `ops.attention`
   and `ops.flash_attention.ring_flash_attention` (K1 with f32 chunk
-  outputs, K2 and K3 on every hop of the ring).
+  outputs, K2 and K3 on every hop of the ring);
+- the GSPMD engine family: `train_lm --tp / --fsdp / --sp --tp / --ep`
+  -> `parallel.gspmd.GSPMDEngine` under `parallel.tensor.
+  TensorParallelEngine`, `parallel.fsdp.FSDPEngine`,
+  `parallel.composite.Composite3DEngine` and `parallel.expert.
+  ExpertParallelEngine`, over a named grid (`parallel.mesh.Grid`), on
+  the plain attention (`ops.attention.allgather_attention` at sp > 1).
 ROADMAP.md lists what comes next; each feature not ported yet raises
 `NotPorted`.
 

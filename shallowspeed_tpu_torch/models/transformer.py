@@ -482,20 +482,22 @@ def _remat_contexts(policy: str):
     return _Both(fwd, stash.recording()), _Both(rec, stash.replaying())
 
 
-def _remat_block(cfg: TransformerConfig):
-    """`_block` rematerialized (torch.utils.checkpoint, non-reentrant)
-    under cfg.remat_policy: "full" saves nothing (the backward reruns
-    the whole block, K1 included); "attn" saves the attention output
-    and its lse, so the backward never relaunches K1; "dots" saves
-    those and every dense product's output, so the backward recomputes
-    only the elementwise work (norms, rope, silu / gelu, dropout masks,
-    which come from keys, not from a stream)."""
+def _remat_block(cfg: TransformerConfig, fn=None):
+    """`_block` (or another block function of its signature, `fn`: the
+    parallel engines' blocks) rematerialized (torch.utils.checkpoint,
+    non-reentrant) under cfg.remat_policy: "full" saves nothing (the
+    backward reruns the whole block, K1 included); "attn" saves the
+    attention output and its lse, so the backward never relaunches K1;
+    "dots" saves those and every dense product's output, so the backward
+    recomputes only the elementwise work (norms, rope, silu / gelu,
+    dropout masks, which come from keys, not from a stream)."""
     ctx = (None if cfg.remat_policy == "full"
            else partial(_remat_contexts, cfg.remat_policy))
+    fn = _block if fn is None else fn
 
     def block(p, x, cfg, pos, attn_fn, key):
         kw = {} if ctx is None else {"context_fn": ctx}
-        return checkpoint(_block, p, x, cfg, pos, attn_fn, key,
+        return checkpoint(fn, p, x, cfg, pos, attn_fn, key,
                           use_reentrant=False, preserve_rng_state=False,
                           **kw)
 

@@ -1,6 +1,7 @@
 """Plain attention in torch arithmetic — counterpart of
 `shallowspeed_tpu/ops/attention.py`: `attention`, and the sequence-
-parallel substrates `ring_attention` and `ulysses_attention`.
+parallel substrates `ring_attention`, `ulysses_attention` and
+`allgather_attention`.
 
 This is the full-forward reference the serving path is held against,
 so it deliberately repeats the JAX numerics instead of calling a fused
@@ -30,14 +31,15 @@ NEG = -1e30
 
 
 def attention(q, k, v, causal: bool = True, window: int = 0,
-              dropout: float = 0.0, dropout_key=None):
+              dropout: float = 0.0, dropout_key=None, q_offset: int = 0):
     """q: (B, T, H, D); k, v: (B, Tk, Hkv, D) with Hkv | H (native GQA:
     query head h reads kv head h // G, K/V are never repeated).
     `causal` lets position i see keys <= i; `window > 0` additionally
     limits it to [i - window + 1, i]. `dropout` with a `dropout_key`
     (`ops.dropout`) drops probabilities before the PV product, the kept
-    ones scaled by 1 / (1 - dropout). Returns (B, T, H, D) in q's
-    dtype."""
+    ones scaled by 1 / (1 - dropout). `q_offset` is the position of
+    q's first row in k's sequence (a query tile against the whole
+    sequence's keys). Returns (B, T, H, D) in q's dtype."""
     b, tq, h, d = q.shape
     kvh = k.shape[2]
     if h % kvh:
@@ -47,7 +49,7 @@ def attention(q, k, v, causal: bool = True, window: int = 0,
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
     if causal or window > 0:
         tk = k.shape[1]
-        iq = torch.arange(tq, device=q.device)[:, None]
+        iq = q_offset + torch.arange(tq, device=q.device)[:, None]
         ik = torch.arange(tk, device=q.device)[None, :]
         mask = iq >= ik if causal else torch.ones(tq, tk, dtype=torch.bool,
                                                   device=q.device)
@@ -178,3 +180,22 @@ def ulysses_attention(q, k, v, devices, causal: bool = True, window: int = 0,
             for s, dev in enumerate(devices)]
     # the reverse all-to-all: every position gets its heads back, in order
     return torch.cat([o.to(q.device) for o in outs], dim=2)
+
+
+def allgather_attention(q, k, v, devices, causal: bool = True,
+                        window: int = 0):
+    """All-gather context parallelism — the attention of the reference's
+    GSPMD engines under an 'sp' axis (`parallel/composite.py`,
+    `parallel/expert.py`), where queries stay sharded over the sequence
+    and K/V are all-gathered: q, k, v and `devices` as `ring_attention`
+    takes them. Cell s takes its query tile and the whole K/V (the
+    gather) and runs the plain `attention` with the causal mask offset
+    by the tile's start; the outputs come back whole on q's device, in
+    tile order."""
+    devices = cell_devices(devices, q)
+    t = q.shape[1] // len(devices)
+    outs = [attention(qs, k.to(dev), v.to(dev), causal=causal, window=window,
+                      q_offset=s * t).to(q.device)
+            for s, (qs, dev) in enumerate(zip(seq_tiles(q, devices),
+                                              devices))]
+    return torch.cat(outs, dim=1)

@@ -1,7 +1,10 @@
 """Mixture-of-experts ops — counterpart of `shallowspeed_tpu/ops/moe.py`
 (capacity-based top-k routing and the einsum dispatch, GShard /
-Switch style), without its `axis_name` all-to-all branch: one device
-holds every expert.
+Switch style). One body serves one device and expert parallelism, as
+the reference's `moe_ffn` serves `moe_ffn_ep`: routing always runs over
+all E experts; with the experts split over ep cells (`p["experts"]`,
+see `moe_ffn`) each cell runs its own experts' slots, and their outputs
+come back in rank order for the one combine.
 
 Shapes are static as in the reference: each expert takes a fixed
 capacity of C token slots per batch group, routing gives dense
@@ -14,10 +17,32 @@ loss, as in the reference.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
 import torch.nn.functional as F
+
+
+# the list collecting the (f, P) balance terms of every `route` call
+# while `balance_terms` is active
+_BALANCE = contextvars.ContextVar("moe_balance_terms", default=None)
+
+
+@contextlib.contextmanager
+def balance_terms():
+    """Collect each routed layer's balance terms, in call order: (f, P),
+    the top-1 share and the mean router probability per expert, whose
+    product the Switch loss sums. The loss is not linear in the data
+    shards, so an engine over several shards sums f and P over them
+    first (`parallel.gspmd`)."""
+    terms: list = []
+    token = _BALANCE.set(terms)
+    try:
+        yield terms
+    finally:
+        _BALANCE.reset(token)
 
 
 def expert_capacity(seq_len: int, num_experts: int, top_k: int,
@@ -88,7 +113,11 @@ def route(probs, capacity: int, top_k: int = 2, priority: bool = False):
     dispatch = combine > 0.0
 
     top1 = _one_hot(topk_idx[..., 0], e)
-    aux = e * torch.sum(top1.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+    f, p = top1.mean(dim=(0, 1)), probs.mean(dim=(0, 1))
+    terms = _BALANCE.get()
+    if terms is not None:
+        terms.append((f, p))
+    aux = e * torch.sum(f * p)
     total = float(g * s * top_k)
     stats = {"load": assigned / total,
              "drop_fraction": 1.0 - kept / total}
@@ -101,13 +130,32 @@ def router_z_loss(gate_logits) -> torch.Tensor:
     return torch.mean(z * z)
 
 
+def _experts(p: dict, xin):
+    """GELU (tanh form) experts with biases on their dispatched slots:
+    xin (E', G, C, d) for the E' experts of `p`."""
+    h = F.gelu(torch.einsum("egcd,edf->egcf", xin, p["wi"])
+               + p["bi"][:, None, None, :], approximate="tanh")
+    return (torch.einsum("egcf,efd->egcd", h, p["wo"])
+            + p["bo"][:, None, None, :])
+
+
 def moe_ffn(p: dict, x, top_k: int, capacity_factor: float,
             priority: bool = False):
     """The MoE feed-forward layer. p: {"gate": (d, E), "wi": (E, d, ff),
     "bi": (E, ff), "wo": (E, ff, d), "bo": (E, d)}; x: (G, S, d) ->
     (y (G, S, d) in x's dtype, balance aux, router z-loss, stats), the
-    two losses unweighted (the config owns the weights). Experts are
-    GELU (tanh form) with biases."""
+    two losses unweighted (the config owns the weights).
+
+    Expert parallelism (the reference's `moe_ffn_ep`): p = {"gate": (d,
+    E), "experts": [per ep cell {"wi", "bi", "wo", "bo"} of its E/ep
+    experts, on its device]}. Routing is over all E experts as above;
+    cell c takes the dispatched slots of its experts [c E/ep, (c+1)
+    E/ep) (the all-to-all) and runs them; the inverse all-to-all brings
+    the cells' outputs back to x's device in rank order, and the combine
+    contracts them over every expert's slots at once, as on one cell
+    (the reference's `moe_ffn_ep`: a sum of per-cell partial combines
+    would round each part to the compute dtype and move later layers'
+    routing)."""
     g, s, d = x.shape
     e = p["gate"].shape[1]
     cap = expert_capacity(s, e, top_k, capacity_factor)
@@ -117,9 +165,17 @@ def moe_ffn(p: dict, x, top_k: int, capacity_factor: float,
     combine, dispatch, aux, stats = topk_capacity_routing(
         logits, cap, top_k, priority=priority)
     xin = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), x)
-    h = F.gelu(torch.einsum("egcd,edf->egcf", xin, p["wi"])
-               + p["bi"][:, None, None, :], approximate="tanh")
-    out = (torch.einsum("egcf,efd->egcd", h, p["wo"])
-           + p["bo"][:, None, None, :])
+    cells = p.get("experts")
+    if cells is None:
+        y = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype),
+                         _experts(p, xin))
+        return y, aux, router_z_loss(logits), stats
+    if e % len(cells):
+        raise ValueError(f"{e} experts do not split over {len(cells)} "
+                         f"ep cells")
+    n = e // len(cells)
+    out = torch.cat([_experts(pc, xin[c * n:(c + 1) * n].to(pc["wi"].device)
+                              ).to(x.device)
+                     for c, pc in enumerate(cells)])
     y = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), out)
     return y, aux, router_z_loss(logits), stats

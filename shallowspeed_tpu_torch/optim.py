@@ -281,7 +281,9 @@ class Adafactor(_Optimizer):
     max(eps_scale, RMS(p)), so `lr` is a relative step size; the first
     moment (beta1 > 0) is optional; decoupled decay uses the same
     scaled step. On one device every leaf is unsharded, so every leaf
-    with ndim >= 2 factors. Its row and column statistics, the update's
+    with ndim >= 2 factors; a parallel engine passes its placement
+    (`init(params, specs)`) and a leaf sharded on its trailing two dims
+    keeps a full v, as the reference decides. Its row and column statistics, the update's
     RMS and the parameter's RMS reduce over whole leaves, so it is not
     `elementwise`: ZeRO gathers a leaf's slices before this update.
 
@@ -305,9 +307,23 @@ class Adafactor(_Optimizer):
         self.scale_parameter = scale_parameter
         self.weight_decay = weight_decay
 
-    def _slot(self, p):
+    @staticmethod
+    def factored(p, spec=None) -> bool:
+        """Whether leaf `p` keeps factored moments: ndim >= 2 and, when
+        the leaf has a placement `spec` (per dimension an axis name or
+        None, `parallel.gspmd.P`), its trailing two dims unsharded — the
+        reference's `_factored`: Megatron's column- and row-sharded
+        matrices and FSDP's sharded ones keep a full v."""
+        if p.dim() < 2:
+            return False
+        if spec is None:
+            return True
+        entries = tuple(spec) + (None,) * (p.dim() - len(tuple(spec)))
+        return entries[-1] is None and entries[-2] is None
+
+    def _slot(self, p, spec=None):
         f32 = dict(dtype=torch.float32, device=p.device)
-        if p.dim() >= 2:
+        if self.factored(p, spec):
             slot = {"vr": torch.zeros(p.shape[:-1], **f32),
                     "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
         else:
@@ -316,8 +332,12 @@ class Adafactor(_Optimizer):
             slot["m"] = torch.zeros(p.shape, **f32)
         return slot
 
-    def init(self, params):
-        return {"slots": tuple(self._slot(p) for p in sorted_leaves(params)),
+    def init(self, params, specs=None):
+        """Zero state; `specs`, a tree of placement specs matching
+        `params` (the parallel engines'), decides which leaves factor."""
+        ps = list(sorted_leaves(params))
+        ss = [None] * len(ps) if specs is None else list(sorted_leaves(specs))
+        return {"slots": tuple(self._slot(p, s) for p, s in zip(ps, ss)),
                 "t": 0}
 
     def _update(self, params, grads, state):

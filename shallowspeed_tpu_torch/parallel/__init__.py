@@ -1,3 +1,5 @@
-"""Training engines of the port: the LM's `context` engine (one device)
-and the MLP's pipeline VM, schedules and SPMD pipeline over a (dp, pp)
-grid of devices (`mesh`)."""
+"""Training engines of the port: the LM's `context` engine over a (dp,
+sp) grid, the GSPMD family (`gspmd` and its `tensor`, `fsdp`,
+`composite` and `expert` engines over a named `mesh.Grid`), and the
+MLP's pipeline VM, schedules and SPMD pipeline over a (dp, pp) grid of
+devices (`mesh`)."""

@@ -46,7 +46,9 @@ order); under "guard" the update is gated on its `nonfinite == 0`
 (`guarded_step`). The canonical state a checkpoint holds is replica 0's
 parameters and the unsharded optimizer state (`opt_state` gathers ZeRO's
 slices), so checkpoints cross between layouts and packages. Comm
-overlap and MoE configs at sp > 1 raise `NotPorted`.
+overlap and MoE configs at sp > 1 (the reference routes each tile on
+its own here; `parallel.expert.ExpertParallelEngine` routes whole rows
+over a (dp, sp, ep) grid) raise `NotPorted`.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ from shallowspeed_tpu_torch.weights import (leaves, map_tree,
                                             unflatten)
 
 _OVERLAP = "Queue 1 item 5, comm overlap"
-_MOE = "Queue 1 item 5, ep > 1"
+_MOE = "Queue 1 item 5, MoE in the context engine"
 
 SUBSTRATES = ("ring", "ring-flash", "ulysses", "ulysses-flash", "flash")
 

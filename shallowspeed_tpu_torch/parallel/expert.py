@@ -1,59 +1,71 @@
-"""The MoE trainer on one device — the (dp, ep) = (1, 1) counterpart of
-`shallowspeed_tpu/parallel/expert.py::ExpertParallelEngine`, a GSPMD
-engine there (`parallel/gspmd.py`).
+"""Expert parallelism — the MoE transformer over a ("dp", "ep") or
+("dp", "sp", "ep") grid; counterpart of
+`shallowspeed_tpu/parallel/expert.py::ExpertParallelEngine`.
 
-At one device the reference's expert placement is the identity: every
-expert's weights live on the card, the dispatch and combine einsums
-(`ops.moe`) need no all-to-all, and the step is `transformer.loss`
-under autograd through the plain attention (what the GSPMD engine's
-`T.loss` runs by default), with one dropout key a step. The public
-face is the reference engine's: `train_batch`, `eval_loss`, `logits`,
-`router_stats` and the checkpoint interface; the class name is the
-reference's too, so a checkpoint's optimizer state restores across
-the packages as the engine's own. ep > 1 and dp > 1 raise `NotPorted`.
+Placement (`param_specs`, the reference's): the stacked expert weights
+`wi/bi/wo/bo` (leading dim E) cut over ep — each ep cell owns E/ep
+experts — and the router gate, attention, embeddings and norms
+replicated. The batch's rows go over dp, the sequence over sp (the K/V
+all-gather attention, `parallel.gspmd`).
+
+Each replica routes its rows over all E experts (`ops.moe.moe_ffn`, one
+body for every ep: the routing math cannot drift), each ep cell runs its
+own experts' slots, and the cells' outputs come back in rank order for
+the combine. Routing sees whole rows at sp > 1 (the replica's whole sequence
+runs on its home cell), so capacity competes per (row, expert) in
+sequence order as on one device. The Switch balance loss is the global
+one: at dp > 1 each layer's f and P are summed over the replicas before
+their product. At (dp, ep) = (1, 1) the engine computes exactly what
+the one-device trainer computes.
 """
 
 from __future__ import annotations
 
-import torch
-
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch.models import transformer as T
-from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
-
-_LATER = "Queue 1 item 5, ep > 1"
+from shallowspeed_tpu_torch.parallel.gspmd import GSPMDEngine, P
 
 
-class ExpertParallelEngine(ContextParallelEngine):
-    """One-device trainer for the MoE transformer family (cfg.n_experts
-    > 0): the reference engine's config checks, then
-    `ContextParallelEngine` with the plain attention."""
+def param_specs(cfg: T.TransformerConfig) -> dict:
+    """The spec tree matching `transformer.init` with n_experts > 0."""
+    assert cfg.n_experts > 0
+    dense = {"W": P(), "b": P()}
+    ln = {"g": P(), "b": P()}
+    moe = {"gate": P(), "wi": P("ep", None, None), "bi": P("ep", None),
+           "wo": P("ep", None, None), "bo": P("ep", None)}
+    attn_proj = ({"q": dense, "kv": dense} if cfg.gqa
+                 else {"qkv": dense})
+    block = {"ln1": ln, **attn_proj, "proj": dense, "ln2": ln, "moe": moe}
+    out = {
+        "tok_emb": P(),
+        "pos_emb": P(),
+        "blocks": [block for _ in range(cfg.n_layers)],
+        "ln_f": ln,
+    }
+    if not cfg.tie_embeddings:
+        out["head"] = dense
+    return out
 
-    def __init__(self, cfg: T.TransformerConfig, optimizer, seed: int = 0,
-                 device=None, *, dp: int = 1, ep: int = 1,
-                 zero1: bool = False, zero2: bool = False,
-                 health: str = "off", params=None):
-        if dp > 1 or ep > 1:
-            raise NotPorted(f"expert parallelism over a (dp={dp}, ep={ep}) "
-                            f"mesh", _LATER)
+
+class ExpertParallelEngine(GSPMDEngine):
+    """Data x expert parallel trainer for the MoE transformer family
+    (`parallel.mesh.make_ep_mesh`'s grid; one cell by default)."""
+
+    default_axes = ("dp", "ep")
+
+    def validate(self, cfg: T.TransformerConfig, mesh) -> None:
+        if mesh.axis_names not in (("dp", "ep"), ("dp", "sp", "ep")):
+            raise ValueError(f"ExpertParallelEngine expects a ('dp'[,'sp'],"
+                             f"'ep') mesh, got {mesh.axis_names}")
         if cfg.n_experts <= 0:
             raise ValueError("ExpertParallelEngine needs n_experts > 0")
+        self.sp = mesh.shape.get("sp", 1)
+        self.ep = mesh.shape["ep"]
+        if cfg.n_experts % self.ep:
+            raise ValueError(f"n_experts={cfg.n_experts} must be divisible "
+                             f"by ep={self.ep}")
         if cfg.moe_top_k > cfg.n_experts:
             raise ValueError(f"moe_top_k={cfg.moe_top_k} cannot exceed "
                              f"n_experts={cfg.n_experts}")
-        super().__init__(cfg, optimizer, seed, attn="ring", device=device,
-                         zero1=zero1, zero2=zero2, health=health,
-                         params=params)
 
-    @torch.no_grad()
-    def router_stats(self, tokens) -> dict:
-        """MoE routing on one batch, as the reference reports it: the
-        per-expert share of the (token, k) assignments (pre-drop) and
-        the share dropped for capacity, averaged over the layers. A
-        train-mode forward without dropout: one extra forward, so call
-        it at log points only."""
-        _, _, st = T.forward_with_aux(self.params, self.place(tokens),
-                                      self.cfg, self.attn_fn,
-                                      with_stats=True)
-        return {"expert_load": [round(float(x), 4) for x in st["load"]],
-                "drop_fraction": round(float(st["drop_fraction"]), 4)}
+    def param_specs(self, cfg: T.TransformerConfig) -> dict:
+        return param_specs(cfg)

@@ -1,16 +1,21 @@
 """The device grids — counterpart of `shallowspeed_tpu/parallel/mesh.py`
-and of the ("dp", "sp") mesh of `parallel/context.py`.
+and of the meshes the root `train_lm.py` builds for its engines.
 
-The reference builds a 2-D `jax.sharding.Mesh` that one controller
-drives; here a grid is a numpy object array of `torch.device`s that the
-engines drive from one process: in the (dp, pp) grid cell (r, s) holds
-replica r's copy of stage s, in the (dp, sp) grid replica r's sequence
-tile s. Several cells may name one device: on a card every cell is
-that card, in the CPU tests every cell is the CPU, and every layout
-runs in one process either way.
+The reference builds a `jax.sharding.Mesh` that one controller drives;
+here a grid is a numpy object array of `torch.device`s that the engines
+drive from one process: in the (dp, pp) grid cell (r, s) holds replica
+r's copy of stage s, in the (dp, sp) grid replica r's sequence tile s.
+The GSPMD engines (`parallel.gspmd`) take a `Grid`, the array with its
+axis names, as the reference's engines take a named mesh: ("dp",),
+("dp", "tp"), ("dp", "sp", "tp"), ("dp", "ep") and ("dp", "sp", "ep").
+Several cells may name one device: on a card every cell is that card,
+in the CPU tests every cell is the CPU, and every layout runs in one
+process either way.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -18,20 +23,20 @@ import torch
 from shallowspeed_tpu_torch import resolve_device
 
 
-def _grid(rows: int, cols: int, names: tuple, devices) -> np.ndarray:
-    n = rows * cols
-    assert rows >= 1 and cols >= 1, (rows, cols)
+def _grid(shape: tuple, names: tuple, devices) -> np.ndarray:
+    n = math.prod(shape)
+    assert all(s >= 1 for s in shape), shape
     if devices is None or isinstance(devices, (str, torch.device)):
         cells = [resolve_device(devices)] * n
     else:
         devices = [resolve_device(d) for d in devices]
         assert n <= len(devices), (
-            f"requested {names[0]}={rows} x {names[1]}={cols} = {n} "
-            f"devices, have {len(devices)}")
+            "requested " + " x ".join(f"{a}={s}" for a, s in zip(names, shape))
+            + f" = {n} devices, have {len(devices)}")
         cells = devices[:n]
     grid = np.empty(n, dtype=object)
     grid[:] = cells
-    return grid.reshape(rows, cols)
+    return grid.reshape(shape)
 
 
 def make_mesh(dp: int = 1, pp: int = 1, devices=None) -> np.ndarray:
@@ -39,10 +44,55 @@ def make_mesh(dp: int = 1, pp: int = 1, devices=None) -> np.ndarray:
     is `resolve_device()`, the card), one device or device name (every
     cell is it), or a sequence of at least dp * pp devices, laid out
     row-major as the reference's mesh takes its device list."""
-    return _grid(dp, pp, ("dp", "pp"), devices)
+    return _grid((dp, pp), ("dp", "pp"), devices)
 
 
 def make_context_mesh(dp: int = 1, sp: int = 1, devices=None) -> np.ndarray:
     """A (dp, sp) grid of `torch.device` for `ContextParallelEngine`,
     with `make_mesh`'s `devices` contract."""
-    return _grid(dp, sp, ("dp", "sp"), devices)
+    return _grid((dp, sp), ("dp", "sp"), devices)
+
+
+class Grid:
+    """A grid of `torch.device`s with one name per axis — what the
+    reference's `Mesh` is to its GSPMD engines: `devices` the object
+    array, `axis_names` the names, `shape` {name: size}."""
+
+    def __init__(self, devices: np.ndarray, axis_names: tuple):
+        self.devices = devices
+        self.axis_names = tuple(axis_names)
+        if devices.ndim != len(self.axis_names):
+            raise ValueError(f"a {devices.ndim}-D grid needs as many axis "
+                             f"names, got {self.axis_names}")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+
+def make_grid(axis_names: tuple, sizes: tuple, devices=None) -> Grid:
+    """A named grid, with `make_mesh`'s `devices` contract."""
+    return Grid(_grid(tuple(sizes), tuple(axis_names), devices), axis_names)
+
+
+def make_fsdp_mesh(dp: int = 1, devices=None) -> Grid:
+    """The ("dp",) grid of `FSDPEngine`."""
+    return make_grid(("dp",), (dp,), devices)
+
+
+def make_tp_mesh(dp: int = 1, tp: int = 1, devices=None) -> Grid:
+    """The ("dp", "tp") grid of `TensorParallelEngine`."""
+    return make_grid(("dp", "tp"), (dp, tp), devices)
+
+
+def make_3d_mesh(dp: int = 1, sp: int = 1, tp: int = 1, devices=None) -> Grid:
+    """The ("dp", "sp", "tp") grid of `Composite3DEngine`."""
+    return make_grid(("dp", "sp", "tp"), (dp, sp, tp), devices)
+
+
+def make_ep_mesh(dp: int = 1, ep: int = 1, sp: int = 1, devices=None) -> Grid:
+    """The grid of `ExpertParallelEngine`: ("dp", "ep"), or ("dp", "sp",
+    "ep") at sp > 1 (long-context MoE), as the root driver builds it."""
+    if sp > 1:
+        return make_grid(("dp", "sp", "ep"), (dp, sp, ep), devices)
+    return make_grid(("dp", "ep"), (dp, ep), devices)

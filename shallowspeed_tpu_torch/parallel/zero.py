@@ -8,7 +8,9 @@ reduce-scatter. One process drives every cell here, so the sharding is
 explicit:
 
 - `zero2_grad_dim`, the one placement rule: a leaf's first dimension
-  that dp divides (None: the leaf stays whole on every cell);
+  that dp divides (None: the leaf stays whole on every cell), and with
+  a spec (the tensor- and expert-parallel engines' leaves,
+  `parallel.gspmd`) the first such dimension the spec leaves free;
 - `shard_state_zero1`: cell c keeps slice c of every state leaf, on its
   device (step counters and undivisible leaves whole on every cell);
 - `reduce_scatter`: each replica's gradient partial, as it comes, added
@@ -41,14 +43,21 @@ from shallowspeed_tpu_torch.telemetry.health import (grad_health,
 from shallowspeed_tpu_torch.weights import leaves, map_tree, unflatten
 
 
-def zero2_grad_dim(shape, size: int):
-    """The dimension the dp axis (of `size` cells) lands on for a leaf of
-    `shape`: its first non-empty dimension divisible by `size`, or None
-    if none qualifies (the leaf stays whole on every cell). THE one
+def zero2_grad_dim(shape, size: int, spec=None, axis: str = "dp"):
+    """The dimension the `axis` axis (of `size` cells) lands on for a
+    leaf of `shape` placed by `spec` (per dimension an axis name or
+    None; None: unplaced): its first non-empty dimension that the spec
+    leaves unsharded and `size` divides, or None if none qualifies or
+    the spec already uses `axis` (the leaf stays as placed). THE one
     placement rule of gradients, moments and parameter slices, so they
-    can never disagree."""
+    can never disagree — the reference's `zero2_grad_dim(spec, shape,
+    size, axis)`."""
+    entries = tuple(spec or ())
+    if axis in entries:
+        return None
+    entries += (None,) * (len(shape) - len(entries))
     for i, dim in enumerate(shape):
-        if dim and dim % size == 0:
+        if entries[i] is None and dim and dim % size == 0:
             return i
     return None
 

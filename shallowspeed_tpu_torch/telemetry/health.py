@@ -10,9 +10,10 @@ stay on the device until `engine_snapshot` fetches them at a log point:
 no host sync per step — the port's form of the reference's "zero new
 executables".
 
-One process drives every engine of the port and every leaf is whole,
-so the reference's per-leaf `psum` over the mesh axes a leaf's spec
-shards (`spec_axes`) becomes a plain sum. The pipeline VM keeps one
+One process drives every engine of the port, so the reference's
+per-leaf `psum` over the mesh axes a leaf's spec shards (`spec_axes`)
+becomes a plain sum: a sharded leaf comes as its shards
+(`parallel.zero.Slices`), whose statistics are summed in rank order. The pipeline VM keeps one
 LOCAL pack per stage and the driver merges them (`merge_packs`).
 
 Unlike the reference's functional update, the port's optimizers update
@@ -119,11 +120,11 @@ def grad_health(params, grads) -> dict:
 
 @torch.no_grad()
 def snapshot(params) -> list:
-    """Bit-exact copies of the parameters' leaves (JAX leaf order): the
-    "old" side of `update_health`, taken before an in-place update, and
-    under guard what a skipped step puts back (`guarded_step`'s
-    `old_params`)."""
-    src = [p.detach() for p in sorted_leaves(params)]
+    """Bit-exact copies of the parameters' leaves (JAX leaf order; a
+    leaf held as slices, slice by slice): the "old" side of
+    `update_health`, taken before an in-place update, and under guard
+    what a skipped step puts back (`guarded_step`'s `old_params`)."""
+    src = [t.detach() for p in sorted_leaves(params) for t in _parts(p)]
     out = [torch.empty_like(p) for p in src]
     torch._foreach_copy_(out, src)
     return out
@@ -136,7 +137,8 @@ def update_health(pack: dict, old: list, new_params,
     ratio ||new - old|| / ||old|| (0 on a skipped step) with `old` the
     `snapshot` taken before the update, plus the `skipped` flag (an
     int32 0-d tensor) under guard."""
-    new = [n.detach().float() for n in sorted_leaves(new_params)]
+    new = [t.detach().float() for n in sorted_leaves(new_params)
+           for t in _parts(n)]
     dsq = torch.sum(_sq(torch._foreach_sub(new, [o.float() for o in old])))
     pack = dict(pack)
     pack["update_ratio"] = torch.sqrt(dsq) / (pack["param_norm"] + 1e-12)
@@ -147,8 +149,9 @@ def update_health(pack: dict, old: list, new_params,
 
 @torch.no_grad()
 def param_l2(tree) -> torch.Tensor:
-    """Global L2 of a tree (f32 accumulation), a 0-d tensor."""
-    return torch.sqrt(torch.sum(_sq(list(sorted_leaves(tree)))))
+    """Global L2 of a tree (f32 accumulation), a 0-d tensor; a leaf
+    held as slices (`parallel.zero.Slices`) counts each slice once."""
+    return torch.sqrt(torch.sum(leaf_squares(list(sorted_leaves(tree)))))
 
 
 def note_step(engine, pack) -> None:

@@ -29,6 +29,17 @@ each replica's rows. The root driver's checks hold (--zero2 subsumes
 --zero1, batch % dp, seq_len % sp, --attn flash only at sp 1,
 --attn-dropout only at sp 1 with ring).
 
+The GSPMD engine family takes the root driver's flags and its engine
+choice: `--tp T` Megatron tensor parallelism over a (dp, tp) grid
+(`parallel.tensor.TensorParallelEngine`), `--fsdp` ZeRO-3 over a (dp,)
+grid (`parallel.fsdp.FSDPEngine`), `--sp S --tp T` or `--fsdp` with
+--sp/--tp the (dp, sp, tp) composite (`parallel.composite.
+Composite3DEngine`, ZeRO-3 over tp with --fsdp), and `--experts E
+[--ep P]` at any --dp/--sp (`parallel.expert.ExpertParallelEngine` over
+(dp, ep) or (dp, sp, ep)). These engines run the plain attention (the
+root's "XLA attention": --attn ring, the default with them), with the
+root driver's checks and messages.
+
 `--val-every N` prints `step N  val_loss L  ppl P` on held-out data.
 `--save-dir` checkpoints every `--save-every` steps and at the end
 (`checkpoint.save`, or `AsyncSaver` with `--async-save`; rotation with
@@ -49,8 +60,7 @@ The one-device training features take the root driver's flags:
 `--accum`, `--remat --remat-policy`, `--xent-chunk`, `--dropout`,
 `--attn-dropout`, `--optimizer adafactor` (with `--weight-decay`), and
 `--experts` with `--moe-top-k --moe-capacity-factor --moe-routing
---moe-z-weight` (`parallel.expert.ExpertParallelEngine` at `--ep 1`,
-which prints the root driver's `moe drop ... load ...` line and logs
+--moe-z-weight` (`parallel.expert.ExpertParallelEngine`, which prints the root driver's `moe drop ... load ...` line and logs
 its `"moe_router"` event at log points). `--experts` and
 `--attn-dropout` run the plain attention, as the root driver does at
 sp 1: without `--attn` they take it, and `--attn flash` with either
@@ -69,10 +79,9 @@ verdicts and carries the `health_*` fields on the step line; an
 a checkpoint of an unhealthy state is skipped. Under guard an update
 with non-finite gradients is skipped bit for bit.
 
-The root driver's other flags (the tensor, FSDP and pipeline
-placements, `--ep` > 1, comm overlap, the telemetry planes) are
-recognised and refused with `NotPorted`; `--platform` and
-`--host-devices` give way to `--device`.
+The root driver's other flags (the pipeline placements, comm overlap,
+the telemetry planes) are recognised and refused with `NotPorted`;
+`--platform` and `--host-devices` give way to `--device`.
 """
 
 from __future__ import annotations
@@ -97,24 +106,28 @@ from shallowspeed_tpu_torch.models.generate import (decode_report, generate,
                                                     prompt_bucket_len)
 from shallowspeed_tpu_torch.optim import (OPTIMIZERS, SCHEDULES, ema_init,
                                           ema_update)
+from shallowspeed_tpu_torch.parallel.composite import Composite3DEngine
 from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
 from shallowspeed_tpu_torch.parallel.expert import ExpertParallelEngine
-from shallowspeed_tpu_torch.parallel.mesh import make_context_mesh
+from shallowspeed_tpu_torch.parallel.fsdp import FSDPEngine
+from shallowspeed_tpu_torch.parallel.mesh import (make_3d_mesh,
+                                                  make_context_mesh,
+                                                  make_ep_mesh,
+                                                  make_fsdp_mesh,
+                                                  make_tp_mesh)
+from shallowspeed_tpu_torch.parallel.tensor import TensorParallelEngine
 from shallowspeed_tpu_torch.telemetry.anomaly import GuardPolicy
 from shallowspeed_tpu_torch.telemetry.health import HealthMonitor
 from shallowspeed_tpu_torch.weights import map_tree
 
-_GSPMD = "Queue 1 item 5, tensor, FSDP and composite placements"
-_EP = "Queue 1 item 5, ep > 1"
 _PIPE = "Queue 1 item 5, the LM pipeline"
 _OVERLAP = "Queue 1 item 5, comm overlap"
 _PLANES = "Queue 1, planes"
-_DEVICE = "--device replaces it: every cell of the dp x sp grid runs there"
+_DEVICE = "--device replaces it: every cell of the grid runs there"
 
 # the root driver's flags this driver does not have yet, and where each
 # comes from
 UNPORTED = {
-    **dict.fromkeys(["--tp", "--fsdp"], _GSPMD),
     **dict.fromkeys(["--pp", "--pp-schedule", "--virtual-pp",
                      "--n-mubatches"], _PIPE),
     **dict.fromkeys(["--overlap", "--bucket-mb"], _OVERLAP),
@@ -231,9 +244,17 @@ def parse_args(argv=None):
     p.add_argument("--attn-dropout", type=float, default=0.0,
                    help="attention-probability dropout; the plain "
                         "attention only (--attn ring)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree (Megatron placement); "
+                        "composes with --sp on a (dp, sp, tp) grid")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3/FSDP: shard params, grads and optimizer "
+                        "state over the dp cells; stacks onto --sp/--tp "
+                        "via the 3-D composite engine")
     p.add_argument("--ep", type=int, default=1,
-                   help="expert-parallel degree: 1 on one device (> 1 "
-                        "raises NotPorted)")
+                   help="expert-parallel degree (requires --experts > 0); "
+                        "composes with --dp, and with --sp on a (dp, sp, "
+                        "ep) grid")
     p.add_argument("--experts", type=int, default=0,
                    help="number of MoE experts per block (0 = dense FFN)")
     p.add_argument("--moe-top-k", type=int, default=2)
@@ -307,8 +328,6 @@ def parse_args(argv=None):
         p.add_argument(flag, nargs="?", action=_Refuse,
                        help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    if args.ep > 1:
-        raise NotPorted(f"train_lm --ep {args.ep}", _EP)
     _check_features(args)
     _check_mesh(args)
     if (args.prompt or args.sample_only) and not args.generate:
@@ -345,14 +364,16 @@ def _check_features(args) -> None:
     --experts or --attn-dropout, the K1/K2/K3 kernels otherwise."""
     if args.accum < 1:
         raise SystemExit(f"--accum must be >= 1, got {args.accum}")
-    if args.accum > 1 and args.experts:
+    if args.accum > 1 and (args.tp > 1 or args.ep > 1 or args.experts
+                           or args.fsdp):
         raise SystemExit("--accum composes with --dp/--sp (the context "
                          "engine) for now; the pipeline engine already "
                          "microbatches via --n-mubatches")
     if args.experts and args.moe_top_k > args.experts:
         raise SystemExit(f"--moe-top-k {args.moe_top_k} cannot exceed "
                          f"--experts {args.experts}")
-    plain = args.experts or args.attn_dropout > 0.0
+    plain = (args.experts or args.attn_dropout > 0.0 or args.tp > 1
+             or args.fsdp)
     if args.attn is None:
         args.attn = ("ring" if plain else "ring-flash" if args.sp > 1
                      else "flash")
@@ -366,16 +387,30 @@ def _check_features(args) -> None:
 
 
 def _check_mesh(args) -> None:
-    """The root driver's checks on the (dp, sp) grid, with its messages
-    where it gives one."""
-    if args.dp < 1 or args.sp < 1:
-        raise SystemExit(f"--dp and --sp take a positive degree, got "
-                         f"{args.dp} and {args.sp}")
+    """The root driver's checks on the grid, with its messages where it
+    gives one."""
+    if min(args.dp, args.sp, args.tp, args.ep) < 1:
+        raise SystemExit(f"--dp, --sp, --tp and --ep take a positive "
+                         f"degree, got {args.dp}, {args.sp}, {args.tp} and "
+                         f"{args.ep}")
+    if args.ep > 1 and args.tp > 1:
+        raise SystemExit("--ep composes with --dp/--sp (not --tp)")
+    if args.fsdp and (args.ep > 1 or args.experts or args.zero1
+                      or args.zero2):
+        raise SystemExit("--fsdp composes with --dp/--sp/--tp/--pp (and "
+                         "already subsumes --zero1/--zero2; MoE uses --ep)")
     if args.zero1 and args.zero2:
         raise SystemExit("--zero2 subsumes --zero1; pick one")
-    if args.experts and (args.dp > 1 or args.sp > 1):
-        raise NotPorted(f"train_lm --experts over a (dp={args.dp}, "
-                        f"sp={args.sp}) mesh", _EP)
+    if (args.fsdp or args.tp > 1) and args.attn != "ring":
+        raise SystemExit(f"--attn {args.attn} is not available with "
+                         "--tp/--fsdp (the GSPMD engines use XLA attention; "
+                         "under --sp the composite engine's context "
+                         "parallelism is the K/V all-gather formulation)")
+    if args.ep > 1 and args.experts == 0:
+        raise SystemExit("--ep requires --experts > 0")
+    if args.experts and args.tp > 1:
+        raise SystemExit("--experts composes with --dp/--sp/--ep (not "
+                         "--tp) for now")
     if args.attn == "flash" and args.sp > 1:
         raise SystemExit("--attn flash requires sp=1 (use ring)")
     if args.batch_size % args.dp:
@@ -602,10 +637,26 @@ def train(args) -> float:
     restoring = args.resume or args.sample_only
     zeros = (map_tree(lambda m: np.zeros(m.shape, cfg.dtype),
                       T.param_shapes(cfg)) if restoring else None)
-    if args.experts:
-        engine = ExpertParallelEngine(cfg, opt, seed=args.seed,
-                                      device=device, ep=args.ep,
-                                      health=args.health, params=zeros)
+    composite = (args.sp > 1 and args.tp > 1) or (
+        args.fsdp and (args.sp > 1 or args.tp > 1))
+    gspmd = dict(zero1=args.zero1, zero2=args.zero2, health=args.health,
+                 params=zeros)
+    if composite:
+        engine = Composite3DEngine(
+            cfg, opt, args.seed, mesh=make_3d_mesh(args.dp, args.sp, args.tp,
+                                                   device),
+            fsdp=args.fsdp, **gspmd)
+    elif args.fsdp:
+        engine = FSDPEngine(cfg, opt, args.seed,
+                            mesh=make_fsdp_mesh(args.dp, device), **gspmd)
+    elif args.ep > 1 or args.experts:
+        engine = ExpertParallelEngine(
+            cfg, opt, args.seed, mesh=make_ep_mesh(args.dp, args.ep, args.sp,
+                                                   device), **gspmd)
+    elif args.tp > 1:
+        engine = TensorParallelEngine(
+            cfg, opt, args.seed, mesh=make_tp_mesh(args.dp, args.tp, device),
+            **gspmd)
     else:
         engine = ContextParallelEngine(
             cfg, opt, seed=args.seed, attn=args.attn,

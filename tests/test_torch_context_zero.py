@@ -358,6 +358,13 @@ FLAGS = {
                 "--zero1", "--optimizer", "adafactor"],
     "--zero2": ["--dp", "2", "--sp", "2", "--attn", "ring", "--zero2",
                 "--accum", "2", "--grad-clip", "0.5"],
+    # the GSPMD engine family
+    "--tp": ["--dp", "2", "--tp", "2", "--zero1", "--grad-clip", "0.5"],
+    "--fsdp": ["--dp", "2", "--fsdp", "--optimizer", "adafactor"],
+    "--sp --tp --fsdp": ["--dp", "2", "--sp", "2", "--tp", "2", "--fsdp"],
+    "--ep": ["--dp", "2", "--ep", "2", "--experts", "4"],
+    "--experts": ["--dp", "2", "--sp", "2", "--experts", "4",
+                  "--moe-z-weight", "0.01"],
 }
 
 
@@ -368,7 +375,7 @@ def test_ported_mesh_flag_matches_the_root_driver(capsys, root_train, flag):
     the port a grid of the CPU) to the lines' 4 digits (2e-4: the f32
     losses, ~1e-7 apart, may round to neighbouring last digits), and
     the flag is out of UNPORTED."""
-    assert flag not in tdriver.UNPORTED
+    assert not set(flag.split()) & set(tdriver.UNPORTED)
     argv = [*DBASE, *FLAGS[flag]]
     want = _losses(capsys, root_train, argv)
     got = _losses(capsys, lambda a: tdriver.main(["--device", "cpu", *a]),
@@ -378,23 +385,35 @@ def test_ported_mesh_flag_matches_the_root_driver(capsys, root_train, flag):
 
 
 def test_unported_shrinks_by_the_ported_flags():
-    """What stays refused names the ROADMAP item that ports it."""
-    assert not {"--dp", "--sp", "--zero1", "--zero2"} & set(tdriver.UNPORTED)
-    for flag in ("--tp", "--fsdp", "--pp", "--pp-schedule", "--virtual-pp",
+    """What stays refused names the ROADMAP item that ports it; the
+    GSPMD family's flags (--tp, --fsdp, --ep, --experts at dp/sp > 1)
+    parse."""
+    assert not {"--dp", "--sp", "--zero1", "--zero2", "--tp", "--fsdp",
+                "--ep"} & set(tdriver.UNPORTED)
+    for flag in ("--pp", "--pp-schedule", "--virtual-pp",
                  "--n-mubatches", "--overlap", "--bucket-mb"):
         assert tdriver.UNPORTED[flag].startswith("Queue 1 item 5"), flag
+        with pytest.raises(NotPorted, match=re.escape(flag)):
+            tdriver.parse_args(["--device", "cpu", flag, "2"])
     for flag in ("--platform", "--host-devices"):
         assert "--device" in tdriver.UNPORTED[flag]
-    with pytest.raises(NotPorted, match="ep > 1"):
-        tdriver.parse_args(["--device", "cpu", "--ep", "2", "--experts",
-                            "2"])
-    with pytest.raises(NotPorted, match="ep > 1"):
-        tdriver.parse_args(["--device", "cpu", "--dp", "2", "--experts",
-                            "2"])
+    assert tdriver.parse_args(["--device", "cpu", "--ep", "2", "--experts",
+                               "2"]).ep == 2
+    assert tdriver.parse_args(["--device", "cpu", "--dp", "2", "--experts",
+                               "2"]).dp == 2
 
 
 REFUSED = {
     "zero1-zero2": (["--dp", "2", "--zero1", "--zero2"], "same"),
+    "ep-tp": (["--ep", "2", "--tp", "2", "--experts", "4"], "same"),
+    "fsdp-zero1": (["--dp", "2", "--fsdp", "--zero1"], "same"),
+    "fsdp-experts": (["--dp", "2", "--fsdp", "--experts", "4"], "same"),
+    "tp-flash": (["--tp", "2", "--attn", "flash"], "same"),
+    "fsdp-ring-flash": (["--dp", "2", "--sp", "2", "--fsdp", "--attn",
+                         "ring-flash"], "same"),
+    "ep-no-experts": (["--ep", "2"], "same"),
+    "experts-tp": (["--dp", "2", "--tp", "2", "--experts", "4"], "same"),
+    "accum-tp": (["--tp", "2", "--accum", "2"], "same"),
     "attn-dropout-sp2": (["--sp", "2", "--attn", "ring", "--attn-dropout",
                           "0.1"], "--attn-dropout needs"),
     "flash-sp2": (["--sp", "2", "--attn", "flash"], "same"),

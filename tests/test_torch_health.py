@@ -495,19 +495,23 @@ def test_lm_guard_skips_a_poisoned_step(kind):
     tok, tgt = batch(64, 1, b=2, t=16)
     eng.train_batch(tok, tgt)
     before = _state_copy((eng.params, eng.opt_state))
-    orig = eng.loss_and_grads
+    # the MoE engine (the GSPMD family) reduces its gradient as blocks
+    hook = "_reduced" if kind == "moe" else "loss_and_grads"
+    orig = getattr(eng, hook)
 
     def poisoned(tok, tgt):
         loss, grads = orig(tok, tgt)
-        next(iter(leaves(grads))).view(-1)[0] = float("nan")
+        first = (next(iter(grads[0].values())) if kind == "moe"
+                 else next(iter(leaves(grads))))
+        first.view(-1)[0] = float("nan")
         return loss, grads
 
-    eng.loss_and_grads = poisoned
+    setattr(eng, hook, poisoned)
     eng.train_batch(tok, tgt)
     assert _same(_state_copy((eng.params, eng.opt_state)), before)
     snap = eng.health_snapshot()
     assert snap["skipped_total"] == 1 and snap["nonfinite"] == 1
-    eng.loss_and_grads = orig
+    setattr(eng, hook, orig)
     eng.train_batch(tok, tgt)
     assert not _same(_state_copy((eng.params, eng.opt_state)), before)
     assert eng.health_snapshot()["skipped"] == 0

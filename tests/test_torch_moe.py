@@ -32,12 +32,12 @@ from shallowspeed_tpu.models import transformer as JT
 from shallowspeed_tpu.ops import moe as JM
 from shallowspeed_tpu.parallel.expert import (
     ExpertParallelEngine as JaxExpertEngine)
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch import checkpoint as C
 from shallowspeed_tpu_torch import optim as O
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.ops import moe as M
 from shallowspeed_tpu_torch.parallel.expert import ExpertParallelEngine
+from shallowspeed_tpu_torch.parallel.mesh import make_grid
 from shallowspeed_tpu_torch.weights import (leaves, params_from_numpy,
                                             unflatten)
 
@@ -253,14 +253,19 @@ def test_engine_trajectory_equals_jax_engine(optname):
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    (dict(ep=2), NotPorted), (dict(dp=2), NotPorted),
+    (dict(ep=3), ValueError), (dict(axes=("dp", "tp")), ValueError),
     (dict(n_experts=0), ValueError), (dict(moe_top_k=5), ValueError)],
-    ids=["ep2", "dp2", "dense", "top-k"])
+    ids=["ep3-indivisible", "tp-axes", "dense", "top-k"])
 def test_engine_refusals(kwargs, error):
-    eng_kw = {k: kwargs.pop(k) for k in ("ep", "dp") if k in kwargs}
+    """The reference engine's checks: experts divisible by ep, a
+    ('dp'[, 'sp'], 'ep') grid, an MoE config, top-k within the
+    experts (ep > 1 and dp > 1 run: tests/test_torch_expert_parallel.py)."""
+    ep = kwargs.pop("ep", 1)
+    axes = kwargs.pop("axes", ("dp", "ep"))
     cfg = T.TransformerConfig(**{**MOE, **kwargs})
     with pytest.raises(error):
-        ExpertParallelEngine(cfg, O.SGD(0.1), device="cpu", **eng_kw)
+        ExpertParallelEngine(cfg, O.SGD(0.1),
+                             mesh=make_grid(axes, (1, ep), "cpu"))
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

@@ -9,7 +9,6 @@ import re
 import numpy as np
 import pytest
 
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch import optim as O
 from shallowspeed_tpu_torch import train_lm as tdriver
 
@@ -175,14 +174,13 @@ REFUSED = {
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_driver_mirrors_the_root_refusals(name):
-    """The root driver's guards, with its messages; --ep > 1 is a
-    multi-device mesh, not ported."""
+    """The root driver's guards, with its messages; --ep > 1 needs
+    --experts, and with them runs the expert-parallel grid."""
     argv = ["--device", "cpu", *REFUSED[name]]
     if name == "ep-2":
-        with pytest.raises(NotPorted, match="--ep 2"):
+        with pytest.raises(SystemExit, match="--ep requires --experts > 0"):
             tdriver.parse_args(argv)
-        with pytest.raises(NotPorted, match="--ep 2"):
-            tdriver.parse_args([*argv, "--experts", "4"])
+        assert tdriver.parse_args([*argv, "--experts", "4"]).ep == 2
         return
     with pytest.raises(SystemExit) as e:
         tdriver.parse_args(argv)
