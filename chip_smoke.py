@@ -26,7 +26,8 @@ Phases (any failure exits non-zero and prints no result line):
    rel != 0 and ragged-T shapes in f32 and bf16, and at the training
    shape (B 4, T 2048, 16 heads x 128, causal) in bf16, on contiguous
    q, k, v and again on strided views of one fused qkv tensor, as the
-   model passes them. Each element is held to `flash_attention.kernel_ratio`'s rule:
+   model passes them, and at a pipeline stage's (B 1, 16 heads; 8 heads
+   on a tp cell) on the fused views. Each element is held to `flash_attention.kernel_ratio`'s rule:
    KERNEL_TOL of |ref| + mean |ref|, plus one bf16 ulp where the kernel
    rounds its output to bf16, plus for the bf16 builds (wgmma) the
    `tc_rounding_terms` of their one rounding of P or dS to bf16; the
@@ -232,10 +233,34 @@ Phases (any failure exits non-zero and prints no result line):
    PARITY_LOSS_BUDGET of a straight run), and `--ep 2 --experts 4`
    (`gspmd driver:`).
 
+14. The LM pipeline (`PipelineLMEngine`), the 1.21B LM at full width,
+   phase 6's batch and weights, AdamW 3e-4, 4 microbatches (2 at dp 2:
+   4 rows split over 2 replicas x 2), every cell the card, in
+   PP_LAYOUTS: (a) pp 4 gpipe flash, (b) pp 4 1f1b flash, (c) pp 4 zb
+   flash, (d) dp 2 x pp 2 x tp 2 1f1b flash ZeRO-1, (e) dp 2 x pp 2
+   FSDP gpipe flash, all at 16 layers, and (f) pp 2 gpipe on the plain
+   attention at 4 layers: the loss at init within PARITY_LOSS_BUDGET of
+   phase 6's (of the one-device plain engine's at 4 layers for (f)),
+   every first-step gradient leaf within GRAD_TOL_BF16 of the one-device
+   engine's (the flash engine's for (a)-(e)), and (b)'s and (c)'s also
+   of (a)'s; a warm-up step, then PP_STEPS timed steps with the counts
+   zeroed before them
+   (K1, K2, K3 each `pp_launches_per_step`: n_layers x n_mu x dp x tp,
+   K1 twice that under 1f1b; none in (f)), finite losses, step p50,
+   tok/s, MFU, peak memory, the bytes of the fullest cell (`pp layout`
+   lines) and one profiled step of (b) (`pp profile`). Then `train_lm`
+   at 2 layers: `--pp 2 --pp-schedule zb --attn flash` with a save,
+   resumed at `--dp 2 --pp 2 --tp 2 --pp-schedule 1f1b` within
+   PARITY_LOSS_BUDGET of a straight run, and `--pp 2 --sample-only
+   --generate 16 --temperature 0` on that checkpoint, whose greedy
+   stream must equal `models.generate.generate`'s on its parameters
+   (`pp driver:`).
+
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers (with `device_ms` / `library_device_ms` where the
-profiler timed them, K1-K3's `recipe_launches` from phase 10a and
-`cp_launches` from phase 12c), and `{"ok": true, "device": {...}}`.
+profiler timed them, K1-K3's `recipe_launches` from phase 10a,
+`cp_launches` from phase 12c and `pp_launches` from phase 14), and
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -1630,6 +1655,11 @@ TRAIN_KERNEL_CASES = [
      False),
     ("slice-fused", (TRAIN_BATCH, 2048, 2048, 16, 16, 128, True, 0, 0),
      ("bf16",), True),
+    # a pipeline stage's calls (phase 14): one-row microbatches, and a
+    # tp cell's half of the heads
+    ("stage", (1, 2048, 2048, 16, 16, 128, True, 0, 0), ("bf16",), True),
+    ("stage-tp2", (1, 2048, 2048, 8, 8, 128, True, 0, 0), ("bf16",),
+     True),
 ]
 # Kernel vs plain, per element: `flash_attention.kernel_ratio`'s rule
 # (KERNEL_TOL (|ref| + mean |ref|), + BF16_ULP |ref| for o in bf16, + for
@@ -3382,6 +3412,19 @@ def _max_rel(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
+def _grad_worst(grads, ref) -> tuple[float, str]:
+    """The worst leaf of `grads` against the host list `ref` (max |diff|
+    / max |ref|) and its path."""
+    from shallowspeed_tpu_torch.weights import leaves
+
+    worst, where = 0.0, ""
+    for path, g, r in zip(leaves(_paths(grads)), leaves(grads), ref):
+        rel = _max_rel(g, r.to(g.device))
+        if not rel <= worst:
+            worst, where = rel, path
+    return worst, where
+
+
 def check_ring_whole(dev) -> dict:
     """Phase 12b: `ring_flash_attention` at RING_WHOLE over sp cells of
     the card, for each of RING_SPS, against `flash_attention` over the
@@ -3510,12 +3553,7 @@ def run_context_parallel(dev, cfg, np_params, bf16_loss, card) -> dict:
         init_s = time.perf_counter() - t0
         loss0, grads = eng.loss_and_grads(tok, tgt)
         loss0 = float(loss0)
-        worst, where = 0.0, ""
-        for path, g, r in zip(leaves(_paths(grads)), leaves(grads),
-                              ref_grads):
-            rel = _max_rel(g, r.to(dev))
-            if not rel <= worst:
-                worst, where = rel, path
+        worst, where = _grad_worst(grads, ref_grads)
         del grads
         print(f"cp {name}: loss at init {loss0:.6f} vs phase 6's "
               f"{bf16_loss:.6f} (budget {PARITY_LOSS_BUDGET}), worst first-"
@@ -3822,12 +3860,7 @@ def run_gspmd(dev, cfg, card) -> dict:
             init_s = time.perf_counter() - t0
             loss0, grads = eng.loss_and_grads(tok, tgt)
             loss0 = float(loss0)
-            worst, where = 0.0, ""
-            for path, g, r in zip(leaves(_paths(grads)), leaves(grads),
-                                  ref_grads):
-                rel = _max_rel(g, r.to(dev))
-                if not rel <= worst:
-                    worst, where = rel, path
+            worst, where = _grad_worst(grads, ref_grads)
             del grads
             if pcfg is not mcfg:       # the timed engine computes in bf16
                 del eng
@@ -3949,6 +3982,262 @@ def run_gspmd_driver(dev, cfg) -> dict:
                 and all(np.isfinite(a["losses"] + b["losses"] + e["losses"]))
                 and gap <= PARITY_LOSS_BUDGET):
             raise AssertionError(f"gspmd driver: {out}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------- phase 14
+
+# name, dp, pp, tp, schedule, attn, n_layers, engine options
+PP_LAYOUTS = [("a-pp4-gpipe-flash", 1, 4, 1, "gpipe", "flash", 16, {}),
+              ("b-pp4-1f1b-flash", 1, 4, 1, "1f1b", "flash", 16, {}),
+              ("c-pp4-zb-flash", 1, 4, 1, "zb", "flash", 16, {}),
+              ("d-dp2-pp2-tp2-1f1b-flash-zero1", 2, 2, 2, "1f1b", "flash",
+               16, {"zero1": True}),
+              ("e-dp2-pp2-fsdp-gpipe-flash", 2, 2, 1, "gpipe", "flash", 16,
+               {"fsdp": True}),
+              ("f-pp2-gpipe-plain", 1, 2, 1, "gpipe", "xla", 4, {})]
+PP_N_MU = 4
+PP_STEPS = 2
+PP_PROFILED = "b-pp4-1f1b-flash"
+PP_DRIVER_LAYERS = 2
+PP_DRIVER_STEPS = 3
+PP_GENERATE = 16
+
+
+def pp_launches_per_step(schedule, dp, tp, n_mu, n_layers) -> dict:
+    """K1, K2, K3 launches of one pipeline step: once per layer,
+    microbatch, replica and tp cell; K1 twice under 1f1b (its backward
+    reruns the stage forward)."""
+    n = n_layers * n_mu * dp * tp
+    return {"flash_fwd_tc": 2 * n if schedule == "1f1b" else n,
+            "flash_dq_tc": n, "flash_dkv_tc": n}
+
+
+def run_pipeline(dev, cfg, np_params, bf16_loss, card) -> dict:
+    """Phase 14a-f (see the module docstring): each PP_LAYOUTS layout's
+    parity, launches, step time, MFU, peak memory and fullest cell."""
+    import torch
+
+    from shallowspeed_tpu_torch.flops import mfu
+    from shallowspeed_tpu_torch.optim import SGD, AdamW
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+    from shallowspeed_tpu_torch.parallel.mesh import make_pipeline_mesh
+    from shallowspeed_tpu_torch.parallel.pipeline_lm import PipelineLMEngine
+    from shallowspeed_tpu_torch.weights import leaves
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    tok, tgt = _train_batch(cfg)
+    refs = {}
+    for layers, attn in ((cfg.n_layers, "flash"), (4, "ring")):
+        mcfg = dataclasses.replace(cfg, n_layers=layers)
+        npm = (np_params if layers == cfg.n_layers else
+               {**np_params, "blocks": np_params["blocks"][:layers]})
+        ref = ContextParallelEngine(mcfg, SGD(0.0), attn=attn, device=dev,
+                                    params=npm)
+        loss, grads = ref.loss_and_grads(tok, tgt)
+        refs[layers] = (float(loss), [g.to("cpu") for g in leaves(grads)])
+        del ref, grads
+        release()
+    counters = _all_train_counters()
+    results, launches, gpipe_grads = {}, {}, None
+    for name, dp, pp, tp, schedule, attn, layers, kw in PP_LAYOUTS:
+        mcfg = dataclasses.replace(cfg, n_layers=layers)
+        npm = (np_params if layers == cfg.n_layers else
+               {**np_params, "blocks": np_params["blocks"][:layers]})
+        n_mu = PP_N_MU // dp
+        t0 = time.perf_counter()
+        eng = PipelineLMEngine(
+            mcfg, AdamW(3e-4, weight_decay=0.01, grad_clip=1.0),
+            make_pipeline_mesh(dp, pp, tp, dev), n_mubatches=n_mu,
+            schedule=schedule, attn=attn, params=npm, **kw)
+        init_s = time.perf_counter() - t0
+        loss0, grads = eng.loss_and_grads(tok, tgt)
+        loss0 = float(loss0)
+        want_loss = bf16_loss if layers == cfg.n_layers else refs[layers][0]
+        worst, where = _grad_worst(grads, refs[layers][1])
+        vs_a = None
+        if name.startswith("a-"):
+            gpipe_grads = [g.to("cpu") for g in leaves(grads)]
+        elif name.startswith(("b-", "c-")):
+            vs_a = _grad_worst(grads, gpipe_grads)
+        del grads
+        print(f"pp {name}: loss at init {loss0:.6f} vs {want_loss:.6f} "
+              f"(budget {PARITY_LOSS_BUDGET}), worst first-step grad leaf "
+              f"{where} at {worst:.3e} of the one-device engine's"
+              + ("" if vs_a is None else
+                 f", {vs_a[1]} at {vs_a[0]:.3e} of (a)'s")
+              + f" (tol {GRAD_TOL_BF16:g})", flush=True)
+        if not (abs(loss0 - want_loss) <= PARITY_LOSS_BUDGET
+                and worst <= GRAD_TOL_BF16
+                and (vs_a is None or vs_a[0] <= GRAD_TOL_BF16)):
+            raise AssertionError(f"pp {name}: loss {loss0} vs {want_loss}, "
+                                 f"grad leaf {where} {worst:.3e}, vs (a) "
+                                 f"{vs_a}")
+        release()
+        # a warm-up step, whose allocations the timed steps then reuse
+        eng.train_batch(tok, tgt)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters:
+            c.launches = 0
+        losses, step_s = [], []
+        for _ in range(PP_STEPS):
+            t0 = time.perf_counter()
+            losses.append(eng.train_batch(tok, tgt))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        counts = _kernel_counts(counters)
+        per = (pp_launches_per_step(schedule, dp, tp, n_mu, layers)
+               if attn == "flash" else {})
+        want = {k: PP_STEPS * per.get(k, 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"pp {name}: launches {counts}, want "
+                                 f"{want}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"pp {name}: losses {losses}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        p50 = float(np.median(step_s))
+        tok_s = TRAIN_BATCH * cfg.max_seq / p50
+        perf = mfu(tok_s, mcfg, cfg.max_seq, "bf16", device=dev)
+        held = eng.cell_bytes()
+        full = max(held, key=lambda c: sum(held[c]))
+        results[name] = {
+            "dp": dp, "pp": pp, "tp": tp, "schedule": schedule,
+            "attn": attn, "layers": layers, "n_mu": n_mu, **kw,
+            "loss_at_init": loss0, "yardstick_loss": want_loss,
+            "grad_rel_worst": worst, "grad_rel_worst_leaf": where,
+            "grad_rel_vs_a": None if vs_a is None else vs_a[0],
+            "losses": losses, "step_ms": [1e3 * x for x in step_s],
+            "step_ms_p50": 1e3 * p50, "tok_per_s": tok_s,
+            "tflops": perf["tflops"], "mfu": perf["mfu"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "fullest_cell": list(full),
+            "fullest_cell_params_gb": held[full][0] / 1e9,
+            "fullest_cell_opt_gb": held[full][1] / 1e9,
+            "launches_per_step": {k: v // PP_STEPS
+                                  for k, v in counts.items() if v},
+            "stash_peak": eng.peak_stash, "init_s": init_s}
+        print(f"pp layout {name}: " + json.dumps(results[name])
+              + f"  [{card}]", flush=True)
+        if name == PP_PROFILED:
+            print(f"pp profile {name}: "
+                  + json.dumps(profile_step(eng, tok, tgt)), flush=True)
+        del eng
+        release()
+    return {"layouts": results, "launches": launches}
+
+
+def run_pp_driver(dev, cfg) -> dict:
+    """Phase 14g: `train_lm --pp 2 --pp-schedule zb --attn flash` at
+    full width and PP_DRIVER_LAYERS layers, PP_DRIVER_STEPS steps and a
+    save; `--resume` at `--dp 2 --pp 2 --tp 2 --pp-schedule 1f1b` to
+    PP_DRIVER_STEPS + 2 steps, within PARITY_LOSS_BUDGET of a straight
+    run of that layout; then `--pp 2 --sample-only --generate
+    PP_GENERATE --temperature 0` on the resumed run's checkpoint, whose
+    printed stream must equal `models.generate.generate`'s greedy
+    stream on that checkpoint's parameters and prompt. K1-K3 launch as
+    the schedules imply in the training runs. The checkpoints live in a
+    temporary directory removed at the end."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from shallowspeed_tpu_torch import checkpoint, train_lm
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.models.generate import generate
+    from shallowspeed_tpu_torch.weights import params_from_numpy
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_pp_"))
+    total = PP_DRIVER_STEPS + 2
+    flags = ["--vocab", str(cfg.vocab), "--d-model", str(cfg.d_model),
+             "--n-heads", str(cfg.n_heads),
+             "--n-layers", str(PP_DRIVER_LAYERS),
+             "--d-ff", str(cfg.ffn_dim), "--seq-len", str(cfg.max_seq),
+             "--batch-size", str(TRAIN_BATCH), "--rope", "--norm", cfg.norm,
+             "--ffn", cfg.ffn, "--optimizer", "adamw", "--lr", "3e-4",
+             "--grad-clip", "1.0", "--log-every", "1", "--attn", "flash",
+             "--n-mubatches", "2"]
+    if cfg.compute_dtype is not None:
+        flags.append("--bf16")
+    if dev.type == "cpu":
+        flags += ["--device", "cpu"]
+    counters = _all_train_counters()
+    tp_grid = ["--dp", "2", "--pp", "2", "--tp", "2", "--pp-schedule",
+               "1f1b"]
+
+    def drive(tag, steps, per, *extra):
+        for c in counters:
+            c.launches = 0
+        log = root / f"{tag}.jsonl"
+        out = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            train_lm.main([*flags, *extra, "--log-file", str(log)])
+        wall = time.time() - t0
+        print(out.getvalue(), end="", flush=True)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        counts = _kernel_counts(counters)
+        want = {k: steps * per.get(k, 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"pp driver {tag}: launches {counts}, "
+                                 f"want {want}")
+        return {"losses": [e["loss"] for e in _events(log, "step")],
+                "wall_s": wall, "log": log, "out": out.getvalue()}
+
+    try:
+        ck = str(root / "ck")
+        zb = pp_launches_per_step("zb", 1, 1, 2, PP_DRIVER_LAYERS)
+        f1b = pp_launches_per_step("1f1b", 2, 2, 2, PP_DRIVER_LAYERS)
+        a = drive("a", PP_DRIVER_STEPS, zb, "--pp", "2", "--pp-schedule",
+                  "zb", "--steps", str(PP_DRIVER_STEPS), "--save-dir", ck,
+                  "--save-every", str(PP_DRIVER_STEPS))
+        b = drive("b", 2, f1b, *tp_grid, "--steps", str(total),
+                  "--save-dir", ck, "--resume")
+        restore, = _events(b["log"], "restore")
+        c = drive("c", total, f1b, *tp_grid, "--steps", str(total))
+        gap = max(abs(x - y) for x, y in
+                  zip(b["losses"], c["losses"][PP_DRIVER_STEPS:]))
+        gen_argv = ["--pp", "2", "--save-dir", ck, "--sample-only",
+                    "--generate", str(PP_GENERATE), "--temperature", "0"]
+        d = drive("d", 0, {}, *gen_argv)
+        sample = [x for x in d["out"].splitlines()
+                  if x.startswith("sample: ")]
+        args = train_lm.parse_args([*flags, *gen_argv])
+        prompt = train_lm.make_batch(args, cfg.vocab, 0)[0][:1, :16]
+        mcfg = dataclasses.replace(cfg, n_layers=PP_DRIVER_LAYERS)
+        params = params_from_numpy(checkpoint.load_params(
+            checkpoint.latest(ck), T.param_shapes(mcfg)), dev)
+        want = generate(params, prompt, mcfg, PP_GENERATE, temperature=0.0)
+        del params
+        out = {"losses_pp2_zb": a["losses"],
+               "losses_resumed_dp2_pp2_tp2_1f1b": b["losses"],
+               "losses_straight_dp2_pp2_tp2_1f1b": c["losses"],
+               "resumed_gap": gap, "sample": sample,
+               "generate_stream": [int(x) for x in want[0]],
+               "restore": {k: restore[k] for k in ("path", "step", "verify_s",
+                                                   "load_s", "place_s")},
+               "wall_s": {r: x["wall_s"] for r, x in
+                          (("a", a), ("b", b), ("c", c), ("d", d))}}
+        print("pp driver: " + json.dumps(out), flush=True)
+        if not (len(a["losses"]) == PP_DRIVER_STEPS
+                and len(b["losses"]) == 2
+                and restore["step"] == PP_DRIVER_STEPS
+                and all(np.isfinite(a["losses"] + b["losses"]))
+                and gap <= PARITY_LOSS_BUDGET
+                and "pp-sharded decode" in d["out"]
+                and sample == ["sample: " + train_lm._show(want[0])]):
+            raise AssertionError(f"pp driver: {out}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -4090,7 +4379,6 @@ def main() -> int:
                               card)
     launches["flash_fwd_tc_f32o"] = cp["launches"]["flash_fwd_tc_f32o"]
     run_cp_driver(dev, cfg)
-    del np_params
     gc.collect()
     torch.cuda.empty_cache()
     run_feature_matrix(dev, cfg)
@@ -4101,6 +4389,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_gspmd(dev, cfg, card)
     run_gspmd_driver(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pp = run_pipeline(dev, cfg, np_params, trained["losses"][0], card)
+    del np_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_pp_driver(dev, cfg)
 
     src = "shallowspeed_tpu_torch/csrc/"
     fa = "shallowspeed_tpu/ops/flash_attention.py:"
@@ -4129,6 +4424,8 @@ def main() -> int:
            if name in recipe["launches"] else {}),
         **({"cp_launches": cp["launches"][name]}
            if cp["launches"].get(name) else {}),
+        **({"pp_launches": pp["launches"][name]}
+           if pp["launches"].get(name) else {}),
     } for name, (cu, ref) in where.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -359,7 +359,10 @@ def _canon_opt_export(engine, host_opt_state):
     export = getattr(engine, "canon_export_tree", None)
     if export is None:
         return None, None
-    return opt.map_state_trees(host_opt_state, export), meta
+    try:
+        return opt.map_state_trees(host_opt_state, export), meta
+    except ValueError:      # not params-shaped (Adafactor's factored
+        return None, None   # slots): opt.npz alone, as the reference
 
 
 def _canon_opt_import(engine, canon):

@@ -50,7 +50,9 @@ card, or the CPU in the tests), so the placement is explicit:
 
 Subclasses (`tensor.TensorParallelEngine`, `fsdp.FSDPEngine`,
 `composite.Composite3DEngine`, `expert.ExpertParallelEngine`) differ
-only in their grid's axes, their spec tree and their config checks.
+only in their grid's axes, their spec tree and their config checks;
+`pipeline_lm.PipelineLMEngine` also brings its own layout (`_layout` /
+`_canonical`: blocks stacked) and its schedules' `_reduced`.
 The attention is the plain one (`ops.attention.attention`), as the
 reference's GSPMD engines run XLA attention: no K1-K3 launch on this
 family's path. Comm overlap raises `NotPorted`.
@@ -298,7 +300,7 @@ class GSPMDEngine:
         self.zero = zero1 or zero2
         self._step_count = 0
 
-        self._template = T.param_shapes(cfg)
+        self._template = self._layout(T.param_shapes(cfg))
         self._index = unflatten(self._template,
                                 range(len(list(leaves(self._template)))))
         spec_tree = self.param_specs(cfg)
@@ -309,7 +311,8 @@ class GSPMDEngine:
                         for s, shp in zip(self._pspecs, self._shapes)]
         self._fsdp = any("dp" in s.axes() for s in self._pspecs)
 
-        draw = T.init_numpy(cfg, seed) if params is None else params
+        draw = self._layout(T.init_numpy(cfg, seed) if params is None
+                            else params)
         draw = unflatten(self._template, _in_order(self._template, draw))
         self._shards = {c: list(leaves(tree)) for c, tree in
                         shard(draw, spec_tree, mesh).items()}
@@ -326,6 +329,16 @@ class GSPMDEngine:
 
     def param_specs(self, cfg: T.TransformerConfig):
         raise NotImplementedError
+
+    def _layout(self, tree):
+        """A canonical (one-device, checkpoint) tree in the engine's own
+        layout, the one its specs, cells and optimizer state follow: the
+        canonical tree itself here (the pipeline stacks its blocks)."""
+        return tree
+
+    def _canonical(self, tree):
+        """The inverse of `_layout`."""
+        return tree
 
     # ------------------------------------------------------- placement
 
@@ -774,7 +787,7 @@ class GSPMDEngine:
             if self.health == "guard":
                 ok = pack["nonfinite"] == 0
         self._clip(red)
-        if opt.elementwise:
+        if self._per_cell_update():
             for c in self.coords:
                 params = unflatten(self._template, [
                     self._piece(x, i, c)
@@ -793,6 +806,11 @@ class GSPMDEngine:
         if ok is None:
             return update_health(pack, old, pview)
         return update_health(pack, old, pview, skipped=(~ok).to(torch.int32))
+
+    def _per_cell_update(self) -> bool:
+        """Whether every cell updates its own blocks (an elementwise
+        optimizer), or the update runs on the gathered leaves."""
+        return self.optimizer.elementwise
 
     def _all_gather(self) -> None:
         """ZeRO: every cell takes the other dp cells' new slices of each
@@ -816,7 +834,7 @@ class GSPMDEngine:
         parameters, gradient and state gathered onto the first cell,
         updated there, and cut back into every cell."""
         opt = self.optimizer
-        params = self.get_canonical_params()
+        params = self._gather_params()
         grads = self._canonical_grads(red)
         state = self.opt_state
         if ok is None:
@@ -824,11 +842,12 @@ class GSPMDEngine:
         else:
             _, state = opt.guarded_step(params, grads, state, ok, clip=False)
         del grads
-        self.set_canonical_params(params)
+        self._install_params(params)
         self.set_opt_state(state)
 
     def _canonical_grads(self, red):
-        """The reduced gradient as a canonical tree on the first cell."""
+        """The reduced gradient as a tree in the engine's layout on the
+        first cell."""
         return unflatten(self._template, [
             assemble(us, len(self._shapes[i]), self.sizes,
                      lambda k, i=i, us=us: red[i][self._key(us, k)],
@@ -842,7 +861,7 @@ class GSPMDEngine:
         parameters, without updating them: the reduced gradient in the
         canonical layout."""
         loss, red = self._reduced(tokens, targets)
-        return loss, self._canonical_grads(red)
+        return loss, self._canonical(self._canonical_grads(red))
 
     def train_batch(self, tokens, targets) -> float:
         """One optimizer step on a (B, T) int token batch; returns the
@@ -922,12 +941,17 @@ class GSPMDEngine:
     # -------------------------------------------- checkpoint interface
 
     @torch.no_grad()
-    def get_canonical_params(self):
-        """The canonical (one-device) parameter tree, gathered from the
+    def _gather_params(self):
+        """The parameter tree in the engine's layout, gathered from the
         cells onto the first cell (a copy)."""
         return gather({c: unflatten(self._template, x)
                        for c, x in self._shards.items()},
                       self.specs, self.mesh, self.device)
+
+    def get_canonical_params(self):
+        """The canonical (one-device) parameter tree, gathered from the
+        cells onto the first cell (a copy)."""
+        return self._canonical(self._gather_params())
 
     @property
     def params(self):
@@ -939,11 +963,16 @@ class GSPMDEngine:
     def params(self, tree):
         self.set_canonical_params(tree)
 
-    @torch.no_grad()
     def set_canonical_params(self, params):
         """Install a canonical tree of tensors or numpy arrays (the JAX
         package's layout, a checkpoint's) in every cell, each cell its
         blocks."""
+        self._install_params(self._layout(params))
+
+    @torch.no_grad()
+    def _install_params(self, params):
+        """`set_canonical_params` of a tree already in the engine's
+        layout."""
         flat = [x.detach() if isinstance(x, torch.Tensor)
                 else torch.from_numpy(np.ascontiguousarray(x))
                 for x in _in_order(self._template, params)]
@@ -954,13 +983,14 @@ class GSPMDEngine:
 
     @property
     def opt_state(self):
-        """The optimizer state in the canonical layout, gathered from the
-        cells onto the first cell (a copy)."""
+        """The optimizer state in the engine's layout (the canonical one
+        but for the pipeline's stacked blocks), gathered from the cells
+        onto the first cell (a copy)."""
         return gather(self._states, self._sspecs, self.mesh, self.device)
 
     @torch.no_grad()
     def set_opt_state(self, state):
-        """Install an optimizer state in the canonical layout (the JAX
+        """Install an optimizer state in the engine's layout (the JAX
         package's numpy leaves with `t` a 0-d array, as a checkpoint
         holds it, or this package's): every cell's blocks copied from
         it, `t` a Python int, in the current state's key order."""

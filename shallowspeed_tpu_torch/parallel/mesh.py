@@ -7,7 +7,9 @@ drive from one process: in the (dp, pp) grid cell (r, s) holds replica
 r's copy of stage s, in the (dp, sp) grid replica r's sequence tile s.
 The GSPMD engines (`parallel.gspmd`) take a `Grid`, the array with its
 axis names, as the reference's engines take a named mesh: ("dp",),
-("dp", "tp"), ("dp", "sp", "tp"), ("dp", "ep") and ("dp", "sp", "ep").
+("dp", "tp"), ("dp", "sp", "tp"), ("dp", "ep") and ("dp", "sp", "ep");
+the LM pipeline (`parallel.pipeline_lm`) takes ("dp", "pp") or ("dp",
+"pp", "tp").
 Several cells may name one device: on a card every cell is that card,
 in the CPU tests every cell is the CPU, and every layout runs in one
 process either way.
@@ -96,3 +98,13 @@ def make_ep_mesh(dp: int = 1, ep: int = 1, sp: int = 1, devices=None) -> Grid:
     if sp > 1:
         return make_grid(("dp", "sp", "ep"), (dp, sp, ep), devices)
     return make_grid(("dp", "ep"), (dp, ep), devices)
+
+
+def make_pipeline_mesh(dp: int = 1, pp: int = 1, tp: int = 1,
+                       devices=None) -> Grid:
+    """The grid of `PipelineLMEngine`: ("dp", "pp"), or ("dp", "pp",
+    "tp") at tp > 1 (Megatron inside each stage), as the root driver
+    builds it."""
+    if tp > 1:
+        return make_grid(("dp", "pp", "tp"), (dp, pp, tp), devices)
+    return make_grid(("dp", "pp"), (dp, pp), devices)

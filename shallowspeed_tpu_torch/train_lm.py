@@ -79,9 +79,19 @@ verdicts and carries the `health_*` fields on the step line; an
 a checkpoint of an unhealthy state is skipped. Under guard an update
 with non-finite gradients is skipped bit for bit.
 
-The root driver's other flags (the pipeline placements, comm overlap,
-the telemetry planes) are recognised and refused with `NotPorted`;
-`--platform` and `--host-devices` give way to `--device`.
+`--pp P [--tp T] [--dp D] --pp-schedule gpipe|1f1b|zb --n-mubatches M`
+trains over a (dp, pp) or (dp, pp, tp) grid with
+`parallel.pipeline_lm.PipelineLMEngine` (`--attn ring`, the default
+with --pp, is the plain attention; `--attn flash` the K1/K2/K3
+kernels), with --zero1/--zero2/--fsdp at dp > 1 and the root driver's
+checks; `--generate` then decodes through the pipelined decode (except
+under --tp, --fsdp or --kv-int8, as the root driver routes it).
+`--virtual-pp > 1`, `--pp --sp` and `--pp --ep` / `--experts` raise
+`NotPorted`.
+
+The root driver's other flags (comm overlap, the telemetry planes) are
+recognised and refused with `NotPorted`; `--platform` and
+`--host-devices` give way to `--device`.
 """
 
 from __future__ import annotations
@@ -114,13 +124,15 @@ from shallowspeed_tpu_torch.parallel.mesh import (make_3d_mesh,
                                                   make_context_mesh,
                                                   make_ep_mesh,
                                                   make_fsdp_mesh,
+                                                  make_pipeline_mesh,
                                                   make_tp_mesh)
+from shallowspeed_tpu_torch.parallel.pipeline_lm import PipelineLMEngine
 from shallowspeed_tpu_torch.parallel.tensor import TensorParallelEngine
 from shallowspeed_tpu_torch.telemetry.anomaly import GuardPolicy
 from shallowspeed_tpu_torch.telemetry.health import HealthMonitor
 from shallowspeed_tpu_torch.weights import map_tree
 
-_PIPE = "Queue 1 item 5, the LM pipeline"
+_PIPE = "Queue 1 item 5b, the rest of the LM pipeline"
 _OVERLAP = "Queue 1 item 5, comm overlap"
 _PLANES = "Queue 1, planes"
 _DEVICE = "--device replaces it: every cell of the grid runs there"
@@ -128,8 +140,6 @@ _DEVICE = "--device replaces it: every cell of the grid runs there"
 # the root driver's flags this driver does not have yet, and where each
 # comes from
 UNPORTED = {
-    **dict.fromkeys(["--pp", "--pp-schedule", "--virtual-pp",
-                     "--n-mubatches"], _PIPE),
     **dict.fromkeys(["--overlap", "--bucket-mb"], _OVERLAP),
     **dict.fromkeys(["--platform", "--host-devices"], _DEVICE),
     **dict.fromkeys(
@@ -201,6 +211,21 @@ def parse_args(argv=None):
                    choices=["layernorm", "rmsnorm"])
     p.add_argument("--ffn", default="gelu", choices=["gelu", "swiglu"])
     p.add_argument("--dp", type=int, default=1, help="data-parallel degree")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel degree over the transformer "
+                        "blocks (needs n_layers %% pp == 0)")
+    p.add_argument("--pp-schedule", choices=["gpipe", "1f1b", "zb"],
+                   default="gpipe",
+                   help="pipeline schedule: gpipe (all forwards, then "
+                        "the backward in reverse), 1f1b (PipeDream-Flush:"
+                        " a min(pp, n_mu) stage-input stash, each "
+                        "backward recomputes its stage), or zb (ZB-H1: "
+                        "split B/W backward on stashed residuals)")
+    p.add_argument("--virtual-pp", type=int, default=1,
+                   help="interleaved virtual stages per device (only 1 "
+                        "is ported)")
+    p.add_argument("--n-mubatches", type=int, default=4,
+                   help="microbatches per batch in the pipeline (--pp > 1)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence/context-parallel degree (the attention "
                         "substrate's tiles)")
@@ -329,6 +354,7 @@ def parse_args(argv=None):
                        help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     _check_features(args)
+    _check_pipeline(args)
     _check_mesh(args)
     if (args.prompt or args.sample_only) and not args.generate:
         args.generate = 128          # --prompt/--sample-only imply sampling
@@ -365,7 +391,7 @@ def _check_features(args) -> None:
     if args.accum < 1:
         raise SystemExit(f"--accum must be >= 1, got {args.accum}")
     if args.accum > 1 and (args.tp > 1 or args.ep > 1 or args.experts
-                           or args.fsdp):
+                           or args.fsdp or args.pp > 1):
         raise SystemExit("--accum composes with --dp/--sp (the context "
                          "engine) for now; the pipeline engine already "
                          "microbatches via --n-mubatches")
@@ -373,23 +399,87 @@ def _check_features(args) -> None:
         raise SystemExit(f"--moe-top-k {args.moe_top_k} cannot exceed "
                          f"--experts {args.experts}")
     plain = (args.experts or args.attn_dropout > 0.0 or args.tp > 1
-             or args.fsdp)
+             or args.fsdp or args.pp > 1)
     if args.attn is None:
         args.attn = ("ring" if plain else "ring-flash" if args.sp > 1
                      else "flash")
-    if args.attn_dropout > 0.0 and (args.sp > 1 or args.attn != "ring"):
+    if args.attn_dropout > 0.0 and (args.pp > 1 or args.sp > 1
+                                    or args.attn != "ring"):
         raise SystemExit("--attn-dropout needs the plain attention "
                          "substrate (no --pp/--sp>1, --attn ring)")
-    if args.experts and args.attn != "ring":
+    if args.experts and args.pp <= 1 and args.attn != "ring":
         raise SystemExit(f"--attn {args.attn} is not available with "
                          "--experts (the MoE engine uses the plain "
                          "attention)")
 
 
+def _check_pipeline(args) -> None:
+    """The root driver's checks on --pp, with its messages; then the
+    pipeline placements this port does not have yet."""
+    if args.pp < 1 or args.n_mubatches < 1 or args.virtual_pp < 1:
+        raise SystemExit(f"--pp, --n-mubatches and --virtual-pp take a "
+                         f"positive count, got {args.pp}, "
+                         f"{args.n_mubatches} and {args.virtual_pp}")
+    if args.pp <= 1:
+        return
+    if (args.zero1 or args.zero2 or args.fsdp) and args.dp < 2:
+        raise SystemExit("--pp with --zero1/--zero2/--fsdp shards over "
+                         "dp; need --dp >= 2")
+    if (args.zero2 or args.fsdp) and args.ep > 1:
+        raise SystemExit("--pp with --zero2/--fsdp takes a "
+                         "('dp','pp'[,'tp'|'sp']) mesh (no --ep: "
+                         "expert-leaf grads are ep-sharded, outside "
+                         "the per-leaf ZeRO scatter rule)")
+    if sum(a > 1 for a in (args.tp, args.sp, args.ep)) > 1:
+        raise SystemExit("--pp takes ONE extra model axis: --tp, --sp, "
+                         "or --ep")
+    if args.virtual_pp > 1 and args.ep > 1:
+        raise SystemExit("--virtual-pp needs collective-free chunk "
+                         "bodies (no --ep all-to-all inside a "
+                         "cond-gated chunk)")
+    if args.experts and args.tp > 1:
+        raise SystemExit("--experts with --pp composes with --dp/--sp/"
+                         "--ep (not --tp)")
+    if args.sp > 1 and args.attn not in ("ring", "ring-flash",
+                                         "ulysses-flash"):
+        raise SystemExit(f"--pp with --sp needs a sequence-parallel "
+                         f"attention substrate (--attn ring, ring-flash "
+                         f"or ulysses-flash), got {args.attn}")
+    if args.sp == 1 and args.attn not in ("ring", "flash"):
+        raise SystemExit(f"--attn {args.attn} is not available with --pp "
+                         "(XLA attention by default, or the fused Pallas "
+                         "kernel via --attn flash)")
+    if args.pp_schedule == "zb":
+        if any(a > 1 for a in (args.tp, args.sp, args.ep)):
+            raise SystemExit("--pp-schedule zb runs on a ('dp','pp') "
+                             "mesh (no --tp/--sp/--ep: collectives "
+                             "inside the per-round switch de-sync)")
+        if args.virtual_pp > 1:
+            raise SystemExit("--pp-schedule zb needs --virtual-pp 1 "
+                             "(per-chunk B/W tables are not built)")
+        if args.experts:
+            raise SystemExit("--pp-schedule zb needs the dense block "
+                             "family (no --experts)")
+        if args.dropout > 0.0 or args.attn_dropout > 0.0:
+            raise SystemExit("--pp-schedule zb trains without dropout "
+                             "(the hand-split backward does not thread "
+                             "mask keys F->B)")
+        if args.remat:
+            raise SystemExit("--pp-schedule zb IS the no-recompute "
+                             "schedule (it stashes residuals F->B); "
+                             "drop --remat")
+    if args.virtual_pp > 1:
+        raise NotPorted("train_lm --virtual-pp > 1", _PIPE)
+    if args.sp > 1:
+        raise NotPorted("train_lm --pp with --sp", _PIPE)
+    if args.ep > 1 or args.experts:
+        raise NotPorted("train_lm --pp with --ep / --experts", _PIPE)
+
+
 def _check_mesh(args) -> None:
     """The root driver's checks on the grid, with its messages where it
     gives one."""
-    if min(args.dp, args.sp, args.tp, args.ep) < 1:
+    if min(args.dp, args.sp, args.tp, args.ep, args.pp) < 1:
         raise SystemExit(f"--dp, --sp, --tp and --ep take a positive "
                          f"degree, got {args.dp}, {args.sp}, {args.tp} and "
                          f"{args.ep}")
@@ -401,7 +491,8 @@ def _check_mesh(args) -> None:
                          "already subsumes --zero1/--zero2; MoE uses --ep)")
     if args.zero1 and args.zero2:
         raise SystemExit("--zero2 subsumes --zero1; pick one")
-    if (args.fsdp or args.tp > 1) and args.attn != "ring":
+    if ((args.fsdp or args.tp > 1) and args.pp <= 1
+            and args.attn != "ring"):
         raise SystemExit(f"--attn {args.attn} is not available with "
                          "--tp/--fsdp (the GSPMD engines use XLA attention; "
                          "under --sp the composite engine's context "
@@ -641,7 +732,14 @@ def train(args) -> float:
         args.fsdp and (args.sp > 1 or args.tp > 1))
     gspmd = dict(zero1=args.zero1, zero2=args.zero2, health=args.health,
                  params=zeros)
-    if composite:
+    if args.pp > 1:
+        engine = PipelineLMEngine(
+            cfg, opt, make_pipeline_mesh(args.dp, args.pp, args.tp, device),
+            n_mubatches=args.n_mubatches, seed=args.seed,
+            schedule=args.pp_schedule,
+            attn="flash" if args.attn == "flash" else "xla",
+            fsdp=args.fsdp, **gspmd)
+    elif composite:
         engine = Composite3DEngine(
             cfg, opt, args.seed, mesh=make_3d_mesh(args.dp, args.sp, args.tp,
                                                    device),
@@ -887,6 +985,23 @@ def sample_and_print(args, engine, cfg, metrics=None, text_data=None,
                       np.int32))[None, :]
     else:
         prompt = make_batch(args, cfg.vocab, 0, text_data)[0][:1, :16]
+    if (not args.kv_int8 and isinstance(engine, PipelineLMEngine)
+            and engine.tp == 1 and not engine.fsdp):
+        # decode on the pp-cut parameters, each stage its own cache
+        t0 = time.time()
+        out = engine.generate(prompt, args.generate,
+                              temperature=args.temperature, top_k=args.top_k,
+                              top_p=args.top_p, seed=args.seed)
+        dt = time.time() - t0
+        print(f"decode: {prompt.shape[0] * args.generate / dt:,.0f} tok/s "
+              f"(pp-sharded decode; includes prefill)", flush=True)
+        _print_sample(prompt, out, tokenizer)
+        return out
+    if args.kv_int8 and isinstance(engine, PipelineLMEngine):
+        print("note: --kv-int8 decodes on the REPLICATED path (full params "
+              "re-gathered to one device); the pipelined per-stage cache "
+              "stays bf16 — drop --kv-int8 to decode on the pp-sharded "
+              "params", flush=True)
     params = engine.get_canonical_params()
     kvq = "int8" if args.kv_int8 else ""
     t0 = time.time()
@@ -907,13 +1022,17 @@ def sample_and_print(args, engine, cfg, metrics=None, text_data=None,
           flush=True)
     if metrics is not None:
         metrics.log(event="generate", **rep)
+    _print_sample(prompt, out, tokenizer)
+    return out
+
+
+def _print_sample(prompt, out, tokenizer) -> None:
     if tokenizer is not None:
         print(f"prompt: {tokenizer.decode_bytes(prompt[0])!r}")
         print(f"sample: {tokenizer.decode_bytes(out[0])!r}", flush=True)
     else:
         print(f"prompt: {_show(prompt[0])}")
         print(f"sample: {_show(out[0])}", flush=True)
-    return out
 
 
 def _show(ids) -> str:

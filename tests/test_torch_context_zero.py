@@ -387,11 +387,12 @@ def test_ported_mesh_flag_matches_the_root_driver(capsys, root_train, flag):
 def test_unported_shrinks_by_the_ported_flags():
     """What stays refused names the ROADMAP item that ports it; the
     GSPMD family's flags (--tp, --fsdp, --ep, --experts at dp/sp > 1)
-    parse."""
+    and the pipeline's (--pp, --pp-schedule, --virtual-pp,
+    --n-mubatches) parse."""
     assert not {"--dp", "--sp", "--zero1", "--zero2", "--tp", "--fsdp",
-                "--ep"} & set(tdriver.UNPORTED)
-    for flag in ("--pp", "--pp-schedule", "--virtual-pp",
-                 "--n-mubatches", "--overlap", "--bucket-mb"):
+                "--ep", "--pp", "--pp-schedule", "--virtual-pp",
+                "--n-mubatches"} & set(tdriver.UNPORTED)
+    for flag in ("--overlap", "--bucket-mb"):
         assert tdriver.UNPORTED[flag].startswith("Queue 1 item 5"), flag
         with pytest.raises(NotPorted, match=re.escape(flag)):
             tdriver.parse_args(["--device", "cpu", flag, "2"])

@@ -1,15 +1,17 @@
 """Shared helpers of the port's parity tests (`tests/test_torch_train_*`,
 `tests/test_torch_moe.py`, `tests/test_torch_context_*`, the GSPMD
 family's `tests/test_torch_{tensor_parallel,fsdp,composite,
-expert_parallel}.py`): trees of either package flattened by path, the
-worst leaf error, seeded batches, the small models they train, and JAX
-/ port engine pairs — `ContextParallelEngine` on a (dp, sp) mesh, the
-GSPMD engines at one layout — with the three-step trajectory check and
-the loss-and-gradient check."""
+expert_parallel}.py`, the pipeline's `tests/test_torch_pipeline_*`):
+trees of either package flattened by path, the worst leaf error, seeded
+batches, the small models they train, and JAX / port engine pairs —
+`ContextParallelEngine` on a (dp, sp) mesh, the GSPMD engines at one
+layout, `PipelineLMEngine` at one layout — with the three-step
+trajectory check and the loss-and-gradient check."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from jax.sharding import Mesh
 
@@ -211,3 +213,89 @@ def check_loss_and_grads(je, te, b=4, seed=11):
     tl, tg = te.loss_and_grads(tok, tgt)
     assert abs(float(tl) - jl) / abs(jl) <= LOSS_TOL, (float(tl), jl)
     assert worst(tg, jg) <= GRAD_TOL
+
+
+# ------------------------------------------------------- the LM pipeline
+
+# the pipeline tests' model: GQA, RoPE, RMSNorm, SwiGLU at 4 layers (pp
+# up to 4)
+PIPE_MODEL = dict(MODEL, n_layers=4)
+
+# the JAX engine's gradient, read off one plain-SGD step at this rate:
+# p - LR g is exact to f32 rounding of a term 1e3x the parameter, so
+# (p0 - p1) / LR is g to ~1e-7 of each leaf's largest element
+SGD_PROBE_LR = 1e3
+
+
+def pipeline_engines(dp, pp, tp=1, opt=None, kw=None, seed=5, n_mu=2,
+                     **ekw):
+    """(JAX `PipelineLMEngine` on a host mesh, the port's on a grid of the
+    CPU), same config, optimizer (default: SGD at SGD_PROBE_LR), seed,
+    microbatches and options (schedule, attn, zero1/zero2/fsdp,
+    health)."""
+    from shallowspeed_tpu.parallel.pipeline_lm import PipelineLMEngine as JP
+    from shallowspeed_tpu_torch.parallel.mesh import make_pipeline_mesh
+    from shallowspeed_tpu_torch.parallel.pipeline_lm import PipelineLMEngine
+
+    kw = kw or PIPE_MODEL
+    opt = opt or (lambda M: M.SGD(SGD_PROBE_LR))
+    names, shape = (("dp", "pp", "tp"), (dp, pp, tp)) if tp > 1 else (
+        ("dp", "pp"), (dp, pp))
+    je = JP(JT.TransformerConfig(**kw), opt(JO), jax_mesh(names, shape),
+            n_mubatches=n_mu, seed=seed, **ekw)
+    te = PipelineLMEngine(T.TransformerConfig(**kw), opt(O),
+                          make_pipeline_mesh(dp, pp, tp, "cpu"),
+                          n_mubatches=n_mu, seed=seed, **ekw)
+    return je, te
+
+
+def jax_pipeline_loss_and_grads(je, tok, tgt):
+    """The JAX pipeline engine's loss and canonical gradient on one
+    batch, through its own step: it must hold SGD at SGD_PROBE_LR (the
+    step moves its parameters)."""
+    p0 = jax.device_get(je.get_canonical_params())
+    loss = je.train_batch(tok, tgt)
+    p1 = jax.device_get(je.get_canonical_params())
+    return loss, jax.tree_util.tree_map(
+        lambda a, b: (np.asarray(a, np.float64) - np.asarray(b, np.float64))
+        / SGD_PROBE_LR, p0, p1)
+
+
+def check_pipeline_loss_and_grads(je, te, b=4, seed=11):
+    """The loss at init and every canonical gradient leaf of the port's
+    pipeline engine against the JAX one's (which must hold SGD at
+    SGD_PROBE_LR) on one batch."""
+    tok, tgt = batch(te.cfg.vocab, seed, b=b)
+    jl, jg = jax_pipeline_loss_and_grads(je, tok, tgt)
+    tl, tg = te.loss_and_grads(tok, tgt)
+    assert abs(float(tl) - jl) / abs(jl) <= LOSS_TOL, (float(tl), jl)
+    assert worst(tg, jg) <= GRAD_TOL
+
+
+def pipeline_trajectory(je, te, slots, steps=3, b=4):
+    """`trajectory` for the pipeline engines: their canonical parameters
+    and their stacked optimizer states."""
+    tol = TRAJECTORY_TOL
+    for step in range(steps):
+        tok, tgt = batch(te.cfg.vocab, 20 + step, b=b)
+        jl, tl = je.train_batch(tok, tgt), te.train_batch(tok, tgt)
+        assert abs(tl - jl) / abs(jl) <= tol, (step, tl, jl)
+    assert worst(te.get_canonical_params(),
+                 jax.device_get(je.get_canonical_params()),
+                 absolute=True) <= tol
+    jstate, tstate = jax.device_get(je.opt_state), te.opt_state
+    if isinstance(tstate, dict) and "t" in tstate:
+        assert tstate["t"] == int(jstate["t"]) == steps
+    for key in slots:
+        assert worst(tstate[key], jstate[key]) <= tol
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Torch on one intra-op thread for the test: the parity tests' ops
+    are tiny, and the suite's workers share the host's cores with JAX's
+    compiler (imported by a module, this applies to its tests)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
