@@ -26,8 +26,11 @@ Phases (any failure exits non-zero and prints no result line):
    rel != 0 and ragged-T shapes in f32 and bf16, and at the training
    shape (B 4, T 2048, 16 heads x 128, causal) in bf16, on contiguous
    q, k, v and again on strided views of one fused qkv tensor, as the
-   model passes them, and at a pipeline stage's (B 1, 16 heads; 8 heads
-   on a tp cell) on the fused views. Each element is held to `flash_attention.kernel_ratio`'s rule:
+   model passes them, and at a pipeline stage's and a vpp chunk's (B 1,
+   16 heads; 8 heads on a tp cell) and an sp tile's (B 1, T 1024, on
+   and off the diagonal) on the fused views, and an ulysses-flash
+   cell's gathered head group (B 1, 8 heads) on contiguous ones. Each
+   element is held to `flash_attention.kernel_ratio`'s rule:
    KERNEL_TOL of |ref| + mean |ref|, plus one bf16 ulp where the kernel
    rounds its output to bf16, plus for the bf16 builds (wgmma) the
    `tc_rounding_terms` of their one rounding of P or dS to bf16; the
@@ -100,9 +103,9 @@ Phases (any failure exits non-zero and prints no result line):
    steps, with the launch counts zeroed just before them: the
    tensor-core builds of K1, K2 and K3 must each equal n_layers x steps
    after, their f32-FMA builds 0; and a finite, falling loss.
-6b. Data and checkpoints at full width and CKPT_LAYERS (4) of the 16
-   layers, through `train_lm.main` and `serve --ckpt`'s loader: a
-   token-shard corpus (`build_shards`, vocab
+6b. Data and checkpoints at full width and CKPT_LAYERS (2) of the 16
+   layers, through `train_lm.main` and `serve
+   --ckpt`'s loader: a token-shard corpus (`build_shards`, vocab
    32768, 10 % held out, 16-token motifs from numpy seed 7); run A
    trains 6 steps from it (--val-every 3 --prefetch 2); run B trains 3
    and saves synchronously; run C resumes B's checkpoint to step 6
@@ -195,20 +198,23 @@ Phases (any failure exits non-zero and prints no result line):
    card. (a) K1's bf16 build with the f32 epilogue (`_flash_fwd_tc_f32o`,
    ring attention's chunk output) at the ring's chunk shape (2 x 1024 x
    16 x 128) at rel 0, rel 1024, rel -1024 with window 512 (every row
-   masked: o 0, lse -1e30) and with 4 kv heads, against its plain
+   masked: o 0, lse -1e30) and with 4 kv heads, and at a pipeline
+   stage's ring-flash hop (1 x 1024 x 16 x 128 on the fused qkv's
+   views, phase 15c's calls) at rel 0 and rel 1024, against its plain
    version under the kernels' rule; its time at rel 1024 beside the
    plain version, SDPA's non-causal forward and the bound. (b)
    `ring_flash_attention` at sp 2 and 4 on 2 x 2048 x 16 x 128 against
    `flash_attention` over the gathered sequence: o and the gradients
    within RING_TOL_BF16, o also per element against the plain f32
    attention, K1-K3 launches sp (sp + 1) / 2 each. (c)
-   `ContextParallelEngine` at full width and depth (AdamW 3e-4, phase
-   6's batch and weights) in CP_LAYOUTS: dp 2 x sp 2 ring-flash, dp 1 x
-   sp 4 ulysses-flash, dp 2 flash ZeRO-1, dp 2 x sp 2 ring-flash ZeRO-2
-   accum 2: the loss at init within PARITY_LOSS_BUDGET of phase 6's,
-   every first-step gradient leaf within GRAD_TOL_BF16 of the one-device
-   flash engine's, CP_STEPS timed steps with the counts zeroed before
-   them (K1, K2, K3 each `cp_launches_per_step`), falling losses, step
+   `ContextParallelEngine` at full width and CP_LAYERS = 4 layers of 16
+   (AdamW 3e-4, phase 6's batch and weights) in CP_LAYOUTS:
+   dp 2 x sp 2 ring-flash, dp 1 x sp 4 ulysses-flash, dp 2 flash
+   ZeRO-1, dp 2 x sp 2 ring-flash ZeRO-2 accum 2: the loss at init
+   within PARITY_LOSS_BUDGET and every first-step gradient leaf within
+   GRAD_TOL_BF16 of the one-device flash engine's, CP_STEPS timed steps
+   with the counts zeroed before them (K1, K2, K3 each
+   `cp_launches_per_step`), falling losses, step
    p50, tok/s, MFU, peak memory, the optimizer state the cells hold, and
    the dense dp 2 layout beside ZeRO-1 and ZeRO-2. (d) `train_lm --dp 2
    --sp 2 --attn ring-flash --zero2 --accum 2` at full width and 2
@@ -217,9 +223,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 13. The GSPMD engine family (no kernel: the plain attention, as the
    reference's GSPMD engines run XLA attention), the 1.21B LM's width
-   at GSPMD_LAYERS = 4 layers of 16 (the plain attention's f32 score
-   tensors): (a) the one-device plain-attention engine as the
-   yardstick (`ExpertParallelEngine` at (1, 1) for MoE); (b)
+   at GSPMD_LAYERS = 2 layers of 16 (the plain attention's f32 score
+   tensors, and the script's time): (a) the
+   one-device plain-attention engine as the yardstick
+   (`ExpertParallelEngine` at (1, 1) for MoE); (b)
    `TensorParallelEngine` at tp 4 and dp 2 x tp 2 ZeRO-1, `FSDPEngine`
    at dp 4, `Composite3DEngine` at dp 2 x sp 2 x tp 2 with fsdp, and
    `ExpertParallelEngine` (phase 10c's MoE) at ep 4 and dp 2 x sp 2 x
@@ -238,9 +245,10 @@ Phases (any failure exits non-zero and prints no result line):
    4 rows split over 2 replicas x 2), every cell the card, in
    PP_LAYOUTS: (a) pp 4 gpipe flash, (b) pp 4 1f1b flash, (c) pp 4 zb
    flash, (d) dp 2 x pp 2 x tp 2 1f1b flash ZeRO-1, (e) dp 2 x pp 2
-   FSDP gpipe flash, all at 16 layers, and (f) pp 2 gpipe on the plain
-   attention at 4 layers: the loss at init within PARITY_LOSS_BUDGET of
-   phase 6's (of the one-device plain engine's at 4 layers for (f)),
+   FSDP gpipe flash, all at PP14_LAYERS = 4 layers of 16, and
+   (f) pp 2 gpipe on the plain attention at 4 layers: the loss at init
+   within PARITY_LOSS_BUDGET of the one-device engine's at that depth
+   (the flash engine's; the plain engine's for (f)),
    every first-step gradient leaf within GRAD_TOL_BF16 of the one-device
    engine's (the flash engine's for (a)-(e)), and (b)'s and (c)'s also
    of (a)'s; a warm-up step, then PP_STEPS timed steps with the counts
@@ -256,10 +264,34 @@ Phases (any failure exits non-zero and prints no result line):
    stream must equal `models.generate.generate`'s on its parameters
    (`pp driver:`).
 
+15. The rest of the LM pipeline, as phase 14 in PP15_LAYOUTS: (a) pp 4
+   x vpp 2 gpipe flash, (b) pp 4 x vpp 2 1f1b flash, (c) pp 2 x sp 2
+   gpipe ring-flash, (d) pp 2 x sp 2 1f1b ulysses-flash, all at 16
+   layers, and (e) phase 10c's MoE (4 experts, top-2) at pp 2 x ep 2
+   1f1b flash at 4 layers (phase 13's cut), 2 microbatches per ep
+   replica: the loss at init within PARITY_LOSS_BUDGET of phase 6's,
+   every first-step gradient leaf within GRAD_TOL_BF16 of the
+   one-device flash engine's, (b)'s also of (a)'s; (e) in f32 compute
+   as phase 13 compares MoE (the timed engine then bf16), the loss and
+   every gradient leaf within GRAD_TOL_F32 (relative, as phase 7) of
+   the one-device engine's over the same 4 microbatches; a warm-up
+   step, PP_STEPS timed steps with the counts zeroed before them
+   (`pp_launches_per_step`: ring-flash's 3 hops a layer on K1's
+   f32-output build, ulysses-flash's 2 head groups, K1 twice under
+   1f1b), finite losses, step p50, tok/s,
+   MFU, peak memory, the fullest cell (`pp layout` lines) and one
+   profiled step of (b). Then `train_lm` at 4 layers: `--pp 2
+   --virtual-pp 2 --pp-schedule 1f1b --attn flash` with a save, resumed
+   at `--pp 2 --sp 2 --attn ring-flash` within PARITY_LOSS_BUDGET of a
+   straight run, and `--pp 2 --virtual-pp 2 --sample-only --generate 16
+   --temperature 0` on that checkpoint, its greedy stream equal to
+   `models.generate.generate`'s (`pp15 driver:`).
+
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers (with `device_ms` / `library_device_ms` where the
 profiler timed them, K1-K3's `recipe_launches` from phase 10a,
-`cp_launches` from phase 12c and `pp_launches` from phase 14), and
+`cp_launches` from phase 12c, `pp_launches` from phase 14 and
+`pp15_launches` from phase 15), and
 `{"ok": true, "device": {...}}`.
 """
 
@@ -1655,11 +1687,19 @@ TRAIN_KERNEL_CASES = [
      False),
     ("slice-fused", (TRAIN_BATCH, 2048, 2048, 16, 16, 128, True, 0, 0),
      ("bf16",), True),
-    # a pipeline stage's calls (phase 14): one-row microbatches, and a
-    # tp cell's half of the heads
+    # a pipeline stage's calls (phases 14 and 15): one-row microbatches
+    # (a stage's, and a vpp chunk's), a tp cell's half of the heads, an
+    # sp tile of a ring-flash hop on and off the diagonal (K2 and K3 as
+    # the hop calls them; its K1, the f32-output build, is phase 12a's
+    # RING_HOP_CASES), and an ulysses-flash cell's gathered head group
     ("stage", (1, 2048, 2048, 16, 16, 128, True, 0, 0), ("bf16",), True),
     ("stage-tp2", (1, 2048, 2048, 8, 8, 128, True, 0, 0), ("bf16",),
      True),
+    ("sp-tile", (1, 1024, 1024, 16, 16, 128, True, 0, 0), ("bf16",), True),
+    ("sp-tile-rel", (1, 1024, 1024, 16, 16, 128, True, 0, 1024), ("bf16",),
+     True),
+    ("ulysses-group", (1, 2048, 2048, 8, 8, 128, True, 0, 0), ("bf16",),
+     False),
 ]
 # Kernel vs plain, per element: `flash_attention.kernel_ratio`'s rule
 # (KERNEL_TOL (|ref| + mean |ref|), + BF16_ULP |ref| for o in bf16, + for
@@ -1879,9 +1919,9 @@ def train(dev, cfg, np_params) -> dict:
 # random order (numpy seed 7), so the loss falls; CKPT_STEPS steps, a
 # checkpoint after CKPT_SAVE_AT of them, validation every CKPT_SAVE_AT.
 CKPT_WINDOWS = 64
-# phase 6b's depth (its width is never cut): 4 of the 16 layers, a 4.8 GB
-# checkpoint in place of 14.55 GB, to keep the script within its time
-CKPT_LAYERS = 4
+# phase 6b's depth (its width is never cut): 2 of the 16 layers, a ~3.3
+# GB checkpoint in place of 14.55 GB, to keep the script within its time
+CKPT_LAYERS = 2
 CKPT_MOTIFS = 64
 CKPT_STEPS = 6
 CKPT_SAVE_AT = 3
@@ -3293,13 +3333,18 @@ def run_fp8_mlp(dev, cfg, np_params, card) -> dict:
 # Phase 12: data x sequence parallelism on the one card, every cell of a
 # (dp, sp) grid the card. (a) K1's f32-output build at the ring's chunk
 # shape; (b) `ring_flash_attention` whole against one-device
-# `flash_attention`; (c) `ContextParallelEngine` at full depth in
+# `flash_attention`; (c) `ContextParallelEngine` at CP_LAYERS layers in
 # CP_LAYOUTS; (d) the driver at CP_DRIVER_LAYERS layers with a checkpoint
 # that crosses layouts.
 RING_CHUNK = (2, 1024, 16, 128)          # B, T / sp, heads, head_dim
 RING_CHUNK_CASES = [("rel0", 0, 0, 16), ("rel1024", 1024, 0, 16),
                     ("rel-1024-window512", -1024, 512, 16),
                     ("gqa", 0, 0, 4)]    # name, rel, window, kv heads
+# a ring-flash hop inside a pipeline stage (phase 15c): a one-row
+# microbatch's sp tile, q, k, v the strided views of the fused qkv, on
+# the diagonal and off it (name, rel)
+RING_HOP = (1, 1024, 16, 128)
+RING_HOP_CASES = [("stage-hop-rel0", 0), ("stage-hop-rel1024", 1024)]
 RING_WHOLE = (2, 2048, 16, 128)
 RING_SPS = (2, 4)
 # ring (or the engine) against one-device flash_attention: both round o
@@ -3314,6 +3359,9 @@ CP_LAYOUTS = [("dp2-sp2-ring-flash", 2, 2, "ring-flash", {}),
               ("dp2-sp2-ring-flash-zero2-accum2", 2, 2, "ring-flash",
                {"zero2": True, "accum": 2})]
 CP_STEPS = 5
+# phase 12c's depth: 4 of 16 layers (the script's time; phase 15 holds
+# the 16-layer sp substrates inside a pipeline stage)
+CP_LAYERS = 4
 CP_DRIVER_LAYERS = 2
 CP_DRIVER_STEPS = 4
 
@@ -3321,7 +3369,8 @@ CP_DRIVER_STEPS = 4
 def check_ring_chunk(dev) -> tuple[float, dict]:
     """Phase 12a: K1's bf16 build with the f32 epilogue
     (`_flash_fwd_tc_f32o`) at RING_CHUNK, for each RING_CHUNK_CASES entry,
-    against its plain version (`out_dtype` float32) under
+    and at RING_HOP on the fused qkv's views, for each RING_HOP_CASES
+    entry, against its plain version (`out_dtype` float32) under
     `FA.kernel_ratio`'s rule with the o term of `tc_rounding_terms` (the
     output is f32: no bf16 ulp), lse within LSE_TOL; a fully masked
     chunk must give o 0 and lse -1e30; the bf16 build's o must be the
@@ -3336,9 +3385,15 @@ def check_ring_chunk(dev) -> tuple[float, dict]:
     b, t, h, d = RING_CHUNK
     f32 = torch.float32
     worst = 0.0
-    for ci, (name, rel, window, hkv) in enumerate(RING_CHUNK_CASES):
+    cases = ([(n, RING_CHUNK, rel, w, hkv, False)
+              for n, rel, w, hkv in RING_CHUNK_CASES]
+             + [(n, RING_HOP, rel, 0, RING_HOP[2], True)
+                for n, rel in RING_HOP_CASES])
+    for ci, (name, (cb, ct, ch, cd), rel, window, hkv, fused) in \
+            enumerate(cases):
         q, k, v, _ = _train_kernel_inputs(dev, torch.bfloat16,
-                                          (b, t, t, h, hkv, d), 200 + ci)
+                                          (cb, ct, ct, ch, hkv, cd), 200 + ci,
+                                          fused)
         kw = dict(causal=True, window=window, rel=rel)
         before = FA._flash_fwd_tc_f32o.launches
         o, lse = FA.flash_fwd(q, k, v, out_dtype=f32, **kw)
@@ -3515,10 +3570,10 @@ def _tensor_bytes(tree) -> int:
                if hasattr(x, "element_size"))
 
 
-def run_context_parallel(dev, cfg, np_params, bf16_loss, card) -> dict:
-    """Phase 12c: `ContextParallelEngine` at full width and depth in each
-    CP_LAYOUTS layout (AdamW 3e-4, phase 6's batch and weights): the
-    loss at init within PARITY_LOSS_BUDGET of phase 6's and every
+def run_context_parallel(dev, cfg, np_params, card) -> dict:
+    """Phase 12c: `ContextParallelEngine` at full width and CP_LAYERS
+    layers in each CP_LAYOUTS layout (AdamW 3e-4, phase 6's batch and
+    weights): the loss at init within PARITY_LOSS_BUDGET and every
     first-step gradient leaf within GRAD_TOL_BF16 of the one-device
     flash engine's (max |diff| / max |ref|); CP_STEPS timed steps with
     the launch counts zeroed before them (K1, K2, K3 each
@@ -3536,9 +3591,12 @@ def run_context_parallel(dev, cfg, np_params, bf16_loss, card) -> dict:
     from shallowspeed_tpu_torch.weights import leaves
 
     tok, tgt = _train_batch(cfg)
+    cfg = dataclasses.replace(cfg, n_layers=CP_LAYERS)
+    np_params = {**np_params, "blocks": np_params["blocks"][:CP_LAYERS]}
     ref = ContextParallelEngine(cfg, SGD(0.0), attn="flash", device=dev,
                                 params=np_params)
-    _, ref_grads = ref.loss_and_grads(tok, tgt)
+    ref_loss, ref_grads = ref.loss_and_grads(tok, tgt)
+    ref_loss = float(ref_loss)
     ref_grads = [g.to("cpu") for g in leaves(ref_grads)]
     del ref
     gc.collect()
@@ -3555,13 +3613,13 @@ def run_context_parallel(dev, cfg, np_params, bf16_loss, card) -> dict:
         loss0 = float(loss0)
         worst, where = _grad_worst(grads, ref_grads)
         del grads
-        print(f"cp {name}: loss at init {loss0:.6f} vs phase 6's "
-              f"{bf16_loss:.6f} (budget {PARITY_LOSS_BUDGET}), worst first-"
+        print(f"cp {name}: loss at init {loss0:.6f} vs the one-device "
+              f"{ref_loss:.6f} (budget {PARITY_LOSS_BUDGET}), worst first-"
               f"step grad leaf {where} at {worst:.3e} of the one-device "
               f"flash engine's (tol {GRAD_TOL_BF16:g})", flush=True)
-        if not (abs(loss0 - bf16_loss) <= PARITY_LOSS_BUDGET
+        if not (abs(loss0 - ref_loss) <= PARITY_LOSS_BUDGET
                 and worst <= GRAD_TOL_BF16):
-            raise AssertionError(f"cp {name}: loss {loss0} vs {bf16_loss}, "
+            raise AssertionError(f"cp {name}: loss {loss0} vs {ref_loss}, "
                                  f"grad leaf {where} {worst:.3e}")
         gc.collect()
         torch.cuda.empty_cache()
@@ -3715,8 +3773,9 @@ def run_cp_driver(dev, cfg) -> dict:
 # card. The family runs the plain attention (the reference's GSPMD
 # engines run XLA attention), so it launches no K1-K3. Depth is cut to
 # GSPMD_LAYERS of 16: the plain attention keeps ~3 f32 (B, H, T, T)
-# tensors a layer for its backward (~3.2 GB a layer at 4 x 16 x 2048^2).
-GSPMD_LAYERS = 4
+# tensors a layer for its backward (~3.2 GB a layer at 4 x 16 x 2048^2),
+# and the script's time.
+GSPMD_LAYERS = 2
 GSPMD_STEPS = 3
 # name, engine class name, grid axes, grid sizes, options
 GSPMD_LAYOUTS = [("tp4", "TensorParallelEngine", ("dp", "tp"), (1, 4), {}),
@@ -3987,40 +4046,82 @@ def run_gspmd_driver(dev, cfg) -> dict:
     return out
 
 
-# ---------------------------------------------------------------- phase 14
+# ---------------------------------------------------------- phases 14, 15
 
-# name, dp, pp, tp, schedule, attn, n_layers, engine options
-PP_LAYOUTS = [("a-pp4-gpipe-flash", 1, 4, 1, "gpipe", "flash", 16, {}),
-              ("b-pp4-1f1b-flash", 1, 4, 1, "1f1b", "flash", 16, {}),
-              ("c-pp4-zb-flash", 1, 4, 1, "zb", "flash", 16, {}),
-              ("d-dp2-pp2-tp2-1f1b-flash-zero1", 2, 2, 2, "1f1b", "flash",
-               16, {"zero1": True}),
-              ("e-dp2-pp2-fsdp-gpipe-flash", 2, 2, 1, "gpipe", "flash", 16,
-               {"fsdp": True}),
-              ("f-pp2-gpipe-plain", 1, 2, 1, "gpipe", "xla", 4, {})]
+# phase 14's depth: 4 of 16 layers (the script's time; phase 15 runs its
+# layouts at 16)
+PP14_LAYERS = 4
+
+# name, dp, pp, the grid's extra axis ({"tp" | "sp" | "ep": size} or {}),
+# schedule, attn, the model's overrides of the 1.21B LM's config, engine
+# options
+PP_LAYOUTS = [("a-pp4-gpipe-flash", 1, 4, {}, "gpipe", "flash",
+               {"n_layers": PP14_LAYERS}, {}),
+              ("b-pp4-1f1b-flash", 1, 4, {}, "1f1b", "flash",
+               {"n_layers": PP14_LAYERS}, {}),
+              ("c-pp4-zb-flash", 1, 4, {}, "zb", "flash",
+               {"n_layers": PP14_LAYERS}, {}),
+              ("d-dp2-pp2-tp2-1f1b-flash-zero1", 2, 2, {"tp": 2}, "1f1b",
+               "flash", {"n_layers": PP14_LAYERS}, {"zero1": True}),
+              ("e-dp2-pp2-fsdp-gpipe-flash", 2, 2, {}, "gpipe", "flash",
+               {"n_layers": PP14_LAYERS}, {"fsdp": True}),
+              ("f-pp2-gpipe-plain", 1, 2, {}, "gpipe", "xla",
+               {"n_layers": 4}, {})]
+# phase 10c's MoE at its own depth (MOE_LAYERS)
+PP_MOE = {"n_layers": MOE_LAYERS, "n_experts": MOE_EXPERTS, "moe_top_k": 2,
+          "moe_capacity_factor": 2.0}
+PP15_LAYOUTS = [("a-pp4-vpp2-gpipe-flash", 1, 4, {}, "gpipe", "flash",
+                 {"n_layers": 16}, {"virtual_pp": 2}),
+                ("b-pp4-vpp2-1f1b-flash", 1, 4, {}, "1f1b", "flash",
+                 {"n_layers": 16}, {"virtual_pp": 2}),
+                ("c-pp2-sp2-gpipe-ring-flash", 1, 2, {"sp": 2}, "gpipe",
+                 "ring-flash", {"n_layers": 16}, {}),
+                ("d-pp2-sp2-1f1b-ulysses-flash", 1, 2, {"sp": 2}, "1f1b",
+                 "ulysses-flash", {"n_layers": 16}, {}),
+                ("e-moe-pp2-ep2-1f1b-flash", 1, 2, {"ep": 2}, "1f1b",
+                 "flash", PP_MOE, {})]
 PP_N_MU = 4
 PP_STEPS = 2
 PP_PROFILED = "b-pp4-1f1b-flash"
+PP15_PROFILED = "b-pp4-vpp2-1f1b-flash"
 PP_DRIVER_LAYERS = 2
+PP15_DRIVER_LAYERS = 4
 PP_DRIVER_STEPS = 3
 PP_GENERATE = 16
 
 
-def pp_launches_per_step(schedule, dp, tp, n_mu, n_layers) -> dict:
-    """K1, K2, K3 launches of one pipeline step: once per layer,
-    microbatch, replica and tp cell; K1 twice under 1f1b (its backward
-    reruns the stage forward)."""
-    n = n_layers * n_mu * dp * tp
-    return {"flash_fwd_tc": 2 * n if schedule == "1f1b" else n,
+def pp_launches_per_step(schedule, dp, tp, n_mu, n_layers, attn="flash",
+                         sp=1, ep=1, window=0) -> dict:
+    """K1, K2, K3 launches of one pipeline step: per layer, microbatch,
+    data replica (dp x ep) and tp cell, the substrate's per-layer count
+    (`cp_launches_per_step`: flash 1, ring-flash sp (sp + 1) / 2 causal
+    without a window, ulysses-flash sp), whatever the vpp; K1 twice under
+    1f1b (its backward reruns the chunk forward). Under ring-flash K1 is
+    its f32-output build."""
+    n = cp_launches_per_step(attn, 1, sp, 1, 1, window) * (
+        n_layers * n_mu * dp * ep * tp)
+    k1 = "flash_fwd_tc_f32o" if attn == "ring-flash" else "flash_fwd_tc"
+    return {k1: 2 * n if schedule == "1f1b" else n,
             "flash_dq_tc": n, "flash_dkv_tc": n}
 
 
-def run_pipeline(dev, cfg, np_params, bf16_loss, card) -> dict:
-    """Phase 14a-f (see the module docstring): each PP_LAYOUTS layout's
-    parity, launches, step time, MFU, peak memory and fullest cell."""
+def run_pipeline(dev, cfg, np_params, bf16_loss, card, layouts=PP_LAYOUTS,
+                 profiled=PP_PROFILED, vs_a=("b-", "c-"), refs=None,
+                 tag="pp") -> dict:
+    """Phase 14a-f and 15a-e (see the module docstring): each layout's
+    parity against the one-device engine on the same weights at the same
+    depth (the flash engine; the plain one on the plain attention; for
+    MoE the plain one-device engine over the same microbatches, each
+    routing its own tokens, in f32 compute as phase 13 compares MoE,
+    loss and gradients within GRAD_TOL_F32, the timed engine then built
+    again in bf16), at full depth within PARITY_LOSS_BUDGET of
+    `bf16_loss` (phase 6's), the `vs_a` layouts' gradients also against
+    the first layout's, launches, step time, MFU, peak memory
+    and fullest cell. `refs` caches the yardsticks across calls."""
     import torch
 
     from shallowspeed_tpu_torch.flops import mfu
+    from shallowspeed_tpu_torch.models import transformer as T
     from shallowspeed_tpu_torch.optim import SGD, AdamW
     from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
     from shallowspeed_tpu_torch.parallel.mesh import make_pipeline_mesh
@@ -4032,52 +4133,95 @@ def run_pipeline(dev, cfg, np_params, bf16_loss, card) -> dict:
         torch.cuda.empty_cache()
 
     tok, tgt = _train_batch(cfg)
-    refs = {}
-    for layers, attn in ((cfg.n_layers, "flash"), (4, "ring")):
-        mcfg = dataclasses.replace(cfg, n_layers=layers)
-        npm = (np_params if layers == cfg.n_layers else
-               {**np_params, "blocks": np_params["blocks"][:layers]})
-        ref = ContextParallelEngine(mcfg, SGD(0.0), attn=attn, device=dev,
-                                    params=npm)
+    refs = {} if refs is None else refs
+
+    def yardstick(model, attn):
+        """(loss, host gradient list, numpy weights, parity config) of
+        the one-device engine for `model`."""
+        mcfg = dataclasses.replace(cfg, **model)
+        ref_attn = "flash" if attn != "xla" else "ring"
+        key = (tuple(sorted(model.items())), ref_attn)
+        if key in refs:
+            return refs[key]
+        if mcfg.n_experts:
+            # the same objective: each microbatch routes and averages
+            # its own balance loss, so the yardstick accumulates over
+            # the pipeline's PP_N_MU microbatches
+            npm = T.init_numpy(mcfg, seed=0)
+            pcfg = dataclasses.replace(mcfg, compute_dtype=None)
+            ref = ContextParallelEngine(pcfg, SGD(0.0), attn="ring",
+                                        device=dev, params=npm,
+                                        accum=PP_N_MU)
+        else:
+            npm = (np_params if mcfg.n_layers == cfg.n_layers else
+                   {**np_params,
+                    "blocks": np_params["blocks"][:mcfg.n_layers]})
+            pcfg = mcfg
+            ref = ContextParallelEngine(mcfg, SGD(0.0), attn=ref_attn,
+                                        device=dev, params=npm)
         loss, grads = ref.loss_and_grads(tok, tgt)
-        refs[layers] = (float(loss), [g.to("cpu") for g in leaves(grads)])
+        refs[key] = (float(loss), [g.to("cpu") for g in leaves(grads)],
+                     npm, pcfg)
         del ref, grads
         release()
+        return refs[key]
+
     counters = _all_train_counters()
-    results, launches, gpipe_grads = {}, {}, None
-    for name, dp, pp, tp, schedule, attn, layers, kw in PP_LAYOUTS:
-        mcfg = dataclasses.replace(cfg, n_layers=layers)
-        npm = (np_params if layers == cfg.n_layers else
-               {**np_params, "blocks": np_params["blocks"][:layers]})
-        n_mu = PP_N_MU // dp
+    results, launches, first_grads = {}, {}, None
+    for name, dp, pp, grid, schedule, attn, model, kw in layouts:
+        mcfg = dataclasses.replace(cfg, **model)
+        layers = mcfg.n_layers
+        ref_loss, ref_grads, npm, pcfg = yardstick(model, attn)
+        ep, sp = grid.get("ep", 1), grid.get("sp", 1)
+        n_mu = PP_N_MU // (dp * ep)
+
+        def engine(c):
+            return PipelineLMEngine(
+                c, AdamW(3e-4, weight_decay=0.01, grad_clip=1.0),
+                make_pipeline_mesh(dp, pp, grid.get("tp", 1), dev, sp=sp,
+                                   ep=ep), n_mubatches=n_mu,
+                schedule=schedule, attn=attn, params=npm, **kw)
+
         t0 = time.perf_counter()
-        eng = PipelineLMEngine(
-            mcfg, AdamW(3e-4, weight_decay=0.01, grad_clip=1.0),
-            make_pipeline_mesh(dp, pp, tp, dev), n_mubatches=n_mu,
-            schedule=schedule, attn=attn, params=npm, **kw)
+        eng = engine(pcfg)
         init_s = time.perf_counter() - t0
         loss0, grads = eng.loss_and_grads(tok, tgt)
         loss0 = float(loss0)
-        want_loss = bf16_loss if layers == cfg.n_layers else refs[layers][0]
-        worst, where = _grad_worst(grads, refs[layers][1])
-        vs_a = None
-        if name.startswith("a-"):
-            gpipe_grads = [g.to("cpu") for g in leaves(grads)]
-        elif name.startswith(("b-", "c-")):
-            vs_a = _grad_worst(grads, gpipe_grads)
+        want_loss = (bf16_loss if model == {"n_layers": cfg.n_layers}
+                     else ref_loss)
+        worst, where = _grad_worst(grads, ref_grads)
+        vs = None
+        if first_grads is None:
+            first_grads = [g.to("cpu") for g in leaves(grads)]
+        elif name.startswith(vs_a):
+            vs = _grad_worst(grads, first_grads)
         del grads
-        print(f"pp {name}: loss at init {loss0:.6f} vs {want_loss:.6f} "
-              f"(budget {PARITY_LOSS_BUDGET}), worst first-step grad leaf "
-              f"{where} at {worst:.3e} of the one-device engine's"
-              + ("" if vs_a is None else
-                 f", {vs_a[1]} at {vs_a[0]:.3e} of (a)'s")
-              + f" (tol {GRAD_TOL_BF16:g})", flush=True)
-        if not (abs(loss0 - want_loss) <= PARITY_LOSS_BUDGET
-                and worst <= GRAD_TOL_BF16
-                and (vs_a is None or vs_a[0] <= GRAD_TOL_BF16)):
-            raise AssertionError(f"pp {name}: loss {loss0} vs {want_loss}, "
-                                 f"grad leaf {where} {worst:.3e}, vs (a) "
-                                 f"{vs_a}")
+        if pcfg != mcfg:                # the timed engine computes in bf16
+            del eng
+            release()
+            t0 = time.perf_counter()
+            eng = engine(mcfg)
+            init_s = time.perf_counter() - t0
+        if pcfg == mcfg:                # bf16 against the flash engine
+            loss_err = abs(loss0 - want_loss)
+            loss_tol, grad_tol = PARITY_LOSS_BUDGET, GRAD_TOL_BF16
+            how = "budget"
+        else:                           # f32, as phase 7's parity
+            loss_err = abs(loss0 - want_loss) / abs(want_loss)
+            loss_tol, grad_tol = GRAD_TOL_F32, GRAD_TOL_F32
+            how = "relative, tol"
+        print(f"{tag} {name}: loss at init {loss0:.6f} vs {want_loss:.6f} "
+              f"({how} {loss_tol:g}: {loss_err:.3e}), worst first-step "
+              f"grad leaf {where} at {worst:.3e} of the one-device "
+              f"engine's (tol {grad_tol:g})"
+              + ("" if vs is None else
+                 f", {vs[1]} at {vs[0]:.3e} of (a)'s (tol "
+                 f"{GRAD_TOL_BF16:g})"), flush=True)
+        if not (loss_err <= loss_tol and worst <= grad_tol
+                and (vs is None or vs[0] <= GRAD_TOL_BF16)):
+            raise AssertionError(f"{tag} {name}: loss {loss0} vs "
+                                 f"{want_loss}, grad leaf {where} "
+                                 f"{worst:.3e}, vs (a) {vs}")
         release()
         # a warm-up step, whose allocations the timed steps then reuse
         eng.train_batch(tok, tgt)
@@ -4091,14 +4235,15 @@ def run_pipeline(dev, cfg, np_params, bf16_loss, card) -> dict:
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
         counts = _kernel_counts(counters)
-        per = (pp_launches_per_step(schedule, dp, tp, n_mu, layers)
-               if attn == "flash" else {})
+        per = (pp_launches_per_step(schedule, dp, grid.get("tp", 1), n_mu,
+                                    layers, attn=attn, sp=sp, ep=ep)
+               if attn != "xla" else {})
         want = {k: PP_STEPS * per.get(k, 0) for k in counts}
         if counts != want:
-            raise AssertionError(f"pp {name}: launches {counts}, want "
+            raise AssertionError(f"{tag} {name}: launches {counts}, want "
                                  f"{want}")
         if not all(np.isfinite(losses)):
-            raise AssertionError(f"pp {name}: losses {losses}")
+            raise AssertionError(f"{tag} {name}: losses {losses}")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         p50 = float(np.median(step_s))
@@ -4107,11 +4252,13 @@ def run_pipeline(dev, cfg, np_params, bf16_loss, card) -> dict:
         held = eng.cell_bytes()
         full = max(held, key=lambda c: sum(held[c]))
         results[name] = {
-            "dp": dp, "pp": pp, "tp": tp, "schedule": schedule,
-            "attn": attn, "layers": layers, "n_mu": n_mu, **kw,
+            "dp": dp, "pp": pp, **grid, "schedule": schedule, "attn": attn,
+            "layers": layers, "experts": mcfg.n_experts, "n_mu": n_mu, **kw,
+            "parity_dtype": "bf16" if pcfg == mcfg else "f32",
             "loss_at_init": loss0, "yardstick_loss": want_loss,
+            "loss_tol": loss_tol, "grad_tol": grad_tol,
             "grad_rel_worst": worst, "grad_rel_worst_leaf": where,
-            "grad_rel_vs_a": None if vs_a is None else vs_a[0],
+            "grad_rel_vs_a": None if vs is None else vs[0],
             "losses": losses, "step_ms": [1e3 * x for x in step_s],
             "step_ms_p50": 1e3 * p50, "tok_per_s": tok_s,
             "tflops": perf["tflops"], "mfu": perf["mfu"],
@@ -4124,25 +4271,43 @@ def run_pipeline(dev, cfg, np_params, bf16_loss, card) -> dict:
             "stash_peak": eng.peak_stash, "init_s": init_s}
         print(f"pp layout {name}: " + json.dumps(results[name])
               + f"  [{card}]", flush=True)
-        if name == PP_PROFILED:
+        if name == profiled:
             print(f"pp profile {name}: "
                   + json.dumps(profile_step(eng, tok, tgt)), flush=True)
         del eng
         release()
-    return {"layouts": results, "launches": launches}
+    return {"layouts": results, "launches": launches, "refs": refs}
 
 
-def run_pp_driver(dev, cfg) -> dict:
-    """Phase 14g: `train_lm --pp 2 --pp-schedule zb --attn flash` at
-    full width and PP_DRIVER_LAYERS layers, PP_DRIVER_STEPS steps and a
-    save; `--resume` at `--dp 2 --pp 2 --tp 2 --pp-schedule 1f1b` to
+# phase 14g's and 15f's driver runs: (the first run's flags and schedule
+# knobs for its launch formula), the resumed layout's, and the decode's
+PP_DRIVER = {
+    "14": (PP_DRIVER_LAYERS,
+           (["--pp", "2", "--pp-schedule", "zb"], ("zb", 1, 1, {})),
+           (["--dp", "2", "--pp", "2", "--tp", "2", "--pp-schedule",
+             "1f1b"], ("1f1b", 2, 2, {})),
+           ["--pp", "2"]),
+    "15": (PP15_DRIVER_LAYERS,
+           (["--pp", "2", "--virtual-pp", "2", "--pp-schedule", "1f1b"],
+            ("1f1b", 1, 1, {})),
+           (["--pp", "2", "--sp", "2", "--attn", "ring-flash"],
+            ("gpipe", 1, 1, {"attn": "ring-flash", "sp": 2})),
+           ["--pp", "2", "--virtual-pp", "2"]),
+}
+
+
+def run_pp_driver(dev, cfg, phase="14") -> dict:
+    """Phase 14g / 15f: `train_lm` at full width and the phase's driver
+    depth (PP_DRIVER): the first layout with `--attn flash`,
+    PP_DRIVER_STEPS steps and a save; `--resume` in the second layout to
     PP_DRIVER_STEPS + 2 steps, within PARITY_LOSS_BUDGET of a straight
-    run of that layout; then `--pp 2 --sample-only --generate
-    PP_GENERATE --temperature 0` on the resumed run's checkpoint, whose
-    printed stream must equal `models.generate.generate`'s greedy
-    stream on that checkpoint's parameters and prompt. K1-K3 launch as
-    the schedules imply in the training runs. The checkpoints live in a
-    temporary directory removed at the end."""
+    run of that layout; then `--sample-only --generate PP_GENERATE
+    --temperature 0` through the pipelined decode on the resumed run's
+    checkpoint, whose printed stream must equal
+    `models.generate.generate`'s greedy stream on that checkpoint's
+    parameters and prompt. K1-K3 (under ring-flash K1's f32-output
+    build) launch as `pp_launches_per_step` says in the training runs.
+    The checkpoints live in a temporary directory removed at the end."""
     import contextlib
     import io
     import shutil
@@ -4156,11 +4321,12 @@ def run_pp_driver(dev, cfg) -> dict:
     from shallowspeed_tpu_torch.models.generate import generate
     from shallowspeed_tpu_torch.weights import params_from_numpy
 
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_pp_"))
+    layers, (first, fk), (then, tk), gen = PP_DRIVER[phase]
+    label = f"pp{'' if phase == '14' else phase} driver"
+    root = Path(tempfile.mkdtemp(prefix=f"chip_smoke_pp{phase}_"))
     total = PP_DRIVER_STEPS + 2
     flags = ["--vocab", str(cfg.vocab), "--d-model", str(cfg.d_model),
-             "--n-heads", str(cfg.n_heads),
-             "--n-layers", str(PP_DRIVER_LAYERS),
+             "--n-heads", str(cfg.n_heads), "--n-layers", str(layers),
              "--d-ff", str(cfg.ffn_dim), "--seq-len", str(cfg.max_seq),
              "--batch-size", str(TRAIN_BATCH), "--rope", "--norm", cfg.norm,
              "--ffn", cfg.ffn, "--optimizer", "adamw", "--lr", "3e-4",
@@ -4171,8 +4337,10 @@ def run_pp_driver(dev, cfg) -> dict:
     if dev.type == "cpu":
         flags += ["--device", "cpu"]
     counters = _all_train_counters()
-    tp_grid = ["--dp", "2", "--pp", "2", "--tp", "2", "--pp-schedule",
-               "1f1b"]
+
+    def per_step(knobs):
+        schedule, dp, tp, extra = knobs
+        return pp_launches_per_step(schedule, dp, tp, 2, layers, **extra)
 
     def drive(tag, steps, per, *extra):
         for c in counters:
@@ -4190,46 +4358,45 @@ def run_pp_driver(dev, cfg) -> dict:
         counts = _kernel_counts(counters)
         want = {k: steps * per.get(k, 0) for k in counts}
         if counts != want:
-            raise AssertionError(f"pp driver {tag}: launches {counts}, "
+            raise AssertionError(f"{label} {tag}: launches {counts}, "
                                  f"want {want}")
         return {"losses": [e["loss"] for e in _events(log, "step")],
                 "wall_s": wall, "log": log, "out": out.getvalue()}
 
     try:
         ck = str(root / "ck")
-        zb = pp_launches_per_step("zb", 1, 1, 2, PP_DRIVER_LAYERS)
-        f1b = pp_launches_per_step("1f1b", 2, 2, 2, PP_DRIVER_LAYERS)
-        a = drive("a", PP_DRIVER_STEPS, zb, "--pp", "2", "--pp-schedule",
-                  "zb", "--steps", str(PP_DRIVER_STEPS), "--save-dir", ck,
-                  "--save-every", str(PP_DRIVER_STEPS))
-        b = drive("b", 2, f1b, *tp_grid, "--steps", str(total),
+        a = drive("a", PP_DRIVER_STEPS, per_step(fk), *first, "--steps",
+                  str(PP_DRIVER_STEPS), "--save-dir", ck, "--save-every",
+                  str(PP_DRIVER_STEPS))
+        b = drive("b", 2, per_step(tk), *then, "--steps", str(total),
                   "--save-dir", ck, "--resume")
         restore, = _events(b["log"], "restore")
-        c = drive("c", total, f1b, *tp_grid, "--steps", str(total))
+        c = drive("c", total, per_step(tk), *then, "--steps", str(total))
         gap = max(abs(x - y) for x, y in
                   zip(b["losses"], c["losses"][PP_DRIVER_STEPS:]))
-        gen_argv = ["--pp", "2", "--save-dir", ck, "--sample-only",
-                    "--generate", str(PP_GENERATE), "--temperature", "0"]
+        gen_argv = [*gen, "--save-dir", ck, "--sample-only", "--generate",
+                    str(PP_GENERATE), "--temperature", "0"]
         d = drive("d", 0, {}, *gen_argv)
         sample = [x for x in d["out"].splitlines()
                   if x.startswith("sample: ")]
         args = train_lm.parse_args([*flags, *gen_argv])
         prompt = train_lm.make_batch(args, cfg.vocab, 0)[0][:1, :16]
-        mcfg = dataclasses.replace(cfg, n_layers=PP_DRIVER_LAYERS)
+        mcfg = dataclasses.replace(cfg, n_layers=layers)
         params = params_from_numpy(checkpoint.load_params(
             checkpoint.latest(ck), T.param_shapes(mcfg)), dev)
         want = generate(params, prompt, mcfg, PP_GENERATE, temperature=0.0)
         del params
-        out = {"losses_pp2_zb": a["losses"],
-               "losses_resumed_dp2_pp2_tp2_1f1b": b["losses"],
-               "losses_straight_dp2_pp2_tp2_1f1b": c["losses"],
+        out = {"first": " ".join(first), "then": " ".join(then),
+               "decode": " ".join(gen), "losses_first": a["losses"],
+               "losses_resumed": b["losses"],
+               "losses_straight": c["losses"],
                "resumed_gap": gap, "sample": sample,
                "generate_stream": [int(x) for x in want[0]],
                "restore": {k: restore[k] for k in ("path", "step", "verify_s",
                                                    "load_s", "place_s")},
                "wall_s": {r: x["wall_s"] for r, x in
                           (("a", a), ("b", b), ("c", c), ("d", d))}}
-        print("pp driver: " + json.dumps(out), flush=True)
+        print(f"{label}: " + json.dumps(out), flush=True)
         if not (len(a["losses"]) == PP_DRIVER_STEPS
                 and len(b["losses"]) == 2
                 and restore["step"] == PP_DRIVER_STEPS
@@ -4237,7 +4404,7 @@ def run_pp_driver(dev, cfg) -> dict:
                 and gap <= PARITY_LOSS_BUDGET
                 and "pp-sharded decode" in d["out"]
                 and sample == ["sample: " + train_lm._show(want[0])]):
-            raise AssertionError(f"pp driver: {out}")
+            raise AssertionError(f"{label}: {out}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -4375,8 +4542,7 @@ def main() -> int:
     check_ring_whole(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    cp = run_context_parallel(dev, cfg, np_params, trained["losses"][0],
-                              card)
+    cp = run_context_parallel(dev, cfg, np_params, card)
     launches["flash_fwd_tc_f32o"] = cp["launches"]["flash_fwd_tc_f32o"]
     run_cp_driver(dev, cfg)
     gc.collect()
@@ -4392,10 +4558,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     pp = run_pipeline(dev, cfg, np_params, trained["losses"][0], card)
-    del np_params
     gc.collect()
     torch.cuda.empty_cache()
     run_pp_driver(dev, cfg)
+    pp15 = run_pipeline(dev, cfg, np_params, trained["losses"][0], card,
+                        PP15_LAYOUTS, PP15_PROFILED, ("b-",), pp.pop("refs"),
+                        "pp15")
+    del np_params, pp15["refs"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_pp_driver(dev, cfg, "15")
 
     src = "shallowspeed_tpu_torch/csrc/"
     fa = "shallowspeed_tpu/ops/flash_attention.py:"
@@ -4426,6 +4598,8 @@ def main() -> int:
            if cp["launches"].get(name) else {}),
         **({"pp_launches": pp["launches"][name]}
            if pp["launches"].get(name) else {}),
+        **({"pp15_launches": pp15["launches"][name]}
+           if pp15["launches"].get(name) else {}),
     } for name, (cu, ref) in where.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -603,12 +603,12 @@ def restore(engine, ckpt_path, stats: dict | None = None) -> int:
     checkpoint raises CheckpointError; quarantine-and-fall-back is
     `restore_latest`'s job). The parameters' structure and shapes are
     checked against the engine's (ValueError on a mismatch). The
-    optimizer state restores when the same engine class wrote a state
-    of the same structure, else from the canonical record, else it is
-    re-initialized with a warning. `stats`, when given, receives the
-    seconds of the verification (`verify_s`), of reading the npz files
-    (`load_s`) and of placing them on the device (`place_s`), and the
-    bytes read."""
+    optimizer state restores from the canonical record where the writer
+    left one, else when the same engine class wrote a state of the same
+    structure, else it is re-initialized with a warning. `stats`, when
+    given, receives the seconds of the verification (`verify_s`), of
+    reading the npz files (`load_s`) and of placing them on the device
+    (`place_s`), and the bytes read."""
     d = Path(ckpt_path)
     t0 = time.perf_counter()
     if not (d / "params.npz").exists():
@@ -626,11 +626,19 @@ def restore(engine, ckpt_path, stats: dict | None = None) -> int:
     t2 = time.perf_counter()
     engine.set_canonical_params(params)
     del params
-    if (meta["engine"] == type(engine).__name__
-            and _structure_mismatch(opt_state, engine.opt_state) is None):
+    # a layout-transforming writer leaves the canonical record: it goes
+    # first, since the same engine class may lay its state out otherwise
+    # (a pipeline at another virtual_pp permutes its stacked layers)
+    same = (meta["engine"] == type(engine).__name__
+            and _structure_mismatch(opt_state, engine.opt_state) is None)
+    if same and not (d / "opt_canon.npz").exists():
         engine.set_opt_state(opt_state)
     elif any(True for _ in leaves(opt_state)):
-        if not _restore_opt_canonical(engine, d, opt_state, meta):
+        if _restore_opt_canonical(engine, d, opt_state, meta):
+            pass                # the canonical record, re-laid
+        elif same:
+            engine.set_opt_state(opt_state)
+        else:
             warnings.warn(
                 f"checkpoint opt state is {meta['engine']}-shaped and "
                 f"does not match this {type(engine).__name__}'s "

@@ -278,7 +278,8 @@ def cast_params(params, compute_dtype):
     them to f32 for the statistics anyway. Quantized-storage leaves
     (Wq/Ws) stay in their storage dtypes: float8_e4m3fn is a floating
     dtype, and a cast would turn it back into a full-size copy (and
-    round the f32 scales)."""
+    round the f32 scales). A non-tensor leaf (a MoE layer's tile count,
+    `ops.moe.moe_ffn`) passes as it is."""
     if compute_dtype is None:
         return params
 
@@ -288,7 +289,8 @@ def cast_params(params, compute_dtype):
                     for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v, keep) for v in node]
-        if keep or not node.is_floating_point():
+        if (keep or not isinstance(node, torch.Tensor)
+                or not node.is_floating_point()):
             return node
         return node.to(compute_dtype)
 

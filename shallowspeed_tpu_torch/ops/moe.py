@@ -155,7 +155,28 @@ def moe_ffn(p: dict, x, top_k: int, capacity_factor: float,
     contracts them over every expert's slots at once, as on one cell
     (the reference's `moe_ffn_ep`: a sum of per-cell partial combines
     would round each part to the compute dtype and move later layers'
-    routing)."""
+    routing).
+
+    Per-tile routing (a sequence-parallel engine's: the reference's sp
+    tiles each route their own tokens): with p["tiles"] = n, x's
+    sequence splits into n equal tiles, each routed as its own sequence
+    with its own capacity; y is the tiles' outputs in order, the two
+    losses their sums (the engine sums its tiles' losses) and the stats
+    their mean."""
+    tiles = p.get("tiles", 1)
+    if tiles > 1:
+        if x.shape[1] % tiles:
+            raise ValueError(f"sequence length {x.shape[1]} does not split "
+                             f"into {tiles} tiles")
+        inner = {k: v for k, v in p.items() if k != "tiles"}
+        parts = [moe_ffn(inner, xt, top_k, capacity_factor, priority)
+                 for xt in x.chunk(tiles, dim=1)]
+        aux, z = parts[0][1], parts[0][2]
+        for part in parts[1:]:
+            aux, z = aux + part[1], z + part[2]
+        stats = {k: sum(part[3][k] for part in parts) / tiles
+                 for k in parts[0][3]}
+        return torch.cat([part[0] for part in parts], dim=1), aux, z, stats
     g, s, d = x.shape
     e = p["gate"].shape[1]
     cap = expert_capacity(s, e, top_k, capacity_factor)

@@ -45,10 +45,14 @@ pack on the reduced gradients (each ZeRO-2 leaf's slices summed in rank
 order); under "guard" the update is gated on its `nonfinite == 0`
 (`guarded_step`). The canonical state a checkpoint holds is replica 0's
 parameters and the unsharded optimizer state (`opt_state` gathers ZeRO's
-slices), so checkpoints cross between layouts and packages. Comm
-overlap and MoE configs at sp > 1 (the reference routes each tile on
-its own here; `parallel.expert.ExpertParallelEngine` routes whole rows
-over a (dp, sp, ep) grid) raise `NotPorted`.
+slices), so checkpoints cross between layouts and packages.
+
+A MoE config at sp > 1 routes each sp tile as its own sequence, with
+that tile's capacity, as the reference's tiles do (`ops.moe.moe_ffn`'s
+`tiles`): the replica's loss adds every tile's weighted balance and
+z-losses to its tiles' token losses. (`parallel.expert.
+ExpertParallelEngine` routes whole rows over a (dp, sp, ep) grid.)
+Comm overlap raises `NotPorted`.
 """
 
 from __future__ import annotations
@@ -77,7 +81,6 @@ from shallowspeed_tpu_torch.weights import (leaves, map_tree,
                                             unflatten)
 
 _OVERLAP = "Queue 1 item 5, comm overlap"
-_MOE = "Queue 1 item 5, MoE in the context engine"
 
 SUBSTRATES = ("ring", "ring-flash", "ulysses", "ulysses-flash", "flash")
 
@@ -167,8 +170,6 @@ class ContextParallelEngine:
                 raise ValueError(
                     f"--attn {attn} with GQA needs n_kv_heads "
                     f"({cfg.kv_heads}) divisible by sp ({self.sp}); use ring")
-        if cfg.n_experts > 0 and self.sp > 1:
-            raise NotPorted("MoE configs at sp > 1 (per-tile routing)", _MOE)
 
     def _substrate(self, attn, cells, window):
         """The attention function of one replica, over its sp cells."""
@@ -251,14 +252,25 @@ class ContextParallelEngine:
                                        (replica + 1) * self.sp))
         return keys[0] if self.sp == 1 else keys
 
+    def _tiled(self, params):
+        """`params` with each MoE layer routing per sp tile (at sp > 1)."""
+        if self.sp == 1 or self.cfg.n_experts == 0:
+            return params
+        return {**params, "blocks": [{**b, "moe": {**b["moe"],
+                                                    "tiles": self.sp}}
+                                     for b in params["blocks"]]}
+
     def _loss(self, r, params, tok, tgt, key=None, train=True):
-        """Replica r's loss on (tok, tgt): the sum of its sp tiles' mean
-        losses, in tile order (`transformer.loss` itself at sp 1)."""
+        """Replica r's loss on (tok, tgt): the sum of its sp tiles'
+        losses, in tile order (`transformer.loss` itself at sp 1); a
+        tile's loss is its mean token loss plus, for a MoE config, its
+        weighted balance and z-losses."""
         cfg, fn = self.cfg, self._attn_fns[r]
         if self.sp == 1:
             return T.loss(params, tok, tgt, cfg, attn_fn=fn,
                           dropout_key=key, train=train)
-        hid, _ = T.forward_with_aux(params, tok, cfg, fn, key, head=False)
+        hid, (aux, z) = T.forward_with_aux(self._tiled(params), tok, cfg, fn,
+                                           key, head=False)
         head = "tok_emb" if cfg.tie_embeddings else "head"
         hp = T.cast_params({head: params[head]}, cfg.compute_dtype)
         total = None
@@ -267,6 +279,10 @@ class ContextParallelEngine:
                     if cfg.xent_chunk > 0 else
                     T.token_loss(T.head_logits(hp, h, cfg), g, cfg, train))
             total = part if total is None else total + part
+        if cfg.n_experts > 0:
+            total = total + cfg.moe_aux_weight * aux
+            if cfg.moe_z_weight > 0.0:
+                total = total + cfg.moe_z_weight * z
         return total
 
     def _replica_grads(self, r, tok, tgt):
@@ -393,7 +409,7 @@ class ContextParallelEngine:
             raise ValueError(f"token batch {tuple(tok.shape)} does not "
                              f"split over (dp={self.dp}, sp={self.sp})")
         return torch.cat([
-            T.forward(_on(self.params, d), x.to(d), self.cfg,
+            T.forward(self._tiled(_on(self.params, d)), x.to(d), self.cfg,
                       attn_fn=self._attn_fns[r]).to(self.device)
             for r, (x, d) in enumerate(zip(tok.chunk(self.dp), self.cells))])
 

@@ -9,7 +9,7 @@ The GSPMD engines (`parallel.gspmd`) take a `Grid`, the array with its
 axis names, as the reference's engines take a named mesh: ("dp",),
 ("dp", "tp"), ("dp", "sp", "tp"), ("dp", "ep") and ("dp", "sp", "ep");
 the LM pipeline (`parallel.pipeline_lm`) takes ("dp", "pp") or ("dp",
-"pp", "tp").
+"pp", X) with X one of "tp", "sp" and "ep".
 Several cells may name one device: on a card every cell is that card,
 in the CPU tests every cell is the CPU, and every layout runs in one
 process either way.
@@ -100,11 +100,18 @@ def make_ep_mesh(dp: int = 1, ep: int = 1, sp: int = 1, devices=None) -> Grid:
     return make_grid(("dp", "ep"), (dp, ep), devices)
 
 
-def make_pipeline_mesh(dp: int = 1, pp: int = 1, tp: int = 1,
-                       devices=None) -> Grid:
-    """The grid of `PipelineLMEngine`: ("dp", "pp"), or ("dp", "pp",
-    "tp") at tp > 1 (Megatron inside each stage), as the root driver
-    builds it."""
-    if tp > 1:
-        return make_grid(("dp", "pp", "tp"), (dp, pp, tp), devices)
+def make_pipeline_mesh(dp: int = 1, pp: int = 1, tp: int = 1, devices=None,
+                       *, sp: int = 1, ep: int = 1) -> Grid:
+    """The grid of `PipelineLMEngine`, as the root driver builds it:
+    ("dp", "pp"), or with one extra axis above 1 ("dp", "pp", "tp")
+    (Megatron inside each stage), ("dp", "pp", "sp") (the sequence cut
+    inside each stage's attention) or ("dp", "pp", "ep") (each stage's
+    experts cut over ep, the rows over dp x ep)."""
+    extra = [(a, n) for a, n in (("tp", tp), ("sp", sp), ("ep", ep)) if n > 1]
+    if len(extra) > 1:
+        raise ValueError(f"the pipeline takes one extra model axis, got "
+                         f"{dict(extra)}")
+    if extra:
+        (axis, n), = extra
+        return make_grid(("dp", "pp", axis), (dp, pp, n), devices)
     return make_grid(("dp", "pp"), (dp, pp), devices)

@@ -2,62 +2,100 @@
 `shallowspeed_tpu/parallel/pipeline_lm.py::PipelineLMEngine`.
 
 The reference runs one SPMD tick loop inside a `shard_map` over
-("dp", "pp") or ("dp", "pp", "tp"): stage s is the mesh's pp
-coordinate, activations hop right with `ppermute`, and the backward is
-derived (GPipe), hand-scheduled with a per-tick `jax.vjp` (1F1B) or
-split into B and W passes that follow verified tables (ZB-H1). Here one
-process drives a `parallel.mesh.Grid` (`make_pipeline_mesh`; every cell
-the card, or the CPU in the tests), as the GSPMD engines do, and
-the schedules are loops over the same ticks:
+("dp", "pp") or ("dp", "pp", X), X one of "tp", "sp" and "ep": stage s
+is the mesh's pp coordinate, activations hop right with `ppermute`, and
+the backward is derived (GPipe), hand-scheduled with a per-tick
+`jax.vjp` (1F1B) or split into B and W passes that follow verified
+tables (ZB-H1). Here one process drives a `parallel.mesh.Grid`
+(`make_pipeline_mesh`; every cell the card, or the CPU in the tests),
+as the GSPMD engines do, and the schedules are loops over the same
+ticks:
 
 - **Layout.** The blocks are stacked on a leading layer axis
-  (`stack_blocks`) and cut over pp, so cell (r, s[, t]) holds stage s's
+  (`stack_blocks`) and cut over pp, so cell (r, s[, x]) holds stage s's
   layers; under tp each stage's leaves also take the Megatron placement
   (qkv / q / kv, up and gate column-parallel with their biases; proj
   and down row-parallel, their biases added once after the sum; norms
-  whole). The embeddings, ln_f and the head are replicated: every cell
-  holds a copy, and the head is not vocabulary-parallel. The optimizer
-  state lives in this stacked layout, as the reference's does;
-  `canon_export_tree` / `canon_import_tree` carry it to and from the
-  canonical checkpoint layout.
-- **A stage.** Stage s of replica r reads its cell's blocks (under FSDP
-  the dp pieces gathered for the step and dropped after it), casts them
-  to the compute dtype once and runs every microbatch on detached
-  aliases of those casts, so each microbatch's gradient lands apart;
-  `parallel.tensor`'s Megatron operators (`tp_block`) run the blocks
-  under tp. The per-microbatch gradients are summed in f32 in the
-  schedule's order (no bf16 partial sums), the hop to the next stage is
-  an explicit `.to(device)` of its cell.
-- **GPipe.** At tick t stage s runs microbatch t - s; inactive ticks
-  are skipped, not masked. The backward runs the ticks in reverse, so
-  each stage's microbatches come back in reverse order, as the
-  transpose of the reference's scan returns them.
-- **1F1B** (PipeDream-Flush). F(s, m) at tick 2m + s, B(s, m) at tick
-  2m + 2pp - 1 - s. F runs without a graph and stashes only the stage
-  input (at most min(pp, n_mu) in flight); B reruns the stage forward
-  with grad from the stash and back-propagates the received cotangent,
-  as the reference's per-tick `jax.vjp` does — so under flash K1 runs
-  twice per layer and microbatch.
+  whole), under ep each stage's expert leaves are cut over ep (the
+  router gate whole), and under sp every sp cell of a stage holds a
+  copy of its blocks. The embeddings, ln_f and the head are
+  replicated: every cell holds a copy, and the head is not
+  vocabulary-parallel. The optimizer state lives in this stacked
+  layout, as the reference's does; `canon_export_tree` /
+  `canon_import_tree` carry it to and from the canonical checkpoint
+  layout.
+- **Interleaved virtual stages** (`virtual_pp` = vpp > 1). Cell d holds
+  vpp chunks of Lc = n_layers / (pp vpp) layers; chunk v is logical
+  stage v pp + d, so stacked position d (vpp Lc) + v Lc + j holds layer
+  (v pp + d) Lc + j (the reference's permutation; the pp cut of cell d
+  is its chunks in order, and the checkpoint transforms go through the
+  inverse). The embedding runs at logical stage 0, the head at pp vpp -
+  1, and an activation hops to the next cell, from the last cell back
+  to cell 0's next chunk. A chunk's dropout key also folds in v.
+- **A stage.** Stage s of a data replica reads its cell's blocks (under
+  FSDP the dp pieces gathered for the step and dropped after it),
+  casts them to the compute dtype once and runs every microbatch on
+  detached aliases of those casts, so each microbatch's gradient lands
+  apart; `parallel.tensor`'s Megatron operators (`tp_block`) run the
+  blocks under tp. The per-microbatch gradients are summed in f32 in
+  the schedule's order (no bf16 partial sums), the hop to the next
+  stage is an explicit `.to(device)` of its cell.
+- **Sequence parallelism** (an sp axis) lives inside the attention
+  substrate, as in `parallel.context`: every other layer is
+  position-wise, so a stage runs its microbatch's whole sequence on its
+  home cell (r, s, 0) at global positions, and `ring`, `ring-flash` or
+  `ulysses-flash` cuts q, k and v over the stage's sp cells. Each tile
+  keeps its own loss (the last stage's NLL is the sum of its tiles'
+  means; the objective divides by n_mu sp, the reference's mean of
+  equal tiles), its own dropout keys, and under MoE its own routing:
+  each T/sp tile routes as its own sequence with its own capacity
+  (`ops.moe.moe_ffn`'s `tiles`).
+- **MoE** (n_experts > 0). Expert leaves stack with the blocks. Every
+  stage adds its blocks' weighted balance and z-losses to the
+  objective, in every schedule, so every stage's backward is seeded
+  (with 1 / (n_mu sp)), not only the last's. At ep > 1 each data
+  replica's rows are its own: rows cut over dp x ep (dp-major), ep is
+  a data axis for every non-expert leaf, and a stage routes its rows
+  over all E experts and runs each ep cell's experts on its slots
+  (`ops.moe.moe_ffn` with the ep cells' expert list, the reference's
+  `moe_ffn_ep`); a replica's dropout key folds in its ep coordinate.
+- **GPipe.** At tick t logical stage l runs microbatch t - l; inactive
+  ticks are skipped, not masked. The backward runs the ticks in
+  reverse, so each stage's microbatches come back in reverse order, as
+  the transpose of the reference's scan returns them.
+- **1F1B** (PipeDream-Flush). At vpp 1, F(s, m) at tick 2m + s, B(s, m)
+  at tick 2m + 2pp - 1 - s; at vpp > 1 each cell follows
+  `verify.interleaved_tables(n_mu, pp, vpp)` round by round (op, chunk
+  and microbatch). F runs without a graph and stashes only the chunk
+  input (at most min(pp, n_mu), at vpp > 1 the tables' n_stash_slots,
+  in flight: `peak_stash`); B reruns the chunk forward with grad from
+  the stash and back-propagates the received cotangent, as the
+  reference's per-tick `jax.vjp` does — so under flash K1 runs twice
+  per layer and microbatch. The reference runs both halves of every
+  tick unmasked when an sp or ep axis puts collectives inside a stage
+  (its collective schedule must match on every device); one controller
+  has no such hazard, so inactive ticks are skipped there too, with
+  the same values (ROADMAP Queue 3).
 - **ZB-H1.** F, B and W follow `verify.zb_tables(n_mu, pp)`'s rounds.
   F stashes the blocks' residuals (`parallel.zb`), B walks dy -> dx
   with the head's and the embedding's own small vjps, W forms the
   dense weight gradients. Under flash, B replays K2 and K3 from the
   (o, lse) F stashed; K1 never runs again. The reference's carve-outs
-  hold: ("dp", "pp") only, dense, no dropout, no remat.
-- **The reduction.** Block leaves are summed over dp in rank order;
-  the replicated leaves over (dp, pp) in rank order (only the first and
-  last stage add terms, both when the embeddings are tied), so every
-  pp and tp cell then updates its copy with the same gradient. ZeRO-1
-  and ZeRO-2 slice each leaf over dp on the first dimension its spec
-  leaves free, FSDP rests the parameters so (`parallel.gspmd`'s update,
-  clipping and health pack).
-- **The pipelined decode** (`generate`): each stage keeps its own
-  layers' K/V cache on its cell; a token makes pp phases and the last
-  stage's hidden state returns to stage 0, which samples. Plain
-  attention, as the reference's decode.
-
-Left for a later slice (`NotPorted`): interleaved virtual stages, an
-sp axis in the pipeline, and MoE in the pipeline.
+  hold: ("dp", "pp") only, vpp 1, dense, no dropout, no remat.
+- **The reduction.** Block leaves are summed over the data replicas
+  (dp, and ep but for the expert leaves) in rank order; the replicated
+  leaves also over pp (only the first and last stage add terms, both
+  when the embeddings are tied), so every pp and model cell then
+  updates its copy with the same gradient. ZeRO-1 and ZeRO-2 slice each
+  leaf over dp on the first dimension its spec leaves free, FSDP rests
+  the parameters so (`parallel.gspmd`'s update, clipping and health
+  pack).
+- **The pipelined decode** (`generate`): each cell keeps its own
+  layers' K/V cache; a token makes pp vpp phases, chunks in logical
+  order, and the last logical stage's hidden state returns to cell 0,
+  which samples. Plain attention, as the reference's decode; a
+  (dp, pp) or vpp layout only (no tp, sp or ep above 1), as in the
+  reference.
 """
 
 from __future__ import annotations
@@ -68,22 +106,24 @@ from functools import partial
 import numpy as np
 import torch
 
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.models.generate import (_block_decode, _embed,
                                                     prompt_bucket_len,
                                                     sample_rows)
 from shallowspeed_tpu_torch.models.kv_cache import cache_write, init_kv_cache
-from shallowspeed_tpu_torch.ops.attention import attention
+from shallowspeed_tpu_torch.ops.attention import (attention, ring_attention,
+                                                  ulysses_attention)
 from shallowspeed_tpu_torch.ops.dropout import dropout as _dropout
 from shallowspeed_tpu_torch.ops.dropout import fold_key
-from shallowspeed_tpu_torch.ops.flash_attention import flash_attention
+from shallowspeed_tpu_torch.ops.flash_attention import (flash_attention,
+                                                        ring_flash_attention)
 from shallowspeed_tpu_torch.parallel import zb as ZB
 from shallowspeed_tpu_torch.parallel.gspmd import GSPMDEngine, P, with_axis
-from shallowspeed_tpu_torch.parallel.verify import zb_tables
+from shallowspeed_tpu_torch.parallel.verify import (interleaved_tables,
+                                                    zb_tables)
 from shallowspeed_tpu_torch.weights import leaves, map_tree
 
-_NEXT = "Queue 1 item 5b, the rest of the LM pipeline"
+_SP_SUBSTRATES = ("ring", "ring-flash", "ulysses-flash")
 
 
 def _stack(xs):
@@ -106,6 +146,22 @@ def unstack_blocks(params: dict, n_layers: int) -> dict:
     return {k: blocks if k == "blocks" else v for k, v in params.items()}
 
 
+def interleave_perm(n_layers: int, pp: int, vpp: int) -> np.ndarray:
+    """The reference's placement permutation: stacked position d (vpp
+    Lc) + v Lc + j holds layer (v pp + d) Lc + j, Lc = n_layers / (pp
+    vpp); the identity at vpp 1."""
+    lc = n_layers // (pp * vpp)
+    return np.array([(v * pp + d) * lc + j for d in range(pp)
+                     for v in range(vpp) for j in range(lc)])
+
+
+def _take(x, idx):
+    """x's rows `idx` along its first dimension (tensor or numpy)."""
+    if isinstance(x, torch.Tensor):
+        return x[torch.as_tensor(idx, device=x.device)]
+    return np.asarray(x)[idx]
+
+
 def _require(cond, msg) -> None:
     """The reference constructor's `assert`, as an AssertionError that
     python -O keeps."""
@@ -114,30 +170,33 @@ def _require(cond, msg) -> None:
 
 
 class _Stage:
-    """Stage s of replica r for one step: the cast compute tensors its
-    cells hold — `layers` one tree per layer (at tp > 1 a list of the tp
-    cells' trees), `top` the replicated leaves it reads — the f32
-    gradient sums `acc` and the attention substrate."""
+    """Stage s of one data replica for one step: the cast compute
+    tensors its cells hold — `layers` one tree per layer (at tp > 1 a
+    list of the tp cells' trees; at ep > 1 each MoE layer's experts a
+    list of the ep cells' shards), `top` the replicated leaves it reads
+    — the f32 gradient sums `acc` and the attention substrate."""
 
-    def __init__(self, s, device, n_layers, attn_fn):
-        self.s, self.device, self.n_layers = s, device, n_layers
+    def __init__(self, s, device, attn_fn):
+        self.s, self.device = s, device
         self.layers, self.top = [], {}
         self.attn_fn = attn_fn
-        self.leaf_of = {}           # id(compute leaf) -> (leaf i, t, layer)
-        self.acc = {}               # (leaf i, t) -> f32 stage block
+        self.leaf_of = {}           # id(compute leaf) -> (leaf i, m, layer)
+        self.acc = {}               # (leaf i, model index m) -> f32 block
 
-    def add(self, i, t, j, g) -> None:
+    def add(self, i, m, j, g) -> None:
         """Add the gradient `g` of layer j (None: a replicated leaf) of
-        leaf i on tp cell t into the stage's f32 sum."""
-        a = self.acc[(i, t)]
+        leaf i on model index m into the stage's f32 sum."""
+        a = self.acc[(i, m)]
         (a if j is None else a[j]).add_(g.float())
 
 
 class PipelineLMEngine(GSPMDEngine):
     """Pipeline-parallel transformer trainer over a ("dp", "pp") or
-    ("dp", "pp", "tp") grid (`parallel.mesh.make_pipeline_mesh`):
-    `schedule` "gpipe", "1f1b" or "zb", `attn` "xla" (the plain
-    attention) or "flash" (K1/K2/K3), each dp replica's rows cut into
+    ("dp", "pp", X) grid, X one of "tp", "sp" and "ep"
+    (`parallel.mesh.make_pipeline_mesh`): `schedule` "gpipe", "1f1b" or
+    "zb", `virtual_pp` chunks per cell, `attn` "xla" (the plain
+    attention) or "flash" (K1/K2/K3), and over an sp axis "ring",
+    "ring-flash" or "ulysses-flash"; each data replica's rows cut into
     `n_mubatches` microbatches. `params`, when given, is a canonical
     numpy tree to start from instead of drawing `init(cfg, seed)`."""
 
@@ -154,8 +213,6 @@ class PipelineLMEngine(GSPMDEngine):
                            ("dp", "pp", "sp"), ("dp", "pp", "ep")),
                  f"PipelineLMEngine expects a ('dp','pp'[,'tp'|'sp'|'ep']) "
                  f"mesh, got {names}")
-        if names[2:] in (("sp",), ("ep",)):
-            raise NotPorted(f"the pipeline over a {names} grid", _NEXT)
         _require(schedule in ("gpipe", "1f1b", "zb"), schedule)
         if schedule == "zb":
             _require(names == ("dp", "pp"),
@@ -180,18 +237,36 @@ class PipelineLMEngine(GSPMDEngine):
                      "stashes block residuals F->B by design (remat would "
                      "undo the B=1 cost the schedule needs)")
         _require(virtual_pp >= 1, virtual_pp)
-        _require(attn in ("xla", "flash", "ring", "ring-flash",
-                          "ulysses-flash"), attn)
-        if attn not in ("xla", "flash"):
-            _require(False,
+        _require(attn in ("xla", "flash") + _SP_SUBSTRATES, attn)
+        sizes = mesh.shape
+        extra = names[2] if len(names) == 3 else None
+        pp = sizes["pp"]
+        tp, sp, ep = (sizes[a] if extra == a else 1
+                      for a in ("tp", "sp", "ep"))
+        if extra == "ep" and ep > 1:
+            _require(cfg.n_experts > 0,
+                     "an 'ep' mesh axis needs n_experts > 0")
+            _require(cfg.n_experts % ep == 0,
+                     f"n_experts={cfg.n_experts} must divide over ep={ep}")
+            _require(attn in ("xla", "flash"),
+                     f"ep composes with the xla/flash attention substrates "
+                     f"(sequence stays whole inside the stage), got {attn!r}")
+        if extra == "sp" and sp > 1:
+            _require(attn in _SP_SUBSTRATES,
+                     f"sp>1 needs a sequence-parallel attention substrate "
+                     f"(ring / ring-flash / ulysses-flash), got {attn!r}")
+        if attn in _SP_SUBSTRATES:
+            _require(extra == "sp",
                      f"attn={attn!r} collects over an 'sp' mesh axis; this "
                      f"mesh is {names} (use attn='xla' or 'flash')")
+        if attn == "ulysses-flash":
+            _require(cfg.n_heads % sp == 0 and cfg.kv_heads % sp == 0,
+                     "ulysses-flash needs head counts divisible by sp")
         _require(cfg.attn_dropout == 0.0,
                  "attention-probability dropout is not available in the "
                  "pipeline engine (plain-substrate only; see "
                  "TransformerConfig.attn_dropout)")
-        has_tp = names[2:] == ("tp",)
-        _require(cfg.n_experts == 0 or not has_tp,
+        _require(cfg.n_experts == 0 or extra != "tp",
                  "MoE x tp is not supported in the pipeline engine: the "
                  "Megatron placement has no expert-dimension rule, so tp "
                  "peers would each run the FULL routed FFN on identical "
@@ -199,12 +274,14 @@ class PipelineLMEngine(GSPMDEngine):
                  "axis's FLOPs. Expert scaling is the ep axis's job (MoE "
                  "composes with dp/pp/sp here, dp/ep in parallel/expert.py)")
         if virtual_pp > 1:
-            raise NotPorted("interleaved virtual stages (virtual_pp > 1)",
-                            _NEXT)
-        if cfg.n_experts > 0:
-            raise NotPorted("MoE in the pipeline", _NEXT)
-        sizes = mesh.shape
-        pp, tp = sizes["pp"], sizes.get("tp", 1)
+            _require(sp == 1 and ep == 1,
+                     "virtual_pp needs sp/ep-collective-free chunk bodies "
+                     "(an sp ring / ep all-to-all inside a cond-gated chunk "
+                     "de-syncs the collective schedule across branches; tp "
+                     "composes — its psum peers share the gate predicate)")
+            _require(cfg.n_layers % (pp * virtual_pp) == 0,
+                     f"n_layers={cfg.n_layers} must divide over "
+                     f"pp*virtual_pp={pp * virtual_pp}")
         _require(cfg.n_layers % pp == 0,
                  f"n_layers={cfg.n_layers} must be divisible by pp={pp}")
         _require(cfg.n_heads % tp == 0,
@@ -217,15 +294,28 @@ class PipelineLMEngine(GSPMDEngine):
         if zero1 or zero2 or fsdp:
             _require(sizes["dp"] > 1,
                      "--zero1/--zero2/--fsdp shard over dp; need dp > 1")
+        if zero2 or fsdp:
+            _require(extra != "ep",
+                     "zero2/fsdp x pp support ('dp','pp'[,'tp'|'sp']) "
+                     "meshes and virtual stages (no ep axis: expert-leaf "
+                     "grads are ep-sharded, which the per-leaf ZeRO "
+                     "dim/scatter rule does not describe)")
         self.schedule, self.attn = schedule, attn
         self.n_mu = n_mubatches
         self.pp, self.vpp = pp, virtual_pp
+        self.depth = pp * virtual_pp
         self.l_local = cfg.n_layers // pp
+        self.l_chunk = self.l_local // virtual_pp
+        self._perm = interleave_perm(cfg.n_layers, pp, virtual_pp)
+        self._inv_perm = np.argsort(self._perm)
         self.zero1, self.zero2, self.fsdp = zero1, zero2, fsdp
         self.peak_stash = 0
         super().__init__(cfg, optimizer, seed, mesh=mesh, zero1=zero1,
                          zero2=zero2, health=health, params=params)
-        self._tables = zb_tables(n_mubatches, pp) if schedule == "zb" else None
+        self.n_rep = self.dp * self.ep
+        self._tables = (zb_tables(n_mubatches, pp) if schedule == "zb" else
+                        interleaved_tables(n_mubatches, pp, virtual_pp)
+                        if schedule == "1f1b" and virtual_pp > 1 else None)
         # each leaf's compute dtype, by `cast_params`' own rule
         self._cast_to = [m.dtype for m in leaves(
             T.cast_params(self._template, cfg.compute_dtype))]
@@ -233,12 +323,22 @@ class PipelineLMEngine(GSPMDEngine):
     # ------------------------------------------------ GSPMD surface
 
     def validate(self, cfg, mesh) -> None:
-        self.tp = mesh.shape.get("tp", 1)
+        self.xaxis = mesh.axis_names[2] if len(mesh.axis_names) == 3 \
+            else None
+        if self.xaxis is not None:
+            setattr(self, self.xaxis, mesh.shape[self.xaxis])
 
     def _layout(self, tree):
-        return stack_blocks(tree)
+        tree = stack_blocks(tree)
+        if self.vpp == 1:
+            return tree
+        return {**tree, "blocks": map_tree(lambda x: _take(x, self._perm),
+                                           tree["blocks"])}
 
     def _canonical(self, tree):
+        if self.vpp > 1:
+            tree = {**tree, "blocks": map_tree(
+                lambda x: _take(x, self._inv_perm), tree["blocks"])}
         return unstack_blocks(tree, self.cfg.n_layers)
 
     def param_specs(self, cfg: T.TransformerConfig) -> dict:
@@ -255,6 +355,9 @@ class PipelineLMEngine(GSPMDEngine):
                      for k in blocks}
         else:
             bspec = map_tree(lambda _: P("pp"), blocks)
+            if self.xaxis == "ep" and "moe" in blocks:
+                bspec["moe"] = {"gate": P("pp"), **{
+                    k: P("pp", "ep") for k in ("wi", "bi", "wo", "bo")}}
         specs = {k: map_tree(lambda _: P(), v)
                  for k, v in self._template.items() if k != "blocks"}
         specs["blocks"] = bspec
@@ -268,33 +371,59 @@ class PipelineLMEngine(GSPMDEngine):
         """Without ZeRO or FSDP every cell updates its own blocks, as the
         reference's optimizer step runs inside its `shard_map` on each
         device's shards: Adafactor's RMS clipping and scaling then read
-        each stage's (and tp cell's) block, not the whole leaf. Under
+        each stage's (and model cell's) block, not the whole leaf. Under
         ZeRO / FSDP the reference's update is a GSPMD program over whole
         leaves, and so is this one."""
         return (self.optimizer.elementwise
                 or not (self.zero or self.fsdp))
 
-    def _substrates(self, r: int):
+    def _substrates(self, r: int) -> list:
+        """Replica r's attention per stage: over an sp axis the ring or
+        all-to-all among the stage's sp cells."""
         w = self.cfg.attn_window
-        fn = flash_attention if self.attn == "flash" else attention
-        return partial(fn, causal=True, window=w)
+        fns = []
+        for s in range(self.pp):
+            cells = ([self._dev[(r, s, x)] for x in range(self.sp)]
+                     if self.xaxis == "sp" else None)
+            fns.append({
+                "xla": partial(attention, causal=True, window=w),
+                "flash": partial(flash_attention, causal=True, window=w),
+                "ring": partial(ring_attention, devices=cells, causal=True,
+                                window=w),
+                "ring-flash": partial(ring_flash_attention, devices=cells,
+                                      causal=True, window=w),
+                "ulysses-flash": partial(ulysses_attention, devices=cells,
+                                         causal=True, window=w,
+                                         use_flash=True)}[self.attn])
+        return fns
 
     # ------------------------------------------------------- cells
 
-    def _pcell(self, r: int, s: int, t: int = 0) -> tuple:
-        return (r, s, t) if self.tp > 1 else (r, s)
+    def _pcell(self, q: int, s: int, m: int | None = None) -> tuple:
+        """The cell of data replica q's stage s at model index m (default
+        the replica's own: its ep coordinate, else 0)."""
+        r, e = divmod(q, self.ep)
+        if self.xaxis is None:
+            return (r, s)
+        return (r, s, e if m is None else m)
 
-    def _leaf_block(self, i: int, r: int, s: int, t: int):
-        """Leaf i's block as stage s of replica r on tp cell t reads it:
-        its cell's block, or under FSDP the dp pieces gathered onto that
-        cell."""
+    def _model_index(self, i: int, q: int, m: int | None) -> int:
+        """The model index replica q reads leaf i at: m where the grid's
+        third axis cuts the leaf, else the replica's own."""
+        if m is not None and self.xaxis in self._pspecs[i].axes():
+            return m
+        return q % self.ep
+
+    def _leaf_block(self, i: int, q: int, s: int, m: int | None = None):
+        """Leaf i's block as data replica q's stage s reads it at model
+        index m: its cell's block, or under FSDP the dp pieces gathered
+        onto that cell."""
         spec = self._pspecs[i]
-        t = t if "tp" in spec.axes() else 0
-        dev = self._dev[self._pcell(r, s, t)]
+        c = self._pcell(q, s, self._model_index(i, q, m))
         if "dp" not in spec.axes():
-            return self._shards[self._pcell(r, s, t)][i]
+            return self._shards[c][i]
         z = spec.padded(len(self._shapes[i])).index("dp")
-        return torch.cat([self._shards[self._pcell(j, s, t)][i].to(dev)
+        return torch.cat([self._shards[(j,) + c[1:]][i].to(self._dev[c])
                           for j in range(self.dp)], dim=z)
 
     def _top_names(self, s: int) -> tuple:
@@ -309,45 +438,59 @@ class PipelineLMEngine(GSPMDEngine):
                 names += ["tok_emb"]
         return tuple(names)
 
-    def _cast_block(self, i: int, r: int, s: int, t: int = 0):
-        """Leaf i's block at stage s of replica r (tp cell t), cast to
-        the compute dtype as `transformer.cast_params` casts it."""
-        return self._leaf_block(i, r, s, t).to(self._cast_to[i])
+    def _cast_block(self, i: int, q: int, s: int, m: int | None = None):
+        """Leaf i's block at data replica q's stage s (model index m),
+        cast to the compute dtype as `transformer.cast_params` casts
+        it."""
+        return self._leaf_block(i, q, s, m).to(self._cast_to[i])
 
     @torch.no_grad()
-    def _stage(self, r: int, s: int, grad: bool, sums: bool = True
+    def _stage(self, q: int, s: int, grad: bool, sums: bool = True
                ) -> _Stage:
-        """Stage s of replica r for this step: per layer (and tp cell)
-        detached aliases of the cast blocks, with requires_grad when
-        `grad`; a leaf no tp axis cuts is one alias for every tp cell.
-        With `sums`, a zero f32 gradient sum per block it reads."""
+        """Stage s of data replica q for this step: per layer (and model
+        cell) detached aliases of the cast blocks, with requires_grad
+        when `grad`; a leaf the model axis does not cut is one alias for
+        every model cell. With `sums`, a zero f32 gradient sum per block
+        it reads."""
         idx = self._index
-        st = _Stage(s, self._dev[self._pcell(r, s)], self.l_local,
-                    self._attn_fns[0])
+        st = _Stage(s, self._dev[self._pcell(q, s)],
+                    self._attn_fns[q // self.ep][s])
         blocks, aliases = {}, {}
 
-        def alias(i, t, j):
-            t = t if "tp" in self._pspecs[i].axes() else 0
-            a = aliases.get((i, t, j))
+        def alias(i, m, j):
+            m = self._model_index(i, q, m)
+            a = aliases.get((i, m, j))
             if a is None:
-                b = blocks.get((i, t))
+                b = blocks.get((i, m))
                 if b is None:
-                    b = blocks[(i, t)] = self._cast_block(i, r, s, t)
+                    b = blocks[(i, m)] = self._cast_block(i, q, s, m)
                     if sums:
-                        st.acc[(i, t)] = torch.zeros(
+                        st.acc[(i, m)] = torch.zeros(
                             b.shape, dtype=torch.float32, device=b.device)
                 a = b if j is None else b[j]
                 a = a.detach().requires_grad_(grad)
-                aliases[(i, t, j)] = a
-                st.leaf_of[id(a)] = (i, t, j)
+                aliases[(i, m, j)] = a
+                st.leaf_of[id(a)] = (i, m, j)
             return a
 
-        trees = [[map_tree(lambda i, t=t, j=j: alias(i, t, j),
-                           idx["blocks"]) for t in range(self.tp)]
-                 for j in range(self.l_local)]
-        st.layers = [ts[0] if self.tp == 1 else ts for ts in trees]
+        def layer(j):
+            if self.tp > 1:
+                return [map_tree(lambda i, t=t: alias(i, t, j),
+                                 idx["blocks"]) for t in range(self.tp)]
+            tree = map_tree(lambda i: alias(i, None, j), idx["blocks"])
+            if "moe" in tree and self.ep > 1:
+                im = idx["blocks"]["moe"]
+                tree["moe"] = {"gate": tree["moe"]["gate"], "experts": [
+                    {k: alias(im[k], c, j) for k in ("wi", "bi", "wo", "bo")}
+                    for c in range(self.ep)]}
+            if "moe" in tree and self.sp > 1:
+                tree["moe"] = {**tree["moe"], "tiles": self.sp}
+            return tree
+
+        st.layers = [layer(j) for j in range(self.l_local)]
         for name in self._top_names(s):
-            st.top[name] = map_tree(lambda i: alias(i, 0, None), idx[name])
+            st.top[name] = map_tree(lambda i: alias(i, None, None),
+                                    idx[name])
         return st
 
     @staticmethod
@@ -355,7 +498,7 @@ class PipelineLMEngine(GSPMDEngine):
         """The stage's compute leaves, each once."""
         seen, out = set(), []
         for x in leaves({"l": st.layers, "t": st.top}):
-            if id(x) not in seen:
+            if isinstance(x, torch.Tensor) and id(x) not in seen:
                 seen.add(id(x))
                 out.append(x)
         return out
@@ -365,20 +508,30 @@ class PipelineLMEngine(GSPMDEngine):
         """Add each compute leaf's gradient into the stage's f32 sums."""
         for x, g in zip(inputs, grads):
             if g is not None:
-                i, t, j = st.leaf_of[id(x)]
-                st.add(i, t, j, g)
+                i, m, j = st.leaf_of[id(x)]
+                st.add(i, m, j, g)
 
     # ------------------------------------------------------- forward
 
-    def _keys(self, r: int, m: int, s: int):
-        """(stage key, embedding key) of microbatch m of replica r at
-        stage s: one key a step, folded with (m, r), then with s (or pp
-        for the embedding), as the reference's `mu_key` derives them; the
-        blocks fold their layer index in. (None, None) without dropout."""
+    def _keys(self, q: int, m: int, s: int, v: int = 0):
+        """(stage key, embedding key) of microbatch m of data replica q
+        at chunk v of stage s: one key a step, folded with (m, r) and at
+        ep > 1 the replica's ep coordinate, then with s (or pp for the
+        embedding), and at vpp > 1 with v, as the reference's `mu_key`
+        derives them; at sp > 1 a tuple of per-tile keys. The blocks
+        fold their layer index in. (None, None) without dropout."""
         if self.cfg.dropout == 0.0:
             return None, None
+        r, e = divmod(q, self.ep)
         k = fold_key(fold_key(self.seed, self._step_count), m, r)
-        return fold_key(k, s), fold_key(k, self.pp)
+        if self.ep > 1:
+            k = fold_key(k, e)
+        if self.sp > 1:
+            k = tuple(fold_key(k, tile) for tile in range(self.sp))
+        k_stage = fold_key(k, s)
+        if self.vpp > 1:
+            k_stage = fold_key(k_stage, v)
+        return k_stage, fold_key(k, self.pp)
 
     def _block_fn(self):
         fn = T._block
@@ -402,106 +555,161 @@ class PipelineLMEngine(GSPMDEngine):
                         key)
 
     def _head_nll(self, top, hf, tgt, train: bool = True):
+        """The token loss of a microbatch: the mean NLL, at sp > 1 the
+        sum of its tiles' means in tile order."""
         cfg = self.cfg
-        if cfg.xent_chunk > 0:
-            return T.chunked_token_loss(top, hf, tgt, cfg, train)
-        return T.token_loss(T.head_logits(top, hf, cfg), tgt, cfg, train)
 
-    def _stage_fwd(self, st: _Stage, x_in, tok, tgt, keys,
+        def nll(h, g):
+            if cfg.xent_chunk > 0:
+                return T.chunked_token_loss(top, h, g, cfg, train)
+            return T.token_loss(T.head_logits(top, h, cfg), g, cfg, train)
+
+        if self.sp == 1:
+            return nll(hf, tgt)
+        total = None
+        for h, g in zip(hf.chunk(self.sp, dim=1), tgt.chunk(self.sp, dim=1)):
+            part = nll(h, g)
+            total = part if total is None else total + part
+        return total
+
+    def _stage_fwd(self, st: _Stage, x_in, tok, tgt, keys, v: int = 0,
                    train: bool = True):
-        """One stage's work on one microbatch: (h, nll on the last stage
-        else None)."""
+        """Chunk v of one stage on one microbatch (the stage's layers at
+        vpp 1): (h, its objective term — the NLL on the last logical
+        stage plus, for MoE, its blocks' weighted balance and z-losses —
+        or None)."""
         cfg = self.cfg
+        ls = v * self.pp + st.s
         k_stage, k_emb = keys
-        x = self._embed(st, tok, k_emb) if st.s == 0 else x_in
+        x = self._embed(st, tok, k_emb) if ls == 0 else x_in
         pos = torch.arange(x.shape[1], device=x.device)
         attn = [st.attn_fn] * self.tp if self.tp > 1 else st.attn_fn
         block = self._block_fn()
-        for j, layer in enumerate(st.layers):
+        obj = None
+        for j in range(self.l_chunk):
             k = None if k_stage is None else fold_key(k_stage, j)
-            x, _ = block(layer, x, cfg, pos, attn, k)
-        if st.s != self.pp - 1:
-            return x, None
-        return x, self._head_nll(st.top, T._norm(st.top["ln_f"], x, cfg),
+            x, (aux, z, stats) = block(st.layers[v * self.l_chunk + j], x,
+                                       cfg, pos, attn, k)
+            if stats is not None:
+                w = cfg.moe_aux_weight * aux + cfg.moe_z_weight * z
+                obj = w if obj is None else obj + w
+        if ls == self.depth - 1:
+            nll = self._head_nll(st.top, T._norm(st.top["ln_f"], x, cfg),
                                  tgt, train)
+            obj = nll if obj is None else nll + obj
+        return x, obj
 
     def _split(self, tokens, targets):
-        """Each replica's microbatches [(tok, tgt)] on its stage-0 cell,
-        as the reference's `_split_mu` cuts a batch."""
+        """Each data replica's microbatches [(tok, tgt)] on its stage-0
+        cell, as the reference's `_split_mu` cuts a batch: rows over dp x
+        ep (dp-major), each replica's rows over the microbatches."""
         tok, tgt = (self.place(tokens), self.place(targets))
         b, t = tok.shape
-        d = self.dp
-        _require(b % (d * self.n_mu) == 0,
-                 f"batch {b} must divide over dp*ep={d} x "
+        n = self.n_rep
+        _require(b % (n * self.n_mu) == 0,
+                 f"batch {b} must divide over dp*ep={n} x "
                  f"n_mubatches={self.n_mu}")
+        _require(t % self.sp == 0,
+                 f"sequence length {t} must divide over sp={self.sp}")
         out = []
-        for r, (a, c) in enumerate(zip(tok.chunk(d), tgt.chunk(d))):
-            dev = self._dev[self._pcell(r, 0)]
+        for q, (a, c) in enumerate(zip(tok.chunk(n), tgt.chunk(n))):
+            dev = self._dev[self._pcell(q, 0)]
             out.append(list(zip(a.to(dev).chunk(self.n_mu),
                                 c.to(dev).chunk(self.n_mu))))
         return out
 
-    def _to(self, x, s: int, r: int):
-        return None if x is None else x.to(self._dev[self._pcell(r, s)])
+    def _to(self, x, s: int, q: int):
+        return None if x is None else x.to(self._dev[self._pcell(q, s)])
+
+    def _add_loss(self, loss, obj):
+        if obj is None:
+            return loss
+        obj = obj.detach().to(self.device)
+        return obj if loss is None else loss + obj
 
     # ----------------------------------------------------- schedules
 
-    def _gpipe(self, r: int, mus, stages):
-        """GPipe: every forward tick, then every backward tick in reverse.
-        Returns the replica's summed microbatch NLL."""
-        pp, n_mu = self.pp, self.n_mu
+    def _gpipe(self, q: int, mus, stages):
+        """GPipe over the logical stages: every forward tick, then every
+        backward tick in reverse. Returns the replica's summed
+        objective."""
+        pp, n_mu, depth = self.pp, self.n_mu, self.depth
         saved = {}
         loss = None
         with torch.enable_grad():
-            for tk in range(n_mu + pp - 1):
-                for s in range(pp):
-                    m = tk - s
+            for tk in range(n_mu + depth - 1):
+                for ls in range(depth):
+                    m = tk - ls
                     if not 0 <= m < n_mu:
                         continue
+                    st, v = stages[ls % pp], ls // pp
                     x_in = None
-                    if s > 0:
-                        x_in = saved[(s - 1, m)][1].detach().to(
-                            stages[s].device).requires_grad_(True)
+                    if ls > 0:
+                        x_in = saved[(ls - 1, m)][1].detach().to(
+                            st.device).requires_grad_(True)
                     tok, tgt = mus[m]
-                    h, nll = self._stage_fwd(
-                        stages[s], x_in, self._to(tok, s, r),
-                        self._to(tgt, s, r), self._keys(r, m, s))
-                    saved[(s, m)] = (x_in, h, nll)
-                    if nll is not None:
-                        d = nll.detach()
-                        loss = d if loss is None else loss + d
-        self.peak_stash = max(self.peak_stash, n_mu)
+                    h, obj = self._stage_fwd(
+                        st, x_in, self._to(tok, st.s, q),
+                        self._to(tgt, st.s, q), self._keys(q, m, st.s, v), v)
+                    saved[(ls, m)] = (x_in, h, obj)
+                    loss = self._add_loss(loss, obj)
+        self.peak_stash = max(self.peak_stash, n_mu * self.vpp)
         dx = {}
-        for tk in reversed(range(n_mu + pp - 1)):
-            for s in reversed(range(pp)):
-                m = tk - s
+        for tk in reversed(range(n_mu + depth - 1)):
+            for ls in reversed(range(depth)):
+                m = tk - ls
                 if not 0 <= m < n_mu:
                     continue
-                x_in, h, nll = saved.pop((s, m))
-                g = self._backward(stages[s], x_in, h, nll,
-                                   dx.pop((s, m), None))
+                x_in, h, obj = saved.pop((ls, m))
+                g = self._backward(stages[ls % pp], x_in, h, obj,
+                                   dx.pop((ls, m), None))
                 if g is not None:
-                    dx[(s - 1, m)] = self._to(g, s - 1, r)
+                    dx[(ls - 1, m)] = self._to(g, (ls - 1) % pp, q)
         return loss
 
-    def _backward(self, st: _Stage, x_in, h, nll, dh):
-        """Back-propagate one (stage, microbatch): the last stage's NLL
-        seeded with 1 / n_mu, any other's output with the cotangent `dh`
-        from the next stage; the parameter gradients go into the stage's
-        f32 sums. Returns the input's cotangent (None on stage 0),
-        the previous stage's to take."""
+    def _backward(self, st: _Stage, x_in, h, obj, dh):
+        """Back-propagate one (chunk, microbatch): its objective term
+        seeded with 1 / (n_mu sp), its output with the cotangent `dh`
+        from the next logical stage (None on the last); the parameter
+        gradients go into the stage's f32 sums. Returns the input's
+        cotangent (None on logical stage 0), the previous stage's to
+        take."""
         ins = self._stage_inputs(st)
         first = [x_in] if x_in is not None else []
-        if nll is not None:
-            out, seed = nll, torch.full_like(nll, 1.0 / self.n_mu)
-        else:
-            out, seed = h, dh
-        gs = torch.autograd.grad(out, first + ins, seed, allow_unused=True)
+        outs, seeds = [], []
+        if dh is not None:
+            outs.append(h)
+            seeds.append(dh)
+        if obj is not None:
+            outs.append(obj)
+            seeds.append(torch.full_like(obj, 1.0 / (self.n_mu * self.sp)))
+        gs = torch.autograd.grad(outs, first + ins, seeds, allow_unused=True)
         self._accumulate(st, ins, gs[len(first):])
         return gs[0] if first else None
 
-    def _1f1b(self, r: int, mus, stages):
-        """PipeDream-Flush over 2 (n_mu + pp - 1) ticks."""
+    def _f_half(self, q, st, v, m, mus, x_in):
+        """1F1B's F: chunk v of stage st on microbatch m without a
+        graph. Returns (h, objective term)."""
+        tok, tgt = mus[m]
+        with torch.no_grad():
+            return self._stage_fwd(st, x_in, self._to(tok, st.s, q),
+                                   self._to(tgt, st.s, q),
+                                   self._keys(q, m, st.s, v), v)
+
+    def _b_half(self, q, st, v, m, mus, x_saved, dh):
+        """1F1B's B: chunk v rerun with grad from its stashed input, then
+        back-propagated. Returns the input's cotangent."""
+        tok, tgt = mus[m]
+        with torch.enable_grad():
+            x_in = (None if x_saved is None
+                    else x_saved.detach().requires_grad_(True))
+            h, obj = self._stage_fwd(st, x_in, self._to(tok, st.s, q),
+                                     self._to(tgt, st.s, q),
+                                     self._keys(q, m, st.s, v), v)
+            return self._backward(st, x_in, h, obj, dh)
+
+    def _1f1b(self, q: int, mus, stages):
+        """PipeDream-Flush over 2 (n_mu + pp - 1) ticks (vpp 1)."""
         pp, n_mu = self.pp, self.n_mu
         x_msg, g_msg = {}, {}
         stash = [dict() for _ in range(pp)]
@@ -511,33 +719,51 @@ class PipelineLMEngine(GSPMDEngine):
                 f_rel = tk - s
                 if 0 <= f_rel < 2 * n_mu and f_rel % 2 == 0:
                     m = f_rel // 2
-                    tok, tgt = mus[m]
                     x_in = x_msg.pop((s, m)) if s > 0 else None
-                    with torch.no_grad():
-                        h, nll = self._stage_fwd(
-                            stages[s], x_in, self._to(tok, s, r),
-                            self._to(tgt, s, r), self._keys(r, m, s))
+                    h, obj = self._f_half(q, stages[s], 0, m, mus, x_in)
                     stash[s][m] = x_in
                     self.peak_stash = max(self.peak_stash, len(stash[s]))
-                    if nll is not None:
-                        loss = nll if loss is None else loss + nll
-                    else:
-                        x_msg[(s + 1, m)] = self._to(h, s + 1, r)
+                    loss = self._add_loss(loss, obj)
+                    if s < pp - 1:
+                        x_msg[(s + 1, m)] = self._to(h, s + 1, q)
                 b_rel = tk - (2 * pp - 1 - s)
                 if 0 <= b_rel < 2 * n_mu and b_rel % 2 == 0:
                     m = b_rel // 2
-                    tok, tgt = mus[m]
-                    x_saved = stash[s].pop(m)
-                    with torch.enable_grad():
-                        x_in = (None if x_saved is None
-                                else x_saved.detach().requires_grad_(True))
-                        h, nll = self._stage_fwd(
-                            stages[s], x_in, self._to(tok, s, r),
-                            self._to(tgt, s, r), self._keys(r, m, s))
-                        dx = self._backward(stages[s], x_in, h, nll,
-                                            g_msg.pop((s, m), None))
+                    dx = self._b_half(q, stages[s], 0, m, mus,
+                                      stash[s].pop(m),
+                                      g_msg.pop((s, m), None))
                     if dx is not None:
-                        g_msg[(s - 1, m)] = self._to(dx, s - 1, r)
+                        g_msg[(s - 1, m)] = self._to(dx, s - 1, q)
+        return loss
+
+    def _1f1b_virtual(self, q: int, mus, stages):
+        """Interleaved PipeDream-Flush: each cell runs the op, chunk and
+        microbatch `verify.interleaved_tables` gives it in each round."""
+        tb, pp, depth = self._tables, self.pp, self.depth
+        x_msg, g_msg = {}, {}
+        stash = [dict() for _ in range(pp)]
+        loss = None
+        for rnd in range(tb.n_rounds):
+            for d in range(pp):
+                op = int(tb.op[rnd, d])
+                if op == 0:
+                    continue
+                v, m = int(tb.chunk[rnd, d]), int(tb.mu[rnd, d])
+                ls = v * pp + d
+                if op == 1:                                       # F
+                    x_in = x_msg.pop((ls, m)) if ls > 0 else None
+                    h, obj = self._f_half(q, stages[d], v, m, mus, x_in)
+                    stash[d][(ls, m)] = x_in
+                    self.peak_stash = max(self.peak_stash, len(stash[d]))
+                    loss = self._add_loss(loss, obj)
+                    if ls < depth - 1:
+                        x_msg[(ls + 1, m)] = self._to(h, (ls + 1) % pp, q)
+                else:                                             # B
+                    dx = self._b_half(q, stages[d], v, m, mus,
+                                      stash[d].pop((ls, m)),
+                                      g_msg.pop((ls, m), None))
+                    if dx is not None:
+                        g_msg[(ls - 1, m)] = self._to(dx, (ls - 1) % pp, q)
         return loss
 
     def _zb(self, r: int, mus, stages):
@@ -632,37 +858,41 @@ class PipelineLMEngine(GSPMDEngine):
         self._local_vjp(st, names, lambda tree: (self._embed_parts(
             tree, tok), []), dx)
 
+
     # --------------------------------------------------- the reduction
 
     def _reduced(self, tokens, targets):
         """(loss, reduced gradient), `red[i]` {update block key: f32
-        gradient} as `GSPMDEngine._reduced` gives it: each replica's
-        schedule run on its stages, the stage sums reduced over dp (block
-        leaves) or (dp, pp) (the replicated leaves) in rank order and
-        scaled by 1 / dp."""
-        run = {"gpipe": self._gpipe, "1f1b": self._1f1b,
+        gradient} as `GSPMDEngine._reduced` gives it: each data
+        replica's schedule run on its stages, the stage sums reduced
+        over the data replicas (block leaves) and pp (the replicated
+        leaves) in rank order and scaled by 1 / (dp ep)."""
+        run = {"gpipe": self._gpipe,
+               "1f1b": self._1f1b_virtual if self.vpp > 1 else self._1f1b,
                "zb": self._zb}[self.schedule]
         red = [dict() for _ in self._pspecs]
         total = None
-        for r, mus in enumerate(self._split(tokens, targets)):
-            stages = [self._stage(r, s, grad=self.schedule != "zb")
+        for q, mus in enumerate(self._split(tokens, targets)):
+            stages = [self._stage(q, s, grad=self.schedule != "zb")
                       for s in range(self.pp)]
-            loss = run(r, mus, stages).detach().to(self.device)
+            loss = run(q, mus, stages).detach().to(self.device)
             total = loss if total is None else total + loss
             for st in stages:
-                for (i, t), g in sorted(st.acc.items()):
-                    self._reduce_into(red, i, r, st.s, t, g)
+                for (i, m), g in sorted(st.acc.items()):
+                    self._reduce_into(red, i, q, st.s, m, g)
             del stages
-        total = total / (self.n_mu * self.dp)
-        if self.dp > 1:
+        total = total / (self.n_mu * self.n_rep * self.sp)
+        if self.n_rep > 1:
             for blocks in red:
                 for g in blocks.values():
-                    g.mul_(1.0 / self.dp)
+                    g.mul_(1.0 / self.n_rep)
         return total, [dict(sorted(b.items())) for b in red]
 
-    def _reduce_into(self, red, i, r, s, t, g) -> None:
+    def _reduce_into(self, red, i, q, s, m, g) -> None:
         us = self._uspecs[i]
-        coord = {"dp": r, "pp": s, "tp": t}
+        coord = {"dp": q // self.ep, "pp": s}
+        if self.xaxis is not None:
+            coord[self.xaxis] = m
         if "dp" in us.axes():
             z = us.padded(g.dim()).index("dp")
             parts = [(self._key(us, {**coord, "dp": j}), piece)
@@ -680,25 +910,33 @@ class PipelineLMEngine(GSPMDEngine):
 
     @torch.no_grad()
     def eval_loss(self, tokens, targets) -> float:
-        """The mean NLL without label smoothing or dropout, no update."""
+        """The mean objective without label smoothing or dropout (the
+        MoE balance and z-losses included, as the reference's), no
+        update."""
         total = None
-        for r, mus in enumerate(self._split(tokens, targets)):
-            stages = [self._stage(r, s, grad=False, sums=False)
+        for q, mus in enumerate(self._split(tokens, targets)):
+            stages = [self._stage(q, s, grad=False, sums=False)
                       for s in range(self.pp)]
             for tok, tgt in mus:
                 x = None
-                for st in stages:
-                    x, nll = self._stage_fwd(
-                        st, self._to(x, st.s, r), self._to(tok, st.s, r),
-                        self._to(tgt, st.s, r), (None, None), train=False)
-                nll = nll.to(self.device)
-                total = nll if total is None else total + nll
-        return float(total / (self.n_mu * self.dp))
+                for ls in range(self.depth):
+                    st = stages[ls % self.pp]
+                    x, obj = self._stage_fwd(
+                        st, self._to(x, st.s, q), self._to(tok, st.s, q),
+                        self._to(tgt, st.s, q), (None, None), ls // self.pp,
+                        train=False)
+                    total = self._add_loss(total, obj)
+        return float(total / (self.n_mu * self.n_rep * self.sp))
 
     def logits(self, tokens):
         raise NotImplementedError(
             "PipelineLMEngine has no logits(); the reference's has none "
             "either (get_canonical_params() feeds the one-device forward)")
+
+    def router_stats(self, tokens):
+        raise NotImplementedError(
+            "PipelineLMEngine has no router_stats(); the reference's has "
+            "none either")
 
     # ------------------------------------------------ pipelined decode
 
@@ -707,12 +945,12 @@ class PipelineLMEngine(GSPMDEngine):
                  top_k: int = 0, top_p: float = 0.0,
                  seed: int = 0) -> np.ndarray:
         """`max_new` tokens after `prompt` (B, Tp) on the pp-cut
-        parameters: each stage keeps its own layers' K/V cache, a token
-        makes pp phases, stage 0 samples. Returns (B, max_new) int32.
+        parameters: each cell keeps its own layers' K/V cache, a token
+        makes pp vpp phases, cell 0 samples. Returns (B, max_new) int32.
         Row b samples with seed + b as `models.generate.generate` does,
         so the streams equal its streams at any dp."""
         cfg = self.cfg
-        _require(self.tp == 1,
+        _require(self.tp == 1 and self.sp == 1 and self.ep == 1,
                  "pipelined decode supports ('dp','pp') meshes (tp/sp/ep "
                  "size 1; ep decode would need the all-to-all inside "
                  "cond-gated phases — restore into an ep=1 pipeline to "
@@ -740,10 +978,10 @@ class PipelineLMEngine(GSPMDEngine):
 
     def _decode(self, r, prompt, row0, tp_len, tp_b, max_new, temperature,
                 top_k, top_p, seed):
-        cfg = self.cfg
+        cfg, pp, lc = self.cfg, self.pp, self.l_chunk
         stages = [self._stage(r, s, grad=False, sums=False)
-                      for s in range(self.pp)]
-        # stage 0 embeds and samples with its own copies
+                  for s in range(pp)]
+        # cell 0 embeds and samples with its own copies
         top = {n: map_tree(lambda i: self._cast_block(i, r, 0),
                            self._index[n])
                for n in ("tok_emb", "pos_emb", "ln_f")
@@ -757,6 +995,9 @@ class PipelineLMEngine(GSPMDEngine):
                   for st in stages]
         attn = partial(attention, causal=True, window=cfg.attn_window)
         temp, seeds = [temperature] * b, [seed + row0 + i for i in range(b)]
+        # the logical stages in order: (cell's stage, its layer indices)
+        chain = [(stages[ls % pp], range((ls // pp) * lc, (ls // pp + 1) * lc))
+                 for ls in range(self.depth)]
 
         def sample(x, i):
             hf = T._norm(top["ln_f"], x.to(dev0), cfg)
@@ -765,31 +1006,34 @@ class PipelineLMEngine(GSPMDEngine):
 
         x = _embed(top, tokens, 0, cfg)
         pos = torch.arange(tp_b, device=dev0)
-        for st, cache in zip(stages, caches):
+        for st, js in chain:
             x = x.to(st.device)
-            for layer, cblk in zip(st.layers, cache):
-                x, _, (k, v) = T._block(layer, x, cfg, pos.to(st.device),
-                                        attn, with_kv=True)
-                cache_write(cblk, k, v, 0)
+            for j in js:
+                x, _, (k, v) = T._block(st.layers[j], x, cfg,
+                                        pos.to(st.device), attn,
+                                        with_kv=True)
+                cache_write(caches[st.s][j], k, v, 0)
         out = np.zeros((b, max_new), np.int32)
         out[:, 0] = sample(x[:, tp_len - 1], 0)
         for i in range(1, max_new):
             p = tp_len + i - 1
             tok = torch.from_numpy(out[:, i - 1]).to(dev0, torch.long)
             x = _embed(top, tok[:, None], p, cfg)
-            for st, cache in zip(stages, caches):
+            for st, js in chain:
                 x = x.to(st.device)
-                for layer, cblk in zip(st.layers, cache):
-                    x = _block_decode(layer, x, cfg, cblk, p)
+                for j in js:
+                    x = _block_decode(st.layers[j], x, cfg, caches[st.s][j],
+                                      p)
             out[:, i] = sample(x[:, 0], i)
         return out
 
     # -------------------------------------------- checkpoint interface
 
     def canon_export_tree(self, tree):
-        """A params-shaped tree in the stacked layout (e.g. Adam's
+        """A params-shaped tree in the engine's layout (e.g. Adam's
         moments) -> the canonical layout, the transform params take into
-        a checkpoint."""
+        a checkpoint (the stack undone, through the inverse interleave
+        permutation at vpp > 1)."""
         return self._canonical(tree)
 
     def canon_import_tree(self, tree):

@@ -79,15 +79,17 @@ verdicts and carries the `health_*` fields on the step line; an
 a checkpoint of an unhealthy state is skipped. Under guard an update
 with non-finite gradients is skipped bit for bit.
 
-`--pp P [--tp T] [--dp D] --pp-schedule gpipe|1f1b|zb --n-mubatches M`
-trains over a (dp, pp) or (dp, pp, tp) grid with
-`parallel.pipeline_lm.PipelineLMEngine` (`--attn ring`, the default
-with --pp, is the plain attention; `--attn flash` the K1/K2/K3
-kernels), with --zero1/--zero2/--fsdp at dp > 1 and the root driver's
-checks; `--generate` then decodes through the pipelined decode (except
-under --tp, --fsdp or --kv-int8, as the root driver routes it).
-`--virtual-pp > 1`, `--pp --sp` and `--pp --ep` / `--experts` raise
-`NotPorted`.
+`--pp P [--tp T | --sp S | --ep E] [--dp D] --pp-schedule gpipe|1f1b|zb
+--n-mubatches M --virtual-pp V` trains over a (dp, pp) or (dp, pp, X)
+grid with `parallel.pipeline_lm.PipelineLMEngine` (`--attn ring`, the
+default with --pp, is the plain attention; `--attn flash` the
+K1/K2/K3 kernels; under --sp `--attn ring`, `ring-flash` or
+`ulysses-flash` cuts each stage's attention over the sp cells),
+interleaved virtual stages with V > 1, MoE with --experts (its experts
+cut over --ep), with --zero1/--zero2/--fsdp at dp > 1 and the root
+driver's checks; `--generate` then decodes through the pipelined decode
+(also at V > 1; except under --tp, --sp, --ep, --fsdp or --kv-int8, as
+the root driver routes it).
 
 The root driver's other flags (comm overlap, the telemetry planes) are
 recognised and refused with `NotPorted`; `--platform` and
@@ -132,7 +134,6 @@ from shallowspeed_tpu_torch.telemetry.anomaly import GuardPolicy
 from shallowspeed_tpu_torch.telemetry.health import HealthMonitor
 from shallowspeed_tpu_torch.weights import map_tree
 
-_PIPE = "Queue 1 item 5b, the rest of the LM pipeline"
 _OVERLAP = "Queue 1 item 5, comm overlap"
 _PLANES = "Queue 1, planes"
 _DEVICE = "--device replaces it: every cell of the grid runs there"
@@ -414,8 +415,7 @@ def _check_features(args) -> None:
 
 
 def _check_pipeline(args) -> None:
-    """The root driver's checks on --pp, with its messages; then the
-    pipeline placements this port does not have yet."""
+    """The root driver's checks on --pp, with its messages."""
     if args.pp < 1 or args.n_mubatches < 1 or args.virtual_pp < 1:
         raise SystemExit(f"--pp, --n-mubatches and --virtual-pp take a "
                          f"positive count, got {args.pp}, "
@@ -468,12 +468,6 @@ def _check_pipeline(args) -> None:
             raise SystemExit("--pp-schedule zb IS the no-recompute "
                              "schedule (it stashes residuals F->B); "
                              "drop --remat")
-    if args.virtual_pp > 1:
-        raise NotPorted("train_lm --virtual-pp > 1", _PIPE)
-    if args.sp > 1:
-        raise NotPorted("train_lm --pp with --sp", _PIPE)
-    if args.ep > 1 or args.experts:
-        raise NotPorted("train_lm --pp with --ep / --experts", _PIPE)
 
 
 def _check_mesh(args) -> None:
@@ -733,11 +727,15 @@ def train(args) -> float:
     gspmd = dict(zero1=args.zero1, zero2=args.zero2, health=args.health,
                  params=zeros)
     if args.pp > 1:
+        # the root driver's grids: one extra axis, the stage substrate
+        # the sp one (ring, ring-flash, ulysses-flash) over sp
         engine = PipelineLMEngine(
-            cfg, opt, make_pipeline_mesh(args.dp, args.pp, args.tp, device),
+            cfg, opt, make_pipeline_mesh(args.dp, args.pp, args.tp, device,
+                                         sp=args.sp, ep=args.ep),
             n_mubatches=args.n_mubatches, seed=args.seed,
-            schedule=args.pp_schedule,
-            attn="flash" if args.attn == "flash" else "xla",
+            schedule=args.pp_schedule, virtual_pp=args.virtual_pp,
+            attn=(args.attn if args.sp > 1 else
+                  "flash" if args.attn == "flash" else "xla"),
             fsdp=args.fsdp, **gspmd)
     elif composite:
         engine = Composite3DEngine(
@@ -909,8 +907,10 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                 metrics.log(**step_event(step, loss, r, perf, cum),
                             **{k: v for k, v in r.items()
                                if k.startswith("health_")})
-                if args.experts:
+                if args.experts and not isinstance(engine,
+                                                   PipelineLMEngine):
                     # the capacity drop is silent in the loss: show it
+                    # (the pipeline, as the reference's, reports none)
                     rs = engine.router_stats(tok)
                     print(f"             moe drop "
                           f"{rs['drop_fraction']:.1%}  load "
@@ -986,8 +986,10 @@ def sample_and_print(args, engine, cfg, metrics=None, text_data=None,
     else:
         prompt = make_batch(args, cfg.vocab, 0, text_data)[0][:1, :16]
     if (not args.kv_int8 and isinstance(engine, PipelineLMEngine)
-            and engine.tp == 1 and not engine.fsdp):
-        # decode on the pp-cut parameters, each stage its own cache
+            and engine.tp == engine.sp == engine.ep == 1
+            and not engine.fsdp):
+        # decode on the pp-cut parameters, each stage its own cache (at
+        # vpp > 1 the chunks in logical order)
         t0 = time.time()
         out = engine.generate(prompt, args.generate,
                               temperature=args.temperature, top_k=args.top_k,

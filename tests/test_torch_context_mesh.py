@@ -2,8 +2,8 @@
 against the JAX package's engine on the same (dp, sp) mesh of host
 devices: three-step trajectories of every attention substrate at
 (dp, sp) in {(2, 1), (1, 2), (2, 2), (1, 4)}, accumulation across the
-mesh, a sliding window, `eval_loss` and `logits` at sp 2, the
-reference's refusals, per-tile dropout keys, and the K1/K2/K3 calls a
+mesh, a sliding window, `eval_loss` and `logits` at sp 2, a MoE
+config at sp 2 (each tile routed on its own), the reference's refusals, per-tile dropout keys, and the K1/K2/K3 calls a
 layer makes under each substrate (the launch formula of the card). The
 JAX flash kernels run in Pallas interpret mode, the port's plain
 versions of K1/K2/K3 on the CPU.
@@ -21,14 +21,13 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import Mesh
-from torch_parity import (MODEL, OPTS, TRAJECTORY_TOL, batch, engines,
-                          model_for, trajectory)
+from torch_parity import (MODEL, MOE_MODEL, OPTS, TRAJECTORY_TOL, batch,
+                          engines, model_for, trajectory)
 
 from shallowspeed_tpu import optim as JO
 from shallowspeed_tpu.models import transformer as JT
 from shallowspeed_tpu.parallel.context import (
     ContextParallelEngine as JaxEngine)
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch import optim as O
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.ops import dropout as D
@@ -118,16 +117,12 @@ def test_refusals_match_the_reference(case):
 
 
 def test_other_refusals():
-    """Attention dropout needs sp 1 with ring; MoE at sp > 1 is the
-    expert engine's (not ported); the batch must split over dp and
-    the sequence over sp; accum must divide each replica's rows, with
-    the reference's message."""
+    """Attention dropout needs sp 1 with ring; the batch must split over
+    dp and the sequence over sp; accum must divide each replica's rows,
+    with the reference's message."""
     mesh = make_context_mesh(1, 2, "cpu")
     with pytest.raises(ValueError, match="plain attention"):
         ContextParallelEngine(T.TransformerConfig(**MODEL, attn_dropout=0.1),
-                              O.SGD(0.1), attn="ring", mesh=mesh)
-    with pytest.raises(NotPorted, match="MoE"):
-        ContextParallelEngine(T.TransformerConfig(**MODEL, n_experts=2),
                               O.SGD(0.1), attn="ring", mesh=mesh)
     te = ContextParallelEngine(T.TransformerConfig(**MODEL), O.SGD(0.1),
                                attn="ring",
@@ -142,6 +137,15 @@ def test_other_refusals():
     with pytest.raises(ValueError, match="zero2 subsumes zero1"):
         ContextParallelEngine(T.TransformerConfig(**MODEL), O.SGD(0.1),
                               device="cpu", zero1=True, zero2=True)
+
+
+def test_moe_at_sp2_routes_each_tile():
+    """A MoE config at (1, 2) on ring: each sp tile routes its own
+    tokens with its own capacity, as the reference's tiles do — three
+    steps of losses, parameters and moments against the JAX engine."""
+    opt, slots = OPTS["momentum"]
+    je, te = engines(1, 2, "ring", opt, kw=MOE_MODEL)
+    trajectory(je, te, slots)
 
 
 def test_dropout_keys_per_tile():

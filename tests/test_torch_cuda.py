@@ -372,6 +372,38 @@ def test_tensor_core_kernels_read_fused_views(cuda, kvh):
     _check_training_kernels(q, k, v, do, dict(causal=True, window=0, rel=0))
 
 
+# the LM pipeline's stage calls at the 1.21B LM's width (chip_smoke
+# phase 2's "stage", "sp-tile", "sp-tile-rel" and "ulysses-group"): a
+# vpp chunk's one-row microbatch and an sp tile of a ring-flash hop, on
+# and off the diagonal, on strided views of the fused qkv; an
+# ulysses-flash cell's gathered head group, contiguous
+STAGE_CASES = {
+    "vpp-chunk": ((1, 2048, 2048, 16, 16, 128, True, 0, 0), True),
+    "sp-tile": ((1, 1024, 1024, 16, 16, 128, True, 0, 0), True),
+    "sp-tile-rel": ((1, 1024, 1024, 16, 16, 128, True, 0, 1024), True),
+    "ulysses-group": ((1, 2048, 2048, 8, 8, 128, True, 0, 0), False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(STAGE_CASES))
+def test_tensor_core_kernels_at_the_pipeline_stage_shapes(cuda, case):
+    """The bf16 K1, K2 and K3 at the shapes a vpp chunk, an sp tile and
+    an ulysses head group give them, under the same rule."""
+    shape, fused = STAGE_CASES[case]
+    b, t, _, h, hkv, d, causal, window, rel = shape
+    if not fused:
+        _check_training_kernels(*_train_inputs(shape, torch.bfloat16, cuda))
+        return
+    g = torch.Generator(device="cpu").manual_seed(17)
+    qkv = torch.randn(b, t, h + 2 * hkv, d, generator=g).to(cuda).to(
+        torch.bfloat16)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+    do = torch.randn(b, t, h, d, generator=g).to(cuda).to(torch.bfloat16)
+    _check_training_kernels(q, k, v, do,
+                            dict(causal=causal, window=window, rel=rel))
+
+
 @pytest.mark.cuda
 def test_tensor_core_kernels_take_a_cotangent_broadcast_over_the_batch(
         cuda):
@@ -1130,6 +1162,30 @@ def test_f32_output_build_matches_plain_version(cuda, case):
     assert _rel_err(lse, lse_ref) <= 1e-5
     o16, _ = FA.flash_fwd(q, k, v, **kw)
     assert _elementwise_ratio(o16, o, True) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rel", [0, 1024], ids=["rel0", "rel1024"])
+def test_f32_output_build_at_the_ring_hop_shape(cuda, rel):
+    """The f32-output K1 as a ring-flash hop inside a pipeline stage
+    calls it (chip_smoke phase 12a's RING_HOP_CASES): a one-row sp tile
+    at the 1.21B LM's width, q, k, v the strided views of the fused qkv,
+    on and off the diagonal, under the same rule."""
+    g = torch.Generator(device="cpu").manual_seed(23 + rel)
+    qkv = torch.randn(1, 1024, 16, 3, 128, generator=g).to(cuda).to(
+        torch.bfloat16)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    kw = dict(causal=True, window=0, rel=rel)
+    before = FA._flash_fwd_tc_f32o.launches
+    o, lse = FA.flash_fwd(q, k, v, out_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32
+    assert FA._flash_fwd_tc_f32o.launches == before + 1
+    o_ref, lse_ref = FA.flash_fwd_reference(q, k, v,
+                                            out_dtype=torch.float32, **kw)
+    terms = FA.tc_rounding_terms(q, k, v, **kw)
+    assert _elementwise_ratio(o, o_ref, False, terms["o"]) <= 1.0
+    assert _rel_err(lse, lse_ref) <= 1e-5
 
 
 @pytest.mark.cuda

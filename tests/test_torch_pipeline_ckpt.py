@@ -19,7 +19,6 @@ import numpy as np
 import pytest
 from torch_parity import (GSPMD_OPTS, PIPE_MODEL, batch, flat,
                           pipeline_engines, pipeline_trajectory)
-from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 from shallowspeed_tpu import checkpoint as JC
 from shallowspeed_tpu_torch import checkpoint as C

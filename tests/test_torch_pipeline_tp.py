@@ -13,7 +13,6 @@ import pytest
 from torch_parity import (GSPMD_OPTS, PIPE_MODEL,
                           check_pipeline_loss_and_grads, pipeline_engines,
                           pipeline_trajectory, worst)
-from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 from shallowspeed_tpu_torch import optim as O
 from shallowspeed_tpu_torch.models import transformer as T

@@ -4,7 +4,9 @@ schedule, Adafactor — ROADMAP Queue 3's AdamW divergence keeps AdamW
 out), FSDP's resting bytes, the health pack against JAX's, the guard's
 bit-for-bit skip, and the loss and gradients of the model options the
 stage block composes (tied embeddings, chunked cross-entropy, learned
-positions, MHA, a window, label smoothing) against JAX's.
+positions, MHA, a window, label smoothing) against JAX's; at pp 2 x
+vpp 2, trajectories under ZeRO-1/2 and FSDP at dp 2, remat and chunked
+cross-entropy.
 
 Tolerances (f32): trajectories 1e-4 (`torch_parity.TRAJECTORY_TOL`:
 losses relative, parameters absolute, optimizer slots relative per
@@ -17,7 +19,6 @@ import torch
 from torch_parity import (GSPMD_OPTS, PIPE_MODEL, batch,
                           check_pipeline_loss_and_grads, flat,
                           pipeline_engines, pipeline_trajectory)
-from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 from shallowspeed_tpu_torch import optim as O
 from shallowspeed_tpu_torch.models import transformer as T
@@ -39,6 +40,29 @@ def test_zero_trajectory_matches_jax(layout, schedule, attn, optname, ekw):
     opt, slots = GSPMD_OPTS[optname]
     je, te = pipeline_engines(*layout, opt=opt, schedule=schedule,
                               attn=attn, **ekw)
+    pipeline_trajectory(je, te, slots)
+
+
+VPP_COMPOSED = [
+    ("dp2-zero1", 2, PIPE_MODEL, "1f1b", "momentum", {"zero1": True}),
+    ("dp2-zero2", 2, PIPE_MODEL, "gpipe", "adafactor", {"zero2": True}),
+    ("dp2-fsdp", 2, PIPE_MODEL, "1f1b", "sgd", {"fsdp": True}),
+    ("remat", 1, dict(PIPE_MODEL, remat=True), "1f1b", "momentum", {}),
+    ("xent-chunk", 1, dict(PIPE_MODEL, xent_chunk=48), "gpipe", "momentum",
+     {})]
+
+
+@pytest.mark.parametrize("name,dp,kw,schedule,optname,ekw", VPP_COMPOSED,
+                         ids=[c[0] for c in VPP_COMPOSED])
+def test_vpp_composed_trajectory_matches_jax(name, dp, kw, schedule, optname,
+                                         ekw):
+    """vpp 2 composes with ZeRO-1/2 and FSDP (each cell's slice of the
+    interleave-permuted stacked leaves, gathered and updated whole), with
+    remat and with chunked cross-entropy: three steps of losses,
+    parameters and optimizer state."""
+    opt, slots = GSPMD_OPTS[optname]
+    je, te = pipeline_engines(dp, 2, opt=opt, kw=kw, schedule=schedule,
+                              virtual_pp=2, **ekw)
     pipeline_trajectory(je, te, slots)
 
 

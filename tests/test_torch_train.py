@@ -220,15 +220,26 @@ def test_eval_loss_drops_label_smoothing():
                          ids=["zero1", "zero2", "overlap", "ring-flash"])
 def test_unported_engine_options_raise(kwargs):
     """What the engine still refuses: the overlapped reduction, with
-    ZeRO-1, ZeRO-2 or without, and an MoE config at sp > 1 (ring-flash
-    on a (1, 2) grid)."""
+    ZeRO-1, ZeRO-2 or without. An MoE config at sp > 1 (ring-flash on a
+    (1, 2) grid), refused until each sp tile routed its own tokens, now
+    trains: its loss and gradient are the ring substrate's (held
+    against the JAX engine in `tests/test_torch_context_mesh.py`)."""
     kwargs = dict(kwargs)
     experts = kwargs.pop("experts", 0)
     cfg = T.TransformerConfig(**CONFIGS["gqa-rope-rms-swiglu"],
                               n_experts=experts)
     mesh = make_context_mesh(1, 2 if experts else 1, "cpu")
-    with pytest.raises(NotPorted):
-        ContextParallelEngine(cfg, O.SGD(0.1), mesh=mesh, **kwargs)
+    if not experts:
+        with pytest.raises(NotPorted):
+            ContextParallelEngine(cfg, O.SGD(0.1), mesh=mesh, **kwargs)
+        return
+    tok, tgt = _batch(cfg.vocab, 12, b=2)
+    got = ContextParallelEngine(cfg, O.SGD(0.1), mesh=mesh,
+                                **kwargs).loss_and_grads(tok, tgt)
+    want = ContextParallelEngine(cfg, O.SGD(0.1), mesh=mesh,
+                                 attn="ring").loss_and_grads(tok, tgt)
+    assert float(got[0]) == pytest.approx(float(want[0]), rel=1e-5)
+    assert _worst(got[1], want[1]) <= 1e-4
 
 
 # ---------------------------------------------------------- the engine

@@ -17,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import MODEL, worst
-from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 from shallowspeed_tpu.models import transformer as JT
 from shallowspeed_tpu.parallel import zb as JZB

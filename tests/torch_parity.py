@@ -11,7 +11,6 @@ trajectory check and the loss-and-gradient check."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 from jax.sharding import Mesh
 
@@ -23,6 +22,13 @@ from shallowspeed_tpu_torch import optim as O
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
 from shallowspeed_tpu_torch.parallel.mesh import make_context_mesh
+
+# Torch on one intra-op thread for the whole process: the parity tests'
+# ops are tiny, and the suite's workers share the host's cores with
+# JAX's compiler, which idle OpenMP threads would spin against. Every
+# test worker collects every test file, so this import-time call covers
+# the suite; a test that needs more threads sets them itself.
+torch.set_num_threads(1)
 
 
 def flat(tree, prefix=""):
@@ -228,23 +234,23 @@ SGD_PROBE_LR = 1e3
 
 
 def pipeline_engines(dp, pp, tp=1, opt=None, kw=None, seed=5, n_mu=2,
-                     **ekw):
+                     sp=1, ep=1, **ekw):
     """(JAX `PipelineLMEngine` on a host mesh, the port's on a grid of the
     CPU), same config, optimizer (default: SGD at SGD_PROBE_LR), seed,
-    microbatches and options (schedule, attn, zero1/zero2/fsdp,
-    health)."""
+    microbatches and options (schedule, attn, virtual_pp,
+    zero1/zero2/fsdp, health); a third axis "tp", "sp" or "ep" where
+    its size is above 1."""
     from shallowspeed_tpu.parallel.pipeline_lm import PipelineLMEngine as JP
     from shallowspeed_tpu_torch.parallel.mesh import make_pipeline_mesh
     from shallowspeed_tpu_torch.parallel.pipeline_lm import PipelineLMEngine
 
     kw = kw or PIPE_MODEL
     opt = opt or (lambda M: M.SGD(SGD_PROBE_LR))
-    names, shape = (("dp", "pp", "tp"), (dp, pp, tp)) if tp > 1 else (
-        ("dp", "pp"), (dp, pp))
-    je = JP(JT.TransformerConfig(**kw), opt(JO), jax_mesh(names, shape),
+    grid = make_pipeline_mesh(dp, pp, tp, "cpu", sp=sp, ep=ep)
+    je = JP(JT.TransformerConfig(**kw), opt(JO),
+            jax_mesh(grid.axis_names, grid.devices.shape),
             n_mubatches=n_mu, seed=seed, **ekw)
-    te = PipelineLMEngine(T.TransformerConfig(**kw), opt(O),
-                          make_pipeline_mesh(dp, pp, tp, "cpu"),
+    te = PipelineLMEngine(T.TransformerConfig(**kw), opt(O), grid,
                           n_mubatches=n_mu, seed=seed, **ekw)
     return je, te
 
@@ -289,13 +295,3 @@ def pipeline_trajectory(je, te, slots, steps=3, b=4):
     for key in slots:
         assert worst(tstate[key], jstate[key]) <= tol
 
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Torch on one intra-op thread for the test: the parity tests' ops
-    are tiny, and the suite's workers share the host's cores with JAX's
-    compiler (imported by a module, this applies to its tests)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
