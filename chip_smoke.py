@@ -207,7 +207,7 @@ Phases (any failure exits non-zero and prints no result line):
    `flash_attention` over the gathered sequence: o and the gradients
    within RING_TOL_BF16, o also per element against the plain f32
    attention, K1-K3 launches sp (sp + 1) / 2 each. (c)
-   `ContextParallelEngine` at full width and CP_LAYERS = 4 layers of 16
+   `ContextParallelEngine` at full width and CP_LAYERS = 2 layers of 16
    (AdamW 3e-4, phase 6's batch and weights) in CP_LAYOUTS:
    dp 2 x sp 2 ring-flash, dp 1 x sp 4 ulysses-flash, dp 2 flash
    ZeRO-1, dp 2 x sp 2 ring-flash ZeRO-2 accum 2: the loss at init
@@ -266,10 +266,11 @@ Phases (any failure exits non-zero and prints no result line):
 
 15. The rest of the LM pipeline, as phase 14 in PP15_LAYOUTS: (a) pp 4
    x vpp 2 gpipe flash, (b) pp 4 x vpp 2 1f1b flash, (c) pp 2 x sp 2
-   gpipe ring-flash, (d) pp 2 x sp 2 1f1b ulysses-flash, all at 16
-   layers, and (e) phase 10c's MoE (4 experts, top-2) at pp 2 x ep 2
-   1f1b flash at 4 layers (phase 13's cut), 2 microbatches per ep
-   replica: the loss at init within PARITY_LOSS_BUDGET of phase 6's,
+   gpipe ring-flash, (d) pp 2 x sp 2 1f1b ulysses-flash, all at
+   PP15_LAYERS = 8 layers of 16, and (e) phase 10c's MoE (4 experts,
+   top-2) at pp 2 x ep 2 1f1b flash at 4 layers (phase 13's cut), 2
+   microbatches per ep replica: the loss at init within
+   PARITY_LOSS_BUDGET of the one-device engine's at that depth,
    every first-step gradient leaf within GRAD_TOL_BF16 of the
    one-device flash engine's, (b)'s also of (a)'s; (e) in f32 compute
    as phase 13 compares MoE (the timed engine then bf16), the loss and
@@ -287,11 +288,37 @@ Phases (any failure exits non-zero and prints no result line):
    --temperature 0` on that checkpoint, its greedy stream equal to
    `models.generate.generate`'s (`pp15 driver:`).
 
+16. Comm overlap (`parallel/overlap.py`: each bucket of replica r >= 1's
+   gradient added into the rank-order sum from its backward, on a side
+   stream), every line with the card's name and power limit. (a)
+   `ContextParallelEngine` dp 2 flash at full width and depth (phase 6's
+   batch and weights, AdamW 3e-4), overlap off, then on with 4 and 64
+   MiB buckets: two overlap-off `loss_and_grads` calls against each
+   other first, then each overlapped engine's first-step loss and every
+   gradient leaf against off's, bit for bit (within the off-off spread
+   if that is not zero); a warm-up and OV_STEPS timed steps with the
+   counts zeroed before them (K1, K2, K3 on the tensor cores 2 x
+   n_layers a step each), their losses equal to off's, buckets issued on
+   the side stream; step p50, tok/s, MFU, peak memory; one profiled step
+   each (`stream_overlap`: the side stream's busy ms, the ms of it that
+   coincide with main-stream work, the host-idle share). (b) dp 2 x sp 2
+   ring-flash ZeRO-2 accum 2 at OV_Z2_LAYERS layers (K1's f32-output
+   build), (c) `FSDPEngine` dp 4 at OV_FSDP_LAYERS layers on the plain
+   attention (and its refusal of Adafactor), each overlap off against
+   on bit for bit with launches and step p50. (d) `FusedDPEngine` dp 2
+   and `SPMDPipelineEngine` dp 2 x pp 2 in both hop modes at the MLP's
+   width, bit for bit against off, the ticks of `schedule_info`. (e)
+   `train_lm --dp 2 --attn flash --overlap on --bucket-mb 4` at
+   OV_DRIVER_LAYERS layers with a save, resumed with overlap off within
+   PARITY_LOSS_BUDGET of a straight run; `train --dp 2 --pp 2 --engine
+   spmd --overlap on` against overlap off (model hashes equal).
+
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers (with `device_ms` / `library_device_ms` where the
 profiler timed them, K1-K3's `recipe_launches` from phase 10a,
-`cp_launches` from phase 12c, `pp_launches` from phase 14 and
-`pp15_launches` from phase 15), and
+`cp_launches` from phase 12c, `pp_launches` from phase 14,
+`pp15_launches` from phase 15 and `ov_launches` from phase 16's
+overlapped runs, (a) and (b)), and
 `{"ok": true, "device": {...}}`.
 """
 
@@ -3359,9 +3386,10 @@ CP_LAYOUTS = [("dp2-sp2-ring-flash", 2, 2, "ring-flash", {}),
               ("dp2-sp2-ring-flash-zero2-accum2", 2, 2, "ring-flash",
                {"zero2": True, "accum": 2})]
 CP_STEPS = 5
-# phase 12c's depth: 4 of 16 layers (the script's time; phase 15 holds
-# the 16-layer sp substrates inside a pipeline stage)
-CP_LAYERS = 4
+# phase 12c's depth: 2 of 16 layers (the script's time; 4 in PR 15, 16
+# until then; phase 15 holds the sp substrates inside a pipeline stage
+# at PP15_LAYERS, and phase 16b runs 12c's ZeRO-2 layout at 4)
+CP_LAYERS = 2
 CP_DRIVER_LAYERS = 2
 CP_DRIVER_STEPS = 4
 
@@ -4070,14 +4098,17 @@ PP_LAYOUTS = [("a-pp4-gpipe-flash", 1, 4, {}, "gpipe", "flash",
 # phase 10c's MoE at its own depth (MOE_LAYERS)
 PP_MOE = {"n_layers": MOE_LAYERS, "n_experts": MOE_EXPERTS, "moe_top_k": 2,
           "moe_capacity_factor": 2.0}
+# phase 15's depth for (a)-(d): 8 of 16 layers, the least pp 4 x vpp 2
+# takes (16 in PR 15; cut for the script's time when phase 16 came)
+PP15_LAYERS = 8
 PP15_LAYOUTS = [("a-pp4-vpp2-gpipe-flash", 1, 4, {}, "gpipe", "flash",
-                 {"n_layers": 16}, {"virtual_pp": 2}),
+                 {"n_layers": PP15_LAYERS}, {"virtual_pp": 2}),
                 ("b-pp4-vpp2-1f1b-flash", 1, 4, {}, "1f1b", "flash",
-                 {"n_layers": 16}, {"virtual_pp": 2}),
+                 {"n_layers": PP15_LAYERS}, {"virtual_pp": 2}),
                 ("c-pp2-sp2-gpipe-ring-flash", 1, 2, {"sp": 2}, "gpipe",
-                 "ring-flash", {"n_layers": 16}, {}),
+                 "ring-flash", {"n_layers": PP15_LAYERS}, {}),
                 ("d-pp2-sp2-1f1b-ulysses-flash", 1, 2, {"sp": 2}, "1f1b",
-                 "ulysses-flash", {"n_layers": 16}, {}),
+                 "ulysses-flash", {"n_layers": PP15_LAYERS}, {}),
                 ("e-moe-pp2-ep2-1f1b-flash", 1, 2, {"ep": 2}, "1f1b",
                  "flash", PP_MOE, {})]
 PP_N_MU = 4
@@ -4410,8 +4441,538 @@ def run_pp_driver(dev, cfg, phase="14") -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+
+# Phase 16: comm overlap (`parallel/overlap.py`), every cell the card.
+# (a) the data-parallel flash engine at full width and depth, overlap
+# off and on at two bucket sizes; (b)-(e) at cut depth (the script's
+# time): ZeRO-2 with accumulation at OV_Z2_LAYERS, FSDP on the plain
+# attention at OV_FSDP_LAYERS, the MLP engines, the drivers at
+# OV_DRIVER_LAYERS.
+OV_VARIANTS = (("off", None), ("on-4mb", 4.0), ("on-64mb", 64.0))
+OV_STEPS = 4
+OV_Z2_LAYERS = 4
+OV_FSDP_LAYERS = 2
+OV_SHORT_STEPS = 2
+OV_MLP_BATCHES = 6
+OV_DRIVER_LAYERS = 2
+OV_DRIVER_STEPS = 3
+
+
+def _union(spans) -> list:
+    """The union of (start, end) intervals, as sorted disjoint ones."""
+    out = []
+    for s, e in sorted(spans):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _covered(spans, union) -> float:
+    """The length of `spans` (disjoint, sorted) that lies inside
+    `union` (disjoint, sorted)."""
+    total, j = 0.0, 0
+    for s, e in spans:
+        while j < len(union) and union[j][1] <= s:
+            j += 1
+        k = j
+        while k < len(union) and union[k][0] < e:
+            total += min(e, union[k][1]) - max(s, union[k][0])
+            k += 1
+    return total
+
+
+def stream_overlap(fn) -> dict:
+    """fn() once under torch.profiler, the device's work split by CUDA
+    stream (the profiler's `device_resource_id`): the main stream is the
+    busiest, every other one the side. Returns the side stream's busy ms
+    (the union of its kernels' and copies' intervals), the ms of it that
+    coincide with main-stream work (and that as a share of the side's
+    busy ms), the main stream's busy ms, and the host-idle share: 1 -
+    the union of all device intervals / the call's wall time (an upper
+    bound: the profiler lengthens the call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_stream: dict = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        by_stream.setdefault(ev.device_resource_id, []).append(
+            (ev.time_range.start / 1e3, ev.time_range.end / 1e3))
+    if not by_stream:
+        return {"wall_ms": wall_ms, "device_kernels": 0}
+    unions = {s: _union(v) for s, v in by_stream.items()}
+    busy = {s: sum(e - b for b, e in u) for s, u in unions.items()}
+    main = max(busy, key=busy.get)
+    side = _union([iv for s, v in by_stream.items() if s != main
+                   for iv in v])
+    side_ms = sum(e - b for b, e in side)
+    both = _covered(side, unions[main])
+    every = _union([iv for v in by_stream.values() for iv in v])
+    return {"wall_ms": wall_ms,
+            "device_kernels": sum(map(len, by_stream.values())),
+            "streams": len(by_stream), "main_busy_ms": busy[main],
+            "side_busy_ms": side_ms, "side_kernels": sum(
+                len(v) for s, v in by_stream.items() if s != main),
+            "overlapped_ms": both,
+            "overlapped_share": both / side_ms if side_ms else None,
+            "device_busy_ms": sum(e - b for b, e in every),
+            "host_idle_share": 1.0 - sum(e - b for b, e in every) / wall_ms}
+
+
+def _bit_diff(got, ref) -> dict:
+    """Leaf by leaf (tensors or floats): how many differ in any bit, and
+    the worst max |diff| / max |ref| with its index."""
+    import torch
+
+    n, worst, where = 0, 0.0, None
+    for i, (a, b) in enumerate(zip(got, ref)):
+        a, b = (torch.as_tensor(x) for x in (a, b))
+        if torch.equal(a, b.to(a.device)):
+            continue
+        n += 1
+        b = b.to(a.device).float()
+        rel = float((a.float() - b).abs().max()
+                    / b.abs().max().clamp_min(1e-30))
+        if not rel <= worst:
+            worst, where = rel, i
+    return {"leaves": len(ref), "differing": n, "worst_rel": worst,
+            "worst_leaf": where}
+
+
+def _ov_grads(eng, tok, tgt) -> list:
+    """[loss, every gradient leaf] of one `loss_and_grads` call."""
+    from shallowspeed_tpu_torch.weights import leaves
+
+    loss, grads = eng.loss_and_grads(tok, tgt)
+    return [float(loss)] + list(leaves(grads))
+
+
+def _ov_steps(dev, eng, tok, tgt, n, counters, cfg) -> dict:
+    """A warm-up step, then `n` timed steps with the K1-K3 counts zeroed
+    before them: their losses, step p50, tok/s, MFU, peak memory, the
+    launches and the buckets issued on the side stream."""
+    import torch
+
+    from shallowspeed_tpu_torch.flops import mfu
+    from shallowspeed_tpu_torch.parallel.overlap import BucketReducer
+
+    eng.train_batch(tok, tgt)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.launches = 0
+    side0 = BucketReducer.side_buckets
+    losses, step_s = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(tok, tgt))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    p50 = float(np.median(step_s))
+    tok_s = tok.shape[0] * tok.shape[1] / p50
+    perf = mfu(tok_s, cfg, tok.shape[1], "bf16", device=dev)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"overlap: losses {losses}")
+    return {"losses": losses, "step_ms": [1e3 * x for x in step_s],
+            "step_ms_p50": 1e3 * p50, "tok_per_s": tok_s,
+            "tflops": perf["tflops"], "mfu": perf["mfu"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "launches": {c.__name__.lstrip("_"): c.launches
+                         for c in counters if c.launches},
+            "side_buckets": BucketReducer.side_buckets - side0}
+
+
+def _ov_pair_check(label, entry, ref_losses, bitwise_ok) -> None:
+    """On against off: the first-step loss and every gradient leaf bit
+    for bit and the timed steps' losses equal (or, where two overlap-off
+    runs are not bit-equal on the card, within their spread)."""
+    cmp = entry["vs_off"]
+    if bitwise_ok:
+        ok = cmp["differing"] == 0 and entry["losses"] == ref_losses
+    else:
+        ok = cmp["worst_rel"] <= entry["off_spread"]
+    if not ok or entry["side_buckets"] <= 0:
+        raise AssertionError(f"overlap {label}: {json.dumps(entry)}")
+
+
+def run_overlap(dev, cfg, np_params, card) -> dict:
+    """Phase 16a: `ContextParallelEngine` dp 2 flash at full width and
+    depth (phase 6's batch and weights, AdamW 3e-4), overlap off, then on
+    at 4 and 64 MiB buckets: the first-step loss and every gradient leaf
+    of each against off's, bit for bit (two overlap-off calls first: if
+    they are not bit-equal, on is held within their spread and the phase
+    says so); a warm-up and OV_STEPS timed steps with the counts zeroed
+    before them (K1, K2, K3 on their tensor-core builds 2 x n_layers a
+    step each), their losses equal to off's; step p50, tok/s, MFU, peak
+    memory; two profiled steps each, the second reported
+    (`stream_overlap`: the side stream's busy and overlapped ms, the
+    host-idle share)."""
+    import torch
+
+    from shallowspeed_tpu_torch.optim import AdamW
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+    from shallowspeed_tpu_torch.parallel.mesh import make_context_mesh
+    from shallowspeed_tpu_torch.parallel.overlap import OverlapConfig
+
+    tok, tgt = _train_batch(cfg)
+    counters = _all_train_counters()
+    n = OV_STEPS * 2 * cfg.n_layers
+    want = {"flash_fwd_tc": n, "flash_dq_tc": n, "flash_dkv_tc": n}
+    results, ref, spread, launches = {}, None, None, {}
+    for name, mb in OV_VARIANTS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        eng = ContextParallelEngine(
+            cfg, AdamW(3e-4, weight_decay=0.01, grad_clip=1.0),
+            attn="flash", mesh=make_context_mesh(2, 1, dev),
+            params=np_params,
+            overlap=None if mb is None else OverlapConfig(bucket_mb=mb))
+        init_s = time.perf_counter() - t0
+        got = _ov_grads(eng, tok, tgt)
+        entry = {"bucket_mb": mb, "buckets": len(eng._plan or ()),
+                 "init_s": init_s}
+        if ref is None:
+            again = _ov_grads(eng, tok, tgt)
+            spread = _bit_diff(again, got)
+            print(f"overlap off against off (two calls, one engine): "
+                  f"{json.dumps(spread)}  [{card}]", flush=True)
+            ref = got
+        else:
+            entry["vs_off"] = _bit_diff(got, ref)
+        del got
+        entry.update(_ov_steps(dev, eng, tok, tgt, OV_STEPS, counters, cfg))
+        # (on the CPU, a rehearsal, the wrappers count nothing)
+        if dev.type == "cuda" and entry["launches"] != want:
+            raise AssertionError(f"overlap {name}: launches "
+                                 f"{entry['launches']}, want {want}")
+        # the second of two profiled steps: the profiler's first use in
+        # the process pays its own start-up
+        stream_overlap(lambda: eng.train_batch(tok, tgt))
+        entry["profile"] = stream_overlap(lambda: eng.train_batch(tok, tgt))
+        if name == "off":
+            off_losses = entry["losses"]
+            if entry["side_buckets"]:
+                raise AssertionError("overlap off issued side-stream buckets")
+        else:
+            entry["off_spread"] = spread["worst_rel"]
+            _ov_pair_check(name, entry, off_losses,
+                           spread["differing"] == 0)
+            launches = entry["launches"]
+        results[name] = entry
+        print(f"overlap layout {name}: " + json.dumps(entry) + f"  [{card}]",
+              flush=True)
+        del eng
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {k: {"step_ms_p50": v["step_ms_p50"],
+                   "side_busy_ms": v["profile"].get("side_busy_ms"),
+                   "overlapped_ms": v["profile"].get("overlapped_ms"),
+                   "overlapped_share": v["profile"].get("overlapped_share"),
+                   "host_idle_share": v["profile"].get("host_idle_share")}
+               for k, v in results.items()}
+    print("overlap (a): " + json.dumps(summary) + f"  [{card}]", flush=True)
+    return {"results": results, "launches": launches}
+
+
+def _ov_lm_pair(dev, label, build, tok, tgt, n, counters, cfg, want, card):
+    """Off and on engines of one layout (`build(overlap)`), one after
+    the other: on's first-step loss and gradient leaves against off's,
+    bit for bit, both trajectories' losses equal, launches `want`."""
+    import torch
+
+    from shallowspeed_tpu_torch.parallel.overlap import OverlapConfig
+
+    out, ref = {}, None
+    for name, ov in (("off", None), ("on", OverlapConfig(bucket_mb=4.0))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = build(ov)
+        got = _ov_grads(eng, tok, tgt)
+        entry = {}
+        if ref is None:
+            ref = got
+        else:
+            entry["vs_off"] = _bit_diff(got, ref)
+        del got
+        entry.update(_ov_steps(dev, eng, tok, tgt, n, counters, cfg))
+        if dev.type == "cuda" and entry["launches"] != want:
+            raise AssertionError(f"overlap {label} {name}: launches "
+                                 f"{entry['launches']}, want {want}")
+        if ov is not None:
+            entry["off_spread"] = 0.0
+            _ov_pair_check(f"{label} {name}", entry, out["off"]["losses"],
+                           True)
+        out[name] = entry
+        del eng
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"overlap {label}: " + json.dumps(out) + f"  [{card}]", flush=True)
+    return out
+
+
+def run_overlap_zero2(dev, cfg, np_params, card) -> dict:
+    """Phase 16b: dp 2 x sp 2 ring-flash ZeRO-2 accum 2 at OV_Z2_LAYERS
+    layers (K1's f32-output build), overlap off against on: bit for bit,
+    launches `cp_launches_per_step` each, step p50."""
+    from shallowspeed_tpu_torch.optim import AdamW
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+    from shallowspeed_tpu_torch.parallel.mesh import make_context_mesh
+
+    tok, tgt = _train_batch(cfg)
+    mcfg = dataclasses.replace(cfg, n_layers=OV_Z2_LAYERS)
+    params = {**np_params, "blocks": np_params["blocks"][:OV_Z2_LAYERS]}
+    n = OV_SHORT_STEPS * cp_launches_per_step("ring-flash", 2, 2, 2,
+                                              OV_Z2_LAYERS)
+    return _ov_lm_pair(
+        dev, "(b) dp2-sp2-ring-flash-zero2-accum2",
+        lambda ov: ContextParallelEngine(
+            mcfg, AdamW(3e-4, weight_decay=0.01, grad_clip=1.0),
+            attn="ring-flash", mesh=make_context_mesh(2, 2, dev),
+            zero2=True, accum=2, params=params, overlap=ov),
+        tok, tgt, OV_SHORT_STEPS, _all_train_counters(), mcfg,
+        {"flash_fwd_tc_f32o": n, "flash_dq_tc": n, "flash_dkv_tc": n}, card)
+
+
+def run_overlap_fsdp(dev, cfg, np_params, card) -> dict:
+    """Phase 16c: `FSDPEngine` dp 4 at OV_FSDP_LAYERS layers on the plain
+    attention (AdamW): overlap off against on, bit for bit, no K1-K3
+    launch, step p50; then the Adafactor refusal, shown."""
+    from shallowspeed_tpu_torch.optim import Adafactor, AdamW
+    from shallowspeed_tpu_torch.parallel.fsdp import FSDPEngine
+    from shallowspeed_tpu_torch.parallel.mesh import make_fsdp_mesh
+    from shallowspeed_tpu_torch.parallel.overlap import OverlapConfig
+
+    tok, tgt = _train_batch(cfg)
+    mcfg = dataclasses.replace(cfg, n_layers=OV_FSDP_LAYERS)
+    params = {**np_params, "blocks": np_params["blocks"][:OV_FSDP_LAYERS]}
+    out = _ov_lm_pair(
+        dev, "(c) fsdp-dp4",
+        lambda ov: FSDPEngine(mcfg, AdamW(3e-4, weight_decay=0.01,
+                                          grad_clip=1.0),
+                              mesh=make_fsdp_mesh(4, dev), params=params,
+                              overlap=ov),
+        tok, tgt, OV_SHORT_STEPS, _all_train_counters(), mcfg, {}, card)
+    try:
+        FSDPEngine(mcfg, Adafactor(3e-4), mesh=make_fsdp_mesh(4, dev),
+                   params=params, overlap=OverlapConfig())
+    except ValueError as err:
+        if "Adafactor" not in str(err):
+            raise
+        print(f"overlap (c) fsdp-dp4 with Adafactor refused: {err}",
+              flush=True)
+    else:
+        raise AssertionError("overlap (c): FSDP with Adafactor and overlap "
+                             "was not refused")
+    return out
+
+
+class _OvShard:
+    """A seeded (n_mu, mubs, d) microbatch stack per batch (numpy seed
+    [seed, batch]): `Dataset.load_mubatch_stack`'s interface."""
+
+    def __init__(self, seed, n_mu, mubs, d_in, d_out):
+        self.seed, self.n_mu, self.mubs = seed, n_mu, mubs
+        self.d_in, self.d_out = d_in, d_out
+
+    def load_mubatch_stack(self, batch_id):
+        rng = np.random.default_rng([self.seed, batch_id])
+        x = rng.standard_normal((self.n_mu, self.mubs, self.d_in)
+                                ).astype(np.float32)
+        y = np.eye(self.d_out, dtype=np.float32)[
+            rng.integers(0, self.d_out, (self.n_mu, self.mubs))]
+        return x, y
+
+
+def run_overlap_mlp(dev, card) -> dict:
+    """Phase 16d: the MLP engines at the reference's width (global batch
+    128, 4 microbatches, SGD 0.006): `FusedDPEngine` dp 2 and
+    `SPMDPipelineEngine` dp 2 x pp 2 in both hop modes, OV_MLP_BATCHES
+    batches, each overlapped engine's parameters bit for bit its
+    overlap-off twin's; batch ms p50 and the ticks `schedule_info`
+    implies."""
+    import torch
+
+    from shallowspeed_tpu_torch.engine import FusedDPEngine
+    from shallowspeed_tpu_torch.models.mlp import MLPStage
+    from shallowspeed_tpu_torch.optim import SGD
+    from shallowspeed_tpu_torch.parallel.mesh import make_mesh
+    from shallowspeed_tpu_torch.parallel.overlap import (BucketReducer,
+                                                         OverlapConfig)
+    from shallowspeed_tpu_torch.parallel.spmd_pipeline import (
+        SPMDPipelineEngine)
+    from shallowspeed_tpu_torch.train import LAYER_SIZES, LR
+
+    gbs, n_mu, dp = 128, 4, 2
+    mubs = gbs // dp // n_mu
+    shards = [_OvShard(r, n_mu, mubs, LAYER_SIZES[0], LAYER_SIZES[-1])
+              for r in range(dp)]
+    builds = {
+        "fused-dp2": lambda ov: FusedDPEngine(
+            MLPStage(LAYER_SIZES, 0, 1, batch_size=gbs), SGD(LR),
+            make_mesh(dp, 1, dev), overlap=ov),
+        "spmd-dp2-pp2": lambda ov: SPMDPipelineEngine(
+            LAYER_SIZES, SGD(LR), make_mesh(dp, 2, dev), n_mu, mubs, gbs,
+            overlap=ov)}
+    out = {}
+    for name, build in builds.items():
+        hops = (None,) if name.startswith("fused") else (False, True)
+        runs = {}
+        for tag, ov in [("off", None)] + [
+                (f"on{'' if db is None else '-db' if db else '-single'}",
+                 OverlapConfig(bucket_mb=0.25, double_buffer_hops=bool(db)))
+                for db in hops]:
+            eng = build(ov)
+            side0 = BucketReducer.side_buckets
+            ms = []
+            for b in range(OV_MLP_BATCHES):
+                t0 = time.perf_counter()
+                eng.train_batch(b, shards)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            flat = _mlp_flat(eng)
+            entry = {"batch_ms_p50": float(np.median(ms)),
+                     "side_buckets": BucketReducer.side_buckets - side0,
+                     "buckets": len(eng._plan or ())}
+            if hasattr(eng, "schedule_info"):
+                entry["schedule_info"] = eng.schedule_info()
+                entry["ticks"] = eng.ticks
+            if tag == "off":
+                ref = flat
+            else:
+                same = all(torch.equal(a, b) for a, b in zip(flat, ref))
+                entry["bit_identical_to_off"] = same
+                if not same or entry["side_buckets"] <= 0:
+                    raise AssertionError(f"overlap (d) {name} {tag}: "
+                                         f"{json.dumps(entry)}")
+            runs[tag] = entry
+            del eng
+        out[name] = runs
+    print("overlap (d) mlp: " + json.dumps(out) + f"  [{card}]", flush=True)
+    return out
+
+
+def run_overlap_driver(dev, cfg, card) -> dict:
+    """Phase 16e: `train_lm --dp 2 --attn flash --overlap on --bucket-mb
+    4` at full width and OV_DRIVER_LAYERS layers, OV_DRIVER_STEPS steps
+    and a save (K1-K3 2 x n_layers a step each), resumed with overlap
+    off to OV_DRIVER_STEPS + 2 steps, its losses within
+    PARITY_LOSS_BUDGET of a straight overlap-off run's; then `train --dp
+    2 --pp 2 --engine spmd --overlap on` (the MLP driver, 20 batches) and
+    the same run with overlap off: accuracy rises, the two model hashes
+    equal. The files live in a temporary directory removed at the end."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from shallowspeed_tpu_torch import train_lm
+    from shallowspeed_tpu_torch.data.mnist import prepare_mnist
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ov_"))
+    n, total = OV_DRIVER_LAYERS, OV_DRIVER_STEPS + 2
+    flags = ["--vocab", str(cfg.vocab), "--d-model", str(cfg.d_model),
+             "--n-heads", str(cfg.n_heads), "--n-layers", str(n),
+             "--d-ff", str(cfg.ffn_dim), "--seq-len", str(cfg.max_seq),
+             "--batch-size", str(TRAIN_BATCH), "--rope", "--norm", cfg.norm,
+             "--ffn", cfg.ffn, "--optimizer", "adamw", "--lr", "3e-4",
+             "--grad-clip", "1.0", "--log-every", "1", "--dp", "2",
+             "--attn", "flash"]
+    if cfg.compute_dtype is not None:
+        flags.append("--bf16")
+    if dev.type == "cpu":
+        flags += ["--device", "cpu"]
+    counters = _all_train_counters()
+
+    def drive(tag, *extra):
+        for c in counters:
+            c.launches = 0
+        log = root / f"{tag}.jsonl"
+        t0 = time.time()
+        train_lm.main([*flags, *extra, "--log-file", str(log)])
+        wall = time.time() - t0
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return {"losses": [e["loss"] for e in _events(log, "step")],
+                "launches": {c.__name__.lstrip("_"): c.launches
+                             for c in counters if c.launches},
+                "wall_s": wall, "log": log}
+
+    try:
+        ck = str(root / "ck")
+        a = drive("a", "--overlap", "on", "--bucket-mb", "4", "--steps",
+                  str(OV_DRIVER_STEPS), "--save-dir", ck, "--save-every",
+                  str(OV_DRIVER_STEPS))
+        k = OV_DRIVER_STEPS * 2 * n
+        if dev.type == "cuda" and a["launches"] != dict.fromkeys(
+                ("flash_fwd_tc", "flash_dq_tc", "flash_dkv_tc"), k):
+            raise AssertionError(f"overlap driver: launches {a['launches']}"
+                                 f", want {k} each of K1, K2, K3")
+        b = drive("b", "--steps", str(total), "--save-dir", ck, "--resume")
+        c = drive("c", "--steps", str(total))
+        gap = max(abs(x - y) for x, y in zip(
+            a["losses"] + b["losses"], c["losses"]))
+        data_dir = str(prepare_mnist(root / "mnist", synthetic=True))
+        mlp = {}
+        for tag in ("on", "off"):
+            mlp[tag] = _mlp_drive([
+                "--data-dir", data_dir, "--dp", "2", "--pp", "2",
+                "--schedule", "gpipe", "--engine", "spmd", "--overlap", tag,
+                "--epochs", "1", "--max-batches", "20", "--log-file",
+                str(root / f"mlp_{tag}.jsonl"),
+                *(["--device", "cpu"] if dev.type == "cpu" else [])])
+            del mlp[tag]["flat"]
+        out = {"losses_overlap_on": a["losses"],
+               "losses_resumed_off": b["losses"],
+               "losses_straight_off": c["losses"], "gap": gap,
+               "launches": a["launches"],
+               "wall_s": {r: x["wall_s"] for r, x in
+                          (("a", a), ("b", b), ("c", c))},
+               "mlp_spmd": mlp,
+               "mlp_hashes_equal": mlp["on"]["hash"] == mlp["off"]["hash"]}
+        print("overlap (e) drivers: " + json.dumps(out) + f"  [{card}]",
+              flush=True)
+        if not (len(a["losses"]) == OV_DRIVER_STEPS
+                and len(b["losses"]) == 2 and gap <= PARITY_LOSS_BUDGET
+                and all(np.isfinite(a["losses"] + b["losses"]))
+                and out["mlp_hashes_equal"]):
+            raise AssertionError(f"overlap drivers: {json.dumps(out)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+_T0 = [0.0]
+
+
+def _clock(phase: str) -> None:
+    """Print the seconds since the script's start at the end of a phase
+    (where the script's time goes)."""
+    print(f"clock: phase {phase} done at {time.time() - _T0[0]:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
+
+    _T0[0] = time.time()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4443,6 +5004,7 @@ def main() -> int:
     errs["dequant_matmul_tc"] = check_dequant_matmul(dev)
     errs["blocked_matmul_tc"] = check_blocked_matmul(dev)
     probe = run_probe()
+    _clock("2b")
     cfg = slice_config()
     cfg32 = dataclasses.replace(cfg, compute_dtype=None)
     t0 = time.time()
@@ -4504,6 +5066,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_generate(dev, cfg, params)
+    _clock("5b")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4513,6 +5076,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_data_ckpt(dev, dataclasses.replace(cfg, n_layers=CKPT_LAYERS))
+    _clock("6b")
     check_training_parity(dev, cfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4520,10 +5084,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_mlp(dev, card)
+    _clock("9")
     gc.collect()
     torch.cuda.empty_cache()
 
     recipe = run_recipe(dev, cfg, np_params, trained["peak_mem_gb"])
+    _clock("10a")
     gc.collect()
     torch.cuda.empty_cache()
     fp8 = check_fp8_matmul(dev, card)
@@ -4545,29 +5111,47 @@ def main() -> int:
     cp = run_context_parallel(dev, cfg, np_params, card)
     launches["flash_fwd_tc_f32o"] = cp["launches"]["flash_fwd_tc_f32o"]
     run_cp_driver(dev, cfg)
+    _clock("12")
     gc.collect()
     torch.cuda.empty_cache()
     run_feature_matrix(dev, cfg)
     gc.collect()
     torch.cuda.empty_cache()
     run_moe(dev, cfg)
+    _clock("10c")
     gc.collect()
     torch.cuda.empty_cache()
     run_gspmd(dev, cfg, card)
     run_gspmd_driver(dev, cfg)
+    _clock("13")
     gc.collect()
     torch.cuda.empty_cache()
     pp = run_pipeline(dev, cfg, np_params, trained["losses"][0], card)
     gc.collect()
     torch.cuda.empty_cache()
     run_pp_driver(dev, cfg)
+    _clock("14")
     pp15 = run_pipeline(dev, cfg, np_params, trained["losses"][0], card,
                         PP15_LAYOUTS, PP15_PROFILED, ("b-",), pp.pop("refs"),
                         "pp15")
-    del np_params, pp15["refs"]
+    del pp15["refs"]
     gc.collect()
     torch.cuda.empty_cache()
     run_pp_driver(dev, cfg, "15")
+    _clock("15")
+    ov = run_overlap(dev, cfg, np_params, card)
+    # the overlapped runs' launches: (a)'s on-4mb steps and (b)'s on steps
+    ov_launches = dict(ov["launches"])
+    for k, v in run_overlap_zero2(dev, cfg, np_params,
+                                  card)["on"]["launches"].items():
+        ov_launches[k] = ov_launches.get(k, 0) + v
+    run_overlap_fsdp(dev, cfg, np_params, card)
+    del np_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_overlap_mlp(dev, card)
+    run_overlap_driver(dev, cfg, card)
+    _clock("16")
 
     src = "shallowspeed_tpu_torch/csrc/"
     fa = "shallowspeed_tpu/ops/flash_attention.py:"
@@ -4600,6 +5184,8 @@ def main() -> int:
            if pp["launches"].get(name) else {}),
         **({"pp15_launches": pp15["launches"][name]}
            if pp15["launches"].get(name) else {}),
+        **({"ov_launches": ov_launches[name]}
+           if ov_launches.get(name) else {}),
     } for name, (cu, ref) in where.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

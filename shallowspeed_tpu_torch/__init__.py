@@ -55,7 +55,14 @@ What is ported so far:
   TensorParallelEngine`, `parallel.fsdp.FSDPEngine`,
   `parallel.composite.Composite3DEngine` and `parallel.expert.
   ExpertParallelEngine`, over a named grid (`parallel.mesh.Grid`), on
-  the plain attention (`ops.attention.allgather_attention` at sp > 1).
+  the plain attention (`ops.attention.allgather_attention` at sp > 1);
+- the LM pipeline: `train_lm --pp` -> `parallel.pipeline_lm.
+  PipelineLMEngine` (gpipe, 1f1b, zb, virtual stages, sp, tp and ep
+  inside a stage);
+- comm overlap: `train_lm / train --overlap on --bucket-mb` ->
+  `parallel.overlap` (bucketed gradient reduction issued from the
+  backward, on a side CUDA stream) in the context, FSDP, fused-DP and
+  SPMD-pipeline engines.
 ROADMAP.md lists what comes next; each feature not ported yet raises
 `NotPorted`.
 

@@ -37,7 +37,7 @@ either package restores in the other.
 
 Left out, with the reference's multi-process and fault-injection
 planes: the collective fetch and the barriers around a save (ROADMAP
-Queue 1 item 5, `distributed.py` and the multi-process launch; one
+Queue 1 item 5b, `distributed.py` and the multi-process launch; one
 process drives every cell of a grid here) and the chaos hooks (item
 6).
 """
@@ -290,7 +290,7 @@ def _write_ckpt(ckpt_dir, epoch: int, params, opt_state, meta: dict,
     final = Path(ckpt_dir) / f"ckpt_{epoch}"
     tmp = Path(ckpt_dir) / f"ckpt_{epoch}.tmp"
     # multi-process runs: the collective fetch and the barrier around
-    # this write come with ROADMAP Queue 1 item 5's multi-process
+    # this write come with ROADMAP Queue 1 item 5b's multi-process
     # launch; the chaos hooks
     # (chaos.on_save) with item 6
     t0 = time.perf_counter()

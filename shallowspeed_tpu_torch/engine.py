@@ -20,8 +20,17 @@ drives the replicas of a (dp, 1) grid of devices (`parallel/mesh.py`):
 Sequential training (`--dp 1 --pp 1`) is the dp = 1 case. With
 `health` "monitor" or "guard" each step also computes the health pack
 (`telemetry/health.py`) on the reduced gradients; under "guard" every
-replica's update is gated on its `nonfinite == 0`. The bucketed
-overlapped reduction (`overlap`) is not ported and raises `NotPorted`.
+replica's update is gated on its `nonfinite == 0`.
+
+With `overlap` (`parallel.overlap.OverlapConfig`) replica r >= 1's last
+microbatch reduces inside its hand-written backward: `MLPStage.backward`
+emits each layer's (dW, db) as the layer loop makes them, and each
+bucket of `overlap.mlp_leaf_order`'s plan, its earlier microbatches'
+sum folded in, is added into replica 0's sum the moment it is complete
+(on a GPU on a side stream, which the step joins before the update).
+Replica 0's sum is the accumulator, so its backward overlaps nothing.
+The sums and their order are the bulk path's: bit for bit the same
+training.
 """
 
 from __future__ import annotations
@@ -29,9 +38,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch.data.dataset import stack_epoch
 from shallowspeed_tpu_torch.models.mlp import MLPStage, accumulate_grads
+from shallowspeed_tpu_torch.parallel import overlap as OV
 from shallowspeed_tpu_torch.telemetry.health import (check_mode,
                                                      engine_snapshot,
                                                      note_step,
@@ -39,28 +48,28 @@ from shallowspeed_tpu_torch.telemetry.health import (check_mode,
 from shallowspeed_tpu_torch.weights import (map_tree, params_from_numpy,
                                             placed_copy)
 
-_OVERLAP = "Queue 1 item 5, comm overlap"
-
 
 def reduce_replicas(accs, devices):
     """The all-reduce of one controller: the replicas' gradient trees
     summed in rank order on replica 0's device (in place into
-    `accs[0]`), then one tree per replica on its device — replica 0 the
-    sum itself, the others their own copies, since the optimizer may
-    scale its gradients in place (clipping)."""
+    `accs[0]`), then `replicate`d."""
     total = accs[0]
     for acc in accs[1:]:
         map_tree(lambda t, g: t.add_(g.to(t.device)), total, acc)
+    return replicate(total, devices)
+
+
+def replicate(total, devices):
+    """One tree per replica on its device: replica 0 the sum itself, the
+    others their own copies, since the optimizer may scale its gradients
+    in place (clipping)."""
     return [total] + [map_tree(lambda g, d=d: g.to(d, copy=True), total)
                       for d in devices[1:]]
 
 
-def check_planes(health, overlap):
-    """Check the health mode; refuse the overlapped reduction."""
-    check_mode(health)
-    if overlap is not None:
-        raise NotPorted("the bucketed overlapped dp reduction (overlap)",
-                        _OVERLAP)
+def layer_leaves(tree) -> dict:
+    """A layer list's {"W", "b"} leaves by `overlap.mlp_leaf_order` id."""
+    return {k: leaf for k, leaf in OV.mlp_leaf_order(tree)}
 
 
 class FusedDPEngine:
@@ -75,7 +84,7 @@ class FusedDPEngine:
 
     def __init__(self, stage: MLPStage, optimizer, mesh,
                  health: str = "off", overlap=None):
-        check_planes(health, overlap)
+        check_mode(health)
         assert stage.n_stages == 1
         self.health = health
         self.last_health = None
@@ -87,6 +96,15 @@ class FusedDPEngine:
         host = stage.init()
         self._replicas = [params_from_numpy(host, d) for d in self.devices]
         self._opt_states = [optimizer.init(p) for p in self._replicas]
+        self.overlap = overlap
+        self._plan = None
+        self._bucket_sigs = []
+        if overlap is not None:
+            order = OV.mlp_leaf_order(self._replicas[0])
+            self._plan = OV.plan_ids(order, overlap.bucket_bytes)
+            by_id = dict(order)
+            self._bucket_sigs = [OV.bucket_signature([by_id[i] for i in b])
+                                 for b in self._plan]
 
     # ------------------------------------------------------------- steps
 
@@ -95,14 +113,31 @@ class FusedDPEngine:
         """One batch: xs[r], ys[r] replica r's (n_mu, mubs, d) stacks on
         its device."""
         accs = []
-        for p, x, y in zip(self._replicas, xs, ys):
+        for r, (p, x, y) in enumerate(zip(self._replicas, xs, ys)):
             acc = None
-            for m in range(x.shape[0]):
+            n_mu = x.shape[0]
+            for m in range(n_mu):
                 _, stash = self.stage.forward(p, x[m])
+                if r and self._plan is not None and m == n_mu - 1:
+                    # the peeled last microbatch: buckets into replica
+                    # 0's sum between layer VJPs
+                    red = OV.BucketReducer(
+                        self._plan, self._adder(accs[0]), self.devices[r],
+                        earlier=None if acc is None else layer_leaves(acc))
+                    self.stage.backward(p, stash, y[m], emit=red.emit)
+                    red.finish()
+                    acc = None
+                    break
                 _, grads = self.stage.backward(p, stash, y[m])
                 acc = grads if acc is None else accumulate_grads(acc, grads)
-            accs.append(acc)
-        totals = reduce_replicas(accs, self.devices)
+            if acc is not None:
+                accs.append(acc)
+        if self._plan is None:
+            totals = reduce_replicas(accs, self.devices)
+        else:
+            for d in set(self.devices[1:]):
+                OV.join(d, self.device)
+            totals = replicate(accs[0], self.devices)
         if self.health == "off":
             for r, g in enumerate(totals):
                 _, self._opt_states[r] = self.optimizer.step(
@@ -111,6 +146,18 @@ class FusedDPEngine:
         note_step(self, step_replicas_with_health(
             self.optimizer, self._replicas, totals, self._opt_states,
             self.health))
+
+    @staticmethod
+    def _adder(total):
+        """The overlapped reduction's add of a leaf's final gradient into
+        replica 0's sum `total`."""
+        by_id = layer_leaves(total)
+
+        def add(k, g):
+            t = by_id[k]
+            t.add_(g.to(t.device))
+
+        return add
 
     def health_snapshot(self) -> dict | None:
         """The last step's health pack and the cumulative counters as a

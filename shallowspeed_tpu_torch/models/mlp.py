@@ -112,11 +112,15 @@ class MLPStage:
         out, _ = self.forward(params, x)
         return out
 
-    def backward(self, params, stash, dout: torch.Tensor):
+    def backward(self, params, stash, dout: torch.Tensor, emit=None):
         """Returns (dx, grads), grads shaped like `params`. On the last
         stage `dout` is the **target** batch: the MSELoss head turns it
         into the upstream gradient (global batch size), then Softmax's
-        VJP recomputes from the stashed logits. Layers in reverse."""
+        VJP recomputes from the stashed logits. Layers in reverse; with
+        `emit`, each layer's gradients go to `emit(2 i, dW)` and `emit(2
+        i + 1, db)` as they are made (`parallel.overlap.mlp_leaf_order`'s
+        ids: an overlapped reduction issues each bucket between layer
+        VJPs)."""
         if self.is_last_stage:
             head = stash[-1]
             dout = F.mse_loss_grad(head["probs"], dout, self.batch_size)
@@ -128,6 +132,9 @@ class MLPStage:
                 dout = F.relu_grad(dout, entry["mask"])
             dout, dw, db = F.linear_grad(dout, entry["x"], params[i]["W"])
             grads[i] = {"W": dw, "b": db}
+            if emit is not None:
+                emit(2 * i, dw)
+                emit(2 * i + 1, db)
         return dout, grads
 
     def loss(self, params, x: torch.Tensor, target: torch.Tensor):

@@ -278,8 +278,7 @@ def cast_params(params, compute_dtype):
     them to f32 for the statistics anyway. Quantized-storage leaves
     (Wq/Ws) stay in their storage dtypes: float8_e4m3fn is a floating
     dtype, and a cast would turn it back into a full-size copy (and
-    round the f32 scales). A non-tensor leaf (a MoE layer's tile count,
-    `ops.moe.moe_ffn`) passes as it is."""
+    round the f32 scales)."""
     if compute_dtype is None:
         return params
 
@@ -289,8 +288,7 @@ def cast_params(params, compute_dtype):
                     for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v, keep) for v in node]
-        if (keep or not isinstance(node, torch.Tensor)
-                or not node.is_floating_point()):
+        if keep or not node.is_floating_point():
             return node
         return node.to(compute_dtype)
 
@@ -383,16 +381,18 @@ def _qkv(p, h, cfg: TransformerConfig):
     return q, k, v
 
 
-def _ffn(p, x, cfg: TransformerConfig, h, key=None):
+def _ffn(p, x, cfg: TransformerConfig, h, key=None, moe_tiles: int = 1):
     """Post-attention half of a block: GELU (tanh form, JAX's default),
-    SwiGLU or the routed MoE on the norm output `h`, dropout (with a
+    SwiGLU or the routed MoE on the norm output `h` (routing each of
+    `moe_tiles` sequence tiles as its own sequence), dropout (with a
     `key`), residual onto `x`. Returns (x, (balance aux, router z-loss,
     routing stats)), the MoE terms unweighted and (0.0, 0.0, None) for
     a dense FFN."""
     if "moe" in p:
         y, aux, z, st = moe_ffn(p["moe"], h, cfg.moe_top_k,
                                 cfg.moe_capacity_factor,
-                                priority=cfg.moe_routing == "priority")
+                                priority=cfg.moe_routing == "priority",
+                                tiles=moe_tiles)
         return x + _dropout(y, cfg.dropout, key), (aux, z, st)
     if "gate" in p:
         u = (F.silu(_dense(p["gate"], h, cfg.fp8_dense))
@@ -405,8 +405,9 @@ def _ffn(p, x, cfg: TransformerConfig, h, key=None):
 
 
 def _block(p, x, cfg: TransformerConfig, pos, attn_fn, key=None,
-           with_kv: bool = False):
-    """One pre-norm block: (x, MoE terms as `_ffn` gives them). `key`
+           with_kv: bool = False, moe_tiles: int = 1):
+    """One pre-norm block: (x, MoE terms as `_ffn` gives them; a MoE
+    layer routes per sequence tile at `moe_tiles` > 1). `key`
     (training only) seeds the block's dropout masks: site 0 the
     attention output, 1 the FFN output, 2 the attention probabilities.
     With `with_kv` also returns this block's (k, v) (B, T, Hkv, hd),
@@ -436,7 +437,7 @@ def _block(p, x, cfg: TransformerConfig, pos, attn_fn, key=None,
     x = x + _dropout(_dense(p["proj"], a.reshape(b, t, d), cfg.fp8_dense),
                      cfg.dropout,
                      k_attn)
-    x, moe = _ffn(p, x, cfg, _norm(p["ln2"], x, cfg), k_ffn)
+    x, moe = _ffn(p, x, cfg, _norm(p["ln2"], x, cfg), k_ffn, moe_tiles)
     return (x, moe, (k, v)) if with_kv else (x, moe)
 
 
@@ -497,11 +498,11 @@ def _remat_block(cfg: TransformerConfig, fn=None):
            else partial(_remat_contexts, cfg.remat_policy))
     fn = _block if fn is None else fn
 
-    def block(p, x, cfg, pos, attn_fn, key):
+    def block(p, x, cfg, pos, attn_fn, key, **fn_kw):
         kw = {} if ctx is None else {"context_fn": ctx}
         return checkpoint(fn, p, x, cfg, pos, attn_fn, key,
                           use_reentrant=False, preserve_rng_state=False,
-                          **kw)
+                          **kw, **fn_kw)
 
     return block
 
@@ -558,7 +559,7 @@ def chunked_token_loss(params, x, targets, cfg: TransformerConfig,
 
 def forward_with_aux(params, tokens, cfg: TransformerConfig, attn_fn=None,
                      dropout_key=None, with_stats: bool = False,
-                     head: bool = True):
+                     head: bool = True, moe_tiles: int = 1):
     """tokens (B, T) int -> (logits (B, T, vocab), (balance aux, router
     z-loss) summed over the MoE layers, 0.0 for a dense config).
     Differentiable in `params`. `attn_fn(q, k, v)` defaults to the plain
@@ -570,7 +571,9 @@ def forward_with_aux(params, tokens, cfg: TransformerConfig, attn_fn=None,
     final-norm hidden states instead of logits (chunked cross-entropy
     projects them itself); `with_stats` adds a third element, the MoE
     routing stats averaged over the layers ({"load": (E,),
-    "drop_fraction"}, None for a dense config)."""
+    "drop_fraction"}, None for a dense config). `moe_tiles` > 1 routes
+    each MoE layer's sequence tiles apart (a sequence-parallel engine's
+    tiles, `ops.moe.moe_ffn`)."""
     if attn_fn is None:
         attn_fn = partial(attention, causal=True, window=cfg.attn_window)
     if not head:         # not cast for nothing: chunking casts its own
@@ -593,7 +596,8 @@ def forward_with_aux(params, tokens, cfg: TransformerConfig, attn_fn=None,
     stats_sum, n_moe = None, 0
     for i, blk in enumerate(params["blocks"]):
         key = None if dropout_key is None else fold_key(dropout_key, i)
-        x, (aux, z, st) = block(blk, x, cfg, pos, attn_fn, key)
+        x, (aux, z, st) = block(blk, x, cfg, pos, attn_fn, key,
+                                moe_tiles=moe_tiles)
         aux_total = aux_total + aux
         z_total = z_total + z
         if st is not None:
@@ -610,9 +614,10 @@ def forward_with_aux(params, tokens, cfg: TransformerConfig, attn_fn=None,
 
 
 def forward(params, tokens, cfg: TransformerConfig, attn_fn=None,
-            dropout_key=None):
+            dropout_key=None, moe_tiles: int = 1):
     """Logits only (see `forward_with_aux`)."""
-    return forward_with_aux(params, tokens, cfg, attn_fn, dropout_key)[0]
+    return forward_with_aux(params, tokens, cfg, attn_fn, dropout_key,
+                            moe_tiles=moe_tiles)[0]
 
 
 @torch.no_grad()

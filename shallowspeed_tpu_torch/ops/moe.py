@@ -140,7 +140,7 @@ def _experts(p: dict, xin):
 
 
 def moe_ffn(p: dict, x, top_k: int, capacity_factor: float,
-            priority: bool = False):
+            priority: bool = False, tiles: int = 1):
     """The MoE feed-forward layer. p: {"gate": (d, E), "wi": (E, d, ff),
     "bi": (E, ff), "wo": (E, ff, d), "bo": (E, d)}; x: (G, S, d) ->
     (y (G, S, d) in x's dtype, balance aux, router z-loss, stats), the
@@ -158,18 +158,16 @@ def moe_ffn(p: dict, x, top_k: int, capacity_factor: float,
     routing).
 
     Per-tile routing (a sequence-parallel engine's: the reference's sp
-    tiles each route their own tokens): with p["tiles"] = n, x's
-    sequence splits into n equal tiles, each routed as its own sequence
-    with its own capacity; y is the tiles' outputs in order, the two
-    losses their sums (the engine sums its tiles' losses) and the stats
-    their mean."""
-    tiles = p.get("tiles", 1)
+    tiles each route their own tokens): with `tiles` = n, x's sequence
+    splits into n equal tiles, each routed as its own sequence with its
+    own capacity; y is the tiles' outputs in order, the two losses their
+    sums (the engine sums its tiles' losses) and the stats their
+    mean."""
     if tiles > 1:
         if x.shape[1] % tiles:
             raise ValueError(f"sequence length {x.shape[1]} does not split "
                              f"into {tiles} tiles")
-        inner = {k: v for k, v in p.items() if k != "tiles"}
-        parts = [moe_ffn(inner, xt, top_k, capacity_factor, priority)
+        parts = [moe_ffn(p, xt, top_k, capacity_factor, priority)
                  for xt in x.chunk(tiles, dim=1)]
         aux, z = parts[0][1], parts[0][2]
         for part in parts[1:]:

@@ -34,14 +34,14 @@ class Composite3DEngine(GSPMDEngine):
     def __init__(self, cfg: T.TransformerConfig, optimizer, seed: int = 0,
                  device=None, *, mesh=None, zero1: bool = False,
                  fsdp: bool = False, zero2: bool = False,
-                 health: str = "off", overlap=None, params=None):
+                 health: str = "off", params=None):
         if fsdp and (zero1 or zero2):
             raise ValueError("fsdp already shards the optimizer state; "
                              "drop zero1/zero2")
         self.fsdp = fsdp
         super().__init__(cfg, optimizer, seed, device, mesh=mesh,
                          zero1=zero1, zero2=zero2, health=health,
-                         overlap=overlap, params=params)
+                         params=params)
 
     def validate(self, cfg: T.TransformerConfig, mesh) -> None:
         if mesh.axis_names != ("dp", "sp", "tp"):

@@ -48,11 +48,24 @@ parameters and the unsharded optimizer state (`opt_state` gathers ZeRO's
 slices), so checkpoints cross between layouts and packages.
 
 A MoE config at sp > 1 routes each sp tile as its own sequence, with
-that tile's capacity, as the reference's tiles do (`ops.moe.moe_ffn`'s
-`tiles`): the replica's loss adds every tile's weighted balance and
-z-losses to its tiles' token losses. (`parallel.expert.
+that tile's capacity, as the reference's tiles do (the tile count
+passed down to `ops.moe.moe_ffn` as `moe_tiles`): the replica's loss
+adds every tile's weighted balance and z-losses to its tiles' token
+losses. (`parallel.expert.
 ExpertParallelEngine` routes whole rows over a (dp, sp, ep) grid.)
-Comm overlap raises `NotPorted`.
+
+With `overlap` (`parallel.overlap.OverlapConfig`) the reduction moves
+into the backward, bucket by bucket (`parallel.overlap.BucketReducer`):
+replica r >= 1's last microbatch runs its backward with hooks that add
+each bucket's gradients, its earlier microbatches' sum folded in, into
+the accumulator (dense, ZeRO-1) or every cell's slices of it (ZeRO-2,
+`zero.scatter_add` per leaf) as soon as the bucket's last leaf is
+final; on a GPU on a side stream, which the step joins before it reads
+the sum. Replica 0's partial is the accumulator, so its backward
+overlaps nothing. The sums are the bulk path's, in its order: overlap on
+trains bit for bit as overlap off. `_bucket_sigs` are the reference's:
+one per bucket (in the reference's flatten order), under ZeRO-2 one per
+leaf.
 """
 
 from __future__ import annotations
@@ -62,25 +75,24 @@ from functools import partial
 import numpy as np
 import torch
 
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.ops.attention import (attention, ring_attention,
                                                   ulysses_attention)
 from shallowspeed_tpu_torch.ops.dropout import fold_key
 from shallowspeed_tpu_torch.ops.flash_attention import (flash_attention,
                                                         ring_flash_attention)
+from shallowspeed_tpu_torch.parallel import overlap as OV
 from shallowspeed_tpu_torch.parallel.mesh import make_context_mesh
 from shallowspeed_tpu_torch.parallel.zero import (ZeroUpdate, reduce_scatter,
-                                                  replace_opt_state)
+                                                  replace_opt_state,
+                                                  scatter_add)
 from shallowspeed_tpu_torch.telemetry.health import (check_mode,
                                                      engine_snapshot,
                                                      note_step,
                                                      step_replicas_with_health)
 from shallowspeed_tpu_torch.weights import (leaves, map_tree,
                                             params_from_numpy, placed_copy,
-                                            unflatten)
-
-_OVERLAP = "Queue 1 item 5, comm overlap"
+                                            sorted_leaves, unflatten)
 
 SUBSTRATES = ("ring", "ring-flash", "ulysses", "ulysses-flash", "flash")
 
@@ -96,7 +108,7 @@ class ContextParallelEngine:
     `mesh` is a (dp, sp) grid of devices (default: one cell on
     `device`); `params`, when given, is a numpy tree to start from
     instead of drawing `init(cfg, seed)` again (a caller that already
-    holds the draw)."""
+    holds the draw); `overlap` an `OverlapConfig` (module docstring)."""
 
     # params and optimizer state are exposed in the checkpoint's
     # canonical (one-device) layout, as the reference's engine declares
@@ -111,8 +123,6 @@ class ContextParallelEngine:
         if zero1 and zero2:
             raise ValueError("zero2 subsumes zero1")
         check_mode(health)
-        if overlap is not None:
-            raise NotPorted("communication overlap", _OVERLAP)
         if mesh is not None and device is not None:
             raise ValueError("pass the devices through the mesh or `device`, "
                              "not both")
@@ -149,6 +159,17 @@ class ContextParallelEngine:
                                       for p in self._replicas[1:]]
         self.zero2 = zero2
         self._step_count = 0
+        self.overlap = overlap
+        self._plan = None
+        self._bucket_sigs = []
+        if overlap is not None:
+            rep = self._replicas[0]
+            self._plan = OV.leaf_plan(rep, overlap.bucket_bytes)
+            plan, flat = OV.plan_param_buckets(rep, overlap.bucket_bytes)
+            self._bucket_sigs = (
+                [OV.bucket_signature([x]) for x in sorted_leaves(rep)]
+                if zero2 else
+                [OV.bucket_signature([flat[i] for i in b]) for b in plan])
 
     def _check_substrate(self, cfg, attn) -> None:
         """The reference engine's refusals, with its messages."""
@@ -252,14 +273,6 @@ class ContextParallelEngine:
                                        (replica + 1) * self.sp))
         return keys[0] if self.sp == 1 else keys
 
-    def _tiled(self, params):
-        """`params` with each MoE layer routing per sp tile (at sp > 1)."""
-        if self.sp == 1 or self.cfg.n_experts == 0:
-            return params
-        return {**params, "blocks": [{**b, "moe": {**b["moe"],
-                                                    "tiles": self.sp}}
-                                     for b in params["blocks"]]}
-
     def _loss(self, r, params, tok, tgt, key=None, train=True):
         """Replica r's loss on (tok, tgt): the sum of its sp tiles'
         losses, in tile order (`transformer.loss` itself at sp 1); a
@@ -269,8 +282,8 @@ class ContextParallelEngine:
         if self.sp == 1:
             return T.loss(params, tok, tgt, cfg, attn_fn=fn,
                           dropout_key=key, train=train)
-        hid, (aux, z) = T.forward_with_aux(self._tiled(params), tok, cfg, fn,
-                                           key, head=False)
+        hid, (aux, z) = T.forward_with_aux(params, tok, cfg, fn, key,
+                                           head=False, moe_tiles=self.sp)
         head = "tok_emb" if cfg.tie_embeddings else "head"
         hp = T.cast_params({head: params[head]}, cfg.compute_dtype)
         total = None
@@ -285,10 +298,13 @@ class ContextParallelEngine:
                 total = total + cfg.moe_z_weight * z
         return total
 
-    def _replica_grads(self, r, tok, tgt):
+    def _replica_grads(self, r, tok, tgt, add=None):
         """(loss sum, f32 gradient partial in `leaves()` order) of replica
         r's rows: `accum` microbatches, each its own forward and
-        backward."""
+        backward. With `add` (the overlapped reduction's per-leaf add
+        into the sum) the last microbatch's backward issues its buckets
+        through it, its earlier microbatches' sum folded in, and the
+        partial comes back None."""
         params = self._replicas[r]
         flat = list(leaves(params))
         loss_sum, gsum = None, None
@@ -297,6 +313,13 @@ class ContextParallelEngine:
             with torch.enable_grad():
                 loss = self._loss(r, params, tok_mu, tgt_mu,
                                   self.dropout_key(mu, r))
+                if add is not None and mu == self.accum - 1:
+                    OV.BucketReducer(self._plan, add, self.cells[r],
+                                     earlier=gsum).backward(
+                        loss, dict(enumerate(flat)))
+                    loss = loss.detach()
+                    return (loss if loss_sum is None else loss_sum + loss,
+                            None)
                 # unused leaves (pos_emb under rope, norm biases under
                 # rmsnorm) get zero gradients, as jax.grad gives them
                 grads = torch.autograd.grad(loss, flat, allow_unused=True,
@@ -325,9 +348,14 @@ class ContextParallelEngine:
                 f"dim, not rows)")
         total, acc = None, None
         for r, (tok, tgt) in enumerate(rows):
-            loss, part = self._replica_grads(r, tok, tgt)
+            add = (None if r == 0 or self._plan is None
+                   else self._adder(acc))
+            loss, part = (self._replica_grads(r, tok, tgt) if add is None
+                          else self._replica_grads(r, tok, tgt, add=add))
             loss = loss.to(self.device)
             total = loss if total is None else total + loss
+            if add is not None:
+                continue
             if self.zero2:
                 acc = reduce_scatter(acc, part, self._zero.dims, self.cells)
             elif acc is None:
@@ -336,6 +364,10 @@ class ContextParallelEngine:
                 for a, g in zip(acc, part):
                     a.add_(g.to(a.device))
             del part
+        if self._plan is not None:
+            for d in set(self.cells[1:]):
+                for into in set(self.cells):
+                    OV.join(d, into)
         n = self.dp * self.sp * self.accum
         if n > 1:
             total = total / n
@@ -343,6 +375,18 @@ class ContextParallelEngine:
                       [g for cell in acc for g in cell]):
                 g.mul_(1.0 / n)
         return total, acc
+
+    def _adder(self, acc):
+        """The overlapped reduction's per-leaf add of a replica's final
+        gradient into `acc`: the dense sum's leaf, or every cell's slice
+        of it under ZeRO-2."""
+        def add(i, g):
+            if self.zero2:
+                scatter_add(acc, i, g, self._zero.dims[i], self.cells)
+            else:
+                acc[i].add_(g.to(acc[i].device))
+
+        return add
 
     def loss_and_grads(self, tokens, targets):
         """(loss, gradient tree) of one (B, T) batch at the current
@@ -409,8 +453,9 @@ class ContextParallelEngine:
             raise ValueError(f"token batch {tuple(tok.shape)} does not "
                              f"split over (dp={self.dp}, sp={self.sp})")
         return torch.cat([
-            T.forward(self._tiled(_on(self.params, d)), x.to(d), self.cfg,
-                      attn_fn=self._attn_fns[r]).to(self.device)
+            T.forward(_on(self.params, d), x.to(d), self.cfg,
+                      attn_fn=self._attn_fns[r],
+                      moe_tiles=self.sp).to(self.device)
             for r, (x, d) in enumerate(zip(tok.chunk(self.dp), self.cells))])
 
     # -------------------------------------------- checkpoint interface

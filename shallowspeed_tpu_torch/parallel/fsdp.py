@@ -12,15 +12,26 @@ no whole copy lives between steps. The gradients are reduce-scattered:
 each cell's piece is the sum of every replica's gradient of that piece,
 in rank order. All of it is `parallel.gspmd`'s placement machinery
 under this spec tree. ZeRO-1/2 are refused (ZeRO-3 subsumes them) as
-the reference refuses them; the reference's overlapped shard_map step
-(`overlap=`) raises `NotPorted`.
+the reference refuses them.
+
+With `overlap` (`parallel.overlap.OverlapConfig`), the reference's
+overlapped step: replica r >= 1's backward reduces inside itself — each
+dp-sharded leaf's gradient reduce-scattered onto its owner cells from a
+hook the moment it is final, the replicated leaves (biases dp cannot
+divide) in buckets of the reference's plan — and each block's just-in-
+time gather is issued one block ahead, while the current block
+computes (`GSPMDEngine._forward`); on a GPU both on the side stream.
+The sums are the bulk step's, in its order: bit for bit the same
+training. Adafactor is refused with the reference's message.
 """
 
 from __future__ import annotations
 
 from shallowspeed_tpu_torch.models import transformer as T
+from shallowspeed_tpu_torch.optim import Adafactor
+from shallowspeed_tpu_torch.parallel import overlap as OV
 from shallowspeed_tpu_torch.parallel.gspmd import GSPMDEngine, P
-from shallowspeed_tpu_torch.weights import map_tree
+from shallowspeed_tpu_torch.weights import leaves, map_tree, sorted_leaves
 
 
 def add_dp(spec: P, shape: tuple, dp: int) -> P:
@@ -49,6 +60,7 @@ class FSDPEngine(GSPMDEngine):
     a ("dp",) grid (`parallel.mesh.make_fsdp_mesh`)."""
 
     default_axes = ("dp",)
+    supports_overlap = True
 
     def __init__(self, cfg: T.TransformerConfig, optimizer, seed: int = 0,
                  device=None, *, mesh=None, zero1: bool = False,
@@ -60,6 +72,38 @@ class FSDPEngine(GSPMDEngine):
                 "superset of ZeRO-1/2); drop zero1/zero2")
         super().__init__(cfg, optimizer, seed, device, mesh=mesh,
                          health=health, overlap=overlap, params=params)
+        if overlap is not None:
+            self._plan_overlap(optimizer, overlap)
+
+    def _plan_overlap(self, optimizer, ov) -> None:
+        """The overlapped step's buckets, the reference's: the replicated
+        leaves in size-targeted buckets in backward-finalization order,
+        then one bucket a dp-sharded leaf (its pieces, each onto its
+        owner cell); `_bucket_sigs` as the reference's."""
+        if isinstance(optimizer, Adafactor):
+            raise ValueError(
+                "--overlap fsdp runs the optimizer update on local "
+                "shards; Adafactor's factored second moments reduce "
+                "over whole matrix dims and need the GSPMD update — "
+                "drop --overlap or pick an elementwise optimizer")
+        if self._coupled():
+            raise ValueError(
+                "FSDPEngine(overlap=...) reduces each replica's gradient "
+                "inside its own backward; a MoE config at dp > 1 couples "
+                "the replicas' backwards (the global balance loss) — "
+                "drop overlap")
+        meta = list(leaves(self._template))
+        order = list(sorted_leaves(self._index))      # flatten order
+        repl = [i for i in order if not self._pspecs[i].axes()][::-1]
+        raw = OV.plan_buckets([meta[i] for i in repl], ov.bucket_bytes)
+        plan_repl = [[repl[j] for j in b] for b in raw]
+        sharded = [i for i in order if self._pspecs[i].axes()]
+        self._plan = ([[(i, ()) for i in b] for b in plan_repl]
+                      + [[(i, (("dp", j),)) for j in range(self.dp)]
+                         for i in sharded])
+        self._bucket_sigs = (
+            [OV.bucket_signature([meta[i] for i in b]) for b in plan_repl]
+            + [OV.bucket_signature([meta[i]]) for i in sharded])
 
     def validate(self, cfg: T.TransformerConfig, mesh) -> None:
         if mesh.axis_names != ("dp",):

@@ -55,7 +55,17 @@ only in their grid's axes, their spec tree and their config checks;
 `_canonical`: blocks stacked) and its schedules' `_reduced`.
 The attention is the plain one (`ops.attention.attention`), as the
 reference's GSPMD engines run XLA attention: no K1-K3 launch on this
-family's path. Comm overlap raises `NotPorted`.
+family's path.
+
+Comm overlap (`overlap=`) is refused with the reference's `ValueError`
+(`supports_overlap = False`): the reference's GSPMD programs have only
+compiler-inserted collectives. `fsdp.FSDPEngine` sets it True and takes
+the overlapped step here: replica r >= 1's backward adds each bucket
+into the sums from a hook (`parallel.overlap.BucketReducer`; each
+dp-sharded leaf's pieces reduce-scattered onto their owner cells, the
+replicated leaves in size-targeted buckets), and each block's just-in-
+time gather for the next block is issued ahead, on the side stream on a
+GPU, while the current block computes.
 """
 
 from __future__ import annotations
@@ -66,13 +76,13 @@ from functools import partial
 import numpy as np
 import torch
 
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.ops import moe as M
 from shallowspeed_tpu_torch.ops.attention import allgather_attention, attention
 from shallowspeed_tpu_torch.ops.dropout import dropout as _dropout
 from shallowspeed_tpu_torch.ops.dropout import fold_key
 from shallowspeed_tpu_torch.optim import Adafactor
+from shallowspeed_tpu_torch.parallel import overlap as OV
 from shallowspeed_tpu_torch.parallel.mesh import Grid, make_grid
 from shallowspeed_tpu_torch.parallel.zero import Slices, zero2_grad_dim
 from shallowspeed_tpu_torch.telemetry.health import (check_mode,
@@ -80,8 +90,6 @@ from shallowspeed_tpu_torch.telemetry.health import (check_mode,
                                                      grad_health, note_step,
                                                      snapshot, update_health)
 from shallowspeed_tpu_torch.weights import leaves, map_tree, unflatten
-
-_OVERLAP = "Queue 1 item 5, comm overlap"
 
 
 # ------------------------------------------------------------- placement
@@ -263,6 +271,11 @@ class GSPMDEngine:
     # its optimizer state interchanges with every engine's as it is
     canonical_opt_identity = True
 
+    # the reference's GSPMD programs have only compiler-inserted
+    # collectives, which cannot be bucketed; the FSDP subclass, whose
+    # reference builds an explicit overlapped step, sets this True
+    supports_overlap = False
+
     def __init__(self, cfg: T.TransformerConfig, optimizer, seed: int = 0,
                  device=None, *, mesh: Grid | None = None,
                  zero1: bool = False, zero2: bool = False,
@@ -270,8 +283,13 @@ class GSPMDEngine:
         if zero1 and zero2:
             raise ValueError("zero2 subsumes zero1")
         check_mode(health)
-        if overlap is not None:
-            raise NotPorted("communication overlap", _OVERLAP)
+        if overlap is not None and not self.supports_overlap:
+            raise ValueError(
+                f"{type(self).__name__} is GSPMD-partitioned — its "
+                f"collectives are compiler-inserted and cannot be "
+                f"bucketed explicitly; --overlap supports the fsdp, "
+                f"context (dense/zero1/zero2), fused-dp, and spmd "
+                f"pipeline engines")
         if mesh is not None and device is not None:
             raise ValueError("pass the devices through the mesh or `device`, "
                              "not both")
@@ -299,6 +317,9 @@ class GSPMDEngine:
         self.device = self._dev[self.coords[0]]
         self.zero = zero1 or zero2
         self._step_count = 0
+        self.overlap = overlap
+        self._plan = None           # the overlapped step's buckets
+        self._bucket_sigs = []
 
         self._template = self._layout(T.param_shapes(cfg))
         self._index = unflatten(self._template,
@@ -539,12 +560,40 @@ class GSPMDEngine:
         return out
 
     def _run_block(self, src, x, cfg, pos, attn_fn, key):
-        p = self._materialize(src)
+        return self._block_on(self._materialize(src), x, cfg, pos, attn_fn,
+                              key)
+
+    def _block_on(self, p, x, cfg, pos, attn_fn, key):
+        """One block on its materialized tree `p`."""
         if self.tp > 1:
             from shallowspeed_tpu_torch.parallel.tensor import tp_block
 
             return tp_block(p, x, cfg, pos, attn_fn, key)
         return T._block(p, x, cfg, pos, attn_fn, key)
+
+    def _gather_ahead(self, src, device):
+        """`_materialize(src)` issued ahead of its block, on `device`'s
+        side stream on a GPU (it waits for the main stream first);
+        `_take` hands it to the main stream."""
+        stream = OV.side_stream(device)
+        if stream is None:
+            return self._materialize(src), None
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.stream(stream):
+            return self._materialize(src), stream
+
+    @staticmethod
+    def _take(ahead):
+        """The tree `_gather_ahead` issued, the main stream waiting for
+        it and each of its tensors marked as used there (the allocator
+        keeps them until the main stream is done with them)."""
+        tree, stream = ahead
+        if stream is not None:
+            main = torch.cuda.current_stream(stream.device)
+            main.wait_stream(stream)
+            for t in leaves(tree):
+                t.record_stream(main)
+        return tree
 
     def _forward(self, aliases, r: int, tok, key=None):
         """Replica r's final-norm hidden states (B/dp, T, d) and its MoE
@@ -563,14 +612,31 @@ class GSPMDEngine:
         del emb
         if key is not None:
             x = _dropout(x, cfg.dropout, fold_key(key, cfg.n_layers))
-        block = (T._remat_block(cfg, self._run_block)
-                 if cfg.remat and torch.is_grad_enabled()
+        remat = cfg.remat and torch.is_grad_enabled()
+        block = (T._remat_block(cfg, self._run_block) if remat
                  else self._run_block)
+        # the overlapped FSDP step gathers block i + 1 while block i
+        # computes (not under remat: its blocks gather inside the
+        # checkpoint, again in the backward)
+        ahead = None
+        if self._fsdp and self.overlap is not None and not remat:
+            ahead = self._gather_ahead(self._block_src(aliases, r, 0),
+                                       self.home(r))
         moe = []
         for i in range(cfg.n_layers):
             k = None if key is None else fold_key(key, i)
-            x, (aux, z, st) = block(self._block_src(aliases, r, i), x, cfg,
-                                    pos, self._attn_fns[r], k)
+            if ahead is None:
+                x, (aux, z, st) = block(self._block_src(aliases, r, i), x,
+                                        cfg, pos, self._attn_fns[r], k)
+            else:
+                p = self._take(ahead)
+                ahead = (self._gather_ahead(self._block_src(aliases, r,
+                                                            i + 1),
+                                            self.home(r))
+                         if i + 1 < cfg.n_layers else None)
+                x, (aux, z, st) = self._block_on(p, x, cfg, pos,
+                                                 self._attn_fns[r], k)
+                del p
             if st is not None:
                 moe.append((aux, z, st))
         ln = self._materialize(self._top_src(aliases, r, ("ln_f",)))
@@ -713,9 +779,17 @@ class GSPMDEngine:
                 with torch.enable_grad():
                     loss = self._objective([self._replica_terms(
                         aliases, r, tok, tgt, True, self.dropout_key(r))])
-                reduce(list(aliases), grads_of(loss, aliases))
+                if r and self._plan is not None:
+                    self._reduce_in_backward(r, loss, aliases, red)
+                else:
+                    reduce(list(aliases), grads_of(loss, aliases))
                 losses.append(loss.detach().to(self.device))
                 del loss, aliases
+            if self._plan is not None:
+                cells = {self._dev[c] for c in self.coords}
+                for d in {self.home(r) for r in range(1, self.dp)}:
+                    for into in cells:
+                        OV.join(d, into)
         total = losses[0]
         for x in losses[1:]:
             total = total + x
@@ -727,6 +801,21 @@ class GSPMDEngine:
                     g.mul_(1.0 / n)
         # every leaf's blocks in rank order (the keys sort row-major)
         return total, [dict(sorted(b.items())) for b in red]
+
+    def _reduce_in_backward(self, r: int, loss, aliases, red) -> None:
+        """Replica r's backward with the overlapped reduction: each bucket
+        of `_plan` ((leaf, block key) pairs) added into `red` from a hook
+        the moment its gradients are final, on r's home cell's side
+        stream on a GPU (the caller joins it)."""
+        def add(k, g):
+            i, key = k
+            mine = red[i][key]
+            mine.add_(g.to(mine.device))
+
+        tensors = {(i, key): a for (_, i, key), a in aliases.items()}
+        with torch.enable_grad():
+            OV.BucketReducer(self._plan, add, self.home(r)).backward(
+                loss, tensors)
 
     # --------------------------------------------------------- update
 

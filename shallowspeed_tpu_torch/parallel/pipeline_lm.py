@@ -49,7 +49,7 @@ ticks:
   means; the objective divides by n_mu sp, the reference's mean of
   equal tiles), its own dropout keys, and under MoE its own routing:
   each T/sp tile routes as its own sequence with its own capacity
-  (`ops.moe.moe_ffn`'s `tiles`).
+  (the tile count passed down to `ops.moe.moe_ffn` as `moe_tiles`).
 - **MoE** (n_experts > 0). Expert leaves stack with the blocks. Every
   stage adds its blocks' weighted balance and z-losses to the
   objective, in every schedule, so every stage's backward is seeded
@@ -483,8 +483,6 @@ class PipelineLMEngine(GSPMDEngine):
                 tree["moe"] = {"gate": tree["moe"]["gate"], "experts": [
                     {k: alias(im[k], c, j) for k in ("wi", "bi", "wo", "bo")}
                     for c in range(self.ep)]}
-            if "moe" in tree and self.sp > 1:
-                tree["moe"] = {**tree["moe"], "tiles": self.sp}
             return tree
 
         st.layers = [layer(j) for j in range(self.l_local)]
@@ -498,7 +496,7 @@ class PipelineLMEngine(GSPMDEngine):
         """The stage's compute leaves, each once."""
         seen, out = set(), []
         for x in leaves({"l": st.layers, "t": st.top}):
-            if isinstance(x, torch.Tensor) and id(x) not in seen:
+            if id(x) not in seen:
                 seen.add(id(x))
                 out.append(x)
         return out
@@ -585,11 +583,14 @@ class PipelineLMEngine(GSPMDEngine):
         pos = torch.arange(x.shape[1], device=x.device)
         attn = [st.attn_fn] * self.tp if self.tp > 1 else st.attn_fn
         block = self._block_fn()
+        # a MoE layer routes each sp tile as its own sequence
+        tiles = ({"moe_tiles": self.sp}
+                 if self.sp > 1 and cfg.n_experts > 0 else {})
         obj = None
         for j in range(self.l_chunk):
             k = None if k_stage is None else fold_key(k_stage, j)
             x, (aux, z, stats) = block(st.layers[v * self.l_chunk + j], x,
-                                       cfg, pos, attn, k)
+                                       cfg, pos, attn, k, **tiles)
             if stats is not None:
                 w = cfg.moe_aux_weight * aux + cfg.moe_z_weight * z
                 obj = w if obj is None else obj + w

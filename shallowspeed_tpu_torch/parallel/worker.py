@@ -35,7 +35,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from shallowspeed_tpu_torch.engine import check_planes, reduce_replicas
+from shallowspeed_tpu_torch.engine import reduce_replicas
 from shallowspeed_tpu_torch.models.mlp import MLPStage, accumulate_grads
 from shallowspeed_tpu_torch.parallel.instructions import (
     BackwardGradAcc,
@@ -50,7 +50,7 @@ from shallowspeed_tpu_torch.parallel.instructions import (
     SendInputGrad,
     ZeroGrad,
 )
-from shallowspeed_tpu_torch.telemetry.health import (fetch_pack,
+from shallowspeed_tpu_torch.telemetry.health import (check_mode, fetch_pack,
                                                      grad_health,
                                                      merge_packs, param_l2,
                                                      snapshot,
@@ -152,7 +152,7 @@ class PipelineExecutor:
 
     def __init__(self, mesh, stages: Sequence[MLPStage], optimizer,
                  health: str = "off"):
-        check_planes(health, None)
+        check_mode(health)
         self.health = health
         self.health_skipped = 0     # batches skipped under "guard"
         self._guard_ok: bool | None = None

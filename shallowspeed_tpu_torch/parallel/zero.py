@@ -16,7 +16,8 @@ explicit:
 - `reduce_scatter`: each replica's gradient partial, as it comes, added
   into every cell's slice in rank order — the order of the dense
   engine's all-reduce, so a slice equals the dense sum's slice bit for
-  bit;
+  bit (`scatter_add` one leaf of it, as an overlapped backward's hook
+  issues it);
 - `ZeroUpdate`: the sharded update with the health modes of
   `make_zero1_update`. The gradient's clipping norm and health pack are
   the whole tree's, each leaf's slices summed in rank order. An
@@ -154,10 +155,18 @@ def reduce_scatter(acc, partial_leaves, dims, cells) -> list:
     if acc is None:
         return [[_owned(cut(g, dp, c, d), cells[c])
                  for g, d in zip(partial_leaves, dims)] for c in range(dp)]
-    for c in range(dp):
-        for mine, g, d in zip(acc[c], partial_leaves, dims):
-            mine.add_(cut(g, dp, c, d).to(cells[c]))
+    for i, (g, d) in enumerate(zip(partial_leaves, dims)):
+        scatter_add(acc, i, g, d, cells)
     return acc
+
+
+def scatter_add(acc, i: int, g, dim, cells) -> None:
+    """Add one replica's gradient `g` of leaf i into every cell's slice
+    of it in `acc` (`reduce_scatter`'s per-leaf step; the overlapped
+    reduction issues it from a backward hook)."""
+    dp = len(cells)
+    for c in range(dp):
+        acc[c][i].add_(cut(g, dp, c, dim).to(cells[c]))
 
 
 class ZeroUpdate:

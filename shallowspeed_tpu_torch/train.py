@@ -38,9 +38,15 @@ fp8-e4m3 trainer (`fp8.Fp8TrainEngine`, `train_fp8`): step lines every
 `--log-every` steps with the numerics fields, shadow parity every
 `--shadow-every` steps, the guard's bf16 fallback.
 
-The root driver's other flags (the overlapped reduction, the
-telemetry, chaos and profiling planes) are recognised and refused with
-`NotPorted`; `--platform` and `--host-devices` give way to `--device`.
+`--overlap on [--bucket-mb MB]` (`parallel.overlap`): the fused
+engine reduces each bucket between the last microbatch's layer VJPs,
+the SPMD engine double-buffers its hops and reduces the last backward
+tick's buckets in its layer loop; the instruction VM refuses it with
+the root driver's message. Bit for bit the bulk reduction's training.
+
+The root driver's other flags (the telemetry, chaos and profiling
+planes) are recognised and refused with `NotPorted`; `--platform` and
+`--host-devices` give way to `--device`.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from shallowspeed_tpu_torch.metrics import MetricsLogger, StepRates
 from shallowspeed_tpu_torch.models.mlp import MLPStage
 from shallowspeed_tpu_torch.optim import OPTIMIZERS
 from shallowspeed_tpu_torch.parallel.mesh import make_mesh
+from shallowspeed_tpu_torch.parallel.overlap import from_flags
 from shallowspeed_tpu_torch.parallel.schedules import (GPipeSchedule,
                                                        InferenceSchedule,
                                                        NaiveParallelSchedule,
@@ -83,14 +90,12 @@ LR = 0.006
 SCHEDULES = {"naive": NaiveParallelSchedule, "gpipe": GPipeSchedule,
              "pipedream": PipeDreamSchedule}
 
-_MESH = "Queue 1 item 5, multi-device engines and comm overlap"
 _PLANES = "Queue 1 item 6, planes"
 _DEVICE = "--device replaces it: every cell of the dp x pp grid runs there"
 
 # the root driver's flags this driver does not have, and where each
 # comes from
 UNPORTED = {
-    "--bucket-mb": _MESH,
     **dict.fromkeys(
         ["--telemetry", "--trace-dir", "--chaos",
          "--chaos-state", "--chaos-seed", "--profile-dir", "--profile",
@@ -131,7 +136,16 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--grad-clip", type=float, default=0.0,
                    help="global-norm gradient clipping (0 = off)")
     p.add_argument("--overlap", default="off", choices=["off", "on"],
-                   help="the bulk reduction (off) only; on is not ported")
+                   help="comm/compute interleaving (parallel.overlap): "
+                        "bucketed dp gradient reduction issued inside the "
+                        "backward (fused engine) and double-buffered "
+                        "stage hops + the peeled bucketed reduction (spmd "
+                        "engine); the default bulk reduction is the "
+                        "oracle")
+    p.add_argument("--bucket-mb", type=float, default=4.0,
+                   help="with --overlap on: target bytes per reduction "
+                        "bucket (MiB); smaller = more, earlier "
+                        "reductions")
     p.add_argument("--weight-decay", type=float, default=0.01,
                    help="decoupled weight decay (adamw only)")
     p.add_argument("--data-dir", type=str, default="data/mnist_784",
@@ -177,8 +191,6 @@ def build(args, device):
     dp, pp = args.dp, args.pp
     assert dp >= 1 and pp >= 1
     assert args.batch_size % dp == 0, "Batch size must be divisible by DP"
-    if args.overlap != "off":
-        raise NotPorted("train --overlap on", _MESH)
 
     mesh = make_mesh(dp, pp, device)
     optimizer = _optimizer(args)
@@ -204,14 +216,22 @@ def build(args, device):
     if kind == "spmd" and args.schedule != "gpipe":
         raise SystemExit("--engine spmd implements the gpipe schedule; use "
                          "--schedule gpipe (or --engine vm)")
+    ov = from_flags(args.overlap, args.bucket_mb)
     if kind == "fused":
         stage = MLPStage(LAYER_SIZES, 0, 1, batch_size=args.batch_size)
-        engine = FusedDPEngine(stage, optimizer, mesh, health=args.health)
+        engine = FusedDPEngine(stage, optimizer, mesh, health=args.health,
+                               overlap=ov)
     elif kind == "spmd":
         engine = SPMDPipelineEngine(LAYER_SIZES, optimizer, mesh,
                                     args.mubatches, mubatch_size,
-                                    args.batch_size, health=args.health)
+                                    args.batch_size, health=args.health,
+                                    overlap=ov)
     else:
+        if ov is not None:
+            raise SystemExit(
+                "--overlap on needs a compiled engine (fused or spmd); "
+                "the instruction VM already issues its collectives "
+                "per-instruction")
         stages = [MLPStage(LAYER_SIZES, s, pp, batch_size=args.batch_size)
                   for s in range(pp)]
         engine = PipelineExecutor(mesh, stages, optimizer,

@@ -91,9 +91,16 @@ driver's checks; `--generate` then decodes through the pipelined decode
 (also at V > 1; except under --tp, --sp, --ep, --fsdp or --kv-int8, as
 the root driver routes it).
 
-The root driver's other flags (comm overlap, the telemetry planes) are
-recognised and refused with `NotPorted`; `--platform` and
-`--host-devices` give way to `--device`.
+`--overlap on [--bucket-mb MB]` moves the dp gradient reduction into
+the backward, bucket by bucket (`parallel.overlap`), in the context
+engine (any --zero level, --accum) and pure --fsdp (which also gathers
+each block one block ahead); the other layouts refuse it with the root
+driver's message. On the CPU the hooks add in hook order, on a GPU on a
+side stream; either way the step equals overlap off bit for bit.
+
+The root driver's other flags (the telemetry planes) are recognised and
+refused with `NotPorted`; `--platform` and `--host-devices` give way to
+`--device`.
 """
 
 from __future__ import annotations
@@ -128,20 +135,19 @@ from shallowspeed_tpu_torch.parallel.mesh import (make_3d_mesh,
                                                   make_fsdp_mesh,
                                                   make_pipeline_mesh,
                                                   make_tp_mesh)
+from shallowspeed_tpu_torch.parallel.overlap import from_flags
 from shallowspeed_tpu_torch.parallel.pipeline_lm import PipelineLMEngine
 from shallowspeed_tpu_torch.parallel.tensor import TensorParallelEngine
 from shallowspeed_tpu_torch.telemetry.anomaly import GuardPolicy
 from shallowspeed_tpu_torch.telemetry.health import HealthMonitor
 from shallowspeed_tpu_torch.weights import map_tree
 
-_OVERLAP = "Queue 1 item 5, comm overlap"
 _PLANES = "Queue 1, planes"
 _DEVICE = "--device replaces it: every cell of the grid runs there"
 
 # the root driver's flags this driver does not have yet, and where each
 # comes from
 UNPORTED = {
-    **dict.fromkeys(["--overlap", "--bucket-mb"], _OVERLAP),
     **dict.fromkeys(["--platform", "--host-devices"], _DEVICE),
     **dict.fromkeys(
         ["--heartbeat-file", "--profile-dir", "--telemetry",
@@ -236,6 +242,18 @@ def parse_args(argv=None):
     p.add_argument("--zero2", action="store_true",
                    help="ZeRO-2: ZeRO-1 plus dp-sharded gradients (a "
                         "reduce-scatter; 1/dp of the gradient each)")
+    p.add_argument("--overlap", default="off", choices=["off", "on"],
+                   help="comm/compute interleaving (parallel.overlap): "
+                        "the dp gradient reduction moves into the "
+                        "backward, one size-targeted bucket at a time "
+                        "(with --accum the last microbatch's backward "
+                        "folds the earlier ones in); --fsdp also gathers "
+                        "each block one block ahead. Context engine (any "
+                        "--zero level) and pure --fsdp; bit for bit the "
+                        "bulk reduction's step")
+    p.add_argument("--bucket-mb", type=float, default=4.0,
+                   help="with --overlap on: target bytes per reduction "
+                        "bucket (MiB)")
     p.add_argument("--attn", default=None,
                    choices=["flash", "ring", "ring-flash", "ulysses",
                             "ulysses-flash"],
@@ -485,6 +503,14 @@ def _check_mesh(args) -> None:
                          "already subsumes --zero1/--zero2; MoE uses --ep)")
     if args.zero1 and args.zero2:
         raise SystemExit("--zero2 subsumes --zero1; pick one")
+    if args.overlap != "off" and (
+            args.pp > 1 or args.tp > 1 or args.ep > 1 or args.experts
+            or (args.fsdp and (args.sp > 1 or args.tp > 1))):
+        raise SystemExit(
+            "--overlap on supports the context engine (--dp/--sp, any "
+            "--zero level, --accum) and pure --fsdp; the GSPMD tp/ep/"
+            "composite engines schedule compiler-inserted collectives "
+            "and the LM pipeline keeps its own hop schedule")
     if ((args.fsdp or args.tp > 1) and args.pp <= 1
             and args.attn != "ring"):
         raise SystemExit(f"--attn {args.attn} is not available with "
@@ -744,7 +770,9 @@ def train(args) -> float:
             fsdp=args.fsdp, **gspmd)
     elif args.fsdp:
         engine = FSDPEngine(cfg, opt, args.seed,
-                            mesh=make_fsdp_mesh(args.dp, device), **gspmd)
+                            mesh=make_fsdp_mesh(args.dp, device),
+                            overlap=from_flags(args.overlap, args.bucket_mb),
+                            **gspmd)
     elif args.ep > 1 or args.experts:
         engine = ExpertParallelEngine(
             cfg, opt, args.seed, mesh=make_ep_mesh(args.dp, args.ep, args.sp,
@@ -758,7 +786,8 @@ def train(args) -> float:
             cfg, opt, seed=args.seed, attn=args.attn,
             mesh=make_context_mesh(args.dp, args.sp, device),
             accum=args.accum, zero1=args.zero1, zero2=args.zero2,
-            health=args.health, params=zeros)
+            health=args.health, params=zeros,
+            overlap=from_flags(args.overlap, args.bucket_mb))
     start_step, restored, restore_stats, quarantined = _restore(args,
                                                                 engine)
     if restoring and restored is None:       # --auto-resume, fresh start

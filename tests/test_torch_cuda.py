@@ -1345,3 +1345,117 @@ def test_pipeline_bf16_on_the_tensor_cores(cuda, schedule):
         eng.generate(prompt, 12, temperature=0.0),
         generate(eng.get_canonical_params(), prompt, cfg, 12,
                  temperature=0.0))
+
+
+# ----------------------------------------------------------- comm overlap
+
+
+def _overlap_pair(kind, dev):
+    """(overlap off, overlap on) engines of one kind on `dev`, at a small
+    size, and a step function step(engine, i) -> loss."""
+    from shallowspeed_tpu_torch import optim as O
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.parallel.overlap import OverlapConfig
+
+    ov = OverlapConfig(bucket_mb=0.25, double_buffer_hops=kind != "spmd-1")
+    rng = np.random.default_rng(6)
+    if kind in ("fused", "spmd-1", "spmd-2"):
+        from shallowspeed_tpu_torch.engine import FusedDPEngine
+        from shallowspeed_tpu_torch.models.mlp import MLPStage
+        from shallowspeed_tpu_torch.parallel.mesh import make_mesh
+        from shallowspeed_tpu_torch.parallel.spmd_pipeline import (
+            SPMDPipelineEngine)
+
+        sizes, gbs, n_mu = [784, 128, 127, 126, 125, 124, 123, 10], 64, 4
+        if kind == "fused":
+            def build(o):
+                return FusedDPEngine(MLPStage(sizes, 0, 1, batch_size=gbs),
+                                     O.SGD(0.05), make_mesh(2, 1, dev),
+                                     overlap=o)
+        else:
+            def build(o):
+                return SPMDPipelineEngine(sizes, O.SGD(0.05),
+                                          make_mesh(2, 2, dev), n_mu,
+                                          gbs // 2 // n_mu, gbs, overlap=o)
+        xs = rng.standard_normal((3, 2, n_mu, gbs // 2 // n_mu, 784),
+                                 dtype=np.float32)
+        ys = np.eye(10, dtype=np.float32)[
+            rng.integers(0, 10, (3, 2, n_mu, gbs // 2 // n_mu))]
+
+        def step(e, i):
+            x = torch.from_numpy(xs[i]).to(dev)
+            if kind != "fused":
+                x = torch.nn.functional.pad(x, (0, e.wmax - 784))
+            y = torch.from_numpy(ys[i]).to(dev)
+            if kind == "fused":
+                e._step(list(x), list(y))
+            else:
+                e._step(x, y)
+            return 0.0
+        return build(None), build(ov), step
+    cfg = T.TransformerConfig(vocab=128, d_model=256, n_heads=2,
+                              n_layers=2, max_seq=256, rope=True,
+                              norm="rmsnorm", ffn="swiglu",
+                              compute_dtype=torch.bfloat16)
+    opt = O.AdamW(1e-3, weight_decay=0.01, grad_clip=1.0)
+    if kind == "fsdp":
+        from shallowspeed_tpu_torch.parallel.fsdp import FSDPEngine
+        from shallowspeed_tpu_torch.parallel.mesh import make_fsdp_mesh
+
+        def build(o):
+            return FSDPEngine(cfg, opt, 4, mesh=make_fsdp_mesh(4, dev),
+                              overlap=o)
+    else:
+        from shallowspeed_tpu_torch.parallel.context import (
+            ContextParallelEngine)
+        from shallowspeed_tpu_torch.parallel.mesh import make_context_mesh
+
+        dp, sp, attn, kw = {"context": (2, 1, "flash", {"accum": 2}),
+                            "context-zero2": (2, 2, "ring-flash",
+                                              {"zero2": True, "accum": 2})
+                            }[kind]
+
+        def build(o):
+            return ContextParallelEngine(
+                cfg, opt, seed=4, attn=attn,
+                mesh=make_context_mesh(dp, sp, dev), overlap=o, **kw)
+    toks = rng.integers(0, cfg.vocab, (3, 4, cfg.max_seq)).astype(np.int32)
+
+    def step(e, i):
+        return e.train_batch(toks[i], np.roll(toks[i], -1, axis=1))
+    return build(None), build(ov), step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["context", "context-zero2", "fsdp",
+                                  "fused", "spmd-1", "spmd-2"])
+def test_overlap_on_equals_off_on_the_card(cuda, kind):
+    """Each overlapped engine on the card at a small size (bf16 LM: K1-K3
+    on their tensor-core builds; the MLP in f32) against the same engine
+    with overlap off, three steps: losses, parameters and optimizer
+    state bit for bit, the same K1-K3 launches, and buckets issued on
+    the side stream."""
+    from shallowspeed_tpu_torch.parallel.overlap import BucketReducer
+
+    off, on, step = _overlap_pair(kind, cuda)
+    counts = []
+    for e in (off, on):
+        for name in _K123:
+            getattr(FA, name).launches = 0
+        before = BucketReducer.side_buckets
+        losses = [step(e, i) for i in range(3)]
+        torch.cuda.synchronize()
+        counts.append((losses, BucketReducer.side_buckets - before, [
+            getattr(FA, n).launches for n in (
+                "_flash_fwd_tc", "_flash_fwd_tc_f32o", "_flash_dq_tc",
+                "_flash_dkv_tc")]))
+    (l_off, side_off, k_off), (l_on, side_on, k_on) = counts
+    assert l_on == l_off and k_on == k_off
+    assert side_off == 0 and side_on >= 3
+    if kind.startswith("context"):
+        assert all(np.isfinite(l_on)) and sum(k_on) > 0
+    for a, b in zip(_leaves(off.params), _leaves(on.params)):
+        assert torch.equal(a, b)
+    for a, b in zip(_leaves(off.opt_state), _leaves(on.opt_state)):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)

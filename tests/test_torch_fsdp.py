@@ -23,7 +23,6 @@ from torch_parity import (GSPMD_OPTS, MODEL, batch, check_loss_and_grads,
 
 from shallowspeed_tpu import checkpoint as JC
 from shallowspeed_tpu.parallel import fsdp as JF
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch import checkpoint as C
 from shallowspeed_tpu_torch import optim as O
 from shallowspeed_tpu_torch.models import transformer as T
@@ -31,6 +30,7 @@ from shallowspeed_tpu_torch.parallel import fsdp as F
 from shallowspeed_tpu_torch.parallel import gspmd as G
 from shallowspeed_tpu_torch.parallel.gspmd import P
 from shallowspeed_tpu_torch.parallel.mesh import make_fsdp_mesh, make_tp_mesh
+from shallowspeed_tpu_torch.parallel.overlap import OverlapConfig
 from shallowspeed_tpu_torch.parallel.tensor import TensorParallelEngine
 from shallowspeed_tpu_torch.weights import leaves
 
@@ -126,17 +126,17 @@ def test_gathered_copies_are_freed(monkeypatch):
 
 
 def test_refusals():
-    """ZeRO-1/2 on top of FSDP and a non-('dp',) grid, with the
-    reference's messages; the overlapped step is not ported."""
+    """ZeRO-1/2 on top of FSDP, a non-('dp',) grid, and the overlapped
+    step with Adafactor, with the reference's messages."""
     cfg = T.TransformerConfig(**MODEL)
     with pytest.raises(ValueError, match="ZeRO-3 is a superset"):
         F.FSDPEngine(cfg, O.SGD(0.1), mesh=make_fsdp_mesh(2, "cpu"),
                      zero1=True)
     with pytest.raises(ValueError, match="1-D"):
         F.FSDPEngine(cfg, O.SGD(0.1), mesh=make_tp_mesh(2, 1, "cpu"))
-    with pytest.raises(NotPorted, match="overlap"):
-        F.FSDPEngine(cfg, O.SGD(0.1), mesh=make_fsdp_mesh(2, "cpu"),
-                     overlap=object())
+    with pytest.raises(ValueError, match="Adafactor"):
+        F.FSDPEngine(cfg, O.Adafactor(0.1), mesh=make_fsdp_mesh(2, "cpu"),
+                     overlap=OverlapConfig())
 
 
 def test_port_checkpoint_restores_into_jax(tmp_path):

@@ -27,7 +27,6 @@ from torch_parity import (GSPMD_OPTS, MODEL, batch, check_loss_and_grads,
 from shallowspeed_tpu import checkpoint as JC
 from shallowspeed_tpu.models import transformer as JT
 from shallowspeed_tpu.parallel import tensor as JTP
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch import checkpoint as C
 from shallowspeed_tpu_torch import optim as O
 from shallowspeed_tpu_torch.models import transformer as T
@@ -259,7 +258,8 @@ def test_eval_loss_logits_and_health_match_jax():
                                   "overlap", "fp8"])
 def test_refusals(case):
     """The reference engine's checks, with its messages; comm overlap is
-    not ported."""
+    refused as the reference refuses it (a GSPMD program's collectives
+    are compiler-inserted)."""
     kw, mesh, extra, err = dict(MODEL), make_tp_mesh(1, 2, "cpu"), {}, \
         ValueError
     if case == "heads":
@@ -273,7 +273,7 @@ def test_refusals(case):
     elif case == "axes":
         mesh = make_grid(("dp", "sp"), (1, 2), "cpu")
     elif case == "overlap":
-        extra, err = {"overlap": object()}, NotPorted
+        extra, err = {"overlap": object()}, ValueError
     else:
         kw.update(fp8_dense=True)
     with pytest.raises(err):

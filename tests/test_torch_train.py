@@ -213,25 +213,39 @@ def test_eval_loss_drops_label_smoothing():
     assert float(got) != pytest.approx(float(T.loss(*args)), rel=1e-5)
 
 
-@pytest.mark.parametrize("kwargs", [dict(zero1=True, overlap=object()),
-                                    dict(zero2=True, overlap=object()),
-                                    dict(overlap=object()),
+@pytest.mark.parametrize("kwargs", [dict(zero1=True, overlap=True),
+                                    dict(zero2=True, overlap=True),
+                                    dict(overlap=True),
                                     dict(attn="ring-flash", experts=2)],
                          ids=["zero1", "zero2", "overlap", "ring-flash"])
 def test_unported_engine_options_raise(kwargs):
-    """What the engine still refuses: the overlapped reduction, with
-    ZeRO-1, ZeRO-2 or without. An MoE config at sp > 1 (ring-flash on a
-    (1, 2) grid), refused until each sp tile routed its own tokens, now
-    trains: its loss and gradient are the ring substrate's (held
+    """The options the engine once refused now train. The overlapped
+    reduction (`parallel.overlap`), with ZeRO-1, ZeRO-2 or without, at
+    dp 2: its loss and gradient equal overlap off's bit for bit (more
+    in `tests/test_torch_overlap_engines.py`). An MoE config at sp > 1
+    (ring-flash on a (1, 2) grid), refused until each sp tile routed its
+    own tokens: its loss and gradient are the ring substrate's (held
     against the JAX engine in `tests/test_torch_context_mesh.py`)."""
+    from shallowspeed_tpu_torch.parallel.overlap import OverlapConfig
+
     kwargs = dict(kwargs)
     experts = kwargs.pop("experts", 0)
     cfg = T.TransformerConfig(**CONFIGS["gqa-rope-rms-swiglu"],
                               n_experts=experts)
-    mesh = make_context_mesh(1, 2 if experts else 1, "cpu")
+    mesh = make_context_mesh(2 if not experts else 1, 2 if experts else 1,
+                             "cpu")
     if not experts:
-        with pytest.raises(NotPorted):
-            ContextParallelEngine(cfg, O.SGD(0.1), mesh=mesh, **kwargs)
+        tok, tgt = _batch(cfg.vocab, 12, b=4)
+        kwargs.pop("overlap")
+        on = ContextParallelEngine(
+            cfg, O.SGD(0.1), mesh=mesh,
+            overlap=OverlapConfig(bucket_mb=0.01), **kwargs)
+        off = ContextParallelEngine(cfg, O.SGD(0.1), mesh=mesh, **kwargs)
+        (l_on, g_on), (l_off, g_off) = (e.loss_and_grads(tok, tgt)
+                                        for e in (on, off))
+        assert torch.equal(l_on, l_off)
+        assert all(torch.equal(a, b) for a, b in zip(leaves(g_on),
+                                                     leaves(g_off)))
         return
     tok, tgt = _batch(cfg.vocab, 12, b=2)
     got = ContextParallelEngine(cfg, O.SGD(0.1), mesh=mesh,
@@ -396,8 +410,9 @@ def test_driver_needs_a_card_unless_the_cpu_is_named():
 @pytest.mark.parametrize("attn", ["ring-flash", "ulysses"])
 def test_driver_refuses_sequence_parallel_substrates(attn):
     """The sequence-parallel substrates run (tests/test_torch_context_
-    mesh.py); what stays refused around them is the overlapped
-    reduction."""
-    with pytest.raises(NotPorted, match="--overlap"):
+    mesh.py), with the overlapped reduction too; what stays refused
+    around them is the overlapped reduction on the composite engine
+    (--sp with --tp), with the root driver's message."""
+    with pytest.raises(SystemExit, match="--overlap on supports"):
         tdriver.main(["--device", "cpu", "--steps", "1", "--attn", attn,
-                      "--sp", "2", "--overlap", "on"])
+                      "--sp", "2", "--tp", "2", "--overlap", "on"])

@@ -8,9 +8,13 @@ batches, the small models they train, and JAX / port engine pairs —
 layout, `PipelineLMEngine` at one layout — with the three-step
 trajectory check and the loss-and-gradient check."""
 
+import sys
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from jax.sharding import Mesh
 
@@ -295,3 +299,36 @@ def pipeline_trajectory(je, te, slots, steps=3, b=4):
     for key in slots:
         assert worst(tstate[key], jstate[key]) <= tol
 
+
+# ----------------------------------------------- the reference's overlap
+
+_OVERLAP_MOD = "shallowspeed_tpu.parallel.overlap"
+_WALKER_MOD = "shallowspeed_tpu.analysis.walker"
+
+
+@pytest.fixture
+def ref_overlap(monkeypatch):
+    """The JAX package's `parallel.overlap` module, importable for one
+    test: its `analysis.walker` reads `jax.core.ClosedJaxpr`, gone in jax
+    0.9 (ROADMAP Queue 3), so a stub walker stands in (only
+    `collective_exposure` uses its three names). Every module the import
+    brings in under `shallowspeed_tpu.analysis` or as the overlap module
+    leaves `sys.modules` and its parent package's attributes after the
+    test, so no other test file sees the stub or the module."""
+    import importlib
+
+    walker = types.ModuleType(_WALKER_MOD)
+    walker._as_jaxpr = walker.aval_bytes = walker.sub_jaxprs = None
+    before = set(sys.modules)
+    monkeypatch.setitem(sys.modules, _WALKER_MOD, walker)
+    monkeypatch.delitem(sys.modules, _OVERLAP_MOD, raising=False)
+    try:
+        yield importlib.import_module(_OVERLAP_MOD)
+    finally:
+        for name in sorted(set(sys.modules) - before, reverse=True):
+            if name == _OVERLAP_MOD or name.startswith(
+                    "shallowspeed_tpu.analysis"):
+                mod = sys.modules.pop(name)
+                parent, _, leaf = name.rpartition(".")
+                if getattr(sys.modules.get(parent), leaf, None) is mod:
+                    delattr(sys.modules[parent], leaf)
