@@ -343,18 +343,50 @@ Phases (any failure exits non-zero and prints no result line):
    losses and step lines equal the one-process run's, process 1 prints
    no step line (`mp (d):`).
 
+18. The telemetry core (`shallowspeed_tpu_torch.telemetry`) on the
+   port's own entry points, the 1.21B LM at full width and TELE_LAYERS
+   = 4 of 16 layers (one seeded draw shared by the phase's runs,
+   `_cached_draw`), 4 x 2048, `--attn flash`, AdamW under ZeRO-1 at dp
+   1 (the reference's split step: "grads" and "update" inside "step").
+   (a) `train_lm` TELE_STEPS steps at `--telemetry off`, `steps`,
+   `spans` and `spans` with `--profile host` at TELE_HZ: the losses
+   bit for bit equal, K1-K3 launches equal at every level (n_layers a
+   step each); at `spans` every "step" span holds its "grads" and
+   "update" spans and lies within the driver's window of that step,
+   3 fences a step (none at the other levels), `hbm_alloc_peak_mib`
+   equal to `torch.cuda.max_memory_allocated` over the run, the owner
+   "train.params" the parameter tree's bytes exactly (telemetry.json),
+   `spans.jsonl` valid under `python -m shallowspeed_tpu_torch.telemetry
+   --validate`; the sampled run's samples by phase tag and its step p50
+   against the unsampled `spans` run's (`tele (a):`). (b) `--profile-dir`
+   over TELE_PROFILE_STEPS steps: the Chrome trace names
+   flash_fwd_tc_kernel, flash_dq_tc_kernel and flash_dkv_tc_kernel as
+   often as the launch counters counted, and no library attention kernel
+   (`tele (b):` names, counts, summed device ms). (c) `serve --profile
+   host` at TELE_SERVE_LAYERS layers, 8 slots, phase 3's 12 greedy
+   requests: streams equal the run without `--profile`, K4 n_layers x
+   ticks, the last "profile" snapshot holds samples inside the engine's
+   tick (`tele (c):`). (d) counted traffic: `PipelineLMEngine` pp 2
+   gpipe at TELE_PP_LAYERS layers, 4 microbatches of 1 x 2048, moves
+   8 x (1 x 2048 x 2048) bf16 hops a step on the pp axis; the context
+   engine at dp 2, TELE_DP_LAYERS layers, moves replica 1's f32
+   gradient partial on the dp axis; each equal to the analytic bytes
+   printed beside it (`tele (d):`).
+
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers (with `device_ms` / `library_device_ms` where the
 profiler timed them, K1-K3's `recipe_launches` from phase 10a,
 `cp_launches` from phase 12c, `pp_launches` from phase 14,
 `pp15_launches` from phase 15, `ov_launches` from phase 16's
-overlapped runs, (a) and (b), and `mp_launches` [process 0, process 1]
-from phase 17's (a) and (b)), and
+overlapped runs, (a) and (b), `mp_launches` [process 0, process 1]
+from phase 17's (a) and (b), and `tele_launches` from phase 18 (a)'s
+`spans` run), and
 `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -800,7 +832,7 @@ def serve(dev, cfg, params, kv_quant="", weight_quant="", prompts=None,
     from shallowspeed_tpu_torch.ops import matmul as MM
     from shallowspeed_tpu_torch.ops.flash_attention import (
         _paged_flash_decode_int8, paged_flash_decode)
-    from shallowspeed_tpu_torch.report import request_summary
+    from shallowspeed_tpu_torch.telemetry.report import request_summary
     from shallowspeed_tpu_torch.serving.engine import ServingEngine
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5443,6 +5475,380 @@ def _mp_driver(dev, cfg, work) -> dict:
     return res
 
 
+# Phase 18: the telemetry core. Depth is cut to TELE_LAYERS of 16 for
+# the script's time (width never); the driver runs share one draw.
+TELE_LAYERS = 4
+TELE_STEPS = 6
+TELE_PROFILE_STEPS = 2
+TELE_HZ = 100
+TELE_SERVE_LAYERS = 2
+TELE_PP_LAYERS = 4
+TELE_DP_LAYERS = 2
+# kernel-name pieces of the libraries' attention kernels (cuDNN, the
+# SDPA flash and memory-efficient kernels); none may run in phase 18 (b)
+LIBRARY_ATTENTION = ("cudnn", "fmha", "flash_attn", "pytorch_flash",
+                     "efficient_attention", "mem_eff", "sdpa")
+TELE_KERNELS = ("flash_fwd_tc_kernel", "flash_dq_tc_kernel",
+                "flash_dkv_tc_kernel")
+
+
+@contextlib.contextmanager
+def _cached_draw():
+    """`transformer.init_numpy` memoized by (config, seed) while the
+    phase's driver runs build their engines: the draw is a pure function
+    of both (the same weights), and each draw at full width takes
+    seconds."""
+    from shallowspeed_tpu_torch.models import transformer as T
+
+    real, cache = T.init_numpy, {}
+
+    def init_numpy(cfg, seed=0):
+        key = (repr(cfg), seed)
+        if key not in cache:
+            cache[key] = real(cfg, seed)
+        return cache[key]
+
+    T.init_numpy = init_numpy
+    try:
+        yield
+    finally:
+        T.init_numpy = real
+
+
+def _lm_flags(cfg, n_layers: int, dev) -> list:
+    flags = ["--vocab", str(cfg.vocab), "--d-model", str(cfg.d_model),
+             "--n-heads", str(cfg.n_heads), "--n-layers", str(n_layers),
+             "--d-ff", str(cfg.ffn_dim), "--seq-len", str(cfg.max_seq),
+             "--batch-size", str(TRAIN_BATCH), "--rope", "--norm", cfg.norm,
+             "--ffn", cfg.ffn, "--optimizer", "adamw", "--lr", "3e-4",
+             "--grad-clip", "1.0", "--attn", "flash", "--log-every", "1"]
+    if cfg.compute_dtype is not None:
+        flags.append("--bf16")
+    if dev.type == "cpu":
+        flags += ["--device", "cpu"]
+    return flags
+
+
+def _p50(xs):
+    return float(np.median(xs)) if xs else None
+
+
+def _tele_drive(dev, flags, root, tag, *extra) -> dict:
+    """One `train_lm.main` run of phase 18 with K1-K3's counts zeroed
+    just before it and read just after, the fences counted, the peak
+    memory reset before it: its losses, step lines, launches, fences,
+    the driver's window of each step (s), the run's peak."""
+    import torch
+
+    from shallowspeed_tpu_torch import train_lm
+    from shallowspeed_tpu_torch.telemetry import trace as TR
+
+    counters = _all_train_counters()
+    for c in counters:
+        c.launches = 0
+    fences = [0]
+    block = TR._block
+
+    def counted(arrays):
+        fences[0] += 1
+        block(arrays)
+
+    TR._block = counted
+    log = root / f"{tag}.jsonl"
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        train_lm.main([*flags, *extra, "--log-file", str(log)])
+    finally:
+        TR._block = block
+    peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+            else None)
+    steps = _events(log, "step")
+    tokens = TRAIN_BATCH * int(flags[flags.index("--seq-len") + 1])
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"losses": [e["loss"] for e in steps], "lines": steps,
+            "launches": {c.__name__.lstrip("_"): c.launches
+                         for c in counters if c.launches},
+            "fences": fences[0], "peak": peak, "log": log,
+            "windows": [tokens / e["tokens_per_sec"] for e in steps]}
+
+
+def _tele_levels(dev, cfg, root) -> dict:
+    """Phase 18 (a): the levels, and the sampler on the `spans` run."""
+    from shallowspeed_tpu_torch.telemetry import __main__ as tcli
+
+    n = TELE_LAYERS
+    flags = [*_lm_flags(cfg, n, dev), "--steps", str(TELE_STEPS), "--zero1"]
+    runs = {}
+    for level in ("off", "steps", "spans", "spans+host"):
+        extra = ["--telemetry", level.split("+")[0]]
+        if level != "off":
+            extra += ["--trace-dir", str(root / level)]
+        if level == "spans+host":
+            extra += ["--profile", "host", "--profile-hz", str(TELE_HZ)]
+        runs[level] = _tele_drive(dev, flags, root, level, *extra)
+    want = dict.fromkeys(("flash_fwd_tc", "flash_dq_tc", "flash_dkv_tc"),
+                         n * TELE_STEPS)
+    for level, r in runs.items():
+        if r["losses"] != runs["off"]["losses"] or len(r["losses"]) != \
+                TELE_STEPS or not all(np.isfinite(r["losses"])):
+            raise AssertionError(f"tele (a): {level} losses {r['losses']} "
+                                 f"are not off's {runs['off']['losses']}")
+        if r["launches"] != want:
+            raise AssertionError(f"tele (a): {level} launched "
+                                 f"{r['launches']}, want {want}")
+        if r["fences"] != (3 * TELE_STEPS if level.startswith("spans")
+                           else 0):
+            raise AssertionError(f"tele (a): {level} fenced {r['fences']} "
+                                 f"times in {TELE_STEPS} steps")
+    sp = runs["spans"]
+    spans = [json.loads(x) for x in
+             (root / "spans" / "spans.jsonl").read_text().splitlines()]
+    step_spans = [e for e in spans if e["name"] == "step"]
+    if len(step_spans) != TELE_STEPS:
+        raise AssertionError(f"tele (a): {len(step_spans)} step spans")
+    for e, window in zip(step_spans, sp["windows"]):
+        inner = [x for x in spans if x["name"] in ("grads", "update")
+                 and x["args"]["step"] == e["args"]["step"]]
+        if sorted(x["name"] for x in inner) != ["grads", "update"] or any(
+                x["ts"] < e["ts"] or x["ts"] + x["dur"] > e["ts"] + e["dur"]
+                for x in inner):
+            raise AssertionError(f"tele (a): step {e['args']} does not "
+                                 f"hold its grads and update spans")
+        if e["dur"] > window * 1e6 * 1.001:
+            raise AssertionError(f"tele (a): the fenced step span "
+                                 f"{e['dur']} us exceeds the driver's "
+                                 f"window {window * 1e6:.1f} us")
+    last = sp["lines"][-1]
+    summ = json.loads((root / "spans" / "telemetry.json").read_text())
+    from shallowspeed_tpu_torch.models import transformer as T
+
+    param_bytes = sum(int(a.size) * 4 for a in _np_leaves(
+        T.init_numpy(dataclasses.replace(cfg, n_layers=n), 0)))
+    owned = summ["hbm_owners"]["owners"]["train.params"]
+    if owned != param_bytes:
+        raise AssertionError(f"tele (a): train.params owns {owned} bytes, "
+                             f"the tree holds {param_bytes}")
+    if dev.type == "cuda" and last["hbm_alloc_peak_mib"] != round(
+            sp["peak"] / 2**20, 2):
+        raise AssertionError(f"tele (a): hbm_alloc_peak_mib "
+                             f"{last['hbm_alloc_peak_mib']} vs "
+                             f"max_memory_allocated {sp['peak'] / 2**20}")
+    import io
+    from contextlib import redirect_stdout
+
+    with redirect_stdout(io.StringIO()):
+        valid = tcli.main(["--validate", str(root / "spans" /
+                                             "spans.jsonl")])
+    if valid != 0:
+        raise AssertionError("tele (a): spans.jsonl fails --validate")
+    prof = _events(runs["spans+host"]["log"], "profile")[-1]
+    tags = {k: round(v / max(prof["samples"], 1), 4)
+            for k, v in sorted(prof["phases"].items())}
+    if not prof["samples"] or not set(tags) & {"step", "grads", "update"}:
+        raise AssertionError(f"tele (a): the sampler tagged {tags}")
+    out = {"step_ms_p50": {lv: _p50([1e3 * w for w in r["windows"][1:]])
+                           for lv, r in runs.items()},
+           "fences_a_step": {lv: r["fences"] / TELE_STEPS
+                             for lv, r in runs.items()},
+           "launches_a_step": {k: v / TELE_STEPS for k, v in
+                               sp["launches"].items()},
+           "step_span_ms_p50": _p50([e["dur"] / 1e3
+                                     for e in step_spans[1:]]),
+           "hbm_live_mib": last["hbm_live_mib"],
+           "hbm_alloc_peak_mib": last.get("hbm_alloc_peak_mib"),
+           "hbm_owned_mib": last["hbm_owned_mib"],
+           "hbm_untracked_mib": last["hbm_untracked_mib"],
+           "host_rss_mib": last["host_rss_mib"],
+           "param_bytes": param_bytes,
+           "sampler": {"hz": TELE_HZ, "samples": prof["samples"],
+                       "step_samples": prof["step_samples"],
+                       "share_by_tag": tags,
+                       "max_gap_ms": prof["max_gap_ms"]}}
+    print("tele (a): " + json.dumps(out), flush=True)
+    return {"launches": sp["launches"], "flags": flags}
+
+
+def _np_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _np_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _np_leaves(v)
+    else:
+        yield tree
+
+
+def _tele_profile_dir(dev, flags, root) -> dict:
+    """Phase 18 (b): the `--profile-dir` capture names K1-K3 as often as
+    the counters counted them, and no library attention kernel."""
+    base = list(flags)
+    base[base.index("--steps") + 1] = str(TELE_PROFILE_STEPS)
+    r = _tele_drive(dev, base, root, "profile-dir",
+                    "--profile-dir", str(root / "prof"))
+    trace = json.loads((root / "prof" / "trace_p0.json").read_text())
+    kernels = [e for e in trace["traceEvents"]
+               if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    found = {k: [0, 0.0] for k in TELE_KERNELS}
+    library = sorted({e["name"][:80] for e in kernels
+                      if any(m in e["name"].lower()
+                             for m in LIBRARY_ATTENTION)})
+    for e in kernels:
+        for k in TELE_KERNELS:
+            if k in e["name"]:
+                found[k][0] += 1
+                found[k][1] += e.get("dur", 0.0) / 1e3
+    counts = {k: found[k][0] for k in TELE_KERNELS}
+    # the launcher `_flash_fwd_tc` launches `flash_fwd_tc_kernel`, ...
+    want = {k: r["launches"].get(k[:-len("_kernel")], 0)
+            for k in TELE_KERNELS}
+    out = {"kernels": {k: {"count": found[k][0],
+                           "device_ms": round(found[k][1], 4)}
+                       for k in TELE_KERNELS},
+           "launch_counters": want, "device_kernels": len(kernels),
+           "library_attention": library,
+           "trace_mb": round((root / "prof" / "trace_p0.json").stat().st_size
+                             / 1e6, 2)}
+    print("tele (b): " + json.dumps(out), flush=True)
+    if dev.type == "cuda" and (counts != want or library
+                               or min(want.values()) == 0):
+        raise AssertionError(f"tele (b): the trace's kernels {counts} vs "
+                             f"the counters {want}; library attention "
+                             f"kernels {library}")
+    return out
+
+
+def _tele_serve(dev, cfg, root) -> dict:
+    """Phase 18 (c): `serve --profile host` against the same run
+    without it."""
+    import io
+    from contextlib import redirect_stdout
+
+    from shallowspeed_tpu_torch import serve as sdriver
+    from shallowspeed_tpu_torch.ops.flash_attention import paged_flash_decode
+
+    reqs = root / "requests.jsonl"
+    reqs.write_text("\n".join(json.dumps(
+        {"id": rid, "prompt": p.tolist(), "max_new": MAX_NEW})
+        for rid, p in _random_prompts(cfg.vocab).items()))
+    n = TELE_SERVE_LAYERS
+    argv = ["--vocab", str(cfg.vocab), "--d-model", str(cfg.d_model),
+            "--n-heads", str(cfg.n_heads), "--n-layers", str(n),
+            "--max-seq", str(cfg.max_seq), "--rope", "--slots",
+            str(SLICE["slots"]), "--n-blocks", str(N_BLOCKS),
+            "--block-size", str(SLICE["block_size"]), "--prefill-chunk",
+            str(PREFILL_CHUNK), "--requests", str(reqs)]
+    if dev.type == "cpu":
+        argv += ["--device", "cpu"]
+    runs = {}
+    for tag, extra in (("off", []), ("host", [
+            "--profile", "host", "--profile-hz", str(TELE_HZ),
+            "--log-file", str(root / "serve.jsonl")])):
+        paged_flash_decode.launches = 0
+        buf = io.StringIO()
+        t0 = time.time()
+        with redirect_stdout(buf):
+            sdriver.main([*argv, *extra])
+        lines = [json.loads(x) for x in buf.getvalue().splitlines()
+                 if x.startswith("{")]
+        runs[tag] = {"streams": {e["id"]: e["tokens"] for e in lines
+                                 if e["event"] == "result"},
+                     "summary": next(e for e in lines
+                                     if e["event"] == "summary"),
+                     "launches": paged_flash_decode.launches,
+                     "wall_s": time.time() - t0}
+    prof = _events(root / "serve.jsonl", "profile")[-1]
+    tick = sum(v for k, v in prof["folded"].items()
+               if "engine:step" in k)
+    h = runs["host"]
+    out = {"streams_equal": h["streams"] == runs["off"]["streams"],
+           "requests": len(h["streams"]), "ticks": h["summary"]["ticks"],
+           "k4_launches": h["launches"], "samples": prof["samples"],
+           "tick_side_samples": tick,
+           "tok_per_sec": {t: r["summary"]["tok_per_sec"]
+                           for t, r in runs.items()},
+           "wall_s": {t: round(r["wall_s"], 2) for t, r in runs.items()}}
+    print("tele (c): " + json.dumps(out), flush=True)
+    want_k4 = n * h["summary"]["ticks"] if dev.type == "cuda" else 0
+    if not out["streams_equal"] or len(h["streams"]) != N_REQUESTS \
+            or h["launches"] != want_k4 or not tick:
+        raise AssertionError(f"tele (c): {out}")
+    return out
+
+
+def _tele_traffic(dev, cfg) -> dict:
+    """Phase 18 (d): the counted bytes of a step against the analytic
+    ones, pp 2 gpipe and dp 2."""
+    import torch
+
+    from shallowspeed_tpu_torch import optim as O
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+    from shallowspeed_tpu_torch.parallel.mesh import (make_context_mesh,
+                                                      make_pipeline_mesh)
+    from shallowspeed_tpu_torch.parallel.pipeline_lm import PipelineLMEngine
+
+    rng = np.random.default_rng(0)
+    b, t = TRAIN_BATCH, cfg.max_seq
+    tok = rng.integers(0, cfg.vocab, (b, t)).astype(np.int32)
+    tgt = np.roll(tok, -1, axis=1)
+    out = {}
+    pcfg = dataclasses.replace(cfg, n_layers=TELE_PP_LAYERS)
+    eng = PipelineLMEngine(pcfg, O.AdamW(3e-4), make_pipeline_mesh(
+        1, 2, 1, dev), n_mubatches=4, schedule="gpipe", attn="flash",
+        params=T.init_numpy(pcfg, 0))
+    eng.train_batch(tok, tgt)
+    hop = (b // 4) * t * cfg.d_model * (2 if cfg.compute_dtype else 4)
+    out["pp2_gpipe"] = {"counted": eng.telemetry_traffic(),
+                        "analytic": {"pp": 2 * 4 * hop}}
+    del eng
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dcfg = dataclasses.replace(cfg, n_layers=TELE_DP_LAYERS)
+    eng = ContextParallelEngine(dcfg, O.AdamW(3e-4), attn="flash",
+                                mesh=make_context_mesh(2, 1, dev),
+                                params=T.init_numpy(dcfg, 0))
+    eng.train_batch(tok, tgt)
+    out["dp2"] = {"counted": eng.telemetry_traffic(),
+                  "analytic": {"dp": _tensor_bytes(eng.params)}}
+    del eng
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print("tele (d): " + json.dumps(out), flush=True)
+    for name, r in out.items():
+        got = {ax: v["bytes"] for ax, v in r["counted"]["per_axis"].items()}
+        if got != r["analytic"]:
+            raise AssertionError(f"tele (d): {name} counted {got}, the "
+                                 f"analytic bytes are {r['analytic']}")
+    return out
+
+
+def run_telemetry(dev, cfg, card) -> dict:
+    """Phase 18 (module docstring): (a)-(d), in a temporary directory
+    removed at the end, the driver runs sharing one draw."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tele_"))
+    print(f"tele: {card}", flush=True)
+    try:
+        with _cached_draw():
+            levels = _tele_levels(dev, cfg, root)
+            _tele_profile_dir(dev, levels["flags"], root)
+            _tele_serve(dev, cfg, root)
+            _tele_traffic(dev, cfg)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": levels["launches"]}
+
+
 _T0 = [0.0]
 
 
@@ -5640,6 +6046,10 @@ def main() -> int:
     mp = run_multiprocess(dev, cfg, np_params, card)
     del np_params
     _clock("17")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tele = run_telemetry(dev, cfg, card)
+    _clock("18")
 
     src = "shallowspeed_tpu_torch/csrc/"
     fa = "shallowspeed_tpu/ops/flash_attention.py:"
@@ -5676,6 +6086,8 @@ def main() -> int:
            if ov_launches.get(name) else {}),
         **({"mp_launches": mp["launches"][name]}
            if mp["launches"].get(name) else {}),
+        **({"tele_launches": tele["launches"][name]}
+           if tele["launches"].get(name) else {}),
     } for name, (cu, ref) in where.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -70,7 +70,13 @@ What is ported so far:
   context engine's dp, the LM pipeline's dp and pp, and the MLP's SPMD
   pipeline across processes, bit for bit their one-process runs; the
   collective checkpoint; `train_lm` / `train` launched once per
-  process.
+  process;
+- the telemetry core: `telemetry/` (span tracer with CUDA fences, the
+  schema, sketches, the bench gate, the request stitcher, the host
+  profiler and `torch.profiler` captures, allocator memory and owners,
+  counted collective bytes, `RunTelemetry`), the reference's spans in
+  every engine, `train_lm` / `train --telemetry --trace-dir
+  --profile-dir --profile`, `serve --profile`.
 ROADMAP.md lists what comes next; each feature not ported yet raises
 `NotPorted`.
 

@@ -45,7 +45,7 @@ restores in the other.
   a failed background write on process 0 raises on every process.
 
 Left out, with the reference's fault-injection plane: the chaos hooks
-(ROADMAP Queue 1 item 6).
+(ROADMAP Queue 1 item 6c).
 """
 
 from __future__ import annotations
@@ -305,7 +305,7 @@ def _write_ckpt(ckpt_dir, epoch: int, params, opt_state, meta: dict,
             D.barrier(f"ckpt_{epoch}")
         return final
     tmp = Path(ckpt_dir) / f"ckpt_{epoch}.tmp"
-    # the chaos hooks (chaos.on_save) come with ROADMAP Queue 1 item 6
+    # the chaos hooks (chaos.on_save) come with ROADMAP Queue 1 item 6c
     t0 = time.perf_counter()
     if tmp.exists():
         shutil.rmtree(tmp)
@@ -333,7 +333,7 @@ def _write_ckpt(ckpt_dir, epoch: int, params, opt_state, meta: dict,
     t3 = time.perf_counter()
     if keep:
         prune(ckpt_dir, keep, trusted=final)
-    # chaos.after_save(final) goes here with ROADMAP Queue 1 item 6
+    # chaos.after_save(final) goes here with ROADMAP Queue 1 item 6c
     if stats is not None:
         stats.update(write_s=t1 - t0, hash_s=t2 - t1, rename_s=t3 - t2,
                      bytes=sum(p.stat().st_size

@@ -87,7 +87,7 @@ class Dataset:
     def load_batch(self, batch_id: int) -> tuple[np.ndarray, np.ndarray]:
         """The whole local batch: (local_bs, 784), (local_bs, 10)."""
         # the reference's chaos stall fault (`chaos.on_data_load`) fires
-        # here; it comes with the planes, ROADMAP Queue 1 item 6
+        # here; it comes with the planes, ROADMAP Queue 1 item 6c
         s = slice(batch_id * self._local_bs, (batch_id + 1) * self._local_bs)
         return self.input_X[s], self.target_Y[s]
 

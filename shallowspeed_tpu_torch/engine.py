@@ -42,10 +42,12 @@ from shallowspeed_tpu_torch import distributed as D
 from shallowspeed_tpu_torch.data.dataset import stack_epoch
 from shallowspeed_tpu_torch.models.mlp import MLPStage, accumulate_grads
 from shallowspeed_tpu_torch.parallel import overlap as OV
+from shallowspeed_tpu_torch.telemetry import collectives as C
 from shallowspeed_tpu_torch.telemetry.health import (check_mode,
                                                      engine_snapshot,
                                                      note_step,
                                                      step_replicas_with_health)
+from shallowspeed_tpu_torch.telemetry.trace import tracer
 from shallowspeed_tpu_torch.weights import (map_tree, params_from_numpy,
                                             placed_copy)
 
@@ -116,6 +118,11 @@ class FusedDPEngine:
     def _step(self, xs, ys):
         """One batch: xs[r], ys[r] replica r's (n_mu, mubs, d) stacks on
         its device."""
+        mark = C.mark()
+        self._step_body(xs, ys)
+        self._traffic = C.since(mark)
+
+    def _step_body(self, xs, ys):
         accs = []
         for r, (p, x, y) in enumerate(zip(self._replicas, xs, ys)):
             acc = None
@@ -136,6 +143,9 @@ class FusedDPEngine:
                 acc = grads if acc is None else accumulate_grads(acc, grads)
             if acc is not None:
                 accs.append(acc)
+        if self.dp > 1:
+            # the dp all-reduce's operand: replica 0's accumulated grads
+            C.count_tensors("dp", accs[0])
         if self._plan is None:
             totals = reduce_replicas(accs, self.devices)
         else:
@@ -177,8 +187,11 @@ class FusedDPEngine:
         """datasets: the dp per-rank Dataset shards; replica r trains on
         shard r's (n_mu, mubs, d) stack of this batch."""
         stacks = [ds.load_mubatch_stack(batch_id) for ds in datasets]
-        self._step([self._place(s[0], d) for s, d in zip(stacks, self.devices)],
-                   [self._place(s[1], d) for s, d in zip(stacks, self.devices)])
+        with tracer().span("step", batch=batch_id) as sp:
+            self._step(
+                [self._place(s[0], d) for s, d in zip(stacks, self.devices)],
+                [self._place(s[1], d) for s, d in zip(stacks, self.devices)])
+            sp.fence(self.params)
 
     @torch.no_grad()
     def infer(self, x: np.ndarray) -> torch.Tensor:
@@ -209,9 +222,18 @@ class FusedDPEngine:
         epoch: the reference indexes deterministically, no shuffling),
         with no host copy per batch."""
         xs, ys = staged
-        for _ in range(n_epochs):
-            for b in range(xs[0].shape[0]):
-                self._step([x[b] for x in xs], [y[b] for y in ys])
+        with tracer().span("run", n_epochs=n_epochs) as sp:
+            for _ in range(n_epochs):
+                for b in range(xs[0].shape[0]):
+                    self._step([x[b] for x in xs], [y[b] for y in ys])
+            sp.fence(self.params)
+
+    _traffic = None
+
+    def telemetry_traffic(self) -> dict:
+        """The last step's bytes and calls per grid axis (the dp
+        all-reduce's operand; `telemetry.collectives`)."""
+        return self._traffic or C.empty()
 
     # -------------------------------------------------- state interface
 
@@ -223,6 +245,12 @@ class FusedDPEngine:
     @property
     def opt_state(self):
         return self._opt_states[0]
+
+    def resident(self) -> dict:
+        """The trees this engine keeps resident, for the memory
+        observatory's owners: {"params": every replica's (or cell's)
+        parameters, "opt_state": every optimizer state it holds}."""
+        return {"params": self._replicas, "opt_state": self._opt_states}
 
     def replicas(self) -> list:
         """Every replica's parameters, for `assert_replicas_in_sync`."""

@@ -3,8 +3,9 @@ the port's drivers use: `MetricsLogger` (serving and training, with the
 MLP driver's `epoch` and `final` records) and `StepRates` (training
 throughput windows, with the health and numerics monitors' fields),
 plus `step_event`, the LM driver's `"step"` line in the reference's
-field names. The live monitor feed, the goodput ledger, the telemetry
-fields and file-rotation handling are not ported yet."""
+field names. With `telemetry` (a `telemetry.report.RunTelemetry`) the
+log points carry its fields. The live monitor feed, the goodput ledger
+and file-rotation handling are not ported yet."""
 
 from __future__ import annotations
 
@@ -65,10 +66,13 @@ class StepRates:
     the reference's `StepRates` with its health and numerics
     attachments. With `health` (a `telemetry.health.HealthMonitor`)
     every log point also carries its `health_*` fields, with `numerics`
-    (a `telemetry.numerics.NumericsMonitor`) its `num_*` fields."""
+    (a `telemetry.numerics.NumericsMonitor`) its `num_*` fields, with
+    `telemetry` (a `telemetry.report.RunTelemetry`) its memory, traffic
+    and bubble fields — whose own cost is excluded from the next window
+    as a pause, as the reference does."""
 
     def __init__(self, tokens_per_step: float, clock=time.time,
-                 health=None, numerics=None):
+                 telemetry=None, health=None, numerics=None):
         self.tokens_per_step = float(tokens_per_step)
         self._clock = clock
         self._t0 = clock()
@@ -76,6 +80,7 @@ class StepRates:
         self._steps = 0
         self._pause = 0.0
         self._win_pause = 0.0
+        self.telemetry = telemetry
         self.health = health
         self.numerics = numerics
 
@@ -103,6 +108,11 @@ class StepRates:
             out.update(self.health.step_fields())
         if self.numerics is not None:
             out.update(self.numerics.step_fields())
+        if self.telemetry is not None:
+            out.update(self.telemetry.step_fields(
+                window_secs=win_secs,
+                steps_in_window=int(steps_since_last)))
+            self.pause(self._clock() - now, kind="telemetry")
         return out
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from shallowspeed_tpu_torch.ops.dropout import keep_mask
+from shallowspeed_tpu_torch.telemetry import collectives as C
 
 NEG = -1e30
 
@@ -117,6 +118,10 @@ def ring_attention(q, k, v, devices, causal: bool = True, window: int = 0):
         for i in range(n):
             src = (idx - i) % n
             kb, vb = ks[src].to(dev), vs[src].to(dev)
+            if i and idx == n - 1:
+                # hop i's ppermute of one cell's K/V block (and its
+                # transpose in the backward), counted on the last cell
+                kb, vb = C.tap(kb, "sp"), C.tap(vb, "sp")
             s = torch.einsum("bqhgd,bkhd->bhgqk", q32, kb.float()) * scale
             kpos = src * t + torch.arange(t, device=dev)
             if causal or window > 0:
@@ -170,14 +175,22 @@ def ulysses_attention(q, k, v, devices, causal: bool = True, window: int = 0,
     else:
         fn = attention
 
-    def gather_seq(x, s, dev):     # (B, T/n, H, D) tiles -> (B, T, H/n, D)
-        w = x.shape[2] // n
-        return torch.cat([tile[:, :, s * w:(s + 1) * w].to(dev)
-                          for tile in seq_tiles(x, devices)], dim=1)
+    def tiles(x):
+        # the all-to-all's operand (and its transpose's): one cell's tile
+        ts = seq_tiles(x, devices)
+        return [C.tap(ts[0], "sp")] + ts[1:] if n > 1 else ts
 
-    outs = [fn(gather_seq(q, s, dev), gather_seq(k, s, dev),
-               gather_seq(v, s, dev), causal=causal, window=window)
+    def gather_seq(ts, s, dev):    # (B, T/n, H, D) tiles -> (B, T, H/n, D)
+        w = ts[0].shape[2] // n
+        return torch.cat([tile[:, :, s * w:(s + 1) * w].to(dev)
+                          for tile in ts], dim=1)
+
+    qt, kt, vt = tiles(q), tiles(k), tiles(v)
+    outs = [fn(gather_seq(qt, s, dev), gather_seq(kt, s, dev),
+               gather_seq(vt, s, dev), causal=causal, window=window)
             for s, dev in enumerate(devices)]
+    if n > 1:
+        outs[0] = C.tap(outs[0], "sp")
     # the reverse all-to-all: every position gets its heads back, in order
     return torch.cat([o.to(q.device) for o in outs], dim=2)
 
@@ -193,7 +206,13 @@ def allgather_attention(q, k, v, devices, causal: bool = True,
     by the tile's start; the outputs come back whole on q's device, in
     tile order."""
     devices = cell_devices(devices, q)
-    t = q.shape[1] // len(devices)
+    n = len(devices)
+    t = q.shape[1] // n
+    if n > 1:
+        # the K/V all-gather's operand is one cell's tile; its transpose
+        # (the reduce-scatter of dK, dV) takes the whole gradient
+        C.count("sp", C.tensor_bytes([k, v]) // n)
+        k, v = C.tap(k, "sp", forward=False), C.tap(v, "sp", forward=False)
     outs = [attention(qs, k.to(dev), v.to(dev), causal=causal, window=window,
                       q_offset=s * t).to(q.device)
             for s, (qs, dev) in enumerate(zip(seq_tiles(q, devices),

@@ -51,6 +51,7 @@ from shallowspeed_tpu_torch.models.kv_cache import (masked_attention,
 from shallowspeed_tpu_torch.ops import _build
 from shallowspeed_tpu_torch.ops.attention import NEG, cell_devices, seq_tiles
 from shallowspeed_tpu_torch.serving.cache import gather_table
+from shallowspeed_tpu_torch.telemetry import collectives as C
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -822,6 +823,9 @@ class _RingFlash(torch.autograd.Function):
                 o, lse = merge_chunks(o, lse, o_i, lse_i)
             outs.append(o)
             lses.append(lse)
+        for _ in range(sp - 1):     # each hop's ppermute of a K/V block
+            C.count_tensors("sp", ks[0])
+            C.count_tensors("sp", vs[0])
         ctx.save_for_backward(*qs, *ks, *vs, *outs, *lses)
         ctx.devices, ctx.causal, ctx.window = devices, causal, window
         ctx.home = q.device
@@ -860,6 +864,12 @@ class _RingFlash(torch.autograd.Function):
                 dk_i, dv_i = flash_dkv(*args, rel=rel, **kw)
                 dk[src] = dk[src].to(dev) + dk_i
                 dv[src] = dv[src].to(dev) + dv_i
+
+        for _ in range(sp - 1):
+            # the reverse ring's hops: a K/V block and its f32 dK/dV
+            # accumulators
+            for x in (ks[0], vs[0], dk[0], dv[0]):
+                C.count_tensors("sp", x)
 
         def home(parts, like):
             return torch.cat([x.to(ctx.home) for x in parts],

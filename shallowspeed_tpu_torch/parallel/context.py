@@ -100,10 +100,12 @@ from shallowspeed_tpu_torch.parallel.zero import (ZeroUpdate, reduce_scatter,
                                                   reduce_scatter_from,
                                                   replace_opt_state,
                                                   scatter_add)
+from shallowspeed_tpu_torch.telemetry import collectives as C
 from shallowspeed_tpu_torch.telemetry.health import (check_mode,
                                                      engine_snapshot,
                                                      note_step,
                                                      step_replicas_with_health)
+from shallowspeed_tpu_torch.telemetry.trace import tracer
 from shallowspeed_tpu_torch.weights import (leaves, map_tree,
                                             params_from_numpy, placed_copy,
                                             sorted_leaves, unflatten)
@@ -256,6 +258,14 @@ class ContextParallelEngine:
     def params(self, tree):
         self._replicas[self._mine[0]] = tree
 
+    def resident(self) -> dict:
+        """The trees this engine keeps resident, for the memory
+        observatory's owners: {"params": every replica's (or cell's)
+        parameters, "opt_state": every optimizer state it holds}."""
+        return {"params": self._replicas,
+                "opt_state": (self._states if self._zero is None
+                              else self._zero.shards)}
+
     @property
     def attn_fn(self):
         return self._attn_fns[0]
@@ -401,6 +411,9 @@ class ContextParallelEngine:
                           else self._replica_grads(r, tok, tgt, add=add))
             loss = loss.to(self.device)
             total = loss if total is None else total + loss
+            if r == 1:      # the dp sum's (reduce-scatter's) operand
+                C.count_tensors("dp", part if part is not None
+                                else list(leaves(self._replicas[r])))
             if add is not None:
                 continue
             if self.zero2:
@@ -438,6 +451,8 @@ class ContextParallelEngine:
             total = D.add_term(total, losses.pop(r, None), src, self.device,
                                everywhere=True)
             part = parts.pop(r, None)
+            if r == 1 and part is not None:
+                C.count_tensors("dp", part)
             if self.zero2:
                 acc = reduce_scatter_from(acc, part, src, self._zero.dims,
                                           self.cells, like)
@@ -474,37 +489,66 @@ class ContextParallelEngine:
             return loss, self._zero.gather_grads(acc, self.params)
         return loss, unflatten(self.params, acc)
 
+    def _totals(self, grads) -> list:
+        """The reduced gradient as every cell's own copy (a cell of
+        another process: a copy here, whose pieces only the whole-tree
+        clipping norm reads)."""
+        home = self._mine[0]
+        return [grads if r == home else map_tree(
+            lambda g, d=(d if D.is_local(d) else self.device): g.to(
+                d, copy=True), grads) for r, d in enumerate(self.cells)]
+
     def train_batch(self, tokens, targets) -> float:
         """One optimizer step on a (B, T) int token batch; returns the
-        loss before the update."""
-        if self.zero2:
-            loss, acc = self._reduced(tokens, targets)
-            pack = self._zero(self._replicas, acc)
-        else:
-            loss, grads = self.loss_and_grads(tokens, targets)
-            # every cell its own copy (a cell of another process: a copy
-            # here, whose pieces only the whole-tree clipping norm reads)
-            home = self._mine[0]
-            totals = [grads if r == home else map_tree(
-                lambda g, d=(d if D.is_local(d) else self.device): g.to(
-                    d, copy=True), grads) for r, d in enumerate(self.cells)]
-            del grads
+        loss before the update. Spans as the reference's: "step", and
+        inside it "grads" and "update" under ZeRO (the reference's
+        split programs)."""
+        tr = tracer()
+        step = self._step_count
+        mark = C.mark()
+        with tr.span("step", step=step) as sp:
             if self._zero is not None:
-                pack = self._zero(self._replicas, [
-                    self._zero.pieces(totals[c], c) for c in range(self.dp)])
-            elif self.health == "off":
-                for r in self._mine:
-                    _, self._states[r] = self.optimizer.step(
-                        self._replicas[r], totals[r], self._states[r])
-                pack = None
+                with tr.span("grads", step=step) as g:
+                    if self.zero2:
+                        loss, acc = self._reduced(tokens, targets)
+                    else:
+                        loss, grads = self.loss_and_grads(tokens, targets)
+                    g.fence(loss)
+                with tr.span("update", step=step) as u:
+                    if not self.zero2:
+                        totals = self._totals(grads)
+                        del grads
+                        acc = [self._zero.pieces(totals[c], c)
+                               for c in range(self.dp)]
+                        del totals
+                    pack = self._zero(self._replicas, acc)
+                    u.fence(self._zero.shards)
             else:
-                pack = step_replicas_with_health(
-                    self.optimizer, self._replicas, totals, self._states,
-                    self.health)
-        if pack is not None:
-            note_step(self, pack)
+                loss, grads = self.loss_and_grads(tokens, targets)
+                totals = self._totals(grads)
+                del grads
+                if self.health == "off":
+                    for r in self._mine:
+                        _, self._states[r] = self.optimizer.step(
+                            self._replicas[r], totals[r], self._states[r])
+                    pack = None
+                else:
+                    pack = step_replicas_with_health(
+                        self.optimizer, self._replicas, totals,
+                        self._states, self.health)
+            if pack is not None:
+                note_step(self, pack)
+            sp.fence(loss)
+        self._traffic = C.since(mark)
         self._step_count += 1
         return float(loss)
+
+    _traffic = None
+
+    def telemetry_traffic(self) -> dict:
+        """The collective bytes and calls per grid axis of the last step
+        (`telemetry.collectives`; no traffic before the first)."""
+        return self._traffic or C.empty()
 
     def health_snapshot(self) -> dict | None:
         """The last step's health pack and the cumulative counters as a

@@ -93,10 +93,12 @@ from shallowspeed_tpu_torch.optim import Adafactor
 from shallowspeed_tpu_torch.parallel import overlap as OV
 from shallowspeed_tpu_torch.parallel.mesh import Grid, make_grid
 from shallowspeed_tpu_torch.parallel.zero import Slices, zero2_grad_dim
+from shallowspeed_tpu_torch.telemetry import collectives as C
 from shallowspeed_tpu_torch.telemetry.health import (check_mode,
                                                      engine_snapshot,
                                                      grad_health, note_step,
                                                      snapshot, update_health)
+from shallowspeed_tpu_torch.telemetry.trace import tracer
 from shallowspeed_tpu_torch.weights import leaves, map_tree, unflatten
 
 
@@ -246,6 +248,7 @@ class _Pieces:
         self.device = device
 
     def gather(self):
+        C.count_tensors("dp", self.parts[0])   # the all-gather's operand
         return torch.cat([p.to(self.device) for p in self.parts],
                          dim=self.dim)
 
@@ -788,6 +791,13 @@ class GSPMDEngine:
                                            allow_unused=True,
                                            materialize_grads=True)
 
+        def count(aliases):
+            # the dp sum's operand: replica 1's f32 gradient partial
+            nbytes = sum(a.numel() * 4 for (r, _, _), a in aliases.items()
+                         if r == 1)
+            if nbytes:
+                C.count("dp", nbytes)
+
         if self._coupled():
             aliases, terms = {}, []
             with torch.enable_grad():
@@ -796,6 +806,7 @@ class GSPMDEngine:
                         aliases, r, tok, tgt, True, self.dropout_key(r)))
                 loss = self._objective(terms)
             del terms
+            count(aliases)
             reduce(list(aliases), grads_of(loss, aliases))
             losses.append(loss.detach())
         else:
@@ -804,6 +815,7 @@ class GSPMDEngine:
                 with torch.enable_grad():
                     loss = self._objective([self._replica_terms(
                         aliases, r, tok, tgt, True, self.dropout_key(r))])
+                count(aliases)
                 if r and self._plan is not None:
                     self._reduce_in_backward(r, loss, aliases, red)
                 else:
@@ -942,6 +954,13 @@ class GSPMDEngine:
         leaf it holds whole on the dp axis."""
         if not self.zero or self.dp == 1:
             return
+        # the all-gather's operand: the first dp row's new slices
+        C.count_tensors("dp", [
+            self._shards[c][i].chunk(self.dp, us.padded(len(
+                self._shapes[i])).index("dp"))[0]
+            for c in self._local if c[0] == 0
+            for i, (us, ps) in enumerate(zip(self._uspecs, self._pspecs))
+            if us is not ps])
         if self._remote:
             self._all_gather_across()
             return
@@ -1024,16 +1043,50 @@ class GSPMDEngine:
         loss, red = self._reduced(tokens, targets)
         return loss, self._canonical(self._canonical_grads(red))
 
+    def _split_step(self) -> bool:
+        """Whether the reference runs this step as two programs (grads,
+        then the sharded update) and so traces "grads" and "update"
+        spans inside "step": under ZeRO."""
+        return self.zero
+
+    def _step_attrs(self) -> dict:
+        """Extra attributes of the reference's "step" span."""
+        return {}
+
     def train_batch(self, tokens, targets) -> float:
         """One optimizer step on a (B, T) int token batch; returns the
         loss before the update."""
-        loss, red = self._reduced(tokens, targets)
-        pack = self._update(red)
-        del red
-        if pack is not None:
-            note_step(self, pack)
+        tr = tracer()
+        step = self._step_count
+        mark = C.mark()
+        with tr.span("step", step=step, **self._step_attrs()) as sp:
+            if self._split_step():
+                with tr.span("grads", step=step) as g:
+                    loss, red = self._reduced(tokens, targets)
+                    g.fence(loss)
+                with tr.span("update", step=step) as u:
+                    pack = self._update(red)
+                    del red
+                    if pack is not None:
+                        note_step(self, pack)
+                    u.fence(self._states)
+            else:
+                loss, red = self._reduced(tokens, targets)
+                pack = self._update(red)
+                del red
+                if pack is not None:
+                    note_step(self, pack)
+            sp.fence(loss)
+        self._traffic = C.since(mark)
         self._step_count += 1
         return float(loss)
+
+    _traffic = None
+
+    def telemetry_traffic(self) -> dict:
+        """The collective bytes and calls per grid axis of the last step
+        (`telemetry.collectives`; no traffic before the first)."""
+        return self._traffic or C.empty()
 
     def health_snapshot(self) -> dict | None:
         """The last step's health pack and the cumulative counters as a
@@ -1113,6 +1166,12 @@ class GSPMDEngine:
         """The canonical (one-device) parameter tree, gathered from the
         cells onto the first cell (a copy)."""
         return self._canonical(self._gather_params())
+
+    def resident(self) -> dict:
+        """The trees this engine keeps resident, for the memory
+        observatory's owners: {"params": every replica's (or cell's)
+        parameters, "opt_state": every optimizer state it holds}."""
+        return {"params": self._shards, "opt_state": self._states}
 
     @property
     def params(self):

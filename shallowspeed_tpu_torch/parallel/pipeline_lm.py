@@ -135,6 +135,7 @@ from shallowspeed_tpu_torch.parallel import zb as ZB
 from shallowspeed_tpu_torch.parallel.gspmd import GSPMDEngine, P, with_axis
 from shallowspeed_tpu_torch.parallel.verify import (interleaved_tables,
                                                     zb_tables)
+from shallowspeed_tpu_torch.telemetry import collectives as C
 from shallowspeed_tpu_torch.weights import leaves, map_tree
 
 _SP_SUBSTRATES = ("ring", "ring-flash", "ulysses-flash")
@@ -401,6 +402,14 @@ class PipelineLMEngine(GSPMDEngine):
             specs = map_tree(lambda s, m: with_axis(s, tuple(m.shape), dp),
                              specs, self._template)
         return specs
+
+    def _split_step(self) -> bool:
+        """The reference's split step: grads, then the GSPMD update under
+        ZeRO or FSDP."""
+        return self.zero or self.fsdp
+
+    def _step_attrs(self) -> dict:
+        return {"schedule": self.schedule}
 
     def _per_cell_update(self) -> bool:
         """Without ZeRO or FSDP every cell updates its own blocks, as the
@@ -685,6 +694,8 @@ class PipelineLMEngine(GSPMDEngine):
         `.to` within a process, a send / recv pair across two
         (`distributed.move`); None where stage dst is another
         process's."""
+        if x is not None:
+            C.count_tensors("pp", x)     # one hop: the tensor it carries
         return D.move(x, self._dev[self._pcell(q, src)],
                       self._dev[self._pcell(q, dst)])
 
@@ -1033,6 +1044,8 @@ class PipelineLMEngine(GSPMDEngine):
                      for j, piece in enumerate(pieces)]
         else:
             parts = [(self._key(us, coord), g)]
+        if q // self.ep == 1 and g is not None:
+            C.count_tensors("dp", g)     # the dp sum's operand: replica 1's
         src = self._dev[self._pcell(q, s)]
         for key, piece in parts:
             got = D.add_term(red[i].get(key), piece, src,

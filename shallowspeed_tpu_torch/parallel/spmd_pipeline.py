@@ -66,11 +66,13 @@ from shallowspeed_tpu_torch import distributed as D
 from shallowspeed_tpu_torch.data.dataset import stack_epoch
 from shallowspeed_tpu_torch.engine import reduce_replicas, replicate
 from shallowspeed_tpu_torch.parallel import overlap as OV
+from shallowspeed_tpu_torch.telemetry import collectives as C
 from shallowspeed_tpu_torch.telemetry.health import (check_mode,
                                                      engine_snapshot,
                                                      note_step,
                                                      step_replicas_with_health)
 from shallowspeed_tpu_torch.models.mlp import init_linear_np, stage_layer_sizes
+from shallowspeed_tpu_torch.telemetry.trace import tracer
 from shallowspeed_tpu_torch.weights import map_tree, placed_copy, to_host
 
 
@@ -312,6 +314,8 @@ class SPMDPipelineEngine:
         `out` shifted one stage along the stage axis, or with double-
         buffered hops the previous tick's (`inflight`; zeros at the first
         tick)."""
+        # the ppermute's operand: one cell's (mubs, width) slab
+        C.count("pp", out[0, 0].numel() * out.element_size())
         if self.stride == 1:
             return self._roll(out, shift), None
         sent = torch.zeros_like(out) if inflight is None else inflight
@@ -412,6 +416,9 @@ class SPMDPipelineEngine:
             # the hop back: stage s - 1 receives stage s's input gradient
             cur, inflight = self._hop(d.view(dp, pp, mubs, w), inflight, -1)
 
+        if self.dp > 1:
+            # the dp all-reduce's operand: one replica's stage gradients
+            C.count_tensors("dp", [gW4[0], gb4[0]])
         if red is None and self._nr < self.dp:
             totals = replicate(self._sum_rows(gW4, gb4), [self.device] * dp)
         elif red is None:
@@ -485,7 +492,11 @@ class SPMDPipelineEngine:
         return self._place(self._pad_batch(xs)), self._place(ys)
 
     def train_batch(self, batch_id, datasets):
-        self._step(*self.stage_batch(datasets, batch_id))
+        with tracer().span("step", batch=batch_id, schedule="gpipe") as sp:
+            mark = C.mark()
+            self._step(*self.stage_batch(datasets, batch_id))
+            self._traffic = C.since(mark)
+            sp.fence(self._replicas[0])
 
     def stage_epoch(self, datasets, n_batches=None):
         """The whole epoch on the device in one copy: (n_batches, dp,
@@ -495,8 +506,19 @@ class SPMDPipelineEngine:
 
     def train_epoch(self, staged):
         xs, ys = staged
-        for i in range(xs.shape[0]):
-            self._step(xs[i], ys[i])
+        with tracer().span("epoch") as sp:
+            for i in range(xs.shape[0]):
+                mark = C.mark()
+                self._step(xs[i], ys[i])
+                self._traffic = C.since(mark)
+            sp.fence(self._replicas[0])
+
+    _traffic = None
+
+    def telemetry_traffic(self) -> dict:
+        """The last batch's bytes and calls per grid axis: each tick's
+        hop over pp and the dp all-reduce (`telemetry.collectives`)."""
+        return self._traffic or C.empty()
 
     @torch.no_grad()
     def infer(self, x: np.ndarray) -> torch.Tensor:
@@ -558,6 +580,12 @@ class SPMDPipelineEngine:
 
     def replicas(self) -> list:
         return list(self._replicas)
+
+    def resident(self) -> dict:
+        """The trees this engine keeps resident, for the memory
+        observatory's owners: {"params": every replica's (or cell's)
+        parameters, "opt_state": every optimizer state it holds}."""
+        return {"params": self._replicas, "opt_state": self._opt_states}
 
     @property
     def unstacked_params(self):

@@ -44,6 +44,7 @@ from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.ops.dropout import dropout as _dropout
 from shallowspeed_tpu_torch.ops.dropout import fold_key
 from shallowspeed_tpu_torch.parallel.gspmd import GSPMDEngine, P
+from shallowspeed_tpu_torch.telemetry import collectives as C
 from shallowspeed_tpu_torch.weights import leaves
 
 
@@ -83,6 +84,7 @@ class _Copy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        C.count_tensors("tp", grads[0])    # the all-reduce's operand
         acc = None
         for g in grads:
             g = g.to(ctx.home)
@@ -96,6 +98,7 @@ class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, home, *parts):
         ctx.devices = [p.device for p in parts]
+        C.count_tensors("tp", parts[0])    # the all-reduce's operand
         acc = parts[0].to(home) + parts[1].to(home)
         for p in parts[2:]:
             acc = acc + p.to(home)
@@ -182,7 +185,9 @@ def _vp_nll(heads, xc, tc, cfg: T.TransformerConfig, ls: float):
     home = xc.device
     logits = [T.head_logits(hp, x, cfg).float()
               for hp, x in zip(heads, copy_to_cells(xc, devs))]
-    m = logits[0].detach().amax(-1).to(home)
+    m = logits[0].detach().amax(-1)
+    C.count_tensors("tp", m)        # the max's all-reduce operand
+    m = m.to(home)
     for lg in logits[1:]:
         m = torch.maximum(m, lg.detach().amax(-1).to(home))
     se = tgt = total = None
@@ -192,12 +197,16 @@ def _vp_nll(heads, xc, tc, cfg: T.TransformerConfig, ls: float):
         idx = tc.to(lg.device) - off
         own = (idx >= 0) & (idx < v)
         picked = torch.gather(lg, -1, idx.clamp(0, v - 1)[:, None])[:, 0]
-        e = torch.exp(lg - m.to(lg.device)[:, None]).sum(-1).to(home)
-        pt = torch.where(own, picked, 0.0).to(home)
+        e = torch.exp(lg - m.to(lg.device)[:, None]).sum(-1)
+        pt = torch.where(own, picked, 0.0)
+        if off == 0:    # the sums' all-reduce operands: one shard's
+            e, pt = C.tap(e, "tp"), C.tap(pt, "tp")
+        e, pt = e.to(home), pt.to(home)
         se = e if se is None else se + e
         tgt = pt if tgt is None else tgt + pt
         if ls > 0.0:
-            s = lg.sum(-1).to(home)
+            s = lg.sum(-1)
+            s = (C.tap(s, "tp") if off == 0 else s).to(home)
             total = s if total is None else total + s
         off += v
     lse = m + torch.log(se)

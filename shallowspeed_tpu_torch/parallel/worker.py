@@ -23,8 +23,15 @@ health pack on its reduced gradients and finishes it at its update;
 `health_snapshot` merges the stages' packs (`merge_packs`). Under
 "guard" the first OptimizerStep of a batch waits until every stage has
 reduced, then one host read of the stages' sentinels decides the skip
-for all stages (they skip in lockstep). The reference's telemetry spans
-and comm-byte counters are not ported (ROADMAP Queue 1 item 6).
+for all stages (they skip in lockstep).
+
+Telemetry as the reference's VM: a "batch" span around the loop and
+one span per compute instruction ("OptimizerStep", "Forward",
+"BackwardGradAcc", "BackwardGradAllReduce", with stage / mu / batch
+attributes), each fenced on its outputs at the `spans` level; the
+measured comm bytes (`comm_bytes`: "dp_psum", the stage's gradient at
+each all-reduce, and "pp_p2p", each send's buffer) and the batch's
+per-axis traffic (`telemetry_traffic`).
 """
 
 from __future__ import annotations
@@ -51,11 +58,13 @@ from shallowspeed_tpu_torch.parallel.instructions import (
     SendInputGrad,
     ZeroGrad,
 )
+from shallowspeed_tpu_torch.telemetry import collectives as C
 from shallowspeed_tpu_torch.telemetry.health import (check_mode, fetch_pack,
                                                      grad_health,
                                                      merge_packs, param_l2,
                                                      snapshot,
                                                      update_health)
+from shallowspeed_tpu_torch.telemetry.trace import tracer
 from shallowspeed_tpu_torch.weights import (map_tree, params_from_numpy,
                                             placed_copy)
 
@@ -166,6 +175,8 @@ class PipelineExecutor:
         self.runtimes = [StageRuntime(stage, mesh[:, s], optimizer, health)
                          for s, stage in enumerate(stages)]
         self._infer_outputs: list = []
+        self.comm_bytes: dict = {}   # measured, cumulative (the reference's)
+        self._traffic = None
 
     @property
     def last(self) -> StageRuntime:
@@ -199,51 +210,69 @@ class PipelineExecutor:
 
         total = sum(len(p) for p in progs)
         done = 0
-        while done < total:
-            progress = False
-            for s in range(self.pp):
-                rt = self.runtimes[s]
-                while pcs[s] < len(progs[s]):
-                    cmd = progs[s][pcs[s]]
-                    if isinstance(cmd, RecvActivations) and not chan(s - 1, s):
-                        break
-                    if isinstance(cmd, RecvOutputGrad) and not chan(s + 1, s):
-                        break
-                    if isinstance(cmd, OptimizerStep) \
-                            and self.health == "guard" \
-                            and self._guard_ok is None \
-                            and any(r.reduced_grads is None
-                                    for r in self.runtimes):
-                        # the guarded update needs every stage's
-                        # sentinel: the batch's first step waits until
-                        # all stages have reduced (a reduction never
-                        # waits on a step, so this cannot deadlock)
-                        break
-                    self._dispatch(cmd, rt, s, batch_id, datasets, chan,
-                                   training)
-                    pcs[s] += 1
-                    done += 1
-                    progress = True
-            if not progress:
-                raise RuntimeError(f"pipeline deadlock at pcs={pcs}")
+        mark = C.mark()
+        with tracer().span("batch", batch=batch_id,
+                           training=training) as sp:
+            while done < total:
+                progress = False
+                for s in range(self.pp):
+                    rt = self.runtimes[s]
+                    while pcs[s] < len(progs[s]):
+                        cmd = progs[s][pcs[s]]
+                        if isinstance(cmd, RecvActivations) \
+                                and not chan(s - 1, s):
+                            break
+                        if isinstance(cmd, RecvOutputGrad) \
+                                and not chan(s + 1, s):
+                            break
+                        if isinstance(cmd, OptimizerStep) \
+                                and self.health == "guard" \
+                                and self._guard_ok is None \
+                                and any(r.reduced_grads is None
+                                        for r in self.runtimes):
+                            # the guarded update needs every stage's
+                            # sentinel: the batch's first step waits
+                            # until all stages have reduced (a reduction
+                            # never waits on a step, so this cannot
+                            # deadlock)
+                            break
+                        self._dispatch(cmd, rt, s, batch_id, datasets, chan,
+                                       training)
+                        pcs[s] += 1
+                        done += 1
+                        progress = True
+                if not progress:
+                    raise RuntimeError(f"pipeline deadlock at pcs={pcs}")
+            sp.fence(*[rt.replicas[0] for rt in self.runtimes])
+        self._traffic = C.since(mark)
+
+    def _count(self, kind: str, axis: str, nbytes: int) -> None:
+        """One measured transfer: into `comm_bytes` under the reference's
+        key and into the per-axis traffic."""
+        self.comm_bytes[kind] = self.comm_bytes.get(kind, 0) + nbytes
+        if axis is not None:     # None: nothing moved (one replica)
+            C.count(axis, nbytes)
 
     def _dispatch(self, cmd, rt: StageRuntime, s: int, batch_id, datasets,
                   chan, training):
+        tr = tracer()
         if isinstance(cmd, ZeroGrad):
             rt.zero_grad()
             self._guard_ok = None    # a fresh batch, a fresh decision
         elif isinstance(cmd, OptimizerStep):
-            ok = None
-            if self.health == "guard":
-                if self._guard_ok is None:
-                    # one host read a batch: every stage's sentinel
-                    # combined into the decision all stages share
-                    nf = sum(int(r.last_pack["nonfinite"])
-                             for r in self.runtimes)
-                    self._guard_ok = nf == 0
-                    self.health_skipped += int(nf > 0)
-                ok = self._guard_ok
-            rt.optimizer_step(ok)
+            with tr.span("OptimizerStep", stage=s, batch=batch_id) as sp:
+                ok = None
+                if self.health == "guard":
+                    if self._guard_ok is None:
+                        # one host read a batch: every stage's sentinel
+                        # combined into the decision all stages share
+                        nf = sum(int(r.last_pack["nonfinite"])
+                                 for r in self.runtimes)
+                        self._guard_ok = nf == 0
+                        self.health_skipped += int(nf > 0)
+                    ok = self._guard_ok
+                rt.optimizer_step(ok)
+                sp.fence(rt.replicas[0])
         elif isinstance(cmd, LoadMuBatchInput):
             rt.input_buffers[cmd.buffer_id] = self._stacked(
                 datasets, batch_id, cmd.mubatch_id, False, rt.devices)
@@ -251,27 +280,40 @@ class PipelineExecutor:
             rt.output_buffers[cmd.buffer_id] = self._stacked(
                 datasets, batch_id, cmd.mubatch_id, True, rt.devices)
         elif isinstance(cmd, Forward):
-            out = rt.forward(rt.input_buffers[cmd.buffer_id],
-                             cmd.mubatch_id, training)
-            rt.output_buffers[cmd.buffer_id] = out
+            with tr.span("Forward", stage=s, mu=cmd.mubatch_id,
+                         batch=batch_id) as sp:
+                out = rt.forward(rt.input_buffers[cmd.buffer_id],
+                                 cmd.mubatch_id, training)
+                rt.output_buffers[cmd.buffer_id] = out
+                sp.fence(out)
             if not training and rt is self.last:
                 self._infer_outputs.append(out)
         elif isinstance(cmd, (BackwardGradAcc, BackwardGradAllReduce)):
-            rt.input_buffers[cmd.buffer_id] = rt.backward(
-                rt.output_buffers[cmd.buffer_id], cmd.mubatch_id,
-                isinstance(cmd, BackwardGradAllReduce))
+            reduce = isinstance(cmd, BackwardGradAllReduce)
+            with tr.span(type(cmd).__name__, stage=s, mu=cmd.mubatch_id,
+                         batch=batch_id) as sp:
+                dx = rt.backward(rt.output_buffers[cmd.buffer_id],
+                                 cmd.mubatch_id, reduce)
+                rt.input_buffers[cmd.buffer_id] = dx
+                sp.fence(dx)
+            if reduce:
+                # the stage's whole gradient entered the dp all-reduce
+                self._count("dp_psum", "dp" if self.dp > 1 else None,
+                            C.tensor_bytes(rt.replicas[0]))
         elif isinstance(cmd, SendActivations):
             nxt = self.runtimes[s + 1]
+            buf = rt.output_buffers[cmd.buffer_id]
+            self._count("pp_p2p", "pp", C.tensor_bytes(buf))
             chan(s, s + 1).append(
-                [t.to(d) for t, d in zip(rt.output_buffers[cmd.buffer_id],
-                                         nxt.devices)])
+                [t.to(d) for t, d in zip(buf, nxt.devices)])
         elif isinstance(cmd, RecvActivations):
             rt.input_buffers[cmd.buffer_id] = chan(s - 1, s).popleft()
         elif isinstance(cmd, SendInputGrad):
             prv = self.runtimes[s - 1]
+            buf = rt.input_buffers[cmd.buffer_id]
+            self._count("pp_p2p", "pp", C.tensor_bytes(buf))
             chan(s, s - 1).append(
-                [t.to(d) for t, d in zip(rt.input_buffers[cmd.buffer_id],
-                                         prv.devices)])
+                [t.to(d) for t, d in zip(buf, prv.devices)])
         elif isinstance(cmd, RecvOutputGrad):
             rt.output_buffers[cmd.buffer_id] = chan(s + 1, s).popleft()
         else:
@@ -303,6 +345,12 @@ class PipelineExecutor:
         dev = self.last.devices[0]
         return torch.cat([t.to(dev) for out in self._infer_outputs
                           for t in out])
+
+    def telemetry_traffic(self) -> dict:
+        """The last batch's bytes and calls per grid axis: the dp
+        all-reduces' and the pp sends' (`comm_bytes` keeps the
+        reference's cumulative measured counters)."""
+        return self._traffic or C.empty()
 
     def health_snapshot(self) -> dict | None:
         """The last batch's health pack: the stages' local packs fetched
@@ -336,6 +384,13 @@ class PipelineExecutor:
     @property
     def optimizer(self):
         return self.runtimes[0].optimizer
+
+    def resident(self) -> dict:
+        """The trees this engine keeps resident, for the memory
+        observatory's owners: {"params": every replica's (or cell's)
+        parameters, "opt_state": every optimizer state it holds}."""
+        return {"params": [rt.replicas for rt in self.runtimes],
+                "opt_state": [rt.opt_states for rt in self.runtimes]}
 
     def replicas(self) -> list:
         """Per replica, its per-stage parameter lists."""

@@ -47,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from shallowspeed_tpu_torch import distributed as D
+from shallowspeed_tpu_torch.telemetry import collectives as C
 from shallowspeed_tpu_torch.telemetry.health import (grad_health,
                                                      leaf_squares, snapshot,
                                                      update_health)
@@ -320,7 +321,17 @@ class ZeroUpdate:
                 self._all_gather_across(replicas)
             else:
                 self._all_gather(replicas)
+            if dp > 1 and replicas[0] is not None:
+                # the all-gather's operand: one cell's new slices
+                C.count_tensors("dp", [x for x, d in zip(
+                    self.pieces(replicas[0], 0), self.dims)
+                    if d is not None])
         else:
+            if dp > 1 and per_cell[0] is not None:
+                # the gathered update's all-gather of the gradient
+                C.count_tensors("dp", [g for g, d in zip(per_cell[0],
+                                                         self.dims)
+                                       if d is not None])
             grads = self.gather_grads(per_cell, replicas[0])
             state = self.state(self.cells[0])
             if ok is None:

@@ -19,9 +19,13 @@ or a checkpoint's (`--ckpt DIR`, a `ckpt_N` directory either package
 wrote: its manifest is verified and its parameters must match the
 model the flags describe).
 
+`--profile host [--profile-hz N]` runs the host sampling profiler
+(`telemetry.profiler`) over the serving loop, its "profile" snapshots
+(the last one at the end of the run) into `--log-file`.
+
 The root driver's other flags (the HTTP replica's queue and heartbeat,
-chaos, the live-monitoring and profiling planes, `--platform`) are
-recognised and refused with `NotPorted`.
+chaos, the live-monitoring plane, `--platform`) are recognised and
+refused with `NotPorted`.
 """
 
 from __future__ import annotations
@@ -37,22 +41,23 @@ import numpy as np
 from shallowspeed_tpu_torch import NotPorted, checkpoint, resolve_device
 from shallowspeed_tpu_torch.metrics import MetricsLogger
 from shallowspeed_tpu_torch.models import transformer as T
-from shallowspeed_tpu_torch.report import request_summary
 from shallowspeed_tpu_torch.serving.engine import ServingEngine
+from shallowspeed_tpu_torch.telemetry import profiler
+from shallowspeed_tpu_torch.telemetry.driver import CHAOS, MONITOR
+from shallowspeed_tpu_torch.telemetry.report import request_summary
 from shallowspeed_tpu_torch.weights import map_tree, params_from_numpy
 
 _LATER = "Queue 1, serving features after slice 1"
-_PLANES = "Queue 1, planes"
-_FLEET = "Queue 1, the serving fleet"
+_FLEET = "Queue 1 item 7, the serving fleet"
 
 # the root driver's flags this driver does not have yet, and where each
 # comes from
 UNPORTED = {
     **dict.fromkeys(["--max-queue", "--heartbeat-file", "--replica",
-                     "--fleet-register"], _FLEET),
-    **dict.fromkeys(["--chaos", "--chaos-state", "--chaos-seed",
-                     "--monitor-port", "--slo", "--flight-recorder",
-                     "--shed-load", "--profile", "--profile-hz"], _PLANES),
+                     "--fleet-register", "--shed-load"], _FLEET),
+    **dict.fromkeys(["--chaos", "--chaos-state", "--chaos-seed"], CHAOS),
+    **dict.fromkeys(["--monitor-port", "--slo", "--flight-recorder"],
+                    MONITOR),
     # JAX's backend choice; the port takes --device, and the virtual
     # multi-device meshes --platform cpu builds come with the engines
     "--platform": "Queue 1, multi-device LM engines",
@@ -126,6 +131,15 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "torch versions of the kernels)")
+    p.add_argument("--profile", default="off",
+                   choices=["off", "host", "host+device"],
+                   help="continuous profiling plane (telemetry/"
+                        "profiler): 'host' runs the host stack sampler "
+                        "('profile' events in --log-file); 'host+device' "
+                        "also wraps each triggered capture in a bounded "
+                        "torch.profiler device trace")
+    p.add_argument("--profile-hz", type=float, default=None,
+                   help="host sampler rate (default 67 Hz)")
     for flag in UNPORTED:
         p.add_argument(flag, nargs="?", action=_Refuse,
                        help=argparse.SUPPRESS)
@@ -216,6 +230,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     i = 0
     reported = 0
+    plane = profiler.from_args(args, metrics)
     try:
         while True:
             now = time.time() - t0
@@ -262,6 +277,8 @@ def main(argv=None) -> int:
             "device": str(device),
         })
         print(json.dumps({"event": "summary", **summary}), flush=True)
+        if plane is not None:
+            plane.close()    # its last snapshot into --log-file
         metrics.close()
     return 0
 

@@ -1,16 +1,90 @@
-"""Training telemetry of the port — the health half of
-`shallowspeed_tpu/telemetry/`:
+"""Runtime telemetry of the port — counterpart of
+`shallowspeed_tpu/telemetry/`.
 
-- `health`   the training-health pack (gradient and parameter norms,
-             the update-to-parameter ratio, the non-finite sentinel)
-             computed on the device after every step, the cumulative
-             counters, and `HealthMonitor`, the host-side reducer;
-- `anomaly`  the streaming anomaly detector and the guard policy (pure
-             Python, a copy of the reference's);
-- `numerics` `NumericsMonitor`, the fp8 path's runtime precision
-             monitor (pure Python, a copy of the reference's).
+- `trace`        the span tracer (`tracer().span("step", step=s)`):
+                 host wall-clock and, at the `spans` level, device time
+                 through CUDA synchronizes at span exits; streams
+                 `spans.jsonl` and writes a Chrome `trace.json`.
+- `collectives`  per-axis collective traffic (bytes, calls), counted
+                 where the engines move data between cells.
+- `memory`       allocated device bytes and their peak from the CUDA
+                 caching allocator, the ownership registry
+                 (`register_owner`, per-owner bytes by storage), host
+                 RSS, `forensics()` and the `MemoryWatch` detector.
+- `report`       `RunTelemetry`, the step-line fields and the run
+                 summary; the request helpers (`percentile`,
+                 `request_summary`, ...).
+- `schema`, `sketch`, `regress`, `tracing`: copies of the reference's
+                 pure modules (the line schema, mergeable histograms,
+                 the bench gate, the cross-process request stitcher).
+- `profiler`     the host sampling profiler, phase tags, capture
+                 windows and the `torch.profiler` device trace.
+- `health`, `anomaly`, `numerics`: the training-health pack, the
+                 anomaly detector and the fp8 numerics monitor.
+- `python -m shallowspeed_tpu_torch.telemetry --validate / --stitch /
+                 --profile / --regress`.
 
-The reference's other planes (spans and tracing, bubble accounting,
-memory, the live monitor, the profiler, goodput) are not ported yet
-(ROADMAP Queue 1 item 6).
+Levels: `off` (no-ops — no fences, no buffers), `steps` (host
+timestamps only; dispatch stays asynchronous), `spans` (device fences
+at span exits: attributable time, serialized dispatch).
+
+The reference's other planes (bubble accounting, time attribution, the
+live monitor, goodput, the fleet, chaos) are not ported yet: their
+names raise `NotPorted` with the ROADMAP item that brings them.
 """
+
+from shallowspeed_tpu_torch.telemetry.trace import (  # noqa: F401
+    Tracer, configure, tracer)
+
+_LAZY = {
+    "device_memory_stats": "memory", "live_hbm_high_water": "memory",
+    "register_owner": "memory", "unregister_owner": "memory",
+    "clear_owners": "memory", "registered_owners": "memory",
+    "per_owner_accounting": "memory", "top_live_arrays": "memory",
+    "host_rss_bytes": "memory", "forensics": "memory",
+    "MemoryWatch": "memory",
+    "RunTelemetry": "report",
+    "HealthMonitor": "health", "grad_health": "health",
+    "update_health": "health", "merge_packs": "health",
+    "fetch_pack": "health",
+    "AnomalyDetector": "anomaly", "GuardPolicy": "anomaly",
+    "RobustEWMA": "anomaly", "Verdict": "anomaly",
+    "check_trajectory": "regress", "load_trajectory": "regress",
+    "LogHistogram": "sketch", "MetricSketches": "sketch",
+    "request_timeline": "report",
+    "new_trace_id": "tracing", "new_span_id": "tracing",
+    "stitch": "tracing", "goodput_block": "tracing",
+    "PHASE_COMPONENT": "tracing",
+    "request_waterfall": "report",
+    "SamplingProfiler": "profiler", "ProfilerPlane": "profiler",
+    "CaptureWindow": "profiler", "device_trace_ctx": "profiler",
+    "profiler_tag": "profiler", "merge_profiles": "profiler",
+    "flame_tree": "profiler", "profile_main": "profiler",
+}
+
+# the reference's names whose modules are not ported yet, and the
+# ROADMAP item that brings each
+_LATER = {
+    **dict.fromkeys(["static_bubble", "trace_bubble", "two_point_bubble",
+                     "step_waterfall", "roofline_of_jaxpr",
+                     "device_rates", "GoodputLedger", "run_goodput",
+                     "Monitor", "StatusServer", "FlightRecorder",
+                     "SloRule", "parse_slos", "FileTailer",
+                     "PortInUseError", "prom_escape"], "Queue 1 item 6b"),
+    **dict.fromkeys(["FleetCollector", "Replica", "format_fleet_status"],
+                    "Queue 1 item 7"),
+}
+
+
+def __getattr__(name):
+    mod = _LAZY.get(name)
+    if mod is None:
+        if name in _LATER:
+            from shallowspeed_tpu_torch import NotPorted
+
+            raise NotPorted(f"telemetry.{name}", _LATER[name])
+        raise AttributeError(name)
+    import importlib
+
+    return getattr(importlib.import_module(
+        f"shallowspeed_tpu_torch.telemetry.{mod}"), name)

@@ -1,0 +1,120 @@
+"""CLI of the port's telemetry, counterpart of
+`shallowspeed_tpu/telemetry/__main__.py`: validate JSONL, gate the
+bench trajectory, stitch request traces, reduce profiles.
+
+    python -m shallowspeed_tpu_torch.telemetry --validate run/spans.jsonl
+    python -m shallowspeed_tpu_torch.telemetry --validate docs_runs/
+    python -m shallowspeed_tpu_torch.telemetry --regress BENCH_*.json
+    python -m shallowspeed_tpu_torch.telemetry --trace-stitch \
+        run/router.jsonl run/replica_r0.jsonl --out stitched.json
+    python -m shallowspeed_tpu_torch.telemetry --profile run/metrics.jsonl \
+        --out flame.json
+
+--validate checks metrics and span lines against the schema (the
+reference's, `schema.SCHEMA_VERSION`); --regress is the reference's
+bench-trajectory gate; --trace-stitch (also --stitch) joins a router
+log and replica logs on one skew-corrected timeline and writes a
+Chrome trace (telemetry/tracing.py); --profile reduces the host
+sampler's "profile" events to a flamegraph JSON. The reference's
+--goodput, --live and --fleet need modules not ported yet and raise
+`NotPorted` (ROADMAP Queue 1 items 6b and 7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+from shallowspeed_tpu_torch import NotPorted
+
+# the reference's flags whose modules are not ported yet
+UNPORTED = {"--goodput": "Queue 1 item 6b", "--live": "Queue 1 item 6b",
+            "--fleet": "Queue 1 item 7"}
+
+
+class _Refuse(argparse.Action):
+    def __call__(self, parser, namespace, values, option_string=None):
+        raise NotPorted(f"telemetry {option_string}",
+                        UNPORTED[option_string])
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m shallowspeed_tpu_torch.telemetry")
+    g = p.add_mutually_exclusive_group(required=True)
+    g.add_argument("--validate", nargs="+", metavar="PATH",
+                   help="JSONL files (or directories scanned for "
+                        "*.jsonl) to check against the telemetry/"
+                        "metrics schema")
+    g.add_argument("--regress", nargs="+", metavar="PATH",
+                   help="BENCH_r*.json files (or directories scanned "
+                        "for them) — fail when the newest round drops "
+                        "below the prior rounds beyond the noise band")
+    g.add_argument("--trace-stitch", "--stitch", nargs="+",
+                   metavar="JSONL", dest="trace_stitch",
+                   help="join a router log + N replica logs on one "
+                        "skew-corrected timeline and write a Chrome "
+                        "trace to --out; prints the clock fit and each "
+                        "request's latency waterfall")
+    g.add_argument("--profile", nargs="+", metavar="JSONL",
+                   help="reduce the 'profile' events of one or more "
+                        "metrics JSONLs to a flamegraph JSON (--out) + "
+                        "a printed top-frames/phases summary")
+    for flag in UNPORTED:
+        g.add_argument(flag, nargs="*", action=_Refuse,
+                       help=argparse.SUPPRESS)
+    p.add_argument("--out", default=None, metavar="PATH",
+                   help="with --trace-stitch: where the Chrome trace "
+                        "JSON lands (default: stitched_trace.json "
+                        "next to the first input); with --profile: "
+                        "where the flamegraph JSON lands (omitted = "
+                        "summary only)")
+    args = p.parse_args(argv)
+
+    if args.profile:
+        from shallowspeed_tpu_torch.telemetry.profiler import profile_main
+
+        return profile_main(args.profile, out=args.out)
+
+    if args.trace_stitch:
+        from shallowspeed_tpu_torch.telemetry.tracing import stitch_main
+
+        out = args.out
+        if out is None:
+            out = str(Path(args.trace_stitch[0]).parent
+                      / "stitched_trace.json")
+        return stitch_main(args.trace_stitch, out=out)
+
+    if args.regress:
+        from shallowspeed_tpu_torch.telemetry.regress import main as rmain
+
+        return rmain(args.regress)
+
+    from shallowspeed_tpu_torch.telemetry.schema import validate_file
+
+    files: list[Path] = []
+    for raw in args.validate:
+        path = Path(raw)
+        if path.is_dir():
+            files.extend(sorted(path.glob("*.jsonl")))
+        else:
+            files.append(path)
+    if not files:
+        print("no .jsonl files to validate")
+        return 0
+    problems = []
+    for f in files:
+        if not f.exists():
+            problems.append(f"{f}: no such file")
+            continue
+        problems.extend(validate_file(f))
+    for prob in problems:
+        print(prob, file=sys.stderr)
+    print(f"validated {len(files)} file(s): "
+          f"{'OK' if not problems else f'{len(problems)} problem(s)'}")
+    return 1 if problems else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

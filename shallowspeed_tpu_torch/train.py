@@ -55,8 +55,18 @@ The fused, VM and fp8 engines are refused there (`NotPorted`), and a
 failed checkpoint save raises instead of being skipped (the peers would
 wait in the save's barrier).
 
-The root driver's other flags (the telemetry, chaos and profiling
-planes) are recognised and refused with `NotPorted`; `--platform` and
+`--telemetry steps|spans` traces the engines' spans ("step" / "run" of
+the fused engine, "step" / "epoch" of the SPMD pipeline, the VM's
+"batch" and per-instruction spans; `spans` fences them on the device)
+and logs a `"telemetry"` event every epoch (allocated device memory,
+the owners "train.params" / "train.opt_state", host RSS, the last
+batch's counted collective bytes, the VM's measured `comm_bytes`);
+`--trace-dir`, `--profile-dir`, `--profile` and `--profile-hz` as in
+`train_lm`. `--engine fp8` refuses `--telemetry`, as the root driver
+does.
+
+The root driver's other flags (the monitor, chaos, the heartbeat) are
+recognised and refused with `NotPorted`; `--platform` and
 `--host-devices` give way to `--device`.
 """
 
@@ -88,9 +98,16 @@ from shallowspeed_tpu_torch.parallel.schedules import (GPipeSchedule,
                                                        PipeDreamSchedule)
 from shallowspeed_tpu_torch.parallel.spmd_pipeline import SPMDPipelineEngine
 from shallowspeed_tpu_torch.parallel.worker import PipelineExecutor
+from shallowspeed_tpu_torch.telemetry import profiler
 from shallowspeed_tpu_torch.telemetry.anomaly import GuardPolicy
+from shallowspeed_tpu_torch.telemetry.driver import (CHAOS, MONITOR,
+                                                     add_telemetry_flags,
+                                                     owners_of,
+                                                     start_telemetry,
+                                                     stop_telemetry)
 from shallowspeed_tpu_torch.telemetry.health import HealthMonitor
 from shallowspeed_tpu_torch.telemetry.numerics import NumericsMonitor
+from shallowspeed_tpu_torch.telemetry.profiler import device_trace_ctx
 from shallowspeed_tpu_torch.utils import (assert_replicas_in_sync,
                                           get_model_hash, rprint)
 
@@ -103,17 +120,15 @@ LR = 0.006
 SCHEDULES = {"naive": NaiveParallelSchedule, "gpipe": GPipeSchedule,
              "pipedream": PipeDreamSchedule}
 
-_PLANES = "Queue 1 item 6, planes"
 _DEVICE = "--device replaces it: every cell of the dp x pp grid runs there"
 
 # the root driver's flags this driver does not have, and where each
 # comes from
 UNPORTED = {
-    **dict.fromkeys(
-        ["--telemetry", "--trace-dir", "--chaos",
-         "--chaos-state", "--chaos-seed", "--profile-dir", "--profile",
-         "--profile-hz", "--monitor-port", "--slo", "--flight-recorder",
-         "--heartbeat-file", "--replica"], _PLANES),
+    **dict.fromkeys(["--monitor-port", "--slo", "--flight-recorder"],
+                    MONITOR),
+    **dict.fromkeys(["--chaos", "--chaos-state", "--chaos-seed",
+                     "--heartbeat-file", "--replica"], CHAOS),
     **dict.fromkeys(["--platform", "--host-devices"], _DEVICE),
 }
 
@@ -188,6 +203,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None,
                    help="the device every cell of the grid runs on "
                         "(default: the GPU; 'cpu' only when asked)")
+    add_telemetry_flags(p)
     for flag in UNPORTED:
         p.add_argument(flag, nargs="?", action=_Refuse,
                        help=argparse.SUPPRESS)
@@ -325,6 +341,7 @@ def train_fp8(args):
     this driver writes no `ledger` events."""
     for flag, val in (("--dp", args.dp != 1), ("--pp", args.pp != 1),
                       ("--save-dir", bool(args.save_dir)),
+                      ("--telemetry", args.telemetry != "off"),
                       ("--overlap", args.overlap != "off")):
         if val:
             raise SystemExit(
@@ -361,6 +378,7 @@ def train_fp8(args):
         return tot / max(nb, 1)
 
     last_logged = -1
+    plane = profiler.from_args(args, metrics)
     try:
         for step in range(total_steps):
             batch_id = step % n_batches
@@ -416,6 +434,8 @@ def train_fp8(args):
         metrics.log(event="val", step=max(total_steps - 1, 0),
                     val_loss=round(final, 6))
     finally:
+        if plane is not None:
+            plane.close()
         metrics.close()
     return final, engine
 
@@ -452,61 +472,79 @@ def train(args):
     # once, each epoch stepped with no host copy per batch
     staged = (engine.stage_epoch(train_ds, n_batches)
               if hasattr(engine, "train_epoch") else None)
+    owners = owners_of(engine)
+    telem = plane = None
     start = time.time()
     try:
-        for epoch in range(start_epoch, args.epochs):
-            accuracy = compute_accuracy(engine, val_ds)
-            rprint(f"Epoch: {epoch}, Time Spent: {time.time() - start:.2f}s, "
-                   f"Accuracy: {accuracy * 100:.2f}%")
-            t_epoch = time.time()
-            if staged is not None:
-                engine.train_epoch(staged)
-            else:
-                for batch_id in range(n_batches):
-                    engine.train_batch(schedule_cls, args.mubatches,
-                                       batch_id, train_ds)
-            _sync(device)   # the epoch's time is the device's work
-            metrics.epoch(epoch, accuracy, n_batches * args.batch_size,
-                          time.time() - t_epoch)
-            if monitor is not None:
-                # the last batch's pack and the verdicts, once an epoch
-                # (the MLP driver has no step lines)
-                for v in monitor.observe(epoch, None,
-                                         engine.health_snapshot()):
-                    rprint(str(v))
-                metrics.log(event="health", step=epoch,
-                            **monitor.step_fields())
-            if args.save_dir and monitor is not None \
-                    and monitor.unhealthy():
-                # never checkpoint a poisoned iterate
-                rprint(f"epoch {epoch}: health is "
-                       f"{monitor.heartbeat_status()!r} — skipping "
-                       f"checkpoint save")
-            elif args.save_dir:
-                try:
-                    checkpoint.save(args.save_dir, engine, epoch)
-                except (checkpoint.CheckpointError, OSError) as e:
-                    if D.process_count() > 1:
-                        # the peers already wait in the save's barrier:
-                        # carrying on here would wedge them; raise and
-                        # let every process stop
-                        raise
-                    # atomic rename: latest() still points at the
-                    # previous checkpoint — keep training
-                    rprint(f"warning: checkpoint save failed ({e}); the "
-                           f"previous checkpoint remains the restore point")
-
+        telem, plane = start_telemetry(args, engine, metrics, owners)
+        with device_trace_ctx(args.profile_dir):
+            _epochs(args, engine, schedule_cls, train_ds, val_ds, n_batches,
+                    staged, start_epoch, start, metrics, monitor, telem,
+                    device)
         accuracy = compute_accuracy(engine, val_ds)
         rprint(f"Epoch: {args.epochs}, Time Spent: "
                f"{time.time() - start:.2f}s, Accuracy: {accuracy * 100:.2f}%")
         metrics.final(accuracy, time.time() - start)
     finally:
-        metrics.close()
+        try:
+            stop_telemetry(args, telem, plane, owners)
+        finally:
+            metrics.close()
     # DP replicas hold bit-identical weights (the reference's closing
     # hash check)
     assert_replicas_in_sync(engine.replicas())
     rprint(f"model hash: {get_model_hash(engine.params)}")
     return accuracy, engine
+
+
+def _epochs(args, engine, schedule_cls, train_ds, val_ds, n_batches, staged,
+            start_epoch, start, metrics, monitor, telem, device) -> None:
+    """The epochs from `start_epoch`: accuracy line, training, the
+    epoch record, health, telemetry and checkpoint, once an epoch."""
+    for epoch in range(start_epoch, args.epochs):
+        accuracy = compute_accuracy(engine, val_ds)
+        rprint(f"Epoch: {epoch}, Time Spent: {time.time() - start:.2f}s, "
+               f"Accuracy: {accuracy * 100:.2f}%")
+        t_epoch = time.time()
+        if staged is not None:
+            engine.train_epoch(staged)
+        else:
+            for batch_id in range(n_batches):
+                engine.train_batch(schedule_cls, args.mubatches,
+                                   batch_id, train_ds)
+        _sync(device)   # the epoch's time is the device's work
+        metrics.epoch(epoch, accuracy, n_batches * args.batch_size,
+                      time.time() - t_epoch)
+        if monitor is not None:
+            # the last batch's pack and the verdicts, once an epoch
+            # (the MLP driver has no step lines)
+            for v in monitor.observe(epoch, None,
+                                     engine.health_snapshot()):
+                rprint(str(v))
+            metrics.log(event="health", step=epoch,
+                        **monitor.step_fields())
+        if telem is not None:
+            metrics.log(event="telemetry", epoch=epoch,
+                        **telem.step_fields())
+        if args.save_dir and monitor is not None \
+                and monitor.unhealthy():
+            # never checkpoint a poisoned iterate
+            rprint(f"epoch {epoch}: health is "
+                   f"{monitor.heartbeat_status()!r} — skipping "
+                   f"checkpoint save")
+        elif args.save_dir:
+            try:
+                checkpoint.save(args.save_dir, engine, epoch)
+            except (checkpoint.CheckpointError, OSError) as e:
+                if D.process_count() > 1:
+                    # the peers already wait in the save's barrier:
+                    # carrying on here would wedge them; raise and
+                    # let every process stop
+                    raise
+                # atomic rename: latest() still points at the
+                # previous checkpoint — keep training
+                rprint(f"warning: checkpoint save failed ({e}); the "
+                       f"previous checkpoint remains the restore point")
 
 
 def main(argv=None) -> int:

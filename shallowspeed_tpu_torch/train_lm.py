@@ -117,9 +117,23 @@ synchronous save raises instead of being skipped. The layouts and
 options not ported across processes raise `NotPorted` (ROADMAP Queue 1
 item 5c).
 
-The root driver's other flags (the telemetry planes) are recognised and
-refused with `NotPorted`; `--platform` and `--host-devices` give way to
-`--device`.
+`--telemetry steps|spans` traces the engine's spans (`telemetry.trace`:
+"step", and "grads" / "update" where the reference splits the step;
+`spans` fences each on the device) and puts the telemetry fields on
+every step line (allocated device memory and its peak, the per-owner
+bytes of "train.params" and "train.opt_state", host RSS, the step's
+counted collective bytes per axis; `telemetry.report.RunTelemetry`);
+`--trace-dir D` (implies `steps`) writes `spans.jsonl`, `trace.json`
+and `telemetry.json` there (under several processes each process into
+`D/p<index>`). `--profile-dir D` captures the loop's CPU and CUDA
+activity with `torch.profiler` into a Chrome trace per process;
+`--profile host [--profile-hz N]` runs the host sampling profiler,
+whose "profile" snapshots go to `--log-file` (`host+device` also
+captures a device trace in each triggered window).
+
+The root driver's other flags (the monitor, the flight recorder, chaos,
+the heartbeat) are recognised and refused with `NotPorted`;
+`--platform` and `--host-devices` give way to `--device`.
 """
 
 from __future__ import annotations
@@ -160,22 +174,27 @@ from shallowspeed_tpu_torch.parallel.overlap import from_flags
 from shallowspeed_tpu_torch.parallel.pipeline_lm import PipelineLMEngine
 from shallowspeed_tpu_torch.parallel.tensor import TensorParallelEngine
 from shallowspeed_tpu_torch.telemetry.anomaly import GuardPolicy
+from shallowspeed_tpu_torch.telemetry.driver import (CHAOS, MONITOR,
+                                                     add_telemetry_flags,
+                                                     owners_of,
+                                                     start_telemetry,
+                                                     stop_telemetry,
+                                                     telemetry_line)
 from shallowspeed_tpu_torch.telemetry.health import HealthMonitor
+from shallowspeed_tpu_torch.telemetry.profiler import device_trace_ctx
 from shallowspeed_tpu_torch.utils import rprint
 from shallowspeed_tpu_torch.weights import map_tree
 
-_PLANES = "Queue 1, planes"
 _DEVICE = "--device replaces it: every cell of the grid runs there"
 
 # the root driver's flags this driver does not have yet, and where each
 # comes from
 UNPORTED = {
     **dict.fromkeys(["--platform", "--host-devices"], _DEVICE),
-    **dict.fromkeys(
-        ["--heartbeat-file", "--profile-dir", "--telemetry",
-         "--trace-dir", "--monitor-port", "--replica", "--slo",
-         "--flight-recorder", "--profile", "--profile-hz", "--chaos",
-         "--chaos-state", "--chaos-seed"], _PLANES),
+    **dict.fromkeys(["--monitor-port", "--slo", "--flight-recorder"],
+                    MONITOR),
+    **dict.fromkeys(["--heartbeat-file", "--replica", "--chaos",
+                     "--chaos-state", "--chaos-seed"], CHAOS),
 }
 
 
@@ -390,6 +409,7 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "torch versions of the kernels)")
+    add_telemetry_flags(p)
     for flag in UNPORTED:
         p.add_argument(flag, nargs="?", action=_Refuse,
                        help=argparse.SUPPRESS)
@@ -825,7 +845,10 @@ def train(args) -> float:
                             d_model=cfg.d_model, n_layers=cfg.n_layers,
                             attn=args.attn, device=str(device),
                             start_step=start_step)
+    owners = owners_of(engine)
+    telem = plane = None
     try:
+        telem, plane = start_telemetry(args, engine, metrics, owners)
         if restored is not None:
             metrics.log(event="restore", path=str(restored),
                         step=start_step,
@@ -851,24 +874,29 @@ def train(args) -> float:
                                  text_data=text_data, tokenizer=tokenizer)
             return float("nan")
         loss = _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
-                     start_step, ema, ema_weights)
+                     start_step, ema, ema_weights, telem)
         if args.generate > 0:
             with ema_weights():
                 sample_and_print(args, engine, cfg, metrics,
                                  text_data=text_data, tokenizer=tokenizer)
     finally:
-        metrics.close()
+        try:
+            stop_telemetry(args, telem, plane, owners)
+        finally:
+            metrics.close()
     return loss
 
 
 def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
-          start_step, ema, ema_weights) -> float:
+          start_step, ema, ema_weights, telem=None) -> float:
     """The step loop from `start_step`: prefetched batches, step lines
-    at log points, validation and checkpoints on their cadence."""
+    at log points (with `telem`'s fields), validation and checkpoints on
+    their cadence; under --profile-dir inside the profiler's capture."""
     device = engine.device
     monitor = (HealthMonitor(policy=GuardPolicy.for_mode(args.health))
                if args.health != "off" else None)
-    rates = StepRates(args.batch_size * args.seq_len, health=monitor)
+    rates = StepRates(args.batch_size * args.seq_len, telemetry=telem,
+                      health=monitor)
     dtype = "bf16" if args.bf16 else "f32"
     saver = checkpoint.AsyncSaver() if args.async_save else None
     queued = []          # stats of the async saves, logged once written
@@ -923,97 +951,105 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
     loss, last = float("nan"), start_step - 1
     failed = True
     try:
-        placed_it = iter(placed)
-        for step in range(start_step, args.steps):
-            tok, tgt = next(placed_it)
-            loss = engine.train_batch(tok, tgt)   # syncs with the device
-            if ema is not None:
-                ema_update(ema, engine.params, args.ema_decay)
-            if sync_every(step, args.log_every, args.steps):
-                if monitor is not None:
-                    verdicts = monitor.observe(step, loss,
-                                               engine.health_snapshot())
-                    for v in verdicts:
-                        rprint(str(v), flush=True)
-                    fatal = [v for v in verdicts if v.action == "abort"]
-                    if fatal:
+        # the --profile-dir capture spans the loop (a no-op without it)
+        with device_trace_ctx(args.profile_dir):
+            placed_it = iter(placed)
+            for step in range(start_step, args.steps):
+                tok, tgt = next(placed_it)
+                loss = engine.train_batch(tok, tgt)   # syncs with the device
+                if ema is not None:
+                    ema_update(ema, engine.params, args.ema_decay)
+                if sync_every(step, args.log_every, args.steps):
+                    if monitor is not None:
+                        verdicts = monitor.observe(step, loss,
+                                                   engine.health_snapshot())
+                        for v in verdicts:
+                            rprint(str(v), flush=True)
+                        fatal = [v for v in verdicts if v.action == "abort"]
+                        if fatal:
+                            if args.save_dir:
+                                save_ckpt(f"{args.save_dir}/diverged", step)
+                                if saver is not None:
+                                    saver.wait()
+                            raise SystemExit(
+                                f"health policy abort at step {step}: "
+                                + "; ".join(v.detail for v in fatal))
+                    if not np.isfinite(loss):
                         if args.save_dir:
+                            # forensic only: under diverged/, so --resume
+                            # keeps finding the last good checkpoint
                             save_ckpt(f"{args.save_dir}/diverged", step)
                             if saver is not None:
                                 saver.wait()
+                            rprint(f"diverged-state snapshot: {args.save_dir}/"
+                                  f"diverged/ckpt_{step}", flush=True)
                         raise SystemExit(
-                            f"health policy abort at step {step}: "
-                            + "; ".join(v.detail for v in fatal))
-                if not np.isfinite(loss):
-                    if args.save_dir:
-                        # forensic only: under diverged/, so --resume
-                        # keeps finding the last good checkpoint
-                        save_ckpt(f"{args.save_dir}/diverged", step)
-                        if saver is not None:
-                            saver.wait()
-                        rprint(f"diverged-state snapshot: {args.save_dir}/"
-                              f"diverged/ckpt_{step}", flush=True)
-                    raise SystemExit(
-                        f"loss became non-finite ({loss}) at step {step}; "
-                        f"try --grad-clip, a lower --lr, or --lr-schedule "
-                        f"with --warmup-steps")
-                r = rates.log_point(step - last)
-                last = step
-                perf = mfu(r["tokens_per_sec"], cfg, args.seq_len, dtype,
-                           device=device)
-                cum = mfu(r["tokens_per_sec_cum"], cfg, args.seq_len, dtype,
-                          device=device)
-                mfu_txt = ("" if perf["mfu"] is None else
-                           f"  {perf['tflops']:.1f} TF/s "
-                           f"({perf['mfu'] * 100:.1f}% MFU)")
-                rprint(f"step {step:5d}  loss {loss:.4f}  "
-                      f"tok/s {r['tokens_per_sec']:,.0f}{mfu_txt}",
-                      flush=True)
-                metrics.log(**step_event(step, loss, r, perf, cum),
-                            **{k: v for k, v in r.items()
-                               if k.startswith("health_")})
-                if args.experts and not isinstance(engine,
-                                                   PipelineLMEngine):
-                    # the capacity drop is silent in the loss: show it
-                    # (the pipeline, as the reference's, reports none)
-                    rs = engine.router_stats(tok)
-                    rprint(f"             moe drop "
-                          f"{rs['drop_fraction']:.1%}  load "
-                          f"{rs['expert_load']}", flush=True)
-                    metrics.log(event="moe_router", step=step, **rs)
-            if args.val_every and ((step + 1) % args.val_every == 0
-                                   or step == args.steps - 1):
-                tv = time.time()
-                vl = val_loss(step)
-                rates.pause(time.time() - tv, kind="val")
-                ppl = float(np.exp(min(vl, 20)))
-                rprint(f"step {step:5d}  val_loss {vl:.4f}  ppl {ppl:,.2f}",
-                      flush=True)
-                metrics.log(event="val", step=step, val_loss=round(vl, 6),
-                            perplexity=round(ppl, 3))
-            if args.save_dir and ((step + 1) % args.save_every == 0
-                                  or step == args.steps - 1):
-                ts = time.time()
-                if not np.isfinite(loss) or (monitor is not None
-                                             and monitor.unhealthy()):
-                    # never make a poisoned iterate the restore point
-                    status = (f"loss {loss}" if not np.isfinite(loss)
-                              else monitor.heartbeat_status())
-                    rprint(f"step {step}: state is {status!r} — skipping "
-                          f"checkpoint save", flush=True)
-                    metrics.log(event="ckpt_save_skipped", step=step)
-                else:
-                    try:
-                        save_ckpt(args.save_dir, step)
-                    except (checkpoint.CheckpointError, OSError) as e:
-                        save_failed(step, e)
-                    except RuntimeError as e:
-                        # the async saver surfaces its worker's failure
-                        # on the next call, wrapped
-                        if "checkpoint" not in str(e):
-                            raise
-                        save_failed(step, e)
-                rates.pause(time.time() - ts, kind="ckpt_save")
+                            f"loss became non-finite ({loss}) at step {step}; "
+                            f"try --grad-clip, a lower --lr, or --lr-schedule "
+                            f"with --warmup-steps")
+                    r = rates.log_point(step - last)
+                    last = step
+                    perf = mfu(r["tokens_per_sec"], cfg, args.seq_len, dtype,
+                               device=device)
+                    cum = mfu(r["tokens_per_sec_cum"], cfg, args.seq_len,
+                              dtype, device=device)
+                    mfu_txt = ("" if perf["mfu"] is None else
+                               f"  {perf['tflops']:.1f} TF/s "
+                               f"({perf['mfu'] * 100:.1f}% MFU)")
+                    rprint(f"step {step:5d}  loss {loss:.4f}  "
+                          f"tok/s {r['tokens_per_sec']:,.0f}{mfu_txt}",
+                          flush=True)
+                    # the health and telemetry fields ride the same line
+                    fields = {k: v for k, v in r.items()
+                              if k not in ("tokens_per_sec",
+                                           "tokens_per_sec_cum")}
+                    metrics.log(**step_event(step, loss, r, perf, cum),
+                                **fields)
+                    line = telemetry_line(fields) if telem else ""
+                    if line:
+                        rprint(line, flush=True)
+                    if args.experts and not isinstance(engine,
+                                                       PipelineLMEngine):
+                        # the capacity drop is silent in the loss: show it
+                        # (the pipeline, as the reference's, reports none)
+                        rs = engine.router_stats(tok)
+                        rprint(f"             moe drop "
+                              f"{rs['drop_fraction']:.1%}  load "
+                              f"{rs['expert_load']}", flush=True)
+                        metrics.log(event="moe_router", step=step, **rs)
+                if args.val_every and ((step + 1) % args.val_every == 0
+                                       or step == args.steps - 1):
+                    tv = time.time()
+                    vl = val_loss(step)
+                    rates.pause(time.time() - tv, kind="val")
+                    ppl = float(np.exp(min(vl, 20)))
+                    rprint(f"step {step:5d}  val_loss {vl:.4f}  "
+                           f"ppl {ppl:,.2f}", flush=True)
+                    metrics.log(event="val", step=step, val_loss=round(vl, 6),
+                                perplexity=round(ppl, 3))
+                if args.save_dir and ((step + 1) % args.save_every == 0
+                                      or step == args.steps - 1):
+                    ts = time.time()
+                    if not np.isfinite(loss) or (monitor is not None
+                                                 and monitor.unhealthy()):
+                        # never make a poisoned iterate the restore point
+                        status = (f"loss {loss}" if not np.isfinite(loss)
+                                  else monitor.heartbeat_status())
+                        rprint(f"step {step}: state is {status!r} — "
+                               f"skipping checkpoint save", flush=True)
+                        metrics.log(event="ckpt_save_skipped", step=step)
+                    else:
+                        try:
+                            save_ckpt(args.save_dir, step)
+                        except (checkpoint.CheckpointError, OSError) as e:
+                            save_failed(step, e)
+                        except RuntimeError as e:
+                            # the async saver surfaces its worker's failure
+                            # on the next call, wrapped
+                            if "checkpoint" not in str(e):
+                                raise
+                            save_failed(step, e)
+                    rates.pause(time.time() - ts, kind="ckpt_save")
         failed = False
     finally:
         # abandoning mid-stream must not leave placed batches held by a

@@ -332,3 +332,46 @@ def ref_overlap(monkeypatch):
                 parent, _, leaf = name.rpartition(".")
                 if getattr(sys.modules.get(parent), leaf, None) is mod:
                     delattr(sys.modules[parent], leaf)
+
+
+# --------------------------------------------- the reference's telemetry
+
+_REF_TELEMETRY_MODS = ("shallowspeed_tpu.telemetry.report",
+                       "shallowspeed_tpu.telemetry.collectives",
+                       "shallowspeed_tpu.telemetry.tracing",
+                       "shallowspeed_tpu.telemetry.attribution")
+
+
+@pytest.fixture
+def ref_telemetry(monkeypatch):
+    """The JAX package's telemetry at the `steps` level for one test,
+    with its walker-importing modules (`telemetry.report`,
+    `collectives`; `tracing` reaches `report`) importable through a stub
+    `analysis.walker`, as `ref_overlap` does; the stub's names are never
+    called by what the tests use (spans, `record_engine_entrypoints`'s
+    shape skeletons, the request helpers), so no walker output is an
+    oracle. Yields the reference's `telemetry` package; afterwards its
+    tracer is back at `off` and every module the test imported under
+    `shallowspeed_tpu.analysis` or among those above is gone from
+    `sys.modules` and from its parent's attributes."""
+    import importlib
+
+    walker = types.ModuleType(_WALKER_MOD)
+    walker._as_jaxpr = walker.aval_bytes = walker.sub_jaxprs = None
+    walker.peak_bytes = None
+    before = set(sys.modules)
+    monkeypatch.setitem(sys.modules, _WALKER_MOD, walker)
+    for name in _REF_TELEMETRY_MODS:
+        monkeypatch.delitem(sys.modules, name, raising=False)
+    tele = importlib.import_module("shallowspeed_tpu.telemetry")
+    try:
+        yield tele
+    finally:
+        tele.configure()
+        for name in sorted(set(sys.modules) - before, reverse=True):
+            if name in _REF_TELEMETRY_MODS or name.startswith(
+                    "shallowspeed_tpu.analysis"):
+                mod = sys.modules.pop(name)
+                parent, _, leaf = name.rpartition(".")
+                if getattr(sys.modules.get(parent), leaf, None) is mod:
+                    delattr(sys.modules[parent], leaf)
