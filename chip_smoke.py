@@ -103,7 +103,7 @@ Phases (any failure exits non-zero and prints no result line):
    steps, with the launch counts zeroed just before them: the
    tensor-core builds of K1, K2 and K3 must each equal n_layers x steps
    after, their f32-FMA builds 0; and a finite, falling loss.
-6b. Data and checkpoints at full width and CKPT_LAYERS (2) of the 16
+6b. Data and checkpoints at full width and CKPT_LAYERS (1) of the 16
    layers, through `train_lm.main` and `serve
    --ckpt`'s loader: a token-shard corpus (`build_shards`, vocab
    32768, 10 % held out, 16-token motifs from numpy seed 7); run A
@@ -223,7 +223,7 @@ Phases (any failure exits non-zero and prints no result line):
 
 13. The GSPMD engine family (no kernel: the plain attention, as the
    reference's GSPMD engines run XLA attention), the 1.21B LM's width
-   at GSPMD_LAYERS = 2 layers of 16 (the plain attention's f32 score
+   at GSPMD_LAYERS = 1 layer of 16 (the plain attention's f32 score
    tensors, and the script's time): (a) the
    one-device plain-attention engine as the yardstick
    (`ExpertParallelEngine` at (1, 1) for MoE); (b)
@@ -291,7 +291,7 @@ Phases (any failure exits non-zero and prints no result line):
 16. Comm overlap (`parallel/overlap.py`: each bucket of replica r >= 1's
    gradient added into the rank-order sum from its backward, on a side
    stream), every line with the card's name and power limit. (a)
-   `ContextParallelEngine` dp 2 flash at full width and OV_LAYERS = 8
+   `ContextParallelEngine` dp 2 flash at full width and OV_LAYERS = 4
    of 16 layers (phase 6's batch and weights, cut for the script's
    time), AdamW 3e-4, overlap off, then on with 4 and 64
    MiB buckets: two overlap-off `loss_and_grads` calls against each
@@ -373,14 +373,51 @@ Phases (any failure exits non-zero and prints no result line):
    gradient partial on the dp axis; each equal to the analytic bytes
    printed beside it (`tele (d):`).
 
+19. Monitor and accounting (`shallowspeed_tpu_torch.telemetry`'s
+   `monitor`, `goodput`, `bubble`, `attribution`) on the port's entry
+   points, the 1.21B LM at full width and MON_LAYERS = 4 of 16 layers
+   (one seeded draw, `_cached_draw`), 4 x 2048, `--attn flash`. Every
+   monitor endpoint the drivers start is polled from a thread while the
+   run is live (`_polled_monitors`: /status.json and /metrics). (a)
+   `train_lm --pp 2 --n-mubatches 4 --telemetry spans`, gpipe and then
+   1f1b, MON_STEPS steps, with and without `--monitor-port 0 --slo
+   'step_p95_ms<1' --flight-recorder 64`: losses bit for bit equal and
+   K1-K3 launches equal; the SLO fires, a flight dump is written, the
+   poller was answered; the step quantiles of the monitor's last
+   snapshot, `bubble_static` and the calibrated `bubble_measured`
+   (gpipe's equal to the static 0.200 to rounding: its replay is
+   F:B-invariant); `two_point_bubble` of a pp 2 gpipe engine against
+   its `make_calibration_twin` (twice the microbatches on twice the
+   rows, MON_TWIN_STEPS fenced steps each) (`mon (a):`). (b) phase 18
+   (a)'s `spans` run (the one-device flash step under ZeRO-1, TELE_LAYERS
+   layers): the roofline `roofline_of_step` counted on its first step
+   (FLOPs, dot bytes, bytes) equal to the executed FLOPs written out
+   here, K1-K3's self-reported FLOPs equal to their causal counts, and
+   its last step line's `attrib_*` waterfall from the card's table
+   (`mon (b):`). (c) `--goodput` of (a)'s monitored gpipe log: goodput,
+   the named losses, the first window's `compile` loss beside the
+   kernels built before it (phase 1), and the window-sum check: the step
+   lines' window seconds plus the excluded ledger seconds equal the
+   wall `StepRates` measured, within 1 ms (`mon (c):`). (d) `serve` at
+   MON_SERVE_LAYERS layers, phase 3's 12 greedy requests, `--monitor-port
+   0 --slo 'ttft_p95_ms<1' --flight-recorder 64`: streams equal phase
+   18 (c)'s run without the monitor, K4 n_layers x ticks, the 1 ms SLO
+   fires, a flight dump is written, the sketch's ttft/tpot p50/p95
+   within its rel_err of the exact request percentiles (`mon (d):`).
+   (e) `train --engine vm --pp 2 --schedule gpipe --telemetry spans`
+   at the MLP's full width, MON_MLP_BATCHES batches: the bubble
+   replayed from the VM's fenced Forward / Backward spans against the
+   static 0.200 (`mon (e):`).
+
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers (with `device_ms` / `library_device_ms` where the
 profiler timed them, K1-K3's `recipe_launches` from phase 10a,
 `cp_launches` from phase 12c, `pp_launches` from phase 14,
 `pp15_launches` from phase 15, `ov_launches` from phase 16's
 overlapped runs, (a) and (b), `mp_launches` [process 0, process 1]
-from phase 17's (a) and (b), and `tele_launches` from phase 18 (a)'s
-`spans` run), and
+from phase 17's (a) and (b), `tele_launches` from phase 18 (a)'s
+`spans` run, and `mon_launches` from phase 19's (a) monitored runs and
+(d)), and
 `{"ok": true, "device": {...}}`.
 """
 
@@ -2011,9 +2048,10 @@ def train(dev, cfg, np_params) -> dict:
 # random order (numpy seed 7), so the loss falls; CKPT_STEPS steps, a
 # checkpoint after CKPT_SAVE_AT of them, validation every CKPT_SAVE_AT.
 CKPT_WINDOWS = 64
-# phase 6b's depth (its width is never cut): 2 of the 16 layers, a ~3.3
+# phase 6b's depth (its width is never cut): 1 of the 16 layers, a ~2.4
 # GB checkpoint in place of 14.55 GB, to keep the script within its time
-CKPT_LAYERS = 2
+# (2 before phase 19 came)
+CKPT_LAYERS = 1
 CKPT_MOTIFS = 64
 CKPT_STEPS = 6
 CKPT_SAVE_AT = 3
@@ -3455,7 +3493,8 @@ CP_STEPS = 5
 # the sp substrates inside a pipeline stage at PP15_SP_LAYERS, and phase
 # 16b runs 12c's ZeRO-2 layout at OV_Z2_LAYERS)
 CP_LAYERS = 2
-CP_DRIVER_LAYERS = 2
+# 12d's driver at 1 layer (2 before phase 19 came, cut for the script's time)
+CP_DRIVER_LAYERS = 1
 CP_DRIVER_STEPS = 4
 
 
@@ -3867,8 +3906,8 @@ def run_cp_driver(dev, cfg) -> dict:
 # engines run XLA attention), so it launches no K1-K3. Depth is cut to
 # GSPMD_LAYERS of 16: the plain attention keeps ~3 f32 (B, H, T, T)
 # tensors a layer for its backward (~3.2 GB a layer at 4 x 16 x 2048^2),
-# and the script's time.
-GSPMD_LAYERS = 2
+# and the script's time (2 before phase 19 came).
+GSPMD_LAYERS = 1
 GSPMD_STEPS = 3
 # name, engine class name, grid axes, grid sizes, options
 GSPMD_LAYOUTS = [("tp4", "TensorParallelEngine", ("dp", "tp"), (1, 4), {}),
@@ -3881,7 +3920,8 @@ GSPMD_LAYOUTS = [("tp4", "TensorParallelEngine", ("dp", "tp"), (1, 4), {}),
                   {}),
                  ("moe-dp2-sp2-ep2", "ExpertParallelEngine",
                   ("dp", "sp", "ep"), (2, 2, 2), {})]
-GSPMD_DRIVER_LAYERS = 2
+# 13c's driver at 1 layer (2 before phase 19 came, cut for the script's time)
+GSPMD_DRIVER_LAYERS = 1
 GSPMD_DRIVER_STEPS = 4
 
 
@@ -4522,12 +4562,14 @@ def run_pp_driver(dev, cfg, phase="14") -> dict:
 OV_VARIANTS = (("off", None), ("on-4mb", 4.0), ("on-64mb", 64.0))
 OV_STEPS = 4
 OV_Z2_LAYERS = 2
-# (a)'s depth: 8 of 16 layers, cut for the script's time
-OV_LAYERS = 8
+# (a)'s depth: 4 of 16 layers, cut for the script's time (16 before
+# phase 17 came, 8 before phase 19)
+OV_LAYERS = 4
 OV_FSDP_LAYERS = 2
 OV_SHORT_STEPS = 2
 OV_MLP_BATCHES = 6
-OV_DRIVER_LAYERS = 2
+# 16e's drivers at 1 layer (2 before phase 19 came, cut for the script's time)
+OV_DRIVER_LAYERS = 1
 OV_DRIVER_STEPS = 3
 
 
@@ -5669,7 +5711,8 @@ def _tele_levels(dev, cfg, root) -> dict:
                        "share_by_tag": tags,
                        "max_gap_ms": prof["max_gap_ms"]}}
     print("tele (a): " + json.dumps(out), flush=True)
-    return {"launches": sp["launches"], "flags": flags}
+    return {"launches": sp["launches"], "flags": flags, "spans_last": last,
+            "roofline": summ["roofline"]}
 
 
 def _np_leaves(tree):
@@ -5777,7 +5820,7 @@ def _tele_serve(dev, cfg, root) -> dict:
     if not out["streams_equal"] or len(h["streams"]) != N_REQUESTS \
             or h["launches"] != want_k4 or not tick:
         raise AssertionError(f"tele (c): {out}")
-    return out
+    return {**out, "streams": runs["off"]["streams"]}
 
 
 def _tele_traffic(dev, cfg) -> dict:
@@ -5842,11 +5885,404 @@ def run_telemetry(dev, cfg, card) -> dict:
         with _cached_draw():
             levels = _tele_levels(dev, cfg, root)
             _tele_profile_dir(dev, levels["flags"], root)
-            _tele_serve(dev, cfg, root)
+            served = _tele_serve(dev, cfg, root)
             _tele_traffic(dev, cfg)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"launches": levels["launches"]}
+    return {"launches": levels["launches"], "roofline": levels["roofline"],
+            "spans_last": levels["spans_last"],
+            "serve_streams": served["streams"]}
+
+
+# Phase 19: monitor and accounting. Depth is cut to MON_LAYERS of 16 for
+# the script's time (width never); (b) reads phase 18 (a)'s `spans` run
+# (the one-device flash step under ZeRO-1 at TELE_LAYERS), (d) compares
+# with phase 18 (c)'s streams.
+MON_LAYERS = 4
+MON_STEPS = 6
+MON_N_MU = 4
+MON_SERVE_LAYERS = TELE_SERVE_LAYERS
+MON_TWIN_STEPS = 3
+MON_MLP_BATCHES = 8
+MON_FLAGS = ["--monitor-port", "0", "--slo", "step_p95_ms<1",
+             "--flight-recorder", "64"]
+
+
+@contextlib.contextmanager
+def _polled_monitors(got: list):
+    """Every monitor endpoint a driver starts (`monitor.from_args`, which
+    `train_lm`, `train` and `serve` call), polled from a thread while
+    the run is live, as an operator would: each answered GET of
+    /status.json and /metrics lands in `got` as (path, body). The
+    poller stops before the endpoint closes."""
+    import threading
+    import urllib.request
+
+    from shallowspeed_tpu_torch.telemetry import monitor as MON
+
+    real_from, real_close = MON.from_args, MON.close_monitor
+    pollers = {}
+
+    def poll(srv, halt):
+        while not halt.is_set():
+            try:
+                for path in ("/status.json", "/metrics"):
+                    with urllib.request.urlopen(srv.url(path),
+                                                timeout=10) as r:
+                        got.append((path, r.read().decode()))
+            except OSError:
+                pass
+            halt.wait(0.05)
+
+    def from_args(*a, **kw):
+        mon, srv = real_from(*a, **kw)
+        if srv is not None:
+            halt = threading.Event()
+            th = threading.Thread(target=poll, args=(srv, halt),
+                                  daemon=True)
+            th.start()
+            pollers[id(srv)] = (halt, th)
+        return mon, srv
+
+    def close_monitor(mon, srv):
+        halt, th = pollers.pop(id(srv), (None, None))
+        if halt is not None:
+            halt.set()
+            th.join(timeout=30)
+        real_close(mon, srv)
+
+    MON.from_args, MON.close_monitor = from_args, close_monitor
+    try:
+        yield
+    finally:
+        MON.from_args, MON.close_monitor = real_from, real_close
+        for halt, th in pollers.values():
+            halt.set()
+            th.join(timeout=30)
+
+
+@contextlib.contextmanager
+def _recorded_rates(rec: dict):
+    """`train_lm`'s `StepRates` with its start, the end of its last
+    window and the pause seconds booked after that end recorded in
+    `rec` (what (c)'s window-sum check reads against the log)."""
+    from shallowspeed_tpu_torch import train_lm
+
+    real = train_lm.StepRates
+
+    class Recorded(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            rec["t0"] = self._t0
+            rec["rates"] = self
+
+    train_lm.StepRates = Recorded
+    try:
+        yield
+    finally:
+        train_lm.StepRates = real
+        r = rec.pop("rates", None)
+        if r is not None:
+            rec["last_end"] = r._win_t
+            rec["after_end"] = r._pause - r._win_pause
+
+
+def _sketch_summary(log) -> dict:
+    """The quantiles of a log's last "monitor" snapshot."""
+    from shallowspeed_tpu_torch.telemetry.sketch import MetricSketches
+
+    snap = _events(log, "monitor")[-1]
+    return MetricSketches(rel_err=snap["rel_err"]).merge_dict(
+        snap["sketches"]).summary()
+
+
+def _two_point(dev, cfg, tok, tgt) -> dict:
+    """`two_point_bubble` of pp 2 gpipe at MON_N_MU microbatches: fenced
+    steps of the engine against its calibration twin at twice the
+    microbatches on twice the rows."""
+    import torch
+
+    from shallowspeed_tpu_torch import optim as O
+    from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.parallel.mesh import make_pipeline_mesh
+    from shallowspeed_tpu_torch.parallel.pipeline_lm import PipelineLMEngine
+    from shallowspeed_tpu_torch.telemetry.bubble import two_point_bubble
+
+    pcfg = dataclasses.replace(cfg, n_layers=MON_LAYERS)
+    eng = PipelineLMEngine(pcfg, O.AdamW(3e-4), make_pipeline_mesh(
+        1, 2, 1, dev), n_mubatches=MON_N_MU, schedule="gpipe", attn="flash",
+        params=T.init_numpy(pcfg, 0))
+    twin = eng.make_calibration_twin()
+    times = {}
+    for name, e, (t, g) in (("n_mu", eng, (tok, tgt)),
+                            ("2n_mu", twin, (np.concatenate([tok, tok]),
+                                             np.concatenate([tgt, tgt])))):
+        e.train_batch(t, g)                       # warm-up
+        ts = []
+        for _ in range(MON_TWIN_STEPS):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            e.train_batch(t, g)                   # ends in float(loss)
+            ts.append(time.perf_counter() - t0)
+        times[name] = float(np.median(ts))
+    del eng, twin
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return two_point_bubble(times["n_mu"], times["2n_mu"])
+
+
+def _mon_pipeline(dev, cfg, root, got) -> dict:
+    """Phase 19 (a) and (c): `train_lm --pp 2` gpipe and 1f1b under the
+    monitor against the same runs without its flags, the endpoint polled
+    while they run; the calibrated bubble, the two-point bubble; then
+    `--goodput` of the gpipe run and its window-sum check."""
+    from shallowspeed_tpu_torch.ops import _build
+    from shallowspeed_tpu_torch.telemetry import goodput as G
+    from shallowspeed_tpu_torch.telemetry.bubble import static_bubble
+
+    flags = [*_lm_flags(cfg, MON_LAYERS, dev), "--steps", str(MON_STEPS),
+             "--pp", "2", "--n-mubatches", str(MON_N_MU), "--telemetry",
+             "spans"]
+    out, launches, rec = {}, {}, {}
+    for sched in ("gpipe", "1f1b"):
+        f = [*flags, "--pp-schedule", sched]
+        off = _tele_drive(dev, f, root, f"{sched}-off")
+        n_polls, n_dumps = len(got), len(list(root.glob("flightrec_*")))
+        with _recorded_rates(rec if sched == "gpipe" else {}):
+            on = _tele_drive(dev, f, root, f"{sched}-mon", *MON_FLAGS)
+        polls = got[n_polls:]
+        bub = _events(on["log"], "bubble")
+        alerts = _events(on["log"], "alert")
+        res = {"losses_equal": on["losses"] == off["losses"],
+               "launches_equal": on["launches"] == off["launches"],
+               "launches": on["launches"],
+               "bubble_static": bub[-1]["bubble_static"] if bub else None,
+               "bubble_measured": bub[-1]["bubble_measured"] if bub else None,
+               "bubble_detail": {k: bub[-1][k] for k in
+                                 ("t_step", "t_eval", "c_f", "c_b")}
+               if bub else None,
+               "step_ms": _sketch_summary(on["log"]).get("step_ms"),
+               "alerts": [(a["slo"], a["state"]) for a in alerts],
+               "flight_dumps": len(list(root.glob("flightrec_*")))
+               - n_dumps,
+               "polls": {p: sum(1 for q, _ in polls if q == p)
+                         for p in ("/status.json", "/metrics")},
+               "step_ms_p50_off_on": [
+                   _p50([1e3 * w for w in r["windows"][1:]])
+                   for r in (off, on)]}
+        out[sched] = res
+        launches[sched] = on["launches"]
+        static = static_bubble(sched, MON_N_MU, 2)["bubble_fraction"]
+        bad = (not res["losses_equal"] or not res["launches_equal"]
+               or len(on["losses"]) != MON_STEPS
+               or not all(np.isfinite(on["losses"]))
+               or res["bubble_static"] != static
+               or res["bubble_measured"] is None
+               or not res["alerts"] or res["alerts"][0][1] != "firing"
+               or res["flight_dumps"] < 1
+               or min(res["polls"].values()) < 1)
+        if sched == "gpipe" and res["bubble_measured"] is not None:
+            # the replay is F:B-invariant for gpipe
+            bad = bad or round(res["bubble_measured"], 3) != round(
+                static, 3)
+        if bad:
+            raise AssertionError(f"mon (a) {sched}: {json.dumps(res)}")
+        if sched == "gpipe":
+            gpipe_log = on["log"]
+            tokens = TRAIN_BATCH * cfg.max_seq
+            windows = [tokens / e["tokens_per_sec"] for e in on["lines"]]
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab, (TRAIN_BATCH, cfg.max_seq)).astype(
+        np.int32)
+    out["two_point"] = _two_point(dev, cfg, tok, np.roll(tok, -1, axis=1))
+    print("mon (a): " + json.dumps(out), flush=True)
+
+    # (c) the goodput ledger of the monitored gpipe run
+    rep = G.run_goodput(gpipe_log)
+    excluded = sum(e["seconds"] for e in _events(gpipe_log, "ledger")
+                   if e["kind"] in G.EXCLUDED_KINDS
+                   and e["kind"] not in ("init", "restore")
+                   and "seconds" in e)
+    wall = rec["last_end"] - rec["t0"] + rec["after_end"]
+    gap = sum(windows) + excluded - wall
+    first_window_s = windows[0]
+    res = {"goodput": rep["goodput"], "losses": rep["losses"],
+           "counts": {k: v for k, v in rep["counts"].items() if v},
+           "per_step_s": rep["per_step_s"],
+           "accounted_frac": rep["accounted_frac"],
+           "compile_s": rep["losses"].get("compile", 0.0),
+           "first_window_s": round(first_window_s, 4),
+           "kernels_built_before": sorted(_build.build_logs),
+           "window_sum_s": round(sum(windows), 6),
+           "excluded_ledger_s": round(excluded, 6),
+           "wall_s": round(wall, 6), "gap_ms": round(gap * 1e3, 4)}
+    print("mon (c): " + json.dumps(res), flush=True)
+    if abs(gap) > 1e-3 or rep["goodput"] is None \
+            or rep["accounted_frac"] < 0.95:
+        raise AssertionError(f"mon (c): {json.dumps(res)}")
+    return {"launches": launches, "a": out, "c": res}
+
+
+def _mon_waterfall(dev, cfg, tele18) -> dict:
+    """Phase 19 (b): phase 18 (a)'s `spans` run (the one-device flash
+    step under ZeRO-1 at TELE_LAYERS): the counted roofline of its
+    first step, its last step line's waterfall, and K1-K3's
+    self-reported FLOPs against their analytic causal counts."""
+    roof, last = tele18["roofline"], tele18["spans_last"]
+    n, b, t, h, d = (TELE_LAYERS, TRAIN_BATCH, cfg.max_seq, cfg.n_heads,
+                     cfg.head_dim)
+    pairs = b * h * t * (t + 1) // 2
+    analytic = {"flash_fwd": 4 * d * pairs * n, "flash_dq": 6 * d * pairs * n,
+                "flash_dkv": 8 * d * pairs * n}
+    dm, ff, tokens = cfg.d_model, cfg.ffn_dim, b * t
+    dense = 3 * tokens * (n * (2 * dm * (h * d + 2 * cfg.kv_heads * d)
+                               + 2 * dm * dm + 3 * 2 * dm * ff)
+                          + 2 * dm * cfg.vocab)
+    keys = ("attrib_t_step_ms", "attrib_compute_frac", "attrib_mxu_frac",
+            "attrib_hbm_frac", "attrib_comm_exposed_frac",
+            "attrib_bubble_frac", "attrib_host_frac",
+            "attrib_unexplained_frac", "attrib_rates_source", "attrib_wire",
+            "attrib_compute_scale")
+    res = {"flops": roof["flops_shard"], "dot_bytes": roof["dot_bytes_shard"],
+           "bytes": roof["bytes_shard"],
+           "executed_flops_analytic": dense + sum(analytic.values()),
+           "kernels": {k: {"reported": roof["kernels"][k]["flops"],
+                           "analytic": v,
+                           "calls": roof["kernels"][k]["calls"],
+                           "bytes": roof["kernels"][k]["bytes"]}
+                       for k, v in analytic.items()},
+           "approximate": roof["approximate"],
+           "waterfall": {k: last.get(k) for k in keys}}
+    print("mon (b): " + json.dumps(res), flush=True)
+    bad = (any(v["reported"] != v["analytic"] or v["calls"] != n
+               for v in res["kernels"].values())
+           or roof["flops_shard"] != res["executed_flops_analytic"]
+           or last.get("attrib_unexplained_frac") is None)
+    if dev.type == "cuda":
+        bad = bad or last.get("attrib_rates_source") != "table"
+    if bad:
+        raise AssertionError(f"mon (b): {json.dumps(res)}")
+    return res
+
+
+def _mon_serve(dev, cfg, root, off_streams, got) -> dict:
+    """Phase 19 (d): `serve` under the monitor with a 1 ms TTFT SLO
+    (which must fire) against phase 18 (c)'s streams without it."""
+    import io
+    from contextlib import redirect_stdout
+
+    from shallowspeed_tpu_torch import serve as sdriver
+    from shallowspeed_tpu_torch.ops.flash_attention import paged_flash_decode
+    from shallowspeed_tpu_torch.telemetry import goodput as G
+
+    reqs = root / "requests.jsonl"
+    n = MON_SERVE_LAYERS
+    log = root / "serve-mon.jsonl"
+    argv = ["--vocab", str(cfg.vocab), "--d-model", str(cfg.d_model),
+            "--n-heads", str(cfg.n_heads), "--n-layers", str(n),
+            "--max-seq", str(cfg.max_seq), "--rope", "--slots",
+            str(SLICE["slots"]), "--n-blocks", str(N_BLOCKS),
+            "--block-size", str(SLICE["block_size"]), "--prefill-chunk",
+            str(PREFILL_CHUNK), "--requests", str(reqs), "--monitor-port",
+            "0", "--slo", "ttft_p95_ms<1", "--flight-recorder", "64",
+            "--log-file", str(log)]
+    if dev.type == "cpu":
+        argv += ["--device", "cpu"]
+    n_polls, n_dumps = len(got), len(list(root.glob("flightrec_*")))
+    paged_flash_decode.launches = 0
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        sdriver.main(argv)
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()
+             if x.startswith("{")]
+    streams = {e["id"]: e["tokens"] for e in lines if e["event"] == "result"}
+    summary = next(e for e in lines if e["event"] == "summary")
+    mon = G.run_goodput(log)["monitor"]
+    res = {"streams_equal": streams == off_streams,
+           "requests": len(streams), "ticks": summary["ticks"],
+           "k4_launches": paged_flash_decode.launches,
+           "alerts": [(a["slo"], a["state"], a.get("severity"))
+                      for a in _events(log, "alert")],
+           "flight_dumps": len(list(root.glob("flightrec_*"))) - n_dumps,
+           "polls": sum(1 for q, _ in got[n_polls:] if q == "/status.json"),
+           "parity": mon["parity"], "rel_err": mon["rel_err"]}
+    print("mon (d): " + json.dumps(res), flush=True)
+    want_k4 = n * summary["ticks"] if dev.type == "cuda" else 0
+    if (not res["streams_equal"] or len(streams) != N_REQUESTS
+            or res["k4_launches"] != want_k4 or not res["alerts"]
+            or res["alerts"][0][1] != "firing" or res["flight_dumps"] < 1
+            or not all(v["within_bound"] for v in mon["parity"].values())):
+        raise AssertionError(f"mon (d): {json.dumps(res)}")
+    return {"launches": res["k4_launches"], **res}
+
+
+def _mon_vm(dev, root) -> dict:
+    """Phase 19 (e): the MLP driver's instruction VM at pp 2 gpipe at
+    `spans`: the measured bubble replayed from its fenced Forward /
+    Backward spans against the static one."""
+    import io
+    from contextlib import redirect_stdout
+
+    from shallowspeed_tpu_torch import train as mdriver
+    from shallowspeed_tpu_torch.data.mnist import prepare_mnist
+
+    data_dir = str(prepare_mnist(root / "mnist", synthetic=True,
+                                 n_samples=4096))
+    log = root / "vm.jsonl"
+    argv = ["--engine", "vm", "--pp", "2", "--schedule", "gpipe",
+            "--telemetry", "spans", "--epochs", "1", "--max-batches",
+            str(MON_MLP_BATCHES), "--data-dir", data_dir, "--log-file",
+            str(log)]
+    if dev.type == "cpu":
+        argv += ["--device", "cpu"]
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        mdriver.main(argv)
+    tel = _events(log, "telemetry")[-1]
+    res = {"bubble_static": tel.get("bubble_static"),
+           "bubble_measured": tel.get("bubble_measured"),
+           "printed": [x for x in buf.getvalue().splitlines()
+                       if "bubble measured" in x]}
+    print("mon (e): " + json.dumps(res), flush=True)
+    if res["bubble_static"] != 0.2 or res["bubble_measured"] is None \
+            or not 0.0 <= res["bubble_measured"] < 1.0:
+        raise AssertionError(f"mon (e): {json.dumps(res)}")
+    return res
+
+
+def run_monitor(dev, cfg, card, tele18) -> dict:
+    """Phase 19 (module docstring): (a)-(e), in a temporary directory
+    removed at the end, the driver runs sharing one draw."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mon_"))
+    print(f"mon: {card}", flush=True)
+    got = []
+    t0 = time.time()
+    try:
+        with _cached_draw(), _polled_monitors(got):
+            pipe = _mon_pipeline(dev, cfg, root, got)
+            _mon_waterfall(dev, cfg, tele18)
+            reqs = root / "requests.jsonl"
+            reqs.write_text("\n".join(json.dumps(
+                {"id": rid, "prompt": p.tolist(), "max_new": MAX_NEW})
+                for rid, p in _random_prompts(cfg.vocab).items()))
+            served = _mon_serve(dev, cfg, root, tele18["serve_streams"],
+                                got)
+            _mon_vm(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {}
+    for counts in pipe["launches"].values():
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    launches["paged_flash_decode"] = served["launches"]
+    print(f"mon: phase 19 {time.time() - t0:.1f} s on {card}", flush=True)
+    return {"launches": launches}
 
 
 _T0 = [0.0]
@@ -6050,6 +6486,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     tele = run_telemetry(dev, cfg, card)
     _clock("18")
+    mon = run_monitor(dev, cfg, card, tele)
+    _clock("19")
 
     src = "shallowspeed_tpu_torch/csrc/"
     fa = "shallowspeed_tpu/ops/flash_attention.py:"
@@ -6088,6 +6526,8 @@ def main() -> int:
            if mp["launches"].get(name) else {}),
         **({"tele_launches": tele["launches"][name]}
            if tele["launches"].get(name) else {}),
+        **({"mon_launches": mon["launches"][name]}
+           if mon["launches"].get(name) else {}),
     } for name, (cu, ref) in where.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -29,6 +29,15 @@ _MEM_BANDWIDTH = {
 }
 
 
+# Card-to-card wire rate, bytes/s in one direction, from the same data
+# sheet (H100 SXM: NVLink 4, 900 GB/s both directions, so 450 GB/s each
+# way) — what `telemetry/attribution` prices collective bytes at when
+# the cells sit on distinct cards.
+_WIRE_BANDWIDTH = {
+    "NVIDIA H100 80GB HBM3": 450e9,
+}
+
+
 def _card_entry(table: dict, device):
     """The `table` entry of the card `device` (default: the current CUDA
     device), or None on the CPU or for a card the table does not know."""
@@ -55,6 +64,13 @@ def device_mem_bandwidth(device=None) -> float | None:
     CUDA device) from its data sheet; None on the CPU or for a card the
     table does not know (no invented peak, as for `device_peak_flops`)."""
     return _card_entry(_MEM_BANDWIDTH, device)
+
+
+def device_wire_bandwidth(device=None) -> float | None:
+    """NVLink bytes/s one way of the card `device` (default: the current
+    CUDA device) from its data sheet; None on the CPU or for a card the
+    table does not know."""
+    return _card_entry(_WIRE_BANDWIDTH, device)
 
 
 def _avg_causal_context(seq_len: int, window: int = 0) -> float:

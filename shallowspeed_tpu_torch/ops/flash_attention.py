@@ -13,7 +13,11 @@ kernel (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`, `csrc/paged_decode.cu`,
 built with nvcc for sm_90a at first use, bound with ctypes) or raises,
 and adds one to its `.launches` count; on a CPU tensor it computes the
 plain version, which the tests hold against the JAX kernels and which
-`chip_smoke.py` holds the CUDA kernels against.
+`chip_smoke.py` holds the CUDA kernels against. With a roofline counter
+active (`telemetry.attribution.roofline_of_step`) each wrapper reports
+its work (`_work.reports`): K1 4 D, K2 6 D and K3 8 D FLOPs a visible
+(query head, key) pair, K4 4 D a live position and head, and the
+bytes of its inputs read once and its outputs written once.
 
 The training kernels take the JAX chunk functions' arguments
 (`_chunk_fwd`, `_chunk_dq`, `_chunk_dkv`) in the (B, T, H, D) layout
@@ -48,7 +52,7 @@ import torch
 
 from shallowspeed_tpu_torch.models.kv_cache import (masked_attention,
                                                     position_mask)
-from shallowspeed_tpu_torch.ops import _build
+from shallowspeed_tpu_torch.ops import _build, _work
 from shallowspeed_tpu_torch.ops.attention import NEG, cell_devices, seq_tiles
 from shallowspeed_tpu_torch.serving.cache import gather_table
 from shallowspeed_tpu_torch.telemetry import collectives as C
@@ -156,6 +160,26 @@ def _check(q, kp, vp, bt, pos, window, scales=None):
                              f"reads it in 16-byte vectors)")
 
 
+def _decode_work(q, pool_blk, bt, pos, *, window: int = 0):
+    """K4's work: 4 hd FLOPs per head and live position, and q, the
+    table, the positions and the output moved once, with the pools'
+    bytes of the blocks each slot's live span touches (read off `pos`:
+    only a counted call copies it to the host)."""
+    s, h, hd = q.shape
+    bs = pool_blk["k"].shape[2]
+    per_block = sum(t[0].numel() * t.element_size()
+                    for t in pool_blk.values())
+    n_pos = blocks = 0
+    for p in pos.tolist():
+        lo = max(p - window + 1, 0) if window > 0 else 0
+        n_pos += p + 1 - lo
+        blocks += p // bs - lo // bs + 1
+    return (q.device, 4 * h * hd * n_pos,
+            blocks * per_block + 2 * _work.nbytes(q)
+            + _work.nbytes(bt, pos), 0)
+
+
+@_work.reports(_decode_work)
 def paged_flash_decode(q, pool_blk, bt, pos, *, window: int = 0):
     """Single-token attention through a paged block table.
 
@@ -506,6 +530,39 @@ def _check_train(name, window, q, k, v, do=None, lse=None, delta=None):
                              f"head_dim contiguous and 16-byte aligned rows")
 
 
+def visible_pairs(q, k, causal, window, rel) -> int:
+    """The (query head, key) pairs `_visible` lets through, over the
+    batch: B H sum_i |visible(i)| — the pairs K1, K2 and K3 compute."""
+    b, tq, h, _ = q.shape
+    tk = k.shape[1]
+    total = 0
+    for i in range(rel, rel + tq):
+        hi = min(i + 1, tk) if causal else tk
+        lo = max(i - window + 1, 0) if window > 0 else 0
+        total += max(hi - lo, 0)
+    return b * h * total
+
+
+def _fwd_work(q, k, v, *, causal=True, window=0, rel=0, out_dtype=None):
+    b, tq, h, d = q.shape
+    o_size = torch.empty((), dtype=out_dtype or q.dtype).element_size()
+    return (q.device, 4 * d * visible_pairs(q, k, causal, window, rel),
+            _work.nbytes(q, k, v) + q.numel() * o_size + b * h * tq * 4, 0)
+
+
+def _dq_work(q, k, v, do, lse, delta, *, causal=True, window=0, rel=0):
+    return (q.device, 6 * q.shape[3] * visible_pairs(q, k, causal, window,
+                                                     rel),
+            _work.nbytes(q, k, v, do, lse, delta) + q.numel() * 4, 0)
+
+
+def _dkv_work(q, k, v, do, lse, delta, *, causal=True, window=0, rel=0):
+    return (q.device, 8 * q.shape[3] * visible_pairs(q, k, causal, window,
+                                                     rel),
+            _work.nbytes(q, k, v, do, lse, delta) + 2 * k.numel() * 4, 0)
+
+
+@_work.reports(_fwd_work)
 def flash_fwd(q, k, v, *, causal=True, window=0, rel=0, out_dtype=None):
     """K1: (o in `out_dtype` (default q's) (B, Tq, H, D), lse f32 (B, H,
     Tq)); `out_dtype` float32 is the reference's f32 chunk output of
@@ -568,6 +625,7 @@ def _launch_fwd(counter, q, k, v, causal, window, rel, out_dtype=None):
     return o, lse
 
 
+@_work.reports(_dq_work)
 def flash_dq(q, k, v, do, lse, delta, *, causal=True, window=0, rel=0):
     """K2: dQ, f32 (B, Tq, H, D). A CPU q takes `flash_dq_reference`; a
     CUDA q launches `csrc/flash_bwd.cu::flash_dq` or raises: float32 its
@@ -608,6 +666,7 @@ def _launch_dq(counter, q, k, v, do, lse, delta, causal, window, rel):
     return dq
 
 
+@_work.reports(_dkv_work)
 def flash_dkv(q, k, v, do, lse, delta, *, causal=True, window=0, rel=0):
     """K3: (dK, dV), f32 (B, Tk, Hkv, D), summed over each kv head's G
     query heads. A CPU q takes `flash_dkv_reference`; a CUDA q launches

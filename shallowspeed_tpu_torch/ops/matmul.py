@@ -9,6 +9,11 @@ unaligned shapes).
 
 K5 lies on one path only, the narrow-K probe (`bench_matmul`), as its
 reference does; no model calls it.
+
+With a roofline counter active (`telemetry.attribution.
+roofline_of_step`) each wrapper reports its work (`_work.reports`):
+2 M N K FLOPs (fp8 ones for `fp8_matmul`) and its operands read once
+and its result written once.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import functools
 
 import torch
 
-from shallowspeed_tpu_torch.ops import _build
+from shallowspeed_tpu_torch.ops import _build, _work
 
 # dtype codes of the C entries (csrc/blocked_matmul.cu)
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -46,6 +51,14 @@ def dequant_matmul_reference(x, wq, ws):
     return ((x.float() @ wq.float()) * ws.float()).to(x.dtype)
 
 
+def _dequant_work(x, wq, ws):
+    k, n = wq.shape
+    m = x.numel() // k
+    return (x.device, 2 * m * n * k,
+            _work.nbytes(x, wq, ws) + m * n * x.element_size(), 0)
+
+
+@_work.reports(_dequant_work)
 def dequant_matmul(x, wq, ws):
     """x (..., K) @ quantized wq (K, N) (int8 or float8_e4m3fn) with
     per-out-channel f32 scales ws (N,): the product of x and wq's values
@@ -238,6 +251,14 @@ def blocked_matmul_route(x_dtype, y_dtype, k: int, n: int) -> str:
     return "tc" if ok else "fma"
 
 
+def _blocked_work(x, y, *, bm=512, bk=512, bn=1024, out_dtype=None):
+    (m, k), n = x.shape, y.shape[1]
+    size = torch.empty((), dtype=out_dtype or x.dtype).element_size()
+    return (x.device, 2 * m * n * k,
+            _work.nbytes(x, y) + m * n * size, 0)
+
+
+@_work.reports(_blocked_work)
 def blocked_matmul(x, y, *, bm: int = 512, bk: int = 512, bn: int = 1024,
                    out_dtype=None):
     """x (M, K) @ y (K, N) with an f32 accumulator, returned in
@@ -368,6 +389,13 @@ def fp8_matmul_reference(xq, wq, scale):
     return (xq.float() @ wq.float()) * scale
 
 
+def _fp8_work(xq, wq, scale):
+    (m, k), n = xq.shape, wq.shape[1]
+    return (xq.device, 2 * m * n * k,
+            _work.nbytes(xq, wq, scale) + m * n * 4, 2 * m * n * k)
+
+
+@_work.reports(_fp8_work)
 def fp8_matmul(xq, wq, scale):
     """(xq @ wq) * scale in f32: xq (M, K) and wq (K, N)
     float8_e4m3fn, scale (N,) f32 (fp8_dense's sx * sw), the product

@@ -1112,6 +1112,29 @@ class PipelineLMEngine(GSPMDEngine):
             "PipelineLMEngine has no router_stats(); the reference's has "
             "none either")
 
+    # -------------------------------------------------- bubble surface
+
+    def schedule_info(self) -> dict:
+        """What `telemetry.bubble.static_bubble` needs to price this
+        engine's schedule (the executed tables' identity)."""
+        return {"schedule": self.schedule, "n_mu": self.n_mu,
+                "pp": self.pp, "vpp": self.vpp}
+
+    def make_calibration_twin(self) -> "PipelineLMEngine":
+        """A fresh engine at 2x microbatches for the two-point bubble
+        measurement (`telemetry.bubble.two_point_bubble`): fed a
+        row-doubled batch it keeps the per-microbatch shape, and hence
+        the per-round cost, identical, so the step-time difference is
+        exactly n_mu rounds of pipeline work. Fresh params and optimizer
+        state on the same grid; never touches this engine's training
+        state."""
+        return PipelineLMEngine(
+            self.cfg, self.optimizer, self.mesh,
+            n_mubatches=2 * self.n_mu, seed=self.seed,
+            schedule=self.schedule, attn=self.attn,
+            virtual_pp=self.vpp, zero1=self.zero1, zero2=self.zero2,
+            fsdp=self.fsdp)
+
     # ------------------------------------------------ pipelined decode
 
     @torch.no_grad()

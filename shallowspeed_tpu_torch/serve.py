@@ -23,9 +23,18 @@ model the flags describe).
 (`telemetry.profiler`) over the serving loop, its "profile" snapshots
 (the last one at the end of the run) into `--log-file`.
 
-The root driver's other flags (the HTTP replica's queue and heartbeat,
-chaos, the live-monitoring plane, `--platform`) are recognised and
-refused with `NotPorted`.
+`--monitor-port P --slo SPEC --flight-recorder N` run the live monitor
+(`telemetry.monitor`): the engine's "request" and "generate" lines feed
+its ttft/tpot, tok/s, queue-depth and free-block sketches; SLO
+burn-rate alerts land as `"alert"` events and dump the flight
+recorder's ring (`flightrec_*.json` next to `--log-file`); the endpoint
+(its URL printed as a `{"event": "monitor_listening", ...}` line)
+serves /status.json, /sketches.json, /profile.json and /metrics. The
+final sketch snapshot lands in the log at the end of the run.
+
+The root driver's other flags (the HTTP replica mode `--serve`, its
+queue and heartbeat, `--shed-load`, chaos, `--platform`) are recognised
+and refused with `NotPorted`.
 """
 
 from __future__ import annotations
@@ -42,12 +51,11 @@ from shallowspeed_tpu_torch import NotPorted, checkpoint, resolve_device
 from shallowspeed_tpu_torch.metrics import MetricsLogger
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.serving.engine import ServingEngine
-from shallowspeed_tpu_torch.telemetry import profiler
-from shallowspeed_tpu_torch.telemetry.driver import CHAOS, MONITOR
+from shallowspeed_tpu_torch.telemetry import monitor, profiler
+from shallowspeed_tpu_torch.telemetry.driver import CHAOS, add_monitor_flags
 from shallowspeed_tpu_torch.telemetry.report import request_summary
 from shallowspeed_tpu_torch.weights import map_tree, params_from_numpy
 
-_LATER = "Queue 1, serving features after slice 1"
 _FLEET = "Queue 1 item 7, the serving fleet"
 
 # the root driver's flags this driver does not have yet, and where each
@@ -56,8 +64,6 @@ UNPORTED = {
     **dict.fromkeys(["--max-queue", "--heartbeat-file", "--replica",
                      "--fleet-register", "--shed-load"], _FLEET),
     **dict.fromkeys(["--chaos", "--chaos-state", "--chaos-seed"], CHAOS),
-    **dict.fromkeys(["--monitor-port", "--slo", "--flight-recorder"],
-                    MONITOR),
     # JAX's backend choice; the port takes --device, and the virtual
     # multi-device meshes --platform cpu builds come with the engines
     "--platform": "Queue 1, multi-device LM engines",
@@ -140,6 +146,8 @@ def parser() -> argparse.ArgumentParser:
                         "torch.profiler device trace")
     p.add_argument("--profile-hz", type=float, default=None,
                    help="host sampler rate (default 67 Hz)")
+    add_monitor_flags(p.add_argument_group(
+        "live monitoring (telemetry/monitor)"))
     for flag in UNPORTED:
         p.add_argument(flag, nargs="?", action=_Refuse,
                        help=argparse.SUPPRESS)
@@ -194,7 +202,7 @@ def load_ckpt_params(ckpt_dir, cfg: T.TransformerConfig, device):
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.serve:
-        raise NotPorted("--serve (HTTP replica mode)", _LATER)
+        raise NotPorted("--serve (HTTP replica mode)", _FLEET)
 
     device = resolve_device(args.device)
     cfg = T.TransformerConfig(
@@ -231,6 +239,19 @@ def main(argv=None) -> int:
     i = 0
     reported = 0
     plane = profiler.from_args(args, metrics)
+    try:
+        mon, server = monitor.from_args(args, metrics)
+    except BaseException:
+        if plane is not None:
+            plane.close()
+        metrics.close()
+        raise
+    if server is not None:
+        print(json.dumps({"event": "monitor_listening",
+                          "url": server.url("/status.json")}), flush=True)
+    if mon is not None and plane is not None:
+        mon.profiler = plane
+        mon.alert_listeners.append(plane.on_alert)
     try:
         while True:
             now = time.time() - t0
@@ -277,9 +298,13 @@ def main(argv=None) -> int:
             "device": str(device),
         })
         print(json.dumps({"event": "summary", **summary}), flush=True)
-        if plane is not None:
-            plane.close()    # its last snapshot into --log-file
-        metrics.close()
+        try:
+            if plane is not None:
+                plane.close()    # its last snapshot into --log-file
+            # the monitor's final sketch snapshot, then the endpoint down
+            monitor.close_monitor(mon, server)
+        finally:
+            metrics.close()
     return 0
 
 

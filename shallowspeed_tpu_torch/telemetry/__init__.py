@@ -21,16 +21,24 @@
                  windows and the `torch.profiler` device trace.
 - `health`, `anomaly`, `numerics`: the training-health pack, the
                  anomaly detector and the fp8 numerics monitor.
+- `monitor`      the live plane: streaming sketches, the StatusServer
+                 (/status.json, /sketches.json, /profile.json,
+                 /metrics), SLO burn-rate alerts, the flight recorder,
+                 the --live tailer.
+- `goodput`      the run-level goodput ledger and its reducer.
+- `bubble`       static, replayed and calibrated pipeline bubbles.
+- `attribution`  the roofline waterfall: `roofline_of_step` (a dispatch
+                 mode over one real step, plus the hand-written
+                 kernels' self-reports) against the card's peaks.
 - `python -m shallowspeed_tpu_torch.telemetry --validate / --stitch /
-                 --profile / --regress`.
+                 --profile / --regress / --goodput / --live`.
 
 Levels: `off` (no-ops — no fences, no buffers), `steps` (host
 timestamps only; dispatch stays asynchronous), `spans` (device fences
 at span exits: attributable time, serialized dispatch).
 
-The reference's other planes (bubble accounting, time attribution, the
-live monitor, goodput, the fleet, chaos) are not ported yet: their
-names raise `NotPorted` with the ROADMAP item that brings them.
+The reference's fleet plane is not ported yet: its names raise
+`NotPorted` with the ROADMAP item that brings it.
 """
 
 from shallowspeed_tpu_torch.telemetry.trace import (  # noqa: F401
@@ -60,20 +68,22 @@ _LAZY = {
     "CaptureWindow": "profiler", "device_trace_ctx": "profiler",
     "profiler_tag": "profiler", "merge_profiles": "profiler",
     "flame_tree": "profiler", "profile_main": "profiler",
+    "static_bubble": "bubble", "trace_bubble": "bubble",
+    "two_point_bubble": "bubble", "replay_trace": "bubble",
+    "costed_replay": "bubble", "calibrate_compiled": "bubble",
+    "step_waterfall": "attribution", "roofline_of_step": "attribution",
+    "device_rates": "attribution",
+    "GoodputLedger": "goodput", "run_goodput": "goodput",
+    "Monitor": "monitor", "StatusServer": "monitor",
+    "FlightRecorder": "monitor", "SloRule": "monitor",
+    "parse_slos": "monitor", "FileTailer": "monitor",
+    "PortInUseError": "monitor", "prom_escape": "monitor",
 }
 
 # the reference's names whose modules are not ported yet, and the
 # ROADMAP item that brings each
-_LATER = {
-    **dict.fromkeys(["static_bubble", "trace_bubble", "two_point_bubble",
-                     "step_waterfall", "roofline_of_jaxpr",
-                     "device_rates", "GoodputLedger", "run_goodput",
-                     "Monitor", "StatusServer", "FlightRecorder",
-                     "SloRule", "parse_slos", "FileTailer",
-                     "PortInUseError", "prom_escape"], "Queue 1 item 6b"),
-    **dict.fromkeys(["FleetCollector", "Replica", "format_fleet_status"],
-                    "Queue 1 item 7"),
-}
+_LATER = dict.fromkeys(["FleetCollector", "Replica", "format_fleet_status"],
+                       "Queue 1 item 7")
 
 
 def __getattr__(name):

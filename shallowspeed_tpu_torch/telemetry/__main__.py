@@ -1,6 +1,7 @@
 """CLI of the port's telemetry, counterpart of
 `shallowspeed_tpu/telemetry/__main__.py`: validate JSONL, gate the
-bench trajectory, stitch request traces, reduce profiles.
+bench trajectory, stitch request traces, reduce profiles, reduce a
+run's goodput ledger, watch a run live.
 
     python -m shallowspeed_tpu_torch.telemetry --validate run/spans.jsonl
     python -m shallowspeed_tpu_torch.telemetry --validate docs_runs/
@@ -9,15 +10,22 @@ bench trajectory, stitch request traces, reduce profiles.
         run/router.jsonl run/replica_r0.jsonl --out stitched.json
     python -m shallowspeed_tpu_torch.telemetry --profile run/metrics.jsonl \
         --out flame.json
+    python -m shallowspeed_tpu_torch.telemetry --goodput run/metrics.jsonl
+    python -m shallowspeed_tpu_torch.telemetry --live run/metrics.jsonl \
+        [--slo 'step_p95_ms<500'] [--once]
 
 --validate checks metrics and span lines against the schema (the
 reference's, `schema.SCHEMA_VERSION`); --regress is the reference's
 bench-trajectory gate; --trace-stitch (also --stitch) joins a router
 log and replica logs on one skew-corrected timeline and writes a
 Chrome trace (telemetry/tracing.py); --profile reduces the host
-sampler's "profile" events to a flamegraph JSON. The reference's
---goodput, --live and --fleet need modules not ported yet and raise
-`NotPorted` (ROADMAP Queue 1 items 6b and 7).
+sampler's "profile" events to a flamegraph JSON; --goodput prints the
+run-level wall-clock decomposition (goodput and named losses) of one
+metrics JSONL, of either package (extra files: replica logs joined by
+trace id); --live tails a growing metrics JSONL and renders the view
+the /status.json endpoint serves (--once: render once and exit). The
+reference's --fleet needs a module not ported yet and raises
+`NotPorted` (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -29,8 +37,7 @@ from pathlib import Path
 from shallowspeed_tpu_torch import NotPorted
 
 # the reference's flags whose modules are not ported yet
-UNPORTED = {"--goodput": "Queue 1 item 6b", "--live": "Queue 1 item 6b",
-            "--fleet": "Queue 1 item 7"}
+UNPORTED = {"--fleet": "Queue 1 item 7"}
 
 
 class _Refuse(argparse.Action):
@@ -61,9 +68,29 @@ def main(argv=None) -> int:
                    help="reduce the 'profile' events of one or more "
                         "metrics JSONLs to a flamegraph JSON (--out) + "
                         "a printed top-frames/phases summary")
+    g.add_argument("--goodput", nargs="+", metavar="JSONL",
+                   help="reduce one metrics JSONL to the goodput "
+                        "report (wall-clock decomposition + losses, "
+                        "MTTR, availability, p50/p95 ttft/tpot on "
+                        "serving runs); extra files are replica logs "
+                        "joined by trace id into the per-request "
+                        "waterfall block")
+    g.add_argument("--live", metavar="JSONL",
+                   help="tail a growing metrics JSONL and render the "
+                        "live status view (the /status.json surface "
+                        "for endpoint-less runs); Ctrl-C exits")
     for flag in UNPORTED:
         g.add_argument(flag, nargs="*", action=_Refuse,
                        help=argparse.SUPPRESS)
+    p.add_argument("--once", action="store_true",
+                   help="with --live: render the current state once and "
+                        "exit instead of following")
+    p.add_argument("--slo", default="",
+                   help="with --live: evaluate these SLOs over the "
+                        "stream (telemetry/monitor DSL, e.g. "
+                        "'ttft_p95_ms<500,availability>0.99')")
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="with --live: seconds between renders")
     p.add_argument("--out", default=None, metavar="PATH",
                    help="with --trace-stitch: where the Chrome trace "
                         "JSON lands (default: stitched_trace.json "
@@ -71,6 +98,20 @@ def main(argv=None) -> int:
                         "where the flamegraph JSON lands (omitted = "
                         "summary only)")
     args = p.parse_args(argv)
+
+    if args.live:
+        from shallowspeed_tpu_torch.telemetry.monitor import live_main
+
+        return live_main(args.live, slos=args.slo, once=args.once,
+                         interval=args.interval)
+
+    if args.goodput:
+        from shallowspeed_tpu_torch.telemetry.goodput import (format_report,
+                                                              run_goodput)
+
+        print(format_report(run_goodput(
+            args.goodput[0], extra_paths=args.goodput[1:])))
+        return 0
 
     if args.profile:
         from shallowspeed_tpu_torch.telemetry.profiler import profile_main

@@ -1,21 +1,40 @@
 """The drivers' telemetry wiring — what the root `train_lm.py` and
 `train.py` do around their loops, shared by the port's two training
-drivers: the flags, the tracer and `RunTelemetry` with the memory
-owners, the profiling plane, and their teardown."""
+drivers (and, for the live monitor, `serve`): the flags, the tracer and
+`RunTelemetry` with the memory owners, the profiling plane, the live
+monitor and its endpoint, and their teardown."""
 
 from __future__ import annotations
 
 from pathlib import Path
 
 from shallowspeed_tpu_torch import distributed as D
-from shallowspeed_tpu_torch.telemetry import memory, profiler
+from shallowspeed_tpu_torch.telemetry import memory, monitor, profiler
 from shallowspeed_tpu_torch.telemetry.report import RunTelemetry
-from shallowspeed_tpu_torch.telemetry.trace import configure
+from shallowspeed_tpu_torch.telemetry.trace import configure, tracer
 from shallowspeed_tpu_torch.utils import rprint
 
 # where the root drivers' still-refused telemetry flags come from
-MONITOR = "Queue 1 item 6b, monitor and accounting"
 CHAOS = "Queue 1 item 6c, chaos and elastic"
+
+
+def add_monitor_flags(p) -> None:
+    """The root drivers' live-monitoring flags (`telemetry/monitor`)."""
+    p.add_argument("--monitor-port", type=int, default=None,
+                   help="serve /status.json, /sketches.json, "
+                        "/profile.json and /metrics (Prometheus text) on "
+                        "127.0.0.1:PORT while the run is live (0 = pick a "
+                        "free port, printed at start)")
+    p.add_argument("--slo", default="",
+                   help="declarative SLOs evaluated over dual burn-rate "
+                        "windows, e.g. 'step_p95_ms<500' or "
+                        "'ttft_p95_ms<500,availability>0.99'; state "
+                        "transitions land as 'alert' events")
+    p.add_argument("--flight-recorder", type=int, default=0,
+                   help="keep the last N metrics/span records in a ring "
+                        "and dump flightrec_<step>.json (next to "
+                        "--log-file) on an anomaly verdict or an SLO "
+                        "alert (0 = off)")
 
 
 def add_telemetry_flags(p) -> None:
@@ -46,6 +65,7 @@ def add_telemetry_flags(p) -> None:
                         "a bounded torch.profiler trace")
     p.add_argument("--profile-hz", type=float, default=None,
                    help="host sampler rate (default 67 Hz)")
+    add_monitor_flags(p)
 
 
 def owners_of(engine) -> dict:
@@ -57,13 +77,15 @@ def owners_of(engine) -> dict:
             "train.opt_state": lambda: engine.resident()["opt_state"]}
 
 
-def start_telemetry(args, engine, metrics, owners):
+def start_telemetry(args, engine, metrics, owners, dtype: str = "bf16",
+                    ledger=None):
     """The root drivers' telemetry wiring: the process's tracer at
     --telemetry (`--trace-dir` implies `steps`; under several processes
     each writes into its own `p<index>` subdirectory), a `RunTelemetry`
-    over `engine` when the level is on, with `owners` ({name: resolver})
-    registered in the memory observatory, and the profiling plane of
-    --profile. Returns (telemetry or None, plane or None)."""
+    over `engine` when the level is on (its waterfall priced at `dtype`'s
+    peak, `ledger`'s totals in its run summary), with `owners` ({name:
+    resolver}) registered in the memory observatory, and the profiling
+    plane of --profile. Returns (telemetry or None, plane or None)."""
     if args.trace_dir and args.telemetry == "off":
         args.telemetry = "steps"     # --trace-dir implies tracing
     trace_dir = args.trace_dir or None
@@ -73,7 +95,8 @@ def start_telemetry(args, engine, metrics, owners):
     tracer = configure(trace_dir=trace_dir, level=args.telemetry)
     telem = None
     if args.telemetry != "off":
-        telem = RunTelemetry(engine, tracer)
+        telem = RunTelemetry(engine, tracer, dtype=dtype)
+        telem.ledger = ledger
         for name, resolve in owners.items():
             memory.register_owner(name, resolve)
     plane = profiler.from_args(args, metrics)
@@ -96,13 +119,67 @@ def stop_telemetry(args, telem, plane, owners) -> None:
             plane.close()
 
 
+def start_monitor(args, metrics, plane=None):
+    """The live monitor of --monitor-port / --slo / --flight-recorder
+    (`monitor.from_args`), on process 0 only: fed every line `metrics`
+    logs, the tracer's spans when tracing is on, and wired to the
+    profiling plane `plane` (its snapshot behind /profile.json, its
+    capture windows armed by the monitor's incidents and alerts). Prints
+    the endpoint's URL. Returns (monitor, server), (None, None) when the
+    plane is off."""
+    if not D.process_zero():
+        return None, None
+    mon, srv = monitor.from_args(args, metrics)
+    if mon is None:
+        return None, None
+    tr = tracer()
+    if tr.level != "off":
+        tr.subscribers.append(mon.record_span)
+    if plane is not None:
+        mon.profiler = plane
+        mon.alert_listeners.append(plane.on_alert)
+    if srv is not None:
+        rprint(f"monitor: {srv.url('/status.json')} (+ /metrics)",
+               flush=True)
+    return mon, srv
+
+
+def stop_monitor(mon, srv) -> None:
+    """The monitor's final sketch snapshot into the log, then the
+    endpoint shut down (`monitor.close_monitor`)."""
+    if mon is None:
+        return
+    tr = tracer()
+    if mon.record_span in tr.subscribers:
+        tr.subscribers.remove(mon.record_span)
+    monitor.close_monitor(mon, srv)
+
+
 def telemetry_line(fields: dict) -> str:
-    """The root driver's telemetry print line of a step's fields ("" when
-    there is nothing to print); its bubble part waits for `bubble.py`."""
+    """The root driver's telemetry print lines of a step's fields ("" when
+    there is nothing to print): the bubble, collective bytes and memory
+    line, then the waterfall line at the `spans` level."""
     parts = []
+    if "bubble_measured" in fields:
+        parts.append(f"bubble {fields['bubble_measured']:.1%} (static "
+                     f"{fields['bubble_static']:.1%})")
+    elif "bubble_static" in fields:
+        parts.append(f"bubble static {fields['bubble_static']:.1%}")
     if "coll_bytes_per_step" in fields:
         parts.append(f"coll {fields['coll_bytes_per_step'] / 2**20:,.1f} "
                      f"MiB/step")
     if "hbm_live_mib" in fields:
         parts.append(f"hbm {fields['hbm_live_mib']:,.0f} MiB")
-    return ("             " + "  ".join(parts)) if parts else ""
+    lines = [("             " + "  ".join(parts))] if parts else []
+    if "attrib_unexplained_frac" in fields:
+        wf = [f"compute {fields['attrib_compute_frac']:.0%}"]
+        for key, name in (("attrib_comm_exposed_frac", "comm"),
+                          ("attrib_bubble_frac", "bubble"),
+                          ("attrib_host_frac", "host")):
+            if key in fields:
+                wf.append(f"{name} {fields[key]:.0%}")
+        lines.append("             waterfall " + " + ".join(wf)
+                     + f" -> unexplained "
+                     f"{fields['attrib_unexplained_frac']:.0%}"
+                     f"  (t_step {fields['attrib_t_step_ms']:.0f} ms)")
+    return "\n".join(lines)

@@ -19,14 +19,24 @@ the live process state into:
 - an end-of-run summary (`telemetry.json`, written into the trace dir
   next to the spans).
 
+At the `spans` level the step lines also carry the `attrib_*`
+waterfall (`attribution.py`): the q25 of the window's fenced step
+spans reconciled against the roofline of one real step (counted once,
+on the first spans-level step the driver runs through `count_step`,
+and cached as the reference caches its static report), the counted
+collective bytes as exposed bytes (exposure 1.0, the reference's value
+when it has no `exposed_comm_frac`), the bubble (`set_bubble`, from
+`bubble.py`) and the window's host gap; the port adds `attrib_hbm_frac`
+(the non-matmul bytes' share) and `attrib_wire` (which wire rate priced
+the collective bytes). A goodput ledger the driver stamps (`ledger`)
+rides the run summary.
+
 The reference's fields the port has no quantity for stay absent, as
 the reference leaves them absent when it lacks the input:
 `compiles` / `recompiles` (an eager port compiles no executables),
 `hbm_static_mib` / `hbm_within_bound` (no static memory walk: the
 jaxpr analysis is not ported), `exposed_comm_frac` / `overlap_ratio`
-(the same analysis), the `attrib_*` waterfall (`attribution.py`, not
-ported yet) and the bubble fields (`bubble.py`, not ported yet;
-`set_bubble` attaches them when a caller has them).
+(the same analysis).
 
 The request helpers (`percentile`, `request_summary`,
 `request_timeline`, `request_waterfall`) are copies of the
@@ -238,12 +248,42 @@ def request_waterfall(journey: dict) -> dict | None:
 class RunTelemetry:
     """Aggregates telemetry for one engine over one training run."""
 
-    def __init__(self, engine, tracer=None):
+    def __init__(self, engine, tracer=None, dtype: str = "bf16"):
         self.engine = engine
         self.tracer = tracer
+        self.dtype = dtype          # the peak the waterfall prices at
         self._bubble: dict = {}
+        self._roof = None           # roofline of the counted step
+        self._span_mark = 0         # tracer seq at the last log point
+        self._attrib_scale = None   # frozen self-calibration factor
+        self._attrib_cals = 0       # windows the scale was fit on
+        # a goodput.GoodputLedger the driver also stamps: its totals
+        # ride the run summary
+        self.ledger = None
         self.memwatch = memory.MemoryWatch()
         self._mem_windows = 0
+
+    # ------------------------------------------------------- roofline
+
+    def count_step(self, fn, *args, **kwargs):
+        """`fn(*args, **kwargs)`, one training step: at the `spans`
+        level, the first call runs it under `attribution.
+        roofline_of_step` and keeps the roofline; every other call just
+        runs it."""
+        tr = self.tracer
+        if self._roof is not None or tr is None or tr.level != "spans":
+            return fn(*args, **kwargs)
+        from shallowspeed_tpu_torch.telemetry import attribution, bubble
+
+        out, self._roof = attribution.roofline_of_step(
+            fn, *args, cells=len(bubble.engine_cells(self.engine)),
+            **kwargs)
+        return out
+
+    @property
+    def roofline(self) -> dict | None:
+        """The counted step's roofline inputs (None before the count)."""
+        return self._roof
 
     def static_report(self) -> None:
         """The reference's one-time static report (jaxpr traffic, HBM
@@ -310,6 +350,67 @@ class RunTelemetry:
         if isinstance(measured, dict):
             out["coll_bytes_measured"] = dict(measured)
         out.update(self._bubble)
+        # the roofline waterfall — spans level only (the step spans are
+        # device-fenced there, so their durations are attributable time)
+        out.update(self._attribution(window_secs, traffic))
+        return out
+
+    def _attribution(self, window_secs, traffic) -> dict:
+        """attrib_* fields for the window just closed: the q25 of its
+        fenced step spans reconciled against the counted step's
+        roofline, the step's counted collective bytes (all exposed),
+        the bubble and the window's host gap (`attribution.py`)."""
+        tr = self.tracer
+        if tr is None or tr.level != "spans":
+            return {}
+        from shallowspeed_tpu_torch.telemetry import attribution as attr
+        from shallowspeed_tpu_torch.telemetry import bubble as bub
+
+        events = tr.events_since(self._span_mark)
+        self._span_mark = tr.event_count
+        durs = attr.window_step_spans(events)
+        if not durs or self._roof is None:
+            return {}
+        # lower quartile: the repeatable fast mode of the window's steps
+        t_step = percentile(durs, 25)
+        if t_step <= 0.0:
+            return {}
+        roof = self._roof
+        exposed = int(traffic["total_bytes"]) if traffic else 0
+        host_gap = None
+        if window_secs:
+            host_gap = max(0.0, window_secs - sum(durs)) / len(durs)
+        bubble = self._bubble.get("bubble_measured",
+                                  self._bubble.get("bubble_static"))
+        devices = bub.engine_devices(self.engine)
+        n_dev = max(1, len(devices))
+        shared = len(bub.engine_cells(self.engine)) > n_dev
+        rates = attr.device_rates(dtype=self.dtype, device=devices[0],
+                                  shared=shared)
+        scale = None
+        if rates.get("source") == "calibrated":
+            # no published peak (the CPU): the probe fixes only the
+            # matmul/bytes split — self-scale the compute component over
+            # the first two windows, then freeze it (the reference's rule)
+            if self._attrib_cals < 2:
+                secs = attr.roofline_seconds(roof, rates, n_dev)
+                other = ((0.0 if bubble is None else float(bubble))
+                         + (0.0 if host_gap is None
+                            else host_gap / t_step)
+                         + exposed / rates["ici"] / t_step)
+                residual = max(0.05, 1.0 - other) * t_step
+                self._attrib_scale = residual / max(
+                    secs["mxu_s"] + secs["hbm_s"], 1e-12)
+                self._attrib_cals += 1
+            scale = self._attrib_scale
+        out = attr.step_waterfall(
+            t_step, roofline=roof, coll_bytes=exposed,
+            bubble_fraction=bubble, host_gap=host_gap, n_devices=n_dev,
+            dtype=self.dtype, rates=rates, compute_scale=scale)
+        secs = attr.roofline_seconds(roof, rates, n_dev)
+        out["attrib_hbm_frac"] = round(
+            (1.0 if scale is None else scale) * secs["hbm_s"] / t_step, 4)
+        out["attrib_wire"] = rates["wire"]
         return out
 
     # -------------------------------------------------------- summary
@@ -326,8 +427,15 @@ class RunTelemetry:
             "traffic": self._traffic(),
             "hbm_live_mib": round(live["max_device_bytes"] / MiB, 2),
             "bubble": self._bubble or None,
+            "roofline": self._roof,
             "health": snap() if snap is not None else None,
-            "goodput_ledger": None,
+            # the in-process goodput-ledger totals when the driver
+            # stamps one (the cross-restart reduction is
+            # goodput.run_goodput over the metrics JSONL)
+            "goodput_ledger": (
+                {"seconds": self.ledger.seconds(),
+                 "counts": self.ledger.counts()}
+                if self.ledger is not None else None),
         }
         if memory.registered_owners():
             out["hbm_owners"] = memory.per_owner_accounting()

@@ -63,11 +63,19 @@ the owners "train.params" / "train.opt_state", host RSS, the last
 batch's counted collective bytes, the VM's measured `comm_bytes`);
 `--trace-dir`, `--profile-dir`, `--profile` and `--profile-hz` as in
 `train_lm`. `--engine fp8` refuses `--telemetry`, as the root driver
-does.
+does. At pp > 1 the telemetry events carry the schedule's static
+bubble; the VM at `spans` replays its last batch's fenced Forward /
+Backward spans on the schedule's dataflow and adds the measured one
+(`telemetry.bubble.span_replay_ops` / `replay_trace`).
 
-The root driver's other flags (the monitor, chaos, the heartbeat) are
-recognised and refused with `NotPorted`; `--platform` and
-`--host-devices` give way to `--device`.
+The goodput ledger (`"ledger"` lines: init, val, ckpt_save, failed and
+skipped saves; under `--engine fp8` also the shadow-parity pauses and
+the `fp8_fallback` count) and the live monitor (`--monitor-port`,
+`--slo`, `--flight-recorder`) as in `train_lm`.
+
+The root driver's other flags (chaos, the heartbeat) are recognised and
+refused with `NotPorted`; `--platform` and `--host-devices` give way to
+`--device`.
 """
 
 from __future__ import annotations
@@ -100,14 +108,21 @@ from shallowspeed_tpu_torch.parallel.spmd_pipeline import SPMDPipelineEngine
 from shallowspeed_tpu_torch.parallel.worker import PipelineExecutor
 from shallowspeed_tpu_torch.telemetry import profiler
 from shallowspeed_tpu_torch.telemetry.anomaly import GuardPolicy
-from shallowspeed_tpu_torch.telemetry.driver import (CHAOS, MONITOR,
+from shallowspeed_tpu_torch.telemetry.bubble import (replay_trace,
+                                                     span_replay_ops,
+                                                     static_bubble)
+from shallowspeed_tpu_torch.telemetry.driver import (CHAOS,
                                                      add_telemetry_flags,
                                                      owners_of,
+                                                     start_monitor,
                                                      start_telemetry,
+                                                     stop_monitor,
                                                      stop_telemetry)
+from shallowspeed_tpu_torch.telemetry.goodput import GoodputLedger
 from shallowspeed_tpu_torch.telemetry.health import HealthMonitor
 from shallowspeed_tpu_torch.telemetry.numerics import NumericsMonitor
 from shallowspeed_tpu_torch.telemetry.profiler import device_trace_ctx
+from shallowspeed_tpu_torch.telemetry.trace import tracer
 from shallowspeed_tpu_torch.utils import (assert_replicas_in_sync,
                                           get_model_hash, rprint)
 
@@ -125,8 +140,6 @@ _DEVICE = "--device replaces it: every cell of the dp x pp grid runs there"
 # the root driver's flags this driver does not have, and where each
 # comes from
 UNPORTED = {
-    **dict.fromkeys(["--monitor-port", "--slo", "--flight-recorder"],
-                    MONITOR),
     **dict.fromkeys(["--chaos", "--chaos-state", "--chaos-seed",
                      "--heartbeat-file", "--replica"], CHAOS),
     **dict.fromkeys(["--platform", "--host-devices"], _DEVICE),
@@ -347,6 +360,7 @@ def train_fp8(args):
             raise SystemExit(
                 f"--engine fp8 is the single-device numerics trainer; "
                 f"{flag} is not supported with it")
+    t_proc0 = time.time()
     device = resolve_device(args.device)
     engine = Fp8TrainEngine(LAYER_SIZES, _optimizer(args), device=device)
     data_dir = ensure_mnist(Path(args.data_dir))
@@ -366,7 +380,11 @@ def train_fp8(args):
     num_mon = NumericsMonitor(policy=policy)
     monitor = HealthMonitor(policy=policy) if args.health != "off" else None
     guarded = args.health == "guard"
-    rates = StepRates(args.batch_size, health=monitor, numerics=num_mon)
+    ledger = GoodputLedger(metrics)
+    plane = profiler.from_args(args, metrics)
+    live_mon, live_srv = start_monitor(args, metrics, plane)
+    rates = StepRates(args.batch_size, health=monitor, numerics=num_mon,
+                      ledger=ledger, monitor=live_mon)
 
     def val_loss() -> float:
         t0 = time.time()
@@ -378,7 +396,7 @@ def train_fp8(args):
         return tot / max(nb, 1)
 
     last_logged = -1
-    plane = profiler.from_args(args, metrics)
+    ledger.note("init", seconds=time.time() - t_proc0)
     try:
         for step in range(total_steps):
             batch_id = step % n_batches
@@ -403,6 +421,7 @@ def train_fp8(args):
                         and engine.precision == "fp8":
                     engine.fallback_bf16()
                     num_mon.note_fallback()
+                    ledger.note("fp8_fallback", count=1)
                     rprint(f"numerics guard: falling back to the bf16 "
                            f"master-precision step at step {step} "
                            f"({v.kind})")
@@ -424,6 +443,10 @@ def train_fp8(args):
                           f"{num_mon._last_parity['loss_rel']:.3g}"
                           if num_mon._last_parity else ""))
             if fatal:
+                if live_mon is not None:
+                    live_mon.flight_dump(
+                        "numerics:" + ",".join(v.kind for v in fatal),
+                        step=step, trigger=[str(v) for v in fatal])
                 raise SystemExit(
                     f"numerics policy abort at step {step}: "
                     + "; ".join(v.detail for v in fatal))
@@ -434,9 +457,12 @@ def train_fp8(args):
         metrics.log(event="val", step=max(total_steps - 1, 0),
                     val_loss=round(final, 6))
     finally:
-        if plane is not None:
-            plane.close()
-        metrics.close()
+        try:
+            if plane is not None:
+                plane.close()
+            stop_monitor(live_mon, live_srv)
+        finally:
+            metrics.close()
     return final, engine
 
 
@@ -444,6 +470,7 @@ def train(args):
     """Run the configured training; returns (final validation accuracy,
     the trained engine) — for `--engine fp8`, (the final validation
     loss, the engine)."""
+    t_proc0 = time.time()     # the goodput ledger's init
     D.initialize()
     if args.engine == "fp8":
         if D.process_count() > 1:
@@ -473,14 +500,21 @@ def train(args):
     staged = (engine.stage_epoch(train_ds, n_batches)
               if hasattr(engine, "train_epoch") else None)
     owners = owners_of(engine)
-    telem = plane = None
+    telem = plane = live_mon = live_srv = None
+    ledger = GoodputLedger(metrics)
     start = time.time()
     try:
-        telem, plane = start_telemetry(args, engine, metrics, owners)
+        telem, plane = start_telemetry(args, engine, metrics, owners, "f32",
+                                       ledger)
+        live_mon, live_srv = start_monitor(args, metrics, plane)
+        if telem is not None and args.pp > 1:
+            telem.set_bubble(bubble_static=static_bubble(
+                args.schedule, args.mubatches, args.pp)["bubble_fraction"])
+        ledger.note("init", seconds=time.time() - t_proc0)
         with device_trace_ctx(args.profile_dir):
             _epochs(args, engine, schedule_cls, train_ds, val_ds, n_batches,
                     staged, start_epoch, start, metrics, monitor, telem,
-                    device)
+                    device, ledger, live_mon)
         accuracy = compute_accuracy(engine, val_ds)
         rprint(f"Epoch: {args.epochs}, Time Spent: "
                f"{time.time() - start:.2f}s, Accuracy: {accuracy * 100:.2f}%")
@@ -488,6 +522,7 @@ def train(args):
     finally:
         try:
             stop_telemetry(args, telem, plane, owners)
+            stop_monitor(live_mon, live_srv)
         finally:
             metrics.close()
     # DP replicas hold bit-identical weights (the reference's closing
@@ -498,23 +533,37 @@ def train(args):
 
 
 def _epochs(args, engine, schedule_cls, train_ds, val_ds, n_batches, staged,
-            start_epoch, start, metrics, monitor, telem, device) -> None:
+            start_epoch, start, metrics, monitor, telem, device,
+            ledger, live_mon) -> None:
     """The epochs from `start_epoch`: accuracy line, training, the
-    epoch record, health, telemetry and checkpoint, once an epoch."""
+    epoch record, health, telemetry and checkpoint, once an epoch, with
+    the val and save seconds and the failed or skipped saves stamped
+    into `ledger`. The MLP driver writes no step lines, so the live
+    monitor's `step_ms` sketch takes each epoch's mean batch time."""
     for epoch in range(start_epoch, args.epochs):
+        t_val = time.time()
         accuracy = compute_accuracy(engine, val_ds)
+        ledger.note("val", seconds=time.time() - t_val)
         rprint(f"Epoch: {epoch}, Time Spent: {time.time() - start:.2f}s, "
                f"Accuracy: {accuracy * 100:.2f}%")
         t_epoch = time.time()
+        trace_mark = 0
         if staged is not None:
             engine.train_epoch(staged)
         else:
             for batch_id in range(n_batches):
+                if batch_id == n_batches - 1:
+                    # the bubble replay reads only the last batch's
+                    # spans (batch ids repeat across epochs)
+                    trace_mark = tracer().event_count
                 engine.train_batch(schedule_cls, args.mubatches,
                                    batch_id, train_ds)
         _sync(device)   # the epoch's time is the device's work
-        metrics.epoch(epoch, accuracy, n_batches * args.batch_size,
-                      time.time() - t_epoch)
+        epoch_s = time.time() - t_epoch
+        metrics.epoch(epoch, accuracy, n_batches * args.batch_size, epoch_s)
+        if live_mon is not None and n_batches:
+            live_mon.observe("step_ms", epoch_s * 1e3 / n_batches,
+                             count=n_batches)
         if monitor is not None:
             # the last batch's pack and the verdicts, once an epoch
             # (the MLP driver has no step lines)
@@ -524,14 +573,30 @@ def _epochs(args, engine, schedule_cls, train_ds, val_ds, n_batches, staged,
             metrics.log(event="health", step=epoch,
                         **monitor.step_fields())
         if telem is not None:
-            metrics.log(event="telemetry", epoch=epoch,
-                        **telem.step_fields())
+            if (args.telemetry == "spans" and staged is None
+                    and args.pp > 1):
+                # the VM's fenced per-instruction spans are the executed
+                # schedule: replay the last batch's on its dataflow
+                ops = span_replay_ops(tracer().events_since(trace_mark),
+                                      batch=n_batches - 1)
+                if ops:
+                    telem.set_bubble(bubble_measured=replay_trace(
+                        ops, args.pp)["bubble_fraction"])
+            tf = telem.step_fields()
+            metrics.log(event="telemetry", epoch=epoch, **tf)
+            if "bubble_measured" in tf:
+                rprint(f"  telemetry: bubble measured "
+                       f"{tf['bubble_measured']:.1%} vs static "
+                       f"{tf.get('bubble_static', 0.0):.1%}  "
+                       f"hbm {tf.get('hbm_live_mib', 0):,.0f} MiB")
+        t_save = time.time()
         if args.save_dir and monitor is not None \
                 and monitor.unhealthy():
             # never checkpoint a poisoned iterate
             rprint(f"epoch {epoch}: health is "
                    f"{monitor.heartbeat_status()!r} — skipping "
                    f"checkpoint save")
+            ledger.note("ckpt_save_skipped_unhealthy", count=1)
         elif args.save_dir:
             try:
                 checkpoint.save(args.save_dir, engine, epoch)
@@ -545,6 +610,9 @@ def _epochs(args, engine, schedule_cls, train_ds, val_ds, n_batches, staged,
                 # previous checkpoint — keep training
                 rprint(f"warning: checkpoint save failed ({e}); the "
                        f"previous checkpoint remains the restore point")
+                ledger.note("ckpt_save_failed", count=1)
+        if args.save_dir:
+            ledger.note("ckpt_save", seconds=time.time() - t_save)
 
 
 def main(argv=None) -> int:

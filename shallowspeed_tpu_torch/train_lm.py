@@ -129,11 +129,29 @@ and `telemetry.json` there (under several processes each process into
 activity with `torch.profiler` into a Chrome trace per process;
 `--profile host [--profile-hz N]` runs the host sampling profiler,
 whose "profile" snapshots go to `--log-file` (`host+device` also
-captures a device trace in each triggered window).
+captures a device trace in each triggered window). At `spans` the step
+lines carry the `attrib_*` waterfall (`telemetry.attribution`: the
+first step counted under a dispatch mode, priced at the card's peaks),
+and a pipeline's first log point with two fenced steps behind it
+calibrates the measured bubble (`telemetry.bubble.calibrate_compiled`:
+a `"bubble"` event and the `bubble measured ... vs static ...` line;
+the static bubble rides every step line from the start).
 
-The root driver's other flags (the monitor, the flight recorder, chaos,
-the heartbeat) are recognised and refused with `NotPorted`;
-`--platform` and `--host-devices` give way to `--device`.
+The goodput ledger (`telemetry.goodput`) stamps init, restore, val,
+ckpt_save, data stalls, the calibration, failed and skipped saves and
+guarded skipped steps into `--log-file` as `"ledger"` lines; `python
+-m shallowspeed_tpu_torch.telemetry --goodput m.jsonl` reduces them.
+`--monitor-port P --slo SPEC --flight-recorder N` run the live monitor
+(`telemetry.monitor`): every logged line feeds its sketches and SLO
+burn-rate alerts (`"alert"` events, periodic `"monitor"` snapshots),
+the endpoint serves /status.json (with the health monitor's heartbeat
+status under --health) and /metrics, and an anomaly verdict, a
+divergence or an alert dumps the flight recorder's ring next to the
+log.
+
+The root driver's other flags (chaos, the heartbeat) are recognised
+and refused with `NotPorted`; `--platform` and `--host-devices` give
+way to `--device`.
 """
 
 from __future__ import annotations
@@ -174,14 +192,20 @@ from shallowspeed_tpu_torch.parallel.overlap import from_flags
 from shallowspeed_tpu_torch.parallel.pipeline_lm import PipelineLMEngine
 from shallowspeed_tpu_torch.parallel.tensor import TensorParallelEngine
 from shallowspeed_tpu_torch.telemetry.anomaly import GuardPolicy
-from shallowspeed_tpu_torch.telemetry.driver import (CHAOS, MONITOR,
+from shallowspeed_tpu_torch.telemetry.bubble import (calibrate_compiled,
+                                                     static_bubble)
+from shallowspeed_tpu_torch.telemetry.driver import (CHAOS,
                                                      add_telemetry_flags,
                                                      owners_of,
+                                                     start_monitor,
                                                      start_telemetry,
+                                                     stop_monitor,
                                                      stop_telemetry,
                                                      telemetry_line)
+from shallowspeed_tpu_torch.telemetry.goodput import GoodputLedger
 from shallowspeed_tpu_torch.telemetry.health import HealthMonitor
 from shallowspeed_tpu_torch.telemetry.profiler import device_trace_ctx
+from shallowspeed_tpu_torch.telemetry.trace import tracer
 from shallowspeed_tpu_torch.utils import rprint
 from shallowspeed_tpu_torch.weights import map_tree
 
@@ -191,8 +215,6 @@ _DEVICE = "--device replaces it: every cell of the grid runs there"
 # comes from
 UNPORTED = {
     **dict.fromkeys(["--platform", "--host-devices"], _DEVICE),
-    **dict.fromkeys(["--monitor-port", "--slo", "--flight-recorder"],
-                    MONITOR),
     **dict.fromkeys(["--heartbeat-file", "--replica", "--chaos",
                      "--chaos-state", "--chaos-seed"], CHAOS),
 }
@@ -778,6 +800,7 @@ def _load_ema(args, engine, restored):
 def train(args) -> float:
     """Run the configured training (or, with --sample-only, restore and
     sample); returns the last logged loss (nan with --sample-only)."""
+    t_proc0 = time.time()   # the goodput ledger's init: entry -> the loop
     D.initialize()      # a no-op without a coordinator
     device = resolve_device(args.device)
     vocab, tokenizer, text_data, val_data = prepare_text(args)
@@ -833,8 +856,10 @@ def train(args) -> float:
             overlap=from_flags(args.overlap, args.bucket_mb))
     if D.process_count() > 1:
         rprint(D.describe())
+    t_restore = time.time()
     start_step, restored, restore_stats, quarantined = _restore(args,
                                                                 engine)
+    restore_secs = time.time() - t_restore if restored is not None else 0.0
     if restoring and restored is None:       # --auto-resume, fresh start
         engine.set_canonical_params(T.init_numpy(cfg, args.seed))
     if not args.sample_only and start_step >= args.steps:
@@ -846,9 +871,24 @@ def train(args) -> float:
                             attn=args.attn, device=str(device),
                             start_step=start_step)
     owners = owners_of(engine)
-    telem = plane = None
+    telem = plane = live_mon = live_srv = None
+    # every non-step second stamped into the log the step lines live in
+    ledger = GoodputLedger(metrics)
+    if restore_secs:
+        ledger.note("restore", seconds=restore_secs)
+    t_loop_done = None
     try:
-        telem, plane = start_telemetry(args, engine, metrics, owners)
+        telem, plane = start_telemetry(args, engine, metrics, owners,
+                                       "bf16" if args.bf16 else "f32",
+                                       ledger)
+        live_mon, live_srv = start_monitor(args, metrics, plane)
+        if telem is not None and isinstance(engine, PipelineLMEngine):
+            # the verified schedule's static bubble rides every step
+            # line; the measured one joins at the first calibration
+            si = engine.schedule_info()
+            telem.set_bubble(bubble_static=static_bubble(
+                si["schedule"], si["n_mu"], si["pp"],
+                si["vpp"])["bubble_fraction"])
         if restored is not None:
             metrics.log(event="restore", path=str(restored),
                         step=start_step,
@@ -873,30 +913,44 @@ def train(args) -> float:
                 sample_and_print(args, engine, cfg, metrics,
                                  text_data=text_data, tokenizer=tokenizer)
             return float("nan")
+        ledger.note("init", seconds=max(0.0, time.time() - t_proc0
+                                        - restore_secs))
         loss = _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
-                     start_step, ema, ema_weights, telem)
+                     start_step, ema, ema_weights, telem, ledger, live_mon)
+        t_loop_done = time.time()
         if args.generate > 0:
             with ema_weights():
                 sample_and_print(args, engine, cfg, metrics,
                                  text_data=text_data, tokenizer=tokenizer)
+            ledger.note("sample", seconds=time.time() - t_loop_done)
+            t_loop_done = time.time()
     finally:
         try:
             stop_telemetry(args, telem, plane, owners)
+            # the final sketch snapshot into the log, the endpoint down
+            stop_monitor(live_mon, live_srv)
+            if t_loop_done is not None:
+                ledger.note("teardown",
+                            seconds=max(0.0, time.time() - t_loop_done))
         finally:
             metrics.close()
     return loss
 
 
 def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
-          start_step, ema, ema_weights, telem=None) -> float:
+          start_step, ema, ema_weights, telem, ledger, live_mon) -> float:
     """The step loop from `start_step`: prefetched batches, step lines
     at log points (with `telem`'s fields), validation and checkpoints on
-    their cadence; under --profile-dir inside the profiler's capture."""
+    their cadence, `ledger` stamped with every non-step second and
+    `live_mon` fed the exact window rates and dumping its flight ring on
+    an abort; the pipeline's bubble calibration at the first spans-level
+    log point that has two fenced steps; under --profile-dir inside the
+    profiler's capture."""
     device = engine.device
     monitor = (HealthMonitor(policy=GuardPolicy.for_mode(args.health))
                if args.health != "off" else None)
     rates = StepRates(args.batch_size * args.seq_len, telemetry=telem,
-                      health=monitor)
+                      health=monitor, ledger=ledger, monitor=live_mon)
     dtype = "bf16" if args.bf16 else "f32"
     saver = checkpoint.AsyncSaver() if args.async_save else None
     queued = []          # stats of the async saves, logged once written
@@ -925,6 +979,7 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
         rprint(f"warning: checkpoint save failed ({err}); the previous "
               f"checkpoint remains the restore point", flush=True)
         metrics.log(event="ckpt_save_failed", step=step, error=str(err))
+        ledger.note("ckpt_save_failed", count=1)
 
     def val_loss(step: int) -> float:
         """Held-out loss on a fresh batch seeded by the training step
@@ -949,14 +1004,19 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
     placed = prefetch_to_device(batches(), place_on(device),
                                 depth=args.prefetch)
     loss, last = float("nan"), start_step - 1
-    failed = True
+    data_stall = 0.0     # the wait for the next placed batch since the
+    failed = True        # last log point
+    step_fn = (engine.train_batch if telem is None
+               else lambda t, g: telem.count_step(engine.train_batch, t, g))
     try:
         # the --profile-dir capture spans the loop (a no-op without it)
         with device_trace_ctx(args.profile_dir):
             placed_it = iter(placed)
             for step in range(start_step, args.steps):
+                t_fetch = time.time()
                 tok, tgt = next(placed_it)
-                loss = engine.train_batch(tok, tgt)   # syncs with the device
+                data_stall += time.time() - t_fetch
+                loss = step_fn(tok, tgt)   # syncs with the device
                 if ema is not None:
                     ema_update(ema, engine.params, args.ema_decay)
                 if sync_every(step, args.log_every, args.steps):
@@ -967,6 +1027,13 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                             rprint(str(v), flush=True)
                         fatal = [v for v in verdicts if v.action == "abort"]
                         if fatal:
+                            if live_mon is not None:
+                                # the process exits before the next line
+                                # would reach the monitor: dump now
+                                live_mon.flight_dump(
+                                    "anomaly:" + ",".join(
+                                        v.kind for v in fatal), step=step,
+                                    trigger=[str(v) for v in fatal])
                             if args.save_dir:
                                 save_ckpt(f"{args.save_dir}/diverged", step)
                                 if saver is not None:
@@ -975,6 +1042,10 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                                 f"health policy abort at step {step}: "
                                 + "; ".join(v.detail for v in fatal))
                     if not np.isfinite(loss):
+                        if live_mon is not None:
+                            live_mon.flight_dump(
+                                "divergence:nonfinite_loss", step=step,
+                                trigger={"loss": str(loss)})
                         if args.save_dir:
                             # forensic only: under diverged/, so --resume
                             # keeps finding the last good checkpoint
@@ -989,6 +1060,9 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                             f"with --warmup-steps")
                     r = rates.log_point(step - last)
                     last = step
+                    if data_stall > 0.01:
+                        ledger.note("data_stall", seconds=data_stall)
+                    data_stall = 0.0
                     perf = mfu(r["tokens_per_sec"], cfg, args.seq_len, dtype,
                                device=device)
                     cum = mfu(r["tokens_per_sec_cum"], cfg, args.seq_len,
@@ -1005,9 +1079,17 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                                            "tokens_per_sec_cum")}
                     metrics.log(**step_event(step, loss, r, perf, cum),
                                 **fields)
+                    if live_mon is not None and monitor is not None:
+                        # /status.json's health: the heartbeat status
+                        live_mon.health = monitor.heartbeat_status()
                     line = telemetry_line(fields) if telem else ""
                     if line:
                         rprint(line, flush=True)
+                    if (telem is not None and args.telemetry == "spans"
+                            and isinstance(engine, PipelineLMEngine)
+                            and "bubble_measured" not in telem.bubble):
+                        _calibrate_bubble(args, engine, vocab, text_data,
+                                          step, telem, rates, metrics)
                     if args.experts and not isinstance(engine,
                                                        PipelineLMEngine):
                         # the capacity drop is silent in the loss: show it
@@ -1038,6 +1120,7 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                         rprint(f"step {step}: state is {status!r} — "
                                f"skipping checkpoint save", flush=True)
                         metrics.log(event="ckpt_save_skipped", step=step)
+                        ledger.note("ckpt_save_skipped_unhealthy", count=1)
                     else:
                         try:
                             save_ckpt(args.save_dir, step)
@@ -1071,6 +1154,31 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                     print(f"[warn] async checkpoint save failed during "
                           f"teardown: {err!r}", file=sys.stderr)
     return loss
+
+
+def _calibrate_bubble(args, engine, vocab, text_data, step, telem, rates,
+                      metrics) -> None:
+    """The pipeline's measured bubble (`calibrate_compiled`: the median
+    fenced step and a few fenced eval passes on this step's batch, laid
+    on the verified tables), excluded from the throughput windows as a
+    "calibration" pause; once it has two fenced steps after the first,
+    a `"bubble"` event and the `bubble measured ... vs static ...`
+    line."""
+    tc = time.time()
+    tok, tgt = make_batch(args, vocab, step, text_data)
+    cal = calibrate_compiled(engine, tracer(), tok, tgt)
+    rates.pause(time.time() - tc, kind="calibration")
+    if cal is None:
+        return
+    telem.set_bubble(bubble_static=cal["bubble_static"],
+                     bubble_measured=cal["bubble_measured"])
+    metrics.log(event="bubble", step=step, **cal["bubble_detail"],
+                bubble_static=cal["bubble_static"],
+                bubble_measured=cal["bubble_measured"])
+    si = engine.schedule_info()
+    rprint(f"             bubble measured {cal['bubble_measured']:.1%} vs "
+           f"static {cal['bubble_static']:.1%} ({si['schedule']}, n_mu="
+           f"{si['n_mu']}, pp={si['pp']})", flush=True)
 
 
 def sample_and_print(args, engine, cfg, metrics=None, text_data=None,

@@ -3,11 +3,12 @@
 `trace.json` and `telemetry.json`, their files and metrics lines pass
 the reference's own `schema.validate_file`, the step lines carry the
 reference's telemetry field names but for the quantities the port does
-not have (compile counters, the static HBM bound, exposure, the
-waterfall, bubbles), and the losses are the `off` run's bit for bit;
-`--profile-dir` writes a Chrome trace, `--profile host` the sampler's
-"profile" events (train_lm and serve); the flags still refused name
-their ROADMAP item."""
+not have (compile counters, the static HBM bound, exposure), the
+`spans` level's waterfall on the CPU's calibrated rates, and the losses
+are the `off` run's bit for bit; `--profile-dir` writes a Chrome trace,
+`--profile host` the sampler's "profile" events (train_lm and serve);
+the live-monitoring flags build the monitor plane; the flags still
+refused name their ROADMAP item."""
 
 import json
 import re
@@ -30,13 +31,17 @@ LM = ["--device", "cpu", "--steps", "4", "--seq-len", "32", "--d-model",
 
 # the reference's step-line telemetry fields the port writes on the CPU,
 # and those it leaves absent (no quantity: no compiled executables, no
-# jaxpr analysis, attribution and bubbles not ported yet)
+# jaxpr analysis; no bubble off the pipeline)
 PRESENT = {"hbm_live_mib", "hbm_owned_mib", "hbm_untracked_mib",
            "host_rss_mib", "coll_bytes_per_step", "coll_bytes_by_axis",
            "coll_gbps"}
 ABSENT = {"compiles", "recompiles", "hbm_static_mib", "hbm_within_bound",
           "exposed_comm_frac", "overlap_ratio", "overlap",
           "bubble_static", "bubble_measured"}
+WATERFALL = {"attrib_t_step_ms", "attrib_compute_frac", "attrib_mxu_frac",
+             "attrib_comm_exposed_frac", "attrib_host_frac",
+             "attrib_unexplained_frac", "attrib_compute_scale",
+             "attrib_hbm_frac", "attrib_wire"}
 
 
 @pytest.fixture(scope="module")
@@ -82,7 +87,9 @@ def test_train_lm_spans_and_files(tmp_path):
     for s in steps:
         assert PRESENT <= set(s), PRESENT - set(s)
         assert not ABSENT & set(s)
-        assert not any(k.startswith("attrib_") for k in s)
+        # the waterfall at `spans`, on the CPU's calibrated rates
+        assert WATERFALL <= set(s), WATERFALL - set(s)
+        assert s["attrib_rates_source"] == "calibrated"
         assert set(s["hbm_owned_mib"]) == {"train.params",
                                            "train.opt_state"}
         assert set(s["coll_bytes_by_axis"]) == {"dp"}
@@ -183,14 +190,47 @@ def test_serve_host_profile(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("module,flag,item", [
-    (tdriver, "--flight-recorder", "6b"), (tdriver, "--monitor-port", "6b"),
-    (tdriver, "--slo", "6b"), (tdriver, "--chaos", "6c"),
-    (tdriver, "--heartbeat-file", "6c"), (tdriver, "--replica", "6c"),
-    (mdriver, "--flight-recorder", "6b"), (mdriver, "--chaos-seed", "6c"),
-    (sdriver, "--slo", "6b"), (sdriver, "--chaos", "6c"),
-    (sdriver, "--max-queue", "item 7"), (sdriver, "--shed-load", "item 7")],
+    (tdriver, "--chaos", "6c"), (tdriver, "--heartbeat-file", "6c"),
+    (tdriver, "--replica", "6c"), (mdriver, "--chaos-seed", "6c"),
+    (sdriver, "--chaos", "6c"), (sdriver, "--max-queue", "item 7"),
+    (sdriver, "--shed-load", "item 7")],
     ids=lambda x: x if isinstance(x, str) else x.__name__.split(".")[-1])
 def test_still_refused_flags_name_their_item(module, flag, item):
     parse = getattr(module, "parse_args")
     with pytest.raises(NotPorted, match=re.escape(item)):
         parse(["--device", "cpu", flag, "1"])
+
+
+@pytest.mark.parametrize("module,flag,value", [
+    (tdriver, "--flight-recorder", "8"), (tdriver, "--monitor-port", "0"),
+    (tdriver, "--slo", "step_p95_ms<500"),
+    (mdriver, "--flight-recorder", "8"), (mdriver, "--monitor-port", "0"),
+    (mdriver, "--slo", "step_p95_ms<500"),
+    (sdriver, "--slo", "ttft_p95_ms<500,availability>0.99"),
+    (sdriver, "--monitor-port", "0"), (sdriver, "--flight-recorder", "8")],
+    ids=lambda x: x if isinstance(x, str) else x.__name__.split(".")[-1])
+def test_monitor_flags_build_the_plane(module, flag, value, tmp_path):
+    """Each live-monitoring flag parses and turns the monitor plane on:
+    `monitor.from_args` builds a Monitor (its SLO rules, its flight
+    recorder next to --log-file) and, with --monitor-port, a bound
+    endpoint."""
+    from shallowspeed_tpu_torch.metrics import MetricsLogger
+    from shallowspeed_tpu_torch.telemetry import monitor as MON
+
+    args = module.parse_args(["--device", "cpu", "--log-file",
+                              str(tmp_path / "m.jsonl"), flag, value])
+    metrics = MetricsLogger(args.log_file)
+    mon, srv = MON.from_args(args, metrics)
+    try:
+        assert mon is not None and metrics.monitor is mon
+        assert (srv is not None) == (flag == "--monitor-port")
+        if flag == "--slo":
+            assert [r.spec for r in mon.rules] == value.split(",")
+        if flag == "--flight-recorder":
+            assert mon.flight_enabled and mon.flight.ring.maxlen == 8
+            assert mon.flight.out_dir == tmp_path
+        if srv is not None:
+            assert srv.port > 0
+    finally:
+        MON.close_monitor(mon, srv)
+        metrics.close()
