@@ -107,19 +107,23 @@ Phases (any failure exits non-zero and prints no result line):
    layers, through `train_lm.main` and `serve
    --ckpt`'s loader: a token-shard corpus (`build_shards`, vocab
    32768, 10 % held out, 16-token motifs from numpy seed 7); run A
-   trains 6 steps from it (--val-every 3 --prefetch 2); run B trains 3
-   and saves synchronously; run C resumes B's checkpoint to step 6
-   with --async-save --keep-last 2, and its losses must equal run A's
-   bit for bit. The launch counts are zeroed before each run: K1's
-   tensor-core build n_layers x (steps + validations), K2's and K3's
-   n_layers x steps, the f32-FMA builds 0. One byte of C's checkpoint
-   is flipped: `--sample-only` must quarantine it and restore B's,
-   whose parameters then serve 4 of phase 3's requests (K4 n_layers x
-   ticks), their paged logits against the plain forward (bf16 bound).
-   Prints a `ckpt:` line (seconds and GB/s of the fetch, write, hash,
-   verify, read and placement) and a `data:` line (prefetch depth,
-   steps/s of runs A and C). The checkpoints live in a temporary
-   directory removed at the end.
+   trains 6 steps from it (--val-every 3 --prefetch 2) in this process:
+   the oracle. Then phase 20 (a) in the same directory: the same flags
+   under the supervisor and a fault plan, its first child saving
+   synchronously at step 2 and killed at step 4, its restart resuming
+   that checkpoint with --async-save --keep-last 2 (the old runs B and
+   C), every loss equal to run A's bit for bit; the plan corrupts the
+   restart's last checkpoint after it lands. The launch counts are
+   zeroed before each run and child: K1's tensor-core build n_layers x
+   (steps + validations), K2's and K3's n_layers x steps, the f32-FMA
+   builds 0. `--sample-only` must quarantine the corrupted checkpoint
+   and restore the first, whose parameters then serve 4 of phase 3's
+   requests (K4 n_layers x ticks), their paged logits against the plain
+   forward (bf16 bound). Prints a `ckpt:` line (seconds and GB/s of the
+   fetch, write, hash, verify, read and placement; the sync save is the
+   first child's, the async one and the restore the restart's) and a
+   `data:` line (prefetch depth, steps/s of run A and the restart). The
+   checkpoints live in a temporary directory removed at the end.
 7. Training parity in f32 at full width and 2 layers: the kernels'
    loss and every gradient leaf against the plain attention under torch
    autograd, and a bf16 rounding of q and K slipped into the plain
@@ -207,7 +211,7 @@ Phases (any failure exits non-zero and prints no result line):
    `flash_attention` over the gathered sequence: o and the gradients
    within RING_TOL_BF16, o also per element against the plain f32
    attention, K1-K3 launches sp (sp + 1) / 2 each. (c)
-   `ContextParallelEngine` at full width and CP_LAYERS = 2 layers of 16
+   `ContextParallelEngine` at full width and CP_LAYERS = 1 layer of 16
    (AdamW 3e-4, phase 6's batch and weights) in CP_LAYOUTS:
    dp 2 x sp 2 ring-flash, dp 1 x sp 4 ulysses-flash, dp 2 flash
    ZeRO-1, dp 2 x sp 2 ring-flash ZeRO-2 accum 2: the loss at init
@@ -291,7 +295,7 @@ Phases (any failure exits non-zero and prints no result line):
 16. Comm overlap (`parallel/overlap.py`: each bucket of replica r >= 1's
    gradient added into the rank-order sum from its backward, on a side
    stream), every line with the card's name and power limit. (a)
-   `ContextParallelEngine` dp 2 flash at full width and OV_LAYERS = 4
+   `ContextParallelEngine` dp 2 flash at full width and OV_LAYERS = 2
    of 16 layers (phase 6's batch and weights, cut for the script's
    time), AdamW 3e-4, overlap off, then on with 4 and 64
    MiB buckets: two overlap-off `loss_and_grads` calls against each
@@ -375,7 +379,7 @@ Phases (any failure exits non-zero and prints no result line):
 
 19. Monitor and accounting (`shallowspeed_tpu_torch.telemetry`'s
    `monitor`, `goodput`, `bubble`, `attribution`) on the port's entry
-   points, the 1.21B LM at full width and MON_LAYERS = 4 of 16 layers
+   points, the 1.21B LM at full width and MON_LAYERS = 2 of 16 layers
    (one seeded draw, `_cached_draw`), 4 x 2048, `--attn flash`. Every
    monitor endpoint the drivers start is polled from a thread while the
    run is live (`_polled_monitors`: /status.json and /metrics). (a)
@@ -409,6 +413,26 @@ Phases (any failure exits non-zero and prints no result line):
    replayed from the VM's fenced Forward / Backward spans against the
    static 0.200 (`mon (e):`).
 
+20. Supervised fault drills (`shallowspeed_tpu_torch.elastic`,
+   `chaos`), each child a `python3 chip_smoke.py --phase20-child`
+   process on the card. (a) runs inside phase 6b (see there): `train_lm`
+   at CKPT_LAYERS under the supervisor (max 4 restarts, backoff 0.3 s,
+   term grace 3 s) with the plan DRILL_PLAN (a 0.5 s data-loader stall
+   at step 1, a kill at step 4, the second save corrupted after it
+   lands): two children, the losses run A's bit for bit, the three
+   faults stamped once, the restart resumed from the first save and
+   never from a corrupted directory, `run_goodput`'s crash MTTR and
+   >= 95 % of the wall accounted, each child's K1-K3 launches counted
+   as in phase 6b (`drill (a):` line: wall, children, MTTR, restart
+   downtime, child start, save and restore seconds, goodput). (b)
+   `train --engine spmd --schedule gpipe --dp 2` at the MLP's full
+   width as two processes on the card (gloo) under the gang supervisor,
+   process 1 killed at the top of epoch 1: the whole gang restarts from
+   epoch 0's checkpoint and ends on the one-process run's model hash
+   (`drill (b):` line). (b) runs beside (a), its supervisor on a
+   thread of this process (both drills are mostly process start-up),
+   so both lie inside phase 6b's clock.
+
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers (with `device_ms` / `library_device_ms` where the
 profiler timed them, K1-K3's `recipe_launches` from phase 10a,
@@ -416,8 +440,8 @@ profiler timed them, K1-K3's `recipe_launches` from phase 10a,
 `pp15_launches` from phase 15, `ov_launches` from phase 16's
 overlapped runs, (a) and (b), `mp_launches` [process 0, process 1]
 from phase 17's (a) and (b), `tele_launches` from phase 18 (a)'s
-`spans` run, and `mon_launches` from phase 19's (a) monitored runs and
-(d)), and
+`spans` run, `mon_launches` from phase 19's (a) monitored runs and
+(d), and `drill_launches` [first child, restart] from phase 20 (a)), and
 `{"ok": true, "device": {...}}`.
 """
 
@@ -2198,44 +2222,34 @@ def run_data_ckpt(dev, cfg) -> dict:
 
         a = _drive(dev, argv("a", "--steps", str(CKPT_STEPS)),
                    CKPT_STEPS, CKPT_STEPS // CKPT_SAVE_AT)
-        b = _drive(dev, argv("b", "--steps", str(CKPT_SAVE_AT),
-                             "--save-dir", str(ck),
-                             "--save-every", str(CKPT_SAVE_AT)),
-                   CKPT_SAVE_AT, 1)
-        c = _drive(dev, argv("c", "--steps", str(CKPT_STEPS),
-                             "--save-dir", str(ck),
-                             "--save-every", str(CKPT_SAVE_AT), "--resume",
-                             "--async-save", "--keep-last", "2"),
-                   CKPT_STEPS - CKPT_SAVE_AT, 1)
-        if b["losses"] != a["losses"][:CKPT_SAVE_AT] \
-                or c["losses"] != a["losses"][CKPT_SAVE_AT:]:
-            raise AssertionError(f"resumed losses differ from the straight "
-                                 f"run's: A {a['losses']}, B {b['losses']}, "
-                                 f"C {c['losses']}")
         if not a["losses"][-1] < a["losses"][0]:
             raise AssertionError(f"run A's loss did not fall: {a['losses']}")
-        vals = {r: [e["val_loss"] for e in _events(x["log"], "val")]
-                for r, x in (("a", a), ("c", c))}
-        if vals["c"] != vals["a"][-1:]:
-            raise AssertionError(f"resumed val loss {vals['c']} != the "
-                                 f"straight run's {vals['a']}")
-        save_b, = _events(b["log"], "ckpt_save")
-        save_c, = _events(c["log"], "ckpt_save")
-        restore_c, = _events(c["log"], "restore")
-        kept = sorted(p.name for p in ck.iterdir())
-        last, first = ck / f"ckpt_{CKPT_STEPS - 1}", ck / \
-            f"ckpt_{CKPT_SAVE_AT - 1}"
+        # phase 20 (a): runs B and C and the flipped byte, through the
+        # supervisor and a fault plan (`run_drill`); (b) beside it
+        with gang_drill(dev):
+            drill = run_drill(dev, flags, root, ck, a)
+        c = drill["survivor"]
+        # each validation step's last val loss in the drill's log (the
+        # restarted child's where it replayed one) is the straight run's
+        vals = {r: {e["step"]: e["val_loss"] for e in _events(log, "val")}
+                for r, log in (("a", a["log"]), ("drill", drill["log"]))}
+        if vals["drill"] != vals["a"]:
+            raise AssertionError(f"the drill's val losses {vals['drill']} "
+                                 f"!= the straight run's {vals['a']}")
+        saves = {e["step"]: e for e in _events(drill["log"], "ckpt_save")}
+        save_b, save_c = saves[drill["first"]], saves[CKPT_STEPS - 1]
+        restore_c, = _events(drill["log"], "restore")
+        first, last = ck / f"ckpt_{drill['first']}", \
+            ck / f"ckpt_{CKPT_STEPS - 1}"
+        kept = sorted(p.name for p in ck.iterdir()
+                      if not p.name.startswith("."))
         if kept != sorted([first.name, last.name]) \
                 or restore_c["path"] != str(first):
-            raise AssertionError(f"checkpoints {kept}, run C restored "
-                                 f"{restore_c['path']}")
+            raise AssertionError(f"checkpoints {kept}, the drill's restart "
+                                 f"restored {restore_c['path']}")
 
-        # flip one byte of the newest checkpoint's params.npz
-        with open(last / "params.npz", "r+b") as f:
-            f.seek((last / "params.npz").stat().st_size // 2)
-            byte = f.read(1)
-            f.seek(-1, 1)
-            f.write(bytes([byte[0] ^ 0xFF]))
+        # the drill's plan corrupted the newest checkpoint after it
+        # landed: --sample-only must quarantine it and restore the first
         s = _drive(dev, argv("s", "--steps", str(CKPT_STEPS), "--save-dir",
                              str(ck), "--sample-only", "--generate", "16"),
                    0, 0)
@@ -2289,16 +2303,16 @@ def run_data_ckpt(dev, cfg) -> dict:
         sps = {r: 1.0 / float(np.median(x["step_s"])) for r, x in
                (("a", a), ("c", c))}
         out = {"ckpt": ckpt, "data": {
-            "prefetch": 2, "steps_per_s_p50": sps,
+            "prefetch": {"a": 2, "c": 0}, "steps_per_s_p50": sps,
             "steps_per_s_driver": {
-                r: _events(x["log"], "step")[-1]["tokens_per_sec_cum"]
-                / (TRAIN_BATCH * cfg.max_seq) for r, x in
-                (("a", a), ("c", c))},
-            "wall_s": {r: x["wall_s"] for r, x in (
-                ("a", a), ("b", b), ("c", c), ("sample_only", s))}},
+                "a": _events(a["log"], "step")[-1]["tokens_per_sec_cum"]
+                / (TRAIN_BATCH * cfg.max_seq)},
+            "wall_s": {"a": a["wall_s"], "drill": drill["wall_s"],
+                       "sample_only": s["wall_s"]}},
             "losses_a": a["losses"], "losses_c": c["losses"],
-            "val_a": vals["a"], "launches_a": a["launches"],
-            "launches_c": c["launches"], "serve": {
+            "val_a": list(vals["a"].values()), "launches_a": a["launches"],
+            "launches_c": c["launches"],
+            "drill_launches": drill["launches"], "serve": {
                 k: served[k] for k in ("ticks", "launches", "wall_s")},
             "logits_rel": rel}
     finally:
@@ -2308,6 +2322,332 @@ def run_data_ckpt(dev, cfg) -> dict:
     print("data: " + json.dumps(out.pop("data")), flush=True)
     print("data ckpt: " + json.dumps(out), flush=True)
     return out
+
+
+# Phase 20: supervised fault drills (`elastic`, `chaos`). (a) runs in
+# phase 6b's temporary directory, in place of its runs B and C and its
+# flipped byte: `train_lm` children under the supervisor, with phase
+# 6b's flags, a sync save at step DRILL_SAVE_EVERY - 1 (the first child,
+# started without a checkpoint; the restarted child saves through
+# `AsyncSaver`), and the plan DRILL_PLAN: a stall in the data loader at
+# step 1, a kill at the top of step 4 (after the first save landed:
+# the restart resumes from it) and the post-hoc corruption of the
+# second save (the restarted child's last, which `--sample-only` then
+# quarantines). (b) `train --engine spmd --dp 2` as two processes on the
+# card (gloo) under `GangSupervisor`, process 1 killed at the top of
+# epoch 1 (GANG_PLAN), held to the one-process run's hash; it runs
+# beside (a) (`gang_drill`).
+DRILL_PLAN = "stall@1:0.5,kill@4,corrupt@2"
+DRILL_SAVE_EVERY = 3
+DRILL_HANG_S = 90             # the supervisor's hang timeout: a net only
+GANG_PLAN = "kill@1"
+GANG_EPOCHS = 2
+GANG_BATCHES = 8
+
+
+def drill_child(kind: str, out: str, *argv) -> int:
+    """Phase 20's child, `python3 chip_smoke.py --phase20-child KIND OUT
+    -- ARGV`, which the supervisor starts (again after each failure).
+    Its output goes to OUT/KIND_PID.log. KIND "lm" runs `train_lm.main
+    (ARGV)` (adding --async-save when the save dir already holds a
+    checkpoint: the restarted child) with the K1-K3 launch counters
+    zeroed at entry, and after every step and validation pass writes
+    OUT/lm_PID.json: each step's loss (repr, exact), step seconds,
+    validation passes, the counters, the seconds from entry to the
+    first step (a SIGKILL loses nothing written before it). KIND "gang"
+    runs `train.train(ARGV)` as one process of a gang, the fault plan
+    kept by process 1 only, and writes OUT/gang_PID.json with the
+    model hash."""
+    t_entry = time.time()
+    out = Path(out)
+    me = out / f"{kind}_{os.getpid()}"
+    fh = open(f"{me}.log", "w")
+    os.dup2(fh.fileno(), 1)
+    os.dup2(fh.fileno(), 2)
+    sys.stdout.reconfigure(line_buffering=True)
+    argv = list(argv[1:] if argv[:1] == ("--",) else argv)
+    import torch
+
+    # the main process's settings, under which run A ran
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if kind == "gang":
+        from shallowspeed_tpu_torch import train
+        from shallowspeed_tpu_torch.utils import get_model_hash
+
+        if os.environ.get("JAX_PROCESS_ID") != "1":
+            for k in [k for k in os.environ
+                      if k.startswith("SHALLOWSPEED_CHAOS")]:
+                del os.environ[k]
+        _, eng = train.train(train.parse_args(argv))
+        digest = get_model_hash(eng.params)     # collective
+        Path(f"{me}.json").write_text(json.dumps({
+            "process": int(os.environ["JAX_PROCESS_ID"]), "hash": digest}))
+        return 0
+    from shallowspeed_tpu_torch import checkpoint, train_lm
+    from shallowspeed_tpu_torch.ops import flash_attention as FA
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+
+    import_s = time.time() - t_entry
+    if checkpoint.has_checkpoint(argv[argv.index("--save-dir") + 1]):
+        argv.append("--async-save")
+    kernels = (FA._flash_fwd_tc, FA._flash_dq_tc, FA._flash_dkv_tc)
+    idle = (FA.flash_fwd, FA.flash_dq, FA.flash_dkv)
+    rec = {"pid": os.getpid(), "t_entry": t_entry, "argv": argv,
+           "import_s": import_s, "steps": [], "step_s": [], "evals": 0,
+           "first_step_s": None}
+
+    def dump():
+        rec["launches"] = [k.launches for k in kernels]
+        rec["idle"] = [k.launches for k in idle]
+        Path(f"{me}.tmp").write_text(json.dumps(rec))
+        os.replace(f"{me}.tmp", f"{me}.json")
+
+    step, evaluate = (ContextParallelEngine.train_batch,
+                      ContextParallelEngine.eval_loss)
+
+    def train_batch(self, tok, tgt):
+        n, t0 = self._step_count, time.perf_counter()
+        if rec["first_step_s"] is None:
+            rec["first_step_s"] = time.time() - t_entry
+        loss = step(self, tok, tgt)
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["steps"].append([n, repr(float(loss))])
+        dump()
+        return loss
+
+    def eval_loss(self, tok, tgt):
+        v = evaluate(self, tok, tgt)
+        rec["evals"] += 1
+        dump()
+        return v
+
+    for k in kernels + idle:
+        k.launches = 0
+    ContextParallelEngine.train_batch = train_batch
+    ContextParallelEngine.eval_loss = eval_loss
+    dump()
+    return train_lm.main(argv)
+
+
+def _child_logs(out: Path) -> str:
+    return "\n".join(f"--- {p.name}:\n{p.read_text()[-3000:]}"
+                     for p in sorted(out.glob("*.log")))
+
+
+def _supervise(dev, cmd, plan, state, procs=1, max_restarts=4,
+               term_grace=3.0) -> tuple[int, float]:
+    """Supervise `cmd` in this process as `python -m
+    shallowspeed_tpu_torch.elastic [--procs N] --max-restarts R
+    --backoff 0.3 --jitter 0 --term-grace G --hang-timeout DRILL_HANG_S
+    --chaos PLAN --chaos-state STATE -- CMD` does (the supervisor makes
+    no CUDA call; its children share the card), polling every 0.2 s,
+    after freeing this process's cached device memory. Returns (exit
+    code, seconds)."""
+    from shallowspeed_tpu_torch import elastic
+    from shallowspeed_tpu_torch.chaos import FaultPlan
+
+    gc.collect()
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()
+    policy = elastic.RestartPolicy(max_restarts=max_restarts, backoff=0.3)
+    env = {k: v for k, v in FaultPlan.parse(
+        plan, state_dir=state).export_env().items()
+        if k.startswith("SHALLOWSPEED_CHAOS")}
+    kw = dict(hang_timeout=DRILL_HANG_S, term_grace=term_grace,
+              child_env=env, poll_interval=0.2)
+    sup = (elastic.GangSupervisor(cmd, procs, policy, **kw) if procs > 1
+           else elastic.Supervisor(cmd, policy, **kw))
+    t0 = time.time()
+    rc = sup.run()
+    return rc, time.time() - t0
+
+
+def run_drill(dev, flags, root, ck, oracle) -> dict:
+    """Phase 20 (a), in phase 6b's directory `root` (see DRILL_PLAN):
+    `train_lm` with phase 6b's `flags` under the supervisor
+    (`_supervise`: --max-restarts 4 --backoff 0.3 --term-grace 3 --chaos
+    DRILL_PLAN), children `--phase20-child lm`,
+    checkpoints in `ck`. Gates: the supervisor ends at 0 with two
+    children; every step's last loss equals run A's (`oracle`) bit for
+    bit; the three faults stamped once each; the restart resumed from
+    the first save, never from a corrupted directory; `run_goodput` has
+    a crash MTTR and accounts for >= 95 % of the wall; each child's
+    K1 launches n_layers x (steps it ran + validations), K2 and K3
+    n_layers x steps, the f32-FMA builds none. Prints the `drill (a):`
+    line; returns what phase 6b checks next."""
+    from shallowspeed_tpu_torch.telemetry.goodput import run_goodput
+    from shallowspeed_tpu_torch.telemetry.schema import validate_file
+
+    out, log = root / "drill", root / "drill.jsonl"
+    out.mkdir()
+    n_layers = int(flags[flags.index("--n-layers") + 1])
+    child = [sys.executable, str(Path(__file__).resolve()),
+             "--phase20-child", "lm", str(out), "--", *flags,
+             "--steps", str(CKPT_STEPS), "--save-dir", str(ck),
+             "--save-every", str(DRILL_SAVE_EVERY), "--keep-last", "2",
+             "--auto-resume", "--prefetch", "0", "--log-file", str(log)]
+    rc, wall = _supervise(dev, child, DRILL_PLAN, root / "chaos")
+    recs = sorted((json.loads(p.read_text()) for p in out.glob("*.json")),
+                  key=lambda r: r["t_entry"])
+    if rc != 0 or len(recs) != 2:
+        raise AssertionError(f"drill (a): supervisor exit {rc}, "
+                             f"{len(recs)} children:\n{_child_logs(out)}")
+    losses = {}
+    for r in recs:
+        losses.update(dict(r["steps"]))
+    want = [repr(float(x)) for x in oracle["losses"]]
+    if [losses.get(i) for i in range(CKPT_STEPS)] != want:
+        raise AssertionError(f"drill (a): losses {losses} != run A's "
+                             f"{want}")
+    faults = _events(log, "fault")
+    if sorted(f["kind"] for f in faults) != ["corrupt", "kill", "stall"]:
+        raise AssertionError(f"drill (a): faults stamped {faults}")
+    corrupt, = (f for f in faults if f["kind"] == "corrupt")
+    restore, = _events(log, "restore")
+    first = DRILL_SAVE_EVERY - 1
+    if restore["path"] != str(ck / f"ckpt_{first}") \
+            or restore["path"] == str(Path(corrupt["path"]).parent) \
+            or restore["quarantined"]:
+        raise AssertionError(f"drill (a): the restart restored "
+                             f"{restore['path']} (quarantined "
+                             f"{restore['quarantined']}); corrupted "
+                             f"{corrupt['path']}")
+    rep = run_goodput(log)
+    crash = rep["mttr"].get("crash", {})
+    if not crash.get("count") or rep["accounted_frac"] < 0.95 \
+            or rep["faults"] != {"corrupt": 1, "kill": 1, "stall": 1}:
+        raise AssertionError(f"drill (a): goodput {json.dumps(rep)}")
+    # the fault lines under the schema (the log's checkpoint events are
+    # the port's own, which the copied schema does not know)
+    stamped = root / "faults.jsonl"
+    stamped.write_text("".join(json.dumps(f) + "\n" for f in faults))
+    bad = validate_file(stamped)
+    if bad:
+        raise AssertionError(f"drill (a): fault lines fail the schema: "
+                             f"{bad}")
+    bf16 = "--bf16" in flags and dev.type == "cuda"
+    for r in recs:
+        ran = len(r["steps"])
+        k = [n_layers * (ran + r["evals"]), n_layers * ran,
+             n_layers * ran] if bf16 else [0, 0, 0]
+        if r["launches"] != k or any(r["idle"]):
+            raise AssertionError(
+                f"drill (a) child {r['pid']}: K1, K2, K3 (tensor cores) "
+                f"launched {r['launches']} times, want {k}; f32-FMA "
+                f"builds {r['idle']}")
+    survivor = recs[-1]
+    saves = _events(log, "ckpt_save")
+    line = {
+        "wall_s": wall, "children": len(recs), "plan": DRILL_PLAN,
+        "steps_run": [len(r["steps"]) for r in recs],
+        "crash_mttr_s": crash["mttr_s"],
+        "restart_downtime_s": rep["losses"].get("restart_downtime"),
+        "child_import_s": [r["import_s"] for r in recs],
+        "child_first_step_s": [r["first_step_s"] for r in recs],
+        "save_s": {e["step"]: sum(e[k] for k in (
+            "fetch_s", "write_s", "hash_s", "rename_s")) for e in saves},
+        "restore_s": sum(restore[k] for k in ("verify_s", "load_s",
+                                               "place_s")),
+        "goodput": rep["goodput"], "accounted_frac": rep["accounted_frac"],
+        "losses_s": rep["losses"],
+        "launches": [r["launches"] for r in recs]}
+    print("drill (a): " + json.dumps(line), flush=True)
+    return {"log": str(log), "wall_s": wall, "first": first,
+            "resumed_at": restore["step"],
+            "launches": {name: [r["launches"][i] for r in recs]
+                         for i, name in enumerate(
+                             ("flash_fwd_tc", "flash_dq_tc", "flash_dkv_tc"))},
+            "survivor": {"losses": [float(x) for _, x in survivor["steps"]],
+                         "step_s": survivor["step_s"],
+                         "launches": survivor["launches"]}}
+
+
+@contextlib.contextmanager
+def gang_drill(dev):
+    """Phase 20 (b), run beside the code in its `with` block (drill (a):
+    both are mostly process start-up): the MLP's `train --engine spmd
+    --schedule gpipe --dp 2` (GANG_EPOCHS epochs of GANG_BATCHES
+    batches) once in this process, then as two processes
+    (`--phase20-child gang`) under the gang supervisor on a thread
+    (`_supervise`: --procs 2 --max-restarts 2 --term-grace 2 --chaos
+    GANG_PLAN) with `--save-dir --auto-resume`: process 1 is killed at
+    the top of epoch 1, the gang is killed and restarted, both resume
+    from epoch 0's checkpoint. At the block's end the thread is joined
+    (also when the block raises: no process outlives it). Gates: the
+    supervisor ends at 0; both processes end on the one-process run's
+    model hash; the kill stamped, one restart stamped with its class, a
+    member resumed. Prints the `drill (b):` line."""
+    import shutil
+    import tempfile
+    import threading
+
+    from shallowspeed_tpu_torch import train
+    from shallowspeed_tpu_torch.data.mnist import ensure_mnist
+    from shallowspeed_tpu_torch.telemetry.goodput import run_goodput
+    from shallowspeed_tpu_torch.utils import get_model_hash
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_gang_"))
+    try:
+        data, out, log = root / "mnist", root / "out", root / "gang.jsonl"
+        out.mkdir()
+        ensure_mnist(data)       # before two processes would race for it
+        flags = ["--engine", "spmd", "--schedule", "gpipe", "--dp", "2",
+                 "--epochs", str(GANG_EPOCHS), "--max-batches",
+                 str(GANG_BATCHES), "--data-dir", str(data)]
+        if dev.type == "cpu":
+            flags += ["--device", "cpu"]
+        t0 = time.time()
+        _, eng = train.train(train.parse_args(flags))
+        one = get_model_hash(eng.params)
+        one_s = time.time() - t0
+        del eng
+        box = {}
+
+        def supervise():
+            try:
+                box["rc"], box["wall"] = _supervise(
+                    dev, [sys.executable, str(Path(__file__).resolve()),
+                          "--phase20-child", "gang", str(out), "--",
+                          *flags, "--save-dir", str(root / "ck"),
+                          "--auto-resume", "--log-file", str(log)],
+                    GANG_PLAN, root / "chaos", procs=2, max_restarts=2,
+                    term_grace=2.0)
+            except BaseException as e:   # raised on the main thread
+                box["err"] = e
+
+        th = threading.Thread(target=supervise, name="gang-drill")
+        th.start()
+        try:
+            yield
+        finally:
+            th.join()
+        if "err" in box:
+            raise box["err"]
+        got = [r["hash"] for r in sorted(
+            (json.loads(p.read_text()) for p in out.glob("*.json")),
+            key=lambda r: r["process"])]
+        faults = _events(log, "fault") if log.exists() else []
+        rep = run_goodput(log) if log.exists() else {"mttr": {}}
+        crash = rep["mttr"].get("crash", {})
+        resumed = [p.name for p in out.glob("*.log")
+                   if "resumed from" in p.read_text()]
+        if box["rc"] != 0 or got != [one, one] \
+                or [f["kind"] for f in faults] != ["kill"] \
+                or crash.get("count") != 1 or not resumed:
+            raise AssertionError(
+                f"drill (b): supervisor exit {box['rc']}, hashes {got} vs "
+                f"the one-process run's {one}, faults {faults}, mttr "
+                f"{rep['mttr']}, resumed in {resumed}:\n"
+                f"{_child_logs(out)}")
+        line = {"wall_s": box["wall"], "hash": one, "processes": 2,
+                "one_process_s": one_s, "crash_mttr_s": crash["mttr_s"],
+                "member_logs": len(list(out.glob("*.log")))}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("drill (b): " + json.dumps(line), flush=True)
 
 
 # device-kernel groups of a training step and of a decode tick, by
@@ -3489,10 +3829,11 @@ CP_LAYOUTS = [("dp2-sp2-ring-flash", 2, 2, "ring-flash", {}),
               ("dp2-sp2-ring-flash-zero2-accum2", 2, 2, "ring-flash",
                {"zero2": True, "accum": 2})]
 CP_STEPS = 5
-# phase 12c's depth: 2 of 16 layers (the script's time; phase 15 holds
-# the sp substrates inside a pipeline stage at PP15_SP_LAYERS, and phase
-# 16b runs 12c's ZeRO-2 layout at OV_Z2_LAYERS)
-CP_LAYERS = 2
+# phase 12c's depth: 1 of 16 layers (the script's time; 2 before phase
+# 20 came; phase 15 holds the sp substrates inside a pipeline stage at
+# PP15_SP_LAYERS, and phase 16b runs 12c's ZeRO-2 layout at
+# OV_Z2_LAYERS)
+CP_LAYERS = 1
 # 12d's driver at 1 layer (2 before phase 19 came, cut for the script's time)
 CP_DRIVER_LAYERS = 1
 CP_DRIVER_STEPS = 4
@@ -4562,9 +4903,9 @@ def run_pp_driver(dev, cfg, phase="14") -> dict:
 OV_VARIANTS = (("off", None), ("on-4mb", 4.0), ("on-64mb", 64.0))
 OV_STEPS = 4
 OV_Z2_LAYERS = 2
-# (a)'s depth: 4 of 16 layers, cut for the script's time (16 before
-# phase 17 came, 8 before phase 19)
-OV_LAYERS = 4
+# (a)'s depth: 2 of 16 layers, cut for the script's time (16 before
+# phase 17 came, 8 before phase 19, 4 before phase 20)
+OV_LAYERS = 2
 OV_FSDP_LAYERS = 2
 OV_SHORT_STEPS = 2
 OV_MLP_BATCHES = 6
@@ -5897,8 +6238,8 @@ def run_telemetry(dev, cfg, card) -> dict:
 # Phase 19: monitor and accounting. Depth is cut to MON_LAYERS of 16 for
 # the script's time (width never); (b) reads phase 18 (a)'s `spans` run
 # (the one-device flash step under ZeRO-1 at TELE_LAYERS), (d) compares
-# with phase 18 (c)'s streams.
-MON_LAYERS = 4
+# with phase 18 (c)'s streams. 4 layers before phase 20 came.
+MON_LAYERS = 2
 MON_STEPS = 6
 MON_N_MU = 4
 MON_SERVE_LAYERS = TELE_SERVE_LAYERS
@@ -6401,7 +6742,7 @@ def main() -> int:
     launches.update(trained["launches"])
     gc.collect()
     torch.cuda.empty_cache()
-    run_data_ckpt(dev, dataclasses.replace(cfg, n_layers=CKPT_LAYERS))
+    ckpt6b = run_data_ckpt(dev, dataclasses.replace(cfg, n_layers=CKPT_LAYERS))
     _clock("6b")
     check_training_parity(dev, cfg)
     gc.collect()
@@ -6528,6 +6869,8 @@ def main() -> int:
            if tele["launches"].get(name) else {}),
         **({"mon_launches": mon["launches"][name]}
            if mon["launches"].get(name) else {}),
+        **({"drill_launches": ckpt6b["drill_launches"][name]}
+           if name in ckpt6b["drill_launches"] else {}),
     } for name, (cu, ref) in where.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -6540,4 +6883,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase17-worker"]:
         sys.exit(mp_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase20-child"]:
+        sys.exit(drill_child(*sys.argv[2:]))
     sys.exit(main())

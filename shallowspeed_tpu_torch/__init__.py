@@ -76,7 +76,17 @@ What is ported so far:
   profiler and `torch.profiler` captures, allocator memory and owners,
   counted collective bytes, `RunTelemetry`), the reference's spans in
   every engine, `train_lm` / `train --telemetry --trace-dir
-  --profile-dir --profile`, `serve --profile`.
+  --profile-dir --profile`, `serve --profile`;
+- monitor and accounting: `telemetry/monitor.py` (the live monitor,
+  `StatusServer`, SLO alerts, the flight recorder), `goodput.py`,
+  `bubble.py`, `attribution.py`;
+- chaos and elastic: `chaos.py` (seeded fault plans at the drivers',
+  the data loader's and the checkpoint writer's points, the
+  reference's draws) and `elastic.py` (the restart supervisor with its
+  failure classes, backoff, poison-step abort and SIGTERM grace; the
+  gang supervisor over processes of one command); `train_lm` / `train`
+  / `serve --chaos`, the training drivers' `--heartbeat-file` and
+  `--replica`.
 ROADMAP.md lists what comes next; each feature not ported yet raises
 `NotPorted`.
 

@@ -44,8 +44,13 @@ restores in the other.
   `AsyncSaver.wait` exchanges a success bit (`distributed.all_ok`), so
   a failed background write on process 0 raises on every process.
 
-Left out, with the reference's fault-injection plane: the chaos hooks
-(ROADMAP Queue 1 item 6c).
+- **Fault hooks** (`chaos`): process 0's write passes the reference's
+  points to `chaos.on_save` ("start", "file:<name>" after each npz's
+  fsync, "pre_rename", "renamed"; an injected ENOSPC raises at "start",
+  a `kill_in_save` fault kills at a seeded one of them, on
+  `AsyncSaver`'s writer thread too) and the landed directory to
+  `chaos.after_save` (post-hoc corruption), after retention. No-ops
+  without a fault plan.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from shallowspeed_tpu_torch import chaos
 from shallowspeed_tpu_torch import distributed as D
 from shallowspeed_tpu_torch.weights import (leaves, opt_state_to_numpy,
                                             params_to_numpy, to_host)
@@ -73,8 +79,8 @@ _FILES = ("params.npz", "opt.npz")
 _MANIFEST = "manifest.json"
 
 # the process exit code of a strict --resume that found every
-# checkpoint corrupt; the reference's supervisor classes it as
-# checkpoint corruption (`shallowspeed_tpu/elastic.py::EXIT_CORRUPT_CKPT`)
+# checkpoint corrupt; the supervisor (`elastic`, which re-exports it)
+# classes it as checkpoint corruption
 EXIT_CORRUPT_CKPT = 65
 
 
@@ -298,14 +304,15 @@ def _write_ckpt(ckpt_dir, epoch: int, params, opt_state, meta: dict,
     meeting point). `stats`, when given, receives the seconds of the
     write with its fsyncs (`write_s`), of the manifest's hashing
     (`hash_s`) and of the rename with its fsyncs (`rename_s`), and the
-    bytes written."""
+    bytes written. The fault plan's hooks (`chaos.on_save`,
+    `chaos.after_save`) run at the reference's points, on process 0."""
     final = Path(ckpt_dir) / f"ckpt_{epoch}"
     if not D.process_zero():
         if sync:
             D.barrier(f"ckpt_{epoch}")
         return final
+    chaos.on_save("start")      # an injected ENOSPC raises here
     tmp = Path(ckpt_dir) / f"ckpt_{epoch}.tmp"
-    # the chaos hooks (chaos.on_save) come with ROADMAP Queue 1 item 6c
     t0 = time.perf_counter()
     if tmp.exists():
         shutil.rmtree(tmp)
@@ -315,6 +322,7 @@ def _write_ckpt(ckpt_dir, epoch: int, params, opt_state, meta: dict,
         save_pytree(tmp / name, tree, meta=meta)
         # force the bytes out BEFORE the rename publishes the dir
         _fsync_path(tmp / name)
+        chaos.on_save(f"file:{name}")
 
     _write("params.npz", params)
     _write("opt.npz", opt_state, meta=meta)
@@ -326,18 +334,23 @@ def _write_ckpt(ckpt_dir, epoch: int, params, opt_state, meta: dict,
     write_manifest(tmp)
     _fsync_path(tmp)
     t2 = time.perf_counter()
+    chaos.on_save("pre_rename")
     if final.exists():
         shutil.rmtree(final)
     tmp.rename(final)
     _fsync_path(final.parent)   # the rename itself must be durable too
     t3 = time.perf_counter()
+    chaos.on_save("renamed")
     if keep:
         prune(ckpt_dir, keep, trusted=final)
-    # chaos.after_save(final) goes here with ROADMAP Queue 1 item 6c
     if stats is not None:
         stats.update(write_s=t1 - t0, hash_s=t2 - t1, rename_s=t3 - t2,
                      bytes=sum(p.stat().st_size
                                for p in final.glob("*.npz")))
+    # post-hoc corruption strikes a completed save, after retention (so
+    # prune's trusted path never vouches for corrupted bytes) and after
+    # the bytes written are counted
+    chaos.after_save(final)
     if sync:
         # releases the other processes once the rename has landed
         D.barrier(f"ckpt_{epoch}")

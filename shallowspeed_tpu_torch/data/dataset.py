@@ -10,7 +10,9 @@ the same batches from the same files:
   local shard;
 - `load_mubatch_stack` / `stack_epoch` return whole (n_mu, mubs, d) /
   (n_batches, dp, n_mu, mubs, d) stacks, so an engine places a batch,
-  or a whole epoch, on the device in one copy.
+  or a whole epoch, on the device in one copy;
+- `load_batch` is the fault plan's data-loader point
+  (`chaos.on_data_load`, by batch id), as in the reference.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+
+from shallowspeed_tpu_torch import chaos
 
 
 class Dataset:
@@ -86,8 +90,9 @@ class Dataset:
 
     def load_batch(self, batch_id: int) -> tuple[np.ndarray, np.ndarray]:
         """The whole local batch: (local_bs, 784), (local_bs, 10)."""
-        # the reference's chaos stall fault (`chaos.on_data_load`) fires
-        # here; it comes with the planes, ROADMAP Queue 1 item 6c
+        # a chaos stall fault sleeps here (once a plan): a wedged loader
+        # must show in the goodput ledger and the hang detection
+        chaos.on_data_load(batch_id)
         s = slice(batch_id * self._local_bs, (batch_id + 1) * self._local_bs)
         return self.input_X[s], self.target_Y[s]
 

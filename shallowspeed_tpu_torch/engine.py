@@ -256,6 +256,11 @@ class FusedDPEngine:
         """Every replica's parameters, for `assert_replicas_in_sync`."""
         return list(self._replicas)
 
+    def param_copies(self) -> list:
+        """The live parameter trees of every replica (what a fault
+        plan's `nan@N` poisons in place)."""
+        return list(self._replicas)
+
     def get_canonical_params(self):
         """The pp = 1 params ARE the canonical flat layer list."""
         return self.params

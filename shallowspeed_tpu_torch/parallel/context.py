@@ -258,6 +258,11 @@ class ContextParallelEngine:
     def params(self, tree):
         self._replicas[self._mine[0]] = tree
 
+    def param_copies(self) -> list:
+        """The live parameter trees of this process's replicas (what a
+        fault plan's `nan@N` poisons in place, on every copy)."""
+        return [self._replicas[r] for r in self._mine]
+
     def resident(self) -> dict:
         """The trees this engine keeps resident, for the memory
         observatory's owners: {"params": every replica's (or cell's)

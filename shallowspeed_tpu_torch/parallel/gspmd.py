@@ -1183,6 +1183,18 @@ class GSPMDEngine:
     def params(self, tree):
         self.set_canonical_params(tree)
 
+    @property
+    def layout_params(self):
+        """The parameter tree in the engine's own layout (the reference
+        engine's `params`: the pipeline's blocks stacked), a gathered
+        copy; assigning a tree in that layout installs it in every
+        cell."""
+        return self._gather_params()
+
+    @layout_params.setter
+    def layout_params(self, tree):
+        self._install_params(tree)
+
     def set_canonical_params(self, params):
         """Install a canonical tree of tensors or numpy arrays (the JAX
         package's layout, a checkpoint's) in every cell, each cell its

@@ -26,7 +26,11 @@ axis (`torch.roll`).
   tick's stash. The stride k is 1, or 2 with double-buffered hops.
 - DP: each replica keeps its own stacked copy of the parameters and
   optimizer state; the replicas' accumulated gradients are summed in
-  rank order and every replica applies the same update.
+  rank order and every replica applies the same update. The products
+  run one replica row at a time (`_rowwise`): a process that holds one
+  row runs the very same products, and cuBLAS does not sum a batched
+  product alike at every batch count (on the card a batch of two rows
+  and two batches of one differ in the last bits).
 
 Every cell of the grid must be one device (the stage axis is a tensor
 axis). Launched as several processes (`distributed`), each process
@@ -275,12 +279,23 @@ class SPMDPipelineEngine:
 
     # ----------------------------------------------------------- the step
 
+    def _rowwise(self, fn, *args):
+        """`fn` of tensors batched over the (replica, stage) axis, one
+        replica row's block of stages at a time, concatenated: a process
+        holding one row computes its products as this one does."""
+        if self._nr == 1:
+            return fn(*args)
+        n = self._ns
+        return torch.cat([fn(*(a[r * n:(r + 1) * n] for a in args))
+                          for r in range(self._nr)])
+
     def _layer_fwd(self, W, b, l, h):
-        """One layer's padded forward for every (replica, stage) at once:
-        W (B, L, w, w), b (B, L, 1, w), h (B, mubs, w). Returns (h_next,
-        keep), keep = where the VJP passes the gradient (z > 0 under a
-        ReLU, everywhere without one)."""
-        z = torch.baddbmm(b[:, l], h, W[:, l].transpose(1, 2))
+        """One layer's padded forward for every (replica, stage): W (B, L,
+        w, w), b (B, L, 1, w), h (B, mubs, w). Returns (h_next, keep),
+        keep = where the VJP passes the gradient (z > 0 under a ReLU,
+        everywhere without one)."""
+        z = self._rowwise(lambda bl, x, Wl: torch.baddbmm(
+            bl, x, Wl.transpose(1, 2)), b[:, l], h, W[:, l])
         keep = z > 0
         if self._norelu[l] is not None:
             keep = keep | self._norelu[l]
@@ -395,9 +410,10 @@ class SPMDPipelineEngine:
             d = cur.view(B, mubs, w)
             for l in range(L - 1, -1, -1):
                 d_act = torch.where(keeps[l], d, 0.0)
-                dW = torch.bmm(d_act.transpose(1, 2), ins[l])
+                dW = self._rowwise(lambda a, x: torch.bmm(
+                    a.transpose(1, 2), x), d_act, ins[l])
                 db = d_act.sum(dim=1, keepdim=True)
-                d_prev = torch.bmm(d_act, W[:, l])
+                d_prev = self._rowwise(torch.bmm, d_act, W[:, l])
                 valid = self._valid[l]
                 d = d_prev if valid is None else torch.where(valid, d_prev, d)
                 m = (act if valid is None else valid if act is None
@@ -532,8 +548,11 @@ class SPMDPipelineEngine:
         for s in range(pp):
             if s0 <= s < s1:
                 for l in range(self.stack.n_linears[s]):
-                    h = torch.baddbmm(self._b[:, s - s0, l], h,
-                                      self._W[:, s - s0, l].transpose(1, 2))
+                    # one replica row at a time, as in `_step`
+                    h = torch.cat([torch.baddbmm(
+                        self._b[r:r + 1, s - s0, l], h[r:r + 1],
+                        self._W[r:r + 1, s - s0, l].transpose(1, 2))
+                        for r in range(len(h))])
                     if self._relu_host[s, l]:
                         h = torch.where(h > 0, h, 0.0)
             if s + 1 < pp and self._remote:     # a hop between processes
@@ -579,6 +598,12 @@ class SPMDPipelineEngine:
         return self._opt_states[0]
 
     def replicas(self) -> list:
+        return list(self._replicas)
+
+    def param_copies(self) -> list:
+        """The live stacked {'W', 'b'} of every replica (across
+        processes, this process's stages of them): what a fault plan's
+        `nan@N` poisons in place."""
         return list(self._replicas)
 
     def resident(self) -> dict:

@@ -32,9 +32,14 @@ recorder's ring (`flightrec_*.json` next to `--log-file`); the endpoint
 serves /status.json, /sketches.json, /profile.json and /metrics. The
 final sketch snapshot lands in the log at the end of the run.
 
+`--chaos PLAN --chaos-state DIR --chaos-seed N` (or the plan a
+supervisor exports) runs a serving drill: the engine's tick-indexed
+hooks (`ServingEngine(chaos_plan=)`) stall or kill at tick N, each fault
+stamped into `--log-file` and arming the profiler's capture.
+
 The root driver's other flags (the HTTP replica mode `--serve`, its
-queue and heartbeat, `--shed-load`, chaos, `--platform`) are recognised
-and refused with `NotPorted`.
+queue, heartbeat and replica label, `--fleet-register`, `--shed-load`,
+`--platform`) are recognised and refused with `NotPorted`.
 """
 
 from __future__ import annotations
@@ -47,23 +52,23 @@ from pathlib import Path
 
 import numpy as np
 
-from shallowspeed_tpu_torch import NotPorted, checkpoint, resolve_device
+from shallowspeed_tpu_torch import NotPorted, chaos, checkpoint, resolve_device
+from shallowspeed_tpu_torch.elastic import FLEET
 from shallowspeed_tpu_torch.metrics import MetricsLogger
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.serving.engine import ServingEngine
 from shallowspeed_tpu_torch.telemetry import monitor, profiler
-from shallowspeed_tpu_torch.telemetry.driver import CHAOS, add_monitor_flags
+from shallowspeed_tpu_torch.telemetry.driver import (add_chaos_flags,
+                                                     add_monitor_flags,
+                                                     setup_chaos)
 from shallowspeed_tpu_torch.telemetry.report import request_summary
 from shallowspeed_tpu_torch.weights import map_tree, params_from_numpy
-
-_FLEET = "Queue 1 item 7, the serving fleet"
 
 # the root driver's flags this driver does not have yet, and where each
 # comes from
 UNPORTED = {
     **dict.fromkeys(["--max-queue", "--heartbeat-file", "--replica",
-                     "--fleet-register", "--shed-load"], _FLEET),
-    **dict.fromkeys(["--chaos", "--chaos-state", "--chaos-seed"], CHAOS),
+                     "--fleet-register", "--shed-load"], FLEET),
     # JAX's backend choice; the port takes --device, and the virtual
     # multi-device meshes --platform cpu builds come with the engines
     "--platform": "Queue 1, multi-device LM engines",
@@ -148,6 +153,8 @@ def parser() -> argparse.ArgumentParser:
                    help="host sampler rate (default 67 Hz)")
     add_monitor_flags(p.add_argument_group(
         "live monitoring (telemetry/monitor)"))
+    add_chaos_flags(p.add_argument_group("chaos (shallowspeed_tpu_torch."
+                                         "chaos)"), supervised=False)
     for flag in UNPORTED:
         p.add_argument(flag, nargs="?", action=_Refuse,
                        help=argparse.SUPPRESS)
@@ -202,7 +209,7 @@ def load_ckpt_params(ckpt_dir, cfg: T.TransformerConfig, device):
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.serve:
-        raise NotPorted("--serve (HTTP replica mode)", _FLEET)
+        raise NotPorted("--serve (HTTP replica mode)", FLEET)
 
     device = resolve_device(args.device)
     cfg = T.TransformerConfig(
@@ -213,6 +220,9 @@ def main(argv=None) -> int:
     else:
         params = T.init(cfg, seed=args.init_seed, device=device)
     reqs = load_requests(args.requests, cfg.vocab)
+    # serving drills: tick-indexed faults through the training hooks,
+    # stamped into this run's log
+    setup_chaos(args, log_file=args.log_file)
     metrics = MetricsLogger(
         args.log_file, kind="serve", vocab=cfg.vocab, d_model=cfg.d_model,
         n_layers=cfg.n_layers, n_blocks=args.n_blocks,
@@ -239,6 +249,8 @@ def main(argv=None) -> int:
     i = 0
     reported = 0
     plane = profiler.from_args(args, metrics)
+    if plane is not None:
+        chaos.add_observer(plane.on_fault)
     try:
         mon, server = monitor.from_args(args, metrics)
     except BaseException:
@@ -300,6 +312,7 @@ def main(argv=None) -> int:
         print(json.dumps({"event": "summary", **summary}), flush=True)
         try:
             if plane is not None:
+                chaos.remove_observer(plane.on_fault)
                 plane.close()    # its last snapshot into --log-file
             # the monitor's final sketch snapshot, then the endpoint down
             monitor.close_monitor(mon, server)

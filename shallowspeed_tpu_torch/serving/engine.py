@@ -65,8 +65,12 @@ refcount zero they park on the allocator's cold list until pool
 pressure reclaims them. At drain `n_live == 0` and
 `n_free + n_cold == n_usable`.
 
-Lifecycle tracing, chaos hooks, the profiler, the monitor and
-memory-owner hooks are absent (ROADMAP.md).
+Fault drills: every `step()` consults a fault plan (`chaos_plan=`, else
+the process's `chaos.active()`), tick-indexed, under the profiler's
+"data-load" phase tag: a stall sleeps, kill / nan / inf act as on a
+training step (poisoning `self.params`). Lifecycle tracing, the
+scheduler's other phase tags and the memory-owner hooks are absent
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -77,7 +81,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from shallowspeed_tpu_torch import resolve_device
+from shallowspeed_tpu_torch import chaos, resolve_device
 from shallowspeed_tpu_torch.models import generate as G
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.models.kv_cache import (masked_attention,
@@ -91,6 +95,7 @@ from shallowspeed_tpu_torch.serving.cache import (SCRATCH_BLOCK,
                                                   paged_read_bytes_per_tick,
                                                   param_read_bytes,
                                                   write_rows)
+from shallowspeed_tpu_torch.telemetry import profiler
 from shallowspeed_tpu_torch.weights import leaves
 
 
@@ -279,7 +284,8 @@ class ServingEngine:
                  weight_quant: str = "", attn_impl: str = "flash",
                  spec_k: int = 0, spec_ngram: int = 3, top_k: int = 0,
                  top_p: float = 0.0, metrics=None, log_every: int = 0,
-                 clock=time.time, prefix_cache: bool = False, device=None):
+                 clock=time.time, prefix_cache: bool = False, device=None,
+                 chaos_plan=None):
         if attn_impl not in ("gather", "flash"):
             raise ValueError(
                 f"unsupported attn_impl={attn_impl!r}; expected 'gather' "
@@ -310,6 +316,9 @@ class ServingEngine:
         self.metrics = metrics
         self.log_every = int(log_every)
         self.clock = clock
+        # the fault plan consulted at every step (None: the process's,
+        # `chaos.active()`; a test passes one to fault one engine of N)
+        self.chaos_plan = chaos_plan
         self.pools = init_block_pool(cfg, n_blocks, block_size, kv_quant,
                                      device=self.device)
         self.prefix = PrefixIndex(block_size) if prefix_cache else None
@@ -387,6 +396,15 @@ class ServingEngine:
         """One scheduler step: admissions, one prefill chunk (FIFO
         across prefilling requests), one decode tick over every
         decoding slot. Returns whether any work ran."""
+        plan = (self.chaos_plan if self.chaos_plan is not None
+                else chaos.active())
+        if plan is not None:
+            # tick-indexed faults through the training hooks: a stall
+            # sleeps here (the profiler's "data-load" bucket), kill and
+            # nan / inf act as on a training step
+            with profiler.tag("data-load"):
+                plan.on_data_load(self.counters["ticks"])
+                plan.on_step(self.counters["ticks"], engine=self)
         did = self._admit()
         did = self._prefill_step() or did
         return self._decode_step() or did

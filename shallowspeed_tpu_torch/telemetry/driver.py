@@ -2,20 +2,82 @@
 `train.py` do around their loops, shared by the port's two training
 drivers (and, for the live monitor, `serve`): the flags, the tracer and
 `RunTelemetry` with the memory owners, the profiling plane, the live
-monitor and its endpoint, and their teardown."""
+monitor and its endpoint, and their teardown; and the supervision
+wiring: the fault plan (`chaos`) from the flags or the supervisor's
+environment, its stamps fed to the monitor and the profiler, the
+heartbeat, and the report of faults that never fired."""
 
 from __future__ import annotations
 
 from pathlib import Path
 
+from shallowspeed_tpu_torch import chaos
 from shallowspeed_tpu_torch import distributed as D
+from shallowspeed_tpu_torch.elastic import write_heartbeat
 from shallowspeed_tpu_torch.telemetry import memory, monitor, profiler
 from shallowspeed_tpu_torch.telemetry.report import RunTelemetry
 from shallowspeed_tpu_torch.telemetry.trace import configure, tracer
 from shallowspeed_tpu_torch.utils import rprint
 
-# where the root drivers' still-refused telemetry flags come from
-CHAOS = "Queue 1 item 6c, chaos and elastic"
+
+def add_chaos_flags(p, supervised: bool = True) -> None:
+    """The root drivers' fault-injection flags (`chaos`) and, with
+    `supervised`, the two a supervisor and a fleet view read."""
+    p.add_argument("--chaos", type=str, default="",
+                   help="deterministic fault injection (shallowspeed_"
+                        "tpu_torch.chaos): a seeded plan like "
+                        "'kill@9,corrupt@2,stall@5:0.5' (or a JSON path) "
+                        "of faults at named points — a process kill, a "
+                        "kill inside the checkpoint write, NaN-poisoned "
+                        "params, a data-loader stall, a heartbeat "
+                        "freeze, ENOSPC on save, post-hoc checkpoint "
+                        "corruption. Falls back to the supervisor-"
+                        "exported SHALLOWSPEED_CHAOS. Each fault fires "
+                        "once and stamps a 'fault' line into --log-file")
+    p.add_argument("--chaos-state", type=str, default="",
+                   help="fired-fault marker directory (default: "
+                        "<save-dir>/.chaos where the driver has one); "
+                        "must survive restarts")
+    p.add_argument("--chaos-seed", type=int, default=0)
+    if supervised:
+        p.add_argument("--heartbeat-file", type=str, default="",
+                       help="write this file at every log point: its "
+                            "mtime is the elastic supervisor's liveness "
+                            "signal, its content the health status "
+                            "('ok' or 'dead <reason>')")
+        p.add_argument("--replica", type=str, default=None,
+                       help="replica label for fleet views, stamped on "
+                            "the log's run_start line")
+
+
+def setup_chaos(args, save_dir: str = "", log_file=None):
+    """Install the process's fault plan (`chaos.setup`): --chaos, else
+    the supervisor's environment; the marker directory --chaos-state,
+    else `<save_dir>/.chaos` (so it survives restarts with the
+    checkpoints); fault lines into `log_file`."""
+    return chaos.setup(args.chaos, seed=args.chaos_seed,
+                       state_dir=args.chaos_state
+                       or (Path(save_dir) / ".chaos" if save_dir else None),
+                       log_file=log_file or None)
+
+
+def beat(args, health=None) -> None:
+    """One heartbeat at a log point (a no-op without --heartbeat-file or
+    after a chaos `freeze` fault): the health monitor's status, or
+    "ok"."""
+    if args.heartbeat_file and not chaos.heartbeat_frozen():
+        write_heartbeat(args.heartbeat_file,
+                        health.heartbeat_status() if health is not None
+                        else "ok")
+
+
+def report_unfired() -> None:
+    """At a clean exit: name the plan's faults that never fired (the
+    drill injected less than planned)."""
+    plan = chaos.active()
+    if plan is not None and plan.unfired():
+        rprint(f"chaos: scheduled fault(s) never fired: "
+               f"{', '.join(plan.unfired())}")
 
 
 def add_monitor_flags(p) -> None:
@@ -85,7 +147,8 @@ def start_telemetry(args, engine, metrics, owners, dtype: str = "bf16",
     over `engine` when the level is on (its waterfall priced at `dtype`'s
     peak, `ledger`'s totals in its run summary), with `owners` ({name:
     resolver}) registered in the memory observatory, and the profiling
-    plane of --profile. Returns (telemetry or None, plane or None)."""
+    plane of --profile, its capture armed by fault stamps. Returns
+    (telemetry or None, plane or None)."""
     if args.trace_dir and args.telemetry == "off":
         args.telemetry = "steps"     # --trace-dir implies tracing
     trace_dir = args.trace_dir or None
@@ -100,6 +163,8 @@ def start_telemetry(args, engine, metrics, owners, dtype: str = "bf16",
         for name, resolve in owners.items():
             memory.register_owner(name, resolve)
     plane = profiler.from_args(args, metrics)
+    if plane is not None:
+        chaos.add_observer(plane.on_fault)
     return telem, plane
 
 
@@ -116,6 +181,7 @@ def stop_telemetry(args, telem, plane, owners) -> None:
         for name in owners:
             memory.unregister_owner(name)
         if plane is not None:
+            chaos.remove_observer(plane.on_fault)
             plane.close()
 
 
@@ -132,6 +198,7 @@ def start_monitor(args, metrics, plane=None):
     mon, srv = monitor.from_args(args, metrics)
     if mon is None:
         return None, None
+    chaos.add_observer(mon.note_line)   # a fault reaches the flight ring
     tr = tracer()
     if tr.level != "off":
         tr.subscribers.append(mon.record_span)
@@ -149,6 +216,7 @@ def stop_monitor(mon, srv) -> None:
     endpoint shut down (`monitor.close_monitor`)."""
     if mon is None:
         return
+    chaos.remove_observer(mon.note_line)
     tr = tracer()
     if mon.record_span in tr.subscribers:
         tr.subscribers.remove(mon.record_span)

@@ -73,9 +73,17 @@ skipped saves; under `--engine fp8` also the shadow-parity pauses and
 the `fp8_fallback` count) and the live monitor (`--monitor-port`,
 `--slo`, `--flight-recorder`) as in `train_lm`.
 
-The root driver's other flags (chaos, the heartbeat) are recognised and
-refused with `NotPorted`; `--platform` and `--host-devices` give way to
-`--device`.
+Supervision as in `train_lm` (`elastic`, `chaos`): SIGTERM exits
+through the finally blocks; `--chaos` / `--chaos-state` (default
+`<save-dir>/.chaos`) / `--chaos-seed`: the step faults fire per epoch
+(per step under `--engine fp8`, whose markers stay in memory unless
+`--chaos-state` is given), `stall@N` at dataset batch id N
+(`Dataset.load_batch`, in the first epoch that loads it), the save
+faults per checkpoint; `--heartbeat-file` is written once an epoch (at
+the fp8 trainer's log points) with the health status; `--replica`
+labels run_start. Under `elastic --procs 2` the members of a
+`--engine spmd` run restart together.
+`--platform` and `--host-devices` give way to `--device` (`NotPorted`).
 """
 
 from __future__ import annotations
@@ -88,7 +96,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from shallowspeed_tpu_torch import NotPorted, checkpoint
+from shallowspeed_tpu_torch import NotPorted, chaos, checkpoint
 from shallowspeed_tpu_torch import distributed as D
 from shallowspeed_tpu_torch import resolve_device
 from shallowspeed_tpu_torch.data.dataset import Dataset
@@ -111,9 +119,12 @@ from shallowspeed_tpu_torch.telemetry.anomaly import GuardPolicy
 from shallowspeed_tpu_torch.telemetry.bubble import (replay_trace,
                                                      span_replay_ops,
                                                      static_bubble)
-from shallowspeed_tpu_torch.telemetry.driver import (CHAOS,
+from shallowspeed_tpu_torch.elastic import install_sigterm_exit
+from shallowspeed_tpu_torch.telemetry.driver import (add_chaos_flags,
                                                      add_telemetry_flags,
-                                                     owners_of,
+                                                     beat, owners_of,
+                                                     report_unfired,
+                                                     setup_chaos,
                                                      start_monitor,
                                                      start_telemetry,
                                                      stop_monitor,
@@ -139,11 +150,7 @@ _DEVICE = "--device replaces it: every cell of the dp x pp grid runs there"
 
 # the root driver's flags this driver does not have, and where each
 # comes from
-UNPORTED = {
-    **dict.fromkeys(["--chaos", "--chaos-state", "--chaos-seed",
-                     "--heartbeat-file", "--replica"], CHAOS),
-    **dict.fromkeys(["--platform", "--host-devices"], _DEVICE),
-}
+UNPORTED = dict.fromkeys(["--platform", "--host-devices"], _DEVICE)
 
 
 class _Refuse(argparse.Action):
@@ -217,6 +224,7 @@ def parser() -> argparse.ArgumentParser:
                    help="the device every cell of the grid runs on "
                         "(default: the GPU; 'cpu' only when asked)")
     add_telemetry_flags(p)
+    add_chaos_flags(p)
     for flag in UNPORTED:
         p.add_argument(flag, nargs="?", action=_Refuse,
                        help=argparse.SUPPRESS)
@@ -349,9 +357,8 @@ def train_fp8(args):
     oracle every `--shadow-every` steps; under `--health guard` a
     `fallback_bf16` verdict switches the engine to the master-precision
     step and a repeated one (`abort`) exits. Returns (the final
-    validation loss, the engine). The reference's goodput `ledger`
-    lines, chaos hooks, heartbeat and live monitor are not ported, so
-    this driver writes no `ledger` events."""
+    validation loss, the engine). Step faults fire per step, a
+    heartbeat at every log point."""
     for flag, val in (("--dp", args.dp != 1), ("--pp", args.pp != 1),
                       ("--save-dir", bool(args.save_dir)),
                       ("--telemetry", args.telemetry != "off"),
@@ -360,6 +367,8 @@ def train_fp8(args):
             raise SystemExit(
                 f"--engine fp8 is the single-device numerics trainer; "
                 f"{flag} is not supported with it")
+    install_sigterm_exit()
+    setup_chaos(args, log_file=args.log_file)
     t_proc0 = time.time()
     device = resolve_device(args.device)
     engine = Fp8TrainEngine(LAYER_SIZES, _optimizer(args), device=device)
@@ -374,7 +383,8 @@ def train_fp8(args):
     total_steps = n_batches * args.epochs
     metrics = MetricsLogger(
         args.log_file, engine=type(engine).__name__, dp=1, pp=1,
-        schedule="fp8", batch_size=args.batch_size, device=str(device))
+        schedule="fp8", batch_size=args.batch_size, device=str(device),
+        **({"replica": args.replica} if args.replica else {}))
     policy = (GuardPolicy.for_mode(args.health)
               if args.health != "off" else None)
     num_mon = NumericsMonitor(policy=policy)
@@ -382,6 +392,8 @@ def train_fp8(args):
     guarded = args.health == "guard"
     ledger = GoodputLedger(metrics)
     plane = profiler.from_args(args, metrics)
+    if plane is not None:
+        chaos.add_observer(plane.on_fault)
     live_mon, live_srv = start_monitor(args, metrics, plane)
     rates = StepRates(args.batch_size, health=monitor, numerics=num_mon,
                       ledger=ledger, monitor=live_mon)
@@ -399,6 +411,8 @@ def train_fp8(args):
     ledger.note("init", seconds=time.time() - t_proc0)
     try:
         for step in range(total_steps):
+            # step faults (scale_poison@N too) fire per step here
+            chaos.on_step(step, engine)
             batch_id = step % n_batches
             x = train_ds.load_micro_batch_input(batch_id, 0)
             y = train_ds.load_micro_batch_target(batch_id, 0)
@@ -442,6 +456,7 @@ def train_fp8(args):
                        + (f"  parity "
                           f"{num_mon._last_parity['loss_rel']:.3g}"
                           if num_mon._last_parity else ""))
+                beat(args, monitor)
             if fatal:
                 if live_mon is not None:
                     live_mon.flight_dump(
@@ -456,9 +471,11 @@ def train_fp8(args):
                f"{num_mon.shadow_total}")
         metrics.log(event="val", step=max(total_steps - 1, 0),
                     val_loss=round(final, 6))
+        report_unfired()
     finally:
         try:
             if plane is not None:
+                chaos.remove_observer(plane.on_fault)
                 plane.close()
             stop_monitor(live_mon, live_srv)
         finally:
@@ -472,6 +489,11 @@ def train(args):
     loss, the engine)."""
     t_proc0 = time.time()     # the goodput ledger's init
     D.initialize()
+    if args.engine != "fp8":
+        # SIGTERM exits through the finally blocks (the supervisor's
+        # grace window); the plan's markers live with the checkpoints
+        install_sigterm_exit()
+        setup_chaos(args, args.save_dir, args.log_file)
     if args.engine == "fp8":
         if D.process_count() > 1:
             D.refuse("the fp8 trainer (train --engine fp8)")
@@ -489,7 +511,8 @@ def train(args):
         args.log_file if D.process_zero() else None, dp=args.dp,
         pp=args.pp, schedule=args.schedule,
         engine=type(engine).__name__, batch_size=args.batch_size,
-        device=str(device))
+        device=str(device),
+        **({"replica": args.replica} if args.replica else {}))
     # the health pack and its monitor, fed once an epoch (the pack is
     # computed on the device every batch, by the engine's step, staged
     # epoch or not; a guard skip happens in-step)
@@ -519,6 +542,7 @@ def train(args):
         rprint(f"Epoch: {args.epochs}, Time Spent: "
                f"{time.time() - start:.2f}s, Accuracy: {accuracy * 100:.2f}%")
         metrics.final(accuracy, time.time() - start)
+        report_unfired()
     finally:
         try:
             stop_telemetry(args, telem, plane, owners)
@@ -541,11 +565,15 @@ def _epochs(args, engine, schedule_cls, train_ds, val_ds, n_batches, staged,
     into `ledger`. The MLP driver writes no step lines, so the live
     monitor's `step_ms` sketch takes each epoch's mean batch time."""
     for epoch in range(start_epoch, args.epochs):
+        # step faults fire per epoch on this driver (its checkpoint
+        # cadence is the epoch)
+        chaos.on_step(epoch, engine)
         t_val = time.time()
         accuracy = compute_accuracy(engine, val_ds)
         ledger.note("val", seconds=time.time() - t_val)
         rprint(f"Epoch: {epoch}, Time Spent: {time.time() - start:.2f}s, "
                f"Accuracy: {accuracy * 100:.2f}%")
+        beat(args, monitor)
         t_epoch = time.time()
         trace_mark = 0
         if staged is not None:

@@ -149,9 +149,25 @@ status under --health) and /metrics, and an anomaly verdict, a
 divergence or an alert dumps the flight recorder's ring next to the
 log.
 
-The root driver's other flags (chaos, the heartbeat) are recognised
-and refused with `NotPorted`; `--platform` and `--host-devices` give
-way to `--device`.
+Supervision (`elastic`, `chaos`): SIGTERM exits through the finally
+blocks (the supervisor's grace window); `--chaos PLAN` (or the plan a
+supervisor exports; `--chaos-state`, default `<save-dir>/.chaos`;
+`--chaos-seed`) fires its faults at the reference's points: a stall in
+the batch producer (with `--prefetch > 0` the prefetcher may absorb
+it), kill / poison / freeze at the top of a step, the save faults in
+`checkpoint`; each stamps a `"fault"` line into `--log-file`, feeds the
+live monitor and arms the profiler's capture, and faults that never
+fired are named at a clean exit. `--heartbeat-file` is written at every
+log point with the health monitor's status (a `freeze` fault stops
+it); `--replica` labels the log's run_start line. Under the supervisor:
+
+    python -m shallowspeed_tpu_torch.elastic --max-restarts 4 \
+        --chaos 'kill@9,corrupt@2,stall@5:0.3' --chaos-state ck/.chaos \
+        -- python -m shallowspeed_tpu_torch.train_lm --device cpu \
+        --steps 14 --save-dir ck --save-every 4 --auto-resume \
+        --log-file m.jsonl
+
+`--platform` and `--host-devices` give way to `--device` (`NotPorted`).
 """
 
 from __future__ import annotations
@@ -165,7 +181,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from shallowspeed_tpu_torch import NotPorted, checkpoint
+from shallowspeed_tpu_torch import NotPorted, chaos, checkpoint
 from shallowspeed_tpu_torch import distributed as D
 from shallowspeed_tpu_torch import resolve_device
 from shallowspeed_tpu_torch.data import (ByteBPE, TokenShards, ValSplit,
@@ -194,9 +210,12 @@ from shallowspeed_tpu_torch.parallel.tensor import TensorParallelEngine
 from shallowspeed_tpu_torch.telemetry.anomaly import GuardPolicy
 from shallowspeed_tpu_torch.telemetry.bubble import (calibrate_compiled,
                                                      static_bubble)
-from shallowspeed_tpu_torch.telemetry.driver import (CHAOS,
+from shallowspeed_tpu_torch.elastic import install_sigterm_exit, terminating
+from shallowspeed_tpu_torch.telemetry.driver import (add_chaos_flags,
                                                      add_telemetry_flags,
-                                                     owners_of,
+                                                     beat, owners_of,
+                                                     report_unfired,
+                                                     setup_chaos,
                                                      start_monitor,
                                                      start_telemetry,
                                                      stop_monitor,
@@ -213,11 +232,7 @@ _DEVICE = "--device replaces it: every cell of the grid runs there"
 
 # the root driver's flags this driver does not have yet, and where each
 # comes from
-UNPORTED = {
-    **dict.fromkeys(["--platform", "--host-devices"], _DEVICE),
-    **dict.fromkeys(["--heartbeat-file", "--replica", "--chaos",
-                     "--chaos-state", "--chaos-seed"], CHAOS),
-}
+UNPORTED = dict.fromkeys(["--platform", "--host-devices"], _DEVICE)
 
 
 class _Refuse(argparse.Action):
@@ -432,6 +447,7 @@ def parse_args(argv=None):
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "torch versions of the kernels)")
     add_telemetry_flags(p)
+    add_chaos_flags(p)
     for flag in UNPORTED:
         p.add_argument(flag, nargs="?", action=_Refuse,
                        help=argparse.SUPPRESS)
@@ -802,6 +818,10 @@ def train(args) -> float:
     sample); returns the last logged loss (nan with --sample-only)."""
     t_proc0 = time.time()   # the goodput ledger's init: entry -> the loop
     D.initialize()      # a no-op without a coordinator
+    # a supervisor's kill is SIGTERM first: exit through the finally
+    # blocks, so the log's tail (the goodput ledger) is flushed
+    install_sigterm_exit()
+    setup_chaos(args, args.save_dir, args.log_file)
     device = resolve_device(args.device)
     vocab, tokenizer, text_data, val_data = prepare_text(args)
     cfg, opt = build(args, vocab)
@@ -869,7 +889,9 @@ def train(args) -> float:
                             kind="train_lm",
                             d_model=cfg.d_model, n_layers=cfg.n_layers,
                             attn=args.attn, device=str(device),
-                            start_step=start_step)
+                            start_step=start_step,
+                            **({"replica": args.replica}
+                               if args.replica else {}))
     owners = owners_of(engine)
     telem = plane = live_mon = live_srv = None
     # every non-step second stamped into the log the step lines live in
@@ -918,6 +940,7 @@ def train(args) -> float:
         loss = _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                      start_step, ema, ema_weights, telem, ledger, live_mon)
         t_loop_done = time.time()
+        report_unfired()
         if args.generate > 0:
             with ema_weights():
                 sample_and_print(args, engine, cfg, metrics,
@@ -998,6 +1021,9 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
 
     def batches():
         for step in range(start_step, args.steps):
+            # a chaos stall sleeps here, in the producer: a prefetched
+            # pipeline may absorb it, at --prefetch 0 it is a data stall
+            chaos.on_data_load(step)
             tok, tgt = make_batch(args, vocab, step, text_data)
             yield rows(tok), rows(tgt)
 
@@ -1013,6 +1039,9 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
         with device_trace_ctx(args.profile_dir):
             placed_it = iter(placed)
             for step in range(start_step, args.steps):
+                # chaos step faults (kill, poison, heartbeat freeze), each
+                # once a plan: a restarted child replays the window clean
+                chaos.on_step(step, engine)
                 t_fetch = time.time()
                 tok, tgt = next(placed_it)
                 data_stall += time.time() - t_fetch
@@ -1041,6 +1070,9 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                             raise SystemExit(
                                 f"health policy abort at step {step}: "
                                 + "; ".join(v.detail for v in fatal))
+                    # liveness and health for the supervisor: a stale
+                    # mtime is a hung loop, "dead ..." a dead run
+                    beat(args, monitor)
                     if not np.isfinite(loss):
                         if live_mon is not None:
                             live_mon.flight_dump(
@@ -1135,11 +1167,17 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                     rates.pause(time.time() - ts, kind="ckpt_save")
         failed = False
     finally:
+        # the supervisor's SIGKILL follows within its grace window: the
+        # process exits now, its daemon threads with it (a producer in a
+        # stall, a write the atomic rename keeps from `latest()`)
+        term = terminating(sys.exc_info()[1])
         # abandoning mid-stream must not leave placed batches held by a
         # blocked producer thread
-        if hasattr(placed, "close"):
+        if hasattr(placed, "close") and not term:
             placed.close()
-        if saver is not None:
+        if saver is not None and term:
+            pass
+        elif saver is not None:
             if not failed:
                 saver.wait()      # drains; raises a failed write (on
                 saver.close()     # every process together)

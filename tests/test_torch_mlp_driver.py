@@ -164,6 +164,88 @@ def test_driver_refuses_root_flags_it_lacks(flag):
         assert err.value.later == driver.UNPORTED[flag]
 
 
+def _chaos_run(data_dir, tmp_path, *extra) -> list:
+    """A 2-epoch CPU run of 2 batches with `extra` flags, no fault plan
+    before or after it in this process; the log's records."""
+    from shallowspeed_tpu_torch import chaos
+
+    log = tmp_path / "m.jsonl"
+    chaos.configure(None)
+    try:
+        driver.main(["--device", "cpu", "--data-dir", str(data_dir),
+                     "--batch-size", str(GBS), "--max-batches", "2",
+                     "--epochs", "2", "--log-file", str(log), *extra])
+    finally:
+        chaos.configure(None)
+    return [json.loads(x) for x in log.read_text().splitlines()]
+
+
+def _faults(recs) -> list:
+    return [(r["kind"], r.get("step"), r.get("save")) for r in recs
+            if r["event"] == "fault"]
+
+
+def _act_chaos(data_dir, tmp_path):
+    """stall@N fires at dataset batch id N (`Dataset.load_batch`),
+    freeze@N at the top of epoch N."""
+    assert _faults(_chaos_run(data_dir, tmp_path, "--chaos",
+                              "stall@1:0.01,freeze@1")) == [
+        ("stall", 1, None), ("freeze", 1, None)]
+
+
+def _act_chaos_state(data_dir, tmp_path):
+    cs = tmp_path / "cs"
+    assert _faults(_chaos_run(data_dir, tmp_path, "--chaos", "freeze@0",
+                              "--chaos-state", str(cs))) == [
+        ("freeze", 0, None)]
+    assert (cs / "fired_freeze_at_0").exists()
+    (tmp_path / "m.jsonl").unlink()
+    assert _faults(_chaos_run(data_dir, tmp_path, "--chaos", "freeze@0",
+                              "--chaos-state", str(cs))) == []
+
+
+def _act_chaos_seed(data_dir, tmp_path):
+    """The seed draws the corrupted member of the second save as the
+    reference's plan draws it; the restore quarantines it."""
+    from shallowspeed_tpu import chaos as JCH
+
+    ck = tmp_path / "ck"
+    recs = _chaos_run(data_dir, tmp_path, "--save-dir", str(ck),
+                      "--chaos", "corrupt@2", "--chaos-seed", "3")
+    fault, = (r for r in recs if r["event"] == "fault")
+    ref = JCH.FaultPlan.parse("corrupt@2", seed=3)
+    names = ["opt.npz", "params.npz"]
+    assert fault["path"] == str(ck / "ckpt_1" / names[int(
+        ref._rng(ref.faults[0]).integers(0, len(names)))])
+    with pytest.warns(UserWarning, match="quarantined"):
+        assert C.latest(ck).name == "ckpt_0"
+
+
+def _act_heartbeat(data_dir, tmp_path):
+    hb = tmp_path / "hb"
+    _chaos_run(data_dir, tmp_path, "--heartbeat-file", str(hb))
+    assert hb.read_text() == "ok"
+
+
+def _act_replica(data_dir, tmp_path):
+    start, = (r for r in _chaos_run(data_dir, tmp_path, "--replica", "r3")
+              if r["event"] == "run_start")
+    assert start["replica"] == "r3"
+
+
+CHAOS_ACTS = {"--chaos": _act_chaos, "--chaos-state": _act_chaos_state,
+              "--chaos-seed": _act_chaos_seed,
+              "--heartbeat-file": _act_heartbeat, "--replica": _act_replica}
+
+
+@pytest.mark.parametrize("flag", sorted(CHAOS_ACTS))
+def test_chaos_flag_acts(data_dir, tmp_path, flag):
+    """Each flag the driver refused with `NotPorted` until the fault
+    plane came does what the root driver's does."""
+    assert flag not in driver.UNPORTED
+    CHAOS_ACTS[flag](data_dir, tmp_path)
+
+
 @pytest.mark.parametrize("argv,what", [(["--pp", "2", "--schedule",
                                           "pipedream", "--overlap", "on"],
                                          "overlap")])

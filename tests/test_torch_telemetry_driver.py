@@ -190,9 +190,11 @@ def test_serve_host_profile(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("module,flag,item", [
-    (tdriver, "--chaos", "6c"), (tdriver, "--heartbeat-file", "6c"),
-    (tdriver, "--replica", "6c"), (mdriver, "--chaos-seed", "6c"),
-    (sdriver, "--chaos", "6c"), (sdriver, "--max-queue", "item 7"),
+    (tdriver, "--platform", "--device"), (tdriver, "--host-devices",
+                                           "--device"),
+    (mdriver, "--platform", "--device"), (sdriver, "--heartbeat-file",
+                                          "item 7"),
+    (sdriver, "--replica", "item 7"), (sdriver, "--max-queue", "item 7"),
     (sdriver, "--shed-load", "item 7")],
     ids=lambda x: x if isinstance(x, str) else x.__name__.split(".")[-1])
 def test_still_refused_flags_name_their_item(module, flag, item):

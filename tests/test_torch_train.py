@@ -400,6 +400,89 @@ def test_driver_refuses_unported_flags(flag):
         tdriver.parse_args(["--device", "cpu", flag, "1"])
 
 
+def _chaos_run(tmp_path, *extra) -> list:
+    """Two steps of a tiny CPU `train_lm` with `extra` flags, no fault
+    plan before or after it in this process; the log's records."""
+    import json
+
+    from shallowspeed_tpu_torch import chaos
+
+    log = tmp_path / "m.jsonl"
+    chaos.configure(None)
+    try:
+        tdriver.main(["--device", "cpu", "--steps", "2", "--seq-len", "16",
+                      "--d-model", "16", "--n-heads", "2", "--n-layers",
+                      "1", "--batch-size", "2", "--log-every", "1",
+                      "--prefetch", "0", "--log-file", str(log), *extra])
+    finally:
+        chaos.configure(None)
+    return [json.loads(x) for x in log.read_text().splitlines()]
+
+
+def _faults(recs) -> list:
+    return [(r["kind"], r.get("step"), r.get("save")) for r in recs
+            if r["event"] == "fault"]
+
+
+def _act_chaos(tmp_path):
+    assert _faults(_chaos_run(tmp_path, "--chaos", "stall@1:0.01")) == [
+        ("stall", 1, None)]
+
+
+def _act_chaos_state(tmp_path):
+    """The markers live in --chaos-state: a second run with the same
+    state fires nothing."""
+    cs = tmp_path / "cs"
+    assert _faults(_chaos_run(tmp_path, "--chaos", "freeze@0",
+                              "--chaos-state", str(cs))) == [
+        ("freeze", 0, None)]
+    assert (cs / "fired_freeze_at_0").exists()
+    (tmp_path / "m.jsonl").unlink()
+    assert _faults(_chaos_run(tmp_path, "--chaos", "freeze@0",
+                              "--chaos-state", str(cs))) == []
+
+
+def _act_chaos_seed(tmp_path):
+    """The seed draws the corrupted member of the first save as the
+    reference's plan draws it."""
+    from shallowspeed_tpu import chaos as JCH
+
+    ck = tmp_path / "ck"
+    recs = _chaos_run(tmp_path, "--save-dir", str(ck), "--save-every", "1",
+                      "--chaos", "corrupt@1", "--chaos-seed", "5")
+    fault, = (r for r in recs if r["event"] == "fault")
+    ref = JCH.FaultPlan.parse("corrupt@1", seed=5)
+    names = ["opt.npz", "params.npz"]
+    assert fault["path"] == str(ck / "ckpt_0" / names[int(
+        ref._rng(ref.faults[0]).integers(0, len(names)))])
+    assert fault["save"] == 1 and fault["mode"] == "bitflip"
+
+
+def _act_heartbeat(tmp_path):
+    hb = tmp_path / "hb"
+    _chaos_run(tmp_path, "--heartbeat-file", str(hb))
+    assert hb.read_text() == "ok"
+
+
+def _act_replica(tmp_path):
+    start, = (r for r in _chaos_run(tmp_path, "--replica", "r7")
+              if r["event"] == "run_start")
+    assert start["replica"] == "r7"
+
+
+CHAOS_ACTS = {"--chaos": _act_chaos, "--chaos-state": _act_chaos_state,
+              "--chaos-seed": _act_chaos_seed,
+              "--heartbeat-file": _act_heartbeat, "--replica": _act_replica}
+
+
+@pytest.mark.parametrize("flag", sorted(CHAOS_ACTS))
+def test_chaos_flag_acts(tmp_path, flag):
+    """Each flag the driver refused with `NotPorted` until the fault
+    plane came does what the root driver's does."""
+    assert flag not in tdriver.UNPORTED
+    CHAOS_ACTS[flag](tmp_path)
+
+
 def test_driver_needs_a_card_unless_the_cpu_is_named():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
