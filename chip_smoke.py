@@ -295,7 +295,7 @@ Phases (any failure exits non-zero and prints no result line):
 16. Comm overlap (`parallel/overlap.py`: each bucket of replica r >= 1's
    gradient added into the rank-order sum from its backward, on a side
    stream), every line with the card's name and power limit. (a)
-   `ContextParallelEngine` dp 2 flash at full width and OV_LAYERS = 2
+   `ContextParallelEngine` dp 2 flash at full width and OV_LAYERS = 1
    of 16 layers (phase 6's batch and weights, cut for the script's
    time), AdamW 3e-4, overlap off, then on with 4 and 64
    MiB buckets: two overlap-off `loss_and_grads` calls against each
@@ -433,6 +433,35 @@ Phases (any failure exits non-zero and prints no result line):
    thread of this process (both drills are mostly process start-up),
    so both lie inside phase 6b's clock.
 
+21. The serving fleet (`serving/router.py`, `telemetry/fleet.py`, the
+   `router` driver), right after phase 5b on phase 3's weights. (b)'s
+   router starts first, so that its children start while (a) and (b)'s
+   oracle run. (a) `Router` over two `InProcessReplica`s of
+   `ServingEngine(attn_impl="flash")` on one params tree, phase 3's 12
+   greedy requests and FLEET_SAMPLED sampled ones (temperature
+   0.7-1.0, distinct seeds), r0 killed once a request is mid-stream on
+   it and the router run until r0 is back: in f32 at FLEET_F32_LAYERS
+   layers every stream must equal one solo engine's over the same
+   requests, token for token; in bf16 at full depth every request must
+   complete, and the greedy streams equal to phase 3's are counted
+   (printed, not gated: a bf16 re-prefill may flip a near-tied argmax).
+   Both: at least one failover, the breaker open / half_open / closed,
+   r0's restart_downtime of class crash, a router log that validates,
+   every live allocator balanced, K4 launched n_layers x the ticks of
+   every engine the drill built (`fleet (a) f32:` / `fleet (a) bf16:`).
+   (b) `python -m shallowspeed_tpu_torch.router --replicas 2` over
+   `serve --serve --device cuda` children at full width and
+   FLEET_CLI_LAYERS layer (f32), FLEET_CLI_REQUESTS requests (greedy
+   and sampled) under FLEET_CHAOS (r0 killed at its 6th tick, r1
+   stalled 0.5 s at its 4th), `--await-replicas` and `--settle`: every
+   stream equal to a plain `serve` run's with the same flags and
+   requests (in this process), a failover, r0 respawned, `--goodput`
+   over the router log giving r0's MTTR and the fleet's availability;
+   `--fleet --once` over the replicas the router's endpoint lists once
+   every request has its result; the replicas' start times and the
+   fleet-edge ttft p50 / p95 (`fleet (b):`). The router's session is
+   stopped on the way out (SIGTERM, then SIGKILL).
+
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers (with `device_ms` / `library_device_ms` where the
 profiler timed them, K1-K3's `recipe_launches` from phase 10a,
@@ -441,7 +470,8 @@ profiler timed them, K1-K3's `recipe_launches` from phase 10a,
 overlapped runs, (a) and (b), `mp_launches` [process 0, process 1]
 from phase 17's (a) and (b), `tele_launches` from phase 18 (a)'s
 `spans` run, `mon_launches` from phase 19's (a) monitored runs and
-(d), and `drill_launches` [first child, restart] from phase 20 (a)), and
+(d), `drill_launches` [first child, restart] from phase 20 (a), and
+K4's `fleet_launches` [f32, bf16] from phase 21 (a)), and
 `{"ok": true, "device": {...}}`.
 """
 
@@ -854,6 +884,14 @@ def check_kernels(dev) -> dict:
             if name == "slice-mha" and dtype == torch.bfloat16:
                 worst["paged_flash_decode_int8"] = err
     return worst
+
+
+def _first_layers(np_params, n: int) -> dict:
+    """The 1.21B LM's draw (`init_numpy(cfg, seed=0)`) cut to its first
+    `n` blocks: the weights of the phases that hold two paths against
+    each other at a cut depth (the draw at full width takes seconds a
+    layer, so it is made once)."""
+    return {**np_params, "blocks": np_params["blocks"][:n]}
 
 
 def slice_config():
@@ -2784,7 +2822,7 @@ def _paths(tree, prefix=""):
     return prefix
 
 
-def check_training_parity(dev, cfg) -> dict:
+def check_training_parity(dev, cfg, np_params) -> dict:
     """Phase 7: f32 compute, full width, 2 layers: the kernels' loss and
     gradients against the plain attention under autograd, from the same
     weights and batch; then the same plain path with q and K rounded to
@@ -2797,7 +2835,7 @@ def check_training_parity(dev, cfg) -> dict:
     from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
 
     cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype=None)
-    np2 = T.init_numpy(cfg2, seed=0)
+    np2 = _first_layers(np_params, 2)
     tok, tgt = _train_batch(cfg2)
     flash = ContextParallelEngine(cfg2, SGD(0.0), attn="flash", device=dev,
                                   params=np2)
@@ -3198,7 +3236,7 @@ def _worst_leaf(ga, gb) -> tuple[float, str]:
     return worst, where
 
 
-def run_feature_matrix(dev, cfg) -> dict:
+def run_feature_matrix(dev, cfg, np_params) -> dict:
     """Phase 10b: at full width and FEATURE_LAYERS layers, bf16, phase
     6's batch: each feature's loss and gradients (no update) against its
     own plain counterpart's on the card, within LOSS_TOL_BF16 and
@@ -3218,7 +3256,7 @@ def run_feature_matrix(dev, cfg) -> dict:
     from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
 
     cfg2 = dataclasses.replace(cfg, n_layers=FEATURE_LAYERS)
-    np2 = T.init_numpy(cfg2, seed=0)
+    np2 = _first_layers(np_params, FEATURE_LAYERS)
     tok, tgt = _train_batch(cfg2)
     nl = cfg2.n_layers
 
@@ -4315,9 +4353,10 @@ def _timed_steps(dev, eng, mcfg, tok, tgt, counters, label) -> dict:
             "launches": counts}
 
 
-def run_gspmd(dev, cfg, card) -> dict:
-    """Phase 13a/b: the 1.21B LM's width at GSPMD_LAYERS layers (MoE at
-    phase 10c's config), phase 6's batch, `init_numpy(seed 0)`, AdamW
+def run_gspmd(dev, cfg, card, np_params) -> dict:
+    """Phase 13a/b: the 1.21B LM's width at GSPMD_LAYERS layers (the
+    first of phase 6's weights; MoE at phase 10c's config, its own
+    `init_numpy(seed 0)`), phase 6's batch, AdamW
     3e-4. (a) The yardstick: the one-device plain-attention engine
     (`ContextParallelEngine(attn="ring")`; for MoE `ExpertParallelEngine`
     at (1, 1)) on the same weights and batch, its loss and gradient at
@@ -4359,7 +4398,8 @@ def run_gspmd(dev, cfg, card) -> dict:
         torch.cuda.empty_cache()
 
     for kind, mcfg in (("dense", dense), ("moe", moe)):
-        npm = T.init_numpy(mcfg, seed=0)
+        npm = (_first_layers(np_params, mcfg.n_layers) if kind == "dense"
+               else T.init_numpy(mcfg, seed=0))
         tok, tgt = _train_batch(mcfg)
         pcfg = (mcfg if kind == "dense"
                 else dataclasses.replace(mcfg, compute_dtype=None))
@@ -4902,11 +4942,13 @@ def run_pp_driver(dev, cfg, phase="14") -> dict:
 # OV_DRIVER_LAYERS.
 OV_VARIANTS = (("off", None), ("on-4mb", 4.0), ("on-64mb", 64.0))
 OV_STEPS = 4
-OV_Z2_LAYERS = 2
-# (a)'s depth: 2 of 16 layers, cut for the script's time (16 before
-# phase 17 came, 8 before phase 19, 4 before phase 20)
-OV_LAYERS = 2
-OV_FSDP_LAYERS = 2
+# (b) and (c) at 1 layer (2 before phase 21 came, cut for the script's
+# time)
+OV_Z2_LAYERS = 1
+# (a)'s depth: 1 of 16 layers, cut for the script's time (16 before
+# phase 17 came, 8 before phase 19, 4 before phase 20, 2 before 21)
+OV_LAYERS = 1
+OV_FSDP_LAYERS = 1
 OV_SHORT_STEPS = 2
 OV_MLP_BATCHES = 6
 # 16e's drivers at 1 layer (2 before phase 19 came, cut for the script's time)
@@ -5865,8 +5907,11 @@ TELE_STEPS = 6
 TELE_PROFILE_STEPS = 2
 TELE_HZ = 100
 TELE_SERVE_LAYERS = 2
-TELE_PP_LAYERS = 4
-TELE_DP_LAYERS = 2
+# (d)'s traffic runs: pp 2 at 2 layers and dp 2 at 1 (4 and 2 before
+# phase 21 came, cut for the script's time; the counted bytes do not
+# depend on depth)
+TELE_PP_LAYERS = 2
+TELE_DP_LAYERS = 1
 # kernel-name pieces of the libraries' attention kernels (cuDNN, the
 # SDPA flash and memory-efficient kernels); none may run in phase 18 (b)
 LIBRARY_ATTENTION = ("cudnn", "fmha", "flash_attn", "pytorch_flash",
@@ -5877,10 +5922,10 @@ TELE_KERNELS = ("flash_fwd_tc_kernel", "flash_dq_tc_kernel",
 
 @contextlib.contextmanager
 def _cached_draw():
-    """`transformer.init_numpy` memoized by (config, seed) while the
-    phase's driver runs build their engines: the draw is a pure function
-    of both (the same weights), and each draw at full width takes
-    seconds."""
+    """`transformer.init_numpy` memoized by (config, seed) while a
+    phase's driver runs build their engines (phases 12d, 13c, 14g, 15f,
+    16e, 18 and 19): the draw is a pure function of both (the same
+    weights), and each draw at full width takes seconds."""
     from shallowspeed_tpu_torch.models import transformer as T
 
     real, cache = T.init_numpy, {}
@@ -6008,9 +6053,10 @@ def _tele_levels(dev, cfg, root) -> dict:
     last = sp["lines"][-1]
     summ = json.loads((root / "spans" / "telemetry.json").read_text())
     from shallowspeed_tpu_torch.models import transformer as T
+    from shallowspeed_tpu_torch.weights import leaves
 
-    param_bytes = sum(int(a.size) * 4 for a in _np_leaves(
-        T.init_numpy(dataclasses.replace(cfg, n_layers=n), 0)))
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves(
+        T.param_shapes(dataclasses.replace(cfg, n_layers=n))))
     owned = summ["hbm_owners"]["owners"]["train.params"]
     if owned != param_bytes:
         raise AssertionError(f"tele (a): train.params owns {owned} bytes, "
@@ -6054,17 +6100,6 @@ def _tele_levels(dev, cfg, root) -> dict:
     print("tele (a): " + json.dumps(out), flush=True)
     return {"launches": sp["launches"], "flags": flags, "spans_last": last,
             "roofline": summ["roofline"]}
-
-
-def _np_leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _np_leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _np_leaves(v)
-    else:
-        yield tree
 
 
 def _tele_profile_dir(dev, flags, root) -> dict:
@@ -6164,9 +6199,9 @@ def _tele_serve(dev, cfg, root) -> dict:
     return {**out, "streams": runs["off"]["streams"]}
 
 
-def _tele_traffic(dev, cfg) -> dict:
+def _tele_traffic(dev, cfg, np_params) -> dict:
     """Phase 18 (d): the counted bytes of a step against the analytic
-    ones, pp 2 gpipe and dp 2."""
+    ones, pp 2 gpipe and dp 2 (the first layers of `np_params`)."""
     import torch
 
     from shallowspeed_tpu_torch import optim as O
@@ -6184,7 +6219,7 @@ def _tele_traffic(dev, cfg) -> dict:
     pcfg = dataclasses.replace(cfg, n_layers=TELE_PP_LAYERS)
     eng = PipelineLMEngine(pcfg, O.AdamW(3e-4), make_pipeline_mesh(
         1, 2, 1, dev), n_mubatches=4, schedule="gpipe", attn="flash",
-        params=T.init_numpy(pcfg, 0))
+        params=_first_layers(np_params, TELE_PP_LAYERS))
     eng.train_batch(tok, tgt)
     hop = (b // 4) * t * cfg.d_model * (2 if cfg.compute_dtype else 4)
     out["pp2_gpipe"] = {"counted": eng.telemetry_traffic(),
@@ -6196,7 +6231,8 @@ def _tele_traffic(dev, cfg) -> dict:
     dcfg = dataclasses.replace(cfg, n_layers=TELE_DP_LAYERS)
     eng = ContextParallelEngine(dcfg, O.AdamW(3e-4), attn="flash",
                                 mesh=make_context_mesh(2, 1, dev),
-                                params=T.init_numpy(dcfg, 0))
+                                params=_first_layers(np_params,
+                                                     TELE_DP_LAYERS))
     eng.train_batch(tok, tgt)
     out["dp2"] = {"counted": eng.telemetry_traffic(),
                   "analytic": {"dp": _tensor_bytes(eng.params)}}
@@ -6213,7 +6249,7 @@ def _tele_traffic(dev, cfg) -> dict:
     return out
 
 
-def run_telemetry(dev, cfg, card) -> dict:
+def run_telemetry(dev, cfg, card, np_params) -> dict:
     """Phase 18 (module docstring): (a)-(d), in a temporary directory
     removed at the end, the driver runs sharing one draw."""
     import shutil
@@ -6227,7 +6263,7 @@ def run_telemetry(dev, cfg, card) -> dict:
             levels = _tele_levels(dev, cfg, root)
             _tele_profile_dir(dev, levels["flags"], root)
             served = _tele_serve(dev, cfg, root)
-            _tele_traffic(dev, cfg)
+            _tele_traffic(dev, cfg, np_params)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"launches": levels["launches"], "roofline": levels["roofline"],
@@ -6337,7 +6373,7 @@ def _sketch_summary(log) -> dict:
         snap["sketches"]).summary()
 
 
-def _two_point(dev, cfg, tok, tgt) -> dict:
+def _two_point(dev, cfg, tok, tgt, np_params) -> dict:
     """`two_point_bubble` of pp 2 gpipe at MON_N_MU microbatches: fenced
     steps of the engine against its calibration twin at twice the
     microbatches on twice the rows."""
@@ -6352,7 +6388,7 @@ def _two_point(dev, cfg, tok, tgt) -> dict:
     pcfg = dataclasses.replace(cfg, n_layers=MON_LAYERS)
     eng = PipelineLMEngine(pcfg, O.AdamW(3e-4), make_pipeline_mesh(
         1, 2, 1, dev), n_mubatches=MON_N_MU, schedule="gpipe", attn="flash",
-        params=T.init_numpy(pcfg, 0))
+        params=_first_layers(np_params, MON_LAYERS))
     twin = eng.make_calibration_twin()
     times = {}
     for name, e, (t, g) in (("n_mu", eng, (tok, tgt)),
@@ -6374,7 +6410,7 @@ def _two_point(dev, cfg, tok, tgt) -> dict:
     return two_point_bubble(times["n_mu"], times["2n_mu"])
 
 
-def _mon_pipeline(dev, cfg, root, got) -> dict:
+def _mon_pipeline(dev, cfg, root, got, np_params) -> dict:
     """Phase 19 (a) and (c): `train_lm --pp 2` gpipe and 1f1b under the
     monitor against the same runs without its flags, the endpoint polled
     while they run; the calibrated bubble, the two-point bubble; then
@@ -6437,7 +6473,8 @@ def _mon_pipeline(dev, cfg, root, got) -> dict:
     rng = np.random.default_rng(0)
     tok = rng.integers(0, cfg.vocab, (TRAIN_BATCH, cfg.max_seq)).astype(
         np.int32)
-    out["two_point"] = _two_point(dev, cfg, tok, np.roll(tok, -1, axis=1))
+    out["two_point"] = _two_point(dev, cfg, tok, np.roll(tok, -1, axis=1),
+                                  np_params)
     print("mon (a): " + json.dumps(out), flush=True)
 
     # (c) the goodput ledger of the monitored gpipe run
@@ -6593,7 +6630,7 @@ def _mon_vm(dev, root) -> dict:
     return res
 
 
-def run_monitor(dev, cfg, card, tele18) -> dict:
+def run_monitor(dev, cfg, card, tele18, np_params) -> dict:
     """Phase 19 (module docstring): (a)-(e), in a temporary directory
     removed at the end, the driver runs sharing one draw."""
     import shutil
@@ -6606,7 +6643,7 @@ def run_monitor(dev, cfg, card, tele18) -> dict:
     t0 = time.time()
     try:
         with _cached_draw(), _polled_monitors(got):
-            pipe = _mon_pipeline(dev, cfg, root, got)
+            pipe = _mon_pipeline(dev, cfg, root, got, np_params)
             _mon_waterfall(dev, cfg, tele18)
             reqs = root / "requests.jsonl"
             reqs.write_text("\n".join(json.dumps(
@@ -6627,6 +6664,368 @@ def run_monitor(dev, cfg, card, tele18) -> dict:
 
 
 _T0 = [0.0]
+
+
+# ---------------------------------------------------------------- phase 21
+
+# (a): phase 3's 12 greedy requests and FLEET_SAMPLED sampled ones
+# (temperatures 0.7-1.0, distinct seeds), first in f32 at
+# FLEET_F32_LAYERS layers (the gate: every stream the solo engine's),
+# then in bf16 at full depth on phase 3's weights
+FLEET_SAMPLED = 4
+FLEET_F32_LAYERS = 2
+# (b): the router driver over `serve --serve` children at full width
+# and FLEET_CLI_LAYERS layer (the serve CLI computes in f32)
+FLEET_CLI_LAYERS = 1
+FLEET_CLI_REQUESTS = 8
+FLEET_CLI_NEW = 16
+FLEET_CHAOS = "r0=kill@6;r1=stall@4:0.5"
+FLEET_CLI_LIMIT_S = 150
+
+
+def _fleet_requests(vocab) -> dict:
+    """{rid: (prompt, temperature, seed)}: phase 3's greedy requests,
+    then FLEET_SAMPLED sampled ones (128-512 tokens, numpy seed 21)."""
+    reqs = {rid: (p, 0.0, 0) for rid, p in _random_prompts(vocab).items()}
+    rng = np.random.default_rng(21)
+    for i in range(FLEET_SAMPLED):
+        reqs[f"s{i}"] = (rng.integers(0, vocab, int(rng.integers(128, 513)))
+                         .astype(np.int32), 0.7 + 0.1 * i, 100 + i)
+    return reqs
+
+
+def _fleet_engine(dev, cfg, params, made=None):
+    from shallowspeed_tpu_torch.serving.engine import ServingEngine
+
+    eng = ServingEngine(params, cfg, n_blocks=N_BLOCKS,
+                        block_size=SLICE["block_size"],
+                        max_slots=SLICE["slots"],
+                        prefill_chunk=PREFILL_CHUNK, attn_impl="flash",
+                        device=dev)
+    if made is not None:
+        made.append(eng)
+    return eng
+
+
+def _fleet_drill(dev, cfg, params, reqs, root, label) -> dict:
+    """Phase 21 (a) at one config: `Router` over two `InProcessReplica`s
+    of `ServingEngine(attn_impl="flash")` on the one params tree, every
+    request submitted, r0 killed once a request is mid-stream on it, the
+    router run to the end and then until r0 is back (its breaker closed).
+    Checks: every request completes, a failover, the breaker's open /
+    half_open / closed, r0's restart_downtime of class crash, the router
+    log valid, every live allocator balanced, K4 launched n_layers x the
+    ticks of every engine the drill built (the killed one's included)
+    and its int8 build never."""
+    import torch
+
+    from shallowspeed_tpu_torch.metrics import MetricsLogger
+    from shallowspeed_tpu_torch.ops.flash_attention import (
+        _paged_flash_decode_int8, paged_flash_decode)
+    from shallowspeed_tpu_torch.serving.router import (InProcessReplica,
+                                                       Router)
+    from shallowspeed_tpu_torch.telemetry.schema import validate_file
+
+    made = []
+    log = root / f"router_{label}.jsonl"
+    metrics = MetricsLogger(log, kind="router")
+    router = Router(lambda name: InProcessReplica(
+        name, lambda n: _fleet_engine(dev, cfg, params, made)),
+        n_replicas=2, metrics=metrics, request_timeout=None,
+        breaker_kw=dict(cooldown=0.05, jitter=0.0),
+        policy_kw=dict(backoff=0.01, jitter=0.0))
+    for k in (paged_flash_decode, _paged_flash_decode_int8):
+        k.launches = 0
+    t0 = time.time()
+    for rid, (p, temp, seed) in reqs.items():
+        router.submit(p, MAX_NEW, temperature=temp, seed=seed, rid=rid)
+    for _ in range(10_000):
+        router.step()
+        mid = [r.rid for r in router.inflight.values()
+               if r.replica == "r0" and 1 <= len(r.tokens) < r.max_new]
+        if mid:
+            break
+    else:
+        raise AssertionError(f"fleet {label}: no request mid-stream on r0")
+    router._replicas["r0"]["handle"].kill()
+    results = router.run(max_wall=300)
+    served_s = time.time() - t0
+    t1 = time.monotonic()
+    while time.monotonic() - t1 < 30 and not (
+            router.counters["respawns"] >= 1
+            and router._breakers["r0"].state == "closed"):
+        router.step()
+        time.sleep(0.005)
+    torch.cuda.synchronize()
+    metrics.close()
+    ticks = [e.counters["ticks"] for e in made]
+    launches = paged_flash_decode.launches
+    led = [e for e in router.events if e["event"] == "ledger"]
+    states = [e["state"] for e in led if e.get("kind") == "breaker"]
+    downs = [(e["replica"], e["fail_class"]) for e in led
+             if e.get("kind") == "restart_downtime"]
+    live = [e["handle"].engine for e in router._replicas.values()]
+    unbalanced = [(e.alloc.n_free, e.alloc.n_cold, e.alloc.n_live)
+                  for e in live if e.alloc.n_live
+                  or e.alloc.n_free + e.alloc.n_cold != e.alloc.n_usable]
+    bad = [rid for rid in reqs if rid not in results
+           or results[rid].shape != (MAX_NEW,)
+           or results[rid].min() < 0 or results[rid].max() >= cfg.vocab]
+    out = {"layers": cfg.n_layers, "compute": str(cfg.act_dtype)[6:],
+           "requests": len(reqs), "killed_mid_stream": sorted(mid),
+           "failovers": router.counters["failovers"],
+           "breaker": states, "restart_downtime": downs,
+           "engines": len(made), "ticks": ticks, "k4_launches": launches,
+           "served_s": served_s,
+           "fleet_ttft_ms_p50": _p50([r["ttft_ms"] for r in router.records
+                                      if "ttft_ms" in r])}
+    problems = []
+    if bad:
+        problems.append(f"bad or missing streams {bad}")
+    if router.counters["failovers"] < 1:
+        problems.append("no failover")
+    if states != ["open", "half_open", "closed"]:
+        problems.append(f"breaker states {states}")
+    if ("r0", "crash") not in downs:
+        problems.append(f"restart_downtime {downs}")
+    if validate_file(log):
+        problems.append(f"router log: {validate_file(log)[:3]}")
+    if unbalanced:
+        problems.append(f"allocators unbalanced at drain {unbalanced}")
+    if launches != cfg.n_layers * sum(ticks) or not sum(ticks) \
+            or _paged_flash_decode_int8.launches:
+        problems.append(f"K4 launched {launches} (int8 "
+                        f"{_paged_flash_decode_int8.launches}) times over "
+                        f"ticks {ticks} of {cfg.n_layers} layers")
+    out["results"] = results
+    out["problems"] = problems
+    return out
+
+
+def run_fleet_inprocess(dev, cfg32, params, phase3, root) -> dict:
+    """Phase 21 (a): the drill in f32 at FLEET_F32_LAYERS layers, every
+    stream held token for token to one solo engine's over the same
+    requests; then in bf16 at full depth on phase 3's weights, every
+    request complete and K4's count held, the greedy streams counted
+    against phase 3's (`phase3`; a bf16 re-prefill may flip a near-tied
+    argmax, so the count is printed, not gated)."""
+    import torch
+
+    reqs = _fleet_requests(cfg32.vocab)
+    cfg2 = dataclasses.replace(cfg32, n_layers=FLEET_F32_LAYERS)
+    params2 = dict(params, blocks=params["blocks"][:FLEET_F32_LAYERS])
+    solo = _fleet_engine(dev, cfg2, params2)
+    for rid, (p, temp, seed) in reqs.items():
+        solo.submit(p, MAX_NEW, temperature=temp, seed=seed, rid=rid)
+    oracle = solo.run()
+    del solo
+    f32 = _fleet_drill(dev, cfg2, params2, reqs, root, "f32")
+    same = [rid for rid in reqs
+            if np.array_equal(f32["results"].get(rid), oracle[rid])]
+    f32["streams_equal_solo"] = f"{len(same)}/{len(reqs)}"
+    if len(same) != len(reqs):
+        f32["problems"].append(f"streams differ from the solo engine's: "
+                               f"{sorted(set(reqs) - set(same))}")
+    del f32["results"]
+    print("fleet (a) f32: " + json.dumps(f32), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg32, compute_dtype=torch.bfloat16)
+    bf16 = _fleet_drill(dev, cfg, params, reqs, root, "bf16")
+    greedy = [rid for rid in phase3
+              if np.array_equal(bf16["results"].get(rid), phase3[rid])]
+    bf16["greedy_equal_phase3"] = f"{len(greedy)}/{len(phase3)}"
+    del bf16["results"]
+    print("fleet (a) bf16: " + json.dumps(bf16), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    problems = ([f"f32: {p}" for p in f32["problems"]]
+                + [f"bf16: {p}" for p in bf16["problems"]])
+    if problems:
+        raise AssertionError("fleet (a): " + "; ".join(problems))
+    return {"f32": f32, "bf16": bf16,
+            "launches": [f32["k4_launches"], bf16["k4_launches"]]}
+
+
+def _fleet_cli_flags(cfg) -> list:
+    return ["--vocab", str(cfg.vocab), "--d-model", str(cfg.d_model),
+            "--n-heads", str(cfg.n_heads), "--n-layers",
+            str(FLEET_CLI_LAYERS), "--max-seq", str(cfg.max_seq), "--rope",
+            "--n-blocks", "256", "--block-size", str(SLICE["block_size"]),
+            "--slots", str(SLICE["slots"]), "--prefill-chunk",
+            str(PREFILL_CHUNK)]
+
+
+def _fleet_cli_start(cfg, root, dev):
+    """Phase 21 (b)'s router driver, started before (a) so that its
+    children start up while (a) runs: `python -m
+    shallowspeed_tpu_torch.router --replicas 2` on the card under
+    FLEET_CHAOS, its stdout into root/router.out. A session of its own,
+    so that the whole tree can be stopped."""
+    reqs = root / "reqs.jsonl"
+    reqs.write_text("".join(json.dumps(
+        {"id": f"c{i}", "prompt_len": 96 + 32 * i, "prompt_seed": 40 + i,
+         "max_new": FLEET_CLI_NEW,
+         **({"temperature": 0.8, "seed": 7 + i} if i % 2 else {})}) + "\n"
+        for i in range(FLEET_CLI_REQUESTS)))
+    out = open(root / "router.out", "w")
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "shallowspeed_tpu_torch.router",
+             "--replicas", "2", *_fleet_cli_flags(cfg), "--device", dev.type,
+             "--requests", str(reqs), "--log-file",
+             str(root / "run" / "router.jsonl"), "--chaos-fleet",
+             FLEET_CHAOS, "--chaos-state", str(root / "chaos"),
+             "--backoff", "0.2", "--term-grace", "3",
+             "--await-replicas", "120", "--settle", "60"],
+            cwd=Path(__file__).resolve().parent, stdout=out,
+            stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL,
+            start_new_session=True)
+    finally:
+        out.close()
+    return proc, reqs
+
+
+def _fleet_stop(proc) -> None:
+    """SIGTERM to the router's session (the router's own teardown stops
+    its replicas), then SIGKILL to whatever is left."""
+    import signal
+
+    for sig, wait in ((signal.SIGTERM, 10), (signal.SIGKILL, 10)):
+        try:
+            os.killpg(proc.pid, sig)
+        except ProcessLookupError:
+            return
+        try:
+            proc.wait(timeout=wait)
+        except subprocess.TimeoutExpired:
+            continue
+        try:                 # the replicas share the session
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        return
+
+
+def _fleet_lines(path) -> list:
+    lines = []
+    for x in Path(path).read_text().splitlines():
+        try:
+            rec = json.loads(x)
+        except ValueError:
+            continue
+        if isinstance(rec, dict):
+            lines.append(rec)
+    return lines
+
+
+def run_fleet_cli(dev, cfg, proc, reqs, root) -> dict:
+    """Phase 21 (b): while the router runs, the plain `serve` over the
+    same flags and requests in this process (the oracle); once every
+    request has a result, `--fleet --once` over the replicas the
+    router's endpoint lists; then the router's end. Every stream must
+    equal the plain run's, with a failover, r0 respawned, and
+    `--goodput` over the router log giving r0's MTTR and the fleet's
+    availability."""
+    import io
+    import urllib.request
+
+    from shallowspeed_tpu_torch import serve as sdriver
+    from shallowspeed_tpu_torch.telemetry.fleet import fleet_main
+    from shallowspeed_tpu_torch.telemetry.goodput import (format_report,
+                                                          run_goodput)
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        sdriver.main([*_fleet_cli_flags(cfg), "--device", dev.type,
+                      "--requests", str(reqs)])
+    plain = {r["id"]: r["tokens"] for r in map(json.loads,
+                                               buf.getvalue().splitlines())
+             if r.get("event") == "result"}
+    out_path = root / "router.out"
+    t0 = time.time()
+    table = None
+    while proc.poll() is None and time.time() - t0 < FLEET_CLI_LIMIT_S:
+        lines = _fleet_lines(out_path)
+        done = [r for r in lines if r.get("event") == "result"]
+        if table is None and len(done) == FLEET_CLI_REQUESTS:
+            url = next(r["url"] for r in lines
+                       if r.get("event") == "fleet_listening")
+            with urllib.request.urlopen(url, timeout=10) as r:
+                view = json.loads(r.read())
+            urls = [rep["source"] for rep in view["replicas"].values()
+                    if str(rep.get("source", "")).startswith("http")]
+            got = []
+            if fleet_main(urls, once=True, out=got.append) != 0:
+                raise AssertionError(f"fleet (b): --fleet --once {got}")
+            table = "\n".join(got)
+            print("fleet (b) --fleet --once:\n" + table, flush=True)
+        time.sleep(0.1)
+    if proc.poll() is None:
+        raise AssertionError(f"fleet (b): the router ran past "
+                             f"{FLEET_CLI_LIMIT_S} s:\n"
+                             + out_path.read_text()[-4000:])
+    lines = _fleet_lines(out_path)
+    res = {r["id"]: r.get("tokens") for r in lines
+           if r.get("event") == "result"}
+    summ = next((r for r in lines if r.get("event") == "summary"), {})
+    ready = [(r["replica"], r["start_s"]) for r in lines
+             if r.get("event") == "replica_ready"]
+    log = root / "run" / "router.jsonl"
+    rep = run_goodput(log)
+    fl = rep.get("fleet") or {}
+    same = [k for k, v in plain.items() if res.get(k) == v]
+    out = {"rc": proc.returncode, "requests": FLEET_CLI_REQUESTS,
+           "streams_equal_plain": f"{len(same)}/{len(plain)}",
+           "replica_start_s": ready,
+           "fleet_ttft_ms_p50": summ.get("ttft_ms_p50"),
+           "fleet_ttft_ms_p95": summ.get("ttft_ms_p95"),
+           "counters": summ.get("counters"), "wall_s": summ.get("wall_s"),
+           "mttr": fl.get("mttr"),
+           "fleet_availability": fl.get("fleet_availability")}
+    print("fleet (b): " + json.dumps(out), flush=True)
+    print("\n".join("  " + x for x in format_report(rep).splitlines()
+                    if "fleet" in x or "mttr" in x), flush=True)
+    problems = []
+    if proc.returncode != 0:
+        problems.append(f"router exit {proc.returncode}")
+    if len(plain) != FLEET_CLI_REQUESTS or res != plain:
+        problems.append(f"streams {out['streams_equal_plain']}")
+    if not (summ.get("counters") or {}).get("failovers"):
+        problems.append("no failover")
+    if [n for n, _ in ready].count("r0") < 2:
+        problems.append(f"r0 not respawned: {ready}")
+    if "r0" not in (fl.get("mttr") or {}) \
+            or fl.get("fleet_availability") is None:
+        problems.append(f"--goodput fleet block {fl}")
+    if table is None:
+        problems.append("no --fleet --once view")
+    if problems:
+        raise AssertionError("fleet (b): " + "; ".join(problems) + "\n"
+                             + out_path.read_text()[-4000:])
+    return out
+
+
+def run_fleet(dev, cfg32, params, phase3, card) -> dict:
+    """Phase 21: (b)'s router started first, (a) in this process while
+    its children start, then (b)'s oracle and checks; the router's
+    whole session stopped on the way out, the directory removed."""
+    import shutil
+    import tempfile
+
+    t0 = time.time()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    proc = None
+    try:
+        proc, reqs = _fleet_cli_start(cfg32, root, dev)
+        a = run_fleet_inprocess(dev, cfg32, params, phase3, root)
+        b = run_fleet_cli(dev, cfg32, proc, reqs, root)
+    finally:
+        if proc is not None:
+            _fleet_stop(proc)
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"fleet: phase 21 {time.time() - t0:.1f} s on {card}", flush=True)
+    return {"a": a, "b": b, "launches": a["launches"]}
 
 
 def _clock(phase: str) -> None:
@@ -6689,6 +7088,7 @@ def main() -> int:
         return out
 
     stats, prompts, results = served()
+    phase3 = dict(results)          # phase 21 (a) counts its bf16 streams
     check_logits(dev, cfg, params, prompts, results, LOGITS_TOL_BF16)
     check_logits(dev, cfg32, params, prompts, results, LOGITS_TOL_F32)
     check_f32_bound_catches_a_slip(dev, cfg32, params, prompts, results)
@@ -6734,6 +7134,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_generate(dev, cfg, params)
     _clock("5b")
+    fleet = run_fleet(dev, cfg32, params, phase3, card)
+    _clock("21")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -6744,7 +7146,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ckpt6b = run_data_ckpt(dev, dataclasses.replace(cfg, n_layers=CKPT_LAYERS))
     _clock("6b")
-    check_training_parity(dev, cfg)
+    check_training_parity(dev, cfg, np_params)
     gc.collect()
     torch.cuda.empty_cache()
     timing.update(time_train_kernels(dev))
@@ -6777,26 +7179,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     cp = run_context_parallel(dev, cfg, np_params, card)
     launches["flash_fwd_tc_f32o"] = cp["launches"]["flash_fwd_tc_f32o"]
-    run_cp_driver(dev, cfg)
+    # each driver phase's runs draw one (config, seed): draw it once
+    with _cached_draw():
+        run_cp_driver(dev, cfg)
     _clock("12")
     gc.collect()
     torch.cuda.empty_cache()
-    run_feature_matrix(dev, cfg)
+    run_feature_matrix(dev, cfg, np_params)
     gc.collect()
     torch.cuda.empty_cache()
     run_moe(dev, cfg)
     _clock("10c")
     gc.collect()
     torch.cuda.empty_cache()
-    run_gspmd(dev, cfg, card)
-    run_gspmd_driver(dev, cfg)
+    run_gspmd(dev, cfg, card, np_params)
+    with _cached_draw():
+        run_gspmd_driver(dev, cfg)
     _clock("13")
     gc.collect()
     torch.cuda.empty_cache()
     pp = run_pipeline(dev, cfg, np_params, trained["losses"][0], card)
     gc.collect()
     torch.cuda.empty_cache()
-    run_pp_driver(dev, cfg)
+    with _cached_draw():
+        run_pp_driver(dev, cfg)
     _clock("14")
     pp15 = run_pipeline(dev, cfg, np_params, trained["losses"][0], card,
                         PP15_LAYOUTS, PP15_PROFILED, ("b-",), pp.pop("refs"),
@@ -6804,7 +7210,8 @@ def main() -> int:
     del pp15["refs"]
     gc.collect()
     torch.cuda.empty_cache()
-    run_pp_driver(dev, cfg, "15")
+    with _cached_draw():
+        run_pp_driver(dev, cfg, "15")
     _clock("15")
     ov = run_overlap(dev, dataclasses.replace(cfg, n_layers=OV_LAYERS),
                      {**np_params, "blocks": np_params["blocks"][:OV_LAYERS]},
@@ -6818,17 +7225,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_overlap_mlp(dev, card)
-    run_overlap_driver(dev, cfg, card)
+    with _cached_draw():
+        run_overlap_driver(dev, cfg, card)
     _clock("16")
     mp = run_multiprocess(dev, cfg, np_params, card)
-    del np_params
     _clock("17")
     gc.collect()
     torch.cuda.empty_cache()
-    tele = run_telemetry(dev, cfg, card)
+    tele = run_telemetry(dev, cfg, card, np_params)
     _clock("18")
-    mon = run_monitor(dev, cfg, card, tele)
+    mon = run_monitor(dev, cfg, card, tele, np_params)
     _clock("19")
+    del np_params
 
     src = "shallowspeed_tpu_torch/csrc/"
     fa = "shallowspeed_tpu/ops/flash_attention.py:"
@@ -6871,6 +7279,8 @@ def main() -> int:
            if mon["launches"].get(name) else {}),
         **({"drill_launches": ckpt6b["drill_launches"][name]}
            if name in ckpt6b["drill_launches"] else {}),
+        **({"fleet_launches": fleet["launches"]}
+           if name == "paged_flash_decode" else {}),
     } for name, (cu, ref) in where.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

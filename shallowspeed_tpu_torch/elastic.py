@@ -37,8 +37,10 @@ call: the children own the card.
 
 The `--` separates the supervisor's flags from the training command.
 With `--hang-timeout` the supervisor adds `--heartbeat-file` to a
-command that has none. Gang mode's `--monitor-port` (a fleet collector
-over the members' logs) is not ported yet (`NotPorted`).
+command that has none. In gang mode `--monitor-port` gives each member
+its own metrics file (`<log-file>.r<i>`) and serves one fleet collector
+(`telemetry/fleet.FleetCollector`) over them: per-member and merged
+quantiles, straggler detection across the gang.
 """
 
 from __future__ import annotations
@@ -54,13 +56,10 @@ import tempfile
 import time
 from dataclasses import dataclass, field
 
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch.checkpoint import EXIT_CORRUPT_CKPT
 
 FAIL_CLASSES = ("crash", "hang", "numeric", "corrupt_ckpt")
 
-# where the gang's fleet monitoring comes from
-FLEET = "Queue 1 item 7, the serving fleet"
 
 # the exit code `install_sigterm_exit` gives a terminated driver
 TERM_EXIT = 143
@@ -114,6 +113,20 @@ def _argv_log_file(argv: list[str]) -> str | None:
         if arg.startswith("--log-file="):
             return arg.split("=", 1)[1]
     return None
+
+
+def _set_argv_log_file(argv: list[str], path: str) -> list[str]:
+    """A copy of `argv` with its --log-file value replaced (both forms),
+    or `--log-file path` appended: gang mode's per-member files."""
+    out = list(argv)
+    for i, arg in enumerate(out):
+        if arg == "--log-file" and i + 1 < len(out):
+            out[i + 1] = path
+            return out
+        if arg.startswith("--log-file="):
+            out[i] = f"--log-file={path}"
+            return out
+    return out + ["--log-file", path]
 
 
 def write_heartbeat(path, status: str = "ok") -> None:
@@ -494,9 +507,6 @@ class GangSupervisor(Supervisor):
                  child_env: dict | None = None,
                  monitor_port: int | None = None, slo: str = ""):
         # not Supervisor.__init__: the heartbeat is per member here
-        if monitor_port is not None:
-            raise NotPorted("elastic --procs N --monitor-port (one fleet "
-                            "collector over the members' logs)", FLEET)
         self.argv = list(argv)
         self.n = int(n_procs)
         if self.n < 1:
@@ -509,13 +519,22 @@ class GangSupervisor(Supervisor):
         self.log = log
         self.term_grace = term_grace
         self.child_env = dict(child_env or {})
-        self.monitor_port = None
+        self.monitor_port = monitor_port
         self.slo = slo or ""
         self.heartbeat_file = None          # one file per member instead
         self._poison_step = None
         self._poison_count = 0
         self._log_mark = 0
-        self.ledger_file = ledger_file or _argv_log_file(self.argv)
+        # gang monitoring: each member its own metrics file (one shared
+        # file would interleave N processes' lines) and one fleet
+        # collector over them; the supervisor's stamps and the poison
+        # detector's evidence stay in member 0's file
+        self.member_log_files: list[str] = []
+        base = ledger_file or _argv_log_file(self.argv)
+        if monitor_port is not None and base:
+            self.member_log_files = [f"{base}.r{i}" for i in range(self.n)]
+            base = self.member_log_files[0]
+        self.ledger_file = base
         self.heartbeat_files = []
         if hang_timeout is not None:
             if "--heartbeat-file" in self.argv:
@@ -533,6 +552,30 @@ class GangSupervisor(Supervisor):
                 os.unlink(path)
             except OSError:
                 pass
+
+    def _start_monitor(self):
+        """(collector, server, collector) for --monitor-port, or Nones:
+        one `FleetCollector` over the members' metrics files, served as
+        the gang's /status.json + /metrics (member-labelled). The
+        collector is also what `run()` stops at teardown."""
+        if self.monitor_port is None:
+            return None, None, None
+        if not self.member_log_files:
+            self.log("[elastic] --monitor-port needs the gang command to "
+                     "carry --log-file (the metrics JSONL to aggregate per "
+                     "member); monitoring disabled")
+            return None, None, None
+        from shallowspeed_tpu_torch.telemetry.fleet import FleetCollector
+        from shallowspeed_tpu_torch.telemetry.monitor import StatusServer
+
+        fc = FleetCollector(paths=self.member_log_files,
+                            labels=[f"r{i}" for i in range(self.n)],
+                            slos=self.slo)
+        srv = StatusServer(fc, port=self.monitor_port)
+        fc.start(poll=max(0.5, float(self.poll_interval)))
+        self.log(f"[elastic] fleet monitor: {srv.url('/status.json')} "
+                 f"(+ /metrics) over {self.n} member file(s)")
+        return fc, srv, fc
 
     def _free_port(self) -> int:
         import socket
@@ -571,6 +614,8 @@ class GangSupervisor(Supervisor):
         try:
             for i in range(self.n):
                 argv = list(self.argv)
+                if self.member_log_files:
+                    argv = _set_argv_log_file(argv, self.member_log_files[i])
                 if self.heartbeat_files:
                     try:
                         write_heartbeat(self.heartbeat_files[i], "ok")
@@ -666,7 +711,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--monitor-port", type=int, default=None,
                     help="serve /status.json + /metrics for the whole "
                          "supervised history (tails the child's "
-                         "--log-file; 0 = free port); not with --procs")
+                         "--log-file; 0 = free port); with --procs N one "
+                         "fleet collector over the members' own files "
+                         "(<log-file>.r<i>)")
     ap.add_argument("--slo", default="",
                     help="SLOs evaluated over the tailed stream "
                          "(telemetry/monitor DSL)")

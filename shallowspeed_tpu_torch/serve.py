@@ -37,15 +37,29 @@ supervisor exports) runs a serving drill: the engine's tick-indexed
 hooks (`ServingEngine(chaos_plan=)`) stall or kill at tick N, each fault
 stamped into `--log-file` and arming the profiler's capture.
 
-The root driver's other flags (the HTTP replica mode `--serve`, its
-queue, heartbeat and replica label, `--fleet-register`, `--shed-load`,
-`--platform`) are recognised and refused with `NotPorted`.
+`--serve` is the replica mode a fleet router drives
+(`shallowspeed_tpu_torch.router`): the server stays up and takes
+requests over HTTP on its monitor endpoint (`--monitor-port`, default 0
+here) — POST /submit, GET /requests, POST /drain
+(`serving.router.RequestGateway`) — until a drain completes, then
+deregisters from the fleet and exits 0. `--max-queue N` rejects typed
+(`EngineOverloaded` with a retry-after) past N queued + running
+requests; `--heartbeat-file F` is written about 5 times a second (a
+chaos `freeze` stops it: the router's hang drill); `--replica NAME`
+labels the run_start line and /status.json; `--fleet-register URL`
+announces the endpoint to a fleet collector; `--shed-load` wires SLO
+alerts into `ServingEngine.on_alert` (admission pauses while a critical
+burn lasts). With a monitor, a recovered block exhaustion dumps the
+engine's `oom_forensics()` as a memory flight dump. SIGTERM exits
+through the summary line. The root driver's `--platform` is refused
+(`NotPorted`): `--device` replaces it.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -53,7 +67,8 @@ from pathlib import Path
 import numpy as np
 
 from shallowspeed_tpu_torch import NotPorted, chaos, checkpoint, resolve_device
-from shallowspeed_tpu_torch.elastic import FLEET
+from shallowspeed_tpu_torch.elastic import (install_sigterm_exit,
+                                            write_heartbeat)
 from shallowspeed_tpu_torch.metrics import MetricsLogger
 from shallowspeed_tpu_torch.models import transformer as T
 from shallowspeed_tpu_torch.serving.engine import ServingEngine
@@ -64,15 +79,9 @@ from shallowspeed_tpu_torch.telemetry.driver import (add_chaos_flags,
 from shallowspeed_tpu_torch.telemetry.report import request_summary
 from shallowspeed_tpu_torch.weights import map_tree, params_from_numpy
 
-# the root driver's flags this driver does not have yet, and where each
-# comes from
-UNPORTED = {
-    **dict.fromkeys(["--max-queue", "--heartbeat-file", "--replica",
-                     "--fleet-register", "--shed-load"], FLEET),
-    # JAX's backend choice; the port takes --device, and the virtual
-    # multi-device meshes --platform cpu builds come with the engines
-    "--platform": "Queue 1, multi-device LM engines",
-}
+# the root driver's flags this driver does not have, and what takes
+# each one's place
+UNPORTED = {"--platform": "--device replaces it: the engine runs there"}
 
 
 class _Refuse(argparse.Action):
@@ -132,9 +141,22 @@ def parser() -> argparse.ArgumentParser:
                         "their tables (refcounted, copy-on-write at the "
                         "tail) and skip that prefill")
     p.add_argument("--requests", default="-",
-                   help="JSONL request file, or - for stdin")
+                   help="JSONL request file, or - for stdin (ignored "
+                        "under --serve unless set explicitly)")
     p.add_argument("--serve", action="store_true",
-                   help="HTTP replica mode (not ported yet: raises)")
+                   help="replica mode: stay up and take requests over "
+                        "HTTP (POST /submit, GET /requests, POST /drain on "
+                        "the monitor endpoint; --monitor-port defaults to "
+                        "0) until a drain completes: the surface a fleet "
+                        "router drives")
+    p.add_argument("--max-queue", type=int, default=256,
+                   help="with --serve: typed EngineOverloaded rejection "
+                        "past this many queued + running requests")
+    p.add_argument("--heartbeat-file", default=None,
+                   help="liveness + health beat file, written about 5 "
+                        "times a second by the serve loop (a chaos freeze "
+                        "stops it): the router's hang detection reads its "
+                        "mtime")
     p.add_argument("--log-file", default=None,
                    help="metrics JSONL (request/generate events)")
     p.add_argument("--log-every", type=int, default=16,
@@ -151,8 +173,18 @@ def parser() -> argparse.ArgumentParser:
                         "torch.profiler device trace")
     p.add_argument("--profile-hz", type=float, default=None,
                    help="host sampler rate (default 67 Hz)")
-    add_monitor_flags(p.add_argument_group(
-        "live monitoring (telemetry/monitor)"))
+    o = p.add_argument_group("live monitoring (telemetry/monitor)")
+    add_monitor_flags(o)
+    o.add_argument("--replica", default=None,
+                   help="replica label for fleet views: stamped on the "
+                        "run_start line and served from /status.json")
+    o.add_argument("--fleet-register", default=None, metavar="URL",
+                   help="announce this replica's monitor endpoint to a "
+                        "fleet collector (POST URL/register; deregisters "
+                        "after a clean drain)")
+    o.add_argument("--shed-load", action="store_true",
+                   help="wire SLO alerts into ServingEngine.on_alert: "
+                        "pause admission while a critical burn lasts")
     add_chaos_flags(p.add_argument_group("chaos (shallowspeed_tpu_torch."
                                          "chaos)"), supervised=False)
     for flag in UNPORTED:
@@ -206,11 +238,32 @@ def load_ckpt_params(ckpt_dir, cfg: T.TransformerConfig, device):
                              device)
 
 
+def _fleet_call(url: str, path: str, body: dict) -> None:
+    """POST `body` to a fleet collector's `path` (best effort: a failure
+    prints an error line and the server goes on)."""
+    import urllib.request
+
+    try:
+        urllib.request.urlopen(urllib.request.Request(
+            url.rstrip("/") + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"}), timeout=5).read()
+    except Exception as e:
+        print(json.dumps({"event": "error",
+                          "error": f"fleet {path[1:]} failed: "
+                                   f"{type(e).__name__}: {e}"}), flush=True)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.serve:
-        raise NotPorted("--serve (HTTP replica mode)", FLEET)
-
+    if args.serve and args.monitor_port is None:
+        args.monitor_port = 0
+    if args.fleet_register and args.monitor_port is None:
+        raise SystemExit("--fleet-register needs --monitor-port (the fleet "
+                         "polls this replica's endpoint)")
+    # SIGTERM (a supervisor's or a router's kill path) becomes SystemExit,
+    # so the finally block below still prints the summary and closes the
+    # monitor and the log
+    install_sigterm_exit()
     device = resolve_device(args.device)
     cfg = T.TransformerConfig(
         vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
@@ -219,18 +272,24 @@ def main(argv=None) -> int:
         params = load_ckpt_params(args.ckpt, cfg, device)
     else:
         params = T.init(cfg, seed=args.init_seed, device=device)
-    reqs = load_requests(args.requests, cfg.vocab)
+    # replica mode: requests arrive over HTTP, so the default "-" must not
+    # block on the child's empty stdin
+    reqs = ([] if args.serve and args.requests == "-"
+            else load_requests(args.requests, cfg.vocab))
     # serving drills: tick-indexed faults through the training hooks,
     # stamped into this run's log
     setup_chaos(args, log_file=args.log_file)
-    metrics = MetricsLogger(
-        args.log_file, kind="serve", vocab=cfg.vocab, d_model=cfg.d_model,
+    run_info = dict(
+        kind="serve", vocab=cfg.vocab, d_model=cfg.d_model,
         n_layers=cfg.n_layers, n_blocks=args.n_blocks,
         block_size=args.block_size, slots=args.slots,
         prefill_chunk=args.prefill_chunk, attn_impl=args.attn_impl,
         kv_quant=args.kv_quant, weight_quant=args.weight_quant,
         spec_k=args.spec_k, prefix_cache=args.prefix_cache,
         device=str(device))
+    if args.replica:
+        run_info["replica"] = args.replica
+    metrics = MetricsLogger(args.log_file, **run_info)
     try:
         eng = ServingEngine(
             params, cfg, n_blocks=args.n_blocks, block_size=args.block_size,
@@ -248,11 +307,19 @@ def main(argv=None) -> int:
     t0 = time.time()
     i = 0
     reported = 0
+    drained = False
+    gateway = None
+    if args.serve:
+        from shallowspeed_tpu_torch.serving.router import RequestGateway
+
+        gateway = RequestGateway(max_queue=args.max_queue)
     plane = profiler.from_args(args, metrics)
     if plane is not None:
         chaos.add_observer(plane.on_fault)
     try:
-        mon, server = monitor.from_args(args, metrics)
+        # the request gateway shares the monitor's endpoint: one
+        # registered URL serves the fleet's polls and the router's calls
+        mon, server = monitor.from_args(args, metrics, extra=gateway)
     except BaseException:
         if plane is not None:
             plane.close()
@@ -264,24 +331,53 @@ def main(argv=None) -> int:
     if mon is not None and plane is not None:
         mon.profiler = plane
         mon.alert_listeners.append(plane.on_alert)
+    if mon is not None and args.shed_load:
+        mon.alert_listeners.append(eng.on_alert)
+    if mon is not None:
+        # a recovered block exhaustion dumps the engine's forensics (the
+        # listener runs before the engine's own `oom` ledger line)
+        eng.oom_listeners.append(
+            lambda en, exc: mon.memory_flight_dump(
+                en.oom_forensics(exc), step=en.counters["ticks"]))
+    if args.fleet_register:
+        _fleet_call(args.fleet_register, "/register", {
+            "url": server.url("/status.json"),
+            "name": args.replica or f"pid{os.getpid()}"})
+    last_hb = 0.0
     try:
         while True:
             now = time.time() - t0
+            if args.heartbeat_file and time.time() - last_hb > 0.2 \
+                    and not chaos.heartbeat_frozen():
+                # liveness between engine steps; a chaos freeze stops the
+                # beats while the loop goes on serving (the hang drill)
+                try:
+                    write_heartbeat(args.heartbeat_file, "ok")
+                except OSError:
+                    pass
+                last_hb = time.time()
             while i < len(reqs) and reqs[i]["at"] <= now:
                 r = reqs[i]
                 i += 1
                 try:
                     eng.submit(r["prompt"], r["max_new"],
                                temperature=r.get("temperature", 0.0),
-                               seed=r.get("seed", 0), rid=r["id"])
+                               seed=r.get("seed", 0), rid=r["id"],
+                               trace=r.get("trace"))
                 except (KeyError, TypeError, ValueError) as e:
                     # one bad request must not kill the server
                     print(json.dumps({"event": "error", "id": r["id"],
                                       "error": f"{type(e).__name__}: {e}"}))
+            if gateway is not None:
+                gateway.pump(eng)
             if eng.pending():
                 eng.step()
             elif i < len(reqs):
                 time.sleep(min(0.05, max(0.0, reqs[i]["at"] - now)))
+            elif gateway is not None and not gateway.drain_requested:
+                time.sleep(0.02)        # an idle replica awaits HTTP work
+            if gateway is not None:
+                gateway.publish(eng)
             for rec in eng.request_records[reported:]:
                 print(json.dumps({
                     "event": "result", "id": rec["id"],
@@ -289,8 +385,19 @@ def main(argv=None) -> int:
                     "ttft_ms": rec["ttft_ms"],
                     "tpot_ms": rec.get("tpot_ms")}), flush=True)
             reported = len(eng.request_records)
-            if i >= len(reqs) and not eng.pending():
+            if gateway is not None:
+                if gateway.drain_requested and gateway.idle() \
+                        and eng.drain():
+                    drained = True
+                    break
+            elif i >= len(reqs) and not eng.pending():
                 break
+        if drained and args.fleet_register:
+            # a drained replica leaves the fleet (else it would stay there
+            # as unreachable, burning availability)
+            _fleet_call(args.fleet_register, "/deregister", {
+                "url": server.url("/status.json"),
+                "name": args.replica or None})
     finally:
         wall = time.time() - t0
         summary = request_summary(eng.request_records) or {}
@@ -302,9 +409,11 @@ def main(argv=None) -> int:
             "ticks": eng.counters["ticks"],
             "prefill_chunks": eng.counters["prefill_chunks"],
             "preemptions": eng.counters["preempted"],
+            "shed_toggles": eng.counters["shed_toggles"],
             "spec_drafted": eng.counters["spec_drafted"],
             "spec_accepted": eng.counters["spec_accepted"],
             "pending_at_exit": eng.pending(),
+            "drained": drained,
             "blocks_free_at_drain":
                 f"{eng.alloc.n_free}/{eng.alloc.n_usable}",
             "device": str(device),

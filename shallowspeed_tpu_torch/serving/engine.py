@@ -68,9 +68,36 @@ pressure reclaims them. At drain `n_live == 0` and
 Fault drills: every `step()` consults a fault plan (`chaos_plan=`, else
 the process's `chaos.active()`), tick-indexed, under the profiler's
 "data-load" phase tag: a stall sleeps, kill / nan / inf act as on a
-training step (poisoning `self.params`). Lifecycle tracing, the
-scheduler's other phase tags and the memory-owner hooks are absent
-(ROADMAP.md).
+training step (poisoning `self.params`).
+
+Fleet hooks, as the reference's (`serving/router.py` drives them):
+
+- **Continuations.** `submit(generated=)` resumes a stream another
+  engine began: prompt + `generated` re-prefill, sampling goes on at
+  token index `len(generated)`, `max_new` stays the total budget. With
+  the (seed, index) generator above, the continued stream is the one
+  this engine would have drawn alone.
+- **Lifecycle.** Every phase transition (submit, queued, admitted,
+  prefill_cached, prefill per chunk, decoding, preempted, requeued,
+  finished) stamps a `"lifecycle"` line with the trace context the
+  router sends (`trace`, `parent`, `attempt`; this engine mints the
+  `span`) and the ms spent in the previous phase; a live tracer gets
+  each request's phases as spans on its own named track. Finished
+  timelines stay in `timelines` (the newest TIMELINE_CAP).
+- **Load shedding.** `on_alert` (a `Monitor.alert_listeners` hook)
+  pauses admission while any SLO burns critical (`load_shed` ledger
+  lines at each toggle).
+- **Capacity.** `headroom()` is the blocks every accepted request still
+  needs at its max-token budget against what the pool can give; the
+  `"generate"` lines carry it, and the router's placement reads it.
+- **OOM forensics.** Each recovered block exhaustion calls the
+  `oom_listeners` with (engine, exc) before its `oom` ledger line;
+  `oom_forensics()` is the flight-dump payload (`telemetry/memory.py`'s
+  host-side forensics, the allocator, tables and in-flight set).
+
+The scheduler's other phase tags and the memory-owner registration are
+absent: the owner registry is process-wide, and one engine's entries
+would outlive it in every later report of the process.
 """
 
 from __future__ import annotations
@@ -96,7 +123,13 @@ from shallowspeed_tpu_torch.serving.cache import (SCRATCH_BLOCK,
                                                   param_read_bytes,
                                                   write_rows)
 from shallowspeed_tpu_torch.telemetry import profiler
+from shallowspeed_tpu_torch.telemetry.trace import tracer
+from shallowspeed_tpu_torch.telemetry.tracing import new_span_id, new_trace_id
 from shallowspeed_tpu_torch.weights import leaves
+
+# finished-request timelines kept in memory (the newest TIMELINE_CAP);
+# the metrics JSONL carries the whole lifecycle stream
+TIMELINE_CAP = 1024
 
 
 class EngineDraining(RuntimeError):
@@ -235,8 +268,10 @@ class _Req:
     __slots__ = ("rid", "prompt", "max_new", "temp", "seed", "arrival",
                  "generated", "n_preempt", "phase", "slot", "ctx", "table",
                  "written", "admit_seq", "queued_at", "wait_s",
-                 "first_tok_t", "last_tok", "n_drafted", "n_accepted",
-                 "ctx_ids", "spec_idx", "hit_blocks", "skipped_tok", "cow")
+                 "first_tok_t", "last_tok", "timeline", "track", "trace_t0",
+                 "n_drafted", "n_accepted", "ctx_ids", "spec_idx",
+                 "hit_blocks", "skipped_tok", "cow", "trace", "span",
+                 "parent", "attempt")
 
     def __init__(self, rid, prompt, max_new, temp, seed, arrival):
         self.rid = rid
@@ -257,6 +292,16 @@ class _Req:
         self.wait_s = 0.0               # queue time over every stint
         self.first_tok_t = None
         self.last_tok = 0
+        # lifecycle: the phase timeline, and the request's trace track
+        self.timeline: list[dict] = []
+        self.track = None
+        self.trace_t0 = None
+        # trace context: one trace per fleet request, one span per
+        # engine attempt, the parent dispatch span, the attempt count
+        self.trace = None
+        self.span = None
+        self.parent = None
+        self.attempt = 0
         # speculative decoding: tallies, and the n-gram index built at
         # first use (`_spec_state`)
         self.n_drafted = 0
@@ -328,11 +373,21 @@ class ServingEngine:
         self.queue: deque[_Req] = deque()
         self.results: dict[str, np.ndarray] = {}
         self.request_records: list[dict] = []
+        self.timelines: dict[str, list] = {}
         self.counters = {"submitted": 0, "finished": 0, "preempted": 0,
-                         "ticks": 0, "prefill_chunks": 0, "spec_drafted": 0,
-                         "spec_accepted": 0, "prefix_lookups": 0,
-                         "prefix_hits": 0, "prefix_skipped_tokens": 0,
-                         "oom_events": 0}
+                         "ticks": 0, "prefill_chunks": 0, "shed_toggles": 0,
+                         "spec_drafted": 0, "spec_accepted": 0,
+                         "prefix_lookups": 0, "prefix_hits": 0,
+                         "prefix_skipped_tokens": 0, "oom_events": 0}
+        # called with (engine, exc) at each recovered block exhaustion,
+        # before its `oom` ledger line (serve wires the monitor's memory
+        # flight dump here)
+        self.oom_listeners: list = []
+        # load shedding: while paused, `_admit` leaves the queue alone;
+        # `on_alert` pauses while any SLO rule burns critical
+        self.admission_paused = False
+        self._critical_slos: set[str] = set()
+        # drain is one-way: accepted work finishes, new submits raise
         self.draining = False
         self._oom_tick = -1
         self._admit_counter = 0
@@ -347,17 +402,33 @@ class ServingEngine:
     # ------------------------------------------------------ public API
 
     def submit(self, prompt, max_new: int, temperature: float = 0.0,
-               seed: int = 0, rid: str | None = None) -> str:
+               seed: int = 0, rid: str | None = None, generated=(),
+               trace: str | None = None, parent: str | None = None,
+               attempt: int = 0) -> str:
         """Queue one request. Raises ValueError for requests that could
         never run (prompt + max_new past cfg.max_seq, or more blocks
-        than the whole pool) and `EngineDraining` after `drain()`."""
+        than the whole pool) and `EngineDraining` after `drain()`.
+
+        `generated` resumes a stream another engine began: the tokens
+        it emitted re-prefill with the prompt and sampling goes on at
+        token index len(generated), as after an eviction; `max_new`
+        stays the total budget and the result includes the prefix.
+        `trace` / `parent` / `attempt` are the trace context a router
+        sends (one trace per fleet request, the dispatch span, the
+        0-based dispatch count); without one the engine mints a trace.
+        Each attempt gets a fresh span."""
         if self.draining:
             raise EngineDraining(self.pending())
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         tp = prompt.shape[0]
+        generated = [int(t) for t in generated]
         if tp < 1 or max_new < 1:
             raise ValueError(f"empty request: prompt {tp} tokens, "
                              f"max_new={max_new}")
+        if len(generated) >= max_new:
+            raise ValueError(
+                f"continuation already carries {len(generated)} of "
+                f"max_new={max_new} tokens — nothing left to decode")
         if tp + max_new > self.cfg.max_seq:
             raise ValueError(f"prompt {tp} + max_new {max_new} exceeds "
                              f"max_seq={self.cfg.max_seq}")
@@ -373,9 +444,23 @@ class ServingEngine:
         if rid in self.results or any(r.rid == rid
                                       for r in self._all_live()):
             raise ValueError(f"duplicate request id {rid!r}")
-        self.queue.append(_Req(rid, prompt, max_new, temperature, seed,
-                               self.clock()))
+        req = _Req(rid, prompt, max_new, temperature, seed, self.clock())
+        req.trace = trace if isinstance(trace, str) and trace \
+            else new_trace_id()
+        req.span = new_span_id()
+        req.parent = parent if isinstance(parent, str) and parent else None
+        req.attempt = max(0, int(attempt))
+        if generated:
+            # a post-eviction requeue's state: prompt + prefix prefill,
+            # the next sample at token index len(generated)
+            req.generated = generated
+            req.ctx = np.concatenate([prompt,
+                                      np.asarray(generated, np.int32)])
+        self.queue.append(req)
         self.counters["submitted"] += 1
+        extra = {"resumed": len(generated)} if generated else {}
+        self._lifecycle(req, "submit", tokens=int(tp), **extra)
+        self._lifecycle(req, "queued")
         return rid
 
     def poll(self, rid: str) -> dict:
@@ -430,19 +515,120 @@ class ServingEngine:
         self.draining = True
         return self.pending() == 0
 
+    # ------------------------------------------------------- lifecycle
+
+    def _lifecycle(self, req, phase: str, **extra) -> None:
+        """One phase transition on `req`'s timeline: a `"lifecycle"`
+        line (with the ms spent in the previous phase) and, under a live
+        tracer, the previous phase closed as a span on the request's
+        own track. The lines need a metrics sink, the spans a live
+        tracer; the timeline is kept either way."""
+        now = self.clock()
+        prev = req.timeline[-1] if req.timeline else None
+        req.timeline.append({"phase": phase, "wall": now, **extra})
+        if self.metrics is not None:
+            rec = {"id": req.rid, "phase": phase,
+                   "seq": len(req.timeline) - 1,
+                   "tick": self.counters["ticks"],
+                   "trace": req.trace, "span": req.span,
+                   "attempt": req.attempt, **extra}
+            if req.parent is not None:
+                rec["parent"] = req.parent
+            if req.slot is not None:
+                rec["slot"] = req.slot
+            if prev is not None:
+                rec["prev"] = prev["phase"]
+                rec["ms_in_prev"] = round((now - prev["wall"]) * 1e3, 3)
+            self.metrics.log(event="lifecycle", **rec)
+        tr = tracer()
+        if tr.level != "off":
+            if req.track is None:
+                req.track = tr.track(f"request {req.rid}")
+            t1 = tr.now()
+            if prev is not None and req.trace_t0 is not None:
+                tr.complete(prev["phase"], req.trace_t0, t1,
+                            tid=req.track, id=req.rid,
+                            tick=self.counters["ticks"])
+            req.trace_t0 = t1
+
     # ------------------------------------------------------- scheduler
 
     def _all_live(self):
         yield from (s for s in self.slots if s is not None)
         yield from self.queue
 
+    def on_alert(self, alert: dict) -> None:
+        """SLO alert hook (`Monitor.alert_listeners`): pause admission
+        while any rule's critical burn persists, resume when the last
+        one resolves or de-escalates (tracked per rule). Each toggle
+        stamps a `load_shed` ledger line."""
+        slo = str(alert.get("slo"))
+        if (alert.get("state") == "firing"
+                and alert.get("severity") == "critical"):
+            self._critical_slos.add(slo)
+        else:
+            self._critical_slos.discard(slo)
+        want = bool(self._critical_slos)
+        if want == self.admission_paused:
+            return
+        self.admission_paused = want
+        self.counters["shed_toggles"] += 1
+        if self.metrics is not None:
+            self.metrics.log(event="ledger", kind="load_shed",
+                             count=1 if want else 0,
+                             slo=sorted(self._critical_slos)[0]
+                             if want else slo)
+
+    def headroom(self) -> dict:
+        """Admission headroom: the blocks every accepted request (queued
+        and running) still needs at its max-token budget (submit's
+        footprint, tp + max_new - 1 positions) against what the pool can
+        give (free + cold). Negative means the accepted work is
+        overcommitted: evictions are coming unless requests end early."""
+        needed = 0
+        for r in self._all_live():
+            final = blocks_for(r.prompt.shape[0] + r.max_new - 1,
+                               self.block_size)
+            needed += max(0, final - len(r.table))
+        return {"live_blocks": self.alloc.n_live,
+                "blocks_needed": needed,
+                "headroom_blocks": (self.alloc.n_free + self.alloc.n_cold
+                                    - needed)}
+
+    def oom_forensics(self, e: OutOfBlocks | None = None,
+                      top_k: int = 8) -> dict:
+        """The memory flight-dump payload: `telemetry/memory.forensics`
+        (per-owner bytes, the largest live tensors, the allocator's
+        stats, host RSS) with the block allocator's snapshot, the
+        headroom, every running request's table width and the in-flight
+        set. Host-side reads only: nothing is allocated on the card."""
+        from shallowspeed_tpu_torch.telemetry import memory
+
+        out = memory.forensics(top_k)
+        out["allocator"] = self.alloc.snapshot()
+        out["headroom"] = self.headroom()
+        out["block_tables"] = {r.rid: len(r.table)
+                               for r in self.slots if r is not None}
+        out["in_flight"] = [r.rid for r in self._all_live()]
+        if e is not None:
+            out["oom"] = {"requested": e.requested, "free": e.n_free,
+                          "cold": e.n_cold, "live": e.n_live, "rid": e.rid}
+        return out
+
     def _note_oom(self, e: OutOfBlocks) -> None:
-        """Count one recovered block exhaustion, at most once per tick."""
+        """Count one recovered block exhaustion, at most once per tick:
+        the listeners first (their forensic payload wins the flight
+        recorder's dedup over the bare ledger line), then the ledger."""
         tick = self.counters["ticks"]
         if tick == self._oom_tick:
             return
         self._oom_tick = tick
         self.counters["oom_events"] += 1
+        for fn in list(self.oom_listeners):
+            try:
+                fn(self, e)
+            except Exception:
+                pass     # a broken listener must not stop the scheduler
         if self.metrics is not None:
             extra = {"id": str(e.rid)} if e.rid is not None else {}
             self.metrics.log(event="ledger", kind="oom", tick=tick,
@@ -451,6 +637,10 @@ class ServingEngine:
 
     def _admit(self) -> bool:
         did = False
+        if self.admission_paused and any(s is not None for s in self.slots):
+            # shed: let the running requests drain, admit nothing new
+            # (with every slot empty a pause would only stall the queue)
+            return False
         while self.queue and None in self.slots:
             req = self.queue[0]
             need = blocks_for(len(req.ctx), self.block_size)
@@ -498,12 +688,15 @@ class ServingEngine:
             self._admit_counter += 1
             req.wait_s += self.clock() - req.queued_at
             self.slots[slot] = req
+            self._lifecycle(req, "admitted", slot=slot)
             if m > 0:
                 req.hit_blocks += m
                 req.skipped_tok += req.written
                 self.counters["prefix_hits"] += 1
                 self.counters["prefix_skipped_tokens"] += req.written
                 self._win_prefix_hits += 1
+                self._lifecycle(req, "prefill_cached", blocks=m,
+                                tokens=int(req.written))
             did = True
         return did
 
@@ -517,6 +710,9 @@ class ServingEngine:
             return False
         req = min(pre, key=lambda r: r.admit_seq)     # FIFO
         n_tok = min(self.prefill_chunk, len(req.ctx) - req.written)
+        self._lifecycle(req, "prefill",
+                        chunk=req.written // self.prefill_chunk,
+                        tokens=int(n_tok))
         tokens = np.ascontiguousarray(
             req.ctx[req.written:req.written + n_tok], np.int32)
         w = table_width(len(req.table), self.table_bucket)
@@ -537,6 +733,7 @@ class ServingEngine:
             tok = G.sample_rows(logits[None], [req.temp], [req.seed],
                               [len(req.generated)], self.top_k, self.top_p)
             req.phase = "decode"
+            self._lifecycle(req, "decoding")
             self._append_token(req, int(tok[0]))
         return True
 
@@ -727,6 +924,7 @@ class ServingEngine:
         req.ctx = (np.concatenate([req.prompt,
                                    np.asarray(req.generated, np.int32)])
                    if req.generated else req.prompt)
+        self._lifecycle(req, "preempted", tokens=len(req.generated))
         self.slots[req.slot] = None
         req.slot = None
         req.phase = "queued"
@@ -734,6 +932,7 @@ class ServingEngine:
         req.n_preempt += 1
         self.counters["preempted"] += 1
         self.queue.appendleft(req)
+        self._lifecycle(req, "requeued")
 
     def _append_token(self, req, tok: int) -> None:
         req.generated.append(tok)
@@ -759,6 +958,10 @@ class ServingEngine:
             req.cow = None
         self.alloc.release(req.table)
         req.table = []
+        self._lifecycle(req, "finished", tokens=len(req.generated))
+        self.timelines[req.rid] = req.timeline
+        while len(self.timelines) > TIMELINE_CAP:
+            self.timelines.pop(next(iter(self.timelines)))
         self.slots[req.slot] = None
         self.results[req.rid] = np.asarray(req.generated, np.int32)
         self.counters["finished"] += 1
@@ -772,6 +975,7 @@ class ServingEngine:
             "wait_ms": round(req.wait_s * 1e3, 3),
             "queue_depth": len(self.queue),
             "preempted": req.n_preempt,
+            "trace": req.trace, "span": req.span, "attempt": req.attempt,
         }
         if len(req.generated) > 1:
             rec["tpot_ms"] = round(
@@ -809,6 +1013,7 @@ class ServingEngine:
                 if self._win_prefix_lookups else 0.0,
                 cold_blocks=self.alloc.n_cold,
                 prefix_blocks=len(self.prefix))
+        hr = self.headroom()
         self.metrics.log(
             event="generate",
             tokens_per_sec=round(self._win_tokens / dt, 2),
@@ -817,7 +1022,9 @@ class ServingEngine:
             free_blocks=self.alloc.n_free,
             blocks_touched=self._last_touched,
             bytes_per_tick=int(bpt),
-            hbm_gbps=round(self.log_every / dt * bpt / 1e9, 4), **extra)
+            hbm_gbps=round(self.log_every / dt * bpt / 1e9, 4),
+            live_blocks=hr["live_blocks"], blocks_needed=hr["blocks_needed"],
+            headroom_blocks=hr["headroom_blocks"], **extra)
         self._win_tokens = 0
         self._win_drafted = 0
         self._win_accepted = 0

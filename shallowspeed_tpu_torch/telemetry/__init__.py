@@ -30,15 +30,15 @@
 - `attribution`  the roofline waterfall: `roofline_of_step` (a dispatch
                  mode over one real step, plus the hand-written
                  kernels' self-reports) against the card's peaks.
+- `fleet`        N replicas in one view: `FleetCollector` (merged
+                 sketches, fleet SLOs, straggler scoring, replica
+                 registration), `format_fleet_status`, `fleet_main`.
 - `python -m shallowspeed_tpu_torch.telemetry --validate / --stitch /
-                 --profile / --regress / --goodput / --live`.
+                 --profile / --regress / --goodput / --live / --fleet`.
 
 Levels: `off` (no-ops — no fences, no buffers), `steps` (host
 timestamps only; dispatch stays asynchronous), `spans` (device fences
 at span exits: attributable time, serialized dispatch).
-
-The reference's fleet plane is not ported yet: its names raise
-`NotPorted` with the ROADMAP item that brings it.
 """
 
 from shallowspeed_tpu_torch.telemetry.trace import (  # noqa: F401
@@ -78,21 +78,14 @@ _LAZY = {
     "FlightRecorder": "monitor", "SloRule": "monitor",
     "parse_slos": "monitor", "FileTailer": "monitor",
     "PortInUseError": "monitor", "prom_escape": "monitor",
+    "FleetCollector": "fleet", "Replica": "fleet",
+    "format_fleet_status": "fleet", "fleet_main": "fleet",
 }
-
-# the reference's names whose modules are not ported yet, and the
-# ROADMAP item that brings each
-_LATER = dict.fromkeys(["FleetCollector", "Replica", "format_fleet_status"],
-                       "Queue 1 item 7")
 
 
 def __getattr__(name):
     mod = _LAZY.get(name)
     if mod is None:
-        if name in _LATER:
-            from shallowspeed_tpu_torch import NotPorted
-
-            raise NotPorted(f"telemetry.{name}", _LATER[name])
         raise AttributeError(name)
     import importlib
 

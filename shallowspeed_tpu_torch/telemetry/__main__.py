@@ -13,6 +13,10 @@ run's goodput ledger, watch a run live.
     python -m shallowspeed_tpu_torch.telemetry --goodput run/metrics.jsonl
     python -m shallowspeed_tpu_torch.telemetry --live run/metrics.jsonl \
         [--slo 'step_p95_ms<500'] [--once]
+    python -m shallowspeed_tpu_torch.telemetry --fleet \
+        http://127.0.0.1:9100 http://127.0.0.1:9101 [--port 9200]
+    python -m shallowspeed_tpu_torch.telemetry --fleet r0.jsonl r1.jsonl \
+        --once
 
 --validate checks metrics and span lines against the schema (the
 reference's, `schema.SCHEMA_VERSION`); --regress is the reference's
@@ -23,9 +27,11 @@ sampler's "profile" events to a flamegraph JSON; --goodput prints the
 run-level wall-clock decomposition (goodput and named losses) of one
 metrics JSONL, of either package (extra files: replica logs joined by
 trace id); --live tails a growing metrics JSONL and renders the view
-the /status.json endpoint serves (--once: render once and exit). The
-reference's --fleet needs a module not ported yet and raises
-`NotPorted` (ROADMAP Queue 1 item 7).
+the /status.json endpoint serves (--once: render once and exit);
+--fleet aggregates N replicas (status URLs and/or metrics JSONL files)
+into one fleet view — merged quantiles, per-replica breakdown, fleet
+SLO burn, straggler detection — optionally served again on --port as
+the fleet's own /status.json + /metrics (telemetry/fleet.py).
 """
 
 from __future__ import annotations
@@ -33,17 +39,6 @@ from __future__ import annotations
 import argparse
 import sys
 from pathlib import Path
-
-from shallowspeed_tpu_torch import NotPorted
-
-# the reference's flags whose modules are not ported yet
-UNPORTED = {"--fleet": "Queue 1 item 7"}
-
-
-class _Refuse(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        raise NotPorted(f"telemetry {option_string}",
-                        UNPORTED[option_string])
 
 
 def main(argv=None) -> int:
@@ -79,18 +74,29 @@ def main(argv=None) -> int:
                    help="tail a growing metrics JSONL and render the "
                         "live status view (the /status.json surface "
                         "for endpoint-less runs); Ctrl-C exits")
-    for flag in UNPORTED:
-        g.add_argument(flag, nargs="*", action=_Refuse,
-                       help=argparse.SUPPRESS)
+    g.add_argument("--fleet", nargs="+", metavar="TARGET",
+                   help="aggregate N replicas into one fleet view: "
+                        "http(s) targets are polled /status.json + "
+                        "/sketches.json endpoints, anything else is a "
+                        "metrics JSONL to tail (telemetry/fleet.py) — "
+                        "merged quantiles, per-replica breakdown, "
+                        "fleet SLO burn, straggler detection")
     p.add_argument("--once", action="store_true",
-                   help="with --live: render the current state once and "
-                        "exit instead of following")
+                   help="with --live/--fleet: render the current state "
+                        "once and exit instead of following")
     p.add_argument("--slo", default="",
-                   help="with --live: evaluate these SLOs over the "
-                        "stream (telemetry/monitor DSL, e.g. "
-                        "'ttft_p95_ms<500,availability>0.99')")
+                   help="with --live/--fleet: evaluate these SLOs over "
+                        "the (merged) stream (telemetry/monitor DSL, "
+                        "e.g. 'ttft_p95_ms<500,availability>0.99')")
     p.add_argument("--interval", type=float, default=2.0,
-                   help="with --live: seconds between renders")
+                   help="with --live/--fleet: seconds between renders")
+    p.add_argument("--port", type=int, default=None,
+                   help="with --fleet: also serve the fleet's own "
+                        "/status.json + /metrics (replica-labelled) "
+                        "here (0 = free port)")
+    p.add_argument("--log-file", default=None,
+                   help="with --fleet: append straggler/alert events "
+                        "to this JSONL")
     p.add_argument("--out", default=None, metavar="PATH",
                    help="with --trace-stitch: where the Chrome trace "
                         "JSON lands (default: stitched_trace.json "
@@ -98,6 +104,13 @@ def main(argv=None) -> int:
                         "where the flamegraph JSON lands (omitted = "
                         "summary only)")
     args = p.parse_args(argv)
+
+    if args.fleet:
+        from shallowspeed_tpu_torch.telemetry.fleet import fleet_main
+
+        return fleet_main(args.fleet, slos=args.slo, once=args.once,
+                          interval=args.interval, port=args.port,
+                          log_file=args.log_file)
 
     if args.live:
         from shallowspeed_tpu_torch.telemetry.monitor import live_main

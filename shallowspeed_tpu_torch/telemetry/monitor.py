@@ -4,9 +4,9 @@ A copy of `shallowspeed_tpu/telemetry/monitor.py` (pure stdlib plus
 `sketch`; the port keeps its own copy rather than import the JAX
 package). The server thread and the tailer read host dicts only:
 nothing on them touches a CUDA tensor or the tracer's fences. The
-port's `serve` passes no `extra` target (the fleet's request gateway,
-ROADMAP Queue 1 item 7), and `ServingEngine.on_alert` load shedding
-stays refused there with `--shed-load`.
+port's `serve --serve` grafts its request gateway on the endpoint as
+the `extra` target, and `serve --shed-load` wires the alerts into
+`ServingEngine.on_alert`.
 
 Everything before this module reduced a FINISHED metrics JSONL
 (`--goodput`, `report.request_summary`); an operator watching a

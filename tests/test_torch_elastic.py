@@ -14,7 +14,8 @@ pure, and against tiny Python children where it supervises:
   CLI's refusals;
 - `GangSupervisor` with stub members: the three variables injected on a
   fresh port, a member's failure or hang restarts the whole gang, its
-  heartbeat files removed, `--monitor-port` refused (`NotPorted`).
+  heartbeat files removed; `--monitor-port` gives each member its own
+  metrics file and serves one fleet collector over them.
 
 The training gang drill is `test_torch_elastic_gang.py`; the LM canary
 `test_torch_chaos_drill.py`.
@@ -25,12 +26,12 @@ import subprocess
 import sys
 import textwrap
 import time
+import urllib.request
 from pathlib import Path
 
 import pytest
 
 from shallowspeed_tpu import elastic as JE
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch import checkpoint as C
 from shallowspeed_tpu_torch import elastic as E
 from shallowspeed_tpu_torch.elastic import (GangSupervisor, RestartPolicy,
@@ -351,6 +352,11 @@ def test_gang_member_failure_restarts_the_whole_gang(tmp_path):
         (root / f"addr_{pid}_{runs.read_text()}").write_text(
             os.environ["JAX_COORDINATOR_ADDRESS"])
         if pid == 1 and not (root / "crashed").exists():
+            # crash while member 0 runs: wait (at most 10 s) for its
+            # first line, which a loaded host may start after this one
+            t0 = time.time()
+            while not (root / "runs_0").exists() and time.time() - t0 < 10:
+                time.sleep(0.01)
             (root / "crashed").write_text("x")
             sys.exit(3)
         time.sleep(0.5)
@@ -393,8 +399,57 @@ def test_gang_hang_restarts_and_cleans_up(tmp_path):
         GangSupervisor(cmd + ["--heartbeat-file", "x"], 2, hang_timeout=1.0)
 
 
-def test_gang_monitor_port_is_not_ported():
-    with pytest.raises(NotPorted, match="item 7"):
-        GangSupervisor(["true"], 2, monitor_port=0)
-    with pytest.raises(NotPorted):
-        E.main(["--procs", "2", "--monitor-port", "0", "--", "true"])
+# each member appends request lines to the --log-file it was given
+_MEMBER = textwrap.dedent("""
+    import json, os, sys
+    path = sys.argv[sys.argv.index("--log-file") + 1]
+    i = int(os.environ["JAX_PROCESS_ID"])
+    with open(path, "a") as f:
+        f.write(json.dumps({"event": "run_start", "wall": 1.0}) + "\\n")
+        for k in range(4):
+            f.write(json.dumps({"event": "request", "id": f"m{i}-{k}",
+                                "ttft_ms": 10.0 + 5 * i, "tokens_in": 1,
+                                "tokens_out": 1, "wall": 2.0 + k}) + "\\n")
+""")
+
+
+@pytest.mark.parametrize("how", ["constructor", "cli"])
+def test_gang_monitor_port_serves_a_fleet_view(tmp_path, how):
+    """`--procs N --monitor-port`: each member gets its own metrics file
+    (`<log-file>.r<i>`, the reference's `_set_argv_log_file` rewrite),
+    member 0's file holds the supervisor's stamps, and one fleet
+    collector over the files serves the gang's merged view."""
+    for argv, path in ((["x", "--log-file", "a.jsonl"], "b"),
+                       (["x", "--log-file=a.jsonl"], "b"), (["x"], "b")):
+        assert E._set_argv_log_file(argv, path) == \
+            JE._set_argv_log_file(argv, path)
+    base = str(tmp_path / "gang.jsonl")
+    cmd = [sys.executable, "-c", _MEMBER, "--log-file", base]
+    if how == "cli":
+        assert E.main(["--procs", "2", "--monitor-port", "0", "--backoff",
+                       "0.01", "--", *cmd]) == 0
+    else:
+        sup = GangSupervisor(cmd, 2, RestartPolicy(max_restarts=1),
+                             monitor_port=0, slo="ttft_p95_ms<100",
+                             poll_interval=0.05, **QUIET)
+        assert sup.member_log_files == [f"{base}.r{i}" for i in range(2)]
+        assert sup.ledger_file == f"{base}.r0"
+        assert sup.run() == 0
+        fc, srv, tailer = sup._start_monitor()
+        try:
+            assert tailer is fc
+            st = fc.refresh()
+            assert set(st["replicas"]) == {"r0", "r1"}
+            assert st["fleet"]["sketches"]["ttft_ms"]["count"] == 8
+            assert st["replicas"]["r1"]["quantiles"]["ttft_ms"]["p50"] \
+                == pytest.approx(15.0, rel=0.01)
+            status = json.loads(urllib.request.urlopen(
+                srv.url("/status.json"), timeout=10).read())
+            assert status["fleet"]["replicas"] == 2
+        finally:
+            fc.stop()
+            srv.close()
+        assert GangSupervisor(["prog"], 2, monitor_port=0,
+                              **QUIET)._start_monitor() == (None,) * 3
+    assert [len(Path(f"{base}.r{i}").read_text().splitlines())
+            for i in range(2)] == [5, 5]

@@ -1,8 +1,10 @@
 """The port's serve driver against the root `serve.py`'s command line:
-every root flag the port lacks is refused with `NotPorted` naming its
-ROADMAP queue, no root flag is missing from both, and the chaos flags
-act (a plan's draw held against the JAX package's `chaos`). The root
-driver is read as text; nothing of it is imported."""
+every root flag the port lacks is refused with `NotPorted` naming what
+replaces it, no root flag is missing from both, the chaos flags act (a
+plan's draw held against the JAX package's `chaos`) and so do the fleet
+flags (the replica label, the heartbeat, the queue bound, fleet
+registration, load shedding). The root driver is read as text; nothing
+of it is imported."""
 
 import json
 import re
@@ -19,25 +21,25 @@ ROOT = Path(__file__).resolve().parent.parent
 @pytest.mark.parametrize("flag", sorted(sdriver.UNPORTED))
 def test_driver_refuses_root_flags_it_lacks(flag):
     """Each flag of the `UNPORTED` table raises `NotPorted` naming the
-    flag and its queue, with or without a value (`--shed-load` takes
-    none)."""
+    flag and what replaces it (`--platform`: `--device`), with or
+    without a value."""
     for argv in ([flag, "1"], [flag]):
         with pytest.raises(NotPorted, match=re.escape(flag)) as err:
             sdriver.parse_args(["--device", "cpu", *argv])
         assert err.value.later == sdriver.UNPORTED[flag]
-        assert err.value.later.startswith("Queue 1")
+        assert err.value.later.startswith("--device replaces it")
 
 
-def _serve(tmp_path, *extra) -> list:
-    """Two greedy requests through a tiny CPU `serve` with `extra`
-    flags, no fault plan before or after it in this process; the log's
-    records."""
+def _serve(tmp_path, *extra, reqs=None) -> list:
+    """Two greedy requests (or `reqs`) through a tiny CPU `serve` with
+    `extra` flags, no fault plan before or after it in this process;
+    the log's records."""
     from shallowspeed_tpu_torch import chaos
 
+    lines = reqs or [{"id": "a", "prompt": [5, 6, 7], "max_new": 4},
+                     {"id": "b", "prompt_len": 20, "max_new": 4}]
     reqs = tmp_path / "r.jsonl"
-    reqs.write_text("\n".join(json.dumps(r) for r in [
-        {"id": "a", "prompt": [5, 6, 7], "max_new": 4},
-        {"id": "b", "prompt_len": 20, "max_new": 4}]) + "\n")
+    reqs.write_text("\n".join(json.dumps(r) for r in lines) + "\n")
     log = tmp_path / "m.jsonl"
     chaos.configure(None)
     try:
@@ -97,6 +99,106 @@ def test_chaos_flag_acts(tmp_path, flag):
     fault plane came does what the root driver's does."""
     assert flag not in sdriver.UNPORTED
     CHAOS_ACTS[flag](tmp_path)
+
+
+def _act_replica(tmp_path):
+    """The label on the log's run_start line."""
+    start = _serve(tmp_path, "--replica", "west-3")[0]
+    assert (start["event"], start["replica"]) == ("run_start", "west-3")
+
+
+def _act_heartbeat_file(tmp_path):
+    hb = tmp_path / "hb"
+    _serve(tmp_path, "--heartbeat-file", str(hb))
+    assert hb.read_text() == "ok"
+
+
+def _replica_thread(tmp_path, *extra):
+    """`serve --serve` on a thread, registered at a collector of the
+    test's; returns (collector, server, thread, the replica's URL)."""
+    import threading
+    import time
+
+    from shallowspeed_tpu_torch.telemetry.fleet import FleetCollector
+    from shallowspeed_tpu_torch.telemetry.monitor import StatusServer
+
+    fc = FleetCollector()
+    srv = StatusServer(fc, port=0)
+    argv = ["--device", "cpu", "--d-model", "16", "--n-heads", "2",
+            "--n-layers", "1", "--max-seq", "64", "--serve",
+            "--fleet-register", f"http://{srv.host}:{srv.port}",
+            "--log-file", str(tmp_path / "rep.jsonl"), *extra]
+    th = threading.Thread(target=sdriver.main, args=(argv,), daemon=True)
+    th.start()
+    t0 = time.monotonic()
+    while not fc.replicas and time.monotonic() - t0 < 30:
+        time.sleep(0.02)
+    assert fc.replicas
+    return fc, srv, th, fc.replicas[0].url
+
+
+def _call(url, body=None):
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=10) as r:
+        return json.loads(r.read())
+
+
+def _act_fleet_register(tmp_path):
+    """Registered under the pid label, deregistered by a clean drain."""
+    fc, srv, th, url = _replica_thread(tmp_path)
+    try:
+        assert fc.replicas[0].name.startswith("pid")
+        assert _call(url + "/drain", {})["draining"]
+        th.join(30)
+        assert not th.is_alive() and not fc.replicas
+    finally:
+        srv.close()
+
+
+def _act_max_queue(tmp_path):
+    """`--max-queue 0`: every submission is refused typed."""
+    fc, srv, th, url = _replica_thread(tmp_path, "--max-queue", "0")
+    try:
+        assert _call(url + "/submit", {"id": "a", "prompt": [1, 2],
+                                       "max_new": 2}) == {
+            "ok": False, "error": "EngineOverloaded", "retry_after": 0.5}
+        _call(url + "/drain", {})
+        th.join(30)
+    finally:
+        srv.close()
+
+
+def _act_shed_load(tmp_path):
+    """An SLO no request can meet burns critical after five requests:
+    with `--shed-load` the engine pauses admission (a `load_shed`
+    ledger line), without it the alert stays telemetry."""
+    reqs = [{"id": f"r{i}", "prompt_len": 8, "prompt_seed": i,
+             "max_new": 3, "at": 0.0} for i in range(9)]
+    for shed in (True, False):
+        log = _serve(tmp_path, "--slo", "ttft_p95_ms<0.0001", "--slots",
+                     "1", *(["--shed-load"] if shed else []), reqs=reqs)
+        sheds = [r for r in log if r.get("kind") == "load_shed"]
+        assert any(r["event"] == "alert" for r in log)
+        assert bool(sheds) == shed and (not shed or sheds[0]["count"] == 1)
+        (tmp_path / "m.jsonl").unlink()
+
+
+FLEET_ACTS = {"--replica": _act_replica,
+              "--heartbeat-file": _act_heartbeat_file,
+              "--fleet-register": _act_fleet_register,
+              "--max-queue": _act_max_queue, "--shed-load": _act_shed_load}
+
+
+@pytest.mark.parametrize("flag", sorted(FLEET_ACTS))
+def test_fleet_flag_acts(tmp_path, flag):
+    """Each fleet flag the driver refused with `NotPorted` until the
+    serving fleet came does what the root driver's does."""
+    assert flag not in sdriver.UNPORTED
+    FLEET_ACTS[flag](tmp_path)
 
 
 def test_driver_covers_every_root_flag():

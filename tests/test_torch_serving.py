@@ -243,15 +243,16 @@ def test_driver_results_match_reference_engine(tmp_path, monkeypatch):
 
 
 def test_driver_refuses_unported_flags(tmp_path):
-    """--serve is not ported yet; --ckpt is: it loads a verified
-    checkpoint whose parameters match the model flags, and refuses a
-    missing, corrupt or mismatched one."""
+    """--platform is refused (`--device` replaces it); --ckpt loads a
+    verified checkpoint whose parameters match the model flags, and
+    refuses a missing, corrupt or mismatched one."""
     from shallowspeed_tpu_torch import checkpoint, serve
 
     empty = tmp_path / "none.jsonl"
     empty.write_text("")
-    with pytest.raises(NotPorted):
-        serve.main(["--device", "cpu", "--requests", str(empty), "--serve"])
+    with pytest.raises(NotPorted, match="--device"):
+        serve.main(["--device", "cpu", "--requests", str(empty),
+                    "--platform", "cpu"])
     with pytest.raises(checkpoint.CheckpointError):
         serve.main(["--device", "cpu", "--requests", str(empty), "--ckpt",
                     str(tmp_path / "somewhere")])

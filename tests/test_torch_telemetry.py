@@ -11,7 +11,6 @@ the package's lazy names. The reference's walker-importing modules
 oracle."""
 
 import json
-import re
 import threading
 from pathlib import Path
 
@@ -24,7 +23,6 @@ from shallowspeed_tpu.telemetry import profiler as JP
 from shallowspeed_tpu.telemetry import regress as JR
 from shallowspeed_tpu.telemetry import schema as JS
 from shallowspeed_tpu.telemetry import sketch as JK
-from shallowspeed_tpu_torch import NotPorted
 from shallowspeed_tpu_torch import telemetry as PT
 from shallowspeed_tpu_torch.telemetry import __main__ as cli
 from shallowspeed_tpu_torch.telemetry import collectives as C
@@ -567,18 +565,23 @@ def test_cli_validate_and_refusals(tmp_path, capsys):
     assert cli.main(["--validate", str(tmp_path / "missing.jsonl")]) == 1
     assert cli.main(["--regress", *map(str, _bench(tmp_path, [1.0, 1.0]))]
                     ) == 0
-    for flag, item in cli.UNPORTED.items():
-        with pytest.raises(NotPorted, match=re.escape(item)):
-            cli.main([flag, str(good)])
+    # --fleet over a metrics file: one refresh, the status table printed
+    assert cli.main(["--fleet", str(good), "--once"]) == 0
+    out = capsys.readouterr().out
+    assert "fleet: 1/1 replicas alive" in out and "[good] up" in out
+    assert cli.main(["--fleet", str(tmp_path / "missing.jsonl"),
+                     "--once"]) == 1
 
 
 def test_lazy_names_resolve_or_name_their_item():
     for name, mod in PT._LAZY.items():
         assert getattr(PT, name) is getattr(__import__(
             f"shallowspeed_tpu_torch.telemetry.{mod}", fromlist=["x"]), name)
-    for name, item in PT._LATER.items():
-        with pytest.raises(NotPorted, match=re.escape(item)):
-            getattr(PT, name)
+    from shallowspeed_tpu_torch.telemetry import fleet
+
+    for name in ("FleetCollector", "Replica", "format_fleet_status",
+                 "fleet_main"):
+        assert getattr(PT, name) is getattr(fleet, name)
     with pytest.raises(AttributeError):
         PT.no_such_name
     assert PT.tracer() is TR.tracer()

@@ -192,15 +192,52 @@ def test_serve_host_profile(tmp_path, capsys):
 @pytest.mark.parametrize("module,flag,item", [
     (tdriver, "--platform", "--device"), (tdriver, "--host-devices",
                                            "--device"),
-    (mdriver, "--platform", "--device"), (sdriver, "--heartbeat-file",
-                                          "item 7"),
-    (sdriver, "--replica", "item 7"), (sdriver, "--max-queue", "item 7"),
-    (sdriver, "--shed-load", "item 7")],
+    (mdriver, "--platform", "--device"), (sdriver, "--platform",
+                                          "--device")],
     ids=lambda x: x if isinstance(x, str) else x.__name__.split(".")[-1])
 def test_still_refused_flags_name_their_item(module, flag, item):
     parse = getattr(module, "parse_args")
     with pytest.raises(NotPorted, match=re.escape(item)):
         parse(["--device", "cpu", flag, "1"])
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("--heartbeat-file", "hb"), ("--replica", "r7"), ("--max-queue", "2"),
+    ("--shed-load", None), ("--fleet-register", "http://127.0.0.1:9")],
+    ids=lambda x: x if isinstance(x, str) else "")
+def test_serve_fleet_flags_parse_and_wire(flag, value, tmp_path):
+    """The serve driver's fleet flags, refused until the fleet was
+    ported, parse and reach what they drive: the replica label names
+    the monitor's status, `--max-queue` sizes the request gateway's
+    backlog, `--fleet-register` needs a monitor port only outside
+    `--serve`."""
+    from shallowspeed_tpu_torch.metrics import MetricsLogger
+    from shallowspeed_tpu_torch.serving.router import RequestGateway
+    from shallowspeed_tpu_torch.telemetry import monitor as MON
+
+    argv = ["--device", "cpu", "--serve", flag] + (
+        [] if value is None else [value])
+    args = sdriver.parse_args(argv)
+    dest = flag[2:].replace("-", "_")
+    assert getattr(args, dest) == (True if value is None else
+                                   int(value) if flag == "--max-queue"
+                                   else value)
+    if flag == "--replica":
+        args.monitor_port = 0
+        mon, srv = MON.from_args(args, MetricsLogger(None))
+        try:
+            assert mon.status()["replica"] == "r7"
+        finally:
+            MON.close_monitor(mon, srv)
+    if flag == "--max-queue":
+        gw = RequestGateway(max_queue=args.max_queue)
+        assert [gw.submit_request({"id": i, "prompt": [1], "max_new": 1}
+                                  )["ok"] for i in range(3)] == [
+            True, True, False]
+    if flag == "--fleet-register":
+        with pytest.raises(SystemExit, match="needs --monitor-port"):
+            sdriver.main(["--device", "cpu", "--requests",
+                          str(tmp_path / "none.jsonl"), flag, value])
 
 
 @pytest.mark.parametrize("module,flag,value", [
