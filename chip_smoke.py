@@ -260,7 +260,10 @@ Phases (any failure exits non-zero and prints no result line):
    (K1, K2, K3 each `pp_launches_per_step`: n_layers x n_mu x dp x tp,
    K1 twice that under 1f1b; none in (f)), finite losses, step p50,
    tok/s, MFU, peak memory, the bytes of the fullest cell (`pp layout`
-   lines) and one profiled step of (b) (`pp profile`). Then `train_lm`
+   lines) and one profiled step of (b) (`pp profile`); (c)'s first-step
+   gradient is printed leaf by leaf against the one-device engine's and
+   (a)'s, with each leaf family's worst (`pp c-pp4-zb-flash zb
+   leaves:`, ZB_LEAVES; a finding, not a gate). Then `train_lm`
    at 2 layers: `--pp 2 --pp-schedule zb --attn flash` with a save,
    resumed at `--dp 2 --pp 2 --tp 2 --pp-schedule 1f1b` within
    PARITY_LOSS_BUDGET of a straight run (`pp driver:`; phase 15's
@@ -514,6 +517,35 @@ Phases (any failure exits non-zero and prints no result line):
    fleet-edge ttft p50 / p95 (`fleet (b):`). The router's session is
    stopped on the way out (SIGTERM, then SIGKILL).
 
+26. The asynchronous step, `train_run` and the ported scripts, right
+   after phase 6. (a) ASYNC_STEPS (8) steps at phase 6's configuration
+   (16 layers, flash, AdamW 3e-4, its batch and weights) four times
+   from the same weights, sync, async, async, sync (ASYNC_ORDER): sync
+   is `train_batch` every step, async `train_batch_async` read at steps
+   ASYNC_READS (0, 4, 7) only; every run's losses and final parameters
+   (`torch.equal` a leaf, and a checksum hash) the first run's bit for
+   bit, K1-K3 16 launches a step in the first async run; each run's
+   step p50 from CUDA events after every step, each side's pooled p50
+   over its runs' steps 1-7 (step 0 grows the allocator), and its
+   host-idle share (1 - a profiled step's busy device ms x the steps /
+   their span on the card's clock). The same at pp 4
+   1f1b at ASYNC_PP_LAYERS (phase 14's 4 layers, 4 microbatches; K1 32,
+   K2 and K3 16 a step) (`async (a) ...:` lines). (b) `train_run` over
+   RUN_STEPS (4) steps of a fresh phase 6 engine: the losses and
+   parameters those of (a)'s first 4 `train_batch` calls bit for bit;
+   then 4 more steps timed, tok/s and MFU (`async (b) train_run:`).
+   (c) every ported script in this process at a reduced size, each
+   with its seconds (`clock: phase 26 (c) ...`): `bench_mfu --steps
+   4`; `bench_attention --seqs 2048 --reps 2`, its inputs' K1, K2 and K3
+   also held against their plain versions under phase 2's rule;
+   `bench_decode`'s `run_config` at C_DECODE (a 2048-token prompt, so
+   the prefill runs K1, which must launch) and `run_pp_config(2)` at
+   max_seq 128 (C_DECODE_PP);
+   `bench_pipeline --steps 2`; `bench_layout --steps 4 --rounds 2`;
+   `plot_schedule --pp 4 --n-mu 8`; `DDP_PyTorch_MNIST --epochs 1`
+   (it asserts the replicas identical) on a synthetic set in a
+   temporary directory.
+
 The driver runs of phases 12d, 13c, 14g, 15f, 16e and 17d are
 `train_lm` runs whose time goes mostly to checkpoint I/O and process
 start on the host (npz write, SHA-256, load). They run in DRIVER_LANES
@@ -534,8 +566,9 @@ overlapped runs, (a) and (b), `mp_launches` [process 0, process 1]
 from phase 17's (a), (b), (e), (f), (j), (k) (overlap on) and (m),
 `tele_launches` from phase 18 (a)'s
 `spans` run, `mon_launches` from phase 19's (a) monitored runs and
-(d), `drill_launches` [first child, restart] from phase 20 (a), and
-K4's `fleet_launches` [f32, bf16] from phase 21 (a)), and
+(d), `drill_launches` [first child, restart] from phase 20 (a), K4's
+`fleet_launches` [f32, bf16] from phase 21 (a), and K1-K3's
+`p26_launches` from phase 26 (a)'s asynchronous run), and
 `{"ok": true, "device": {...}}`.
 """
 
@@ -1756,6 +1789,9 @@ def time_kernels(dev, stats) -> dict:
     return out
 
 
+PROFILE_TRIES = 3
+
+
 def _decode_sweep(dev) -> list:
     """Phase 5: K4's device time a call against the live length, every
     row (but the scratch row) at one position over a 128-column table,
@@ -1782,12 +1818,18 @@ def _decode_sweep(dev) -> list:
                                    **SLICE) for _ in range(8)]
             for q, pool, bt, p, w in sets[:2]:
                 paged_flash_decode(q, pool, bt, p, window=w)
-            prof = _profiled(lambda: [paged_flash_decode(q, pool, bt, p,
-                                                         window=w)
-                                      for q, pool, bt, p, w in sets],
-                             groups)
-            if prof["device_ms"] is None:
-                raise AssertionError("the profiler saw no device time")
+            # the profiler has come back without device events in a
+            # whole-script run; the calls are pure, so they run again
+            for _ in range(PROFILE_TRIES):
+                prof = _profiled(lambda: [paged_flash_decode(q, pool, bt, p,
+                                                             window=w)
+                                          for q, pool, bt, p, w in sets],
+                                 groups)
+                if prof["device_ms"] is not None:
+                    break
+            else:
+                raise AssertionError(f"the profiler saw no device time in "
+                                     f"{PROFILE_TRIES} tries")
             split = prof["device_ms"]["split"] / len(sets)
             live = (s - 1) * ((n_pos - 1) // bs + 1) + 1      # + scratch
             row = {"pools": pools, "positions": n_pos,
@@ -2201,8 +2243,9 @@ def _drive(dev, argv, steps, vals) -> dict:
     """One `train_lm.main(argv)` run, its launch counts zeroed just
     before it and read just after: in bf16 the tensor-core K1 launches
     n_layers x (steps + validation passes), K2 and K3 n_layers x steps,
-    the f32-FMA builds none. Returns the losses `train_batch` gave, its
-    seconds, and the JSONL log's events."""
+    the f32-FMA builds none. Returns the losses the driver's steps
+    (`train_batch_async`, read here every step) gave, each step's
+    seconds to its loss, and the JSONL log's events."""
     import torch
 
     from shallowspeed_tpu_torch import train_lm
@@ -2214,22 +2257,23 @@ def _drive(dev, argv, steps, vals) -> dict:
     kernels = (FA._flash_fwd_tc, FA._flash_dq_tc, FA._flash_dkv_tc)
     idle = (FA.flash_fwd, FA.flash_dq, FA.flash_dkv)
     losses, step_s = [], []
-    step = ContextParallelEngine.train_batch
+    step = ContextParallelEngine.train_batch_async
 
     def recorded(self, tok, tgt):
         t0 = time.perf_counter()
-        losses.append(step(self, tok, tgt))
+        loss = step(self, tok, tgt)
+        losses.append(float(loss))
         step_s.append(time.perf_counter() - t0)
-        return losses[-1]
+        return loss
 
     for k in kernels + idle:
         k.launches = 0
-    ContextParallelEngine.train_batch = recorded
+    ContextParallelEngine.train_batch_async = recorded
     t0 = time.time()
     try:
         train_lm.main(argv)
     finally:
-        ContextParallelEngine.train_batch = step
+        ContextParallelEngine.train_batch_async = step
     wall = time.time() - t0
     launches = [k.launches for k in kernels]
     want = [n_layers * (steps + vals), n_layers * steps,
@@ -2505,7 +2549,7 @@ def drill_child(kind: str, out: str, *argv) -> int:
         Path(f"{me}.tmp").write_text(json.dumps(rec))
         os.replace(f"{me}.tmp", f"{me}.json")
 
-    step, evaluate = (ContextParallelEngine.train_batch,
+    step, evaluate = (ContextParallelEngine.train_batch_async,
                       ContextParallelEngine.eval_loss)
 
     def train_batch(self, tok, tgt):
@@ -2513,8 +2557,9 @@ def drill_child(kind: str, out: str, *argv) -> int:
         if rec["first_step_s"] is None:
             rec["first_step_s"] = time.time() - t_entry
         loss = step(self, tok, tgt)
+        value = repr(float(loss))
         rec["step_s"].append(time.perf_counter() - t0)
-        rec["steps"].append([n, repr(float(loss))])
+        rec["steps"].append([n, value])
         dump()
         return loss
 
@@ -2526,7 +2571,7 @@ def drill_child(kind: str, out: str, *argv) -> int:
 
     for k in kernels + idle:
         k.launches = 0
-    ContextParallelEngine.train_batch = train_batch
+    ContextParallelEngine.train_batch_async = train_batch
     ContextParallelEngine.eval_loss = eval_loss
     dump()
     return train_lm.main(argv)
@@ -4694,6 +4739,41 @@ def pp_launches_per_step(schedule, dp, tp, n_mu, n_layers, attn="flash",
             "flash_dq_tc": n, "flash_dkv_tc": n}
 
 
+# the layout whose first-step gradient is printed leaf by leaf (ROADMAP
+# Queue 3's check of zb's bf16 gradient): phase 14 (c)
+ZB_LEAVES = "c-pp4-zb"
+
+
+def _leaf_rels(grads, ref) -> dict:
+    """{leaf path: max |diff| / max |ref|} of `grads` against the host
+    list `ref`."""
+    from shallowspeed_tpu_torch.weights import leaves
+
+    return {path: _max_rel(g, r.to(g.device)) for path, g, r in
+            zip(leaves(_paths(grads)), leaves(grads), ref)}
+
+
+def _zb_leaves(tag, name, grads, ref_grads, gpipe_grads) -> None:
+    """Print zb's first-step gradient leaf by leaf against the one-device
+    flash engine's and gpipe's ((a)'s), with the worst leaf of each and
+    the worst of each leaf family (the path without its block index). A
+    printed finding, not a gate."""
+    def family(path):
+        return re.sub(r"/blocks/\d+", "/blocks/*", path)
+
+    out = {}
+    for key, ref in (("vs_one_device", ref_grads), ("vs_gpipe",
+                                                     gpipe_grads)):
+        rels = _leaf_rels(grads, ref)
+        fams = {}
+        for path, r in rels.items():
+            fams[family(path)] = max(fams.get(family(path), 0.0), r)
+        worst = max(rels, key=rels.get)
+        out[key] = {"worst_leaf": worst, "worst": rels[worst],
+                    "families": fams, "leaves": rels}
+    print(f"{tag} {name} zb leaves: " + json.dumps(out), flush=True)
+
+
 def run_pipeline(dev, cfg, np_params, bf16_loss, card, layouts=PP_LAYOUTS,
                  profiled=PP_PROFILED, vs_a=("b-", "c-"), refs=None,
                  tag="pp") -> dict:
@@ -4784,6 +4864,8 @@ def run_pipeline(dev, cfg, np_params, bf16_loss, card, layouts=PP_LAYOUTS,
             first_grads = [g.to("cpu") for g in leaves(grads)]
         elif name.startswith(vs_a):
             vs = _grad_worst(grads, first_grads)
+        if name.startswith(ZB_LEAVES):
+            _zb_leaves(tag, name, grads, ref_grads, first_grads)
         del grads
         if pcfg != mcfg:                # the timed engine computes in bf16
             del eng
@@ -7676,6 +7758,337 @@ def run_fleet(dev, cfg32, params, phase3, card) -> dict:
     return {"a": a, "b": b, "launches": a["launches"]}
 
 
+# Phase 26: the asynchronous step, `train_run` and the ported scripts.
+# (a) ASYNC_STEPS steps of one layout four times from the same weights,
+# in ASYNC_ORDER: with `train_batch` every step ("sync") or with
+# `train_batch_async` read only at ASYNC_READS ("async"); (b) `train_run`
+# over RUN_STEPS steps against the first RUN_STEPS `train_batch` calls of
+# (a); (c) every ported script at a reduced size (C_* below).
+ASYNC_STEPS = 8
+ASYNC_READS = (0, 4, 7)
+# (a)'s runs of each layout, in this order
+ASYNC_ORDER = ("sync", "async", "async", "sync")
+RUN_STEPS = 4
+ASYNC_PP_LAYERS = PP14_LAYERS
+C_DECODE = dict(batch=1, prompt_len=2048, max_seq=2112)   # a K1 prefill
+C_DECODE_PP = dict(pp=2, max_seq=128)
+
+
+def _param_hash(tree) -> str:
+    """sha1 of a checksum pair a leaf (the int64 sums of its f32 bit
+    patterns, plain and position-weighted), computed on the card: equal
+    trees give equal hashes, and one flipped bit changes it."""
+    import hashlib
+
+    import torch
+
+    from shallowspeed_tpu_torch.weights import leaves
+
+    sums = []
+    for x in leaves(tree):
+        v = x.detach().contiguous().view(-1).view(torch.int32).to(torch.int64)
+        pos = torch.arange(1, v.numel() + 1, device=v.device)
+        sums += [v.sum(), (v * pos).sum()]
+        del v, pos
+    return hashlib.sha1(torch.stack(sums).cpu().numpy().tobytes()).hexdigest()
+
+
+def _async_pair(dev, label, build, tok, tgt, per_step, card,
+                snapshot=None) -> dict:
+    """Phase 26 (a) for one layout: ASYNC_ORDER's runs, each
+    ASYNC_STEPS steps of a fresh `build()`: `train_batch` every step
+    ("sync"), or `train_batch_async` read at ASYNC_READS only ("async"),
+    the K1-K3 counts zeroed before the first async run. CUDA events after
+    every step give each run's step p50 on the card's clock, and each
+    side's pooled p50 over its runs' steps 1-7 (sync, async, async, sync:
+    a drift of the host's speed over the call falls on both sides alike);
+    the host-idle share is 1 - the busy device ms of a profiled step x 7
+    / the span of steps 1-7 on the card's clock. Gates: every run's
+    losses and final parameters the first sync run's bit for bit, the
+    async reads its losses, `per_step` launches a step. With `snapshot`,
+    the first sync run's parameters after step `snapshot` (a list of
+    copies) come back for (b)."""
+    import torch
+
+    from shallowspeed_tpu_torch.weights import leaves
+
+    def run(eng, step, reads=(), snap_at=None):
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(ASYNC_STEPS + 1)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        marks[0].record()
+        out, read, snap = [], {}, None
+        for k in range(ASYNC_STEPS):
+            out.append(step(tok, tgt))
+            marks[k + 1].record()
+            if k in reads:
+                read[k] = float(out[k])
+            if k + 1 == snap_at:
+                snap = [x.detach().clone()
+                        for x in leaves(eng.get_canonical_params())]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        return [float(x) for x in out], read, snap, wall, ms
+
+    counters = _all_train_counters()
+    runs, want, want_hash, snap, counts, busy = [], None, None, None, None, None
+    problems = []
+    for i, tag in enumerate(ASYNC_ORDER):
+        lazy = tag == "async"
+        eng = build()
+        if lazy and counts is None:
+            for c in counters:
+                c.launches = 0
+        losses, read, got_snap, wall, ms = run(
+            eng, eng.train_batch_async if lazy else eng.train_batch,
+            ASYNC_READS if lazy else (), snapshot if i == 0 else None)
+        if lazy and counts is None:
+            counts = _kernel_counts(counters)
+        params = list(leaves(eng.get_canonical_params()))
+        if want is None:
+            want = [x.detach().clone() for x in params]
+            want_hash, snap, sync = _param_hash(want), got_snap, losses
+        got_hash = _param_hash(params)
+        same = all(torch.equal(a, b) for a, b in zip(params, want))
+        del params
+        if lazy and busy is None:
+            busy = _profiled(lambda: eng.train_batch(tok, tgt),
+                             KERNEL_GROUPS)["device_busy_ms"]
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs.append({"run": tag, "losses": [repr(x) for x in losses],
+                     "hash": got_hash, "step_ms": ms,
+                     "step_ms_p50": float(np.median(ms)), "wall_s": wall})
+        if (losses != sync or not same or got_hash != want_hash
+                or any(read[k] != sync[k] for k in read)):
+            problems.append(f"{tag} run {i}: losses {losses} vs {sync}, "
+                            f"parameters equal {same}, hash {got_hash} vs "
+                            f"{want_hash}")
+
+    def idle(ms):
+        """1 - the busy ms of steps 1.. over their span on the card's
+        clock (step 0, the engine's first, grows the allocator)."""
+        return (None if busy is None
+                else 1.0 - busy * (len(ms)) / sum(ms))
+
+    for r in runs:
+        r["host_idle_share"] = idle(r["step_ms"][1:])
+    side = {t: [x for r in runs if r["run"] == t for x in r["step_ms"][1:]]
+            for t in ("sync", "async")}
+    out = {"steps": ASYNC_STEPS, "reads": list(ASYNC_READS),
+           "order": list(ASYNC_ORDER), "runs": runs,
+           "bit_for_bit": not problems, "hash": want_hash,
+           "busy_ms_per_step": busy,
+           "sync_step_ms_p50": float(np.median(side["sync"])),
+           "async_step_ms_p50": float(np.median(side["async"])),
+           "sync_host_idle_share": idle(side["sync"]),
+           "async_host_idle_share": idle(side["async"]),
+           "launches_per_step": {k: v / ASYNC_STEPS
+                                 for k, v in counts.items() if v}}
+    print(f"async (a) {label}: " + json.dumps(out) + f"  [{card}]",
+          flush=True)
+    want_counts = {k: ASYNC_STEPS * per_step.get(k, 0) for k in counts}
+    if counts != want_counts:
+        problems.append(f"launches {counts}, want {want_counts}")
+    if not all(np.isfinite(sync)):
+        problems.append(f"losses {sync}")
+    if problems:
+        raise AssertionError(f"async (a) {label}: " + "; ".join(problems))
+    out["snapshot"] = snap
+    out["sync_losses"] = sync
+    out["counts"] = counts
+    return out
+
+
+def _train_run_check(dev, cfg, build, tok, tgt, sync, snap, card) -> dict:
+    """Phase 26 (b): `train_run` over RUN_STEPS steps of a fresh
+    `build()` against (a)'s first RUN_STEPS `train_batch` losses and its
+    parameters after them, bit for bit; then a second run of as many
+    steps, timed, for tok/s and MFU."""
+    import torch
+
+    from shallowspeed_tpu_torch.flops import mfu
+    from shallowspeed_tpu_torch.weights import leaves
+
+    stack_t = np.broadcast_to(tok, (RUN_STEPS, *tok.shape)).copy()
+    stack_g = np.broadcast_to(tgt, (RUN_STEPS, *tgt.shape)).copy()
+    eng = build()
+    timed = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = eng.train_run(stack_t, stack_g)
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+        if len(timed) == 1:
+            first = losses.tolist()
+            same = all(torch.equal(a, b) for a, b in
+                       zip(leaves(eng.get_canonical_params()), snap))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok_s = RUN_STEPS * tok.size / timed[1]
+    perf = mfu(tok_s, cfg, tok.shape[1], "bf16", device=dev)
+    want = [float(x) for x in sync[:RUN_STEPS]]
+    out = {"steps": RUN_STEPS, "losses": [repr(x) for x in first],
+           "losses_equal": first == want, "params_equal": same,
+           "run_s": timed, "tok_per_s": tok_s, "tflops": perf["tflops"],
+           "mfu": perf["mfu"]}
+    print("async (b) train_run: " + json.dumps(out) + f"  [{card}]",
+          flush=True)
+    if not (out["losses_equal"] and same):
+        raise AssertionError(f"async (b): train_run losses {first} vs "
+                             f"train_batch {want}, params equal {same}")
+    return out
+
+
+def _script_clock(name, t0) -> None:
+    print(f"clock: phase 26 (c) {name} took {time.time() - t0:.1f} s",
+          flush=True)
+
+
+def run_scripts(dev, card) -> dict:
+    """Phase 26 (c): every ported script in this process at a reduced
+    size, each one's lines and seconds; `bench_attention`'s inputs also
+    hold K1-K3 against their plain versions under phase 2's rule, and
+    the `bench_decode` row must prefill through K1."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from shallowspeed_tpu_torch import (DDP_PyTorch_MNIST, bench_attention,
+                                        bench_decode, bench_layout,
+                                        bench_mfu, bench_pipeline,
+                                        plot_schedule)
+    from shallowspeed_tpu_torch.ops import flash_attention as FA
+
+    out = {}
+    t0 = time.time()
+    out["bench_mfu"] = bench_mfu.main(["--steps", "4"])
+    _script_clock("bench_mfu", t0)
+
+    t0 = time.time()
+    argv = ["--seqs", "2048", "--reps", "2"]
+    out["bench_attention"] = bench_attention.main(argv)
+    args = bench_attention.parse_args(argv)
+    q, k, v = (x.detach() for x in bench_attention.inputs(
+        np.random.default_rng(0), 2048, args, dev))
+    do = torch.randn(q.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(26)
+                     ).to(q.dtype)
+    o, lse = FA.flash_fwd(q, k, v, causal=True)
+    delta = FA.attention_delta(do, o)
+    dq = FA.flash_dq(q, k, v, do, lse, delta, causal=True)
+    dk, dv = FA.flash_dkv(q, k, v, do, lse, delta, causal=True)
+    o_ref, _ = FA.flash_fwd_reference(q, k, v, causal=True)
+    dq_ref = FA.flash_dq_reference(q, k, v, do, lse, delta, causal=True)
+    dk_ref, dv_ref = FA.flash_dkv_reference(q, k, v, do, lse, delta,
+                                            causal=True)
+    terms = FA.tc_rounding_terms(q, k, v, do, lse, delta, causal=True)
+    ratios = {"o": FA.kernel_ratio(o, o_ref, rounded=True,
+                                   extra=terms["o"])[1],
+              "dq": FA.kernel_ratio(dq, dq_ref, extra=terms["dq"])[1],
+              "dk": FA.kernel_ratio(dk, dk_ref, extra=terms["dk"])[1],
+              "dv": FA.kernel_ratio(dv, dv_ref, extra=terms["dv"])[1]}
+    print("bench_attention check: worst element at " + json.dumps(ratios)
+          + " of its allowance (phase 2's rule)", flush=True)
+    if not max(ratios.values()) <= 1.0:
+        raise AssertionError(f"bench_attention: flash off plain {ratios}")
+    del q, k, v, do, o, lse, dq, dk, dv, o_ref, dq_ref, dk_ref, dv_ref
+    _script_clock("bench_attention", t0)
+
+    t0 = time.time()
+    FA._flash_fwd_tc.launches = 0
+    out["bench_decode"] = bench_decode.run_config(**C_DECODE)
+    prefill_k1 = FA._flash_fwd_tc.launches
+    print(json.dumps(out["bench_decode"]) + f"  (K1 launches: {prefill_k1})",
+          flush=True)
+    out["bench_decode_pp"] = bench_decode.run_pp_config(**C_DECODE_PP)
+    print(json.dumps(out["bench_decode_pp"]), flush=True)
+    if not prefill_k1:
+        raise AssertionError("bench_decode: the prefill did not run K1")
+    _script_clock("bench_decode", t0)
+
+    for name, mod, argv in (
+            ("bench_pipeline", bench_pipeline, ["--steps", "2"]),
+            ("bench_layout", bench_layout, ["--steps", "4", "--rounds",
+                                            "2"]),
+            ("plot_schedule", plot_schedule, ["--pp", "4", "--n-mu",
+                                              "8"])):
+        t0 = time.time()
+        out[name] = mod.main(argv)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _script_clock(name, t0)
+
+    t0 = time.time()
+    data = Path(tempfile.mkdtemp(prefix="chip_smoke_mnist_"))
+    threads = torch.get_num_threads()
+    try:
+        out["DDP_PyTorch_MNIST"] = DDP_PyTorch_MNIST.main(
+            ["--epochs", "1", "--data-dir", str(data)])
+    finally:
+        torch.set_num_threads(threads)
+        shutil.rmtree(data, ignore_errors=True)
+    _script_clock("DDP_PyTorch_MNIST", t0)
+    print("async (c) scripts: " + json.dumps(sorted(out)) + f"  [{card}]",
+          flush=True)
+    return out
+
+
+def run_async(dev, cfg, np_params, card) -> dict:
+    """Phase 26: (a) at phase 6's configuration (16 layers, flash, AdamW
+    3e-4, its batch) and at pp 4 1f1b at ASYNC_PP_LAYERS (phase 14's),
+    (b) `train_run` at phase 6's, (c) the scripts."""
+    from shallowspeed_tpu_torch.optim import AdamW
+    from shallowspeed_tpu_torch.parallel.context import ContextParallelEngine
+    from shallowspeed_tpu_torch.parallel.mesh import make_pipeline_mesh
+    from shallowspeed_tpu_torch.parallel.pipeline_lm import PipelineLMEngine
+
+    import torch
+
+    t0 = time.time()
+    tok, tgt = _train_batch(cfg)
+    # (a)'s batch on the card up front, as the driver's prefetcher places
+    # it: a pageable host copy inside a step would wait for the card
+    dtok, dtgt = (torch.from_numpy(x).to(dev, torch.long) for x in (tok, tgt))
+
+    def adamw():
+        return AdamW(3e-4, weight_decay=0.01, grad_clip=1.0)
+
+    def context():
+        return ContextParallelEngine(cfg, adamw(), attn="flash", device=dev,
+                                     params=np_params)
+
+    per = {k: cfg.n_layers for k in ("flash_fwd_tc", "flash_dq_tc",
+                                     "flash_dkv_tc")}
+    a = _async_pair(dev, "context 16 layers", context, dtok, dtgt, per,
+                    card, snapshot=RUN_STEPS)
+    b = _train_run_check(dev, cfg, context, tok, tgt, a["sync_losses"],
+                         a.pop("snapshot"), card)
+    pcfg = dataclasses.replace(cfg, n_layers=ASYNC_PP_LAYERS)
+    npm = {**np_params, "blocks": np_params["blocks"][:ASYNC_PP_LAYERS]}
+
+    def pipeline():
+        return PipelineLMEngine(pcfg, adamw(),
+                                make_pipeline_mesh(1, 4, 1, dev),
+                                n_mubatches=PP_N_MU, schedule="1f1b",
+                                attn="flash", params=npm)
+
+    pp = _async_pair(dev, "pp 4 1f1b 4 layers", pipeline, dtok, dtgt,
+                     pp_launches_per_step("1f1b", 1, 1, PP_N_MU,
+                                          ASYNC_PP_LAYERS), card)
+    pp.pop("snapshot")
+    print(f"clock: phase 26 (a), (b) took {time.time() - t0:.1f} s",
+          flush=True)
+    c = run_scripts(dev, card)
+    return {"a": a, "a_pp": pp, "b": b, "c": c, "launches": a["counts"]}
+
+
 # the driver phases' child processes (see the module docstring): 15f,
 # the longest, then 17d; two lanes bound the card's memory they add
 # beside phase 13's largest layout
@@ -7860,6 +8273,10 @@ def main() -> int:
     _clock("6")
     gc.collect()
     torch.cuda.empty_cache()
+    p26 = run_async(dev, cfg, np_params, card)
+    _clock("26")
+    gc.collect()
+    torch.cuda.empty_cache()
     ckpt6b = run_data_ckpt(dev, dataclasses.replace(cfg, n_layers=CKPT_LAYERS))
     _clock("6b")
     check_training_parity(dev, cfg, np_params)
@@ -7996,6 +8413,8 @@ def main() -> int:
            if mon["launches"].get(name) else {}),
         **({"drill_launches": ckpt6b["drill_launches"][name]}
            if name in ckpt6b["drill_launches"] else {}),
+        **({"p26_launches": p26["launches"][name]}
+           if p26["launches"].get(name) else {}),
         **({"fleet_launches": fleet["launches"]}
            if name == "paged_flash_decode" else {}),
     } for name, (cu, ref) in where.items()]

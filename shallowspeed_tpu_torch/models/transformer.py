@@ -729,19 +729,47 @@ def tile_losses(params_list, tokens_list, targets_list,
     return out
 
 
-def tile_logits(params_list, tokens_list, cfg: TransformerConfig, attn_tiles,
-                offsets) -> list:
-    """Each tile's logits (B, T_i, vocab) through the lockstep forward of
-    `tile_losses`, no dropout."""
-    cast = [cast_params(p, cfg.compute_dtype) for p in params_list]
+def _tile_blocks(cast, tokens_list, cfg: TransformerConfig, attn_tiles,
+                 offsets) -> tuple:
+    """The lockstep forward of `tile_losses` through the blocks, no
+    dropout, on parameters already cast: (each tile's last block
+    output, each tile's MoE routing stats averaged over the layers as
+    `forward_with_aux(with_stats=True)` averages them, None for a dense
+    config)."""
     poss, xs = [], []
     for p, tok, off in zip(cast, tokens_list, offsets):
         pos = off + torch.arange(tok.shape[1], device=tok.device)
         x = p["tok_emb"][tok]
         xs.append(x if cfg.rope else x + p["pos_emb"][pos])
         poss.append(pos)
+    sums, n_moe = [None] * len(xs), 0
     for i in range(cfg.n_layers):
-        xs, _ = _block_tiles([p["blocks"][i] for p in cast], xs, cfg, poss,
-                             attn_tiles, [None] * len(xs))
+        xs, moes = _block_tiles([p["blocks"][i] for p in cast], xs, cfg, poss,
+                                attn_tiles, [None] * len(xs))
+        if moes[0][2] is not None:
+            n_moe += 1
+            sums = [st if acc is None else {k: acc[k] + st[k] for k in st}
+                    for acc, (_, _, st) in zip(sums, moes)]
+    return xs, [None if acc is None else
+                {k: v / n_moe for k, v in acc.items()} for acc in sums]
+
+
+def tile_logits(params_list, tokens_list, cfg: TransformerConfig, attn_tiles,
+                offsets) -> list:
+    """Each tile's logits (B, T_i, vocab) through the lockstep forward of
+    `tile_losses`, no dropout."""
+    cast = [cast_params(p, cfg.compute_dtype) for p in params_list]
+    xs, _ = _tile_blocks(cast, tokens_list, cfg, attn_tiles, offsets)
     return [head_logits(p, _norm(p["ln_f"], x, cfg), cfg)
             for p, x in zip(cast, xs)]
+
+
+def tile_router_stats(params_list, tokens_list, cfg: TransformerConfig,
+                      attn_tiles, offsets) -> list:
+    """Each tile's MoE routing stats ({"load": (E,), "drop_fraction"},
+    averaged over the layers; None for a dense config) through the
+    lockstep forward of `tile_losses`, no dropout: each tile routes its
+    own tokens."""
+    cast = [cast_params({k: v for k, v in p.items() if k != "head"},
+                        cfg.compute_dtype) for p in params_list]
+    return _tile_blocks(cast, tokens_list, cfg, attn_tiles, offsets)[1]

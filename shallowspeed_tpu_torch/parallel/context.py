@@ -642,10 +642,12 @@ class ContextParallelEngine:
             lambda g, d=(d if D.is_local(d) else self.device): g.to(
                 d, copy=True), grads) for c, d in enumerate(self.cells)]
 
-    def train_batch(self, tokens, targets) -> float:
+    def train_batch_async(self, tokens, targets) -> torch.Tensor:
         """One optimizer step on a (B, T) int token batch; returns the
-        loss before the update. Spans as the reference's: "step", and
-        inside it "grads" and "update" under ZeRO (the reference's
+        loss before the update as a 0-d tensor on the engine's device,
+        unread (`float` it only where the value is needed: log points,
+        `data.prefetch.sync_every`). Spans as the reference's: "step",
+        and inside it "grads" and "update" under ZeRO (the reference's
         split programs)."""
         tr = tracer()
         step = self._step_count
@@ -685,7 +687,39 @@ class ContextParallelEngine:
             sp.fence(loss)
         self._traffic = C.since(mark)
         self._step_count += 1
-        return float(loss)
+        return loss
+
+    def train_batch(self, tokens, targets) -> float:
+        """One optimizer step on a (B, T) int token batch; returns the
+        loss before the update (`train_batch_async`, read)."""
+        return float(self.train_batch_async(tokens, targets))
+
+    def train_run(self, tokens, targets) -> torch.Tensor:
+        """S optimizer steps on (S, B, T) int token and target arrays
+        (this process's rows, as `local_batch` gives them), placed on
+        the engine's device once, up front; returns the (S,) losses as
+        one device tensor, unread. Each step is `train_batch_async` on
+        its slice, so the run equals S `train_batch` calls bit for bit.
+        Dense engine and health "off" only, as the reference's."""
+        if self._zero is not None:
+            raise AssertionError(
+                "train_run needs the dense engine (zero1/zero2 step on the "
+                "host between grad programs)")
+        if self.health != "off":
+            raise AssertionError(
+                "train_run fuses many steps into one dispatch; the "
+                "per-step health pack (and the guard) lives in the "
+                "train_batch path — build the engine with health='off' "
+                "for fused runs")
+        toks, tgts = (torch.as_tensor(np.asarray(x)).to(self.device,
+                                                        torch.long)
+                      for x in (tokens, targets))
+        if toks.dim() != 3 or tgts.shape != toks.shape:
+            raise ValueError(f"train_run takes (S, B, T) tokens and "
+                             f"targets; got {tuple(toks.shape)}, "
+                             f"{tuple(tgts.shape)}")
+        return torch.stack([self.train_batch_async(a, b)
+                            for a, b in zip(toks, tgts)])
 
     _traffic = None
 
@@ -747,6 +781,43 @@ class ContextParallelEngine:
             if r in self._here:
                 rows.append(torch.cat(row, dim=1))
         return torch.cat(rows)
+
+    @torch.no_grad()
+    def router_stats(self, tokens) -> dict | None:
+        """MoE routing on one batch, as the reference reports it: the
+        per-expert share of the (token, k) assignments (pre-drop) and
+        the share dropped for capacity, each averaged over the layers
+        and then over every (dp, sp) tile (each tile routes its own
+        rows), every tile's shared by its process. None for a dense
+        config. One extra forward, no dropout: call it at log points
+        only."""
+        if self.cfg.n_experts == 0:
+            return None
+        tiles = self._tiles(tokens)
+        mine = {}
+        for r in self._here:
+            cs = self._row(r)
+            params = [_on(self.params, self.cells[c]) for c in cs]
+            toks = [tiles[c][0] for c in cs]
+            if self.sp == 1:
+                got = [T.forward_with_aux(params[0], toks[0], self.cfg,
+                                          attn_fn=self._attn_fns[r],
+                                          with_stats=True)[2]]
+            else:
+                t = toks[0].shape[1]
+                got = T.tile_router_stats(params, toks, self.cfg,
+                                          self._attn_fns[r],
+                                          [(c % self.sp) * t for c in cs])
+            for c, st in zip(cs, got):
+                mine[c] = torch.cat([st["load"],
+                                     st["drop_fraction"].reshape(1)])
+        total = None
+        for c, src in enumerate(self.cells):
+            st = D.share(mine.pop(c, None), src, self.device)
+            total = st if total is None else total + st
+        total = total / (self.dp * self.sp)
+        return {"expert_load": [round(float(x), 4) for x in total[:-1]],
+                "drop_fraction": round(float(total[-1]), 4)}
 
     # -------------------------------------------- checkpoint interface
 

@@ -1544,9 +1544,11 @@ class GSPMDEngine:
         """Extra attributes of the reference's "step" span."""
         return {}
 
-    def train_batch(self, tokens, targets) -> float:
+    def train_batch_async(self, tokens, targets) -> torch.Tensor:
         """One optimizer step on a (B, T) int token batch; returns the
-        loss before the update."""
+        loss before the update as a 0-d tensor on the engine's device,
+        unread: the caller reads it (`float`) only where it needs the
+        value, so the host can queue the next step behind this one."""
         tr = tracer()
         step = self._step_count
         mark = C.mark()
@@ -1570,7 +1572,12 @@ class GSPMDEngine:
             sp.fence(loss)
         self._traffic = C.since(mark)
         self._step_count += 1
-        return float(loss)
+        return loss
+
+    def train_batch(self, tokens, targets) -> float:
+        """One optimizer step on a (B, T) int token batch; returns the
+        loss before the update (`train_batch_async`, read)."""
+        return float(self.train_batch_async(tokens, targets))
 
     _traffic = None
 

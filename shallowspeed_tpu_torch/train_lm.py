@@ -1048,8 +1048,11 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
     loss, last = float("nan"), start_step - 1
     data_stall = 0.0     # the wait for the next placed batch since the
     failed = True        # last log point
-    step_fn = (engine.train_batch if telem is None
-               else lambda t, g: telem.count_step(engine.train_batch, t, g))
+    # the asynchronous step: the loss stays on the card, read only where
+    # a host value is needed, so the host queues step k + 1 behind step k
+    step_fn = (engine.train_batch_async if telem is None
+               else lambda t, g: telem.count_step(engine.train_batch_async,
+                                                  t, g))
     try:
         # the --profile-dir capture spans the loop (a no-op without it)
         with device_trace_ctx(args.profile_dir):
@@ -1061,10 +1064,18 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                 t_fetch = time.time()
                 tok, tgt = next(placed_it)
                 data_stall += time.time() - t_fetch
-                loss = step_fn(tok, tgt)   # syncs with the device
+                loss_dev = step_fn(tok, tgt)
                 if ema is not None:
                     ema_update(ema, engine.params, args.ema_decay)
-                if sync_every(step, args.log_every, args.steps):
+                saving = bool(args.save_dir) and (
+                    (step + 1) % args.save_every == 0
+                    or step == args.steps - 1)
+                at_log = sync_every(step, args.log_every, args.steps)
+                if at_log or saving:
+                    # log points, the last step and the saves' finite
+                    # check read the loss; no other step waits for it
+                    loss = float(loss_dev)
+                if at_log:
                     if monitor is not None:
                         verdicts = monitor.observe(step, loss,
                                                    engine.health_snapshot())
@@ -1157,8 +1168,7 @@ def _loop(args, engine, cfg, vocab, text_data, val_data, metrics,
                            f"ppl {ppl:,.2f}", flush=True)
                     metrics.log(event="val", step=step, val_loss=round(vl, 6),
                                 perplexity=round(ppl, 3))
-                if args.save_dir and ((step + 1) % args.save_every == 0
-                                      or step == args.steps - 1):
+                if saving:
                     ts = time.time()
                     if not np.isfinite(loss) or (monitor is not None
                                                  and monitor.unhealthy()):

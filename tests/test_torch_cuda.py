@@ -655,13 +655,14 @@ def test_cuda_resume_is_bit_identical_at_two_layers(cuda, tmp_path):
              "swiglu", "--bf16", "--optimizer", "adamw", "--lr", "1e-3",
              "--grad-clip", "1.0", "--val-every", "2"]
     losses = []
-    step = ContextParallelEngine.train_batch
+    step = ContextParallelEngine.train_batch_async
 
     def recorded(self, tok, tgt):
-        losses.append(step(self, tok, tgt))
-        return losses[-1]
+        loss = step(self, tok, tgt)
+        losses.append(float(loss))
+        return loss
 
-    ContextParallelEngine.train_batch = recorded
+    ContextParallelEngine.train_batch_async = recorded
     try:
         train_lm.main([*flags, "--steps", "4"])
         straight = losses[:]
@@ -671,7 +672,7 @@ def test_cuda_resume_is_bit_identical_at_two_layers(cuda, tmp_path):
         train_lm.main([*flags, "--steps", "4", "--save-dir", ck,
                        "--resume", "--async-save"])
     finally:
-        ContextParallelEngine.train_batch = step
+        ContextParallelEngine.train_batch_async = step
     assert len(straight) == 4 and losses == straight
     assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
         "ckpt_1", "ckpt_3"]

@@ -153,20 +153,21 @@ def test_resumed_run_follows_the_jax_engines_trajectory(tmp_path, shards):
     JAX engine trained on the same six shard batches from the same
     draw (Adam, the driver's default)."""
     seen = []
-    step = ContextParallelEngine.train_batch
+    step = ContextParallelEngine.train_batch_async
 
     def recorded(self, tok, tgt):
-        seen.append(step(self, tok, tgt))
-        return seen[-1]
+        loss = step(self, tok, tgt)
+        seen.append(float(loss))
+        return loss
 
-    ContextParallelEngine.train_batch = recorded
+    ContextParallelEngine.train_batch_async = recorded
     try:
         run("--data-dir", shards, "--steps", 3, "--save-dir",
             tmp_path / "ck", "--save-every", 3)
         run("--data-dir", shards, "--steps", 6, "--save-dir",
             tmp_path / "ck", "--resume")
     finally:
-        ContextParallelEngine.train_batch = step
+        ContextParallelEngine.train_batch_async = step
     mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("dp", "sp"))
     je = JaxEngine(JT.TransformerConfig(vocab=256, d_model=16, n_heads=2,
                                         n_layers=1, max_seq=16),
@@ -308,14 +309,15 @@ def test_failed_save_warns_and_training_goes_on(tmp_path, shards,
 
 def test_nonfinite_loss_skips_the_save_then_stops_at_a_log_point(
         tmp_path, shards, monkeypatch):
-    step = ContextParallelEngine.train_batch
+    step = ContextParallelEngine.train_batch_async
     calls = []
 
     def poisoned(self, tok, tgt):
         calls.append(step(self, tok, tgt))
-        return float("nan") if len(calls) in (2, 4) else calls[-1]
+        return (torch.full_like(calls[-1], float("nan"))
+                if len(calls) in (2, 4) else calls[-1])
 
-    monkeypatch.setattr(ContextParallelEngine, "train_batch", poisoned)
+    monkeypatch.setattr(ContextParallelEngine, "train_batch_async", poisoned)
     ck = tmp_path / "ck"
     with pytest.raises(SystemExit, match="non-finite"):
         run("--data-dir", shards, "--steps", 6, "--save-dir", ck,
